@@ -1,0 +1,103 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
+use into ``build/sartsolver_tpu_torch/lib<name>-<hash>.so`` beside the
+package, where ``<hash>`` covers the source and the compiler flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+here runs at import time: a machine without ``nvcc`` imports the package
+and fails only when a kernel is asked for.
+
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
+all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sartsolver_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` on PATH, else the one under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); the CUDA kernels "
+        "of sartsolver_tpu_torch are built on first use and need it."
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start compiling ``name`` unless its library exists; returns
+    ``(process, temp path, final path)`` or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+
+
+def build_all() -> None:
+    """Compile every ``csrc/*.cu`` that is not built yet, in parallel."""
+    jobs = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        job = _start_build(src.stem)
+        if job is not None:
+            jobs[src.stem] = job
+    errors = []
+    for name, job in jobs.items():
+        try:
+            _finish_build(name, job)
+        except RuntimeError as err:
+            errors.append(str(err))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
