@@ -9,26 +9,33 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 2. ``build``: every ``csrc/*.cu`` of the package built with ``nvcc``, in
    parallel, into ``build/sartsolver_tpu_torch/``.
 3. ``kernels``: the fused-sweep kernel against its plain PyTorch version on
-   the card, linear and log, with and without the penalty, at the main
+   the card, for each storage type (B1/B2 fp32, B3 bf16, B4 int8 codes with
+   their scales), linear and log, with and without the penalty, at the main
    path's shape (B = 1, 8192 x 65536) and at a ragged one (B = 3,
    1000 x 3001): max error within ``KERNEL_TOL`` of the output's max, two
-   launches byte-identical, the launch count advanced; then the kernel's,
-   the plain version's and the library calls' times at the main path's
-   shape beside its bound.
+   launches byte-identical, the launch counts advanced. Then B4 at the
+   configuration of the three int8 Pallas probes under ``benchmarks/``
+   (8192 x 65536, B = 32, linear, no penalty; the direct-dot probe with
+   scale 1 and ``invd = 1e-6``), checked the same way. Then each one's
+   kernel, plain-version and library times beside its bound.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
-   numpy code and the package's HDF5 writer, then the port's ``sartsolve`` run in-process on the
-   card: linear with the Laplacian over 8 frames, logarithmic over 4. Launch
-   counts are zeroed just before and read just after; every frame's status
-   must be 0 or the ``-m`` cap, and its fitted-space error against the
-   noiseless measurement within ``FIT_BOUND``.
+   numpy code and the package's HDF5 writer, then the port's ``sartsolve``
+   run in-process on the card for each ``--rtm_dtype`` (float32, bfloat16,
+   int8): linear with the Laplacian over 8 frames, logarithmic over 4.
+   Launch counts are zeroed just before and read just after; every frame's
+   status must be 0 or the ``-m`` cap, its fitted-space error against the
+   noiseless measurement within ``FIT_BOUND``, and each storage type's
+   launches equal to its runs' iterations. Each run's peak device memory
+   and its fitted-space distance to the fp32 run are printed.
 5. ``plain_crosscheck``: frame 0 solved through the kernel and through the
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
    ``CROSS_TOL``.
-6. ``profile``: frame 0 once more under ``torch.profiler``: device time by
-   kernel, the solve's wall time and the device's idle share.
+6. ``profile``: frame 0 once more under ``torch.profiler`` for each storage
+   type: device time by kernel, the solve's wall time and the device's idle
+   share.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -219,15 +226,42 @@ def check_solution(path, world, n_frames: int, cap: int, device):
 
 # ---- kernel checks and timing ---------------------------------------------
 
-def _sweep_inputs(P, V, B, logarithmic, with_pen, seed):
-    import torch
+STORAGES = ("float32", "bfloat16", "int8")
+VARIANT = {"float32": "B1/B2", "bfloat16": "B3", "int8": "B4"}
+REPLACES = "sartsolver_tpu/ops/fused_sweep.py:829"
+SOURCE = "sartsolver_tpu_torch/ops/csrc/fused_sweep.cu"
+# the int8 Pallas probes: (name, TPU kernel, direct dot)
+PROBES = (
+    ("int8_dequant_probe", "benchmarks/int8_dequant_probe.py:17", False),
+    ("int8_scratch_probe", "benchmarks/int8_scratch_probe.py:54", False),
+    ("int8_direct_dot_probe", "benchmarks/int8_direct_dot_probe.py:30", True),
+)
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+
+def _rand(g):
+    import torch
 
     def rand(*shape, lo=0.0, hi=1.0):
         return torch.rand(*shape, generator=g, device="cuda") * (hi - lo) + lo
+    return rand
 
+
+def _sweep_inputs(P, V, B, logarithmic, with_pen, seed, storage="float32"):
+    """Random sweep inputs on the card: ``(H, w, f, aux, scale)``, ``H`` in
+    the storage dtype (int8 codes quantized from an fp32 draw, with their
+    ``scale`` [1, V]; None for float storage)."""
+    import torch
+
+    from sartsolver_tpu_torch.models.sart import quantize_rtm
+
+    rand = _rand(torch.Generator(device="cuda").manual_seed(seed))
     H = rand(P, V)
+    scale = None
+    if storage == "bfloat16":
+        H = H.to(torch.bfloat16)
+    elif storage == "int8":
+        H, s = quantize_rtm(H)
+        scale = s[None, :]
     w = rand(B, P, lo=0.0 if logarithmic else -0.5) / P
     f = rand(B, V, lo=0.1, hi=2.0)
     if logarithmic:  # obs is zero where the voxel mask is, as make_obs leaves it
@@ -237,7 +271,64 @@ def _sweep_inputs(P, V, B, logarithmic, with_pen, seed):
         aux = [rand(1, V, hi=2.0)]
     if with_pen:
         aux.append(rand(B, V, lo=-0.01, hi=0.01))
-    return H, w, f, aux
+    return H, w, f, aux, scale
+
+
+def _probe_inputs(direct: bool, seed: int):
+    """B4 at the int8 probes' configuration (8192 x 65536, B = 32, linear,
+    no penalty). The dequant and scratch probes quantize ``0.1 + 0.9 U`` per
+    voxel and take ``invd`` from the quantized column sums; the direct-dot
+    probe feeds codes in [0, 127) with no scale (scale 1) and ``invd =
+    1e-6``, from ``f = 0``."""
+    import torch
+
+    from sartsolver_tpu_torch.models.sart import quantize_rtm
+
+    P, V, B = 8192, 65536, 32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = _rand(g)
+    if direct:
+        H = torch.randint(0, 127, (P, V), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.ones((1, V), device="cuda")
+        invd = torch.full((1, V), 1e-6, device="cuda")
+        f = torch.zeros((B, V), device="cuda")
+    else:
+        H, s = quantize_rtm(rand(P, V, lo=0.1, hi=1.0))
+        scale = s[None, :]
+        invd = 1.0 / (scale * H.sum(dim=0, dtype=torch.int32).float()[None, :])
+        f = rand(B, V, lo=0.0, hi=2.0)
+    w = rand(B, P, lo=-0.5, hi=1.0) / P
+    return H, w, f, [invd], scale
+
+
+def _check_kernel(H, w, f, aux, scale, kw, storage):
+    """Kernel against plain version: (record, max_abs_err); raises on a
+    failed check."""
+    import torch
+
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, fused_sweep_reference
+
+    before = fused_sweep.launches_by_storage[storage]
+    out1 = fused_sweep(H, w, f, aux, scale=scale, **kw)
+    out2 = fused_sweep(H, w, f, aux, scale=scale, **kw)
+    ref = fused_sweep_reference(H, w, f, aux, scale=scale, **kw)
+    torch.cuda.synchronize()
+    counted = fused_sweep.launches_by_storage[storage] - before
+    identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
+    abs_err = max(float((a - r).abs().max()) for a, r in zip(out1, ref))
+    rel = max(float((a - r).abs().max()) / float(r.abs().max())
+              for a, r in zip(out1, ref))
+    finite = all(bool(torch.isfinite(r).all()) for r in ref)
+    passed = identical and counted == 2 and finite and rel <= KERNEL_TOL
+    logarithmic = kw["logarithmic"]
+    record = dict(storage=storage, shape=[*H.shape, w.shape[0]],
+                  mode="log" if logarithmic else "linear",
+                  pen=len(aux) > (2 if logarithmic else 1),
+                  max_rel_err=rel, max_abs_err=abs_err, byte_identical=identical,
+                  launches_counted=counted, ok=passed)
+    if not passed:
+        raise AssertionError(f"fused_sweep check failed: {record}")
+    return record, abs_err
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -256,78 +347,101 @@ def _median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(card: str):
+def _timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate) -> dict:
+    """Kernel, plain-version and library times beside the bound. The
+    library yardstick is two ``torch.matmul`` around the update on an fp32
+    copy of the (dequantized) matrix made outside the timed window, so it
+    reads 4 bytes per element whatever the storage."""
     import torch
 
     from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, fused_sweep_reference
 
+    P, V = H.shape
+    B = w.shape[0]
+    logarithmic, eps = kw["logarithmic"], kw.get("eps", 0.0)
+    Hd = H.float() if scale is None else H.float() * scale
+
+    def library():
+        bp = torch.matmul(w, Hd)
+        if logarithmic:
+            f_new = f * ((aux[1] + eps) / (bp * aux[0] + eps))
+        else:
+            f_new = f + aux[0] * bp
+            f_new = torch.clamp_min(f_new - aux[1] if len(aux) > 1 else f_new, 0)
+        return torch.matmul(f_new, Hd.T)
+
+    vectors = B * P + B * V + sum(a.numel() for a in aux) + B * V + B * P
+    if scale is not None:
+        vectors += scale.numel()
+    nbytes = H.element_size() * P * V + 4 * vectors
+    flops = 4 * B * P * V
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / fp32_rate * 1e3
+    out = dict(
+        ms=_median_ms(lambda: fused_sweep(H, w, f, aux, scale=scale, **kw)),
+        plain_ms=_median_ms(lambda: fused_sweep_reference(H, w, f, aux, scale=scale, **kw)),
+        library_ms=_median_ms(library),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, flops=flops, shape=[P, V, B], storage=str(H.dtype)[6:],
+        mode="log" if logarithmic else "linear", pen=len(aux) > (2 if logarithmic else 1),
+    )
+    del Hd
+    return out
+
+
+def kernel_phase(card: str):
+    """Every check and timing of the fused sweep; returns ``(max_abs_err
+    by storage at the main shape, timing by row of the kernel table)``."""
+    import torch
+
     alpha, eps = 0.7, 1e-7
-    checks = []
-    main_err = 0.0
-    for P, V, B in ((8192, 65536, 1), (1000, 3001, 3)):
-        for logarithmic in (False, True):
-            for with_pen in (False, True):
-                H, w, f, aux = _sweep_inputs(P, V, B, logarithmic, with_pen,
-                                             seed=P + V + B + 2 * logarithmic + with_pen)
-                kw = dict(logarithmic=logarithmic, alpha=alpha, eps=eps)
-                before = fused_sweep.launches
-                out1 = fused_sweep(H, w, f, aux, **kw)
-                out2 = fused_sweep(H, w, f, aux, **kw)
-                ref = fused_sweep_reference(H, w, f, aux, **kw)
-                torch.cuda.synchronize()
-                counted = fused_sweep.launches - before
-                identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
-                abs_err = max(float((a - r).abs().max()) for a, r in zip(out1, ref))
-                rel = max(float((a - r).abs().max()) / float(r.abs().max())
-                          for a, r in zip(out1, ref))
-                finite = all(bool(torch.isfinite(r).all()) for r in ref)
-                passed = identical and counted == 2 and finite and rel <= KERNEL_TOL
-                checks.append(dict(shape=[P, V, B], mode="log" if logarithmic else "linear",
-                                   pen=with_pen, max_rel_err=rel, max_abs_err=abs_err,
-                                   byte_identical=identical, launches_counted=counted,
-                                   ok=passed))
-                if not passed:
-                    raise AssertionError(f"fused_sweep check failed: {checks[-1]}")
-                if P == 8192:
-                    main_err = max(main_err, abs_err)
-                del H, w, f, aux, out1, out2, ref
+    mem_rate, fp32_rate = PEAKS["PCIe" if "PCIe" in card else "SXM"]
+    checks, errors = [], {st: 0.0 for st in STORAGES}
+    for storage in STORAGES:
+        for P, V, B in ((8192, 65536, 1), (1000, 3001, 3)):
+            for logarithmic in (False, True):
+                for with_pen in (False, True):
+                    H, w, f, aux, scale = _sweep_inputs(
+                        P, V, B, logarithmic, with_pen, storage=storage,
+                        seed=P + V + B + 2 * logarithmic + with_pen)
+                    kw = dict(logarithmic=logarithmic, alpha=alpha, eps=eps)
+                    record, err = _check_kernel(H, w, f, aux, scale, kw, storage)
+                    checks.append(record)
+                    if P == 8192:
+                        errors[storage] = max(errors[storage], err)
+                    del H, w, f, aux, scale
 
     # timing at the main path's shape and mode: B = 1, linear with the
-    # Laplacian penalty (the 8-frame run); the log mode beside it
-    P, V, B = 8192, 65536, 1
-    mem_rate, fp32_rate = PEAKS["PCIe" if "PCIe" in card else "SXM"]
+    # Laplacian penalty (the 8-frame runs); fp32's log mode beside it
     timing = {}
-    for logarithmic, with_pen in ((False, True), (True, False)):
-        H, w, f, aux = _sweep_inputs(P, V, B, logarithmic, with_pen, seed=7)
+    for storage, logarithmic, with_pen in (("float32", False, True), ("float32", True, False),
+                                           ("bfloat16", False, True), ("int8", False, True)):
+        H, w, f, aux, scale = _sweep_inputs(8192, 65536, 1, logarithmic, with_pen, seed=7,
+                                            storage=storage)
         kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
+        key = storage if not logarithmic else "float32_log"
+        timing[key] = _timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate)
+        del H, w, f, aux, scale
+        torch.cuda.empty_cache()
 
-        def library():
-            bp = torch.matmul(w, H)
-            if logarithmic:
-                f_new = f * ((aux[1] + eps) / (bp * aux[0] + eps))
-            else:
-                f_new = torch.clamp_min(f + aux[0] * bp - aux[1], 0)
-            return torch.matmul(f_new, H.T)
-
-        nbytes = 4 * (P * V + B * P + B * V + sum(a.numel() for a in aux) + B * V + B * P)
-        flops = 4 * B * P * V
-        bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / fp32_rate * 1e3
-        timing["log" if logarithmic else "linear"] = dict(
-            ms=_median_ms(lambda: fused_sweep(H, w, f, aux, **kw)),
-            plain_ms=_median_ms(lambda: fused_sweep_reference(H, w, f, aux, **kw)),
-            library_ms=_median_ms(library),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes, flops=flops,
-        )
-        del H, w, f, aux
-    torch.cuda.empty_cache()
+    # B4 at the three int8 probes' configuration, checked and timed
+    for k, (name, _, direct) in enumerate(PROBES):
+        H, w, f, aux, scale = _probe_inputs(direct, seed=11 + k)
+        kw = dict(logarithmic=False)
+        record, err = _check_kernel(H, w, f, aux, scale, kw, "int8")
+        checks.append(dict(record, probe=name))
+        timing[name] = dict(_timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate),
+                            max_abs_err=err)
+        del H, w, f, aux, scale
+        torch.cuda.empty_cache()
     emit("kernels", list=[{"name": "fused_sweep", "status": "ok", "checks": checks,
-                              "tolerance": KERNEL_TOL, "timing_b1": timing,
+                              "tolerance": KERNEL_TOL, "timing": timing,
                               "launches_per_iteration": 1,
                               "cuda_kernels_per_launch": 2}],
-         peak_mem_rate=mem_rate, peak_fp32_rate=fp32_rate)
-    return main_err, timing
+         peak_mem_rate=mem_rate, peak_fp32_rate=fp32_rate,
+         library_note="two torch.matmul on an fp32 copy of the dequantized "
+                      "matrix: 4 bytes per element for every storage")
+    return errors, timing
 
 
 def profile_solve(problem, g, opts) -> dict:
@@ -383,7 +497,9 @@ def main() -> int:
     from sartsolver_tpu_torch.config import SolverOptions
     from sartsolver_tpu_torch.io.laplacian_io import read_laplacian
     from sartsolver_tpu_torch.ops import _build
-    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, fused_sweep_reference
+    from sartsolver_tpu_torch.ops.fused_sweep import (
+        fused_sweep, fused_sweep_reference, reset_launch_counts,
+    )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
 
     t_start = time.perf_counter()
@@ -398,7 +514,7 @@ def main() -> int:
          sources=sorted(p.name for p in _build.CSRC.glob("*.cu")),
          into=os.path.relpath(_build.BUILD_DIR, REPO))
 
-    main_err, timing = kernel_phase(card)
+    errors, timing = kernel_phase(card)
 
     scratch = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
@@ -409,31 +525,52 @@ def main() -> int:
         inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
         world_s = time.perf_counter() - t0
 
-        # the main path: counts zeroed just before, read just after
+        # the main path, once per storage type: counts zeroed just before,
+        # read just after
         cap = str(MAX_ITERATIONS)
-        fused_sweep.launches = 0
-        runs = {}
-        for name, flags, n_frames in (
-            ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
-            ("log", ["-L", "-t", "0:0.35"], 4),
-        ):
-            out = os.path.join(tmp, f"solution_{name}.h5")
-            t0 = time.perf_counter()
-            rc, ms = run_cli(["-o", out, *inputs, "-m", cap, *flags])
-            wall = time.perf_counter() - t0
-            if rc != 0 or len(ms) != n_frames:
-                raise AssertionError(f"{name} run: exit {rc}, {len(ms)} frames")
-            sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, "cuda")
-            runs[name] = dict(frames=n_frames, exit=rc, wall_s=wall, frame_ms=ms,
-                              iterations=sol["iterations"].tolist(),
-                              status=sol["status"].tolist(), fit_err=err.tolist())
+        H_dev = torch.as_tensor(world["H"], device="cuda")
+        runs, values = {}, {}
+        reset_launch_counts()
+        for storage in STORAGES:
+            for name, flags, n_frames in (
+                ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
+                ("log", ["-L", "-t", "0:0.35"], 4),
+            ):
+                out = os.path.join(tmp, f"solution_{storage}_{name}.h5")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                rc, ms = run_cli(["-o", out, *inputs, "-m", cap, *flags,
+                                  "--rtm_dtype", storage])
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                if rc != 0 or len(ms) != n_frames:
+                    raise AssertionError(f"{storage} {name} run: exit {rc}, {len(ms)} frames")
+                sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, "cuda")
+                values[storage, name] = sol["value"]
+                fp32 = values["float32", name]
+                fit = H_dev @ torch.as_tensor(sol["value"].T, dtype=torch.float32,
+                                              device="cuda")
+                ref = H_dev @ torch.as_tensor(fp32.T, dtype=torch.float32, device="cuda")
+                to_fp32 = ((fit - ref).norm(dim=0) / ref.norm(dim=0)).cpu().numpy()
+                runs[f"{storage}_{name}"] = dict(
+                    storage=storage, frames=n_frames, exit=rc, wall_s=wall, frame_ms=ms,
+                    iterations=sol["iterations"].tolist(), status=sol["status"].tolist(),
+                    fit_err=err.tolist(), fitted_distance_to_float32=to_fp32.tolist(),
+                    peak_device_bytes=peak)
         launches = fused_sweep.launches
-        total_iters = sum(sum(r["iterations"]) for r in runs.values())
-        if launches <= 0 or launches != total_iters:
-            raise AssertionError(f"main path made {launches} kernel launches for "
-                                 f"{total_iters} iterations")
+        by_storage = dict(fused_sweep.launches_by_storage)
+        iters = {st: sum(sum(r["iterations"]) for r in runs.values() if r["storage"] == st)
+                 for st in STORAGES}
+        if launches != sum(iters.values()) or any(
+                by_storage[st] <= 0 or by_storage[st] != iters[st] for st in STORAGES):
+            raise AssertionError(f"main path made {by_storage} kernel launches for "
+                                 f"{iters} iterations")
         emit("solve", world_seconds=world_s, max_iterations=MAX_ITERATIONS,
-             fit_bound=FIT_BOUND, fused_sweep_launches=launches, runs=runs)
+             fit_bound=FIT_BOUND, fused_sweep_launches=launches,
+             launches_by_storage=by_storage, iterations_by_storage=iters, runs=runs)
+        del H_dev
 
         # frame 0 of the linear run, through the kernel and the plain version
         opts = SolverOptions(max_iterations=MAX_ITERATIONS)
@@ -458,18 +595,37 @@ def main() -> int:
                                  f"{k['iterations']}/{q['iterations']}, fitted {diff}")
         emit("plain_crosscheck", tolerance=CROSS_TOL, fitted_rel_diff=diff,
              **{n: {kk: v for kk, v in c.items() if kk != "fitted"} for n, c in cross.items()})
-        emit("profile", **profile_solve(problem, g0, opts))
-        del problem, lap, world
+        profiles = {"float32": profile_solve(problem, g0, opts)}
+        del problem
+        for storage in STORAGES[1:]:
+            st_opts = SolverOptions(max_iterations=MAX_ITERATIONS, rtm_dtype=storage)
+            st_problem = make_problem(world["H"], lap, opts=st_opts, device="cuda")
+            profiles[storage] = profile_solve(st_problem, g0, st_opts)
+            del st_problem
+        emit("profile", **profiles)
+        del lap, world
 
-    lin = timing["linear"]
-    print(json.dumps({"kernels": [{
-        "name": "fused_sweep", "route": "cuda",
-        "source": "sartsolver_tpu_torch/ops/csrc/fused_sweep.cu",
-        "replaces": "sartsolver_tpu/ops/fused_sweep.py:829",
-        "launches": launches, "max_abs_err": main_err,
-        "ms": lin["ms"], "plain_ms": lin["plain_ms"], "bound_ms": lin["bound_ms"],
-        "bound_by": lin["bound_by"], "library_ms": lin["library_ms"],
-    }]}), flush=True)
+    rows = []
+    for storage in STORAGES:
+        t = timing[storage]
+        rows.append({
+            "name": "fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": by_storage[storage], "max_abs_err": errors[storage],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "variant": VARIANT[storage], "shape": t["shape"],
+        })
+    for name, replaces, _ in PROBES:
+        t = timing[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": by_storage["int8"], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "variant": "B4 at the probe's B = 32", "shape": t["shape"],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -16,6 +16,10 @@ fused-sweep kernel; ``--device cpu`` runs the same profile on the CPU with
 the kernel's plain version. ``--use_cpu`` is the fp64 parity profile on the
 CPU, as in the JAX package.
 
+``--rtm_dtype`` picks the stored matrix's dtype. The matrix is read whole as
+fp32 on the host, rounded to bf16 or quantized to int8 codes there, and only
+the stored matrix is uploaded.
+
 Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``
 """
 
@@ -77,6 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device of the fp32 profile (default cuda). Without a "
                         "CUDA device the run stops; --device cpu runs the "
                         "same profile on the CPU.")
+    p.add_argument("--rtm_dtype", default=None,
+                   choices=["float32", "bfloat16", "float64", "int8"],
+                   help="On-device RTM storage dtype. bfloat16 halves the "
+                        "memory traffic of the two dominant sweeps; int8 "
+                        "quarters it via per-voxel-scaled quantized codes "
+                        "(opt-in: solves the quantized system; needs the "
+                        "fused sweep).")
     p.add_argument("input_files", nargs="*",
                    help="List of ray transfer matrix and camera image hdf5 files.")
     return p
@@ -103,6 +114,9 @@ def _validate(args) -> None:
         fail(f"Argument relaxation must be within (0, 1] interval, {args.relaxation} given.")
     if args.beta_laplace < 0:
         fail("Argument beta_laplace must be positive.")
+    if args.rtm_dtype == "int8" and args.use_cpu:
+        fail("Argument rtm_dtype='int8' needs the fp32 device profile; "
+             "it cannot be combined with --use_cpu.")
     if args.max_cached_frames <= 0:
         fail("Argument max_cached_frames must be positive.")
     if args.max_cached_solutions <= 0:
@@ -132,8 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sartsolver_tpu_torch.io.solution import SolutionWriter
     from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
     from sartsolver_tpu_torch.models.sart import (
-        resolve_fused, make_problem, prepare_measurement,
-        solve_normalized_batch, torch_dtype,
+        INT8_MAX_CONTRACTION, resolve_fused, make_problem,
+        prepare_measurement, solve_normalized_batch, torch_dtype,
     )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
 
@@ -171,10 +185,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             beta_laplace=args.beta_laplace,
             relaxation=args.relaxation,
             max_iterations=args.max_iterations,
+            rtm_dtype=args.rtm_dtype,
         )
         opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
                 else SolverOptions(**common))
         dtype = torch_dtype(opts.dtype)
+        storage = opts.rtm_dtype or opts.dtype
+        if storage == "int8" and max(npixel, nvoxel) > INT8_MAX_CONTRACTION:
+            raise SartInputError(
+                f"Argument rtm_dtype='int8': RTM extent {max(npixel, nvoxel)} "
+                f"exceeds the int32-accumulation bound {INT8_MAX_CONTRACTION}; "
+                "use fp32/bfloat16 storage."
+            )
 
         lap = None
         if args.laplacian_file:
@@ -186,15 +208,20 @@ def main(argv: Optional[List[str]] = None) -> int:
             sorted_image_files, rtm_frame_masks, time_intervals, npixel,
             max_cache_size=args.max_cached_frames,
         )
-        # the whole matrix on the host, uploaded once
+        # the whole matrix on the host, stored there as the card will hold
+        # it (make_problem quantizes a host matrix to int8 on the host), and
+        # uploaded once. bf16 is rounded first, so the ray stats are those
+        # of the stored matrix, as the JAX CLI's are.
         rtm = read_rtm_block(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                             dtype=np.dtype(opts.dtype))
+                             dtype=np.float64 if storage == "float64" else np.float32)
+        if storage == "bfloat16":
+            rtm = torch.from_numpy(rtm).to(torch.bfloat16)
         problem = make_problem(rtm, lap, opts=opts, device=device)
         del rtm
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
         sweep = "fused" if resolve_fused(opts) else "two-matmul"
-        print(f"solver: device={device} compute={opts.dtype} sweep={sweep} "
-              f"rtm=[{npixel}, {nvoxel}]")
+        print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
+              f"sweep={sweep} rtm=[{npixel}, {nvoxel}]")
 
         # ---- frame loop (main.cpp:131-140) -------------------------------
         warm = None  # (solution, fitted, norm) of the previous frame

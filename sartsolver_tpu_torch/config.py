@@ -116,6 +116,10 @@ class SolverOptions:
     - ``precise_convergence``: accumulate the Eq. 5 metric's ``||Hf||^2``
       in fp64 so the ``|dC| < tol`` stall crossing does not drift with the
       summation order; False gives the reference CUDA path's fp32 dot.
+    - ``rtm_dtype``: the stored matrix's dtype (None: the compute dtype).
+      ``"bfloat16"`` halves the bytes each sweep reads; ``"int8"`` stores
+      per-voxel-scaled codes (``models/sart.py:quantize_rtm``), solves the
+      quantized system, needs fp32 compute and the fused sweep.
     """
 
     ray_density_threshold: float = 1.0e-6
@@ -134,9 +138,10 @@ class SolverOptions:
     fused_sweep: str = "auto"
     precise_convergence: bool = True
 
+    rtm_dtype: str | None = None
+
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
-    rtm_dtype: str | None = None
     os_subsets: int = 1
     momentum: str = "off"
     relaxation_decay: float = 1.0
@@ -176,12 +181,17 @@ class SolverOptions:
             raise ValueError("Attribute max_iterations must be positive.")
         if self.dtype not in ("float32", "float64"):
             raise ValueError("dtype must be 'float32' or 'float64'.")
+        if self.rtm_dtype not in (None, "float32", "float64", "bfloat16", "int8"):
+            raise ValueError(
+                "rtm_dtype must be None, 'float32', 'float64', 'bfloat16' "
+                "or 'int8'."
+            )
+        if self.rtm_dtype == "int8" and self.dtype != "float32":
+            raise ValueError("rtm_dtype='int8' requires dtype='float32'.")
         if self.fused_sweep not in ("auto", "on", "off"):
             raise ValueError("fused_sweep must be 'auto', 'on' or 'off'.")
         for name, default in _NOT_PORTED:
             value = getattr(self, name)
-            if name == "rtm_dtype" and value == "float32" == self.dtype:
-                continue
             if value != default:
                 raise ValueError(
                     f"Attribute {name}={value!r} is not implemented by "
@@ -190,10 +200,8 @@ class SolverOptions:
                 )
 
 
-# (field, the only value this package accepts). rtm_dtype also accepts
-# "float32" with fp32 compute: fp32 storage is the only storage ported.
+# (field, the only value this package accepts)
 _NOT_PORTED = (
-    ("rtm_dtype", None),
     ("os_subsets", 1),
     ("momentum", "off"),
     ("relaxation_decay", 1.0),

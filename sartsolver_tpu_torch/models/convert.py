@@ -3,7 +3,12 @@
 ``problem_from_numpy`` builds this package's :class:`SARTProblem` from the
 leaves of a JAX ``SARTProblem`` (``np.asarray(jax_problem.rtm)`` and so on),
 so the same problem runs through both packages. Only numpy crosses over:
-nothing here imports JAX.
+nothing here imports JAX, nor ``ml_dtypes``.
+
+A bf16 matrix crosses as its bit pattern: ``np.asarray`` of a JAX bf16
+array has the dtype ``ml_dtypes.bfloat16``, which torch does not take, so
+its bits are viewed as ``uint16`` (a caller may also pass that ``uint16``
+view) and viewed back as ``torch.bfloat16`` here.
 """
 
 from __future__ import annotations
@@ -13,16 +18,33 @@ import torch
 
 from sartsolver_tpu_torch.config import SolverOptions
 from sartsolver_tpu_torch.device import resolve_device
-from sartsolver_tpu_torch.models.sart import SARTProblem, torch_dtype
+from sartsolver_tpu_torch.models.sart import SARTProblem, storage_dtype, torch_dtype
 from sartsolver_tpu_torch.ops.laplacian import make_laplacian
+
+
+def _rtm_tensor(rtm: np.ndarray, opts: SolverOptions) -> torch.Tensor:
+    """A host copy of the matrix as a tensor of the storage dtype, or
+    ValueError."""
+    want = storage_dtype(opts)
+    if want == torch.bfloat16 and rtm.dtype.itemsize == 2 and rtm.dtype.name in (
+            "bfloat16", "uint16"):
+        return torch.tensor(rtm.view(np.uint16)).view(torch.bfloat16)
+    if want != torch.bfloat16 and rtm.dtype == np.dtype(str(want).removeprefix("torch.")):
+        return torch.tensor(rtm)
+    raise ValueError(
+        f"rtm is {rtm.dtype}, but the storage dtype (opts.rtm_dtype or "
+        f"opts.dtype) is {str(want).removeprefix('torch.')}."
+    )
 
 
 def problem_from_numpy(rtm, ray_density, ray_length, lap_rows=None,
                        lap_cols=None, lap_vals=None, *, opts: SolverOptions,
-                       device="cuda") -> SARTProblem:
-    """``rtm`` [P, V], ``ray_density`` [V] and ``ray_length`` [P], all in
-    ``opts.dtype``; the Laplacian as COO triplets over ``[V, V]`` (all three
-    or none). Raises ValueError on a shape or dtype that does not fit."""
+                       device="cuda", rtm_scale=None) -> SARTProblem:
+    """``rtm`` [P, V] in the storage dtype (``opts.rtm_dtype`` or
+    ``opts.dtype``; int8 codes come with ``rtm_scale`` [V] fp32),
+    ``ray_density`` [V] and ``ray_length`` [P] in ``opts.dtype``; the
+    Laplacian as COO triplets over ``[V, V]`` (all three or none). Raises
+    ValueError on a shape or dtype that does not fit."""
     dev = resolve_device(device)
     want = np.dtype(opts.dtype)
     rtm = np.asarray(rtm)
@@ -36,9 +58,21 @@ def problem_from_numpy(rtm, ray_density, ray_length, lap_rows=None,
             f"ray_density {dens.shape} and ray_length {length.shape} do not "
             f"fit rtm {rtm.shape}: [{V}] and [{P}] expected."
         )
-    for name, arr in (("rtm", rtm), ("ray_density", dens), ("ray_length", length)):
+    for name, arr in (("ray_density", dens), ("ray_length", length)):
         if arr.dtype != want:
             raise ValueError(f"{name} is {arr.dtype}, but opts.dtype is {want}.")
+    rtm_t = _rtm_tensor(rtm, opts)
+    scale = None
+    if rtm_t.dtype == torch.int8:
+        scale = None if rtm_scale is None else np.asarray(rtm_scale)
+        if scale is None or scale.shape != (V,) or scale.dtype != np.float32:
+            raise ValueError(
+                f"int8 codes need their rtm_scale, fp32 [{V}]; got "
+                f"{None if scale is None else (scale.dtype, scale.shape)}."
+            )
+        scale = torch.tensor(scale, device=dev)
+    elif rtm_scale is not None:
+        raise ValueError("rtm_scale is only valid with rtm_dtype='int8'.")
     lap = (lap_rows, lap_cols, lap_vals)
     if any(x is None for x in lap) and not all(x is None for x in lap):
         raise ValueError("Pass all three Laplacian triplet arrays, or none.")
@@ -50,8 +84,9 @@ def problem_from_numpy(rtm, ray_density, ray_length, lap_rows=None,
         laplacian = make_laplacian(rows, cols, vals, nvoxel=V,
                                    dtype=torch_dtype(opts.dtype), device=dev)
     return SARTProblem(
-        torch.tensor(rtm, device=dev),
+        rtm_t.to(dev),
         torch.tensor(dens, device=dev),
         torch.tensor(length, device=dev),
         laplacian,
+        scale,
     )

@@ -13,6 +13,13 @@ compute, ``"auto"`` or ``"on"``) the sweep is one call of
 kernel on CUDA tensors, its plain version on CPU tensors. Otherwise it is the
 two-matmul path (the fp64 profile and ``fused_sweep="off"``).
 
+The matrix is stored as fp32, fp64, bf16 or int8 codes with per-voxel
+scales (``opts.rtm_dtype``). The fused sweep takes fp32, bf16 and int8; int8
+needs it. Outside the loop every projection goes through the context's
+``bp_any``/``fp_any`` seams: plain products (upcast block by block for
+reduced-precision floats), or the quantized-vector integer projections for
+int8, as in the JAX package.
+
 The JAX ``lax.while_loop`` is a Python loop here; the stop test reads one
 flag from the device per iteration.
 """
@@ -34,7 +41,14 @@ from sartsolver_tpu_torch.config import (
 from sartsolver_tpu_torch.device import check_on, resolve_device
 from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep
 from sartsolver_tpu_torch.ops.laplacian import LaplacianCOO, coo_matvec
-from sartsolver_tpu_torch.ops.projection import back_project, forward_project
+from sartsolver_tpu_torch.ops.projection import (
+    _sym_codes,
+    _sym_scale,
+    back_project,
+    forward_project,
+    int8_back_project,
+    int8_forward_project,
+)
 
 # The JAX package's smallest positive constant (its TPU build emulates fp64
 # with fp32 range). Kept although this card has real fp64: the log floors
@@ -47,10 +61,13 @@ SweepFn = Callable[..., Tuple[Tensor, Tensor]]
 class SARTProblem(NamedTuple):
     """Device-resident problem state."""
 
-    rtm: Tensor  # [P, V], opts.dtype
+    rtm: Tensor  # [P, V], opts.rtm_dtype or opts.dtype
     ray_density: Tensor  # [V], per-voxel column sums
     ray_length: Tensor  # [P], per-pixel row sums
     laplacian: Optional[LaplacianCOO]
+    # per-voxel dequantization scales of int8 codes (H_ij = rtm_scale[j] *
+    # rtm[i, j]); None for float storage
+    rtm_scale: Optional[Tensor] = None  # [V], fp32
 
 
 class SolveResult(NamedTuple):
@@ -61,7 +78,13 @@ class SolveResult(NamedTuple):
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "float64": torch.float64}[name]
+    return {"float32": torch.float32, "float64": torch.float64,
+            "bfloat16": torch.bfloat16, "int8": torch.int8}[name]
+
+
+def storage_dtype(opts: SolverOptions) -> torch.dtype:
+    """The stored matrix's dtype: ``opts.rtm_dtype``, else the compute dtype."""
+    return torch_dtype(opts.rtm_dtype or opts.dtype)
 
 
 def _tiny(value: float) -> float:
@@ -73,32 +96,130 @@ def compute_ray_stats(rtm: Tensor, *, dtype: torch.dtype) -> Tuple[Tensor, Tenso
     return rtm.sum(dim=0, dtype=dtype), rtm.sum(dim=1, dtype=dtype)
 
 
+# int8 x int8 contractions accumulate in int32: |codes| <= 127 on both sides
+# bounds the contraction extent at 2^31 / 127^2 (~133k); enforced in
+# make_problem.
+INT8_MAX_CONTRACTION = (2**31 - 1) // (127 * 127)
+
+# elements of a matrix quantized or reduced at once: its fp32 or int32
+# temporaries stay at 64 MiB (a whole-matrix int32 cast of the e2e world's
+# codes would be 2 GiB beside their 0.5 GiB)
+_CHUNK_ELEMENTS = 1 << 24
+
+
+def _row_chunks(n_rows: int, n_cols: int):
+    step = max(1, _CHUNK_ELEMENTS // max(n_cols, 1))
+    return [(r0, min(r0 + step, n_rows)) for r0 in range(0, n_rows, step)]
+
+
+def quantize_rtm(rtm) -> Tuple[Tensor, Tensor]:
+    """Per-voxel (column) symmetric int8 quantization of an RTM, where it
+    lies: ``(codes int8 [P, V], scale fp32 [V])`` with ``H ~= scale[None, :]
+    * codes`` and ``|codes| <= 127`` — the JAX package's ``quantize_rtm``,
+    code for code. Taken a block of rows at a time (the recipe is
+    elementwise once the column maxima are known)."""
+    x = torch.as_tensor(rtm)
+    P, V = x.shape
+    amax = torch.zeros(V, dtype=torch.float32, device=x.device)
+    for r0, r1 in _row_chunks(P, V):
+        amax = torch.maximum(amax, x[r0:r1].float().abs().amax(dim=0))
+    scale = _sym_scale(amax)
+    codes = torch.empty((P, V), dtype=torch.int8, device=x.device)
+    for r0, r1 in _row_chunks(P, V):
+        codes[r0:r1] = _sym_codes(x[r0:r1].float(), scale)
+    return codes, scale
+
+
+def compute_ray_stats_int8(codes: Tensor, scale: Tensor, *,
+                           dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """Ray stats of ``H = scale * codes``: column sums of the codes in
+    int32, times the scale; row sums as the codes against the scales. Both
+    a block of rows at a time (the int32 sums are exact in any order)."""
+    s = scale.to(dtype)
+    colsum = torch.zeros(codes.shape[1], dtype=torch.int32, device=codes.device)
+    length = torch.empty(codes.shape[0], dtype=dtype, device=codes.device)
+    for r0, r1 in _row_chunks(*codes.shape):
+        colsum += codes[r0:r1].sum(dim=0, dtype=torch.int32)
+        length[r0:r1] = codes[r0:r1].to(dtype) @ s
+    return s * colsum.to(dtype), length
+
+
 def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
-                 opts: SolverOptions, device="cuda") -> SARTProblem:
-    """Upload the RTM (a host array or a tensor) and compute its ray stats
-    in the compute dtype. ``laplacian`` must already live on ``device``."""
+                 opts: SolverOptions, device="cuda",
+                 rtm_scale=None) -> SARTProblem:
+    """Upload the RTM (a host array or a tensor) in the storage dtype and
+    compute its ray stats in the compute dtype. ``laplacian`` must already
+    live on ``device``.
+
+    Float storage: the stats are taken from ``rtm`` as given, before any
+    cast, where it lies; a host matrix stored in another dtype is cast on
+    the host, so only the stored matrix is uploaded. (The CLI hands over an
+    already-rounded bf16 matrix, so its stats are those of the stored
+    matrix, as the JAX CLI's are.)
+
+    int8 storage: ``rtm`` is quantized where it lies (a host array on the
+    host, so the card only ever holds the 1-byte codes), or it is already
+    int8 codes and ``rtm_scale`` [V] their scales. The stats are those of
+    the quantized matrix.
+    """
     dev = resolve_device(device)
     dtype = torch_dtype(opts.dtype)
-    rtm = torch.as_tensor(rtm, device=dev)
-    if rtm.ndim != 2:
-        raise ValueError(f"rtm must be [P, V], got shape {tuple(rtm.shape)}.")
+    sdt = storage_dtype(opts)
     if laplacian is not None:
         check_on(dev, laplacian=laplacian.vals)
+    if np.ndim(rtm) != 2:
+        raise ValueError(f"rtm must be [P, V], got shape {np.shape(rtm)}.")
+    if sdt == torch.int8:
+        if max(np.shape(rtm)) > INT8_MAX_CONTRACTION:
+            raise ValueError(
+                f"rtm_dtype='int8': RTM extent {max(np.shape(rtm))} exceeds "
+                f"the int32-accumulation bound {INT8_MAX_CONTRACTION} of the "
+                "integer projections (int8_back_project); use fp32/bfloat16 "
+                "storage."
+            )
+        if rtm_scale is None:
+            codes, scale = quantize_rtm(rtm)
+        else:
+            codes = torch.as_tensor(rtm)
+            scale = torch.as_tensor(rtm_scale)
+            if codes.dtype != torch.int8:
+                raise ValueError(
+                    "rtm_scale implies pre-quantized int8 codes; got a "
+                    f"{codes.dtype} matrix."
+                )
+            if scale.shape != (codes.shape[1],):
+                raise ValueError(
+                    f"rtm_scale of shape {tuple(scale.shape)} does not fit "
+                    f"rtm {tuple(codes.shape)}: [{codes.shape[1]}] expected."
+                )
+        codes = codes.to(dev).contiguous()
+        scale = scale.to(dev, torch.float32)
+        dens, length = compute_ray_stats_int8(codes, scale, dtype=dtype)
+        return SARTProblem(codes, dens, length, laplacian, scale)
+    if rtm_scale is not None:
+        raise ValueError("rtm_scale is only valid with rtm_dtype='int8'.")
+    rtm = torch.as_tensor(rtm)
+    if rtm.dtype == sdt or rtm.device.type == dev.type:
+        rtm = rtm.to(dev)  # stored as given, or already there
     dens, length = compute_ray_stats(rtm, dtype=dtype)
-    return SARTProblem(rtm.to(dtype).contiguous(), dens, length, laplacian)
+    return SARTProblem(rtm.to(dev, sdt).contiguous(), dens.to(dev),
+                       length.to(dev), laplacian)
 
 
 def resolve_fused(opts: SolverOptions) -> bool:
-    """Whether the loop runs through the fused sweep: fp32 compute with
-    ``"auto"`` or ``"on"``. The fp64 profile declines — quietly for
-    ``"auto"``, with a ValueError for ``"on"``."""
+    """Whether the loop runs through the fused sweep: fp32 compute over
+    fp32, bf16 or int8 storage, with ``"auto"`` or ``"on"``. The fp64
+    profile and fp64 storage decline — quietly for ``"auto"``, with a
+    ValueError for ``"on"``."""
     if opts.fused_sweep == "off":
         return False
-    if opts.dtype != "float32":
+    storage = opts.rtm_dtype or opts.dtype
+    if opts.dtype != "float32" or storage not in ("float32", "bfloat16", "int8"):
         if opts.fused_sweep == "on":
             raise ValueError(
-                f"fused_sweep='on' requested but dtype={opts.dtype}; the "
-                "fused sweep computes in fp32 with fp32 storage."
+                f"fused_sweep='on' requested but dtype={opts.dtype} / rtm "
+                f"dtype={storage}; the fused sweep computes in fp32 (fp32, "
+                "bfloat16 or quantized int8 RTM storage)."
             )
         return False
     return True
@@ -117,6 +238,22 @@ class _SweepContext:
         self.eps = _tiny(opts.log_epsilon)
         self.fused = resolve_fused(opts)
         self.sweep_fn = sweep_fn
+        # int8 codes: the loop's kernel dequantizes them exactly; the
+        # projections outside it quantize their vector operand
+        self.scale = None
+        if problem.rtm.dtype == torch.int8:
+            if problem.rtm_scale is None:
+                raise ValueError(
+                    "int8 RTM needs SARTProblem.rtm_scale; build the problem "
+                    "with make_problem(..., opts with rtm_dtype='int8')."
+                )
+            if not self.fused:
+                raise ValueError(
+                    "rtm_dtype='int8' requires the fused sweep, but it "
+                    f"resolved off (fused_sweep='{opts.fused_sweep}'). Use "
+                    "fused_sweep='auto'/'on', or fp32/bfloat16 storage."
+                )
+            self.scale = problem.rtm_scale.to(self.dtype)
 
         dens, length = problem.ray_density, problem.ray_length
         self.vmask = dens > opts.ray_density_threshold  # [V]
@@ -132,6 +269,19 @@ class _SweepContext:
         ).to(self.dtype)
         self.vm = self.vmask.to(self.dtype)[None, :]
 
+    def bp_any(self, w: Tensor) -> Tensor:
+        """``H^T w`` on whatever the problem stores: the one back-projection
+        seam of every path outside the fused loop."""
+        if self.scale is not None:
+            return int8_back_project(self.rtm, self.scale, w)
+        return back_project(self.rtm, w)
+
+    def fp_any(self, f: Tensor) -> Tensor:
+        """``H f`` on whatever the problem stores: the forward seam."""
+        if self.scale is not None:
+            return int8_forward_project(self.rtm, self.scale, f)
+        return forward_project(self.rtm, f)
+
     def compute_penalty(self, x: Tensor) -> Tensor:
         """``beta * L @ x`` per frame (zeros without a Laplacian)."""
         return self.beta * coo_matvec(self.lap, x)
@@ -139,8 +289,14 @@ class _SweepContext:
     def make_obs(self, g: Tensor, meas_mask: Tensor) -> Tensor:
         """Log variant's observation back-projection, once per measurement."""
         zero = torch.zeros_like(g)
-        obs = back_project(self.rtm, torch.where(meas_mask, g, zero) * self.inv_length)
+        obs = self.bp_any(torch.where(meas_mask, g, zero) * self.inv_length)
         return torch.where(self.vmask[None, :], obs, torch.zeros_like(obs))
+
+    def run_fused(self, w: Tensor, f: Tensor, aux, **kw):
+        """One call of the fused sweep; int8 codes carry their scale."""
+        if self.scale is not None:
+            kw["scale"] = self.scale[None, :]
+        return self.sweep_fn(self.rtm, w, f, aux, **kw)
 
     def run_sweep(self, f: Tensor, fitted: Tensor, penalty: Tensor,
                   g: Tensor, meas_mask: Tensor, obs: Optional[Tensor]
@@ -152,22 +308,21 @@ class _SweepContext:
         if opts.logarithmic:
             w = torch.where(meas_mask, fitted, torch.zeros_like(fitted)) * self.inv_length
             if self.fused:
-                return self.sweep_fn(
-                    self.rtm, w, f, [self.vm, obs] + pen, logarithmic=True,
+                return self.run_fused(
+                    w, f, [self.vm, obs] + pen, logarithmic=True,
                     alpha=float(opts.relaxation), eps=self.eps,
                 )
-            fit = back_project(self.rtm, w)
+            fit = self.bp_any(w)
             fit = torch.where(self.vmask[None, :], fit, torch.zeros_like(fit))
             eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
             ratio = ((obs + eps) / (fit + eps)) ** opts.relaxation
             return f * ratio * torch.exp(-penalty), None
         w = torch.where(meas_mask, g - fitted, torch.zeros_like(g)) * self.inv_length
         if self.fused:
-            return self.sweep_fn(
-                self.rtm, w, f, [self.inv_density[None, :]] + pen,
-                logarithmic=False,
+            return self.run_fused(
+                w, f, [self.inv_density[None, :]] + pen, logarithmic=False,
             )
-        bp = back_project(self.rtm, w)
+        bp = self.bp_any(w)
         return torch.clamp_min(f + self.inv_density[None, :] * bp - penalty, 0), None
 
 
@@ -208,11 +363,11 @@ def solve_normalized_batch(
     only tests and the chip smoke run set it, to the plain version.
     """
     dev = resolve_device(device)
-    check_on(dev, rtm=problem.rtm, g=g, msq=msq, f0=f0, fitted0=fitted0)
+    check_on(dev, rtm=problem.rtm, rtm_scale=problem.rtm_scale, g=g, msq=msq,
+             f0=f0, fitted0=fitted0)
     dtype = torch_dtype(opts.dtype)
     B = g.shape[0]
     kit = _SweepContext(problem, opts, sweep_fn)
-    rtm = problem.rtm
     g = g.to(dtype)
     meas_mask = g >= 0  # [B, P]
 
@@ -225,7 +380,7 @@ def solve_normalized_batch(
         # Eq. 4: f0 = H^T g / rho on unmasked voxels; the fp32 profile
         # excludes negative measurements (sart_kernels.cu:34)
         g_guess = torch.where(g > 0, g, torch.zeros_like(g)) if opts.mask_negative_guess else g
-        accum = back_project(rtm, g_guess)
+        accum = kit.bp_any(g_guess)
         f0 = torch.where(kit.vmask[None, :], accum / kit.safe_dens[None, :],
                          torch.zeros_like(accum))
     if fitted0 is None or opts.logarithmic:
@@ -238,7 +393,7 @@ def solve_normalized_batch(
         if opts.logarithmic:
             f0 = torch.clamp_min(f0, _tiny(max(opts.guess_floor, opts.log_epsilon)))
     f = f0.to(dtype)
-    fitted = forward_project(rtm, f) if fitted0 is None else fitted0.to(dtype)
+    fitted = kit.fp_any(f) if fitted0 is None else fitted0.to(dtype)
 
     tol = torch.tensor(opts.conv_tolerance, dtype=dtype, device=dev)
     msq = msq.to(dtype)
@@ -254,7 +409,7 @@ def solve_normalized_batch(
         frozen = done[:, None]
         f_new = torch.where(frozen, f, f_upd)  # converged frames freeze
         if fitted_upd is None:
-            fitted_new = forward_project(rtm, f_new)
+            fitted_new = kit.fp_any(f_new)
         else:
             fitted_new = torch.where(frozen, fitted, fitted_upd)
         fsq = _sumsq(fitted_new, dtype, opts.precise_convergence)

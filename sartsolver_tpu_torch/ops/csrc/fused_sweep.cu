@@ -1,13 +1,21 @@
 // Fused SART sweep for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel sartsolver_tpu/ops/fused_sweep.py:_sweep_kernel
-// (called through fused_sweep, :829). One call computes, for the dense fp32
-// ray-transfer matrix H [P, V] (row-major), pixel weights w [B, P] and the
-// current solution f [B, V]:
+// (called through fused_sweep, :829), all four of its variants. One call
+// computes, for the dense ray-transfer matrix H [P, V] (row-major), pixel
+// weights w [B, P] and the current solution f [B, V]:
 //
 //   bp     = w @ H                       [B, V]
-//   f_new  = update(f, bp, aux...)        [B, V]   (elementwise, below)
-//   fitted = f_new @ H^T                 [B, P]
+//   f_new  = update(f, bp * s, aux...)    [B, V]   (elementwise, below)
+//   fitted = (f_new * s) @ H^T           [B, P]
+//
+// H is stored as fp32 (B1, B2), bf16 (B3) or int8 codes (B4). Every element
+// is converted exactly to fp32 as it is loaded, and all arithmetic is fp32.
+// s is the int8 codes' per-voxel scale [V] (the TPU kernel's fwd_scale aux
+// panel, :813): bp is summed in code space and rounded times s before the
+// update, and the forward operand is f_new * s rounded (models/sart.py
+// :1309-1311, :1322-1324). Other storage has no s: both products use f_new
+// and bp as they are.
 //
 // update, mode 0 (linear, models/sart.py:_lin_update):
 //   f_new = max(f + invd * bp - pen, 0)          aux = invd [, pen]
@@ -16,9 +24,11 @@
 //                                                 aux = vm, obs [, pen]
 // Each aux panel has 1 row (broadcast over the batch) or B rows.
 //
-// What bounds it: one read of H, P*V*4 bytes. At P = 8192, V = 65536 that is
-// 2.147 GB, 0.64 ms at the H100 SXM's 3.35 TB/s (use the bandwidth of the
-// card nvidia-smi names). The FLOPs (4*B*P*V) are far below the fp32 rate.
+// What bounds it: one read of H, P*V*sizeof(T) bytes. At P = 8192,
+// V = 65536 that is 2.147 GB in fp32 (0.64 ms at the H100 SXM's 3.35 TB/s),
+// 1.07 GB in bf16 and 0.54 GB in int8 (use the bandwidth of the card
+// nvidia-smi names). The 4*B*P*V fp32 operations are far below the fp32
+// rate at B = 1; at B = 32 they bound it (68.7 GFLOP, 1.03 ms at 67 TFLOP/s).
 //
 // The design: the TPU kernel keeps a [P, bs] column panel in VMEM and
 // accumulates `fitted` across a sequential grid, so H is read once. Here the
@@ -27,23 +37,27 @@
 //
 //   bp_update_kernel: one block per panel of 32*VW voxels. Warp k of the 8
 //     sums rows p = k, k+8, k+16, ... in ascending order (each lane holds VW
-//     neighbouring columns, loaded as one float4 when VW = 4, so a warp reads
-//     512 contiguous bytes of a row); a fixed-order sum over the 8 warps in
-//     shared memory finishes bp, and the block applies the update and writes
-//     f_new.
+//     neighbouring columns, loaded as one vector when VW = 4: a float4, 8
+//     bytes of bf16 or a char4 of codes); a fixed-order sum over the 8 warps
+//     in shared memory finishes bp, and the block applies the update and
+//     writes f_new.
 //   forward_kernel: each warp owns R pixel rows; lanes stride over the voxel
 //     axis in a fixed order, then a fixed butterfly of shuffles sums the
 //     lanes. fitted is written once per row.
 //
 // No atomics: a given launch configuration gives byte-identical results run
 // to run. Batches are processed NB rows at a time (grid.y); rows past B are
-// clamped duplicates whose results are discarded. Ragged P and V are masked
-// here; nothing is assumed about alignment beyond what the launcher checks.
+// clamped duplicates whose results are discarded, so each batch tile reads
+// H again (B = 32 reads it 2 * 8 times). Ragged P and V are masked here;
+// nothing is assumed about alignment beyond what the launcher checks.
 // Reading H once (a P-split panel held across a thread-block cluster's
-// distributed shared memory) is left for later work.
+// distributed shared memory) and the tensor cores for large B are left for
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,8 +71,19 @@ struct AuxPanels {
   long long stride[3];  // 0 for a broadcast row, V for B rows
 };
 
-template <int VW> struct Vec;
-template <> struct Vec<1> {
+// bf16 storage is carried as its bit pattern: a bf16 value is the upper 16
+// bits of the fp32 value it stands for, so the conversion is a shift and is
+// exact (no rounding, infinities and NaNs kept).
+typedef uint16_t bf16_bits;
+
+__device__ __forceinline__ float bf16_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// VW neighbouring elements of storage type T, loaded as one vector when
+// VW = 4 and converted exactly to fp32.
+template <typename T, int VW> struct Vec;
+template <> struct Vec<float, 1> {
   float x[1];
   __device__ __forceinline__ static Vec load(const float* p) {
     Vec v;
@@ -66,12 +91,48 @@ template <> struct Vec<1> {
     return v;
   }
 };
-template <> struct Vec<4> {
+template <> struct Vec<float, 4> {
   float x[4];
   __device__ __forceinline__ static Vec load(const float* p) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     Vec v;
     v.x[0] = q.x; v.x[1] = q.y; v.x[2] = q.z; v.x[3] = q.w;
+    return v;
+  }
+};
+template <> struct Vec<bf16_bits, 1> {
+  float x[1];
+  __device__ __forceinline__ static Vec load(const bf16_bits* p) {
+    Vec v;
+    v.x[0] = bf16_to_float(__ldg(p));
+    return v;
+  }
+};
+template <> struct Vec<bf16_bits, 4> {
+  float x[4];
+  __device__ __forceinline__ static Vec load(const bf16_bits* p) {
+    // four bf16 in one 8-byte load; the lower half of each word comes first
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    Vec v;
+    v.x[0] = bf16_to_float(q.x & 0xffffu); v.x[1] = bf16_to_float(q.x >> 16);
+    v.x[2] = bf16_to_float(q.y & 0xffffu); v.x[3] = bf16_to_float(q.y >> 16);
+    return v;
+  }
+};
+template <> struct Vec<int8_t, 1> {
+  float x[1];
+  __device__ __forceinline__ static Vec load(const int8_t* p) {
+    Vec v;
+    v.x[0] = (float)__ldg(reinterpret_cast<const signed char*>(p));
+    return v;
+  }
+};
+template <> struct Vec<int8_t, 4> {
+  float x[4];
+  __device__ __forceinline__ static Vec load(const int8_t* p) {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(p));
+    Vec v;
+    v.x[0] = (float)q.x; v.x[1] = (float)q.y; v.x[2] = (float)q.z; v.x[3] = (float)q.w;
     return v;
   }
 };
@@ -98,12 +159,15 @@ __device__ __forceinline__ float update(int mode, int has_pen, float alpha,
   return out;
 }
 
-template <int NB, int VW>
+// kScaled (int8 codes): bp is in code space and is rounded times the voxel's
+// scale before the update.
+template <typename T, int NB, int VW>
 __global__ void __launch_bounds__(kThreads)
-bp_update_kernel(const float* __restrict__ H, const float* __restrict__ w,
-                 const float* __restrict__ f, AuxPanels aux,
-                 float* __restrict__ f_new, int P, int V, int B, int mode,
-                 int has_pen, float alpha, float eps) {
+bp_update_kernel(const T* __restrict__ H, const float* __restrict__ scale,
+                 const float* __restrict__ w, const float* __restrict__ f,
+                 AuxPanels aux, float* __restrict__ f_new, int P, int V, int B,
+                 int mode, int has_pen, float alpha, float eps) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
   constexpr int kPanel = 32 * VW;
   __shared__ float part[kWarps][NB][kPanel];
 
@@ -125,15 +189,15 @@ bp_update_kernel(const float* __restrict__ H, const float* __restrict__ w,
     for (int k = 0; k < VW; ++k) acc[b][k] = 0.0f;
 
   // VW = 4 is only launched when V % 4 == 0, so v0 < V covers the whole
-  // float4; with VW = 1 it is the plain column mask.
+  // vector; with VW = 1 it is the plain column mask.
   if (v0 < V) {
-    const float* hcol = H + v0;
+    const T* hcol = H + v0;
     int p = warp;
     for (; p + (kUnroll - 1) * kWarps < P; p += kUnroll * kWarps) {
-      Vec<VW> h[kUnroll];
+      Vec<T, VW> h[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        h[u] = Vec<VW>::load(hcol + (long long)(p + u * kWarps) * V);
+        h[u] = Vec<T, VW>::load(hcol + (long long)(p + u * kWarps) * V);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
@@ -145,7 +209,7 @@ bp_update_kernel(const float* __restrict__ H, const float* __restrict__ w,
       }
     }
     for (; p < P; p += kWarps) {
-      const Vec<VW> h = Vec<VW>::load(hcol + (long long)p * V);
+      const Vec<T, VW> h = Vec<T, VW>::load(hcol + (long long)p * V);
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
         const float wv = __ldg(wrow[b] + p);
@@ -170,22 +234,26 @@ bp_update_kernel(const float* __restrict__ H, const float* __restrict__ w,
       float bp = part[0][b][c];
 #pragma unroll
       for (int k = 1; k < kWarps; ++k) bp += part[k][b][c];
+      if (kScaled) bp = __fmul_rn(bp, scale[v]);
       const long long i = (long long)bb * V + v;
       f_new[i] = update(mode, has_pen, alpha, eps, f[i], bp, aux, bb, v);
     }
   }
 }
 
-template <int NB, int VW>
+// kScaled (int8 codes): the forward operand is f_new * scale, rounded.
+template <typename T, int NB, int VW>
 __global__ void __launch_bounds__(kThreads)
-forward_kernel(const float* __restrict__ H, const float* __restrict__ f_new,
-               float* __restrict__ fitted, int P, int V, int B) {
+forward_kernel(const T* __restrict__ H, const float* __restrict__ scale,
+               const float* __restrict__ f_new, float* __restrict__ fitted,
+               int P, int V, int B) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long p0 = ((long long)blockIdx.x * kWarps + warp) * kRowsPerWarp;
   const int b0 = blockIdx.y * NB;
 
-  const float* hrow[kRowsPerWarp];
+  const T* hrow[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
     hrow[r] = H + (p0 + r < P ? p0 + r : (long long)P - 1) * V;
@@ -200,20 +268,32 @@ forward_kernel(const float* __restrict__ H, const float* __restrict__ f_new,
 #pragma unroll
     for (int b = 0; b < NB; ++b) acc[r][b] = 0.0f;
 
+  // the forward operand's vector at i: f_new, times the scale when kScaled
+  auto operand = [&](int b, long long i) {
+    Vec<float, VW> x = Vec<float, VW>::load(frow[b] + i * VW);
+    if (kScaled) {
+      const Vec<float, VW> s = Vec<float, VW>::load(scale + i * VW);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) x.x[k] = __fmul_rn(x.x[k], s.x[k]);
+    }
+    return x;
+  };
+
   const long long nvec = V / VW;
   long long i = lane;
   // two vectors per lane in flight per row, then the tail
   for (; i + 32 < nvec; i += 64) {
-    Vec<VW> h0[kRowsPerWarp], h1[kRowsPerWarp], x0[NB], x1[NB];
+    Vec<T, VW> h0[kRowsPerWarp], h1[kRowsPerWarp];
+    Vec<float, VW> x0[NB], x1[NB];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      h0[r] = Vec<VW>::load(hrow[r] + i * VW);
-      h1[r] = Vec<VW>::load(hrow[r] + (i + 32) * VW);
+      h0[r] = Vec<T, VW>::load(hrow[r] + i * VW);
+      h1[r] = Vec<T, VW>::load(hrow[r] + (i + 32) * VW);
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      x0[b] = Vec<VW>::load(frow[b] + i * VW);
-      x1[b] = Vec<VW>::load(frow[b] + (i + 32) * VW);
+      x0[b] = operand(b, i);
+      x1[b] = operand(b, i + 32);
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r)
@@ -228,10 +308,10 @@ forward_kernel(const float* __restrict__ H, const float* __restrict__ f_new,
   for (; i < nvec; i += 32) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const Vec<VW> h = Vec<VW>::load(hrow[r] + i * VW);
+      const Vec<T, VW> h = Vec<T, VW>::load(hrow[r] + i * VW);
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        const Vec<VW> x = Vec<VW>::load(frow[b] + i * VW);
+        const Vec<float, VW> x = operand(b, i);
 #pragma unroll
         for (int k = 0; k < VW; ++k) acc[r][b] = fmaf(x.x[k], h.x[k], acc[r][b]);
       }
@@ -258,41 +338,62 @@ forward_kernel(const float* __restrict__ H, const float* __restrict__ f_new,
   }
 }
 
-template <int NB, int VW>
-cudaError_t launch(const float* H, const float* w, const float* f,
-                   const AuxPanels& aux, float* f_new, float* fitted, int P,
-                   int V, int B, int mode, int has_pen, float alpha,
-                   float eps, cudaStream_t stream) {
-  const unsigned nbatch = (unsigned)((B + NB - 1) / NB);
-  const dim3 grid_bp((unsigned)((V + 32 * VW - 1) / (32 * VW)), nbatch);
-  bp_update_kernel<NB, VW><<<grid_bp, kThreads, 0, stream>>>(
-      H, w, f, aux, f_new, P, V, B, mode, has_pen, alpha, eps);
+struct Args {
+  const float* scale;
+  const float* w;
+  const float* f;
+  AuxPanels aux;
+  float* f_new;
+  float* fitted;
+  int P, V, B, mode, has_pen;
+  float alpha, eps;
+  cudaStream_t stream;
+};
+
+template <typename T, int NB, int VW>
+cudaError_t launch(const T* H, const Args& a) {
+  const unsigned nbatch = (unsigned)((a.B + NB - 1) / NB);
+  const dim3 grid_bp((unsigned)((a.V + 32 * VW - 1) / (32 * VW)), nbatch);
+  bp_update_kernel<T, NB, VW><<<grid_bp, kThreads, 0, a.stream>>>(
+      H, a.scale, a.w, a.f, a.aux, a.f_new, a.P, a.V, a.B, a.mode, a.has_pen,
+      a.alpha, a.eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows_per_block = kWarps * kRowsPerWarp;
-  const dim3 grid_fwd((unsigned)((P + rows_per_block - 1) / rows_per_block), nbatch);
-  forward_kernel<NB, VW><<<grid_fwd, kThreads, 0, stream>>>(H, f_new, fitted, P, V, B);
+  const dim3 grid_fwd((unsigned)((a.P + rows_per_block - 1) / rows_per_block), nbatch);
+  forward_kernel<T, NB, VW><<<grid_fwd, kThreads, 0, a.stream>>>(
+      H, a.scale, a.f_new, a.fitted, a.P, a.V, a.B);
   return cudaGetLastError();
 }
 
-template <int VW>
-cudaError_t dispatch_nb(const float* H, const float* w, const float* f,
-                        const AuxPanels& aux, float* f_new, float* fitted,
-                        int P, int V, int B, int mode, int has_pen,
-                        float alpha, float eps, cudaStream_t stream) {
-  if (B == 1)
-    return launch<1, VW>(H, w, f, aux, f_new, fitted, P, V, B, mode, has_pen, alpha, eps, stream);
-  if (B == 2)
-    return launch<2, VW>(H, w, f, aux, f_new, fitted, P, V, B, mode, has_pen, alpha, eps, stream);
-  return launch<4, VW>(H, w, f, aux, f_new, fitted, P, V, B, mode, has_pen, alpha, eps, stream);
+template <typename T, int VW>
+cudaError_t dispatch_nb(const T* H, const Args& a) {
+  if (a.B == 1) return launch<T, 1, VW>(H, a);
+  if (a.B == 2) return launch<T, 2, VW>(H, a);
+  return launch<T, 4, VW>(H, a);
+}
+
+// The vector path needs whole vectors per row (V % 4 == 0) and H, f_new
+// and the scale aligned for a 4-element load of their types.
+template <typename T>
+cudaError_t dispatch(const void* H, const Args& a) {
+  const T* h = static_cast<const T*>(H);
+  const bool vec4 = a.V % 4 == 0 && (uintptr_t)H % (4 * sizeof(T)) == 0 &&
+                    (uintptr_t)a.f_new % 16 == 0 &&
+                    (uintptr_t)a.scale % 16 == 0;
+  return vec4 ? dispatch_nb<T, 4>(h, a) : dispatch_nb<T, 1>(h, a);
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). All pointers are device pointers to
-// contiguous fp32 arrays; aux_rows[i] is 1 (broadcast) or B. The caller
-// allocates f_new [B, V] and fitted [B, P].
-extern "C" int sart_fused_sweep(const float* H, const float* w, const float* f,
+// Returns a cudaError_t (0 on success). H is a device pointer to a
+// contiguous [P, V] matrix of the storage type `storage` (0 fp32, 1 bf16,
+// 2 int8 codes); scale is the codes' [V] fp32 scale, given for int8 and only
+// for int8. Every other pointer is a device pointer to a contiguous fp32
+// array; aux_rows[i] is 1 (broadcast) or B. The caller allocates f_new
+// [B, V] and fitted [B, P].
+extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
+                                const float* w, const float* f,
                                 const float* aux0, const float* aux1,
                                 const float* aux2, const long long* aux_rows,
                                 int n_aux, float* f_new, float* fitted,
@@ -305,20 +406,33 @@ extern "C" int sart_fused_sweep(const float* H, const float* w, const float* f,
   const int want = mode == 0 ? 1 : 2;  // aux panels without the penalty
   if ((mode != 0 && mode != 1) || (n_aux != want && n_aux != want + 1))
     return (int)cudaErrorInvalidValue;
-  AuxPanels aux;
+  if (storage < 0 || storage > 2 || (storage == 2) != (scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.scale = scale;
+  a.w = w;
+  a.f = f;
   const float* ptrs[3] = {aux0, aux1, aux2};
   for (int i = 0; i < 3; ++i) {
-    aux.ptr[i] = ptrs[i];
-    aux.stride[i] = (i < n_aux && aux_rows[i] != 1) ? V : 0;
+    a.aux.ptr[i] = ptrs[i];
+    a.aux.stride[i] = (i < n_aux && aux_rows[i] != 1) ? V : 0;
   }
-  const int has_pen = n_aux == want + 1;
-  const bool vec4 = V % 4 == 0 && ((uintptr_t)H % 16 == 0) &&
-                    ((uintptr_t)f_new % 16 == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec4 ? dispatch_nb<4>(H, w, f, aux, f_new, fitted, (int)P, (int)V, (int)B,
-                            mode, has_pen, alpha, eps, s)
-           : dispatch_nb<1>(H, w, f, aux, f_new, fitted, (int)P, (int)V, (int)B,
-                            mode, has_pen, alpha, eps, s);
+  a.f_new = f_new;
+  a.fitted = fitted;
+  a.P = (int)P;
+  a.V = (int)V;
+  a.B = (int)B;
+  a.mode = mode;
+  a.has_pen = n_aux == want + 1;
+  a.alpha = alpha;
+  a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (storage == 0)
+    err = dispatch<float>(H, a);
+  else if (storage == 1)
+    err = dispatch<bf16_bits>(H, a);
+  else
+    err = dispatch<int8_t>(H, a);
   return (int)err;
 }

@@ -83,6 +83,52 @@ def test_cli_matches_jax_cli(world, tmp_path, case, capsys):
         assert err <= 5e-3, (i, err)
 
 
+@pytest.mark.parametrize("variant", ["laplacian", "log"])
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_cli_reduced_storage_matches_jax_cli(world, tmp_path, storage, variant, capsys):
+    """--rtm_dtype bfloat16|int8: the port reads, rounds or quantizes on the
+    host and uploads the stored matrix; the JAX CLI stages and quantizes its
+    own way (int8 needs its --fused_sweep interpret off the TPU). Equal frame
+    times, and every frame within 5e-3 in fitted space.
+
+    Iterations: the guess frame to the fp32 bar. The warm-started frames
+    stop where dC first rounds to exactly 0, which moves with the summation
+    order in every storage type (measured on this world: fp32 with -l stops
+    frames 2-3 at 11 and 26 where JAX runs to 40; bf16 at 40 and 27 against
+    2 and 40; fitted space within 0.0037 throughout), so for them a status
+    must only agree with its own iteration count."""
+    paths, H, f_true, times, scales = world
+    extra = ["-l", paths["laplacian"], "-b", "0.001"] if variant == "laplacian" else ["-L"]
+    flags = FP32 + extra + ["--rtm_dtype", storage]
+    jax_flags = flags + (["--fused_sweep", "interpret"] if storage == "int8" else [])
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *_inputs(paths), *jax_flags, "--pixel_shards", "1"]) == 0
+    capsys.readouterr()
+    assert torch_main(["-o", port_out, *_inputs(paths), *flags, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"rtm_dtype={storage} compute=float32 sweep=fused" in out
+    assert out.count("Processed in:") == len(times)
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    for key in ("time", f"time_{fx.CAM_A}", f"time_{fx.CAM_B}"):
+        np.testing.assert_array_equal(tsol[key], jsol[key], err_msg=key)
+    np.testing.assert_array_equal(tsol["status"] != 0, tsol["iterations"] == 40)
+    assert abs(int(tsol["iterations"][0]) - int(jsol["iterations"][0])) <= 5
+    for i in range(len(times)):
+        ref = H @ jsol["value"][i]
+        err = np.linalg.norm(H @ tsol["value"][i] - ref) / np.linalg.norm(ref)
+        assert err <= 5e-3, (i, err)
+
+
+def test_cli_int8_refuses_the_fp64_profile(world, tmp_path, capsys):
+    paths, *_ = world
+    with pytest.raises(SystemExit) as err:
+        torch_main(["-o", str(tmp_path / "o.h5"), *_inputs(paths), "--use_cpu",
+                    "--rtm_dtype", "int8"])
+    assert err.value.code == 1
+    assert "cannot be combined with --use_cpu" in capsys.readouterr().err
+
+
 def test_cli_reconstructs_the_world(world, tmp_path, capsys):
     """The port's fp32 profile reproduces the measurements in fitted space
     (the JAX suite's own quality check, tests/test_cli.py)."""

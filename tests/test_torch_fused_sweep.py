@@ -56,10 +56,21 @@ def _inputs(P, V, B, logarithmic, with_pen, aux_rows, seed=0):
     return H, w, f, aux
 
 
-def _torch_sweep(fn, H, w, f, aux, logarithmic):
+def _lin_update_int8(f_p, bp_p, s_p, invd_p, *pen_p):  # models/sart.py:1322-1324
+    return _lin_update(f_p, bp_p * s_p, invd_p, *pen_p)
+
+
+def _log_update_int8(f_p, bp_p, s_p, vm_p, obs_p, *pen_p):  # models/sart.py:1309-1311
+    return _log_update(f_p, bp_p * s_p, vm_p, obs_p, *pen_p)
+
+
+def _torch_sweep(fn, H, w, f, aux, logarithmic, scale=None):
     t = torch.as_tensor
     kw = dict(alpha=ALPHA, eps=EPS) if logarithmic else {}
-    out = fn(t(H), t(w), t(f), [t(a) for a in aux], logarithmic=logarithmic, **kw)
+    if scale is not None:
+        kw["scale"] = t(scale)
+    H = H if isinstance(H, torch.Tensor) else t(H)
+    out = fn(H, t(w), t(f), [t(a) for a in aux], logarithmic=logarithmic, **kw)
     return [o.numpy() for o in out]
 
 
@@ -98,6 +109,36 @@ def test_plain_sweep_matches_pallas_kernel(B, logarithmic, with_pen, aux_rows):
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
 @pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_plain_sweep_matches_pallas_kernel_reduced_storage(storage, B, logarithmic,
+                                                           with_pen):
+    """B3 (bf16 storage) and B4 (int8 codes with per-voxel scales): the
+    Pallas kernel dequantizes exactly and computes in fp32, with the int8
+    update closures of models/sart.py and fwd_scale=0; the port's wrapper
+    takes the codes' scale as its own argument."""
+    import jax.numpy as jnp
+
+    H, w, f, aux = _inputs(P, V, B, logarithmic, with_pen, "1", seed=2)
+    if storage == "bfloat16":
+        jH, tH, scale = jnp.asarray(H, jnp.bfloat16), torch.from_numpy(H).to(torch.bfloat16), None
+        want = jax_fused_sweep(jH, w, f, aux, _log_update if logarithmic else _lin_update,
+                               interpret=True)
+    else:
+        rng = np.random.default_rng(3)
+        codes = rng.integers(0, 128, (P, V)).astype(np.int8)
+        scale = (rng.uniform(0.5, 1.5, (1, V)) / 127).astype(np.float32)
+        jH, tH = codes, torch.from_numpy(codes)
+        want = jax_fused_sweep(codes, w, f, [scale] + aux,
+                               _log_update_int8 if logarithmic else _lin_update_int8,
+                               fwd_scale=0, interpret=True)
+    got = _torch_sweep(fused_sweep, tH, w, f, aux, logarithmic, scale)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_, np.asarray(w_), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
 def test_plain_sweep_on_ragged_shapes(B, logarithmic, with_pen):
     """23 x 200 is refused by the Pallas kernel (8 x 128 tiles); the port
     takes any shape, checked against an fp64 numpy sweep."""
@@ -125,6 +166,16 @@ def test_wrapper_checks_its_inputs():
         fused_sweep(H, w, f, [aux[0][:, :-1]], logarithmic=False)
     with pytest.raises(ValueError, match="expected"):
         fused_sweep(H, w, f, aux, logarithmic=True)
+    codes = torch.zeros(H.shape, dtype=torch.int8)
+    scale = torch.ones((1, H.shape[1]))
+    with pytest.raises(ValueError, match="need their scale.*missing"):
+        fused_sweep(codes, w, f, aux, logarithmic=False)
+    with pytest.raises(ValueError, match="only int8 codes.*given"):
+        fused_sweep(H, w, f, aux, logarithmic=False, scale=scale)
+    with pytest.raises(ValueError, match=r"\[1, 256\] expected"):
+        fused_sweep(codes, w, f, aux, logarithmic=False, scale=scale[:, :-1])
+    with pytest.raises(ValueError, match="fp32, bf16 or int8"):
+        fused_sweep(H.half(), w, f, aux, logarithmic=False)
     with pytest.raises(ValueError, match="unsupported device"):
         meta = [t.to("meta") for t in (H, w, f, aux[0])]
         fused_sweep(*meta[:3], [meta[3]], logarithmic=False)

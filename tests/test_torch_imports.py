@@ -2,6 +2,7 @@
 chip_smoke.py, loads neither JAX nor any module of the JAX package. Also a
 small-size run of chip_smoke.py's world and solve checks on the CPU."""
 
+import itertools
 import os
 import subprocess
 import sys
@@ -36,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
     """The e2e world writer and the solve checks of chip_smoke.py, on the
     CPU at a small size: the port's CLI reads the world, solves linear with
-    the Laplacian and logarithmic, and passes the script's own checks."""
+    the Laplacian and logarithmic for each RTM storage type, and passes the
+    script's own checks."""
     sys.path.insert(0, REPO)
     try:
         import chip_smoke as cs
@@ -46,12 +48,13 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
     p = world["paths"]
     assert world["H"].shape == (64, 256) and world["G"].shape == (64, 12)
     inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
-    for name, flags, n_frames in (
+    for storage, (name, flags, n_frames) in itertools.product(cs.STORAGES, (
         ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
         ("log", ["-L", "-t", "0:0.35"], 4),
-    ):
-        out = str(tmp_path / f"{name}.h5")
-        rc, ms = cs.run_cli(["-o", out, *inputs, "-m", "300", *flags], device="cpu")
+    )):
+        out = str(tmp_path / f"{storage}_{name}.h5")
+        rc, ms = cs.run_cli(["-o", out, *inputs, "-m", "300", *flags,
+                             "--rtm_dtype", storage], device="cpu")
         assert rc == 0 and len(ms) == n_frames
         sol, err = cs.check_solution(out, world, n_frames, 300, "cpu")
         assert np.all(err <= cs.FIT_BOUND)

@@ -259,9 +259,11 @@ def test_sweep_fn_parameter_reaches_the_loop():
 @pytest.mark.parametrize("field,value", [
     ("os_subsets", 2), ("momentum", "nesterov"), ("relaxation_decay", 0.9),
     ("divergence_recovery", 1), ("integrity", True), ("sparse_rtm", "auto"),
-    ("lowrank_rtm", "4"), ("rtm_dtype", "bfloat16"),
+    ("lowrank_rtm", "4"), ("rtm_dtype", "float16"),
 ])
 def test_options_not_ported_raise(field, value):
+    """Options still to port raise naming the option; so does an RTM
+    storage dtype that neither package has."""
     with pytest.raises(ValueError, match=field):
         SolverOptions(**{field: value})
 
@@ -295,3 +297,96 @@ def test_plain_fp32_convergence_sum_matches_jax():
     assert_solutions_close(res.solution.numpy(), ref.solution, opts.dtype)
     np.testing.assert_allclose(float(res.convergence), float(ref.convergence),
                                rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("given_f0", [False, True])
+@pytest.mark.parametrize("with_lap", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("storage,sweep", [
+    ("bfloat16", "fused"), ("bfloat16", "off"), ("int8", "fused"),
+])
+def test_reduced_storage_solve_matches_jax(storage, sweep, logarithmic, with_lap,
+                                           given_f0):
+    """bf16 and int8 storage through make_problem and solve: the JAX side
+    runs its Pallas kernel in interpret mode (or its two-matmul path), the
+    port its plain version. int8 solves the quantized system on both sides,
+    with the quantized-vector projections for the guess, obs and setup.
+
+    conv_tolerance=0 runs every frame to the cap: the Eq. 5 stall test fires
+    where dC first rounds to exactly 0, which moves with the summation order
+    (measured here: a log int8 frame stopped at 14 against JAX's 30, with
+    C^k equal to 4 digits), so it would compare the summation orders, not
+    the storage paths."""
+    H, g, f0 = _case(seed=11)
+    kw = dict(max_iterations=30, conv_tolerance=0.0, logarithmic=logarithmic,
+              beta_laplace=1e-3 if with_lap else 0.0, relaxation=0.7)
+    opts = SolverOptions(rtm_dtype=storage, fused_sweep="auto" if sweep == "fused" else "off",
+                         **kw)
+    jprob, jopts, tprob = _both_problems(H, _lap_triplets() if with_lap else None, opts)
+    jopts = dataclasses.replace(jopts, fused_sweep="interpret" if sweep == "fused" else "off")
+    seed = f0 if given_f0 else None
+    ref = jsart.solve(jprob, g, seed, opts=jopts)
+    res = tsart.solve(tprob, g, seed, opts=opts, device="cpu")
+    assert int(res.status) == int(ref.status)
+    assert int(res.iterations) == int(ref.iterations)
+    assert_solutions_close(res.solution.numpy(), ref.solution, opts.dtype)
+    H64 = H.astype(np.float64)
+    np.testing.assert_allclose(H64 @ res.solution.numpy(),
+                               H64 @ np.asarray(ref.solution), rtol=2e-5)
+
+
+@pytest.mark.parametrize("logarithmic", [False, True])
+def test_fp64_compute_bf16_storage_matches_jax(logarithmic):
+    """The fp64 profile over a bf16 matrix: the two-matmul path, each block
+    of the matrix upcast to fp64, against the JAX package's mixed-dtype
+    contractions."""
+    H, g, _ = _case(seed=12)
+    opts = SolverOptions.cpu_parity(rtm_dtype="bfloat16", logarithmic=logarithmic,
+                                    max_iterations=40, conv_tolerance=1e-12,
+                                    beta_laplace=1e-3)
+    jprob, jopts, tprob = _both_problems(H, _lap_triplets(), opts)
+    assert tprob.rtm.dtype == torch.bfloat16
+    ref = jsart.solve(jprob, g, opts=jopts)
+    res = tsart.solve(tprob, g, opts=opts, device="cpu")
+    assert int(res.status) == int(ref.status)
+    assert int(res.iterations) == int(ref.iterations)
+    np.testing.assert_allclose(res.solution.numpy(), np.asarray(ref.solution), rtol=1e-8)
+
+
+def test_int8_requires_fused():
+    """As the JAX package's test of the same name: int8 codes with the
+    fused sweep off raise, and so does fused_sweep='on' over fp64 storage."""
+    H, g, _ = _case()
+    opts = SolverOptions(rtm_dtype="int8", fused_sweep="off")
+    prob = tsart.make_problem(H, opts=opts, device="cpu")
+    with pytest.raises(ValueError, match="requires the fused sweep"):
+        tsart.solve(prob, g, opts=opts, device="cpu")
+    on64 = SolverOptions(rtm_dtype="float64", fused_sweep="on")
+    with pytest.raises(ValueError, match="rtm dtype=float64"):
+        tsart.solve(tsart.make_problem(H, opts=on64, device="cpu"), g, opts=on64,
+                    device="cpu")
+    auto64 = SolverOptions(rtm_dtype="float64")
+    assert not tsart.resolve_fused(auto64) and tsart.resolve_fused(
+        SolverOptions(rtm_dtype="bfloat16"))
+
+
+def test_int8_sweep_gets_the_scale():
+    """The solver core hands the int8 codes' scale [1, V] to the sweep, and
+    only for int8."""
+    H, g, _ = _case(seed=13)
+    seen = []
+
+    def recording(rtm, w, f, aux, **kw):
+        seen.append((rtm.dtype, kw.get("scale")))
+        return fused_sweep_reference(rtm, w, f, aux, **kw)
+
+    scales = []
+    for storage in ("int8", "bfloat16"):
+        opts = SolverOptions(rtm_dtype=storage, max_iterations=3, conv_tolerance=0.0)
+        prob = tsart.make_problem(H, opts=opts, device="cpu")
+        scales.append(prob.rtm_scale)
+        tsart.solve(prob, g, opts=opts, device="cpu", sweep_fn=recording)
+    assert [dt for dt, _ in seen] == [torch.int8] * 3 + [torch.bfloat16] * 3
+    for _, scale in seen[:3]:
+        assert torch.equal(scale, scales[0][None, :])
+    assert scales[1] is None and all(scale is None for _, scale in seen[3:])
