@@ -12,12 +12,20 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    the card, for each storage type (B1/B2 fp32, B3 bf16, B4 int8 codes with
    their scales), linear and log, with and without the penalty, at the main
    path's shape (B = 1, 8192 x 65536) and at a ragged one (B = 3,
-   1000 x 3001): max error within ``KERNEL_TOL`` of the output's max, two
-   launches byte-identical, the launch counts advanced. Then B4 at the
-   configuration of the three int8 Pallas probes under ``benchmarks/``
-   (8192 x 65536, B = 32, linear, no penalty; the direct-dot probe with
-   scale 1 and ``invd = 1e-6``), checked the same way. Then each one's
-   kernel, plain-version and library times beside its bound.
+   1000 x 3001), each through the plan ``plan_sweep`` gives it; then every
+   plan at the shapes that select it (``one_read`` at B = 3, ``tensor_core``
+   at B = 8, 16, 19, 32 and ragged 1000 x 3008 x 19) and ``two_read`` forced
+   where the new plans took over: max error within ``KERNEL_TOL`` of the
+   output's max, two launches byte-identical, the plan's launch count
+   advanced. Then B4 at the configuration of the three int8 Pallas probes
+   under ``benchmarks/`` (8192 x 65536, B = 32, linear, no penalty; the
+   direct-dot probe with scale 1 and ``invd = 1e-6``), checked the same way
+   through ``tensor_core`` and forced ``two_read``. Then each row's kernel,
+   plain-version and library times beside its bound, and the CUDA kernels
+   one call launches with their device times (``torch.profiler``); the new
+   plans timed in turns with forced ``two_read`` (old, new, new, old); the
+   ``two_read`` / ``tensor_core`` crossover over B at 8192 x 65536 int8 and
+   the ``two_read`` / ``one_read`` crossover over P, V and B in fp32.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
@@ -27,8 +35,17 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    Launch counts are zeroed just before and read just after; every frame's
    status must be 0 or the ``-m`` cap, its fitted-space error against the
    noiseless measurement within ``FIT_BOUND``, and each storage type's
-   launches equal to its runs' iterations. Each run's peak device memory
-   and its fitted-space distance to the fp32 run are printed.
+   launches equal to its runs' iterations, by storage and by plan (fp32
+   through ``one_read``, bf16 and int8 through ``two_read``). Each run's
+   peak device memory and its fitted-space distance to the fp32 run are
+   printed.
+4b. ``batch``: the 32 frames of the world solved at once through the solver
+   API (``solve_normalized_batch``, B = 32) with int8 storage and the
+   Laplacian, so through ``tensor_core``: counts zeroed before and read
+   after (one launch per loop iteration), statuses and fitted-space errors
+   as above; then through the plain version: the same statuses, and over
+   ``BATCH_CROSS_ITERATIONS`` iterations without the stall test each
+   frame's fitted space within ``CROSS_TOL`` of the kernel's.
 5. ``plain_crosscheck``: frame 0 solved through the kernel and through the
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
@@ -44,6 +61,7 @@ Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -64,13 +82,22 @@ KERNEL_TOL = 1e-5
 # the noiseless data; the Laplacian's bias adds a little (the JAX package's
 # own check, tests/test_cli.py, holds H @ solution to 5% of H @ f_true)
 FIT_BOUND = 0.05
-# kernel against plain version in fitted space, frame 0 of the main path
+# kernel against plain version in fitted space: frame 0 of the main path,
+# and the batched int8 solve
 CROSS_TOL = 1e-3
+# iterations of the batched solve's fixed-count comparison with the plain
+# version (about where its frames converge)
+BATCH_CROSS_ITERATIONS = 100
+# (P, V) of the one_read / two_read crossover, each at B = 1 .. 4
+ONE_READ_CROSSOVER_PV = ((1024, 65536), (2048, 65536), (4096, 65536), (5120, 65536),
+                         (6144, 65536), (7168, 65536), (8192, 65536), (8192, 4096),
+                         (8192, 1024), (1000, 3008))
 MAX_ITERATIONS = 500  # -m cap of the main path's runs
 
-# card -> (memory rate in B/s, fp32 rate outside the tensor cores in FLOP/s);
-# NVIDIA's data sheets, dense rates at the full power limit
-PEAKS = {"PCIe": (2.0e12, 51e12), "SXM": (3.35e12, 67e12)}
+# card -> (memory rate in B/s, fp32 rate outside the tensor cores in FLOP/s,
+# bf16 dense tensor-core rate in FLOP/s); NVIDIA's data sheets, dense rates
+# at the full power limit
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "SXM": (3.35e12, 67e12, 989e12)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -301,19 +328,24 @@ def _probe_inputs(direct: bool, seed: int):
     return H, w, f, [invd], scale
 
 
-def _check_kernel(H, w, f, aux, scale, kw, storage):
-    """Kernel against plain version: (record, max_abs_err); raises on a
-    failed check."""
+def _check_kernel(H, w, f, aux, scale, kw, storage, plan=None, enforce=True):
+    """Kernel against plain version through ``plan`` (None: the shape's
+    own): (record, max_abs_err); raises on a failed check unless not
+    ``enforce`` (a measurement-only variant)."""
     import torch
 
-    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, fused_sweep_reference
+    from sartsolver_tpu_torch.ops.fused_sweep import (
+        _sweep, fused_sweep, fused_sweep_reference, plan_sweep,
+    )
 
-    before = fused_sweep.launches_by_storage[storage]
-    out1 = fused_sweep(H, w, f, aux, scale=scale, **kw)
-    out2 = fused_sweep(H, w, f, aux, scale=scale, **kw)
+    if plan is None:
+        plan = plan_sweep(*H.shape, w.shape[0], storage)
+    before = fused_sweep.launches_by_plan[plan]
+    out1 = _sweep(H, w, f, aux, scale=scale, plan=plan, **kw)
+    out2 = _sweep(H, w, f, aux, scale=scale, plan=plan, **kw)
     ref = fused_sweep_reference(H, w, f, aux, scale=scale, **kw)
     torch.cuda.synchronize()
-    counted = fused_sweep.launches_by_storage[storage] - before
+    counted = fused_sweep.launches_by_plan[plan] - before
     identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
     abs_err = max(float((a - r).abs().max()) for a, r in zip(out1, ref))
     rel = max(float((a - r).abs().max()) / float(r.abs().max())
@@ -321,12 +353,12 @@ def _check_kernel(H, w, f, aux, scale, kw, storage):
     finite = all(bool(torch.isfinite(r).all()) for r in ref)
     passed = identical and counted == 2 and finite and rel <= KERNEL_TOL
     logarithmic = kw["logarithmic"]
-    record = dict(storage=storage, shape=[*H.shape, w.shape[0]],
+    record = dict(storage=storage, plan=plan, shape=[*H.shape, w.shape[0]],
                   mode="log" if logarithmic else "linear",
                   pen=len(aux) > (2 if logarithmic else 1),
                   max_rel_err=rel, max_abs_err=abs_err, byte_identical=identical,
                   launches_counted=counted, ok=passed)
-    if not passed:
+    if enforce and not passed:
         raise AssertionError(f"fused_sweep check failed: {record}")
     return record, abs_err
 
@@ -347,14 +379,68 @@ def _median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate) -> dict:
-    """Kernel, plain-version and library times beside the bound. The
-    library yardstick is two ``torch.matmul`` around the update on an fp32
-    copy of the (dequantized) matrix made outside the timed window, so it
-    reads 4 bytes per element whatever the storage."""
+def _in_turns(old, new) -> tuple:
+    """Median ms of two callables timed in turns, old, new, new, old:
+    ``(old_ms, new_ms, turns)``, each the mean of its two medians."""
+    turns = [_median_ms(old), _median_ms(new), _median_ms(new), _median_ms(old)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def _device_profile(fn, calls: int = 5) -> dict:
+    """From ``torch.profiler`` over ``calls`` calls of ``fn`` after one
+    warm-up: the device time per call of each CUDA kernel it launches, and
+    how many distinct kernels that is."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return dict(ms_by_kernel=out, kernels_per_call=len(out))
+
+
+def _bound(H, w, aux, scale, plan, rates) -> dict:
+    """The least time of one sweep at this shape: its bytes (each input
+    read once, each output written once) at the memory rate against its
+    operations at the rate of their type (fp32 FMAs, or three bf16
+    tensor-core products for ``tensor_core``)."""
+    mem_rate, fp32_rate, bf16_rate = rates
+    P, V = H.shape
+    B = w.shape[0]
+    vectors = B * P + B * V + sum(a.numel() for a in aux) + B * V + B * P
+    if scale is not None:
+        vectors += scale.numel()
+    nbytes = H.element_size() * P * V + 4 * vectors
+    flops = 4 * B * P * V
+    if plan == "tensor_core":
+        flops, rate, rate_name = 3 * flops, bf16_rate, "bf16 dense tensor cores, 3 products"
+    else:
+        rate, rate_name = fp32_rate, "fp32 outside the tensor cores"
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / rate * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_rate=rate_name, bytes=nbytes, flops=flops)
+
+
+def _timing(H, w, f, aux, scale, kw, rates, plan, versus=None) -> dict:
+    """Kernel, plain-version and library times beside the bound. With
+    ``versus`` (another plan) the two are timed in turns, old, new, new,
+    old, and each reported as the mean of its two medians. The library
+    yardstick is two ``torch.matmul`` around the update on an fp32 copy of
+    the (dequantized) matrix made outside the timed window, so it reads 4
+    bytes per element whatever the storage."""
     import torch
 
-    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, fused_sweep_reference
+    from sartsolver_tpu_torch.ops.fused_sweep import _sweep, fused_sweep_reference
 
     P, V = H.shape
     B = w.shape[0]
@@ -370,49 +456,69 @@ def _timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate) -> dict:
             f_new = torch.clamp_min(f_new - aux[1] if len(aux) > 1 else f_new, 0)
         return torch.matmul(f_new, Hd.T)
 
-    vectors = B * P + B * V + sum(a.numel() for a in aux) + B * V + B * P
-    if scale is not None:
-        vectors += scale.numel()
-    nbytes = H.element_size() * P * V + 4 * vectors
-    flops = 4 * B * P * V
-    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / fp32_rate * 1e3
+    def kernel(name):
+        return lambda: _sweep(H, w, f, aux, scale=scale, plan=name, **kw)
+
+    if versus is None:
+        ms, other = _median_ms(kernel(plan)), None
+    else:
+        old_ms, ms, turns = _in_turns(kernel(versus), kernel(plan))
+        other = dict(plan=versus, ms=old_ms, turns_ms=turns,
+                     device=_device_profile(kernel(versus)))
     out = dict(
-        ms=_median_ms(lambda: fused_sweep(H, w, f, aux, scale=scale, **kw)),
+        plan=plan, ms=ms, device=_device_profile(kernel(plan)),
         plain_ms=_median_ms(lambda: fused_sweep_reference(H, w, f, aux, scale=scale, **kw)),
         library_ms=_median_ms(library),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes, flops=flops, shape=[P, V, B], storage=str(H.dtype)[6:],
+        **_bound(H, w, aux, scale, plan, rates),
+        shape=[P, V, B], storage=str(H.dtype)[6:],
         mode="log" if logarithmic else "linear", pen=len(aux) > (2 if logarithmic else 1),
     )
+    if other is not None:
+        out["versus"] = dict(other, **_bound(H, w, aux, scale, versus, rates))
     del Hd
     return out
 
 
 def kernel_phase(card: str):
-    """Every check and timing of the fused sweep; returns ``(max_abs_err
-    by storage at the main shape, timing by row of the kernel table)``."""
+    """Every check and timing of the fused sweep; returns ``(max_abs_err by
+    row of the kernel table, timing by row)``."""
     import torch
 
+    from sartsolver_tpu_torch.ops.fused_sweep import ONE_READ_MAX_B, _sweep
+
     alpha, eps = 0.7, 1e-7
-    mem_rate, fp32_rate = PEAKS["PCIe" if "PCIe" in card else "SXM"]
-    checks, errors = [], {st: 0.0 for st in STORAGES}
+    rates = PEAKS["PCIe" if "PCIe" in card else "SXM"]
+    checks, errors = [], {}
+
+    def check(P, V, B, logarithmic, with_pen, storage, key=None, plan=None):
+        H, w, f, aux, scale = _sweep_inputs(P, V, B, logarithmic, with_pen, storage=storage,
+                                            seed=P + V + B + 2 * logarithmic + with_pen)
+        kw = dict(logarithmic=logarithmic, alpha=alpha, eps=eps)
+        record, err = _check_kernel(H, w, f, aux, scale, kw, storage, plan=plan)
+        checks.append(record)
+        if key is not None:
+            errors[key] = max(errors.get(key, 0.0), err)
+
+    # each storage type through its own plan at the main and a ragged shape
     for storage in STORAGES:
         for P, V, B in ((8192, 65536, 1), (1000, 3001, 3)):
             for logarithmic in (False, True):
                 for with_pen in (False, True):
-                    H, w, f, aux, scale = _sweep_inputs(
-                        P, V, B, logarithmic, with_pen, storage=storage,
-                        seed=P + V + B + 2 * logarithmic + with_pen)
-                    kw = dict(logarithmic=logarithmic, alpha=alpha, eps=eps)
-                    record, err = _check_kernel(H, w, f, aux, scale, kw, storage)
-                    checks.append(record)
-                    if P == 8192:
-                        errors[storage] = max(errors[storage], err)
-                    del H, w, f, aux, scale
+                    check(P, V, B, logarithmic, with_pen, storage,
+                          key=storage if P == 8192 else None)
+    # every plan at the shapes that select it, and two_read where the new
+    # plans took over
+    for logarithmic in (False, True):
+        check(8192, 65536, 3, logarithmic, True, "float32")
+        check(8192, 65536, 1, logarithmic, True, "float32", plan="two_read")
+        for B in (8, 16, 19, 32):
+            check(8192, 65536, B, logarithmic, True, "int8")
+        check(1000, 3008, 19, logarithmic, True, "int8")
+    torch.cuda.empty_cache()
 
     # timing at the main path's shape and mode: B = 1, linear with the
-    # Laplacian penalty (the 8-frame runs); fp32's log mode beside it
+    # Laplacian penalty (the 8-frame runs); fp32's log mode beside it; the
+    # new plans in turns with forced two_read
     timing = {}
     for storage, logarithmic, with_pen in (("float32", False, True), ("float32", True, False),
                                            ("bfloat16", False, True), ("int8", False, True)):
@@ -420,28 +526,155 @@ def kernel_phase(card: str):
                                             storage=storage)
         kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
         key = storage if not logarithmic else "float32_log"
-        timing[key] = _timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate)
+        if storage == "float32":
+            timing[key] = _timing(H, w, f, aux, scale, kw, rates, "one_read",
+                                  versus="two_read")
+        else:
+            timing[key] = _timing(H, w, f, aux, scale, kw, rates, "two_read")
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
 
-    # B4 at the three int8 probes' configuration, checked and timed
+    # B4 at the three int8 probes' configuration: checked through
+    # tensor_core and forced two_read, then timed in turns
     for k, (name, _, direct) in enumerate(PROBES):
         H, w, f, aux, scale = _probe_inputs(direct, seed=11 + k)
         kw = dict(logarithmic=False)
         record, err = _check_kernel(H, w, f, aux, scale, kw, "int8")
-        checks.append(dict(record, probe=name))
-        timing[name] = dict(_timing(H, w, f, aux, scale, kw, mem_rate, fp32_rate),
-                            max_abs_err=err)
+        old, _ = _check_kernel(H, w, f, aux, scale, kw, "int8", plan="two_read")
+        checks += [dict(record, probe=name), dict(old, probe=name)]
+        timing[name] = dict(_timing(H, w, f, aux, scale, kw, rates, "tensor_core",
+                                    versus="two_read"),
+                            max_abs_err=err,
+                            max_rel_err=dict(tensor_core=record["max_rel_err"],
+                                             two_read=old["max_rel_err"]))
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
+
+    def crossover(points, storage, with_pen, new):
+        """Forced two_read against ``new`` in turns at each (P, V, B),
+        linear."""
+        out = []
+        for P, V, B in points:
+            H, w, f, aux, scale = _sweep_inputs(P, V, B, False, with_pen, seed=20 + B,
+                                                storage=storage)
+
+            def run(plan):
+                return lambda: _sweep(H, w, f, aux, scale=scale, plan=plan,
+                                      logarithmic=False)
+            old_ms, new_ms, _ = _in_turns(run("two_read"), run(new))
+            out.append({"P": P, "V": V, "B": B, "two_read_ms": old_ms, f"{new}_ms": new_ms})
+            del H, w, f, aux, scale
+            torch.cuda.empty_cache()
+        return out
+
+    # two_read against tensor_core over B, 8192 x 65536 int8, no penalty
+    # (the probes' mode); two_read against one_read over P and B, fp32 with
+    # the penalty (the main path's mode), at V = 65536 and at small V
+    crossovers = dict(
+        tensor_core=crossover([(8192, 65536, B) for B in (2, 4, 8, 16, 32)], "int8",
+                              False, "tensor_core"),
+        one_read=crossover([(P, V, B) for P, V in ONE_READ_CROSSOVER_PV
+                            for B in range(1, ONE_READ_MAX_B + 1)],
+                           "float32", True, "one_read"))
+
+    from sartsolver_tpu_torch.ops import _build
+
+    clusters = _build.load("fused_sweep").sart_one_read_clusters
+    clusters.argtypes, clusters.restype = [ctypes.c_int], ctypes.c_int
     emit("kernels", list=[{"name": "fused_sweep", "status": "ok", "checks": checks,
                               "tolerance": KERNEL_TOL, "timing": timing,
-                              "launches_per_iteration": 1,
-                              "cuda_kernels_per_launch": 2}],
-         peak_mem_rate=mem_rate, peak_fp32_rate=fp32_rate,
+                              "launches_per_iteration": 1}],
+         crossover=crossovers, one_read_clusters={B: clusters(B) for B in (1, 3)},
+         peak_mem_rate=rates[0], peak_fp32_rate=rates[1],
+         peak_bf16_tensor_rate=rates[2],
          library_note="two torch.matmul on an fp32 copy of the dequantized "
                       "matrix: 4 bytes per element for every storage")
     return errors, timing
+
+
+def batch_phase(world, lap, device="cuda") -> dict:
+    """The world's 32 frames at once through the solver API with int8
+    storage (B = 32, so the tensor_core plan), then through the plain
+    version; returns the phase record."""
+    import torch
+
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.models.sart import (
+        make_problem, prepare_measurement, solve_normalized_batch,
+    )
+    from sartsolver_tpu_torch.ops.fused_sweep import (
+        fused_sweep, fused_sweep_reference, reset_launch_counts,
+    )
+
+    opts = SolverOptions(max_iterations=MAX_ITERATIONS, rtm_dtype="int8")
+    problem = make_problem(world["H"], lap, opts=opts, device=device)
+    G = world["G"]  # [P, T]
+    T = G.shape[1]
+    gs, msqs, norms = zip(*(prepare_measurement(G[:, t].astype(np.float64), opts)
+                            for t in range(T)))
+    g = torch.as_tensor(np.stack(gs), device=device).float()
+    msq = torch.tensor(msqs, device=device).float()
+    f0 = torch.zeros((T, world["H"].shape[1]), device=device)
+    H = torch.as_tensor(world["H"], device=device)
+    norm = torch.tensor(norms, device=device).float()[:, None]
+
+    def run(fn, run_opts):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_normalized_batch(problem, g, msq, f0, opts=run_opts, use_guess=True,
+                                     device=device, sweep_fn=fn)
+        torch.cuda.synchronize()
+        return dict(wall_s=time.perf_counter() - t0,
+                    by_plan=dict(fused_sweep.launches_by_plan),
+                    iters=res.iterations.cpu().numpy(), status=res.status.cpu().numpy(),
+                    fitted=H @ (res.solution * norm).T)
+
+    def rel(a, b):
+        return ((a - b).norm(dim=0) / b.norm(dim=0)).cpu().numpy()
+
+    k, q = run(fused_sweep, opts), run(fused_sweep_reference, opts)
+    by_plan, iters, status = k["by_plan"], k["iters"], k["status"]
+    loops = int(iters.max())
+    if by_plan["tensor_core"] != loops or sum(by_plan.values()) != loops:
+        raise AssertionError(f"batch solve made {by_plan} launches for {loops} loop iterations")
+    truth = torch.as_tensor(world["f_true"][:, None] * world["scales"][None, :T],
+                            dtype=torch.float32, device=device)
+    ref = H @ truth
+    for name, r in (("kernel", k), ("plain", q)):
+        ok = (r["status"] == 0) | ((r["status"] == -1) & (r["iters"] == MAX_ITERATIONS))
+        err = rel(r["fitted"], ref)
+        if not ok.all() or not bool(torch.isfinite(r["fitted"]).all()) \
+                or not (err <= FIT_BOUND).all():
+            raise AssertionError(f"batch {name} solve: statuses {r['status']} iterations "
+                                 f"{r['iters']}, fitted-space errors {err} (bound {FIT_BOUND})")
+        r["err"] = err
+    if (status != q["status"]).any():
+        raise AssertionError(f"batch kernel vs plain: statuses {status}/{q['status']}")
+    # The stall test stops fp32 solves up to a few iterations apart when
+    # their sums are taken in another order, so the kernel is held to the
+    # plain version over a fixed count of iterations (no stall test)
+    fixed = SolverOptions(max_iterations=BATCH_CROSS_ITERATIONS, rtm_dtype="int8",
+                          conv_tolerance=0.0)
+    kf, qf = run(fused_sweep, fixed), run(fused_sweep_reference, fixed)
+    diff = rel(kf["fitted"], qf["fitted"])
+    if (kf["iters"] != qf["iters"]).any() or not (diff <= CROSS_TOL).all():
+        raise AssertionError(f"batch kernel vs plain over {BATCH_CROSS_ITERATIONS} "
+                             f"iterations: {kf['iters']}/{qf['iters']}, fitted {diff}")
+    apart = np.abs(iters.astype(np.int64) - q["iters"].astype(np.int64))
+    record = dict(frames=T, storage="int8", loop_iterations=loops,
+                  launches_by_plan=by_plan, wall_s=k["wall_s"],
+                  ms_per_iteration=k["wall_s"] * 1e3 / loops,
+                  iterations=iters.tolist(), status=status.tolist(),
+                  fit_err_max=float(k["err"].max()), fit_err_min=float(k["err"].min()),
+                  plain=dict(wall_s=q["wall_s"], iterations=q["iters"].tolist(),
+                             iterations_apart_max=int(apart.max()),
+                             fitted_rel_diff_max=float(rel(k["fitted"], q["fitted"]).max())),
+                  fixed_iterations=dict(iterations=BATCH_CROSS_ITERATIONS, tolerance=CROSS_TOL,
+                                        fitted_rel_diff_max=float(diff.max())))
+    del problem, H
+    torch.cuda.empty_cache()
+    return record
 
 
 def profile_solve(problem, g, opts) -> dict:
@@ -498,7 +731,7 @@ def main() -> int:
     from sartsolver_tpu_torch.io.laplacian_io import read_laplacian
     from sartsolver_tpu_torch.ops import _build
     from sartsolver_tpu_torch.ops.fused_sweep import (
-        fused_sweep, fused_sweep_reference, reset_launch_counts,
+        fused_sweep, fused_sweep_reference, plan_sweep, reset_launch_counts,
     )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
 
@@ -561,22 +794,32 @@ def main() -> int:
                     peak_device_bytes=peak)
         launches = fused_sweep.launches
         by_storage = dict(fused_sweep.launches_by_storage)
+        by_plan = dict(fused_sweep.launches_by_plan)
         iters = {st: sum(sum(r["iterations"]) for r in runs.values() if r["storage"] == st)
                  for st in STORAGES}
-        if launches != sum(iters.values()) or any(
+        # one launch per iteration: fp32 through its planned kernel, bf16
+        # and int8 (B = 1) through two_read
+        want_plan = {plan: 0 for plan in by_plan}
+        for st in STORAGES:
+            want_plan[plan_sweep(8192, 65536, 1, st)] += iters[st]
+        if launches != sum(iters.values()) or by_plan != want_plan or any(
                 by_storage[st] <= 0 or by_storage[st] != iters[st] for st in STORAGES):
-            raise AssertionError(f"main path made {by_storage} kernel launches for "
-                                 f"{iters} iterations")
+            raise AssertionError(f"main path made {by_storage} / {by_plan} kernel launches "
+                                 f"for {iters} iterations")
         emit("solve", world_seconds=world_s, max_iterations=MAX_ITERATIONS,
              fit_bound=FIT_BOUND, fused_sweep_launches=launches,
-             launches_by_storage=by_storage, iterations_by_storage=iters, runs=runs)
+             launches_by_storage=by_storage, launches_by_plan=by_plan,
+             iterations_by_storage=iters, runs=runs)
         del H_dev
 
-        # frame 0 of the linear run, through the kernel and the plain version
-        opts = SolverOptions(max_iterations=MAX_ITERATIONS)
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
         lap = make_laplacian(rows, cols, vals, nvoxel=V, device="cuda")
+        batch = batch_phase(world, lap)
+        emit("batch", **batch)
+
+        # frame 0 of the linear run, through the kernel and the plain version
+        opts = SolverOptions(max_iterations=MAX_ITERATIONS)
         problem = make_problem(world["H"], lap, opts=opts, device="cuda")
         g0 = world["G"][:, 0].astype(np.float64)
         cross = {}
@@ -605,26 +848,26 @@ def main() -> int:
         emit("profile", **profiles)
         del lap, world
 
-    rows = []
-    for storage in STORAGES:
-        t = timing[storage]
-        rows.append({
-            "name": "fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": by_storage[storage], "max_abs_err": errors[storage],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "variant": VARIANT[storage], "shape": t["shape"],
-        })
+    def row(name, t, launches, err, variant, replaces=REPLACES):
+        r = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"], "plan": t["plan"],
+             "cuda_kernels_per_launch": t["device"]["kernels_per_call"],
+             "bound_rate": t["bound_rate"], "variant": variant, "shape": t["shape"]}
+        if "versus" in t:
+            r["two_read_ms"] = t["versus"]["ms"]
+            r["two_read_bound_ms"] = t["versus"]["bound_ms"]
+        return r
+
+    rows = [row("fused_sweep", timing["float32"], by_plan[timing["float32"]["plan"]],
+                errors["float32"], "B1/B2")]
+    for storage in STORAGES[1:]:
+        rows.append(row(f"fused_sweep[{storage}]", timing[storage], by_storage[storage],
+                        errors[storage], VARIANT[storage]))
     for name, replaces, _ in PROBES:
-        t = timing[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": by_storage["int8"], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "variant": "B4 at the probe's B = 32", "shape": t["shape"],
-        })
+        rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
+                        timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

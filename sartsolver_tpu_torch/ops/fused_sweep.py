@@ -29,6 +29,23 @@ On CUDA tensors :func:`fused_sweep` launches the hand-written kernel
 :func:`fused_sweep_reference`, the same function in plain PyTorch. It never
 falls back from the kernel to the plain version. Either way its operands
 are fp32; the plain version itself takes any float dtype.
+
+Each call on the card runs the plan :func:`plan_sweep` gives its shape and
+storage, a fixed rule of arithmetic:
+
+- ``"one_read"``: fp32 storage at ``B <= ONE_READ_MAX_B``,
+  ``ONE_READ_MIN_P <= P <= ONE_READ_MAX_P`` and ``V`` a multiple of 16 (H
+  read once, a panel split over a thread-block cluster);
+- ``"tensor_core"``: int8 codes at ``B >= TENSOR_CORE_MIN_B`` and ``V`` a
+  multiple of 16 (the bf16 tensor cores with the fp32 vectors split exactly
+  into three bf16 pieces);
+- ``"two_read"``: everything else (two launches, H read twice).
+
+A plan runs wherever its preconditions (:func:`plan_refusal`) hold; the
+rule takes a new plan only where it was measured faster than ``two_read``.
+A plan whose preconditions fail is refused, never replaced by another.
+:func:`_sweep` forces a plan (tests and ``chip_smoke.py`` time the old path
+beside the new one with it).
 """
 
 from __future__ import annotations
@@ -41,6 +58,22 @@ from torch import Tensor
 
 # storage dtype -> the kernel's storage code
 STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# plan -> the kernel's plan code
+PLANS = {"two_read": 0, "one_read": 1, "tensor_core": 2}
+
+# one_read: a 16-column panel split over a cluster of 8 blocks, at most 1024
+# rows a block (the slabs' shared memory), at most 4 batch rows (registers).
+# Its fixed cost per panel loses to two_read's second read of H at small P:
+# on the H100 at V = 65536 it wins at every B <= 4 from P = 7168 and loses at
+# B >= 2 from P = 5120 down (PERF.md, the crossover table)
+ONE_READ_MAX_P = 8 * 1024
+ONE_READ_MAX_B = 4
+ONE_READ_MIN_P = 7 * 1024
+# tensor_core: from this batch size on it beats two_read at 8192 x 65536 on
+# the H100 (PERF.md, the crossover table)
+TENSOR_CORE_MIN_B = 4
+# both: V in whole 16-column runs (aligned 16-byte loads of a row)
+V_MULTIPLE = 16
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # H, storage, scale
@@ -49,8 +82,41 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 2        # f_new, fitted
     + [ctypes.c_longlong] * 3      # P, V, B
     + [ctypes.c_int, ctypes.c_float, ctypes.c_float]  # mode, alpha, eps
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]  # plan, scratch, its bytes
     + [ctypes.c_void_p]            # stream
 )
+
+
+def _storage_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def plan_refusal(plan: str, P: int, V: int, B: int, storage: str) -> Optional[str]:
+    """Why ``plan`` cannot run this shape and storage (``storage`` is
+    ``"float32"``, ``"bfloat16"`` or ``"int8"``); None where it can."""
+    if plan not in PLANS:
+        return f"unknown plan {plan!r}; one of {sorted(PLANS)}"
+    if plan == "one_read":
+        if storage != "float32":
+            return f"one_read takes fp32 storage, not {storage}"
+        if B > ONE_READ_MAX_B or P > ONE_READ_MAX_P or V % V_MULTIPLE:
+            return (f"one_read needs B <= {ONE_READ_MAX_B}, P <= {ONE_READ_MAX_P} "
+                    f"and V a multiple of {V_MULTIPLE} (B={B}, P={P}, V={V})")
+    elif plan == "tensor_core":
+        if storage != "int8":
+            return f"{plan} takes int8 codes, not {storage}"
+        if V % V_MULTIPLE:
+            return f"{plan} needs V a multiple of {V_MULTIPLE} (V={V})"
+    return None
+
+
+def plan_sweep(P: int, V: int, B: int, storage: str) -> str:
+    """The plan a call of this shape and storage runs on the card."""
+    if storage == "int8" and B >= TENSOR_CORE_MIN_B and V % V_MULTIPLE == 0:
+        return "tensor_core"
+    if P >= ONE_READ_MIN_P and plan_refusal("one_read", P, V, B, storage) is None:
+        return "one_read"
+    return "two_read"
 
 
 def _update_reference(f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
@@ -134,29 +200,75 @@ def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
 def fused_sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                 logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
                 scale: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """One fused sweep; see the module docstring. ``fused_sweep.launches``
-    counts the kernel launches, ``fused_sweep.launches_by_storage`` the same
-    launches by the matrix's dtype (CPU calls of the plain version do not
-    count)."""
+    """One fused sweep; see the module docstring. On the card it runs the
+    plan :func:`plan_sweep` gives. ``fused_sweep.launches`` counts the
+    kernel launches, ``fused_sweep.launches_by_storage`` the same launches by
+    the matrix's dtype and ``fused_sweep.launches_by_plan`` by plan (CPU
+    calls of the plain version do not count)."""
+    return _sweep(rtm, w, f, aux, logarithmic=logarithmic, alpha=alpha, eps=eps,
+                  scale=scale)
+
+
+def _sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
+           logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
+           scale: Optional[Tensor] = None, plan: Optional[str] = None
+           ) -> Tuple[Tensor, Tensor]:
+    """:func:`fused_sweep` with the plan forced (None: :func:`plan_sweep`'s);
+    raises ValueError where the plan's preconditions fail (on any device)
+    and RuntimeError where the kernel refuses or fails."""
     _check(rtm, w, f, aux, logarithmic, scale)
+    P, V = rtm.shape
+    B = w.shape[0]
+    storage = _storage_name(rtm.dtype)
+    if plan is None:
+        plan = plan_sweep(P, V, B, storage)
+    else:
+        why = plan_refusal(plan, P, V, B, storage)
+        if why:
+            raise ValueError(f"fused_sweep: {why}.")
     if rtm.device.type == "cpu":
         return fused_sweep_reference(rtm, w, f, aux, logarithmic=logarithmic,
                                      alpha=alpha, eps=eps, scale=scale)
     if rtm.device.type != "cuda":
         raise ValueError(f"fused_sweep: unsupported device {rtm.device}.")
+    err, f_new, fitted = _kernel_call(rtm, w, f, aux, logarithmic=logarithmic,
+                                      alpha=alpha, eps=eps, scale=scale,
+                                      plan_code=PLANS[plan])
+    if err != 0:
+        raise RuntimeError(
+            f"fused_sweep: CUDA kernel (plan {plan}) failed with cudaError_t {err}."
+        )
+    fused_sweep.launches += 1
+    fused_sweep.launches_by_storage[storage] += 1
+    fused_sweep.launches_by_plan[plan] += 1
+    return f_new, fitted
+
+
+def _kernel_call(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
+                 logarithmic: bool, alpha: float, eps: float,
+                 scale: Optional[Tensor], plan_code: int
+                 ) -> Tuple[int, Tensor, Tensor]:
+    """One call of the C entry point with CUDA tensors; returns its
+    cudaError_t beside the outputs. The C side checks the plan itself."""
     tensors = (rtm, w, f, *aux) + (() if scale is None else (scale,))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_sweep: the CUDA kernel needs contiguous tensors.")
     from sartsolver_tpu_torch.ops import _build
 
     lib = _build.load("fused_sweep")
-    fn = lib.sart_fused_sweep
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn, size_fn = lib.sart_fused_sweep, lib.sart_fused_sweep_scratch_bytes
+    if fn.argtypes is None:  # once per loaded library
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        size_fn.argtypes = [ctypes.c_int] + [ctypes.c_longlong] * 3
+        size_fn.restype = ctypes.c_longlong
     P, V = rtm.shape
     B = w.shape[0]
     f_new = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
     fitted = torch.empty((B, P), dtype=torch.float32, device=rtm.device)
+    # two_read needs no scratch
+    nbytes = 0 if plan_code == PLANS["two_read"] else max(int(size_fn(plan_code, P, V, B)), 0)
+    # the caching allocator hands out 512-byte aligned blocks
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=rtm.device) if nbytes else None
     ptrs = [a.data_ptr() for a in aux] + [None] * (3 - len(aux))
     rows = (ctypes.c_longlong * 3)(*([a.shape[0] for a in aux] + [1] * (3 - len(aux))))
     with torch.cuda.device(rtm.device):
@@ -165,22 +277,16 @@ def fused_sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                  None if scale is None else scale.data_ptr(),
                  w.data_ptr(), f.data_ptr(), *ptrs, rows,
                  len(aux), f_new.data_ptr(), fitted.data_ptr(), P, V, B,
-                 1 if logarithmic else 0, float(alpha), float(eps), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_sweep: CUDA kernel launch failed with cudaError_t {err}."
-        )
-    fused_sweep.launches += 1
-    fused_sweep.launches_by_storage[str(rtm.dtype).removeprefix("torch.")] += 1
-    return f_new, fitted
+                 1 if logarithmic else 0, float(alpha), float(eps), plan_code,
+                 None if scratch is None else scratch.data_ptr(), nbytes, stream)
+    return err, f_new, fitted
 
 
 def reset_launch_counts() -> None:
     """Set every launch count of :func:`fused_sweep` to 0."""
     fused_sweep.launches = 0
-    fused_sweep.launches_by_storage = {
-        str(dt).removeprefix("torch."): 0 for dt in STORAGE
-    }
+    fused_sweep.launches_by_storage = {_storage_name(dt): 0 for dt in STORAGE}
+    fused_sweep.launches_by_plan = {plan: 0 for plan in PLANS}
 
 
 reset_launch_counts()

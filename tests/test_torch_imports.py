@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of sartsolver_tpu_torch, and
-chip_smoke.py, loads neither JAX nor any module of the JAX package. Also a
+chip_smoke.py and sweep_measure.py, loads neither JAX nor any module of the
+JAX package. Also a
 small-size run of chip_smoke.py's world and solve checks on the CPU."""
 
 import itertools
@@ -18,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import sweep_measure
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "sartsolver_tpu" or m.startswith("sartsolver_tpu."))
