@@ -13,19 +13,23 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    their scales), linear and log, with and without the penalty, at the main
    path's shape (B = 1, 8192 x 65536) and at a ragged one (B = 3,
    1000 x 3001), each through the plan ``plan_sweep`` gives it; then every
-   plan at the shapes that select it (``one_read`` at B = 3, ``tensor_core``
-   at B = 8, 16, 19, 32 and ragged 1000 x 3008 x 19) and ``two_read`` forced
-   where the new plans took over: max error within ``KERNEL_TOL`` of the
-   output's max, two launches byte-identical, the plan's launch count
-   advanced. Then B4 at the configuration of the three int8 Pallas probes
-   under ``benchmarks/`` (8192 x 65536, B = 32, linear, no penalty; the
-   direct-dot probe with scale 1 and ``invd = 1e-6``), checked the same way
-   through ``tensor_core`` and forced ``two_read``. Then each row's kernel,
+   plan at the shapes that select it or that the GPU tests force it at
+   (``one_read`` for each storage at 8192 x 65536, 8191 x 4096, the rule's
+   lower edge and 1000 x 3008, B = 1, 3 and 4; ``tensor_core`` at B = 8, 16,
+   19, 32 and ragged 1000 x 3008 x 19) and ``two_read`` forced where the new
+   plans took over: max error within ``KERNEL_TOL`` of the output's max,
+   two launches byte-identical, the plan's launch count advanced. Then B4 at
+   the configuration of the three int8 Pallas probes under ``benchmarks/``
+   (8192 x 65536, B = 32, linear, no penalty; the direct-dot probe with
+   scale 1 and ``invd = 1e-6``), checked the same way through
+   ``tensor_core`` and forced ``two_read``. Then each row's kernel,
    plain-version and library times beside its bound, and the CUDA kernels
-   one call launches with their device times (``torch.profiler``); the new
-   plans timed in turns with forced ``two_read`` (old, new, new, old); the
-   ``two_read`` / ``tensor_core`` crossover over B at 8192 x 65536 int8 and
-   the ``two_read`` / ``one_read`` crossover over P, V and B in fp32.
+   one call launches with their device times (``torch.profiler``); each
+   storage's plan at B = 1 timed in turns with forced ``two_read`` (old,
+   new, new, old); the ``two_read`` / ``tensor_core`` crossover over B at
+   8192 x 65536 int8, the ``two_read`` / ``one_read`` crossover over P, V
+   and B for each storage (``tensor_core`` beside for int8 from B = 2), the
+   ``one_read`` edge each table gives and the clusters ``one_read`` runs.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
@@ -35,8 +39,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    Launch counts are zeroed just before and read just after; every frame's
    status must be 0 or the ``-m`` cap, its fitted-space error against the
    noiseless measurement within ``FIT_BOUND``, and each storage type's
-   launches equal to its runs' iterations, by storage and by plan (fp32
-   through ``one_read``, bf16 and int8 through ``two_read``). Each run's
+   launches equal to its runs' iterations, by storage and by plan (each
+   storage through the plan ``plan_sweep`` gives it at B = 1). Each run's
    peak device memory and its fitted-space distance to the fp32 run are
    printed.
 4b. ``batch``: the 32 frames of the world solved at once through the solver
@@ -484,7 +488,10 @@ def kernel_phase(card: str):
     row of the kernel table, timing by row)``."""
     import torch
 
-    from sartsolver_tpu_torch.ops.fused_sweep import ONE_READ_MAX_B, _sweep
+    from sartsolver_tpu_torch.ops.fused_sweep import (
+        ONE_READ_MAX_B, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, STORAGE, _sweep,
+        plan_sweep,
+    )
 
     alpha, eps = 0.7, 1e-7
     rates = PEAKS["PCIe" if "PCIe" in card else "SXM"]
@@ -506,19 +513,27 @@ def kernel_phase(card: str):
                 for with_pen in (False, True):
                     check(P, V, B, logarithmic, with_pen, storage,
                           key=storage if P == 8192 else None)
-    # every plan at the shapes that select it, and two_read where the new
-    # plans took over
+    # one_read for every storage at the GPU tests' shapes: the main shape, a
+    # ragged P just under the limit, the rule's lower edge and a small shape
+    # (forced where the rule leaves it to two_read); two_read forced where the
+    # new plans took over; tensor_core at the shapes that select it
     for logarithmic in (False, True):
-        check(8192, 65536, 3, logarithmic, True, "float32")
-        check(8192, 65536, 1, logarithmic, True, "float32", plan="two_read")
+        for with_pen in (False, True):
+            for storage in STORAGES:
+                for P, V in ((8192, 65536), (8191, 4096), (ONE_READ_MIN_P[storage], 4096),
+                             (1000, 3008)):
+                    for B in (1, 3, 4):
+                        check(P, V, B, logarithmic, with_pen, storage, plan="one_read")
+        for storage in STORAGES:
+            check(8192, 65536, 1, logarithmic, True, storage, plan="two_read")
         for B in (8, 16, 19, 32):
             check(8192, 65536, B, logarithmic, True, "int8")
         check(1000, 3008, 19, logarithmic, True, "int8")
     torch.cuda.empty_cache()
 
     # timing at the main path's shape and mode: B = 1, linear with the
-    # Laplacian penalty (the 8-frame runs); fp32's log mode beside it; the
-    # new plans in turns with forced two_read
+    # Laplacian penalty (the 8-frame runs); fp32's log mode beside it; each
+    # in turns with forced two_read
     timing = {}
     for storage, logarithmic, with_pen in (("float32", False, True), ("float32", True, False),
                                            ("bfloat16", False, True), ("int8", False, True)):
@@ -526,11 +541,8 @@ def kernel_phase(card: str):
                                             storage=storage)
         kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
         key = storage if not logarithmic else "float32_log"
-        if storage == "float32":
-            timing[key] = _timing(H, w, f, aux, scale, kw, rates, "one_read",
-                                  versus="two_read")
-        else:
-            timing[key] = _timing(H, w, f, aux, scale, kw, rates, "two_read")
+        timing[key] = _timing(H, w, f, aux, scale, kw, rates,
+                              plan_sweep(8192, 65536, 1, storage), versus="two_read")
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
 
@@ -550,9 +562,10 @@ def kernel_phase(card: str):
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
 
-    def crossover(points, storage, with_pen, new):
-        """Forced two_read against ``new`` in turns at each (P, V, B),
-        linear."""
+    def crossover(points, storage, with_pen, plans):
+        """The plans timed in turns at each (P, V, B), linear: in order,
+        then in reverse, each reported as the mean of its two medians;
+        ``plans(B)`` names them at batch size B."""
         out = []
         for P, V, B in points:
             H, w, f, aux, scale = _sweep_inputs(P, V, B, False, with_pen, seed=20 + B,
@@ -561,35 +574,81 @@ def kernel_phase(card: str):
             def run(plan):
                 return lambda: _sweep(H, w, f, aux, scale=scale, plan=plan,
                                       logarithmic=False)
-            old_ms, new_ms, _ = _in_turns(run("two_read"), run(new))
-            out.append({"P": P, "V": V, "B": B, "two_read_ms": old_ms, f"{new}_ms": new_ms})
+            names = plans(B)
+            order = list(names) + list(reversed(names))
+            ms = [_median_ms(run(plan)) for plan in order]
+            point = {"P": P, "V": V, "B": B}
+            for plan in names:
+                point[f"{plan}_ms"] = statistics.mean(
+                    m for m, name in zip(ms, order) if name == plan)
+            out.append(point)
             del H, w, f, aux, scale
             torch.cuda.empty_cache()
         return out
 
     # two_read against tensor_core over B, 8192 x 65536 int8, no penalty
-    # (the probes' mode); two_read against one_read over P and B, fp32 with
-    # the penalty (the main path's mode), at V = 65536 and at small V
-    crossovers = dict(
-        tensor_core=crossover([(8192, 65536, B) for B in (2, 4, 8, 16, 32)], "int8",
-                              False, "tensor_core"),
-        one_read=crossover([(P, V, B) for P, V in ONE_READ_CROSSOVER_PV
-                            for B in range(1, ONE_READ_MAX_B + 1)],
-                           "float32", True, "one_read"))
+    # (the probes' mode); two_read against one_read over P, V and B for each
+    # storage with the penalty (the main path's mode), with tensor_core beside
+    # for int8 from B = 2
+    def one_read_plans(storage):
+        def plans(B):
+            extra = ("tensor_core",) if storage == "int8" and B >= 2 else ()
+            return ("two_read", "one_read") + extra
+        return plans
+
+    crossovers = dict(tensor_core=crossover([(8192, 65536, B) for B in (2, 4, 8, 16, 32)],
+                                            "int8", False,
+                                            lambda B: ("two_read", "tensor_core")))
+    for storage in STORAGES:
+        crossovers[f"one_read_{storage}"] = crossover(
+            [(P, V, B) for P, V in ONE_READ_CROSSOVER_PV for B in range(1, ONE_READ_MAX_B + 1)],
+            storage, True, one_read_plans(storage))
+    edges = {storage: one_read_edge(crossovers[f"one_read_{storage}"])
+             for storage in STORAGES}
 
     from sartsolver_tpu_torch.ops import _build
 
     clusters = _build.load("fused_sweep").sart_one_read_clusters
-    clusters.argtypes, clusters.restype = [ctypes.c_int], ctypes.c_int
+    clusters.argtypes, clusters.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     emit("kernels", list=[{"name": "fused_sweep", "status": "ok", "checks": checks,
                               "tolerance": KERNEL_TOL, "timing": timing,
                               "launches_per_iteration": 1}],
-         crossover=crossovers, one_read_clusters={B: clusters(B) for B in (1, 3)},
+         crossover=crossovers, one_read_edge_measured=edges,
+         one_read_rule=dict(min_p=ONE_READ_MIN_P,
+                            over_tensor_core_min_p=ONE_READ_OVER_TENSOR_CORE_MIN_P),
+         one_read_clusters={storage: {B: clusters(STORAGE[getattr(torch, storage)], B)
+                                      for B in range(1, ONE_READ_MAX_B + 1)}
+                            for storage in STORAGES},
          peak_mem_rate=rates[0], peak_fp32_rate=rates[1],
          peak_bf16_tensor_rate=rates[2],
          library_note="two torch.matmul on an fp32 copy of the dequantized "
                       "matrix: 4 bytes per element for every storage")
     return errors, timing
+
+
+def one_read_edge(table) -> dict:
+    """From one storage's one_read crossover table at V = 65536: the
+    smallest P from which one_read beat two_read at every B and every larger
+    P of the table (None where it lost at the largest), and where
+    tensor_core was timed beside it, the same edge against tensor_core for
+    each B."""
+    rows = [r for r in table if r["V"] == 65536]
+
+    def edge(beats):
+        lowest = None
+        for P in sorted({r["P"] for r in rows}, reverse=True):
+            if not all(beats(r) for r in rows if r["P"] == P):
+                break
+            lowest = P
+        return lowest
+
+    out = {"min_p": edge(lambda r: r["one_read_ms"] < r["two_read_ms"])}
+    timed = sorted({r["B"] for r in rows if "tensor_core_ms" in r})
+    if timed:
+        out["over_tensor_core_min_p"] = {
+            B: edge(lambda r, B=B: r["B"] != B or r["one_read_ms"] < r["tensor_core_ms"])
+            for B in timed}
+    return out
 
 
 def batch_phase(world, lap, device="cuda") -> dict:
@@ -762,9 +821,10 @@ def main() -> int:
         # read just after
         cap = str(MAX_ITERATIONS)
         H_dev = torch.as_tensor(world["H"], device="cuda")
-        runs, values = {}, {}
+        runs, values, by_plan_of = {}, {}, {}
         reset_launch_counts()
         for storage in STORAGES:
+            plans_before = dict(fused_sweep.launches_by_plan)
             for name, flags, n_frames in (
                 ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
                 ("log", ["-L", "-t", "0:0.35"], 4),
@@ -792,24 +852,26 @@ def main() -> int:
                     iterations=sol["iterations"].tolist(), status=sol["status"].tolist(),
                     fit_err=err.tolist(), fitted_distance_to_float32=to_fp32.tolist(),
                     peak_device_bytes=peak)
+            by_plan_of[storage] = {plan: n - plans_before[plan]
+                                   for plan, n in fused_sweep.launches_by_plan.items()}
         launches = fused_sweep.launches
         by_storage = dict(fused_sweep.launches_by_storage)
         by_plan = dict(fused_sweep.launches_by_plan)
         iters = {st: sum(sum(r["iterations"]) for r in runs.values() if r["storage"] == st)
                  for st in STORAGES}
-        # one launch per iteration: fp32 through its planned kernel, bf16
-        # and int8 (B = 1) through two_read
-        want_plan = {plan: 0 for plan in by_plan}
+        # one launch per iteration, each storage type's through the plan
+        # plan_sweep gives the CLI's shape (B = 1)
+        want = {st: {plan: 0 for plan in by_plan} for st in STORAGES}
         for st in STORAGES:
-            want_plan[plan_sweep(8192, 65536, 1, st)] += iters[st]
-        if launches != sum(iters.values()) or by_plan != want_plan or any(
+            want[st][plan_sweep(8192, 65536, 1, st)] = iters[st]
+        if launches != sum(iters.values()) or by_plan_of != want or any(
                 by_storage[st] <= 0 or by_storage[st] != iters[st] for st in STORAGES):
-            raise AssertionError(f"main path made {by_storage} / {by_plan} kernel launches "
-                                 f"for {iters} iterations")
+            raise AssertionError(f"main path made {by_storage} / {by_plan_of} kernel "
+                                 f"launches for {iters} iterations")
         emit("solve", world_seconds=world_s, max_iterations=MAX_ITERATIONS,
              fit_bound=FIT_BOUND, fused_sweep_launches=launches,
              launches_by_storage=by_storage, launches_by_plan=by_plan,
-             iterations_by_storage=iters, runs=runs)
+             launches_by_storage_and_plan=by_plan_of, iterations_by_storage=iters, runs=runs)
         del H_dev
 
         V = world["H"].shape[1]
@@ -852,7 +914,7 @@ def main() -> int:
         r = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-             "library_ms": t["library_ms"], "plan": t["plan"],
+             "library_ms": t["library_ms"], "plan": t["plan"], "storage": t["storage"],
              "cuda_kernels_per_launch": t["device"]["kernels_per_call"],
              "bound_rate": t["bound_rate"], "variant": variant, "shape": t["shape"]}
         if "versus" in t:
@@ -860,11 +922,10 @@ def main() -> int:
             r["two_read_bound_ms"] = t["versus"]["bound_ms"]
         return r
 
-    rows = [row("fused_sweep", timing["float32"], by_plan[timing["float32"]["plan"]],
-                errors["float32"], "B1/B2")]
-    for storage in STORAGES[1:]:
-        rows.append(row(f"fused_sweep[{storage}]", timing[storage], by_storage[storage],
-                        errors[storage], VARIANT[storage]))
+    rows = [row("fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]",
+                timing[storage], by_plan_of[storage][timing[storage]["plan"]],
+                errors[storage], VARIANT[storage])
+            for storage in STORAGES]
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

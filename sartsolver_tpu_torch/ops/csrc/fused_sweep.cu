@@ -31,9 +31,10 @@
 //   described below. What bounds the sweep is one read of H, P*V*sizeof(T)
 //   bytes: at P = 8192, V = 65536, 2.147 GB in fp32 (0.64 ms at the H100
 //   SXM's 3.35 TB/s), 1.07 GB in bf16, 0.54 GB in int8.
-// - one_read (fp32, B <= 4, P <= 8192, V % 16 == 0): H read once, a 16-column
-//   panel split along P over a thread-block cluster (namespace one_read);
-//   plan_sweep takes it from P = 7168, where it was measured faster.
+// - one_read (every storage, B <= 4, P <= 8192, V a multiple of the panel's
+//   16 fp32, 32 bf16 or 64 int8 columns): H read once, a panel 64 bytes wide
+//   split along P over a thread-block cluster (namespace one_read); plan_sweep
+//   takes it from the P where it was measured faster, per storage type.
 // - tensor_core (int8 codes, V % 16 == 0): the three contractions on the bf16
 //   tensor cores with the fp32 vectors split exactly into three bf16 pieces
 //   (namespace tc). At B = 32 the 4*B*P*V operations bound the sweep: three
@@ -62,6 +63,7 @@
 // run to run.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the driver's encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -748,67 +750,215 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Plan "one_read": fp32 storage at small B, H read once.
+// Plan "one_read": small B, H read once, every storage type.
 //
 // A thread-block cluster of kCluster CTAs splits P: CTA r holds rows
-// [r R, (r + 1) R) (R = ceil(P / kCluster) <= kMaxRows) of a 16-column panel
-// in shared memory, 64 bytes a row, brought by cp.async into a ring of
-// kStages slabs, so the next panels load while this one is used.
-//   bp: each CTA sums its rows' partial bp [B, 16] in a fixed order, writes
-//     it to one of two slots, and arrives at the cluster barrier; after the
-//     wait every CTA reads the kCluster partials through distributed shared
-//     memory in rank order, so all hold the same bp and apply the same
-//     update. Rank 0 writes f_new.
-//   fitted: each CTA adds its rows' f_new . slab^T into registers
-//     (kMaxRows / kThreads rows a thread).
+// [r R, (r + 1) R) (R = ceil(P / kCluster) <= kMaxRows) of a panel 64 bytes
+// wide (16 fp32, 32 bf16 or 64 int8 columns) in shared memory, in a ring of
+// slabs so the next panels load while this one is used. The last warp's
+// lane 0 issues a slab as TMA boxes of kBoxRows rows that land on the
+// slab's mbarrier, and every thread waits on that barrier. A slab holds
+// 32-bit words whatever the storage: a word is one fp32 value, two bf16
+// values or four codes, converted exactly to fp32 where they are used.
+//   bp: thread (g, c) sums word c of rows g, g + groups, ... (one to four
+//     columns) in a fixed order; with more than one column a word, the two
+//     groups of a warp are added by a shuffle first; then the groups are
+//     summed in order. Each update thread (one per batch row and column)
+//     pushes the CTA's partial to the same slot of every CTA of the cluster
+//     (st.async, counted on that CTA's mbarrier), waits until all kCluster
+//     partials have landed in its own slots and sums them in rank order, so
+//     every CTA holds the same bp and applies the same update. int8 codes:
+//     bp is summed in code space and rounded times the voxel's scale before
+//     the update, and the forward operand kept for the fitted pass is
+//     f_new * scale, rounded. Rank 0 writes f_new.
+//   fitted: each CTA adds its rows' operand . slab^T into registers
+//     (kMaxRows / threads rows a thread), one 16-byte chunk of the panel at
+//     a time for all its rows.
 // The clusters are persistent: cluster g walks panels g, g + G, ... and at
 // the end writes its fitted [B, P] to partials [G, B, P]; a second launch sums
-// them in cluster order. Per panel: one cluster barrier and three block
-// barriers; the next two panels' slabs load across them. The slabs' 16-byte
-// chunks are XOR-swizzled by row so that both passes read shared memory
-// without bank conflicts.
+// them in cluster order. Per panel: two block barriers, the slab's mbarrier
+// and the partials' mbarrier (two slots, so a CTA may push the next panel's
+// partial while another still reads this one's). The slabs' 16-byte chunks
+// are XOR-swizzled by row (TMA's 64-byte swizzle) so that both passes read
+// shared memory without bank conflicts.
 //
-// Measured on the H100 (PERF.md §6): this order beat three variants that
-// cut barriers, kept fewer slabs in flight or ran 512 threads.
+// Measured on the H100 (PERF.md §6, phases from sweep_measure.py): a
+// cluster barrier per panel cost 0.55-0.9 us in its arrive (the release
+// waits for the thread's memory operations), and loading slabs with
+// cp.async from every thread 0.35-0.63 us more to issue; the push exchange
+// and TMA take both off the chain. bf16 and int8 run 512 threads where
+// their shared memory fits (shorter compute passes), fp32 256; a ring of
+// three slabs where it fits, else two. What bounds it is one read of H
+// (bytes): at 8192 x 65536, B = 1 fp32 and bf16 stream H at 2.5-2.7 TB/s;
+// int8 is held back first by its two compute passes (most of a panel).
+//
+// Each code is converted twice per panel (bp and fitted pass), 131k
+// conversions a CTA per int8 panel; I2F issues 16 a clock per SM against
+// 128 FMAs, so a code becomes fp32 through 2^23's bit pattern instead (one
+// PRMT and one FADD, both exact).
 // ---------------------------------------------------------------------------
 namespace one_read {
 
 constexpr int kCluster = 8;
-constexpr int kThreads = 256;
-constexpr int kPanel = 16;
+constexpr int kRowBytes = 64;          // a panel's row segment
+constexpr int kWords = kRowBytes / 4;  // 32-bit words a row
 constexpr int kMaxRows = 1024;
-constexpr int kStages = 3;
 constexpr int kMaxB = 4;
-constexpr int kGroups = kThreads / kPanel;           // row groups of the bp pass
-constexpr int kRowsPerThread = kMaxRows / kThreads;  // fitted pass
 constexpr int kMaxClusters = 16;
+constexpr int kBoxRows = 256;          // rows of a TMA box (at most 256)
+constexpr int kSmemLimit = 232448;     // shared memory a block may use (sm_90)
 
-struct Smem {
-  float slab[kStages][kMaxRows * kPanel];
-  float w[kMaxB][kMaxRows];
-  float red[kGroups][kMaxB][kPanel];
-  float part[2][kMaxB][kPanel];
-  float fnew[kMaxB][kPanel];
+template <typename T, int NB, int Threads, int Stages>
+struct SmemOf {
+  static constexpr int kPerWord = 4 / (int)sizeof(T);  // columns a word
+  static constexpr int kCols = kWords * kPerWord;      // columns a panel
+  // groups whose partial bp meet in shared memory (a warp's two groups are
+  // added by a shuffle first where a word holds more than one column)
+  static constexpr int kRedGroups = Threads / kWords / (kPerWord > 1 ? 2 : 1);
+
+  unsigned slab[Stages][kMaxRows * kWords];  // first: 1024-byte aligned
+  float w[NB][kMaxRows];
+  float red[kRedGroups][NB][kCols];
+  float part[2][kCluster][NB][kCols];  // every rank's partial bp, two slots
+  float fnew[NB][kCols];
+  unsigned long long full[Stages];     // mbarriers: the slab has landed
+  unsigned long long got[2];           // mbarriers: every rank's partial has
 };
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+// The kernel's shape for a storage type and batch size: 512 threads for bf16
+// and int8 where the shared memory fits, else 256; three slabs where they
+// fit, else two.
+template <typename T, int NB>
+struct Cfg {
+  static constexpr int kThreads =
+      sizeof(T) < 4 && sizeof(SmemOf<T, NB, 512, 3>) <= kSmemLimit ? 512 : 256;
+  static constexpr int kStages = sizeof(SmemOf<T, NB, kThreads, 3>) <= kSmemLimit ? 3 : 2;
+  using Smem = SmemOf<T, NB, kThreads, kStages>;
+  static constexpr int kGroups = kThreads / kWords;           // bp row groups
+  static constexpr int kRowsPerThread = kMaxRows / kThreads;  // fitted pass
+  static_assert(sizeof(Smem) <= kSmemLimit, "one_read: shared memory");
+};
+
+// The columns of storage type T in the 32-bit word x, first column in the
+// low bits, converted exactly to fp32 without the conversion unit: a bf16
+// value is the upper half of its fp32 pattern; a code c + 128 in the low byte
+// of 2^23's pattern is the float 2^23 + c + 128.
+template <typename T>
+__device__ __forceinline__ void unpack(unsigned x, float* out);
+template <>
+__device__ __forceinline__ void unpack<float>(unsigned x, float* out) {
+  out[0] = __uint_as_float(x);
 }
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+template <>
+__device__ __forceinline__ void unpack<bf16_bits>(unsigned x, float* out) {
+  out[0] = __uint_as_float(x << 16);
+  out[1] = __uint_as_float(x & 0xffff0000u);
 }
-// float index of (row r, column c) in a swizzled slab
-__device__ __forceinline__ int slab_at(int r, int c) {
-  return r * kPanel + ((((c >> 2) ^ (r >> 1)) & 3) << 2) + (c & 3);
+template <>
+__device__ __forceinline__ void unpack<int8_t>(unsigned x, float* out) {
+  const unsigned biased = x ^ 0x80808080u;  // each byte c + 128
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650 + i)),
+                       8388736.0f);  // 2^23 + 128
 }
 
-template <int NB>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-sweep_kernel(const float* __restrict__ H, const float* __restrict__ w,
-             const float* __restrict__ f, AuxPanels aux, float* __restrict__ f_new,
-             float* __restrict__ partial, int P, int V, int rows, int mode,
-             int has_pen, float alpha, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// E floats to shared memory as one store
+template <int E>
+__device__ __forceinline__ void store(float* dst, const float (&x)[E]) {
+  if constexpr (E == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
+  } else {
+    *dst = x[0];
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// one arrival that also expects `bytes` of asynchronous transfers
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the barrier's phase of this parity to complete. A wait past
+// about ten seconds traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 35)) __trap();
+  }
+}
+// A box of the tensor map at (column x, row y) into shared memory, counted
+// on the barrier when it lands.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         unsigned long long* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+// v into the same shared-memory element of cluster rank `rank`, counted on
+// that rank's copy of the barrier
+__device__ __forceinline__ void push(float* elem, int rank, float v, unsigned long long* bar) {
+  unsigned remote, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(elem)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_bar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   remote),
+               "r"(__float_as_uint(v)), "r"(remote_bar)
+               : "memory");
+}
+
+// A measurement build (sweep_measure.py phases, -DSART_ONE_READ_PHASES)
+// has thread 0 of every CTA add up the clock cycles of each phase of the
+// panel loop, and the loop's nanoseconds, into g_phases; the shipped build
+// has none of it.
+// wait, bp, push, issue, gather, update, fitted
+constexpr int kPhases = 7;
+#ifdef SART_ONE_READ_PHASES
+__device__ unsigned long long g_phases[kMaxClusters * kCluster][kPhases + 2];
+#endif
+
+// word index of (row r, word c) in a slab: the 16-byte chunks of a row
+// XOR-swizzled by row, the layout TMA's 64-byte swizzle writes
+__device__ __forceinline__ int slab_at(int r, int c) {
+  return r * kWords + ((((c >> 2) ^ (r >> 1)) & 3) << 2) + (c & 3);
+}
+
+template <typename T, int NB>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(Cfg<T, NB>::kThreads, 1)
+sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__ scale,
+             const float* __restrict__ w, const float* __restrict__ f, AuxPanels aux,
+             float* __restrict__ f_new, float* __restrict__ partial, int P, int V,
+             int rows, int mode, int has_pen, float alpha, float eps) {
+  using K = Cfg<T, NB>;
+  using Smem = typename K::Smem;
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  constexpr int E = Smem::kPerWord, C = Smem::kCols, S = K::kStages;
+  constexpr int kThreads = K::kThreads, kGroups = K::kGroups;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -816,107 +966,182 @@ sweep_kernel(const float* __restrict__ H, const float* __restrict__ w,
   const int G = gridDim.x / kCluster;
   const int row0 = rank * rows;
   const int nrows = max(0, min(rows, P - row0));
-  const int n_panels = V / kPanel;
+  const int n_panels = V / C;
   const int mine = cid < n_panels ? (n_panels - cid + G - 1) / G : 0;
   const int t = threadIdx.x;
+  const bool issuer = t == kThreads - 32;  // off the update threads' warps
 
   for (int i = t; i < NB * kMaxRows; i += kThreads) {
     const int b = i / kMaxRows, r = i - b * kMaxRows;
     sm.w[b][r] = r < nrows ? w[(long long)b * P + row0 + r] : 0.0f;
   }
+  // a panel's rows of this CTA as whole TMA boxes (rows past P arrive as
+  // zeros, rows past nrows are not read)
+  const int boxes = (nrows + kBoxRows - 1) / kBoxRows;
   auto load_panel = [&](int k) {  // the k-th panel of this cluster
-    const float* src = H + (long long)row0 * V + (long long)(cid + k * G) * kPanel;
-    float* dst = sm.slab[k % kStages];
-    for (int i = t; i < nrows * 4; i += kThreads) {
-      const int r = i >> 2, q = i & 3;
-      cp_async16(dst + slab_at(r, 4 * q), src + (long long)r * V + 4 * q, true);
-    }
+    unsigned long long* bar = &sm.full[k % S];
+    mbar_expect(bar, (unsigned)(boxes * kBoxRows * kRowBytes));
+    for (int b = 0; b < boxes; ++b)
+      tma_load(&sm.slab[k % S][b * kBoxRows * kWords], &hmap, bar, (cid + k * G) * C,
+               row0 + b * kBoxRows);
   };
-#pragma unroll
-  for (int k = 0; k < kStages - 1; ++k) {
-    if (k < mine) load_panel(k);
-    cp_async_commit();
+  if (issuer) {
+    for (int k = 0; k < S; ++k) mbar_init(&sm.full[k]);
+    for (int k = 0; k < 2; ++k) mbar_init(&sm.got[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < S - 1 && k < mine; ++k) load_panel(k);
   }
+  cluster.sync();  // every rank's barriers are set before any push
 
-  float fit[kRowsPerThread][NB];
+  float fit[K::kRowsPerThread][NB];
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j)
+  for (int j = 0; j < K::kRowsPerThread; ++j)
 #pragma unroll
     for (int b = 0; b < NB; ++b) fit[j][b] = 0.0f;
 
-  const int c = t % kPanel, g = t / kPanel;  // bp pass
-  const bool upd = t < NB * kPanel;          // update threads: (b, c) = (g, c)
+  const int c = t % kWords, g = t / kWords;  // bp pass: word c, row group g
+  const int ub = t / C, uc = t % C;          // update: batch row, column
+  const bool upd = t < NB * C;
+  constexpr unsigned kPartBytes = kCluster * NB * C * sizeof(float);
+#ifdef SART_ONE_READ_PHASES
+  unsigned long long cycles[kPhases] = {}, ns0, ns1;
+  long long tick = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+  auto phase = [&](int k) {
+    if (t == 0) {
+      const long long now = clock64();
+      cycles[k] += now - tick;
+      tick = now;
+    }
+  };
+#else
+  auto phase = [](int) {};
+#endif
   for (int i = 0; i < mine; ++i) {
-    const long long v = (long long)(cid + i * G) * kPanel + c;
-    float fu = 0.0f, a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+    const long long v = (long long)(cid + i * G) * C + uc;
+    float fu = 0.0f, a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, s = 1.0f;
     if (upd) {  // in flight while the partial bp is summed
-      fu = f[(long long)g * V + v];
-      load_aux(aux, mode, has_pen, g, v, a0, a1, a2);
+      fu = f[(long long)ub * V + v];
+      load_aux(aux, mode, has_pen, ub, v, a0, a1, a2);
+      if (kScaled) s = scale[v];
     }
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const float* slab = sm.slab[i % kStages];
+    // this panel's slot: its phase before (panel i - 2) completed before
+    // this thread's wait on it, so the next phase's bytes may be posted
+    if (t == 0) mbar_expect(&sm.got[i & 1], kPartBytes);
+    mbar_wait(&sm.full[i % S], (i / S) & 1);
+    phase(0);
+    const unsigned* slab = sm.slab[i % S];
 
-    float acc[NB];
+    float acc[NB][E];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[b][e] = 0.0f;
     for (int r = g; r < nrows; r += kGroups) {
-      const float h = slab[slab_at(r, c)];
+      float h[E];
+      unpack<T>(slab[slab_at(r, c)], h);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = fmaf(sm.w[b][r], h, acc[b]);
+      for (int b = 0; b < NB; ++b) {
+        const float wv = sm.w[b][r];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[b][e] = fmaf(wv, h[e], acc[b][e]);
+      }
     }
+    if constexpr (E > 1) {
+      // the warp's even group (lanes 0-15) plus its odd group (16-31)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) sm.red[g][b][c] = acc[b];
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[b][e] += __shfl_down_sync(0xffffffffu, acc[b][e], 16);
+      if ((t & 16) == 0)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) store<E>(&sm.red[g >> 1][b][c * E], acc[b]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) sm.red[g][b][c] = acc[b][0];
+    }
     __syncthreads();
-    float* slot = &sm.part[i & 1][0][0];
+    phase(1);
     if (upd) {
-      float s = sm.red[0][g][c];
+      float sum = sm.red[0][ub][uc];
 #pragma unroll
-      for (int k = 1; k < kGroups; ++k) s += sm.red[k][g][c];
-      slot[g * kPanel + c] = s;
+      for (int k = 1; k < Smem::kRedGroups; ++k) sum += sm.red[k][ub][uc];
+      // A rank pushes panel i + 2 into this slot only after it has every
+      // rank's partial of panel i + 1, which each rank pushes after reading
+      // panel i's.
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) push(&sm.part[i & 1][rank][ub][uc], r, sum, &sm.got[i & 1]);
     }
-    cluster_arrive();
-    if (i + kStages - 1 < mine) load_panel(i + kStages - 1);
-    cp_async_commit();
-    cluster_wait();
+    phase(2);
+    // the slab of panel i - 1 is free: every thread has passed the block
+    // barrier after this panel's bp pass
+    if (issuer && i + S - 1 < mine) load_panel(i + S - 1);
+    phase(3);
+    if (upd) mbar_wait(&sm.got[i & 1], (i >> 1) & 1);
+    phase(4);
     if (upd) {
       float bp = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kCluster; ++r)
-        bp += cluster.map_shared_rank(slot, r)[g * kPanel + c];
+      for (int r = 0; r < kCluster; ++r) bp += sm.part[i & 1][r][ub][uc];
+      if (kScaled) bp = __fmul_rn(bp, s);
       const float fn = update_vals(mode, has_pen, alpha, eps, fu, bp, a0, a1, a2);
-      sm.fnew[g][c] = fn;
-      if (rank == 0) f_new[(long long)g * V + v] = fn;
+      sm.fnew[ub][uc] = kScaled ? __fmul_rn(fn, s) : fn;
+      if (rank == 0) f_new[(long long)ub * V + v] = fn;
     }
     __syncthreads();
+    phase(5);
+    // one 16-byte chunk (4 E columns) of every row of this thread at a time,
+    // the columns of a row in order
+    constexpr int kChunkCols = 4 * E;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int r = t + j * kThreads;
-      if (r < nrows) {
-        float h[kPanel];
+    for (int q = 0; q < 4; ++q) {
+      float x[NB][kChunkCols];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 x = *reinterpret_cast<const float4*>(slab + slab_at(r, 4 * q));
-          h[4 * q] = x.x; h[4 * q + 1] = x.y; h[4 * q + 2] = x.z; h[4 * q + 3] = x.w;
-        }
+      for (int b = 0; b < NB; ++b)
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          float s = fit[j][b];
+        for (int k = 0; k < kChunkCols; ++k) x[b][k] = sm.fnew[b][q * kChunkCols + k];
 #pragma unroll
-          for (int k = 0; k < kPanel; ++k) s = fmaf(h[k], sm.fnew[b][k], s);
-          fit[j][b] = s;
+      for (int j = 0; j < K::kRowsPerThread; ++j) {
+        const int r = t + j * kThreads;
+        if (r < nrows) {
+          const uint4 u = *reinterpret_cast<const uint4*>(slab + slab_at(r, 4 * q));
+          float h[kChunkCols];
+          unpack<T>(u.x, h);
+          unpack<T>(u.y, h + E);
+          unpack<T>(u.z, h + 2 * E);
+          unpack<T>(u.w, h + 3 * E);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            float acc_f = fit[j][b];
+#pragma unroll
+            for (int k = 0; k < kChunkCols; ++k) acc_f = fmaf(h[k], x[b][k], acc_f);
+            fit[j][b] = acc_f;
+          }
         }
       }
     }
-    // no block barrier here: the slab is reloaded (after the next arrive) and
-    // fnew rewritten (after the next cluster wait) only once every thread has
-    // passed the next panel's two block barriers
+    phase(6);
+    // no block barrier here: the slab is reloaded and fnew and red
+    // rewritten only once every thread has passed a later block barrier
   }
-  cluster.sync();  // no CTA leaves while another reads its slots
+#ifdef SART_ONE_READ_PHASES
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
+  if (t == 0) {
+    unsigned long long total = 0;
+    for (int k = 0; k < kPhases; ++k) {
+      g_phases[blockIdx.x][k] = cycles[k];
+      total += cycles[k];
+    }
+    g_phases[blockIdx.x][kPhases] = total;
+    g_phases[blockIdx.x][kPhases + 1] = ns1 - ns0;
+  }
+#endif
+  cluster.sync();  // no CTA leaves while a push to it may be in flight
 
   float* out = partial + (long long)cid * NB * P;
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
+  for (int j = 0; j < K::kRowsPerThread; ++j) {
     const int r = t + j * kThreads;
     if (r < nrows)
 #pragma unroll
@@ -1061,18 +1286,18 @@ cudaError_t dispatch_tc(const int8_t* codes, const Args& a) {
 
 // Clusters of the one_read kernel that the card holds at once (at most
 // kMaxClusters), asked once per kernel instance; 0 on failure.
-template <int NB>
+template <typename T, int NB>
 int one_read_clusters() {
   static int clusters = -1;
   if (clusters >= 0) return clusters;
-  const int smem = (int)sizeof(one_read::Smem);
-  if (cudaFuncSetAttribute(one_read::sweep_kernel<NB>,
+  const int smem = (int)sizeof(typename one_read::Cfg<T, NB>::Smem);
+  if (cudaFuncSetAttribute(one_read::sweep_kernel<T, NB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess)
     return 0;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(one_read::kCluster * one_read::kMaxClusters);
-  config.blockDim = dim3(one_read::kThreads);
+  config.blockDim = dim3(one_read::Cfg<T, NB>::kThreads);
   config.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -1082,36 +1307,99 @@ int one_read_clusters() {
   config.attrs = &attr;
   config.numAttrs = 1;
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, one_read::sweep_kernel<NB>, &config) != cudaSuccess)
+  if (cudaOccupancyMaxActiveClusters(&n, one_read::sweep_kernel<T, NB>, &config) !=
+      cudaSuccess)
     n = 0;
   clusters = n < one_read::kMaxClusters ? n : one_read::kMaxClusters;
   return clusters;
 }
 
-template <int NB>
-cudaError_t launch_one_read(const float* H, const Args& a) {
-  const int G = one_read_clusters<NB>();
+template <typename T>
+int one_read_clusters_at(long long B) {
+  switch (B) {
+    case 1: return one_read_clusters<T, 1>();
+    case 2: return one_read_clusters<T, 2>();
+    case 3: return one_read_clusters<T, 3>();
+    case 4: return one_read_clusters<T, 4>();
+    default: return 0;
+  }
+}
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (no link against the driver library); null where the driver lacks it.
+decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
+  static decltype(&cuTensorMapEncodeTiled) fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// H [P, V] as TMA boxes of one_read's panel: the panel's 64-byte row
+// segment by kBoxRows rows, swizzled 64 bytes as slab_at reads them, rows
+// past P read as zeros. L2 lines are promoted to 128 bytes: the
+// neighbouring cluster reads the other half of the line at about the same
+// time.
+template <typename T>
+bool one_read_map(CUtensorMap* map, const T* H, long long P, long long V) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const CUtensorMapDataType type = sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_UINT32
+                                   : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[2] = {(cuuint64_t)V, (cuuint64_t)P};
+  const cuuint64_t strides[1] = {(cuuint64_t)V * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(one_read::kRowBytes / sizeof(T)),
+                             (cuuint32_t)one_read::kBoxRows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, type, 2, const_cast<T*>(H), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int NB>
+cudaError_t launch_one_read(const T* H, const Args& a) {
+  const int G = one_read_clusters<T, NB>();
   if (G <= 0) return cudaErrorInvalidConfiguration;
+  CUtensorMap map;
+  if (!one_read_map(&map, H, a.P, a.V)) return cudaErrorNotSupported;
   float* partial = reinterpret_cast<float*>(a.scratch);
   const int rows = (a.P + one_read::kCluster - 1) / one_read::kCluster;
-  one_read::sweep_kernel<NB><<<G * one_read::kCluster, one_read::kThreads,
-                               sizeof(one_read::Smem), a.stream>>>(
-      H, a.w, a.f, a.aux, a.f_new, partial, a.P, a.V, rows, a.mode, a.has_pen,
-      a.alpha, a.eps);
+  using K = one_read::Cfg<T, NB>;
+  one_read::sweep_kernel<T, NB><<<G * one_read::kCluster, K::kThreads,
+                                  sizeof(typename K::Smem), a.stream>>>(
+      map, a.scale, a.w, a.f, a.aux, a.f_new, partial, a.P, a.V, rows, a.mode,
+      a.has_pen, a.alpha, a.eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<264, 256, 0, a.stream>>>(partial, G, NB, a.B, a.P, a.fitted);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_one_read(const float* H, const Args& a) {
+template <typename T>
+cudaError_t dispatch_one_read(const void* H, const Args& a) {
+  const T* h = static_cast<const T*>(H);
   switch (a.B) {
-    case 1: return launch_one_read<1>(H, a);
-    case 2: return launch_one_read<2>(H, a);
-    case 3: return launch_one_read<3>(H, a);
-    default: return launch_one_read<4>(H, a);
+    case 1: return launch_one_read<T, 1>(h, a);
+    case 2: return launch_one_read<T, 2>(h, a);
+    case 3: return launch_one_read<T, 3>(h, a);
+    default: return launch_one_read<T, 4>(h, a);
   }
 }
+
+// Bytes of one element of the storage type (0 fp32, 1 bf16, 2 int8 codes).
+int element_bytes(int storage) { return storage == 0 ? 4 : storage == 1 ? 2 : 1; }
 
 // The plan's preconditions (the Python plan_sweep's, plus alignment).
 bool plan_ok(int plan, int storage, long long P, long long V, long long B,
@@ -1119,10 +1407,10 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
   const bool h16 = (uintptr_t)H % 16 == 0;
   switch (plan) {
     case kTwoRead: return (B + 3) / 4 <= 65535;
-    case kOneRead:
-      return storage == 0 && B <= one_read::kMaxB &&
+    case kOneRead:  // V in whole panels (16, 32 or 64 columns)
+      return B <= one_read::kMaxB &&
              P <= (long long)one_read::kCluster * one_read::kMaxRows &&
-             V % one_read::kPanel == 0 && h16;
+             V % (one_read::kRowBytes / element_bytes(storage)) == 0 && h16;
     case kTensorCore:
       return storage == 2 && V % 16 == 0 && h16 && (B + 31) / 32 <= 65535;
     default: return false;
@@ -1138,18 +1426,28 @@ extern "C" long long sart_fused_sweep_scratch_bytes(int plan, long long P,
   return scratch_bytes(plan, P, V, B);
 }
 
-// Clusters the one_read plan runs at batch size B (1..4) on the current
-// card: persistent, at most 16, as many as the card holds at once; 0 where
-// the card holds none.
-extern "C" int sart_one_read_clusters(int B) {
-  switch (B) {
-    case 1: return one_read_clusters<1>();
-    case 2: return one_read_clusters<2>();
-    case 3: return one_read_clusters<3>();
-    case 4: return one_read_clusters<4>();
+// Clusters the one_read plan runs for the storage type (0 fp32, 1 bf16,
+// 2 int8 codes) at batch size B (1..4) on the current card: persistent, at
+// most 16, as many as the card holds at once; 0 where the card holds none.
+extern "C" int sart_one_read_clusters(int storage, int B) {
+  switch (storage) {
+    case 0: return one_read_clusters_at<float>(B);
+    case 1: return one_read_clusters_at<bf16_bits>(B);
+    case 2: return one_read_clusters_at<int8_t>(B);
     default: return 0;
   }
 }
+
+#ifdef SART_ONE_READ_PHASES
+// The measurement build's phase counters of the last one_read launch: per
+// CTA (at most kMaxClusters * kCluster), the cycles of each of the kPhases
+// phases, their sum and the loop's nanoseconds; returns the values a CTA has.
+extern "C" int sart_one_read_phases(unsigned long long* out) {
+  if (cudaMemcpyFromSymbol(out, one_read::g_phases, sizeof(one_read::g_phases)) != cudaSuccess)
+    return -1;
+  return one_read::kPhases + 2;
+}
+#endif
 
 // Returns a cudaError_t (0 on success). H is a device pointer to a
 // contiguous [P, V] matrix of the storage type `storage` (0 fp32, 1 bf16,
@@ -1203,7 +1501,10 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
   a.stream = static_cast<cudaStream_t>(stream);
   const int8_t* codes = static_cast<const int8_t*>(H);
   switch (plan) {
-    case kOneRead: return (int)dispatch_one_read(static_cast<const float*>(H), a);
+    case kOneRead:
+      if (storage == 0) return (int)dispatch_one_read<float>(H, a);
+      if (storage == 1) return (int)dispatch_one_read<bf16_bits>(H, a);
+      return (int)dispatch_one_read<int8_t>(H, a);
     case kTensorCore: return (int)dispatch_tc(codes, a);
     default: break;
   }

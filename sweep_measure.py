@@ -3,21 +3,38 @@
 does not repeat on every run. Run from the root of a checkout:
 
 ``python3 sweep_measure.py ab OTHER``
-    The ``two_read`` plan of this checkout against the fused sweep of
-    another checkout of the repository (for example the parent commit,
-    unpacked with ``git archive``), at 8192 x 65536, B = 1, linear with the
-    penalty (the CLI's main mode), for each storage type, with
-    ``chip_smoke.py``'s timing inputs. Timed in turns, other, this, this,
-    other, each turn a process of its own that imports its checkout's
-    package: ms per call (CUDA events around the wrapper's call, so the
-    host's work in the wrapper is counted) and device ms per call by CUDA
-    kernel (``torch.profiler``).
+    The fused sweep of this checkout against that of another checkout of
+    the repository (for example the parent commit, unpacked with ``git
+    archive``), at 8192 x 65536, B = 1, linear with the penalty (the CLI's
+    main mode), for each storage type, with ``chip_smoke.py``'s timing
+    inputs: through each checkout's own plan for the shape, and through
+    forced ``two_read`` where the checkout can force a plan. Timed in turns,
+    other, this, this, other, each turn a process of its own that imports
+    its checkout's package: ms per call (CUDA events around the wrapper's
+    call, so the host's work in the wrapper is counted) and device ms per
+    call by CUDA kernel (``torch.profiler``).
 
 ``python3 sweep_measure.py promotion``
     The ``tensor_core`` plan's error against the plain version at the three
     int8 probes' configuration (``chip_smoke.py``'s probe inputs), built as
     shipped and built with ``SART_TC_NO_PROMOTE`` (the tensor cores'
     accumulation chain left unpromoted) into ``build/sweep_measure/``.
+
+``python3 sweep_measure.py sass``
+    For each ``one_read`` kernel instance in the built library
+    (``cuobjdump``): its registers and spills, and its count of each
+    conversion, shared-memory and arithmetic instruction class of the SASS
+    (``I2F*`` is the conversion unit the int8 path avoids).
+
+``python3 sweep_measure.py phases``
+    The ``one_read`` kernel built with ``SART_ONE_READ_PHASES`` into
+    ``build/sweep_measure/``, run at 8192 x 65536, B = 1 and 4, linear with
+    the penalty, for each storage type (``chip_smoke.py``'s timing inputs):
+    per panel, the mean time thread 0 of a CTA spends in each phase of the
+    panel loop (waiting for its slab, the bp pass, summing and pushing the
+    CTA's partial, issuing the next slab's copies, waiting for the other
+    ranks' partials, the update, the fitted pass), beside the shipped
+    build's ms per call.
 
 Each prints one JSON line per measurement, and the card's name and power
 limit first.
@@ -28,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -52,16 +70,17 @@ def _turn(root: str) -> dict:
     for storage in STORAGES:
         H, w, f, aux, scale = chip_smoke._sweep_inputs(8192, 65536, 1, False, True, seed=7,
                                                        storage=storage)
-        if storage == "float32" and hasattr(mod, "_sweep"):  # one_read is fp32's own plan
-            def call():
-                return mod._sweep(H, w, f, aux, scale=scale, logarithmic=False,
-                                  plan="two_read")
-        else:
-            def call():
-                return mod.fused_sweep(H, w, f, aux, scale=scale, logarithmic=False)
-        out[storage] = dict(ms=chip_smoke._median_ms(call, reps=REPS),
-                            device=chip_smoke._device_profile(call, calls=20))
-        del H, w, f, aux, scale
+        calls = {"own_plan": lambda: mod.fused_sweep(H, w, f, aux, scale=scale,
+                                                     logarithmic=False)}
+        if hasattr(mod, "_sweep"):
+            calls["two_read"] = lambda: mod._sweep(H, w, f, aux, scale=scale,
+                                                   logarithmic=False, plan="two_read")
+        out[storage] = {name: dict(ms=chip_smoke._median_ms(call, reps=REPS),
+                                   device=chip_smoke._device_profile(call, calls=20))
+                        for name, call in calls.items()}
+        out[storage]["own_plan"]["plan"] = (mod.plan_sweep(8192, 65536, 1, storage)
+                                            if hasattr(mod, "plan_sweep") else "two_read")
+        del H, w, f, aux, scale, calls
         torch.cuda.empty_cache()
     return out
 
@@ -85,10 +104,16 @@ def ab(other: str) -> None:
         print(json.dumps({"turn": name, "root": root, **turns[-1][1]}), flush=True)
     summary = {}
     for storage in STORAGES:
-        ms = {n: [t[storage]["ms"] for m, t in turns if m == n] for n in ("other", "this")}
-        summary[storage] = {n: sum(v) / len(v) for n, v in ms.items()}
-        summary[storage]["this_over_other"] = summary[storage]["this"] / summary[storage]["other"]
-    print(json.dumps({"ab_two_read_ms": summary}), flush=True)
+        for call in ("own_plan", "two_read"):
+            ms = {n: [t[storage][call]["ms"] for m, t in turns
+                      if m == n and call in t[storage]] for n in ("other", "this")}
+            if not all(ms.values()):
+                continue
+            row = {n: sum(v) / len(v) for n, v in ms.items()}
+            row["this_over_other"] = row["this"] / row["other"]
+            row["plans"] = {n: t[storage][call].get("plan", call) for n, t in turns}
+            summary[f"{storage}_{call}"] = row
+    print(json.dumps({"ab_ms": summary}), flush=True)
 
 
 def promotion() -> None:
@@ -119,6 +144,115 @@ def promotion() -> None:
         _build._loaded["fused_sweep"] = shipped
 
 
+PHASES = ("wait", "bp", "push", "issue", "gather", "update", "fitted")
+PANEL_BYTES = 64  # one_read's row segment
+
+
+def phases() -> None:
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.ops import _build
+    from sartsolver_tpu_torch.ops.fused_sweep import STORAGE, _sweep
+
+    out_dir = os.path.join(REPO, "build", "sweep_measure")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libfused_sweep-phases.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-DSART_ONE_READ_PHASES", "-o",
+                    path, str(_build.CSRC / "fused_sweep.cu")], check=True)
+    shipped, measured = _build.load("fused_sweep"), ctypes.CDLL(path)
+    read = measured.sart_one_read_phases
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    clusters = shipped.sart_one_read_clusters
+    clusters.argtypes, clusters.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    P, V = 8192, 65536
+    try:
+        for storage in STORAGES:
+            for B in (1, 4):
+                H, w, f, aux, scale = chip_smoke._sweep_inputs(P, V, B, False, True, seed=7,
+                                                               storage=storage)
+
+                def call():
+                    return _sweep(H, w, f, aux, scale=scale, logarithmic=False,
+                                  plan="one_read")
+                _build._loaded["fused_sweep"] = shipped
+                shipped_ms = chip_smoke._median_ms(call)
+                _build._loaded["fused_sweep"] = measured
+                measured_ms = chip_smoke._median_ms(call)
+                call()
+                torch.cuda.synchronize()
+                width = len(PHASES) + 2
+                buf = (ctypes.c_ulonglong * (16 * 8 * width))()
+                if read(buf) != width:
+                    raise SystemExit("sweep_measure: no phase counters in the build")
+                G = clusters(STORAGE[H.dtype], B)
+                n_panels = V // (PANEL_BYTES // H.element_size())
+                per_panel = {k: [] for k in PHASES}
+                ghz = []
+                for cta in range(G * 8):
+                    row = buf[cta * width:(cta + 1) * width]
+                    mine = -(-(n_panels - cta // 8) // G)
+                    rate = row[-2] / row[-1]  # cycles per ns
+                    ghz.append(rate)
+                    for k, name in enumerate(PHASES):
+                        per_panel[name].append(row[k] / rate / mine)
+                print(json.dumps({
+                    "storage": storage, "B": B, "shipped_ms": shipped_ms,
+                    "measured_build_ms": measured_ms, "clusters": G,
+                    "panels_per_cluster": -(-n_panels // G), "clock_ghz": statistics.mean(ghz),
+                    "ns_per_panel": {k: statistics.mean(v) for k, v in per_panel.items()},
+                    "ns_per_panel_max_cta": {k: max(v) for k, v in per_panel.items()},
+                }), flush=True)
+                del H, w, f, aux, scale
+                torch.cuda.empty_cache()
+    finally:
+        _build._loaded["fused_sweep"] = shipped
+
+
+def sass() -> None:
+    import re
+    from pathlib import Path
+
+    from sartsolver_tpu_torch.ops import _build
+
+    _build.load("fused_sweep")
+    lib = str(_build.library_path("fused_sweep"))
+    bin_dir = Path(_build.nvcc_path()).parent
+
+    def run(*cmd):
+        return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+
+    def demangle(names):
+        out = run(str(bin_dir / "cu++filt"), *names).splitlines()
+        return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+    usage, name = {}, None  # -res-usage: "Function NAME:" then "REG:n STACK:n ..."
+    for line in run(str(bin_dir / "cuobjdump"), "-res-usage", lib).splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = dict(re.findall(r"(\w+):(\d+)", line))
+            name = None
+    counts, name = {}, None
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    for line in run(str(bin_dir / "cuobjdump"), "-sass", lib).splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = op.search(line)
+        if name and "one_read" in name and m:
+            c = counts.setdefault(name, {})
+            c[m.group(1)] = c.get(m.group(1), 0) + 1
+    names = demangle(sorted(counts))
+    for mangled, c in sorted(counts.items()):
+        keep = {k: v for k, v in c.items()
+                if k.startswith("I2F") or k in ("PRMT", "FADD", "FFMA", "LDS", "LOP3", "SHF")}
+        print(json.dumps({"kernel": names[mangled], "instructions": sum(c.values()),
+                          "classes": keep, "resources": usage.get(mangled)}), flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -136,6 +270,10 @@ def main(argv) -> int:
         ab(argv[1])
     elif argv == ["promotion"]:
         promotion()
+    elif argv == ["sass"]:
+        sass()
+    elif argv == ["phases"]:
+        phases()
     else:
         print(__doc__, file=sys.stderr)
         return 2

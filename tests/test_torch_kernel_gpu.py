@@ -15,8 +15,8 @@ import torch
 
 from sartsolver_tpu_torch.models.sart import quantize_rtm
 from sartsolver_tpu_torch.ops.fused_sweep import (
-    ONE_READ_MIN_P, PLANS, _kernel_call, _sweep, fused_sweep, fused_sweep_reference,
-    plan_sweep,
+    ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, PLANS, TENSOR_CORE_MIN_B, _kernel_call,
+    _sweep, fused_sweep, fused_sweep_reference, plan_sweep,
 )
 
 ALPHA, EPS = 0.7, 1e-7
@@ -131,29 +131,38 @@ def test_tensor_core_plan_matches_plain_version(shape, logarithmic, with_pen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("PV", [(8192, 65536), (8191, 4096), (ONE_READ_MIN_P, 4096),
-                                (1000, 3008)])
-def test_one_read_plan_matches_plain_version(PV, B, logarithmic, with_pen):
-    """fp32 at small B through the cluster kernel: the main shape (P at the
-    plan's upper limit), a ragged P just under it, P at the rule's lower
-    edge, and a small shape that the rule leaves to two_read (forced)."""
-    _check_plan("one_read", *PV, B, logarithmic, with_pen, "float32",
-                seed=sum(PV) + B + 2 * logarithmic + with_pen,
-                expect_default=PV[0] >= ONE_READ_MIN_P)
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("PV", [(8192, 65536), (8191, 4096), ("edge", 4096), (1000, 3008)])
+def test_one_read_plan_matches_plain_version(PV, B, logarithmic, with_pen, storage):
+    """Every storage at small B through the cluster kernel (B = 4: int8's
+    instance with two slabs): the main shape (P at the plan's upper limit), a
+    ragged P just under it, P at the storage's lower edge of the rule, and a
+    small shape that the rule leaves to two_read (forced)."""
+    P, V = PV
+    if P == "edge":
+        P = ONE_READ_MIN_P[storage]
+    tensor_core = storage == "int8" and B >= TENSOR_CORE_MIN_B
+    lowest = max(ONE_READ_MIN_P[storage],
+                 ONE_READ_OVER_TENSOR_CORE_MIN_P if tensor_core else 0)
+    _check_plan("one_read", P, V, B, logarithmic, with_pen, storage,
+                seed=P + V + B + 2 * logarithmic + with_pen, expect_default=P >= lowest)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("storage", ["float32", "int8"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("logarithmic", [False, True])
 def test_two_read_forced_at_the_new_plans_shapes(logarithmic, storage):
-    """The old path stays covered where the new plans took over: fp32 at the
-    main shape (B = 1), int8 at the probes' B = 32."""
-    B = 1 if storage == "float32" else 32
-    _check_plan("two_read", 8192, 65536, B, logarithmic, True, storage, seed=5 + logarithmic,
+    """The old path stays covered where the new plans took over: every
+    storage at the main shape (B = 1, one_read), int8 also at the probes'
+    B = 32 (tensor_core)."""
+    _check_plan("two_read", 8192, 65536, 1, logarithmic, True, storage, seed=5 + logarithmic,
                 expect_default=False)
+    if storage == "int8":
+        _check_plan("two_read", 8192, 65536, 32, logarithmic, True, storage,
+                    seed=6 + logarithmic, expect_default=False)
 
 
 @pytest.mark.gpu
@@ -164,23 +173,30 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
         pytest.skip("needs a CUDA device")
     H, w, f, aux, _ = _inputs(64, 512, 5, False, False, seed=3)
     codes, scale = quantize_rtm(H)
+    bf16 = H.to(torch.bfloat16)
     kw = dict(logarithmic=False, alpha=1.0, eps=0.0)
-    refused = [
-        (H, w, None, PLANS["one_read"]),                       # B = 5 > 4
-        (H[:, :500].contiguous(), w, None, PLANS["one_read"]),  # V % 16 != 0
-        (H, w, None, PLANS["tensor_core"]),                    # fp32 storage
-        (codes[:, :500].contiguous(), w, scale[None, :500].contiguous(),
-         PLANS["tensor_core"]),                                # V % 16 != 0
-        (codes, w, scale[None, :], PLANS["one_read"]),          # int8 storage
-        (H, w, None, 9),                                       # no such plan
+    refused = [  # (H, scale, B, V, plan)
+        (H, None, 5, 512, "one_read"),                  # B = 5 > 4
+        (H, None, 4, 500, "one_read"),                  # fp32: V % 16 != 0
+        (bf16, None, 4, 496, "one_read"),               # bf16: V % 32 != 0
+        (codes, scale[None, :], 4, 480, "one_read"),    # int8: V % 64 != 0
+        (codes, scale[None, :], 5, 512, "one_read"),    # int8, B = 5 > 4
+        (H, None, 5, 512, "tensor_core"),               # fp32 storage
+        (codes, scale[None, :], 5, 500, "tensor_core"),  # V % 16 != 0
+        (H, None, 5, 512, 9),                           # no such plan
     ]
-    for rtm, ww, sc, code in refused:
-        V = rtm.shape[1]
-        err, _, _ = _kernel_call(rtm, ww, f[:, :V].contiguous(),
-                                 [a[:, :V].contiguous() for a in aux], scale=sc,
+    for rtm, sc, B, V, plan in refused:
+        code = PLANS.get(plan, plan)
+        err, _, _ = _kernel_call(rtm[:, :V].contiguous(), w[:B].contiguous(),
+                                 f[:B, :V].contiguous(), [a[:, :V].contiguous() for a in aux],
+                                 scale=None if sc is None else sc[:, :V].contiguous(),
                                  plan_code=code, **kw)
-        assert err == 1, (rtm.dtype, tuple(rtm.shape), code, err)
+        assert err == 1, (rtm.dtype, B, V, plan, err)
     with pytest.raises(ValueError, match="one_read needs B <= 4"):
         _sweep(H, w, f, aux, plan="one_read", **kw)
+    with pytest.raises(ValueError, match="V a multiple of 64 for int8"):
+        _sweep(codes[:, :480].contiguous(), w[:4].contiguous(), f[:4, :480].contiguous(),
+               [a[:, :480].contiguous() for a in aux], scale=scale[None, :480].contiguous(),
+               plan="one_read", **kw)
     with pytest.raises(ValueError, match="tensor_core takes int8 codes"):
         _sweep(H, w, f, aux, plan="tensor_core", **kw)

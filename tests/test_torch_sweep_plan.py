@@ -6,16 +6,23 @@ pinned here on the CPU; the kernels themselves are held against the plain
 version on the card (``test_torch_kernel_gpu.py``, ``chip_smoke.py``).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from sartsolver_tpu_torch.ops.fused_sweep import (
-    ONE_READ_MAX_B, ONE_READ_MAX_P, ONE_READ_MIN_P, TENSOR_CORE_MIN_B, V_MULTIPLE, _sweep,
-    fused_sweep, fused_sweep_reference, plan_refusal, plan_sweep,
+    ONE_READ_MAX_B, ONE_READ_MAX_P, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P,
+    ONE_READ_V_MULTIPLE, TENSOR_CORE_MIN_B, _sweep, fused_sweep, fused_sweep_reference,
+    plan_refusal, plan_sweep,
 )
 
 MIN_B = TENSOR_CORE_MIN_B
+OVER_TC_P = ONE_READ_OVER_TENSOR_CORE_MIN_P
+FP32_MIN_P = ONE_READ_MIN_P["float32"]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("P, V, B, storage, plan", [
@@ -26,33 +33,41 @@ MIN_B = TENSOR_CORE_MIN_B
     # fp32 with P past the one-read limit
     (ONE_READ_MAX_P + 1, 65536, 1, "float32", "two_read"),
     (16384, 65536, 1, "float32", "two_read"),
-    # bf16 and int8 at B = 1
-    (8192, 65536, 1, "bfloat16", "two_read"),
-    (8192, 65536, 1, "int8", "two_read"),
+    # bf16 and int8 at B = 1: the CLI's reduced-storage runs read H once
+    (8192, 65536, 1, "bfloat16", "one_read"),
+    (8192, 65536, 1, "int8", "one_read"),
     # edges of the one-read limit: P, B, V in whole 16-column panels
     (ONE_READ_MAX_P, 16, ONE_READ_MAX_B, "float32", "one_read"),
     (8192, 65536, ONE_READ_MAX_B + 1, "float32", "two_read"),
-    (8192, 65536 - V_MULTIPLE, 1, "float32", "one_read"),
+    (8192, 65536 - ONE_READ_V_MULTIPLE["float32"], 1, "float32", "one_read"),
     (8192, 65536 - 1, 1, "float32", "two_read"),
     # the lower edge of P, where one_read stops beating two_read
-    (ONE_READ_MIN_P, 16, 1, "float32", "one_read"),
-    (ONE_READ_MIN_P, 65536, ONE_READ_MAX_B, "float32", "one_read"),
-    (ONE_READ_MIN_P - 1, 65536, 1, "float32", "two_read"),
+    (FP32_MIN_P, 16, 1, "float32", "one_read"),
+    (FP32_MIN_P, 65536, ONE_READ_MAX_B, "float32", "one_read"),
+    (FP32_MIN_P - 1, 65536, 1, "float32", "two_read"),
     (4096, 65536, 1, "float32", "two_read"),
     (1, 16, 1, "float32", "two_read"),
     (1000, 3008, 3, "float32", "two_read"),
     (1000, 3001, 3, "float32", "two_read"),
-    # edges of the tensor-core rule: the crossover batch, V in 16-code runs
-    (8192, 65536, MIN_B, "int8", "tensor_core"),
-    (8192, 65536, MIN_B - 1, "int8", "two_read"),
+    # edges of the tensor-core rule: the crossover batch, V in 16-code runs,
+    # and one_read in its place from the P where it beat the tensor cores
+    (8192, 65536, MIN_B, "int8", "one_read"),
+    (8192, 65536, MIN_B - 1, "int8", "one_read"),
+    (OVER_TC_P, 65536, MIN_B, "int8", "one_read"),
+    (OVER_TC_P - 1, 65536, MIN_B, "int8", "tensor_core"),
+    (OVER_TC_P - 1, 65536, MIN_B - 1, "int8", "one_read"),
+    (8192, 65536, ONE_READ_MAX_B + 1, "int8", "tensor_core"),
+    (16384, 65536, MIN_B, "int8", "tensor_core"),
+    (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B, "int8", "tensor_core"),
+    (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B - 1, "int8", "two_read"),
     (8192, 65536 + 8, 32, "int8", "two_read"),
     (1000, 3008, 19, "int8", "tensor_core"),
     (1000, 3001, 19, "int8", "two_read"),
     (8192, 65536, 4096, "int8", "tensor_core"),
-    # the tensor cores take int8 codes only; one_read fp32 only
+    # the tensor cores take int8 codes only; one_read at most B = 4
     (8192, 65536, 32, "bfloat16", "two_read"),
     (8192, 65536, 32, "float32", "two_read"),
-    (8192, 65536, 2, "bfloat16", "two_read"),
+    (8192, 65536, 2, "bfloat16", "one_read"),
 ])
 def test_plan_of_each_shape(P, V, B, storage, plan):
     assert plan_sweep(P, V, B, storage) == plan
@@ -60,8 +75,50 @@ def test_plan_of_each_shape(P, V, B, storage, plan):
 
 
 def test_crossover_batch_is_above_the_main_path():
-    """The CLI solves one frame at a time: int8 at B = 1 stays two_read."""
+    """The CLI solves one frame at a time: int8 at B = 1 never takes the
+    tensor cores."""
     assert 1 < TENSOR_CORE_MIN_B <= 32
+    assert plan_sweep(8192, 65536, 1, "int8") != "tensor_core"
+
+
+def _reduced_storage_cases():
+    """The one_read rule's edges for bf16 and int8: each storage's lower P
+    edge and ONE_READ_MAX_P, V at and off its multiple, B at
+    ONE_READ_MAX_B and one past it."""
+    cases = []
+    for st in ("bfloat16", "int8"):
+        lo, m = ONE_READ_MIN_P[st], ONE_READ_V_MULTIPLE[st]
+        past_b = "tensor_core" if st == "int8" else "two_read"
+        cases += [
+            (lo, 65536, 1, st, "one_read"),
+            (lo, 65536, 3, st, "one_read"),
+            (lo, 65536, ONE_READ_MAX_B, st, past_b if st == "int8" else "one_read"),
+            (lo - 1, 65536, 1, st, "two_read"),
+            (ONE_READ_MAX_P, 65536, 1, st, "one_read"),
+            (ONE_READ_MAX_P + 1, 65536, 1, st, "two_read"),
+            (8192, m, 1, st, "one_read"),
+            (8192, 65536 - m, 1, st, "one_read"),
+            (8192, 65536 - m // 2, 1, st, "two_read"),
+            (8192, 65536 - 1, 1, st, "two_read"),
+            (8192, 65536, ONE_READ_MAX_B + 1, st, past_b),
+        ]
+    return cases
+
+
+@pytest.mark.parametrize("P, V, B, storage, plan", _reduced_storage_cases())
+def test_one_read_edges_of_reduced_storage(P, V, B, storage, plan):
+    assert plan_sweep(P, V, B, storage) == plan
+    assert plan_refusal(plan, P, V, B, storage) is None
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_one_read_panel_is_64_bytes_of_each_storage(storage):
+    """The panel's columns are one 64-byte row segment of the storage type,
+    a whole number of the tensor cores' 16-code runs for int8."""
+    itemsize = torch.empty((), dtype=getattr(torch, storage)).element_size()
+    assert ONE_READ_V_MULTIPLE[storage] * itemsize == 64
+    assert plan_refusal("one_read", 8192, ONE_READ_V_MULTIPLE[storage], 1, storage) is None
+    assert ONE_READ_MIN_P[storage] <= ONE_READ_MAX_P
 
 
 def _cpu_inputs(P, V, B, storage, seed=0):
@@ -80,8 +137,12 @@ def _cpu_inputs(P, V, B, storage, seed=0):
 
 
 @pytest.mark.parametrize("plan, P, V, B, storage, match", [
-    ("one_read", 64, 256, 1, "int8", "one_read takes fp32 storage, not int8"),
-    ("one_read", 64, 256, 1, "bfloat16", "one_read takes fp32 storage, not bfloat16"),
+    ("one_read", 64, 288, 1, "int8", "V a multiple of 64 for int8"),
+    ("one_read", 64, 272, 1, "bfloat16", "V a multiple of 32 for bfloat16"),
+    ("one_read", 64, 256 - 1, 1, "int8", "V a multiple of 64 for int8"),
+    ("one_read", 64, 256 - 16, 1, "bfloat16", "V a multiple of 32 for bfloat16"),
+    ("one_read", 64, 256, ONE_READ_MAX_B + 1, "int8", "one_read needs B <= 4"),
+    ("one_read", ONE_READ_MAX_P + 1, 256, 1, "bfloat16", "P <= 8192"),
     ("one_read", 64, 256, ONE_READ_MAX_B + 1, "float32", "one_read needs B <= 4"),
     ("one_read", 64, 250, 1, "float32", "V a multiple of 16"),
     ("one_read", ONE_READ_MAX_P + 1, 16, 1, "float32", "P <= 8192"),
@@ -102,6 +163,7 @@ def test_wrapper_refuses_a_forced_plan_whose_preconditions_fail(plan, P, V, B, s
 
 @pytest.mark.parametrize("plan, storage, B", [
     ("two_read", "float32", 1), ("two_read", "int8", 32), ("one_read", "float32", 3),
+    ("one_read", "bfloat16", 1), ("one_read", "int8", 4),
     ("tensor_core", "int8", 1), ("tensor_core", "int8", 19),
 ])
 def test_a_forced_plan_on_cpu_tensors_runs_the_plain_version(plan, storage, B):
@@ -118,3 +180,31 @@ def test_a_forced_plan_on_cpu_tensors_runs_the_plain_version(plan, storage, B):
 
 def test_launch_counts_by_plan_cover_every_plan():
     assert set(fused_sweep.launches_by_plan) == {"two_read", "one_read", "tensor_core"}
+
+
+def test_chip_smoke_reads_the_one_read_edge_from_a_crossover_table():
+    """The edges chip_smoke.py prints: the smallest P at V = 65536 from
+    which one_read beat two_read at every B of the table, and for each B
+    timed beside tensor_core the smallest P from which it beat that too."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+
+    def row(P, B, one, two, tc=None, V=65536):
+        r = {"P": P, "V": V, "B": B, "one_read_ms": one, "two_read_ms": two}
+        if tc is not None:
+            r["tensor_core_ms"] = tc
+        return r
+
+    table = [row(4096, 1, 0.5, 0.6), row(4096, 2, 0.7, 0.6, tc=0.4),  # lost at B = 2
+             row(6144, 1, 0.5, 0.8), row(6144, 2, 0.6, 0.9, tc=0.5),
+             row(8192, 1, 0.6, 1.0), row(8192, 2, 0.7, 1.2, tc=0.8),
+             row(8192, 1, 0.9, 0.1, V=1024)]                          # other V: not read
+    assert chip_smoke.one_read_edge(table) == {"min_p": 6144,
+                                               "over_tensor_core_min_p": {2: 8192}}
+    table[3]["tensor_core_ms"] = 0.7
+    assert chip_smoke.one_read_edge(table)["over_tensor_core_min_p"] == {2: 6144}
+    table[4]["one_read_ms"] = 2.0                                     # lost at the top
+    assert chip_smoke.one_read_edge(table)["min_p"] is None
