@@ -30,19 +30,36 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    8192 x 65536 int8, the ``two_read`` / ``one_read`` crossover over P, V
    and B for each storage (``tensor_core`` beside for int8 from B = 2), the
    ``one_read`` edge each table gives and the clusters ``one_read`` runs.
+   Each storage's plan at the batch loops' B = 8 (fp32 and bf16
+   ``two_read``, int8 ``tensor_core``) is checked and timed too, linear with
+   the penalty and log.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
    numpy code and the package's HDF5 writer, then the port's ``sartsolve``
    run in-process on the card for each ``--rtm_dtype`` (float32, bfloat16,
-   int8): linear with the Laplacian over 8 frames, logarithmic over 4.
-   Launch counts are zeroed just before and read just after; every frame's
+   int8): linear with the Laplacian over 8 frames, logarithmic over 4, at
+   ``--chain_frames 1`` (every frame its own group, so its own time: the
+   guess frame apart from the warm ones). Launch counts are zeroed just before and read just after; every frame's
    status must be 0 or the ``-m`` cap, its fitted-space error against the
    noiseless measurement within ``FIT_BOUND``, and each storage type's
    launches equal to its runs' iterations, by storage and by plan (each
    storage through the plan ``plan_sweep`` gives it at B = 1). Each run's
    peak device memory and its fitted-space distance to the fp32 run are
    printed.
+4a. ``frames``: the CLI's frame-group loops over the world's 32 frames,
+   linear with the Laplacian (:func:`frames_phase`): per storage
+   ``--no_guess --batch_frames 8`` through the continuous-batching scheduler
+   and through the classic grouped loop, in turns (scheduler, classic,
+   classic, scheduler; every run's solution file equal, byte for byte;
+   every launch on ``plan_sweep(8192, 65536, 8, storage)``, the
+   scheduler's launches equal to the loop steps it printed, the classic
+   loop's to the sum of its groups' loop counts); int8 at
+   ``--batch_frames 4`` (``one_read``); ``--chain_frames 4`` against
+   ``--chain_frames 1`` for fp32 and int8 (equal files, launches equal to
+   the iterations). Counts are zeroed just before each run and read just
+   after; ms per frame, loop iterations, occupancy, launches by plan and
+   peak device memory per run.
 4b. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -54,9 +71,10 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
    ``CROSS_TOL``.
-6. ``profile``: frame 0 once more under ``torch.profiler`` for each storage
-   type: device time by kernel, the solve's wall time and the device's idle
-   share.
+6. ``profile``: under ``torch.profiler`` for each storage type, frame 0
+   once more, and the first 8 frames as one group of the classic loop
+   (``solve_batch``) and through 8 scheduler lanes: device time by kernel,
+   the wall time and the device's idle share.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +115,12 @@ ONE_READ_CROSSOVER_PV = ((1024, 65536), (2048, 65536), (4096, 65536), (5120, 655
                          (6144, 65536), (7168, 65536), (8192, 65536), (8192, 4096),
                          (8192, 1024), (1000, 3008))
 MAX_ITERATIONS = 500  # -m cap of the main path's runs
+# the frames phase: --batch_frames of the scheduler and classic loops (the
+# lane count whose plan each storage's row of the kernel table is timed at),
+# the int8 run on one_read, and --chain_frames against the serial loop
+FRAME_LANES = 8
+FOUR_LANES = 4
+CHAIN_FRAMES = 4
 
 # card -> (memory rate in B/s, fp32 rate outside the tensor cores in FLOP/s,
 # bf16 dense tensor-core rate in FLOP/s); NVIDIA's data sheets, dense rates
@@ -216,7 +240,8 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
 
 
 def run_cli(argv, device: str = "cuda"):
-    """The port's CLI in-process; returns (exit code, per-frame ms)."""
+    """The port's CLI in-process; returns (exit code, per-frame ms, what it
+    printed)."""
     from sartsolver_tpu_torch import cli
 
     buf = io.StringIO()
@@ -224,7 +249,7 @@ def run_cli(argv, device: str = "cuda"):
         rc = cli.main([*argv, "--device", device])
     text = buf.getvalue()
     ms = [float(m) for m in re.findall(r"Processed in: ([0-9.eE+-]+) ms", text)]
-    return rc, ms
+    return rc, ms, text
 
 
 def check_solution(path, world, n_frames: int, cap: int, device):
@@ -253,6 +278,119 @@ def check_solution(path, world, n_frames: int, cap: int, device):
     if not (err <= FIT_BOUND).all():
         raise AssertionError(f"fitted-space errors {err} above {FIT_BOUND}")
     return sol, err
+
+
+def group_loops(iterations, K: int) -> int:
+    """Loop iterations of the classic grouped loop over whole groups of K:
+    each group runs to its slowest frame."""
+    return sum(int(max(iterations[s:s + K])) for s in range(0, len(iterations), K))
+
+
+def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
+    """The CLI's frame-group loops over every frame of the world, linear
+    with the Laplacian. Per storage: ``--no_guess --batch_frames 8`` through
+    the scheduler and through the classic loop in turns (scheduler, classic,
+    classic, scheduler; equal solution files, byte for byte); for int8 also ``--batch_frames 4``; for fp32 and int8
+    ``--chain_frames 4`` against ``--chain_frames 1`` on the warm-started
+    stream (equal files). Every frame's status 0 or the cap and its fitted
+    error within ``FIT_BOUND``. On the card, counts are zeroed just before
+    each run and read just after: every launch on the plan ``plan_sweep``
+    gives the run's batch, the scheduler's launches equal the loop steps it
+    printed, the classic loop's the sum of its groups' loop counts (whole
+    groups only), the chain's the frames' iterations."""
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+
+    p = world["paths"]
+    base = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    on_card = device == "cuda"
+    if on_card:
+        import torch
+
+    def run(name, flags):
+        out = os.path.join(outdir, f"frames_{name}.h5")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, ms, text = run_cli(["-o", out, *base, *flags], device=device)
+        wall = time.perf_counter() - t0
+        rec = dict(wall_ms_per_frame=wall * 1e3 / T, launches_by_plan=dict(fused_sweep.launches_by_plan))
+        if on_card:  # the run's own peak, before the check uploads H
+            rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        if rc != 0 or len(ms) != T:
+            raise AssertionError(f"frames {name} run: exit {rc}, {len(ms)} of {T} frames")
+        sol, err = check_solution(out, world, T, MAX_ITERATIONS, device)
+        rec.update(cli_ms_per_frame=statistics.mean(ms),
+                   frame_iterations=int(sol["iterations"].sum()), fit_err_max=float(err.max()))
+        m = re.search(r"continuous batching: lanes=\d+ strides=(\d+) loop_steps=(\d+) "
+                      r"occupancy=([0-9.eE+-]+)", text)
+        if m:
+            rec.update(strides=int(m[1]), loop_steps=int(m[2]), occupancy=float(m[3]))
+        return sol, rec
+
+    def same(a, b, what):
+        for key in ("value", "status", "iterations"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"{what}: solution/{key} differ")
+
+    def launched(rec, plan, count, what):
+        want = dict.fromkeys(rec["launches_by_plan"], 0)
+        want[plan] = count
+        if on_card and rec["launches_by_plan"] != want:
+            raise AssertionError(f"{what}: {rec['launches_by_plan']} launches, "
+                                 f"{count} on {plan} expected")
+
+    record = {}
+    for storage in STORAGES:
+        flags = ["--rtm_dtype", storage, "--no_guess", "--batch_frames", str(FRAME_LANES)]
+        plan = plan_sweep(P, V, FRAME_LANES, storage)
+        # in turns (scheduler, classic, classic, scheduler): the host's speed
+        # drifts within a call, and the two loops differ only on the host
+        first, in_turns = {}, {"scheduled": [], "classic": []}
+        for kind in ("scheduled", "classic", "classic", "scheduled"):
+            sol, rec = run(f"{storage}_{kind}", flags if kind == "scheduled"
+                           else [*flags, "--no_continuous_batching"])
+            if kind == "scheduled":
+                launched(rec, plan, rec["loop_steps"], f"{storage} scheduler")
+            else:
+                loops = group_loops(sol["iterations"], FRAME_LANES)
+                rec.update(loop_iterations=loops,
+                           occupancy=rec["frame_iterations"] / (loops * FRAME_LANES))
+                if T % FRAME_LANES == 0:  # no dark tail, whose loop counts the file lacks
+                    launched(rec, plan, loops, f"{storage} classic loop")
+            same(sol, first.setdefault("solution", sol),
+                 f"{storage}: {kind} against the first scheduled run")
+            first.setdefault(kind, rec)
+            in_turns[kind].append(rec["cli_ms_per_frame"])
+        sched, classic = first["scheduled"], first["classic"]
+        for kind, rec in (("scheduled", sched), ("classic", classic)):
+            rec["cli_ms_per_frame_in_turns"] = in_turns[kind]
+        entry = dict(plan=plan, lanes=FRAME_LANES, scheduled=sched, classic=classic)
+        if storage == "int8":
+            four_plan = plan_sweep(P, V, FOUR_LANES, storage)
+            _, four = run("int8_four", ["--rtm_dtype", storage, "--no_guess",
+                                        "--batch_frames", str(FOUR_LANES)])
+            launched(four, four_plan, four["loop_steps"], "int8 scheduler, 4 lanes")
+            entry["four_lanes"] = dict(four, plan=four_plan, lanes=FOUR_LANES)
+        if storage in ("float32", "int8"):
+            one = plan_sweep(P, V, 1, storage)
+            chain_sol, chain = run(f"{storage}_chain", ["--rtm_dtype", storage,
+                                                         "--chain_frames", str(CHAIN_FRAMES)])
+            serial_sol, serial = run(f"{storage}_serial", ["--rtm_dtype", storage,
+                                                            "--chain_frames", "1"])
+            same(chain_sol, serial_sol, f"{storage}: --chain_frames {CHAIN_FRAMES} against 1")
+            for rec, what in ((chain, "chain"), (serial, "serial")):
+                launched(rec, one, rec["frame_iterations"], f"{storage} {what} loop")
+            entry["chain"] = dict(plan=one, chain_frames=CHAIN_FRAMES, chained=chain,
+                                  serial=serial)
+        record[storage] = entry
+    return record
 
 
 # ---- kernel checks and timing ---------------------------------------------
@@ -527,8 +665,14 @@ def kernel_phase(card: str):
         for storage in STORAGES:
             check(8192, 65536, 1, logarithmic, True, storage, plan="two_read")
         for B in (8, 16, 19, 32):
-            check(8192, 65536, B, logarithmic, True, "int8")
+            check(8192, 65536, B, logarithmic, True, "int8",
+                  key=f"int8@B{FRAME_LANES}" if B == FRAME_LANES else None)
         check(1000, 3008, 19, logarithmic, True, "int8")
+        # the frames phase's batch through each float storage's plan
+        for storage in STORAGES[:2]:
+            for with_pen in (False, True):
+                check(8192, 65536, FRAME_LANES, logarithmic, with_pen, storage,
+                      key=f"{storage}@B{FRAME_LANES}")
     torch.cuda.empty_cache()
 
     # timing at the main path's shape and mode: B = 1, linear with the
@@ -545,6 +689,19 @@ def kernel_phase(card: str):
                               plan_sweep(8192, 65536, 1, storage), versus="two_read")
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
+
+    # each storage's plan at the frames phase's batch, linear with the
+    # penalty (the batch loops' runs) and log
+    for storage in STORAGES:
+        for logarithmic in (False, True):
+            H, w, f, aux, scale = _sweep_inputs(8192, 65536, FRAME_LANES, logarithmic,
+                                                not logarithmic, seed=9, storage=storage)
+            kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
+            key = f"{storage}@B{FRAME_LANES}" + ("_log" if logarithmic else "")
+            timing[key] = _timing(H, w, f, aux, scale, kw, rates,
+                                  plan_sweep(8192, 65536, FRAME_LANES, storage))
+            del H, w, f, aux, scale
+            torch.cuda.empty_cache()
 
     # B4 at the three int8 probes' configuration: checked through
     # tensor_core and forced two_read, then timed in turns
@@ -736,18 +893,17 @@ def batch_phase(world, lap, device="cuda") -> dict:
     return record
 
 
-def profile_solve(problem, g, opts) -> dict:
-    """Frame 0 solved once more under ``torch.profiler``: device time by
-    kernel against the wall time of the solve, so the device's idle share."""
+def profile_run(fn) -> tuple:
+    """``fn()`` once under ``torch.profiler``: device time by kernel against
+    the wall time of the call, so the device's idle share; returns
+    ``(record, fn's result)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from sartsolver_tpu_torch.models.sart import solve
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = solve(problem, g, opts=opts, device="cuda")
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events()
@@ -766,10 +922,9 @@ def profile_solve(problem, g, opts) -> dict:
             end = stop
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     busy_ms = busy_us / 1e3
-    return dict(iterations=int(res.iterations), wall_ms=wall_ms, device_events=len(events),
-                device_busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, device_events=len(events), device_busy_ms=busy_ms,
                 idle_share=(1.0 - busy_ms / wall_ms) if events else None,
-                top_device_ms={k[:90]: v for k, v in top})
+                top_device_ms={k[:90]: v for k, v in top}), out
 
 
 def main() -> int:
@@ -793,6 +948,8 @@ def main() -> int:
         fused_sweep, fused_sweep_reference, plan_sweep, reset_launch_counts,
     )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.sched import ContinuousBatcher
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -825,17 +982,20 @@ def main() -> int:
         reset_launch_counts()
         for storage in STORAGES:
             plans_before = dict(fused_sweep.launches_by_plan)
+            # --chain_frames 1: every frame its own group, so its own time
+            # (the guess frame apart from the warm ones); the chain is held
+            # against it in the frames phase
             for name, flags, n_frames in (
-                ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
-                ("log", ["-L", "-t", "0:0.35"], 4),
+                ("linear", ["-l", p["laplacian"], "-t", "0:0.75", "--chain_frames", "1"], 8),
+                ("log", ["-L", "-t", "0:0.35", "--chain_frames", "1"], 4),
             ):
                 out = os.path.join(tmp, f"solution_{storage}_{name}.h5")
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 t0 = time.perf_counter()
-                rc, ms = run_cli(["-o", out, *inputs, "-m", cap, *flags,
-                                  "--rtm_dtype", storage])
+                rc, ms, _ = run_cli(["-o", out, *inputs, "-m", cap, *flags,
+                                     "--rtm_dtype", storage])
                 wall = time.perf_counter() - t0
                 peak = torch.cuda.max_memory_allocated() - base
                 if rc != 0 or len(ms) != n_frames:
@@ -874,6 +1034,9 @@ def main() -> int:
              launches_by_storage_and_plan=by_plan_of, iterations_by_storage=iters, runs=runs)
         del H_dev
 
+        frames = frames_phase(world, tmp)
+        emit("frames", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **frames)
+
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
         lap = make_laplacian(rows, cols, vals, nvoxel=V, device="cuda")
@@ -900,13 +1063,29 @@ def main() -> int:
                                  f"{k['iterations']}/{q['iterations']}, fitted {diff}")
         emit("plain_crosscheck", tolerance=CROSS_TOL, fitted_rel_diff=diff,
              **{n: {kk: v for kk, v in c.items() if kk != "fitted"} for n, c in cross.items()})
-        profiles = {"float32": profile_solve(problem, g0, opts)}
         del problem
-        for storage in STORAGES[1:]:
-            st_opts = SolverOptions(max_iterations=MAX_ITERATIONS, rtm_dtype=storage)
-            st_problem = make_problem(world["H"], lap, opts=st_opts, device="cuda")
-            profiles[storage] = profile_solve(st_problem, g0, st_opts)
-            del st_problem
+        # frame 0 from the guess, serially, and the first FRAME_LANES frames
+        # as one group of the classic loop and through the scheduler's lanes,
+        # per storage type
+        group = world["G"][:, :FRAME_LANES].T.astype(np.float64)
+        profiles = {}
+        for storage in STORAGES:
+            st_opts = SolverOptions(max_iterations=MAX_ITERATIONS,
+                                    rtm_dtype=None if storage == "float32" else storage)
+            with DistributedSARTSolver(world["H"], lap, opts=st_opts, device="cuda") as solver:
+                frame0, res = profile_run(lambda: solve(solver.problem, g0, opts=st_opts,
+                                                        device="cuda"))
+                grouped, iters = profile_run(lambda: solver.solve_batch(group).iterations)
+                batcher = ContinuousBatcher(solver, lanes=FRAME_LANES,
+                                            on_result=lambda *r: r[5]())
+                lanes, stats = profile_run(lambda: batcher.run(
+                    (frame, float(t), [float(t)]) for t, frame in enumerate(group)))
+            profiles[storage] = dict(frame0, iterations=int(res.iterations),
+                                     batch=dict(grouped, frames=FRAME_LANES,
+                                                loop_iterations=int(iters.max())),
+                                     scheduled=dict(lanes, frames=FRAME_LANES,
+                                                    loop_steps=stats.loop_steps,
+                                                    strides=stats.strides))
         emit("profile", **profiles)
         del lap, world
 
@@ -926,6 +1105,17 @@ def main() -> int:
                 timing[storage], by_plan_of[storage][timing[storage]["plan"]],
                 errors[storage], VARIANT[storage])
             for storage in STORAGES]
+    for storage in STORAGES:
+        key = f"{storage}@B{FRAME_LANES}"
+        batch_runs = (frames[storage]["scheduled"], frames[storage]["classic"])
+        r = row(("fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]")
+                + f"@B{FRAME_LANES}", timing[key],
+                sum(run["launches_by_plan"][timing[key]["plan"]] for run in batch_runs),
+                errors[key], f"{VARIANT[storage]} at the batch loops' B = {FRAME_LANES}")
+        log = timing[key + "_log"]
+        r.update(log_ms=log["ms"], log_plain_ms=log["plain_ms"], log_bound_ms=log["bound_ms"],
+                 log_library_ms=log["library_ms"])
+        rows.append(r)
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

@@ -120,6 +120,10 @@ class SolverOptions:
       ``"bfloat16"`` halves the bytes each sweep reads; ``"int8"`` stores
       per-voxel-scaled codes (``models/sart.py:quantize_rtm``), solves the
       quantized system, needs fp32 compute and the fused sweep.
+    - ``schedule_stride``: continuous batching (``sched/``) returns control
+      to the host every this many iterations, so the scheduler can retire
+      converged lanes and backfill them from the frame queue. Only the
+      scheduler reads it.
     """
 
     ray_density_threshold: float = 1.0e-6
@@ -139,6 +143,7 @@ class SolverOptions:
     precise_convergence: bool = True
 
     rtm_dtype: str | None = None
+    schedule_stride: int = 16
 
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
@@ -190,6 +195,11 @@ class SolverOptions:
             raise ValueError("rtm_dtype='int8' requires dtype='float32'.")
         if self.fused_sweep not in ("auto", "on", "off"):
             raise ValueError("fused_sweep must be 'auto', 'on' or 'off'.")
+        if self.schedule_stride < 1:
+            raise ValueError(
+                "Attribute schedule_stride must be >= 1 (iterations "
+                "between scheduler control returns)."
+            )
         for name, default in _NOT_PORTED:
             value = getattr(self, name)
             if value != default:

@@ -1,0 +1,262 @@
+"""Upload once, solve many frames: the solver object of the CLI's loops.
+
+Counterpart of ``sartsolver_tpu/parallel/sharded.py`` on one device: the
+matrix is uploaded once (:func:`~sartsolver_tpu_torch.models.sart.make_problem`),
+then frames are solved in batches (:meth:`DistributedSARTSolver.solve_batch`),
+in warm-started chains (:meth:`~DistributedSARTSolver.solve_chain`) or as
+continuous-batching lanes (:meth:`~DistributedSARTSolver.sched_lanes` and
+:meth:`~DistributedSARTSolver.sched_step`). It takes ``device=`` where the
+JAX class takes a mesh; the multi-GPU slice extends it.
+
+Frames arrive as host arrays in physical units and are normalized on the
+host (:func:`~sartsolver_tpu_torch.models.sart.prepare_measurement`).
+Results stay on the device: their scalars come back in one packed copy,
+their solutions when fetched.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sartsolver_tpu_torch.config import MAX_ITERATIONS_EXCEEDED, SolverOptions
+from sartsolver_tpu_torch.device import resolve_device
+from sartsolver_tpu_torch.models.sart import (
+    SchedState,
+    SolveResult,
+    make_problem,
+    prepare_measurement,
+    sched_step_normalized,
+    solve_chain_normalized,
+    solve_normalized_batch,
+    torch_dtype,
+)
+
+
+class DeviceSolveResult:
+    """Batch result whose solution stays on the device.
+
+    ``solution_norm`` [B, V] is the normalized solution (the next chain's
+    warm start, never visiting the host) and ``fitted_norm`` its loop-exit
+    ``H @ solution``; status, iterations and convergence come back in one
+    packed device-to-host copy on first access, the solutions in one more
+    (:meth:`fetch_solutions`), denormalized on the host in fp64.
+    """
+
+    def __init__(self, res: SolveResult, norms, fitted_norm: torch.Tensor):
+        self.solution_norm = res.solution
+        self.fitted_norm = fitted_norm
+        self.norms = np.asarray(norms, np.float64)  # [B]
+        # fp64 holds the int32 counts and either compute dtype exactly
+        self._packed = torch.stack([res.status.double(), res.iterations.double(),
+                                    res.convergence.double()])
+        self._scalars: Optional[tuple] = None
+        self._host: Optional[np.ndarray] = None
+
+    def _fetch_scalars(self) -> tuple:
+        if self._scalars is None:
+            packed = self._packed.cpu().numpy()
+            self._scalars = (packed[0].astype(np.int32), packed[1].astype(np.int32),
+                             packed[2])
+        return self._scalars
+
+    @property
+    def status(self) -> np.ndarray:
+        return self._fetch_scalars()[0]
+
+    @property
+    def iterations(self) -> np.ndarray:
+        return self._fetch_scalars()[1]
+
+    @property
+    def convergence(self) -> np.ndarray:
+        return self._fetch_scalars()[2]
+
+    def fetch_solutions(self) -> np.ndarray:
+        """[B, V] fp64 solutions in physical units; one copy, cached."""
+        if self._host is None:
+            sol = self.solution_norm.double().cpu().numpy()
+            self._host = sol * self.norms[:, None]
+        return self._host
+
+
+class SchedLaneState:
+    """Host handle of the continuous-batching lanes: the device
+    :class:`~sartsolver_tpu_torch.models.sart.SchedState` plus what the device
+    does not carry, each occupant's fp64 measurement norm.
+
+    Made by :meth:`DistributedSARTSolver.sched_lanes`, advanced by
+    :meth:`DistributedSARTSolver.sched_step`; the scheduler (``sched/``)
+    decides retirement and backfill on top.
+    """
+
+    def __init__(self, state: SchedState, lanes: int):
+        self.state = state
+        self.lanes = int(lanes)
+        self.norms = np.ones(self.lanes, np.float64)  # per-lane occupant norm
+        self._scalars: Optional[tuple] = None
+
+    def scalars(self):
+        """``(done bool[B], status int32[B], iters int32[B], conv f64[B],
+        it int32[B])``: one packed device-to-host copy per stride, cached
+        until the next step."""
+        if self._scalars is None:
+            st = self.state
+            packed = torch.stack([st.done.double(), st.status.double(), st.iters.double(),
+                                  st.conv.double(), st.it.double()]).cpu().numpy()
+            self._scalars = (packed[0] > 0.5, packed[1].astype(np.int32),
+                             packed[2].astype(np.int32), packed[3],
+                             packed[4].astype(np.int32))
+        return self._scalars
+
+    def lane_solution_fetcher(self, b: int):
+        """Zero-argument callable resolving lane ``b``'s solution in physical
+        units. The row and its norm are taken now: the next backfill puts
+        another frame in the lane."""
+        row = self.state.f[b].clone()
+        norm = float(self.norms[b])
+        return lambda: row.double().cpu().numpy() * norm
+
+
+class DistributedSARTSolver:
+    """Upload-once, solve-many-frames solver on one device.
+
+    ``rtm`` [P, V] is a host array or a tensor, stored as
+    ``opts.rtm_dtype`` (int8: quantized where it lies); ``laplacian`` a :class:`~sartsolver_tpu_torch.ops.laplacian.LaplacianCOO`
+    on ``device``. :meth:`close` (or leaving a ``with`` block) releases the
+    device copy of the matrix.
+    """
+
+    def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda"):
+        self.device = resolve_device(device)
+        self.opts = opts
+        self.dtype = torch_dtype(opts.dtype)
+        self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device)
+        self.npixel, self.nvoxel = self.problem.rtm.shape
+
+    def close(self) -> None:
+        """Release the device copy of the problem; results stay valid."""
+        self.problem = None
+
+    def __enter__(self) -> "DistributedSARTSolver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _live_problem(self):
+        if self.problem is None:
+            raise ValueError(
+                "This solver has been closed (close() released its device "
+                "memory); build a new DistributedSARTSolver."
+            )
+        return self.problem
+
+    def _stage_frames(self, measurements):
+        """Normalize B host frames [B, P] as prepare_measurement does:
+        ``(g [B, P], msq [B])`` on the device and the norms [B] on the host."""
+        G = np.asarray(measurements, np.float64)
+        if G.ndim != 2 or G.shape[1] != self.npixel:
+            raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
+        gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
+        g = torch.as_tensor(np.stack(gs), device=self.device).to(self.dtype)
+        msq = torch.as_tensor(np.asarray(msqs), device=self.device).to(self.dtype)
+        return g, msq, np.asarray(norms, np.float64)
+
+    def solve_batch(self, measurements) -> DeviceSolveResult:
+        """Solve B independent frames [B, P] in one batched loop, each from
+        the Eq. 4 guess. The caller pads a short tail if it wants a fixed
+        batch size."""
+        problem = self._live_problem()
+        g, msq, norms = self._stage_frames(measurements)
+        seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype, device=self.device)
+        res, fitted = solve_normalized_batch(
+            problem, g, msq, seed, opts=self.opts, use_guess=True,
+            return_fitted=True, device=self.device,
+        )
+        return DeviceSolveResult(res, norms, fitted_norm=fitted)
+
+    def solve_chain(self, measurements, *,
+                    warm: Optional[DeviceSolveResult] = None) -> DeviceSolveResult:
+        """Solve K warm-chained frames [K, P]: each frame from the previous
+        one's solution. Frame 0 seeds from ``warm`` (a previous result of
+        this solver: its last frame's solution and loop-exit ``fitted``,
+        still on the device), else from the Eq. 4 guess. Per frame equal to
+        K serial solves."""
+        problem = self._live_problem()
+        g, msq, norms = self._stage_frames(measurements)
+        rescale = np.ones(len(norms))
+        rescale[1:] = norms[:-1] / norms[1:]
+        if warm is None:
+            seed = torch.zeros((1, self.nvoxel), dtype=self.dtype, device=self.device)
+            fitted0 = None
+        else:
+            rescale[0] = warm.norms[-1] / norms[0]
+            seed, fitted0 = warm.solution_norm[-1:], warm.fitted_norm[-1:]
+        res, fitted = solve_chain_normalized(
+            problem, g, msq, seed, torch.as_tensor(rescale, device=self.device),
+            opts=self.opts, use_guess_first=warm is None, fitted0=fitted0,
+            device=self.device,
+        )
+        return DeviceSolveResult(res, norms, fitted_norm=fitted)
+
+    # ---- continuous batching (sched/) -----------------------------------
+
+    def sched_lanes(self, lanes: int) -> SchedLaneState:
+        """Fresh, all-inert lane state for :meth:`sched_step`: ``g = -1``
+        (every pixel masked), ``f = 1`` (log-safe), ``msq = 1``, done."""
+        self._live_problem()
+        B = int(lanes)
+        if B < 1:
+            raise ValueError("Lane count must be positive.")
+        kw = dict(dtype=self.dtype, device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        state = SchedState(
+            g=torch.full((B, self.npixel), -1.0, **kw),
+            msq=torch.ones(B, **kw),
+            f=torch.ones((B, self.nvoxel), **kw),
+            fitted=torch.zeros((B, self.npixel), **kw),
+            conv=torch.zeros(B, **kw),
+            it=torch.zeros(B, **i32),
+            done=torch.ones(B, dtype=torch.bool, device=self.device),
+            status=torch.full((B,), MAX_ITERATIONS_EXCEEDED, **i32),
+            iters=torch.zeros(B, **i32),
+            obs=torch.zeros((B, self.nvoxel), **kw) if self.opts.logarithmic else None,
+        )
+        return SchedLaneState(state, B)
+
+    def sched_step(self, lane_state: SchedLaneState, refills) -> None:
+        """Advance the lanes one stride. ``refills`` is a list of ``(lane,
+        measurement)`` pairs, full frames [P] in physical units, normalized
+        as :meth:`solve_batch` normalizes them and loaded before the stride
+        runs; an empty list is a pure drain stride. The new state is
+        committed only after the stride ran: a failed dispatch leaves the
+        previous state intact."""
+        problem = self._live_problem()
+        B = lane_state.lanes
+        norms = lane_state.norms.copy()
+        refill = np.zeros(B, bool)
+        g_new = msq_new = None
+        if refills:
+            g_stage = np.full((B, self.npixel), -1.0)
+            msq_stage = np.ones(B)
+            for b, meas in refills:
+                meas = np.asarray(meas, np.float64)
+                if meas.shape != (self.npixel,):
+                    raise ValueError(f"Refill measurement for lane {b} has shape "
+                                     f"{meas.shape}, expected ({self.npixel},).")
+                if refill[b]:
+                    raise ValueError(f"Lane {b} refilled twice in one stride.")
+                g_stage[b], msq_stage[b], norms[b] = prepare_measurement(meas, self.opts)
+                refill[b] = True
+            g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)
+            msq_new = torch.as_tensor(msq_stage, device=self.device).to(self.dtype)
+        new_state = sched_step_normalized(
+            problem, lane_state.state, g_new, msq_new, refill, opts=self.opts,
+            device=self.device,
+        )
+        lane_state.state = new_state
+        lane_state.norms = norms
+        lane_state._scalars = None

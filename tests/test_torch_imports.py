@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of sartsolver_tpu_torch, and
 chip_smoke.py and sweep_measure.py, loads neither JAX nor any module of the
 JAX package. Also a
-small-size run of chip_smoke.py's world and solve checks on the CPU."""
+small-size run of chip_smoke.py's world, solve checks and frames phase on the
+CPU."""
 
 import itertools
 import os
@@ -51,12 +52,24 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
     assert world["H"].shape == (64, 256) and world["G"].shape == (64, 12)
     inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
     for storage, (name, flags, n_frames) in itertools.product(cs.STORAGES, (
-        ("linear", ["-l", p["laplacian"], "-t", "0:0.75"], 8),
-        ("log", ["-L", "-t", "0:0.35"], 4),
+        ("linear", ["-l", p["laplacian"], "-t", "0:0.75", "--chain_frames", "1"], 8),
+        ("log", ["-L", "-t", "0:0.35", "--chain_frames", "1"], 4),
     )):
         out = str(tmp_path / f"{storage}_{name}.h5")
-        rc, ms = cs.run_cli(["-o", out, *inputs, "-m", "300", *flags,
-                             "--rtm_dtype", storage], device="cpu")
+        rc, ms, _ = cs.run_cli(["-o", out, *inputs, "-m", "300", *flags,
+                                "--rtm_dtype", storage], device="cpu")
         assert rc == 0 and len(ms) == n_frames
         sol, err = cs.check_solution(out, world, n_frames, 300, "cpu")
         assert np.all(err <= cs.FIT_BOUND)
+    # the frames phase's runs and checks: scheduler = classic loop and chain
+    # = serial byte for byte, statuses and fitted errors (launch counts are
+    # the card's)
+    frames = cs.frames_phase(world, str(tmp_path), device="cpu")
+    assert set(frames) == set(cs.STORAGES)
+    for storage, entry in frames.items():
+        assert entry["scheduled"]["loop_steps"] > 0
+        assert 0 < entry["scheduled"]["occupancy"] <= 1
+        assert entry["classic"]["loop_iterations"] > 0
+        for kind in ("scheduled", "classic"):
+            assert len(entry[kind]["cli_ms_per_frame_in_turns"]) == 2
+    assert set(frames["int8"]) >= {"four_lanes", "chain"} and "chain" in frames["float32"]

@@ -1,0 +1,107 @@
+"""Continuous batching on the card: scheduled lanes against the classic
+grouped loop, byte for byte, through each plan of the sweep kernel.
+
+Needs a CUDA device and ``nvcc``: every test is marked ``gpu`` and skips
+without a card. Run on the card with
+``python -m pytest -q --noconftest -m gpu tests/test_torch_sched_gpu.py``.
+This file imports no JAX.
+
+Byte identity holds when every lane's result is independent of the other
+lanes' contents and both loops sweep the same B: the kernel's split-K and
+rank orders are fixed, cuBLAS products of one shape are deterministic, and
+the fp64 ``||Hf||^2`` is taken per row. The grouped loop pads its tail with
+dark frames to keep B equal to the lane count.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sartsolver_tpu_torch.config import SolverOptions
+from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+from sartsolver_tpu_torch.ops.laplacian import make_laplacian
+from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+from sartsolver_tpu_torch.sched import ContinuousBatcher
+
+
+def _mixed_case(P, V, n, seed):
+    """(H, frames) whose iteration counts spread: truths with more fine
+    structure straggle."""
+    rng = np.random.default_rng(seed)
+    H = rng.uniform(0.1, 1.0, (P, V)).astype(np.float32)
+    x = np.arange(V) / V
+    base = 1.0 + 0.5 * np.sin(2 * np.pi * x)
+    rough = np.sin(2 * np.pi * 6.5 * x)
+    amps = np.geomspace(1e-3, 3.0, n)
+    rng.shuffle(amps)
+    H64 = H.astype(np.float64)
+    frames = [np.maximum(H64 @ np.maximum(base + a * rough, 1e-3)
+                         * (1.0 + 1e-3 * rng.standard_normal(P)), 0.0) for a in amps]
+    return H, frames
+
+
+def _chain_laplacian(V):
+    i = np.arange(V)
+    rows = np.concatenate([i, i[1:], i[:-1]])
+    cols = np.concatenate([i, i[1:] - 1, i[:-1] + 1])
+    vals = np.concatenate([np.full(V, 0.2), np.full(2 * V - 2, -0.1)])
+    return make_laplacian(rows, cols, vals, nvoxel=V, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("storage,P,V,lanes,plan", [
+    ("float32", 512, 256, 8, "two_read"),
+    ("int8", 512, 256, 8, "tensor_core"),
+    ("bfloat16", 2048, 256, 4, "one_read"),
+    ("int8", 5120, 256, 4, "one_read"),
+])
+def test_scheduled_lanes_equal_the_grouped_loop_on_the_card(storage, P, V, lanes, plan,
+                                                            logarithmic):
+    """Every retired lane equals the grouped loop's frame byte for byte
+    (solution, status, iterations); every launch of both loops is on the
+    plan ``plan_sweep`` gives at B = lanes; the scheduler's launches equal
+    its loop steps, the grouped loop's the sum of its groups' loop counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert plan_sweep(P, V, lanes, storage) == plan
+    H, frames = _mixed_case(P, V, 2 * lanes + lanes // 2, seed=P + lanes)
+    # tolerances at which these frames' counts spread below the cap
+    opts = SolverOptions(max_iterations=300, conv_tolerance=1e-7 if logarithmic else 1e-8,
+                         schedule_stride=8,
+                         logarithmic=logarithmic, rtm_dtype=storage,
+                         beta_laplace=0.0 if logarithmic else 0.01)
+    lap = None if logarithmic else _chain_laplacian(V)
+    with DistributedSARTSolver(H, lap, opts=opts, device="cuda") as solver:
+        reset_launch_counts()
+        dense, loops = [], 0
+        for s in range(0, len(frames), lanes):
+            stack = np.stack(frames[s:s + lanes])
+            n = stack.shape[0]
+            if n < lanes:
+                stack = np.concatenate([stack, np.zeros((lanes - n, P))])
+            res = solver.solve_batch(stack)
+            loops += int(res.iterations.max())
+            dense += [(res.fetch_solutions()[b], int(res.status[b]), int(res.iterations[b]))
+                      for b in range(n)]
+        torch.cuda.synchronize()
+        dense_launches = dict(fused_sweep.launches_by_plan)
+
+        reset_launch_counts()
+        got = []
+
+        def on_result(_t, _ct, status, iters, _conv, fetcher, _ms):
+            got.append((fetcher(), status, iters))
+
+        stats = ContinuousBatcher(solver, lanes=lanes, on_result=on_result).run(
+            (fr, float(i), [float(i)]) for i, fr in enumerate(frames))
+        torch.cuda.synchronize()
+        sched_launches = dict(fused_sweep.launches_by_plan)
+
+    assert [g[1] for g in got] == [d[1] for d in dense]
+    assert [g[2] for g in got] == [d[2] for d in dense]
+    np.testing.assert_array_equal(np.stack([g[0] for g in got]),
+                                  np.stack([d[0] for d in dense]))
+    assert len({d[2] for d in dense}) >= 3  # the frames really spread
+    assert dense_launches == {**dict.fromkeys(dense_launches, 0), plan: loops}
+    assert sched_launches == {**dict.fromkeys(sched_launches, 0), plan: stats.loop_steps}
