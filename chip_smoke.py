@@ -32,7 +32,11 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    ``one_read`` edge each table gives and the clusters ``one_read`` runs.
    Each storage's plan at the batch loops' B = 8 (fp32 and bf16
    ``two_read``, int8 ``tensor_core``) is checked and timed too, linear with
-   the penalty and log.
+   the penalty and log. The scheduled log update (``alpha_lane``, one
+   exponent per row, distinct) is checked on ``one_read`` at B = 1 and 4
+   for each storage, fp32 and bf16 ``two_read`` and int8 ``tensor_core`` at
+   B = 8, log with the penalty, and timed in turns with the fixed-exponent
+   log sweep (α = 0.9).
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
@@ -60,7 +64,15 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    the iterations). Counts are zeroed just before each run and read just
    after; ms per frame, loop iterations, occupancy, launches by plan and
    peak device memory per run.
-4b. ``batch``: the 32 frames of the world solved at once through the solver
+4b. ``variants``: the solver variants through the CLI on the world, per
+   storage (:func:`variants_phase`), beside the same runs without them:
+   ``-L --relaxation_decay 0.98`` warm started and through the batch loops
+   (scheduler = classic, byte for byte), ``--momentum nesterov`` linear and
+   log, ``--divergence_recovery 2`` byte-equal to the unguarded run and, on
+   a copy of the world with a NaN pixel in frame 3, that frame DIVERGED with
+   a zero row and exit 2; every scheduled-log launch counted, on the plan of
+   its run's B; each frame's ms.
+4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
    after (one launch per loop iteration), statuses and fitted-space errors
@@ -236,7 +248,7 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
     _write_image(paths["img_b"], "camB", G[npix_cam:].T.reshape(n_frames, *cam), times)
     _write_laplacian(paths["laplacian"], V)
     return {"paths": paths, "H": H, "f_true": f_true, "scales": scales,
-            "G": G, "times": times}
+            "G": G, "times": times, "cam": cam}
 
 
 def run_cli(argv, device: str = "cuda"):
@@ -252,8 +264,9 @@ def run_cli(argv, device: str = "cuda"):
     return rc, ms, text
 
 
-def check_solution(path, world, n_frames: int, cap: int, device):
-    """Schema, statuses and fitted-space errors of one solution file."""
+def check_solution(path, world, n_frames: int, cap: int, device, skip=()):
+    """Schema, statuses and fitted-space errors of one solution file; the
+    frames in ``skip`` are left to the caller (their errors come back 0)."""
     from sartsolver_tpu_torch.io import h5
     import torch
 
@@ -267,6 +280,7 @@ def check_solution(path, world, n_frames: int, cap: int, device):
     if sol["value"].shape != (n_frames, V) or not np.isfinite(sol["value"]).all():
         raise AssertionError(f"solution/value {sol['value'].shape} or not finite")
     ok = (sol["status"] == 0) | ((sol["status"] == -1) & (sol["iterations"] == cap))
+    ok[list(skip)] = True
     if not ok.all():
         raise AssertionError(f"statuses {sol['status']} iterations {sol['iterations']}")
     H = torch.as_tensor(world["H"], device=device)
@@ -275,6 +289,7 @@ def check_solution(path, world, n_frames: int, cap: int, device):
     fit = H @ torch.as_tensor(sol["value"].T, dtype=torch.float32, device=device)
     ref = H @ truth
     err = ((fit - ref).norm(dim=0) / ref.norm(dim=0)).cpu().numpy()
+    err[list(skip)] = 0.0
     if not (err <= FIT_BOUND).all():
         raise AssertionError(f"fitted-space errors {err} above {FIT_BOUND}")
     return sol, err
@@ -389,6 +404,164 @@ def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
                 launched(rec, one, rec["frame_iterations"], f"{storage} {what} loop")
             entry["chain"] = dict(plan=one, chain_frames=CHAIN_FRAMES, chained=chain,
                                   serial=serial)
+        record[storage] = entry
+    return record
+
+
+def _write_poisoned_images(world, outdir: str, frame: int) -> dict:
+    """The world's paths with camera A's images replaced by a copy whose
+    frame ``frame`` holds a NaN pixel."""
+    G = world["G"].copy()  # [P, T]
+    G[0, frame] = np.nan
+    paths = dict(world["paths"])
+    paths["img_a"] = os.path.join(outdir, "img_a_nan.h5")
+    cam = world["cam"]
+    _write_image(paths["img_a"], "camA", G[:cam[0] * cam[1]].T.reshape(G.shape[1], *cam),
+                 world["times"])
+    return paths
+
+
+def variants_phase(world, outdir: str, device: str = "cuda") -> dict:
+    """The solver variants through the CLI on the world, per storage, each
+    run's launch counts zeroed just before it and read just after; every
+    frame's status 0 or the cap and its fitted error within ``FIT_BOUND``.
+    The B = 1 runs are warm-started at ``--chain_frames 1`` (each frame its
+    own time), beside the same runs without a variant (``plain_linear``:
+    with the Laplacian over 8 frames; ``plain_log``: over 4):
+
+    - ``-L --relaxation_decay 0.98`` over 4 frames (``one_read``), and
+      ``--no_guess --batch_frames 8`` over the 32 frames through the
+      scheduler and the classic loop (equal files; fp32 and bf16
+      ``two_read``, int8 ``tensor_core``), int8 also at ``--batch_frames 4``
+      (``one_read``): every launch the scheduled log update's, on the run's
+      plan;
+    - ``--momentum nesterov``, linear and log;
+    - ``--divergence_recovery 2``, linear: equal, byte for byte, to
+      ``plain_linear``; on a copy of the world whose frame 3 has a NaN pixel,
+      that frame DIVERGED (-2) with a zero row and no iteration, the others
+      within the bound, exit 2; log (fp32 and bf16: the guard keeps the log
+      solver off the fused sweep, so no launch), int8 log refused (exit 1).
+    """
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    nan_frame = 3
+    nan_paths = _write_poisoned_images(world, outdir, nan_frame)
+    nan_inputs = inputs[:3] + [nan_paths["img_a"], p["img_b"]]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    on_card = device == "cuda"
+    serial = ["--chain_frames", "1"]
+    lin = ["-l", p["laplacian"], "-t", "0:0.75", *serial]  # 8 frames
+    log = ["-L", "-t", "0:0.35", *serial]  # 4 frames
+
+    def run(name, flags, n_frames, files=None, expect=0):
+        out = os.path.join(outdir, f"variant_{name}.h5")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, ms, text = run_cli(["-o", out, *(files or inputs), "-m", str(MAX_ITERATIONS),
+                                *flags], device=device)
+        wall = time.perf_counter() - t0
+        rec = dict(wall_s=wall, launches_by_plan=dict(fused_sweep.launches_by_plan),
+                   scheduled_by_plan=dict(fused_sweep.scheduled_by_plan))
+        if rc != expect or (expect != 1 and len(ms) != n_frames):
+            raise AssertionError(f"variant {name}: exit {rc} (want {expect}), {len(ms)} of "
+                                 f"{n_frames} frames")
+        if expect == 1:
+            return None, rec
+        rec["cli_ms_per_frame"] = statistics.mean(ms)
+        if n_frames <= 8:
+            rec["frame_ms"] = ms
+        m = re.search(r"continuous batching: lanes=\d+ strides=(\d+) loop_steps=(\d+) ", text)
+        if m:
+            rec.update(strides=int(m[1]), loop_steps=int(m[2]))
+        return out, rec
+
+    def checked(name, flags, n_frames, files=None, expect=0, skip=()):
+        out, rec = run(name, flags, n_frames, files, expect)
+        sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, device, skip=skip)
+        its = sol["iterations"]
+        rec.update(iterations=its.tolist() if n_frames <= 8 else int(its.sum()),
+                   status=sol["status"].tolist() if n_frames <= 8 else None,
+                   fit_err_max=float(err.max()))
+        if n_frames <= 8 and its[0] > 0:  # the guess frame's ms per iteration
+            rec["guess_ms_per_iteration"] = rec["frame_ms"][0] / int(its[0])
+        return sol, rec
+
+    def on_plan(rec, plan, count, scheduled, what):
+        want = dict.fromkeys(rec["launches_by_plan"], 0)
+        want[plan] = count
+        got = rec["scheduled_by_plan"] if scheduled else rec["launches_by_plan"]
+        if on_card and (rec["launches_by_plan"] != want or got != want):
+            raise AssertionError(f"{what}: {rec['launches_by_plan']} launches "
+                                 f"({rec['scheduled_by_plan']} scheduled), {count} on "
+                                 f"{plan} expected")
+
+    def same(a, b, what):
+        for key in ("value", "status", "iterations"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"{what}: solution/{key} differ")
+
+    record = {}
+    for storage in STORAGES:
+        st = ["--rtm_dtype", storage]
+        decay = ["-L", "--relaxation_decay", "0.98"]
+        one = plan_sweep(P, V, 1, storage)
+        entry = {}
+        plain_lin, entry["plain_linear"] = checked(f"{storage}_plain_linear", [*st, *lin], 8)
+        _, entry["plain_log"] = checked(f"{storage}_plain_log", [*st, *log], 4)
+        # the scheduled log update: warm started (B = 1) ...
+        sol, rec = checked(f"{storage}_decay_serial", [*st, *log, "--relaxation_decay", "0.98"],
+                           4)
+        on_plan(rec, one, int(sol["iterations"].sum()), True, f"{storage} decay, B = 1")
+        entry["decay_serial"] = rec
+        # ... and the batch loops (B = 8): scheduler and classic, equal files
+        batch = [*st, *decay, "--no_guess", "--batch_frames", str(FRAME_LANES)]
+        plan8 = plan_sweep(P, V, FRAME_LANES, storage)
+        sched_sol, sched = checked(f"{storage}_decay_sched", batch, T)
+        on_plan(sched, plan8, sched["loop_steps"], True, f"{storage} decay scheduler")
+        classic_sol, classic = checked(f"{storage}_decay_classic",
+                                       [*batch, "--no_continuous_batching"], T)
+        loops = group_loops(classic_sol["iterations"], FRAME_LANES)
+        on_plan(classic, plan8, loops, True, f"{storage} decay classic loop")
+        same(sched_sol, classic_sol, f"{storage} decay: scheduler against classic loop")
+        entry.update(decay_scheduled=dict(sched, plan=plan8),
+                     decay_classic=dict(classic, plan=plan8, loop_iterations=loops))
+        if storage == "int8":
+            plan4 = plan_sweep(P, V, FOUR_LANES, storage)
+            _, rec = checked("int8_decay_four", [*st, *decay, "--no_guess", "--batch_frames",
+                                                 str(FOUR_LANES)], T)
+            on_plan(rec, plan4, rec["loop_steps"], True, "int8 decay scheduler, 4 lanes")
+            entry["decay_four_lanes"] = dict(rec, plan=plan4)
+        # momentum, linear and log (B = 1)
+        for mode, flags, n in (("linear", lin, 8), ("log", log, 4)):
+            sol, rec = checked(f"{storage}_momentum_{mode}",
+                               [*st, "--momentum", "nesterov", *flags], n)
+            on_plan(rec, one, int(sol["iterations"].sum()), False, f"{storage} momentum {mode}")
+            entry[f"momentum_{mode}"] = rec
+        # the guard, linear: the unguarded run's file; a NaN frame DIVERGED
+        guard = [*st, "--divergence_recovery", "2", *lin]
+        sol, rec = checked(f"{storage}_guard", guard, 8)
+        same(sol, plain_lin, f"{storage}: the armed guard against no guard")
+        on_plan(rec, one, int(sol["iterations"].sum()), False, f"{storage} guard")
+        entry["guard_linear"] = dict(rec, byte_equal_to_unguarded=True)
+        bad, rec = checked(f"{storage}_guard_nan", guard, 8, files=nan_inputs, expect=2,
+                           skip=(nan_frame,))
+        if (bad["status"][nan_frame] != -2 or bad["iterations"][nan_frame] != 0
+                or bad["value"][nan_frame].any()):
+            raise AssertionError(f"{storage} NaN frame: statuses {bad['status']}, "
+                                 f"iterations {bad['iterations']}")
+        entry["guard_nan_frame"] = rec
+        guard_log = [*st, "--divergence_recovery", "2", *log]
+        if storage == "int8":
+            run("int8_guard_log", guard_log, 4, expect=1)
+            entry["guard_log"] = "refused (exit 1): int8 needs the fused sweep"
+        else:
+            _, rec = checked(f"{storage}_guard_log", guard_log, 4)
+            if on_card and any(rec["launches_by_plan"].values()):
+                raise AssertionError(f"{storage} log guard launched the fused sweep")
+            entry["guard_log"] = rec
         record[storage] = entry
     return record
 
@@ -621,6 +794,59 @@ def _timing(H, w, f, aux, scale, kw, rates, plan, versus=None) -> dict:
     return out
 
 
+def _lanes(B: int):
+    """Distinct exponents per row for the scheduled log update (relaxation
+    0.9 times decay 0.98**k at k = 0, 3, 6, ...): ``[B, 1]`` on the card."""
+    import torch
+
+    k = 3 * torch.arange(B, device="cuda", dtype=torch.float32)
+    return (0.9 * 0.98 ** k)[:, None].contiguous()
+
+
+def _sched_timing(H, w, f, aux, scale, lanes, eps, rates, plan) -> dict:
+    """The scheduled log update (``alpha_lane``) timed in turns with the
+    fixed-exponent log sweep (α = 0.9, which takes the power too): fixed,
+    scheduled, scheduled, fixed, each the mean of its two medians; the plain
+    version's and the library's times (two ``torch.matmul`` around the
+    update on an fp32 copy of the dequantized matrix) beside the bound of
+    the same bytes (the exponents add 4 B bytes)."""
+    import torch
+
+    from sartsolver_tpu_torch.ops.fused_sweep import _sweep, fused_sweep_reference
+
+    Hd = H.float() if scale is None else H.float() * scale
+
+    def library():
+        bp = torch.matmul(w, Hd)
+        f_new = f * ((aux[1] + eps) / (bp * aux[0] + eps)) ** lanes * torch.exp(-aux[2])
+        return torch.matmul(f_new, Hd.T)
+
+    def fixed():
+        return _sweep(H, w, f, aux, scale=scale, plan=plan, logarithmic=True, alpha=0.9, eps=eps)
+
+    def scheduled():
+        return _sweep(H, w, f, aux, scale=scale, plan=plan, logarithmic=True, eps=eps,
+                      alpha_lane=lanes)
+
+    fixed_ms, ms, turns = _in_turns(fixed, scheduled)
+    out = dict(plan=plan, ms=ms, fixed_alpha_ms=fixed_ms, turns_ms=turns,
+               device=_device_profile(scheduled),
+               plain_ms=_median_ms(lambda: fused_sweep_reference(
+                   H, w, f, aux, scale=scale, logarithmic=True, eps=eps, alpha_lane=lanes)),
+               library_ms=_median_ms(library),
+               **_bound(H, w, aux + [lanes], scale, plan, rates),
+               shape=[*H.shape, w.shape[0]], storage=str(H.dtype)[6:], mode="log", pen=True)
+    del Hd
+    return out
+
+
+# the scheduled log update's cases in the kernels phase: (plan, storage, B)
+# at 8192 x 65536, log with the penalty; the frames phase's paths run each
+SCHED_CASES = tuple(("one_read", st, B) for B in (1, 4) for st in ("float32", "bfloat16", "int8")
+                    ) + (("two_read", "float32", 8), ("two_read", "bfloat16", 8),
+                         ("tensor_core", "int8", 8))
+
+
 def kernel_phase(card: str):
     """Every check and timing of the fused sweep; returns ``(max_abs_err by
     row of the kernel table, timing by row)``."""
@@ -702,6 +928,22 @@ def kernel_phase(card: str):
                                   plan_sweep(8192, 65536, FRAME_LANES, storage))
             del H, w, f, aux, scale
             torch.cuda.empty_cache()
+
+    # the scheduled log update (one exponent per row, each row's distinct)
+    # on each plan against the plain version, then timed in turns with the
+    # fixed-exponent log sweep
+    for plan, storage, B in SCHED_CASES:
+        H, w, f, aux, scale = _sweep_inputs(8192, 65536, B, True, True, seed=30 + B,
+                                            storage=storage)
+        lanes = _lanes(B)
+        kw = dict(logarithmic=True, alpha=alpha, eps=eps, alpha_lane=lanes)
+        record, err = _check_kernel(H, w, f, aux, scale, kw, storage, plan=plan)
+        checks.append(dict(record, alpha_lane=B))
+        key = f"sched_{storage}@B{B}"
+        errors[key] = err
+        timing[key] = _sched_timing(H, w, f, aux, scale, lanes, eps, rates, plan)
+        del H, w, f, aux, scale, lanes
+        torch.cuda.empty_cache()
 
     # B4 at the three int8 probes' configuration: checked through
     # tensor_core and forced two_read, then timed in turns
@@ -1036,6 +1278,8 @@ def main() -> int:
 
         frames = frames_phase(world, tmp)
         emit("frames", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **frames)
+        variants = variants_phase(world, tmp)
+        emit("variants", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **variants)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -1119,6 +1363,21 @@ def main() -> int:
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))
+    # the scheduled log update, each plan with the runs of the variants
+    # phase that launched it (B = 1: the serial decay run; B = 8: the scheduler
+    # and the classic loop; int8 B = 4: four lanes)
+    for plan, storage, B in SCHED_CASES:
+        v = variants[storage]
+        runs_of = {1: ("decay_serial",), 8: ("decay_scheduled", "decay_classic"),
+                   4: ("decay_four_lanes",) if storage == "int8" else ()}[B]
+        if not runs_of:
+            continue  # checked and timed in the kernels phase; no CLI path at this B
+        key = f"sched_{storage}@B{B}"
+        r = row(f"fused_sweep_sched[{storage}]@B{B}", timing[key],
+                sum(v[n]["scheduled_by_plan"][plan] for n in runs_of), errors[key],
+                f"{VARIANT[storage]}, the scheduled log update (alpha_lane)")
+        r["fixed_alpha_ms"] = timing[key]["fixed_alpha_ms"]
+        rows.append(r)
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -37,6 +37,14 @@ CPU, as in the JAX package.
 fp32 on the host, rounded to bf16 or quantized to int8 codes there, and only
 the stored matrix is uploaded.
 
+The solver variants of the JAX CLI: ``--relaxation_decay`` (iteration k
+steps by ``relaxation * decay**k``), ``--momentum nesterov`` and
+``--divergence_recovery N`` (a frame that diverges is rolled back with a
+halved step up to N times, then written with status DIVERGED, -2, as is a
+frame with non-finite pixels; the run goes on and exits 2). Each works in
+every frame loop. ``--fused_sweep`` as in the JAX CLI, without its
+``interpret`` mode.
+
 Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``
 """
 
@@ -57,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="sartsolve",
         description="Impurity flux reconstruction for ITER: emissivity "
                     "(PyTorch, one device).",
-        epilog="exit codes: 0 success; 1 input/flag error.",
+        epilog="exit codes: 0 success; 1 input/flag error; 2 run completed "
+               "with DIVERGED frames.",
     )
     p.add_argument("-o", "--output_file", default="solution.h5",
                    help="Filename to save the solution.")
@@ -83,6 +92,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Weight of the regularization factor.")
     p.add_argument("-R", "--relaxation", type=float, default=1.0,
                    help="Relaxation parameter.")
+    p.add_argument("--relaxation_decay", type=float, default=1.0,
+                   help="Geometric relaxation schedule: iteration k uses "
+                        "relaxation * decay^k. Default 1.0 (fixed "
+                        "relaxation, reference behavior).")
+    p.add_argument("--momentum", default="off", choices=["off", "nesterov"],
+                   help="Nesterov/FISTA momentum over the SART update "
+                        "with gradient-based restart; resets on every "
+                        "divergence-recovery rollback. Default off.")
+    p.add_argument("--divergence_recovery", type=int, default=0,
+                   help="In-solve divergence guard: a frame whose "
+                        "residual metric goes non-finite or exploding "
+                        "rolls back to its last good iterate and "
+                        "retries with halved relaxation, up to N "
+                        "escalations; exhaustion (or non-finite input "
+                        "data) marks the frame DIVERGED (status -2) "
+                        "and the run continues, exiting 2. 0 (default) "
+                        "disables the guard.")
+    p.add_argument("--fused_sweep", default="auto",
+                   choices=["auto", "on", "off", "interpret"],
+                   help="Fused iteration sweep (one call of the hand-written "
+                        "kernel per iteration): auto engages it wherever it "
+                        "can (fp32 compute), on requires it, off runs the "
+                        "two-matmul sweep. interpret (the JAX package's "
+                        "Pallas interpreter) does not exist here.")
     p.add_argument("-n", "--raytransfer_name", default="with_reflections",
                    help="Ray transfer matrix dataset name.")
     p.add_argument("-L", "--logarithmic", action="store_true",
@@ -159,6 +192,16 @@ def _validate(args) -> None:
         fail(f"Argument conv_tolerance must be > 0, {args.conv_tolerance} given.")
     if not (0 < args.relaxation <= 1.0):
         fail(f"Argument relaxation must be within (0, 1] interval, {args.relaxation} given.")
+    if not (0 < args.relaxation_decay <= 1.0):
+        fail("Argument relaxation_decay must be within (0, 1] interval, "
+             f"{args.relaxation_decay} given.")
+    if args.divergence_recovery < 0:
+        fail("Argument divergence_recovery must be >= 0, "
+             f"{args.divergence_recovery} given.")
+    if args.fused_sweep == "interpret":
+        fail("Argument fused_sweep='interpret' runs the JAX package's Pallas "
+             "interpreter, which this package does not have; use auto, on or "
+             "off (--device cpu runs the kernel's plain version).")
     if args.beta_laplace < 0:
         fail("Argument beta_laplace must be positive.")
     if args.rtm_dtype == "int8" and args.use_cpu:
@@ -194,7 +237,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     import torch
 
-    from sartsolver_tpu_torch.config import SartInputError, SolverOptions, parse_time_intervals
+    from sartsolver_tpu_torch.config import (
+        DIVERGED, SartInputError, SolverOptions, parse_time_intervals,
+    )
     from sartsolver_tpu_torch.device import resolve_device
     from sartsolver_tpu_torch.io import hdf5files as hf
     from sartsolver_tpu_torch.io.image import CompositeImage
@@ -265,11 +310,27 @@ def main(argv: Optional[List[str]] = None) -> int:
             relaxation=args.relaxation,
             max_iterations=args.max_iterations,
             rtm_dtype=args.rtm_dtype,
+            relaxation_decay=args.relaxation_decay,
+            momentum=args.momentum,
+            divergence_recovery=args.divergence_recovery,
+            fused_sweep=args.fused_sweep,
         )
         opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
                 else SolverOptions(**common))
         dtype = torch_dtype(opts.dtype)
         storage = opts.rtm_dtype or opts.dtype
+        try:
+            fused = resolve_fused(opts)
+        except ValueError as err:  # fused_sweep='on' where it cannot engage
+            raise SartInputError(str(err)) from None
+        if storage == "int8" and not fused:
+            why = (" (divergence_recovery keeps the logarithmic solver off it)"
+                   if opts.divergence_recovery and opts.logarithmic else "")
+            raise SartInputError(
+                "Argument rtm_dtype='int8' requires the fused sweep, but it "
+                f"resolved off{why}. Use --fused_sweep auto/on, float32 or "
+                "bfloat16 storage, or the linear solver."
+            )
         if storage == "int8" and max(npixel, nvoxel) > INT8_MAX_CONTRACTION:
             raise SartInputError(
                 f"Argument rtm_dtype='int8': RTM extent {max(npixel, nvoxel)} "
@@ -298,7 +359,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device)
         del rtm
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
-        sweep = "fused" if resolve_fused(opts) else "two-matmul"
+        sweep = "fused" if fused else "two-matmul"
         print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
               f"sweep={sweep} rtm=[{npixel}, {nvoxel}]")
 
@@ -311,8 +372,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(message, file=sys.stderr)
 
         # ---- frame loops (main.cpp:131-140) ------------------------------
+        diverged = []  # times of the frames written DIVERGED
+
         with solver, SolutionWriter(args.output_file, camera_names, nvoxel,
                                     max_cache_size=args.max_cached_solutions) as writer:
+
+            def write(solution, status, ftime, cam_times, iterations):
+                writer.add(solution, status, ftime, cam_times, iterations=iterations)
+                if status == DIVERGED:
+                    diverged.append(ftime)
 
             def run_grouped(K, batch, solve_group, items):
                 """The frame-group protocol of the batch and chain loops:
@@ -357,8 +425,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         per_frame_ms = (now - t_last) * 1e3 / len(group)
                         t_last = now
                         for b, (_, ftime, cam_times) in enumerate(group):
-                            writer.add(solutions[b], int(statuses[b]), ftime, cam_times,
-                                       iterations=int(iterations[b]))
+                            write(solutions[b], int(statuses[b]), ftime, cam_times,
+                                  int(iterations[b]))
                             print(f"Processed in: {per_frame_ms} ms (average over "
                                   f"{label} of {len(group)}; {int(iterations[b])} "
                                   "iterations)")
@@ -380,7 +448,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 back chained with the same frame iterator."""
                 def on_result(ftime, cam_times, status, iterations, _conv, fetcher,
                               per_frame_ms):
-                    writer.add(fetcher(), status, ftime, cam_times, iterations=iterations)
+                    write(fetcher(), status, ftime, cam_times, iterations)
                     print(f"Processed in: {per_frame_ms} ms (continuous batch of {K} "
                           f"lanes; {iterations} iterations)")
 
@@ -410,6 +478,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 run_grouped(args.chain_frames, False, solve_chain_group, frames)
 
         grid.write_hdf5(args.output_file, "voxel_map")
+        if diverged:
+            shown = ", ".join(f"{t:g}" for t in diverged[:8])
+            print(f"{len(diverged)} frame(s) DIVERGED (status {DIVERGED}) at time(s) "
+                  f"{shown}{' ...' if len(diverged) > 8 else ''}", file=sys.stderr)
+            return 2
     except KeyError as err:
         # a missing dataset or attribute raises KeyError
         print(f"Missing dataset or attribute in input files: {err}", file=sys.stderr)

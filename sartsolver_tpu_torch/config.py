@@ -19,6 +19,11 @@ from typing import List, Tuple
 # Solver status codes (reference source/sartsolver.cpp:16-17).
 SUCCESS = 0
 MAX_ITERATIONS_EXCEEDED = -1
+# Beyond the reference's two codes: the in-solve divergence guard
+# (SolverOptions.divergence_recovery) exhausted its rollback and
+# relaxation-halving ladder for this frame, or the frame's input was not
+# finite; the solution row holds the last finite iterate (zero for bad input).
+DIVERGED = -2
 
 
 class SartInputError(ValueError):
@@ -124,6 +129,24 @@ class SolverOptions:
       to the host every this many iterations, so the scheduler can retire
       converged lanes and backfill them from the frame queue. Only the
       scheduler reads it.
+    - ``relaxation_decay``: iteration k of a frame steps by ``relaxation *
+      decay**k`` (1.0, the default, is the reference's fixed relaxation).
+    - ``momentum``: ``"nesterov"`` extrapolates the iterate before each
+      sweep (additively for the linear solver, multiplicatively for the log
+      solver), with gradient-based restart; ``"off"`` is the plain update.
+    - ``divergence_recovery``: with R > 0 an iteration whose ``||Hf||^2``
+      or metric is not finite, or whose ``||Hf||^2`` exceeds
+      ``divergence_threshold * max(||g||^2, 1)``, is rolled back and the
+      frame's step halved, up to R times; then the frame stops with status
+      ``DIVERGED``. A frame whose input is not finite is ``DIVERGED`` at
+      iteration 0 with a zero solution. 0 disables the guard.
+
+    The three step writers compose in one product, the JAX package's
+    precedence contract (``sartsolver_tpu/config.py:189-207``): iteration k
+    steps by ``relaxation * decay**k * ascale``, where ``ascale`` is the
+    guard's per-frame scale (halved at each rollback, never reset, and k
+    advances through a rollback). Momentum writes no step: a restart resets
+    only its own state, and a rollback resets it too.
     """
 
     ray_density_threshold: float = 1.0e-6
@@ -145,12 +168,14 @@ class SolverOptions:
     rtm_dtype: str | None = None
     schedule_stride: int = 16
 
+    relaxation_decay: float = 1.0
+    momentum: str = "off"
+    divergence_recovery: int = 0
+    divergence_threshold: float = 1.0e4
+
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
     os_subsets: int = 1
-    momentum: str = "off"
-    relaxation_decay: float = 1.0
-    divergence_recovery: int = 0
     integrity: bool = False
     sparse_rtm: str = "off"
     lowrank_rtm: str = "off"
@@ -182,6 +207,12 @@ class SolverOptions:
             raise ValueError("Attribute beta_laplace must be non-negative.")
         if not (0 < self.relaxation <= 1.0):
             raise ValueError("Attribute relaxation must be within (0, 1] interval.")
+        if not (0 < self.relaxation_decay <= 1.0):
+            raise ValueError(
+                "Attribute relaxation_decay must be within (0, 1] interval."
+            )
+        if self.momentum not in ("off", "nesterov"):
+            raise ValueError("Attribute momentum must be 'off' or 'nesterov'.")
         if self.max_iterations <= 0:
             raise ValueError("Attribute max_iterations must be positive.")
         if self.dtype not in ("float32", "float64"):
@@ -195,6 +226,16 @@ class SolverOptions:
             raise ValueError("rtm_dtype='int8' requires dtype='float32'.")
         if self.fused_sweep not in ("auto", "on", "off"):
             raise ValueError("fused_sweep must be 'auto', 'on' or 'off'.")
+        if self.divergence_recovery < 0:
+            raise ValueError(
+                "Attribute divergence_recovery must be >= 0 (0 disables "
+                "the in-solve divergence guard)."
+            )
+        if self.divergence_threshold <= 1:
+            raise ValueError(
+                "Attribute divergence_threshold must be > 1 (a multiple "
+                "of the measurement norm)."
+            )
         if self.schedule_stride < 1:
             raise ValueError(
                 "Attribute schedule_stride must be >= 1 (iterations "
@@ -213,9 +254,6 @@ class SolverOptions:
 # (field, the only value this package accepts)
 _NOT_PORTED = (
     ("os_subsets", 1),
-    ("momentum", "off"),
-    ("relaxation_decay", 1.0),
-    ("divergence_recovery", 0),
     ("integrity", False),
     ("sparse_rtm", "off"),
     ("lowrank_rtm", "off"),

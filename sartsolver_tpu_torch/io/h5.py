@@ -14,13 +14,21 @@ storage, the version-4 chunk indexes (chunked datasets in files written
 with the library's newest format), compound or enum types — raises
 :class:`H5FormatError` naming it.
 
-Writing produces the library's default layout: a version-0 superblock,
-version-1 object headers, symbol-table groups, contiguous datasets and
-variable-length strings in one global heap. A file opened for writing is
-held in memory and written out whole on ``close()``, through a temporary
+Writing produces the library's default (earliest) format: a version-0
+superblock, version-1 object headers, symbol-table groups and
+variable-length strings in one global heap. A dataset is contiguous, or
+chunked where ``create_dataset`` is given ``chunks``, as the library writes
+an extendible dataset: a version-1 dataspace with its maximum dimensions
+(``None`` is unlimited), a version-3 layout message of class 2 whose chunk
+dimensions end with the element size, a version-1 B-tree of type 1 as the
+chunk index (nodes of 2K = 64 entries, allocated whole, so the library can
+insert into them in place), every chunk stored whole and unfiltered, and the
+fill value in both fill-value messages. The HDF5 library can therefore
+``resize`` such a dataset and append to the file. A file opened for writing
+is held in memory and written out whole on ``close()``, through a temporary
 file renamed over the target, so a reader never sees a torn file. Datasets
-may be resized in memory; ``maxshape``, ``chunks`` and ``fillvalue`` are
-accepted and ignored (the stored datasets are contiguous).
+may be resized in memory, chunked ones up to their ``maxshape``; a file
+opened ``"r+"`` keeps each dataset's layout, maximum shape and fill value.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import numpy as np
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
 _LEAF_K, _NODE_K = 4, 16  # symbol-table node and group B-tree widths
+_CHUNK_K = 32  # chunk B-tree width: the library's default for a version-0 superblock
 
 
 class H5FormatError(OSError):
@@ -239,6 +248,35 @@ class _Reader:
             pos = 4
         return tuple(struct.unpack_from(f"<{rank}Q", data, pos)) if rank else ()
 
+    @staticmethod
+    def maxshape(data: bytes) -> Optional[Tuple[Optional[int], ...]]:
+        """The maximum dimensions (None for unlimited), or None where the
+        dataspace message has none."""
+        version, rank, flags = data[0], data[1], data[2]
+        if not flags & 1:
+            return None
+        pos = (8 if version == 1 else 4) + 8 * rank
+        dims = struct.unpack_from(f"<{rank}Q", data, pos)
+        return tuple(None if d == UNDEF else d for d in dims)
+
+    @staticmethod
+    def fill_value(data: bytes, dt: np.dtype):
+        """The defined fill value of a fill-value message (versions 1-3),
+        else None."""
+        version = data[0]
+        if version in (1, 2):
+            defined, pos = data[3], 4
+        elif version == 3:
+            defined, pos = data[1] & 0x20, 2
+        else:
+            return None
+        if not defined or len(data) < pos + 4:
+            return None
+        size = struct.unpack_from("<I", data, pos)[0]
+        if size != dt.itemsize:
+            return None
+        return np.frombuffer(data, dt, count=1, offset=pos + 4)[0]
+
     def attributes(self, msgs) -> Dict[str, object]:
         out: Dict[str, object] = {}
         for mtype, data in msgs:
@@ -378,10 +416,17 @@ class AttributeManager:
 
 
 class Dataset:
+    """``maxshape``, ``chunks`` and ``fillvalue`` as in h5py: the maximum
+    shape (None where the dataset is not extendible), the chunk shape (None
+    for a contiguous or compact dataset) and the defined fill value (None
+    where there is none)."""
+
     def __init__(self, name: str, *, data: Optional[np.ndarray] = None, reader=None,
-                 msgs=None, writable: bool = False):
+                 msgs=None, writable: bool = False, maxshape=None, chunks=None,
+                 fillvalue=None):
         self.name = name
         self._writable = writable
+        self.maxshape, self.chunks, self.fillvalue = maxshape, chunks, fillvalue
         if data is not None:
             self._data = np.ascontiguousarray(data)
             self.attrs = AttributeManager({}, writable)
@@ -399,6 +444,11 @@ class Dataset:
         self._layout = reader.layout(info[0x08], len(shape))
         self._filters = reader.filters(info[0x0B]) if 0x0B in info else []
         self.attrs = AttributeManager(reader.attributes(msgs), writable)
+        if self._layout[0] == "chunked":
+            self.chunks = self._layout[2]
+            self.maxshape = reader.maxshape(info[0x01]) or shape
+        if 0x05 in info:
+            self.fillvalue = reader.fill_value(info[0x05], dt)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -424,8 +474,9 @@ class Dataset:
         return arr.reshape(self._shape).astype(self.dtype)
 
     def _read_chunked(self) -> np.ndarray:
+        """Chunks never written read as the fill value."""
         r, (_, addr, chunk) = self._reader, self._layout
-        out = np.zeros(self._shape, self.dtype)
+        out = np.full(self._shape, 0 if self.fillvalue is None else self.fillvalue, self.dtype)
         if addr == UNDEF:
             return out
         for offset, size, mask, caddr in r.chunks(addr, len(chunk)):
@@ -472,9 +523,15 @@ class Dataset:
         self._data[key] = value
 
     def resize(self, shape) -> None:
+        """New rows hold the fill value (0 where none is defined). A chunked
+        dataset grows only within its ``maxshape``."""
         self._require_writable()
         shape = tuple(int(s) for s in shape)
-        new = np.zeros(shape, self._data.dtype)
+        if self.maxshape is not None and (len(shape) != len(self.maxshape) or any(
+                m is not None and n > m for n, m in zip(shape, self.maxshape))):
+            raise ValueError(f"{self.name}: shape {shape} exceeds maxshape {self.maxshape}")
+        fill = 0 if self.fillvalue is None else self.fillvalue
+        new = np.full(shape, fill, self._data.dtype)
         common = tuple(slice(0, min(a, b)) for a, b in zip(shape, self._data.shape))
         new[common] = self._data[common]
         self._data = new
@@ -550,6 +607,9 @@ class Group:
 
     def create_dataset(self, path: str, shape=None, dtype=None, data=None, *,
                        maxshape=None, chunks=None, fillvalue=None) -> Dataset:
+        """As h5py's, with the layout given explicitly: ``chunks`` (a shape)
+        makes the dataset chunked, ``maxshape`` (None for an unlimited
+        dimension) needs ``chunks``."""
         parent, name = self._parent_for_new(path)
         if data is None:
             fill = 0 if fillvalue is None else fillvalue
@@ -557,13 +617,28 @@ class Group:
         arr = np.asarray(data, dtype=dtype)
         if shape is not None and tuple(arr.shape) != tuple(shape):
             arr = arr.reshape(shape)
-        dset = Dataset(f"{parent.name.rstrip('/')}/{name}", data=arr, writable=True)
+        if maxshape is not None and chunks is None:
+            raise ValueError(f"{path}: maxshape needs explicit chunks here")
+        if chunks is not None:
+            chunks = tuple(int(c) for c in chunks)
+            maxshape = tuple(arr.shape) if maxshape is None else tuple(
+                None if m is None else int(m) for m in maxshape)
+            if (len(chunks) != arr.ndim or len(maxshape) != arr.ndim
+                    or any(c < 1 for c in chunks)
+                    or any(m is not None and n > m for n, m in zip(arr.shape, maxshape))):
+                raise ValueError(f"{path}: chunks {chunks} or maxshape {maxshape} do not "
+                                 f"fit shape {arr.shape}")
+        if fillvalue is not None:
+            fillvalue = np.asarray(fillvalue, arr.dtype)[()]
+        dset = Dataset(f"{parent.name.rstrip('/')}/{name}", data=arr, writable=True,
+                       maxshape=maxshape, chunks=chunks, fillvalue=fillvalue)
         parent._children[name] = dset
         return dset
 
 
 def _in_memory(dset: Dataset) -> Dataset:
-    out = Dataset(dset.name, data=np.asarray(dset), writable=True)
+    out = Dataset(dset.name, data=np.asarray(dset), writable=True, maxshape=dset.maxshape,
+                  chunks=dset.chunks, fillvalue=dset.fillvalue)
     out.attrs = AttributeManager(dict(dset.attrs._values), True)
     return out
 
@@ -638,8 +713,14 @@ def _dtype_message(dt) -> bytes:
     raise TypeError(f"cannot store dtype {dt} in HDF5 here")
 
 
-def _space_message(shape) -> bytes:
-    return bytes([1, len(shape), 0, 0, 0, 0, 0, 0]) + struct.pack(f"<{len(shape)}Q", *shape)
+def _space_message(shape, maxshape=None) -> bytes:
+    """Version 1; ``maxshape`` (None entries unlimited) adds the maximum
+    dimensions."""
+    out = bytes([1, len(shape), 0 if maxshape is None else 1, 0, 0, 0, 0, 0])
+    out += struct.pack(f"<{len(shape)}Q", *shape)
+    if maxshape is not None:
+        out += struct.pack(f"<{len(shape)}Q", *(UNDEF if m is None else m for m in maxshape))
+    return out
 
 
 def _message(mtype: int, data: bytes) -> bytes:
@@ -686,6 +767,8 @@ class _Writer:
 
     def dataset(self, dset: Dataset) -> int:
         arr = np.ascontiguousarray(dset._data, dset._data.dtype.newbyteorder("<"))
+        if dset.chunks is not None:
+            return self.chunked(dset, arr)
         addr = self.alloc(arr.reshape(-1)) if arr.size else UNDEF
         layout = struct.pack("<BBQQ", 3, 1, addr, arr.nbytes)
         fill = bytes([2, 2, 2, 0])
@@ -693,6 +776,66 @@ class _Writer:
                             _message(0x03, _dtype_message(arr.dtype)),
                             _message(0x05, fill), _message(0x08, layout)]
                            + self.attribute_messages(dset.attrs))
+
+    def chunked(self, dset: Dataset, arr: np.ndarray) -> int:
+        """A chunked dataset as the library writes an extendible one: every
+        chunk that meets the shape stored whole (the part past the shape
+        holds the fill value), indexed by a version-1 B-tree of type 1."""
+        chunks, item = dset.chunks, arr.dtype.itemsize
+        fill = np.zeros((), arr.dtype) if dset.fillvalue is None else np.asarray(
+            dset.fillvalue, arr.dtype)
+        entries = []  # (element offsets, chunk address), in offset order
+        grid = [range(0, n, c) for n, c in zip(arr.shape, chunks)]
+        for offset in (np.stack(np.meshgrid(*grid, indexing="ij"), -1).reshape(-1, arr.ndim)
+                       if arr.size else ()):
+            offset = tuple(int(o) for o in offset)
+            block = np.full(chunks, fill, arr.dtype)
+            src = tuple(slice(o, min(o + c, n)) for o, c, n in zip(offset, chunks, arr.shape))
+            block[tuple(slice(0, s.stop - s.start) for s in src)] = arr[src]
+            entries.append((offset, self.alloc(block.reshape(-1))))
+        nbytes = int(np.prod(chunks)) * item
+        btree = self.chunk_btree(entries, chunks, item, nbytes) if entries else UNDEF
+        layout = struct.pack("<BBBQ", 3, 2, arr.ndim + 1, btree)
+        layout += struct.pack(f"<{arr.ndim + 1}I", *chunks, item)
+        value = fill.tobytes()
+        fill_new = bytes([2, 3, 2, 1]) + struct.pack("<I", item) + value  # incremental, if set
+        fill_old = struct.pack("<I", item) + value
+        return self.header([_message(0x01, _space_message(arr.shape, dset.maxshape)),
+                            _message(0x03, _dtype_message(arr.dtype)),
+                            _message(0x05, fill_new), _message(0x04, fill_old),
+                            _message(0x08, layout)]
+                           + self.attribute_messages(dset.attrs))
+
+    def chunk_btree(self, entries, chunks, item: int, nbytes: int) -> int:
+        """The chunk index over ``entries`` ((element offsets, address) in
+        offset order); returns its root's address. A key is (bytes of the
+        chunk, filter mask 0, its element offsets, 0). A node's last key is
+        the next node's first, and the last node's the offsets one chunk past
+        its last child's in every dimension, as the library writes it."""
+        per = 2 * _CHUNK_K
+        rank = len(chunks)
+
+        def key(size, offset):
+            return struct.pack(f"<II{rank + 1}Q", size, 0, *offset, 0)
+
+        last = entries[-1][0]
+        end = key(0, tuple(o + c for o, c in zip(last, chunks)))[:-8] + struct.pack("<Q", item)
+        node_bytes = 24 + per * 8 + (per + 1) * len(end)
+        level = 0
+        # (first key, address) of each node of the level below; leaves first
+        nodes = [(key(nbytes, offset), addr) for offset, addr in entries]
+        while True:
+            parents = []
+            for start in range(0, len(nodes), per):
+                group = nodes[start:start + per]
+                right = nodes[start + per][0] if start + per < len(nodes) else end
+                body = b"".join(k + struct.pack("<Q", a) for k, a in group) + right
+                raw = (b"TREE" + struct.pack("<BBHQQ", 1, level, len(group), UNDEF, UNDEF)
+                       + body)
+                parents.append((group[0][0], self.alloc(raw + bytes(node_bytes - len(raw)))))
+            if len(parents) == 1:
+                return parents[0][1]
+            nodes, level = parents, level + 1
 
     def group(self, grp: Group) -> Tuple[int, int, int]:
         names = sorted(grp._children, key=lambda n: n.encode())

@@ -7,8 +7,10 @@ solutions, statuses and times are buffered per frame and flushed every
 chunked datasets (``solution/value [T, nvoxel]``, ``time``,
 ``time_<camera>``, ``iterations``, ``checksum``, ``status``), later flushes
 extend and append. The schema, including the per-row checksum and the
-``completed`` counter, is the JAX writer's, so either package's files read
-the same.
+``completed`` counter, is the JAX writer's, and so is the layout: chunked
+datasets of unlimited length, with the JAX writer's chunk shapes and fill
+values. Either package reads the other's files, and the JAX writer's
+``--resume`` appends to a file this writer wrote.
 
 Files go through :mod:`sartsolver_tpu_torch.io.h5`, which rewrites the
 file whole on each flush through a temporary file renamed over it: a flush

@@ -25,6 +25,20 @@ flag from the device per iteration. So is the JAX ``lax.scan`` of the
 warm-start chain (:func:`solve_chain_normalized`). The continuous-batching
 stride (:func:`sched_step_normalized`) runs the batched loop's body over
 lanes that each start, stop and refill on their own.
+
+Three solver variants ride the same body, each off by default and then
+adding no op to it:
+
+- ``relaxation_decay``: iteration k steps by ``relaxation * decay**k``. The
+  linear update folds the factor into the pixel weights; the log update
+  takes it as its exponent, per frame (the kernel's ``alpha_lane``).
+- ``momentum="nesterov"``: the sweep runs at an extrapolated point (FISTA
+  with gradient restart); the linear solver extrapolates ``H f`` too, the
+  log solver projects the extrapolated point once per iteration.
+- ``divergence_recovery``: the in-solve guard. A frame whose iteration goes
+  non-finite or explodes is rolled back and its step halved, up to R times,
+  then stops ``DIVERGED``; a frame whose input is not finite stops
+  ``DIVERGED`` at iteration 0 with a zero solution.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch
 from torch import Tensor
 
 from sartsolver_tpu_torch.config import (
+    DIVERGED,
     MAX_ITERATIONS_EXCEEDED,
     SUCCESS,
     SolverOptions,
@@ -75,7 +90,7 @@ class SARTProblem(NamedTuple):
 
 class SolveResult(NamedTuple):
     solution: Tensor  # [B, V] (or [V] from solve)
-    status: Tensor  # int32: SUCCESS / MAX_ITERATIONS_EXCEEDED
+    status: Tensor  # int32: SUCCESS / MAX_ITERATIONS_EXCEEDED / DIVERGED
     iterations: Tensor  # int32: completed iterations
     convergence: Tensor  # final Eq. 5 metric C^k
 
@@ -213,8 +228,21 @@ def resolve_fused(opts: SolverOptions) -> bool:
     """Whether the loop runs through the fused sweep: fp32 compute over
     fp32, bf16 or int8 storage, with ``"auto"`` or ``"on"``. The fp64
     profile and fp64 storage decline — quietly for ``"auto"``, with a
-    ValueError for ``"on"``."""
+    ValueError for ``"on"``. So does the log solver with
+    ``divergence_recovery``, as in the JAX package
+    (``sartsolver_tpu/models/sart.py:_resolve_fused``): the guard's per-frame
+    step scale enters the log update as its exponent, which the JAX kernel's
+    literal-constant closure cannot carry."""
     if opts.fused_sweep == "off":
+        return False
+    if opts.divergence_recovery and opts.logarithmic:
+        if opts.fused_sweep == "on":
+            raise ValueError(
+                "fused_sweep='on' requested but divergence_recovery is enabled "
+                "on the logarithmic solver; the per-frame relaxation scale "
+                "cannot enter the fused kernel's literal exponent. Use "
+                "fused_sweep='auto'/'off' or the linear solver."
+            )
         return False
     storage = opts.rtm_dtype or opts.dtype
     if opts.dtype != "float32" or storage not in ("float32", "bfloat16", "int8"):
@@ -272,6 +300,24 @@ class _SweepContext:
         ).to(self.dtype)
         self.vm = self.vmask.to(self.dtype)[None, :]
 
+        dev = dens.device
+        self.scheduled = opts.relaxation_decay != 1.0
+        self.decay = torch.tensor(opts.relaxation_decay, dtype=self.dtype, device=dev)
+        self.relax = torch.tensor(opts.relaxation, dtype=self.dtype, device=dev)
+        self.momentum = opts.momentum != "off"
+        # only the linear solver extrapolates H f by linearity
+        self.carry_fit = self.momentum and not opts.logarithmic
+        self.mom_floor = torch.tensor(_tiny(max(opts.log_epsilon, 1e-30)),
+                                      dtype=self.dtype, device=dev)
+        self.recovery = int(opts.divergence_recovery)
+
+    def decay_factor(self, it: Tensor) -> Tensor:
+        """``decay ** it`` [B] for the iterations ``it`` [B] each frame has
+        completed: one op, the same for the batched loop (every frame at the
+        loop's count) and the stride (each lane at its own), so the two
+        agree byte for byte."""
+        return torch.pow(self.decay, it.to(self.dtype))
+
     def bp_any(self, w: Tensor) -> Tensor:
         """``H^T w`` on whatever the problem stores: the one back-projection
         seam of every path outside the fused loop."""
@@ -311,25 +357,49 @@ class _SweepContext:
         return self.sweep_fn(self.rtm, w, f, aux, **kw)
 
     def run_sweep(self, f: Tensor, fitted: Tensor, penalty: Tensor,
-                  g: Tensor, meas_mask: Tensor, obs: Optional[Tensor]
+                  g: Tensor, meas_mask: Tensor, obs: Optional[Tensor],
+                  dk: Optional[Tensor] = None, ascale: Optional[Tensor] = None
                   ) -> Tuple[Tensor, Optional[Tensor]]:
         """``(f_upd, fitted_upd or None)``: one iteration's update; the
-        fused sweep also returns ``H f_upd``."""
+        fused sweep also returns ``H f_upd``. ``dk`` [B] is the schedule's
+        ``decay**k`` and ``ascale`` [B] the guard's step scale, each None
+        when its variant is off (``sartsolver_tpu/models/sart.py:1705-1780``):
+        the linear update folds both into ``w``; the log update takes
+        ``relaxation * dk * ascale`` as its exponent, through the kernel's
+        ``alpha_lane`` when fused (the guard keeps the log solver off the
+        fused sweep, see :func:`resolve_fused`)."""
         opts = self.opts
         pen = [penalty] if self.lap is not None else []
         if opts.logarithmic:
             w = torch.where(meas_mask, fitted, torch.zeros_like(fitted)) * self.inv_length
             if self.fused:
+                kw = {}
+                if dk is not None:
+                    kw["alpha_lane"] = (self.relax * dk)[:, None]
                 return self.run_fused(
                     w, f, [self.vm, obs] + pen, logarithmic=True,
-                    alpha=float(opts.relaxation), eps=self.eps,
+                    alpha=float(opts.relaxation), eps=self.eps, **kw,
                 )
             fit = self.bp_any(w)
             fit = torch.where(self.vmask[None, :], fit, torch.zeros_like(fit))
             eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
-            ratio = ((obs + eps) / (fit + eps)) ** opts.relaxation
+            exponent = opts.relaxation
+            if dk is not None or ascale is not None:
+                exponent = self.relax.expand(f.shape[0])
+                if dk is not None:
+                    exponent = exponent * dk
+                if ascale is not None:
+                    exponent = exponent * ascale
+                exponent = exponent[:, None]
+            ratio = ((obs + eps) / (fit + eps)) ** exponent
             return f * ratio * torch.exp(-penalty), None
         w = torch.where(meas_mask, g - fitted, torch.zeros_like(g)) * self.inv_length
+        if dk is not None:
+            # linear in w: the step factor folds into the pixel weights
+            # (inv_density keeps the base relaxation)
+            w = w * dk[:, None]
+        if ascale is not None:
+            w = w * ascale[:, None]
         if self.fused:
             return self.run_fused(
                 w, f, [self.inv_density[None, :]] + pen, logarithmic=False,
@@ -337,15 +407,55 @@ class _SweepContext:
         bp = self.bp_any(w)
         return torch.clamp_min(f + self.inv_density[None, :] * bp - penalty, 0), None
 
+    def extrapolate(self, f: Tensor, f_prev: Tensor, tk: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+        """``(y, beta [B, 1], t_next [B])``: the Nesterov/FISTA point —
+        additive for the linear solver, multiplicative (log space, floored)
+        for the log solver (``sartsolver_tpu/models/sart.py:1590-1606``)."""
+        t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
+        beta = ((tk - 1.0) / t_next).to(self.dtype)[:, None]
+        if self.opts.logarithmic:
+            floor = self.mom_floor
+            y = torch.clamp_min(
+                f * (torch.clamp_min(f, floor) / torch.clamp_min(f_prev, floor)) ** beta,
+                floor)
+        else:
+            y = f + beta * (f - f_prev)
+        return y, beta, t_next
+
+    def momentum_tk(self, y: Tensor, f_new: Tensor, f: Tensor, t_next: Tensor,
+                    reset: Optional[Tensor]) -> Tensor:
+        """The next t_k: 1 where the update moved against the extrapolation
+        (gradient restart) or where ``reset`` (a rollback), else ``t_next``.
+        A restart never touches the step scale."""
+        rs = ((y - f_new) * (f_new - f)).sum(dim=1) > 0
+        if reset is not None:
+            rs = rs | reset
+        return torch.where(rs, torch.ones_like(t_next), t_next).to(self.dtype)
+
     def iterate(self, f: Tensor, fitted: Tensor, done: Tensor, g: Tensor,
-                meas_mask: Tensor, obs: Optional[Tensor], msq: Tensor
-                ) -> Tuple[Tensor, Tensor, Tensor]:
-        """``(f_new, fitted_new, conv)``: one iteration of every frame, done
-        frames frozen, and the Eq. 5 metric ``C^k`` of the new iterate. The
-        one loop body of the batched solve and the scheduler's stride."""
+                meas_mask: Tensor, obs: Optional[Tensor], msq: Tensor,
+                dk: Optional[Tensor] = None, ascale: Optional[Tensor] = None,
+                mom: Optional[tuple] = None) -> "_Step":
+        """One iteration of every frame, done frames frozen, with the Eq. 5
+        metric ``C^k`` of the new iterate. The one loop body of the batched
+        solve and the scheduler's stride. ``mom`` is the momentum state
+        ``(f_prev, fitted_prev or None, tk)``: the sweep then runs at the
+        extrapolated point ``y`` (the penalty taken there too), while the
+        frozen frames keep ``f``."""
         opts = self.opts
-        penalty = self.compute_penalty(torch.log(f) if opts.logarithmic else f)
-        f_upd, fitted_upd = self.run_sweep(f, fitted, penalty, g, meas_mask, obs)
+        base, fitted_base, y, t_next = f, fitted, None, None
+        if mom is not None:
+            f_prev, fitted_prev, tk = mom
+            y, beta, t_next = self.extrapolate(f, f_prev, tk)
+            base = y
+            if opts.logarithmic:
+                fitted_base = self.fp_any(y)  # no linearity: one projection
+            else:
+                fitted_base = fitted + beta * (fitted - fitted_prev)  # H y, exactly
+        penalty = self.compute_penalty(torch.log(base) if opts.logarithmic else base)
+        f_upd, fitted_upd = self.run_sweep(base, fitted_base, penalty, g, meas_mask, obs,
+                                           dk, ascale)
         frozen = done[:, None]
         f_new = torch.where(frozen, f, f_upd)  # converged frames freeze
         if fitted_upd is None:
@@ -353,7 +463,45 @@ class _SweepContext:
         else:
             fitted_new = torch.where(frozen, fitted, fitted_upd)
         fsq = _sumsq(fitted_new, self.dtype, opts.precise_convergence)
-        return f_new, fitted_new, (msq - fsq) / msq
+        return _Step(f_new, fitted_new, fsq, (msq - fsq) / msq, y, t_next)
+
+    def guard(self, step: "_Step", f: Tensor, fitted: Tensor, conv_prev: Tensor,
+              done: Tensor, msq: Tensor, ascale: Tensor, recov: Tensor):
+        """The divergence guard on one iteration
+        (``sartsolver_tpu/models/sart.py:1991-2010``): the candidate is judged
+        before it is kept. Returns ``(f_new, fitted_new, conv, ascale,
+        recov, bad, exhausted)``: a bad frame keeps its entering state and,
+        unless its R recoveries are spent (``exhausted``), halves its step."""
+        opts = self.opts
+        fsq, conv = step.fsq, step.conv
+        bad = ~done & (~(torch.isfinite(fsq) & torch.isfinite(conv))
+                       | (fsq > opts.divergence_threshold * torch.clamp_min(msq, 1.0)))
+        exhausted = bad & (recov >= self.recovery)
+        rows = bad[:, None]
+        f_new = torch.where(rows, f, step.f)
+        fitted_new = torch.where(rows, fitted, step.fitted)
+        conv = torch.where(bad, conv_prev, conv)
+        ascale = torch.where(bad & ~exhausted, ascale * 0.5, ascale)
+        return f_new, fitted_new, conv, ascale, recov + bad.to(torch.int32), bad, exhausted
+
+    def input_bad(self, g: Tensor, f: Tensor, msq: Tensor) -> Tensor:
+        """[B] frames whose measurement, start or ``||g||^2`` is not finite:
+        no iterate of theirs can be rolled back to."""
+        return ((~torch.isfinite(g)).any(dim=1) | (~torch.isfinite(f)).any(dim=1)
+                | ~torch.isfinite(msq))
+
+
+class _Step(NamedTuple):
+    """One iteration's candidate: the new iterate and its projection, its
+    ``||Hf||^2`` and metric, and (momentum) the extrapolated point and the
+    next FISTA t."""
+
+    f: Tensor
+    fitted: Tensor
+    fsq: Tensor
+    conv: Tensor
+    y: Optional[Tensor]
+    t_next: Optional[Tensor]
 
 
 def _floor_start(f0: Tensor, opts: SolverOptions) -> Tensor:
@@ -402,6 +550,16 @@ def solve_normalized_batch(
     ``return_fitted=True`` also returns the loop-exit ``fitted == H @
     solution`` ``[B, P]``. ``sweep_fn`` is the fused sweep's implementation;
     only tests and the chip smoke run set it, to the plain version.
+
+    The variants (``sartsolver_tpu/models/sart.py:1894-2066``, without the
+    integrity check and the OS cycle): the schedule factor of the loop's
+    count; the momentum state ``(f_prev, fitted_prev, t_k)``, started at
+    ``(f0, fitted0, 1)``; the divergence guard's per-frame step scale,
+    recovery count and DIVERGED latch, a rolled-back frame never passing
+    the stall test on its unchanged metric, and a restart OR'd with a
+    rollback; and the guard's pre-flight check, which stops a frame with a
+    non-finite measurement, start or ``||g||^2`` as DIVERGED at iteration
+    0 with a zero solution.
     """
     dev = resolve_device(device)
     check_on(dev, rtm=problem.rtm, rtm_scale=problem.rtm_scale, g=g, msq=msq,
@@ -434,20 +592,51 @@ def solve_normalized_batch(
     conv_prev = torch.zeros(B, dtype=dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.full((B,), opts.max_iterations, dtype=torch.int32, device=dev)
+    ascale = recov = diverged = mom = None
+    if kit.recovery:
+        # pre-flight: a frame with a non-finite input has no good iterate
+        bad_in = kit.input_bad(g, f, msq)
+        rows = bad_in[:, None]
+        f = torch.where(rows, torch.zeros_like(f), f)
+        fitted = torch.where(rows, torch.zeros_like(fitted), fitted)
+        done, diverged = bad_in, bad_in
+        iters = torch.where(bad_in, torch.zeros_like(iters), iters)
+        ascale = torch.ones(B, dtype=dtype, device=dev)
+        recov = torch.zeros(B, dtype=torch.int32, device=dev)
+    if kit.momentum:  # t_1 = 1: the first iteration extrapolates nothing
+        mom = (f, fitted if kit.carry_fit else None, torch.ones(B, dtype=dtype, device=dev))
     it = 0
     while it < opts.max_iterations and not bool(done.all()):
-        f_new, fitted_new, conv = kit.iterate(f, fitted, done, g, meas_mask, obs, msq)
+        dk = (kit.decay_factor(torch.full((B,), it, dtype=torch.int32, device=dev))
+              if kit.scheduled else None)
+        step = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
+        f_new, fitted_new, conv = step.f, step.fitted, step.conv
+        bad = None
+        if kit.recovery:
+            f_new, fitted_new, conv, ascale, recov, bad, exhausted = kit.guard(
+                step, f, fitted, conv_prev, done, msq, ascale, recov)
         if it >= 1:  # Eq. 5 stall test, from the second iteration on
             newly = ~done & (torch.abs(conv - conv_prev) < tol)
+            if bad is not None:  # a rolled-back metric is not a stall
+                newly &= ~bad
         else:
             newly = torch.zeros_like(done)
-        iters = torch.where(newly, torch.full_like(iters, it + 1), iters)
-        f, fitted, conv_prev, done = f_new, fitted_new, conv, done | newly
+        ended = newly
+        if kit.recovery:
+            ended = newly | exhausted
+            diverged = diverged | exhausted
+        iters = torch.where(ended, torch.full_like(iters, it + 1), iters)
+        if kit.momentum:
+            mom = (f, fitted if kit.carry_fit else None,
+                   kit.momentum_tk(step.y, f_new, f, step.t_next, bad))
+        f, fitted, conv_prev, done = f_new, fitted_new, conv, done | ended
         it += 1
     status = torch.where(
         done, torch.full_like(iters, SUCCESS),
         torch.full_like(iters, MAX_ITERATIONS_EXCEEDED),
     )
+    if diverged is not None:
+        status = torch.where(diverged, torch.full_like(iters, DIVERGED), status)
     res = SolveResult(f, status, iters, conv_prev)
     return (res, fitted) if return_fitted else res
 
@@ -508,7 +697,7 @@ class SchedState(NamedTuple):
     placeholder data (``g=-1``: every pixel masked; ``f=1``: log-safe;
     ``msq=1``): their sweeps still run (fixed shape) and the ``done``
     freeze discards every result, as the batched loop does for converged
-    frames.
+    frames. The variants' per-lane state is None while its variant is off.
     """
 
     g: Tensor  # [B, P] normalized measurement (-1 rows: inert)
@@ -517,10 +706,15 @@ class SchedState(NamedTuple):
     fitted: Tensor  # [B, P] H @ f
     conv: Tensor  # [B] previous convergence metric C^k
     it: Tensor  # [B] int32, iterations completed by the current occupant
-    done: Tensor  # [B] bool, frozen (converged, capped or inert)
-    status: Tensor  # [B] int32, SUCCESS / MAX_ITERATIONS_EXCEEDED
+    done: Tensor  # [B] bool, frozen (converged, capped, diverged or inert)
+    status: Tensor  # [B] int32, SUCCESS / MAX_ITERATIONS_EXCEEDED / DIVERGED
     iters: Tensor  # [B] int32, iteration count latched at retirement
     obs: Optional[Tensor]  # [B, V] log variant's observation; None linear
+    ascale: Optional[Tensor] = None  # [B] the guard's step scale
+    recov: Optional[Tensor] = None  # [B] int32, the guard's recoveries spent
+    f_prev: Optional[Tensor] = None  # [B, V] momentum: the previous iterate
+    fitted_prev: Optional[Tensor] = None  # [B, P] its projection (linear)
+    tk: Optional[Tensor] = None  # [B] momentum: FISTA t_k
 
 
 def sched_step_normalized(
@@ -539,14 +733,17 @@ def sched_step_normalized(
     A refilled lane starts as a frame of the batched ``use_guess`` path
     does, with the same ops: the Eq. 4 guess, its floors, its forward
     projection and, for the log variant, ``obs`` (taken for every lane and
-    kept for the refilled ones). The host knows ``refill``, so a stride
-    with no refill (``g_new``/``msq_new`` may be None) skips that part.
+    kept for the refilled ones); its momentum and guard state start over,
+    and the guard's pre-flight check runs on the refilled lanes only. The
+    host knows ``refill``, so a stride with no refill (``g_new``/``msq_new``
+    may be None) skips that part.
 
-    Each lane runs its own stall test from its own second iteration and
-    stops at ``max_iterations``; ``iters`` and ``status`` are latched once,
-    after the loop, for the lanes that stopped in it. The loop ends early
-    once every lane is done. The returned state is built from new tensors:
-    ``state`` itself is never written.
+    Each lane runs its own stall test from its own second iteration, its own
+    schedule factor and guard, and stops at ``max_iterations``; ``iters``
+    and ``status`` are latched once, after the loop, for the lanes that
+    stopped in it. The loop ends early once every lane is done. The
+    returned state is built from new tensors: ``state`` itself is never
+    written.
     """
     dev = resolve_device(device)
     dtype = torch_dtype(opts.dtype)
@@ -557,29 +754,47 @@ def sched_step_normalized(
         lanes = torch.as_tensor(refill, device=dev)
         rows = lanes[:, None]
         g = torch.where(rows, g_new.to(dtype), state.g)
+        msq = torch.where(lanes, msq_new.to(dtype), state.msq)
         f0 = _floor_start(kit.initial_guess(g), opts).to(dtype)
+        fitted0 = kit.fp_any(f0)
         obs = state.obs
         if opts.logarithmic:
             obs = torch.where(rows, kit.make_obs(g, g >= 0), state.obs)
-        state = SchedState(
-            g=g,
-            msq=torch.where(lanes, msq_new.to(dtype), state.msq),
-            f=torch.where(rows, f0, state.f),
-            fitted=torch.where(rows, kit.fp_any(f0), state.fitted),
+        f = torch.where(rows, f0, state.f)
+        fitted = torch.where(rows, fitted0, state.fitted)
+        done = state.done & ~lanes
+        status = torch.where(lanes, torch.full_like(state.status, MAX_ITERATIONS_EXCEEDED),
+                             state.status)
+        iters = torch.where(lanes, torch.full_like(state.iters, opts.max_iterations),
+                            state.iters)
+        extra = {}
+        if kit.recovery:
+            extra["ascale"] = torch.where(lanes, torch.ones_like(state.ascale), state.ascale)
+            extra["recov"] = torch.where(lanes, torch.zeros_like(state.recov), state.recov)
+            bad_in = lanes & kit.input_bad(g, f, msq)
+            f = torch.where(bad_in[:, None], torch.zeros_like(f), f)
+            fitted = torch.where(bad_in[:, None], torch.zeros_like(fitted), fitted)
+            done = done | bad_in
+            status = torch.where(bad_in, torch.full_like(status, DIVERGED), status)
+            iters = torch.where(bad_in, torch.zeros_like(iters), iters)
+        if kit.momentum:  # the lane's FISTA sequence starts over at its guess
+            extra["f_prev"] = torch.where(rows, f0, state.f_prev)
+            if kit.carry_fit:
+                extra["fitted_prev"] = torch.where(rows, fitted0, state.fitted_prev)
+            extra["tk"] = torch.where(lanes, torch.ones_like(state.tk), state.tk)
+        state = state._replace(
+            g=g, msq=msq, f=f, fitted=fitted,
             conv=torch.where(lanes, torch.zeros_like(state.conv), state.conv),
             it=torch.where(lanes, torch.zeros_like(state.it), state.it),
-            done=state.done & ~lanes,
-            status=torch.where(lanes, torch.full_like(state.status, MAX_ITERATIONS_EXCEEDED),
-                               state.status),
-            iters=torch.where(lanes, torch.full_like(state.iters, opts.max_iterations),
-                              state.iters),
-            obs=obs,
+            done=done, status=status, iters=iters, obs=obs, **extra,
         )
 
     g, msq, obs = state.g, state.msq, state.obs
     meas_mask = g >= 0
     tol = torch.tensor(opts.conv_tolerance, dtype=dtype, device=dev)
     f, fitted, conv_prev, itl, done = state.f, state.fitted, state.conv, state.it, state.done
+    ascale, recov = state.ascale, state.recov
+    mom = (state.f_prev, state.fitted_prev, state.tk) if kit.momentum else None
     # A lane that is live at step s has run it + s iterations, so its stall
     # test is armed from step 1 on (at step 0 only if it >= 1) and it hits
     # the batched loop's `it < max_iterations` exit at step cap_step. Each
@@ -587,21 +802,44 @@ def sched_step_normalized(
     armed = state.it >= 1
     cap_step = opts.max_iterations - 1 - state.it
     converged = torch.zeros_like(done)
+    diverged = torch.zeros_like(done) if kit.recovery else None
     step = 0
     while step < opts.schedule_stride and not bool(done.all()):
-        f, fitted, conv = kit.iterate(f, fitted, done, g, meas_mask, obs, msq)
+        dk = kit.decay_factor(itl) if kit.scheduled else None
+        out = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
+        f_new, fitted_new, conv = out.f, out.fitted, out.conv
         live = ~done
-        newly = live & (torch.abs(conv - conv_prev) < tol)
+        bad = None
+        if kit.recovery:
+            f_new, fitted_new, conv, ascale, recov, bad, exhausted = kit.guard(
+                out, f, fitted, conv_prev, done, msq, ascale, recov)
+            live_ok = live & ~bad  # a rolled-back metric is not a stall
+        else:
+            live_ok = live
+        newly = live_ok & (torch.abs(conv - conv_prev) < tol)
         if step == 0:
             newly &= armed
         converged |= newly
+        ended = newly
+        if kit.recovery:
+            diverged |= exhausted
+            ended = newly | exhausted
+        if kit.momentum:
+            mom = (f, fitted if kit.carry_fit else None,
+                   kit.momentum_tk(out.y, f_new, f, out.t_next, bad))
         itl = itl + live
-        conv_prev, done = conv, done | newly | (cap_step <= step)
+        f, fitted = f_new, fitted_new
+        conv_prev, done = conv, done | ended | (cap_step <= step)
         step += 1
     stopped = done & ~state.done
     status = torch.where(converged, torch.full_like(state.status, SUCCESS), state.status)
+    if kit.recovery:
+        status = torch.where(diverged, torch.full_like(status, DIVERGED), status)
     iters = torch.where(stopped, itl, state.iters)
-    return SchedState(g, msq, f, fitted, conv_prev, itl, done, status, iters, obs)
+    if mom is not None:
+        state = state._replace(f_prev=mom[0], fitted_prev=mom[1], tk=mom[2])
+    return state._replace(f=f, fitted=fitted, conv=conv_prev, it=itl, done=done,
+                          status=status, iters=iters, ascale=ascale, recov=recov)
 
 
 def prepare_measurement(measurement, opts: SolverOptions):
@@ -611,7 +849,12 @@ def prepare_measurement(measurement, opts: SolverOptions):
     ``norm`` is the measurement's max (1.0 when normalization is off or the
     frame is dark); ``msq`` the normalized ``||g||^2`` over positive
     measurements, remapped to 1.0 for a dark frame so the stop test still
-    terminates. Non-finite pixels are excluded from both, with a warning.
+    terminates. Non-finite pixels are excluded from ``norm`` (a NaN-poisoned
+    frame still denormalizes by a finite factor) and, as non-positive
+    measurements, from the solve's mask, with a warning. They stay
+    non-finite in ``g`` (and a +inf pixel makes ``msq`` infinite), so the
+    divergence guard's pre-flight check sees them
+    (``sartsolver_tpu/models/sart.py:2742-2752``).
     """
     g64 = np.asarray(measurement, dtype=np.float64)
     n_bad = int(np.count_nonzero(~np.isfinite(g64)))

@@ -1,7 +1,8 @@
 // Fused SART sweep for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel sartsolver_tpu/ops/fused_sweep.py:_sweep_kernel
-// (called through fused_sweep, :829), all four of its variants. One call
+// (called through fused_sweep, :829), all four of its variants and the
+// scheduled log update (alpha_lane, below). One call
 // computes, for the dense ray-transfer matrix H [P, V] (row-major), pixel
 // weights w [B, P] and the current solution f [B, V]:
 //
@@ -23,6 +24,15 @@
 //   f_new = f * ((obs + eps) / (bp * vm + eps))^alpha * exp(-pen)
 //                                                 aux = vm, obs [, pen]
 // Each aux panel has 1 row (broadcast over the batch) or B rows.
+//
+// The scheduled log update (relaxation_decay != 1, models/sart.py:1292-1307)
+// takes its exponent per batch row: alpha_lane, 1 or B fp32 values, in place
+// of the literal alpha. The TPU kernel reads it as a fourth aux panel [1|B, V]
+// (a Pallas closure cannot capture a traced scalar); here it is one value
+// per row, read once per row by each thread, so it adds no per-voxel
+// traffic. With it the power is taken for every exponent, 1 included, as the
+// scheduled closure takes it; without it (a null pointer) the literal path
+// is unchanged.
 //
 // Three plans, chosen by the caller (ops/fused_sweep.py:plan_sweep) and
 // refused here, never replaced, when their preconditions fail:
@@ -82,7 +92,15 @@ constexpr int kRowsPerWarp = 2;     // pixel rows per warp, forward kernel
 struct AuxPanels {
   const float* ptr[3];
   long long stride[3];  // 0 for a broadcast row, V for B rows
+  const float* alpha_lane;  // the scheduled log update's exponent per row, or null
+  long long alpha_stride;   // 0 for one value, 1 for B
 };
+
+// Row b's exponent of the log update: alpha_lane[b] where the update is
+// scheduled, else the literal alpha.
+__device__ __forceinline__ float row_alpha(const AuxPanels& aux, float alpha, int b) {
+  return aux.alpha_lane != nullptr ? __ldg(aux.alpha_lane + b * aux.alpha_stride) : alpha;
+}
 
 // bf16 storage is carried as its bit pattern: a bf16 value is the upper 16
 // bits of the fp32 value it stands for, so the conversion is a shift and is
@@ -152,10 +170,11 @@ template <> struct Vec<int8_t, 4> {
 
 // The elementwise update, written with explicit roundings (no fused
 // multiply-add) so it rounds like the plain PyTorch version. a0..a2 are the
-// voxel's aux values: mode 0 invd [, pen]; mode 1 vm, obs [, pen].
+// voxel's aux values: mode 0 invd [, pen]; mode 1 vm, obs [, pen]. alpha is
+// the row's exponent; `scheduled` takes the power whatever its value.
 __device__ __forceinline__ float update_vals(int mode, int has_pen, float alpha,
-                                             float eps, float f, float bp,
-                                             float a0, float a1, float a2) {
+                                             bool scheduled, float eps, float f,
+                                             float bp, float a0, float a1, float a2) {
   if (mode == 0) {
     float upd = __fadd_rn(f, __fmul_rn(a0, bp));
     if (has_pen) upd = __fsub_rn(upd, a1);
@@ -163,7 +182,7 @@ __device__ __forceinline__ float update_vals(int mode, int has_pen, float alpha,
   }
   const float fit = __fmul_rn(bp, a0);
   float ratio = __fdiv_rn(__fadd_rn(a1, eps), __fadd_rn(fit, eps));
-  if (alpha != 1.0f) ratio = powf(ratio, alpha);
+  if (scheduled || alpha != 1.0f) ratio = powf(ratio, alpha);
   float out = __fmul_rn(f, ratio);
   if (has_pen) out = __fmul_rn(out, expf(-a2));
   return out;
@@ -184,7 +203,8 @@ __device__ __forceinline__ float update(int mode, int has_pen, float alpha,
                                         long long v) {
   float a0, a1, a2;
   load_aux(aux, mode, has_pen, b, v, a0, a1, a2);
-  return update_vals(mode, has_pen, alpha, eps, f, bp, a0, a1, a2);
+  return update_vals(mode, has_pen, row_alpha(aux, alpha, b), aux.alpha_lane != nullptr,
+                     eps, f, bp, a0, a1, a2);
 }
 
 // kScaled (int8 codes): bp is in code space and is rounded times the voxel's
@@ -1002,6 +1022,8 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
   const int c = t % kWords, g = t / kWords;  // bp pass: word c, row group g
   const int ub = t / C, uc = t % C;          // update: batch row, column
   const bool upd = t < NB * C;
+  const bool scheduled = aux.alpha_lane != nullptr;
+  const float a_row = upd ? row_alpha(aux, alpha, ub) : alpha;  // once per thread
   constexpr unsigned kPartBytes = kCluster * NB * C * sizeof(float);
 #ifdef SART_ONE_READ_PHASES
   unsigned long long cycles[kPhases] = {}, ns0, ns1;
@@ -1085,7 +1107,7 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
 #pragma unroll
       for (int r = 0; r < kCluster; ++r) bp += sm.part[i & 1][r][ub][uc];
       if (kScaled) bp = __fmul_rn(bp, s);
-      const float fn = update_vals(mode, has_pen, alpha, eps, fu, bp, a0, a1, a2);
+      const float fn = update_vals(mode, has_pen, a_row, scheduled, eps, fu, bp, a0, a1, a2);
       sm.fnew[ub][uc] = kScaled ? __fmul_rn(fn, s) : fn;
       if (rank == 0) f_new[(long long)ub * V + v] = fn;
     }
@@ -1453,7 +1475,9 @@ extern "C" int sart_one_read_phases(unsigned long long* out) {
 // contiguous [P, V] matrix of the storage type `storage` (0 fp32, 1 bf16,
 // 2 int8 codes); scale is the codes' [V] fp32 scale, given for int8 and only
 // for int8. Every other pointer is a device pointer to a contiguous fp32
-// array; aux_rows[i] is 1 (broadcast) or B. The caller allocates f_new
+// array; aux_rows[i] is 1 (broadcast) or B. alpha_lane (mode 1 only; null
+// for the literal alpha) holds alpha_rows = 1 or B exponents of the
+// scheduled log update. The caller allocates f_new
 // [B, V], fitted [B, P] and `scratch_bytes` of scratch (see above). `plan`
 // (0 two_read, 1 one_read, 2 tensor_core) is run as asked or refused with
 // cudaErrorInvalidValue; no other plan is taken in its place.
@@ -1463,7 +1487,8 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
                                 const float* aux2, const long long* aux_rows,
                                 int n_aux, float* f_new, float* fitted,
                                 long long P, long long V, long long B,
-                                int mode, float alpha, float eps, int plan,
+                                int mode, float alpha, float eps,
+                                const float* alpha_lane, long long alpha_rows, int plan,
                                 void* scratch, long long scratch_size,
                                 void* stream) {
   if (P <= 0 || V <= 0 || B <= 0 || P > 0x7fffffffLL || V > 0x7fffffffLL ||
@@ -1473,6 +1498,8 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
   if ((mode != 0 && mode != 1) || (n_aux != want && n_aux != want + 1))
     return (int)cudaErrorInvalidValue;
   if (storage < 0 || storage > 2 || (storage == 2) != (scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (alpha_lane != nullptr && (mode != 1 || (alpha_rows != 1 && alpha_rows != B)))
     return (int)cudaErrorInvalidValue;
   if (!plan_ok(plan, storage, P, V, B, H))
     return (int)cudaErrorInvalidValue;
@@ -1488,6 +1515,8 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
     a.aux.ptr[i] = i < n_aux ? ptrs[i] : nullptr;
     a.aux.stride[i] = (i < n_aux && aux_rows[i] != 1) ? V : 0;
   }
+  a.aux.alpha_lane = alpha_lane;
+  a.aux.alpha_stride = (alpha_lane != nullptr && alpha_rows != 1) ? 1 : 0;
   a.f_new = f_new;
   a.fitted = fitted;
   a.P = (int)P;

@@ -17,6 +17,12 @@ where ``update`` is one of the two SART rules of ``models/sart.py``:
 
 Each aux panel is ``[1, V]`` (broadcast over the batch) or ``[B, V]``.
 
+The scheduled log update (``relaxation_decay != 1``) takes its exponent per
+batch row: ``alpha_lane`` ``[1, 1]`` or ``[B, 1]`` in place of ``alpha``, and
+then the power is taken for every exponent, 1 included, as the JAX
+scheduled closure takes it (``models/sart.py:_log_update`` with its
+``[1|B, V]`` α panel). The kernel reads one value per row.
+
 ``H`` is stored as fp32, bf16 or int8 codes; each element is upcast
 exactly and all arithmetic is fp32. int8 codes come with ``scale`` ``[1, V]``
 (``H = scale * codes``, the JAX kernel's ``fwd_scale`` aux panel): ``bp`` is
@@ -88,6 +94,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 2        # f_new, fitted
     + [ctypes.c_longlong] * 3      # P, V, B
     + [ctypes.c_int, ctypes.c_float, ctypes.c_float]  # mode, alpha, eps
+    + [ctypes.c_void_p, ctypes.c_longlong]  # alpha_lane, its rows
     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]  # plan, scratch, its bytes
     + [ctypes.c_void_p]            # stream
 )
@@ -129,12 +136,15 @@ def plan_sweep(P: int, V: int, B: int, storage: str) -> str:
 
 
 def _update_reference(f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
-                      logarithmic: bool, alpha: float, eps: float) -> Tensor:
+                      logarithmic: bool, alpha: float, eps: float,
+                      alpha_lane: Optional[Tensor] = None) -> Tensor:
     """The update rules of ``models/sart.py:_lin_update/_log_update``."""
     if logarithmic:
         vm, obs, *pen = aux
         ratio = (obs + eps) / (bp * vm + eps)
-        if alpha != 1.0:
+        if alpha_lane is not None:
+            ratio = ratio ** alpha_lane
+        elif alpha != 1.0:
             ratio = ratio ** alpha
         out = f * ratio
         return out * torch.exp(-pen[0]) if pen else out
@@ -148,7 +158,8 @@ def _update_reference(f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
 def fused_sweep_reference(rtm: Tensor, w: Tensor, f: Tensor,
                           aux: Sequence[Tensor], *, logarithmic: bool,
                           alpha: float = 1.0, eps: float = 0.0,
-                          scale: Optional[Tensor] = None
+                          scale: Optional[Tensor] = None,
+                          alpha_lane: Optional[Tensor] = None
                           ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the sweep: two matrix products around the
     update. Any device, any float dtype of the operands; a matrix stored in
@@ -158,13 +169,14 @@ def fused_sweep_reference(rtm: Tensor, w: Tensor, f: Tensor,
     if scale is not None:
         bp = bp * scale
     f_new = _update_reference(f, bp, aux, logarithmic=logarithmic,
-                              alpha=alpha, eps=eps)
+                              alpha=alpha, eps=eps, alpha_lane=alpha_lane)
     fwd = f_new if scale is None else f_new * scale
     return f_new, fwd @ H.T
 
 
 def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
-           logarithmic: bool, scale: Optional[Tensor]) -> None:
+           logarithmic: bool, scale: Optional[Tensor],
+           alpha_lane: Optional[Tensor] = None) -> None:
     if rtm.ndim != 2 or w.ndim != 2 or f.ndim != 2:
         raise ValueError("fused_sweep: rtm [P, V], w [B, P] and f [B, V] expected.")
     P, V = rtm.shape
@@ -196,7 +208,15 @@ def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
         raise ValueError(
             f"fused_sweep: scale of shape {tuple(scale.shape)}; [1, {V}] expected."
         )
-    tensors = (rtm, w, f, *aux) + (() if scale is None else (scale,))
+    if alpha_lane is not None:
+        if not logarithmic:
+            raise ValueError("fused_sweep: alpha_lane is the log update's exponent; "
+                             "the linear update folds its step into w.")
+        if alpha_lane.shape not in ((1, 1), (B, 1)):
+            raise ValueError(f"fused_sweep: alpha_lane of shape {tuple(alpha_lane.shape)}; "
+                             f"[1, 1] or [{B}, 1] expected.")
+    tensors = ((rtm, w, f, *aux) + (() if scale is None else (scale,))
+               + (() if alpha_lane is None else (alpha_lane,)))
     if any(t.device != rtm.device for t in tensors):
         raise ValueError("fused_sweep: all tensors must be on one device.")
     if rtm.dtype not in STORAGE or any(t.dtype != torch.float32 for t in tensors[1:]):
@@ -208,24 +228,27 @@ def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
 
 def fused_sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                 logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
-                scale: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                scale: Optional[Tensor] = None, alpha_lane: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
     """One fused sweep; see the module docstring. On the card it runs the
-    plan :func:`plan_sweep` gives. ``fused_sweep.launches`` counts the
-    kernel launches, ``fused_sweep.launches_by_storage`` the same launches by
-    the matrix's dtype and ``fused_sweep.launches_by_plan`` by plan (CPU
-    calls of the plain version do not count)."""
+    plan :func:`plan_sweep` gives (the exponent ``alpha_lane`` changes no
+    plan). ``fused_sweep.launches`` counts the kernel launches,
+    ``fused_sweep.launches_by_storage`` the same launches by the matrix's
+    dtype, ``fused_sweep.launches_by_plan`` by plan and
+    ``fused_sweep.scheduled_by_plan`` the launches with ``alpha_lane`` by
+    plan (CPU calls of the plain version do not count)."""
     return _sweep(rtm, w, f, aux, logarithmic=logarithmic, alpha=alpha, eps=eps,
-                  scale=scale)
+                  scale=scale, alpha_lane=alpha_lane)
 
 
 def _sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
            logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
-           scale: Optional[Tensor] = None, plan: Optional[str] = None
-           ) -> Tuple[Tensor, Tensor]:
+           scale: Optional[Tensor] = None, plan: Optional[str] = None,
+           alpha_lane: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """:func:`fused_sweep` with the plan forced (None: :func:`plan_sweep`'s);
     raises ValueError where the plan's preconditions fail (on any device)
     and RuntimeError where the kernel refuses or fails."""
-    _check(rtm, w, f, aux, logarithmic, scale)
+    _check(rtm, w, f, aux, logarithmic, scale, alpha_lane)
     P, V = rtm.shape
     B = w.shape[0]
     storage = _storage_name(rtm.dtype)
@@ -237,12 +260,13 @@ def _sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
             raise ValueError(f"fused_sweep: {why}.")
     if rtm.device.type == "cpu":
         return fused_sweep_reference(rtm, w, f, aux, logarithmic=logarithmic,
-                                     alpha=alpha, eps=eps, scale=scale)
+                                     alpha=alpha, eps=eps, scale=scale,
+                                     alpha_lane=alpha_lane)
     if rtm.device.type != "cuda":
         raise ValueError(f"fused_sweep: unsupported device {rtm.device}.")
     err, f_new, fitted = _kernel_call(rtm, w, f, aux, logarithmic=logarithmic,
                                       alpha=alpha, eps=eps, scale=scale,
-                                      plan_code=PLANS[plan])
+                                      plan_code=PLANS[plan], alpha_lane=alpha_lane)
     if err != 0:
         raise RuntimeError(
             f"fused_sweep: CUDA kernel (plan {plan}) failed with cudaError_t {err}."
@@ -250,16 +274,19 @@ def _sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
     fused_sweep.launches += 1
     fused_sweep.launches_by_storage[storage] += 1
     fused_sweep.launches_by_plan[plan] += 1
+    if alpha_lane is not None:
+        fused_sweep.scheduled_by_plan[plan] += 1
     return f_new, fitted
 
 
 def _kernel_call(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                  logarithmic: bool, alpha: float, eps: float,
-                 scale: Optional[Tensor], plan_code: int
-                 ) -> Tuple[int, Tensor, Tensor]:
+                 scale: Optional[Tensor], plan_code: int,
+                 alpha_lane: Optional[Tensor] = None) -> Tuple[int, Tensor, Tensor]:
     """One call of the C entry point with CUDA tensors; returns its
     cudaError_t beside the outputs. The C side checks the plan itself."""
-    tensors = (rtm, w, f, *aux) + (() if scale is None else (scale,))
+    tensors = ((rtm, w, f, *aux) + (() if scale is None else (scale,))
+               + (() if alpha_lane is None else (alpha_lane,)))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_sweep: the CUDA kernel needs contiguous tensors.")
     from sartsolver_tpu_torch.ops import _build
@@ -286,7 +313,9 @@ def _kernel_call(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                  None if scale is None else scale.data_ptr(),
                  w.data_ptr(), f.data_ptr(), *ptrs, rows,
                  len(aux), f_new.data_ptr(), fitted.data_ptr(), P, V, B,
-                 1 if logarithmic else 0, float(alpha), float(eps), plan_code,
+                 1 if logarithmic else 0, float(alpha), float(eps),
+                 None if alpha_lane is None else alpha_lane.data_ptr(),
+                 1 if alpha_lane is None else alpha_lane.shape[0], plan_code,
                  None if scratch is None else scratch.data_ptr(), nbytes, stream)
     return err, f_new, fitted
 
@@ -296,6 +325,7 @@ def reset_launch_counts() -> None:
     fused_sweep.launches = 0
     fused_sweep.launches_by_storage = {_storage_name(dt): 0 for dt in STORAGE}
     fused_sweep.launches_by_plan = {plan: 0 for plan in PLANS}
+    fused_sweep.scheduled_by_plan = {plan: 0 for plan in PLANS}
 
 
 reset_launch_counts()

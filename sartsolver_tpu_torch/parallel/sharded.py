@@ -206,7 +206,9 @@ class DistributedSARTSolver:
 
     def sched_lanes(self, lanes: int) -> SchedLaneState:
         """Fresh, all-inert lane state for :meth:`sched_step`: ``g = -1``
-        (every pixel masked), ``f = 1`` (log-safe), ``msq = 1``, done."""
+        (every pixel masked), ``f = 1`` (log-safe), ``msq = 1``, done; with
+        the guard, step scale 1 and no recovery spent; with momentum, ``f_prev
+        = 1`` (the inert iterate), ``fitted_prev = 0`` and ``t = 1``."""
         self._live_problem()
         B = int(lanes)
         if B < 1:
@@ -225,6 +227,13 @@ class DistributedSARTSolver:
             iters=torch.zeros(B, **i32),
             obs=torch.zeros((B, self.nvoxel), **kw) if self.opts.logarithmic else None,
         )
+        if self.opts.divergence_recovery:
+            state = state._replace(ascale=torch.ones(B, **kw), recov=torch.zeros(B, **i32))
+        if self.opts.momentum != "off":
+            state = state._replace(
+                f_prev=torch.ones((B, self.nvoxel), **kw), tk=torch.ones(B, **kw),
+                fitted_prev=(None if self.opts.logarithmic
+                             else torch.zeros((B, self.npixel), **kw)))
         return SchedLaneState(state, B)
 
     def sched_step(self, lane_state: SchedLaneState, refills) -> None:

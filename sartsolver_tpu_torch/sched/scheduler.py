@@ -17,6 +17,10 @@ Contracts kept from the grouped loop:
   (the stride shares the batched loop's ``_SweepContext`` body).
 - **Row order**: results are emitted in frame order through a reorder
   buffer (retirement order is convergence order).
+- **Statuses**: a lane that is done retires, whatever its status:
+  converged, at the iteration cap, or DIVERGED by the divergence guard
+  (in the stride, or at its refill for a non-finite frame, after no
+  iteration).
 - **OOM**: a device out-of-memory hands every un-emitted frame back to the
   caller in frame order (``SchedRunStats.leftover``), for the grouped
   loop's halving ladder: the lane count cannot halve itself. Any other

@@ -295,8 +295,22 @@ def test_cli_oom_halves_the_group(world, tmp_path, monkeypatch, where, capsys):
     dispatch: the run exits 0 with every status 0, the frames re-solved at
     half the group size, and the file equals the grouped loop run at the
     halved size from the start."""
+    _oom_halves_the_group(world, tmp_path, monkeypatch, where, capsys, [])
+
+
+@pytest.mark.parametrize("where", ["sched_step", "solve_batch"])
+def test_cli_oom_halves_the_group_with_the_variants(world, tmp_path, monkeypatch, where,
+                                                    capsys):
+    """The same with the solver variants on (the schedule, momentum and an
+    armed guard): their per-frame state starts over in the halved groups."""
+    _oom_halves_the_group(world, tmp_path, monkeypatch, where, capsys,
+                          ["--relaxation_decay", "0.99", "--momentum", "nesterov",
+                           "--divergence_recovery", "2"])
+
+
+def _oom_halves_the_group(world, tmp_path, monkeypatch, where, capsys, variants):
     paths, *_ = world
-    flags = ["--device", "cpu", "-m", "300", "-c", "1e-6"]
+    flags = ["--device", "cpu", "-m", "300", "-c", "1e-6", *variants]
     real = getattr(DistributedSARTSolver, where)
     calls = {"n": 0}
 

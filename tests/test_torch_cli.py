@@ -149,6 +149,11 @@ def test_cli_reconstructs_the_world(world, tmp_path, capsys):
     (["-R", "1.5"], "relaxation must be within (0, 1]"),
     (["-m", "0"], "max_iterations must be >= 1"),
     (["--bogus"], "unrecognized arguments"),
+    (["--relaxation_decay", "1.5"], "relaxation_decay must be within (0, 1]"),
+    (["--relaxation_decay", "0"], "relaxation_decay must be within (0, 1]"),
+    (["--momentum", "polyak"], "invalid choice: 'polyak'"),
+    (["--divergence_recovery", "-1"], "divergence_recovery must be >= 0"),
+    (["--fused_sweep", "interpret"], "Pallas interpreter"),
 ])
 def test_cli_flag_errors_exit_1(world, argv, message, capsys):
     paths, *_ = world
@@ -182,3 +187,123 @@ def test_cli_refuses_cuda_without_a_card(world, tmp_path, monkeypatch, capsys):
     paths, *_ = world
     assert torch_main(["-o", str(tmp_path / "o.h5"), *_inputs(paths)]) == 1
     assert "--device cpu" in capsys.readouterr().err
+
+
+VARIANT_FLAGS = {
+    "decay": ["--relaxation_decay", "0.95"],
+    "momentum": ["--momentum", "nesterov"],
+    "guard": ["--divergence_recovery", "2"],
+    "all": ["--relaxation_decay", "0.97", "--momentum", "nesterov",
+            "--divergence_recovery", "2"],
+}
+
+
+@pytest.mark.parametrize("loop", ["chain", "scheduled"])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANT_FLAGS))
+def test_cli_variants_match_jax_cli(world, tmp_path, variant, logarithmic, loop, capsys):
+    """The solver-variant flags through both CLIs (the warm-started chain,
+    or ``--no_guess --batch_frames 3`` through the port's scheduler against
+    the JAX CLI's), fp32: equal frame times, a status that agrees with its
+    own iteration count, and every frame within 5e-3 in fitted space (the
+    existing CLI tests' bar: an fp32 stall crossing moves between the
+    frameworks, ROADMAP.md queue C)."""
+    paths, H, f_true, times, scales = world
+    flags = FP32 + VARIANT_FLAGS[variant] + (["-L"] if logarithmic else [])
+    if loop == "scheduled":
+        flags += ["--no_guess", "--batch_frames", "3"]
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *_inputs(paths), *flags, "--pixel_shards", "1"]) == 0
+    capsys.readouterr()
+    assert torch_main(["-o", port_out, *_inputs(paths), *flags, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("Processed in:") == len(times)
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    for key in ("time", f"time_{fx.CAM_A}", f"time_{fx.CAM_B}"):
+        np.testing.assert_array_equal(tsol[key], jsol[key], err_msg=key)
+    np.testing.assert_array_equal(tsol["status"] != 0, tsol["iterations"] == 40)
+    for i in range(len(times)):
+        ref = H @ jsol["value"][i]
+        err = np.linalg.norm(H @ tsol["value"][i] - ref) / np.linalg.norm(ref)
+        assert err <= 5e-3, (i, err)
+
+
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("variant", ["decay", "all"])
+def test_cli_variants_fp64_match_jax_cli(world, tmp_path, variant, logarithmic):
+    """The fp64 parity profile with the variants: statuses, iterations and
+    values (1e-8) equal to the JAX CLI's."""
+    paths, *_ = world
+    flags = FP64 + VARIANT_FLAGS[variant] + (["-L"] if logarithmic else [])
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *_inputs(paths), *flags, "--pixel_shards", "1"]) == 0
+    assert torch_main(["-o", port_out, *_inputs(paths), *flags]) == 0
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    for key in ("status", "iterations"):
+        np.testing.assert_array_equal(tsol[key], jsol[key], err_msg=key)
+    np.testing.assert_allclose(tsol["value"], jsol["value"], rtol=1e-8)
+
+
+def _poison_frame(paths, frame=1):
+    """A NaN in one pixel of camera A's frame ``frame``."""
+    with h5py.File(paths["img_a"], "r+") as f:
+        f["image/frame"][frame, 0, 0] = np.nan
+
+
+@pytest.mark.parametrize("flags", [
+    ["--chain_frames", "1"], [], ["--no_guess", "--batch_frames", "3"],
+    ["--no_guess", "--batch_frames", "3", "--no_continuous_batching"], ["-L"],
+])
+def test_cli_nan_frame_is_diverged_and_exits_2(world, tmp_path, flags, capsys):
+    """--divergence_recovery with a NaN-poisoned frame: that frame is written
+    DIVERGED (-2) with a zero row and no iteration, the others solve, and
+    the run exits 2, in every frame loop; the JAX CLI agrees on which frame
+    diverged and on the exit code (the others' fp32 stall crossings may
+    fall on either side of the cap, ROADMAP.md queue C)."""
+    paths, H, *_ = world
+    _poison_frame(paths)
+    argv = [*_inputs(paths), *FP32, "--divergence_recovery", "2", *flags]
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *argv, "--pixel_shards", "1"]) == 2
+    capsys.readouterr()
+    assert torch_main(["-o", port_out, *argv, "--device", "cpu"]) == 2
+    assert "1 frame(s) DIVERGED (status -2)" in capsys.readouterr().err
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    assert tsol["status"].tolist()[1] == -2 and tsol["iterations"][1] == 0
+    np.testing.assert_array_equal(tsol["value"][1], 0.0)
+    np.testing.assert_array_equal(tsol["status"] == -2, jsol["status"] == -2)
+    np.testing.assert_array_equal(tsol["status"] == -1, tsol["iterations"] == 40)
+    for i in (0, 2, 3):
+        ref = H @ jsol["value"][i]
+        err = np.linalg.norm(H @ tsol["value"][i] - ref) / np.linalg.norm(ref)
+        assert err <= 5e-3, (i, err)
+
+
+def test_cli_armed_guard_changes_no_byte(world, tmp_path):
+    """A healthy run with --divergence_recovery writes the same file as
+    without it (the guard's selects keep every candidate)."""
+    paths, *_ = world
+    outs = []
+    for extra in ([], ["--divergence_recovery", "3"]):
+        out = str(tmp_path / f"port{len(extra)}.h5")
+        assert torch_main(["-o", out, *_inputs(paths), *FP32, "-l", paths["laplacian"],
+                           "--device", "cpu", *extra]) == 0
+        outs.append(_read(out)[0])
+    for key in outs[0]:
+        np.testing.assert_array_equal(outs[0][key], outs[1][key], err_msg=key)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--rtm_dtype", "int8"], "rtm_dtype='int8' requires the fused sweep"),
+    (["--fused_sweep", "on"], "fused_sweep='on' requested but divergence_recovery"),
+])
+def test_cli_log_guard_refusals(world, tmp_path, argv, message, capsys):
+    """The guard keeps the log solver off the fused sweep, as in the JAX
+    package: int8 storage, which needs the fused sweep, and an explicit
+    ``--fused_sweep on`` are refused with a message and exit 1."""
+    paths, *_ = world
+    assert torch_main(["-o", str(tmp_path / "o.h5"), *_inputs(paths), "--device", "cpu",
+                       "-L", "--divergence_recovery", "2", *argv]) == 1
+    assert message in capsys.readouterr().err

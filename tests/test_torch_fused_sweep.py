@@ -181,3 +181,73 @@ def test_wrapper_checks_its_inputs():
         fused_sweep(*meta[:3], [meta[3]], logarithmic=False)
     fused_sweep(H, w, f, aux, logarithmic=False)
     assert fused_sweep.launches == calls  # the plain version is no launch
+
+
+def _log_update_sched(f_p, bp_p, vm_p, obs_p, a_p, *pen_p):  # models/sart.py:1292-1307
+    import jax.numpy as jnp
+
+    fit = bp_p * vm_p
+    ratio = ((obs_p + EPS) / (fit + EPS)) ** a_p
+    return f_p * ratio * jnp.exp(-pen_p[0]) if pen_p else f_p * ratio
+
+
+def _log_update_sched_int8(f_p, bp_p, s_p, vm_p, obs_p, a_p, *pen_p):
+    return _log_update_sched(f_p, bp_p * s_p, vm_p, obs_p, a_p, *pen_p)
+
+
+@pytest.mark.parametrize("alpha_rows", ["1", "B"])
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_scheduled_log_update_matches_pallas_kernel(storage, with_pen, alpha_rows):
+    """The scheduled log update: the port's exponent per row (``alpha_lane``
+    [1, 1] or [B, 1]) against the JAX kernel's α aux panel ([1, V] or
+    [B, V], the row's value in every column), for every storage type. One of
+    the rows' exponents is 1, which both take as a power."""
+    import jax.numpy as jnp
+
+    B = 3
+    H, w, f, aux = _inputs(P, V, B, True, with_pen, "B", seed=4)
+    lanes = (np.array([[0.8]], np.float32) if alpha_rows == "1"
+             else np.array([[0.9], [1.0], [0.73]], np.float32))
+    panel = np.broadcast_to(lanes, (lanes.shape[0], V)).copy()
+    jaux = aux[:2] + [panel] + aux[2:]
+    scale = None
+    if storage == "float32":
+        tH = H
+        want = jax_fused_sweep(H, w, f, jaux, _log_update_sched, interpret=True)
+    elif storage == "bfloat16":
+        tH = torch.from_numpy(H).to(torch.bfloat16)
+        want = jax_fused_sweep(jnp.asarray(H, jnp.bfloat16), w, f, jaux, _log_update_sched,
+                               interpret=True)
+    else:
+        rng = np.random.default_rng(5)
+        tH = rng.integers(0, 128, (P, V)).astype(np.int8)
+        scale = (rng.uniform(0.5, 1.5, (1, V)) / 127).astype(np.float32)
+        want = jax_fused_sweep(tH, w, f, [scale] + jaux, _log_update_sched_int8,
+                               fwd_scale=0, interpret=True)
+        tH = torch.from_numpy(tH)
+    t = torch.as_tensor
+    got = fused_sweep(tH if isinstance(tH, torch.Tensor) else t(tH), t(w), t(f),
+                      [t(a) for a in aux], logarithmic=True, eps=EPS,
+                      scale=None if scale is None else t(scale), alpha_lane=t(lanes))
+    for g_, w_ in zip(got, want):
+        # fp32 products summed in another order: a few ulp of the result
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-6, atol=1e-7)
+
+
+def test_alpha_lane_is_checked():
+    H, w, f, aux = (torch.as_tensor(a) if not isinstance(a, list)
+                    else [torch.as_tensor(x) for x in a]
+                    for a in _inputs(P, V, 2, True, False, "1"))
+    with pytest.raises(ValueError, match=r"alpha_lane of shape \(3, 1\)"):
+        fused_sweep(H, w, f, aux, logarithmic=True, alpha_lane=torch.ones(3, 1))
+    with pytest.raises(ValueError, match=r"\[1, 1\] or \[2, 1\]"):
+        fused_sweep(H, w, f, aux, logarithmic=True, alpha_lane=torch.ones(2))
+    with pytest.raises(ValueError, match="linear update folds"):
+        fused_sweep(H, w, f, aux[:1], logarithmic=False, alpha_lane=torch.ones(2, 1))
+    with pytest.raises(ValueError, match="fp32"):
+        fused_sweep(H, w, f, aux, logarithmic=True,
+                    alpha_lane=torch.ones(2, 1, dtype=torch.float64))
+    with pytest.raises(ValueError, match="one device"):
+        fused_sweep(H, w, f, aux, logarithmic=True,
+                    alpha_lane=torch.ones(2, 1, device="meta"))

@@ -1,6 +1,9 @@
 """The port's own HDF5 reader and writer (sartsolver_tpu_torch.io.h5)
 against h5py: files h5py writes read back equal, files the port writes are
-read by h5py equal, in both the library's default layout and its newest."""
+read by h5py equal, in both the library's default layout and its newest.
+Chunked, extendible datasets the port writes are resized and appended to by
+the HDF5 library, and a solution file the port's writer made is resumed by
+the JAX package's writer."""
 
 import os
 
@@ -138,3 +141,75 @@ def test_refuses_what_it_cannot_read(tmp_path):
         f["grow"]
     with h5.File(path) as f, pytest.raises(h5.H5FormatError, match="dense link"):
         f["dense"]
+
+
+@pytest.mark.parametrize("n_rows", [3, 64, 65, 4100])
+def test_chunked_datasets_extend_in_the_hdf5_library(tmp_path, n_rows):
+    """The layout h5py's default format writes for an extendible dataset:
+    chunked with unlimited rows and the fill value; the HDF5 library resizes
+    it and appends into the port's chunk index (one node up to 64 chunks, a
+    tree above: 4100 chunks take two levels), and the port reads the result,
+    unwritten chunks as the fill value."""
+    path = str(tmp_path / "grow.h5")
+    value = np.arange(n_rows * 4, dtype=np.float64).reshape(n_rows, 4)
+    with h5.File(path, "w") as f:
+        f.create_dataset("value", data=value, maxshape=(None, 4), chunks=(1, 4), fillvalue=0.0)
+        f.create_dataset("it", data=np.arange(n_rows, dtype=np.int32), maxshape=(None,),
+                         chunks=(7,), fillvalue=-1)
+    with h5py.File(path, "r+") as f:
+        assert f["value"].chunks == (1, 4) and f["value"].maxshape == (None, 4)
+        assert f["it"].chunks == (7,) and f["it"].fillvalue == -1
+        np.testing.assert_array_equal(f["value"][:], value)
+        f["value"].resize((n_rows + 70, 4))
+        f["value"][n_rows:] = -np.arange(280.0).reshape(70, 4)
+        f["it"].resize((n_rows + 9,))
+        f["it"][n_rows:n_rows + 5] = 100 + np.arange(5)
+    with h5.File(path) as f:
+        np.testing.assert_array_equal(f["value"][:], np.concatenate(
+            [value, -np.arange(280.0).reshape(70, 4)]))
+        np.testing.assert_array_equal(f["it"][:], np.r_[np.arange(n_rows), 100 + np.arange(5),
+                                                         [-1] * 4])
+        assert f["it"].chunks == (7,) and f["it"].maxshape == (None,)
+    with h5.File(path, "r+") as f:  # the port keeps the layout through a rewrite
+        f["it"].resize((n_rows + 12,))
+        with pytest.raises(ValueError, match="maxshape"):
+            f["value"].resize((n_rows, 5))
+    with h5py.File(path, "r") as f:
+        assert f["it"].chunks == (7,) and f["it"][-1] == -1
+        assert f["value"].maxshape == (None, 4)
+
+
+def test_jax_writer_resumes_a_port_solution_file(tmp_path):
+    """A solution file the port's SolutionWriter wrote is resumed and
+    appended to by the JAX package's writer (``read_resume_state`` and
+    ``SolutionWriter(resume=...)``, which resize every per-frame dataset),
+    and both h5py and the port read every row back; the port reads the
+    JAX-resumed file."""
+    from sartsolver_tpu.io.solution import SolutionWriter as JaxWriter
+    from sartsolver_tpu.io.solution import read_resume_state
+
+    from sartsolver_tpu_torch.io.solution import SolutionWriter, row_checksum
+
+    path, cams, V = str(tmp_path / "sol.h5"), ["camA", "camB"], 16
+    rows = np.random.default_rng(1).random((9, V))
+    with SolutionWriter(path, cams, V, max_cache_size=2) as w:
+        for i in range(5):
+            w.add(rows[i], 0, 0.1 * i, [0.1 * i, 0.1 * i + 0.01], iterations=i)
+    with h5py.File(path, "r") as f:
+        for key in f["solution"]:
+            assert f["solution"][key].maxshape[0] is None, key
+            assert f["solution"][key].chunks is not None, key
+    state = read_resume_state(path, cams, V)
+    np.testing.assert_array_equal(state.times, 0.1 * np.arange(5))
+    np.testing.assert_array_equal(state.last_solution, rows[4])
+    with JaxWriter(path, cams, V, max_cache_size=3, resume=state) as w:
+        for i in range(5, 9):
+            w.add(rows[i], -1, 0.1 * i, [0.1 * i, 0.1 * i + 0.01], iterations=i)
+    want = dict(value=rows, status=[0] * 5 + [-1] * 4, iterations=np.arange(9),
+                time=0.1 * np.arange(9), time_camB=0.1 * np.arange(9) + 0.01,
+                checksum=[int(row_checksum(r)) for r in rows])
+    for opener in (h5py.File, h5.File):
+        with opener(path, "r") as f:
+            for key, arr in want.items():
+                np.testing.assert_array_equal(f["solution"][key][:], arr, err_msg=key)
+            assert int(f["solution"].attrs["completed"]) == 9

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of sartsolver_tpu_torch, and
 chip_smoke.py and sweep_measure.py, loads neither JAX nor any module of the
 JAX package. Also a
-small-size run of chip_smoke.py's world, solve checks and frames phase on the
-CPU."""
+small-size run of chip_smoke.py's world, solve checks, frames phase and
+variants phase on the CPU."""
 
 import itertools
 import os
@@ -73,3 +73,12 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
         for kind in ("scheduled", "classic"):
             assert len(entry[kind]["cli_ms_per_frame_in_turns"]) == 2
     assert set(frames["int8"]) >= {"four_lanes", "chain"} and "chain" in frames["float32"]
+    # the variants phase: the scheduled log update's loops agree, the armed
+    # guard equals the unguarded run, a NaN frame is DIVERGED and exits 2
+    variants = cs.variants_phase(world, str(tmp_path), device="cpu")
+    for storage, entry in variants.items():
+        assert entry["guard_nan_frame"]["status"][3] == -2
+        assert entry["decay_serial"]["guess_ms_per_iteration"] > 0
+        assert entry["guard_linear"]["byte_equal_to_unguarded"]
+        assert entry["decay_scheduled"]["loop_steps"] > 0
+    assert "decay_four_lanes" in variants["int8"] and "refused" in variants["int8"]["guard_log"]

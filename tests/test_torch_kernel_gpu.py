@@ -200,3 +200,62 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
                plan="one_read", **kw)
     with pytest.raises(ValueError, match="tensor_core takes int8 codes"):
         _sweep(H, w, f, aux, plan="tensor_core", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha_rows", ["1", "B"])
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("plan,storage,shape", [
+    ("one_read", "float32", (8192, 65536, 1)), ("one_read", "bfloat16", (8192, 65536, 4)),
+    ("one_read", "int8", (8192, 65536, 4)), ("one_read", "int8", (1000, 3008, 3)),
+    ("two_read", "float32", (8192, 65536, 8)), ("two_read", "bfloat16", (8192, 65536, 8)),
+    ("two_read", "int8", (1000, 3001, 3)), ("tensor_core", "int8", (8192, 65536, 8)),
+    ("tensor_core", "int8", (1000, 3008, 19)),
+])
+def test_scheduled_log_update_matches_plain_version(plan, storage, shape, with_pen,
+                                                    alpha_rows):
+    """The scheduled log update (``alpha_lane``, one exponent per row, each
+    row's distinct) on every plan: within 1e-5 of the output's max, repeat
+    launches byte-identical, the plan's counts and its scheduled count
+    advanced by 2; the exponent changes no plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    P, V, B = shape
+    H, w, f, aux, scale = _inputs(P, V, B, True, with_pen, seed=P + B + with_pen,
+                                  storage=storage)
+    rows = 1 if alpha_rows == "1" else B
+    lanes = (0.9 - 0.05 * torch.arange(rows, device="cuda", dtype=torch.float32))[:, None]
+    kw = dict(logarithmic=True, eps=EPS, alpha=ALPHA, scale=scale, alpha_lane=lanes)
+    before = fused_sweep.launches_by_plan[plan]
+    before_sched = fused_sweep.scheduled_by_plan[plan]
+    out1 = _sweep(H, w, f, aux, plan=plan, **kw)
+    out2 = fused_sweep(H, w, f, aux, **kw) if plan_sweep(P, V, B, storage) == plan else \
+        _sweep(H, w, f, aux, plan=plan, **kw)
+    ref = fused_sweep_reference(H, w, f, aux, **kw)
+    torch.cuda.synchronize()
+    assert fused_sweep.launches_by_plan[plan] == before + 2
+    assert fused_sweep.scheduled_by_plan[plan] == before_sched + 2
+    for a, b, r in zip(out1, out2, ref):
+        assert torch.equal(a, b)
+        assert torch.isfinite(r).all()
+        err = float((a - r).abs().max())
+        assert err <= 1e-5 * float(r.abs().max()), err
+    # the literal exponent is a different function: the lanes really reach the update
+    lit = _sweep(H, w, f, aux, plan=plan, logarithmic=True, eps=EPS, alpha=ALPHA, scale=scale)
+    assert not torch.equal(lit[0], out1[0])
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_misshapen_alpha_lane():
+    """At the C boundary: an exponent per row on the linear update, or of
+    neither 1 nor B rows, is cudaErrorInvalidValue (1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, w, f, aux, _ = _inputs(64, 512, 4, True, False, seed=9)
+    lanes = torch.ones((3, 1), device="cuda")
+    err, _, _ = _kernel_call(H, w, f, aux, logarithmic=True, alpha=1.0, eps=EPS, scale=None,
+                             plan_code=PLANS["two_read"], alpha_lane=lanes)
+    assert err == 1
+    err, _, _ = _kernel_call(H, w, f, aux[:1], logarithmic=False, alpha=1.0, eps=0.0,
+                             scale=None, plan_code=PLANS["two_read"], alpha_lane=lanes[:1])
+    assert err == 1

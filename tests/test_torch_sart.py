@@ -257,8 +257,7 @@ def test_sweep_fn_parameter_reaches_the_loop():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("os_subsets", 2), ("momentum", "nesterov"), ("relaxation_decay", 0.9),
-    ("divergence_recovery", 1), ("integrity", True), ("sparse_rtm", "auto"),
+    ("os_subsets", 2), ("integrity", True), ("sparse_rtm", "auto"),
     ("lowrank_rtm", "4"), ("rtm_dtype", "float16"),
 ])
 def test_options_not_ported_raise(field, value):
@@ -266,6 +265,22 @@ def test_options_not_ported_raise(field, value):
     storage dtype that neither package has."""
     with pytest.raises(ValueError, match=field):
         SolverOptions(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("relaxation_decay", 0.0), ("relaxation_decay", 1.5), ("relaxation_decay", -0.1),
+    ("momentum", "polyak"), ("divergence_recovery", -1), ("divergence_threshold", 1.0),
+    ("divergence_threshold", 0.5),
+])
+def test_solver_variant_options_are_validated(field, value):
+    """The JAX package's checks of the three solver variants
+    (``sartsolver_tpu/config.py:399-411, 498-507``): a decay outside (0, 1],
+    an unknown momentum, a negative recovery count and a threshold not above
+    1 raise in both packages, naming the option."""
+    with pytest.raises(ValueError, match=field):
+        SolverOptions(**{field: value})
+    with pytest.raises(ValueError, match=field):
+        JaxOptions(**{field: value})
 
 
 def test_cuda_entry_points_refuse_without_a_card(monkeypatch):

@@ -105,3 +105,58 @@ def test_scheduled_lanes_equal_the_grouped_loop_on_the_card(storage, P, V, lanes
     assert len({d[2] for d in dense}) >= 3  # the frames really spread
     assert dense_launches == {**dict.fromkeys(dense_launches, 0), plan: loops}
     assert sched_launches == {**dict.fromkeys(sched_launches, 0), plan: stats.loop_steps}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage,plan", [("float32", "two_read"), ("bfloat16", "two_read"),
+                                          ("int8", "tensor_core")])
+@pytest.mark.parametrize("variant", [
+    dict(logarithmic=True, relaxation_decay=0.97),
+    dict(momentum="nesterov"),
+    dict(logarithmic=True, momentum="nesterov", relaxation_decay=0.98),
+    dict(divergence_recovery=2, relaxation_decay=0.99),
+], ids=["log-decay", "momentum", "log-momentum-decay", "guard-decay"])
+def test_variants_scheduled_equal_the_grouped_loop_on_the_card(variant, storage, plan):
+    """The solver variants at B = 8: every retired lane equals the grouped
+    loop's frame byte for byte, every launch on the plan of B = 8 (the
+    scheduled log update's launches counted as such), and with the guard a
+    NaN frame retires DIVERGED (-2) with a zero row in both loops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lanes, P, V = 8, 512, 256
+    assert plan_sweep(P, V, lanes, storage) == plan
+    H, frames = _mixed_case(P, V, 2 * lanes + lanes // 2, seed=P + 3)
+    if variant.get("divergence_recovery"):
+        frames[5] = frames[5].copy()
+        frames[5][7] = np.nan
+    log = variant.get("logarithmic", False)
+    opts = SolverOptions(max_iterations=300, conv_tolerance=1e-7, schedule_stride=8,
+                         rtm_dtype=storage, beta_laplace=0.0 if log else 0.01, **variant)
+    lap = None if log else _chain_laplacian(V)
+    with DistributedSARTSolver(H, lap, opts=opts, device="cuda") as solver:
+        reset_launch_counts()
+        dense = []
+        for s in range(0, len(frames), lanes):
+            stack = np.stack(frames[s:s + lanes])
+            n = stack.shape[0]
+            if n < lanes:
+                stack = np.concatenate([stack, np.zeros((lanes - n, P))])
+            res = solver.solve_batch(stack)
+            dense += [(res.fetch_solutions()[b], int(res.status[b]), int(res.iterations[b]))
+                      for b in range(n)]
+        got = []
+        ContinuousBatcher(solver, lanes=lanes, on_result=lambda _t, _c, st, it, _cv, fe, _ms:
+                          got.append((fe(), st, it))).run(
+            (fr, float(i), [float(i)]) for i, fr in enumerate(frames))
+        torch.cuda.synchronize()
+        by_plan = dict(fused_sweep.launches_by_plan)
+        scheduled = dict(fused_sweep.scheduled_by_plan)
+    assert [g[1:] for g in got] == [d[1:] for d in dense]
+    np.testing.assert_array_equal(np.stack([g[0] for g in got]),
+                                  np.stack([d[0] for d in dense]))
+    assert by_plan[plan] > 0 and sum(by_plan.values()) == by_plan[plan]
+    if log and variant.get("relaxation_decay"):
+        assert scheduled[plan] == by_plan[plan]
+    if variant.get("divergence_recovery"):
+        assert [d[1] for d in dense].count(-2) == 1
+        assert not got[5][0].any()
