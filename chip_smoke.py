@@ -15,9 +15,11 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    1000 x 3001), each through the plan ``plan_sweep`` gives it; then every
    plan at the shapes that select it or that the GPU tests force it at
    (``one_read`` for each storage at 8192 x 65536, 8191 x 4096, the rule's
-   lower edge and 1000 x 3008, B = 1, 3 and 4; ``tensor_core`` at B = 8, 16,
-   19, 32 and ragged 1000 x 3008 x 19) and ``two_read`` forced where the new
-   plans took over: max error within ``KERNEL_TOL`` of the output's max,
+   lower edge and 1000 x 3008, B = 1, 3 and 4, fp32 also 5 and 8;
+   ``tensor_core`` for int8 at B = 8, 16, 19, 32, for bf16 also at B = 5,
+   and for both at ragged 1000 x 3008 x 19) and ``two_read`` forced where
+   the new plans took over (B = 1 and 8, and 1000 x 3001 x 8): max error
+   within ``KERNEL_TOL`` of the output's max,
    two launches byte-identical, the plan's launch count advanced. Then B4 at
    the configuration of the three int8 Pallas probes under ``benchmarks/``
    (8192 x 65536, B = 32, linear, no penalty; the direct-dot probe with
@@ -27,16 +29,18 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    one call launches with their device times (``torch.profiler``); each
    storage's plan at B = 1 timed in turns with forced ``two_read`` (old,
    new, new, old); the ``two_read`` / ``tensor_core`` crossover over B at
-   8192 x 65536 int8, the ``two_read`` / ``one_read`` crossover over P, V
-   and B for each storage (``tensor_core`` beside for int8 from B = 2), the
+   8192 x 65536 for int8 and bf16, the ``two_read`` / ``one_read``
+   crossover over P, V and B for each storage (B up to ``ONE_READ_MAX_B``:
+   fp32 8; ``tensor_core`` beside for bf16 and int8 from B = 2), the
    ``one_read`` edge each table gives and the clusters ``one_read`` runs.
-   Each storage's plan at the batch loops' B = 8 (fp32 and bf16
-   ``two_read``, int8 ``tensor_core``) is checked and timed too, linear with
-   the penalty and log. The scheduled log update (``alpha_lane``, one
-   exponent per row, distinct) is checked on ``one_read`` at B = 1 and 4
-   for each storage, fp32 and bf16 ``two_read`` and int8 ``tensor_core`` at
-   B = 8, log with the penalty, and timed in turns with the fixed-exponent
-   log sweep (α = 0.9).
+   Each storage's plan at the batch loops' B = 8 (fp32 ``one_read``, bf16
+   and int8 ``tensor_core``) is checked and timed in turns with forced
+   ``two_read`` too, linear with the penalty and log, as are fp32 at B = 5
+   and bf16 at B = 32; fp32 at B = 16 (``two_read``) is timed alone. The
+   scheduled log update (``alpha_lane``, one exponent per row, distinct) is
+   checked on each storage's plan at B = 1, 4 and 8, log with the penalty,
+   and timed in turns with the fixed-exponent log sweep (α = 0.9) and, off
+   ``two_read``, with forced ``two_read``.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
@@ -59,7 +63,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    every launch on ``plan_sweep(8192, 65536, 8, storage)``, the
    scheduler's launches equal to the loop steps it printed, the classic
    loop's to the sum of its groups' loop counts); int8 at
-   ``--batch_frames 4`` (``one_read``); ``--chain_frames 4`` against
+   ``--batch_frames 4`` (``one_read``); fp32 at ``--batch_frames 16``
+   (``two_read``, tiles of 8); ``--chain_frames 4`` against
    ``--chain_frames 1`` for fp32 and int8 (equal files, launches equal to
    the iterations). Counts are zeroed just before each run and read just
    after; ms per frame, loop iterations, occupancy, launches by plan and
@@ -122,7 +127,7 @@ CROSS_TOL = 1e-3
 # iterations of the batched solve's fixed-count comparison with the plain
 # version (about where its frames converge)
 BATCH_CROSS_ITERATIONS = 100
-# (P, V) of the one_read / two_read crossover, each at B = 1 .. 4
+# (P, V) of the one_read / two_read crossover, each at B = 1 .. ONE_READ_MAX_B
 ONE_READ_CROSSOVER_PV = ((1024, 65536), (2048, 65536), (4096, 65536), (5120, 65536),
                          (6144, 65536), (7168, 65536), (8192, 65536), (8192, 4096),
                          (8192, 1024), (1000, 3008))
@@ -132,6 +137,7 @@ MAX_ITERATIONS = 500  # -m cap of the main path's runs
 # the int8 run on one_read, and --chain_frames against the serial loop
 FRAME_LANES = 8
 FOUR_LANES = 4
+SIXTEEN_LANES = 16  # fp32 beyond one_read's B = 8: two_read in tiles of 8
 CHAIN_FRAMES = 4
 
 # card -> (memory rate in B/s, fp32 rate outside the tensor cores in FLOP/s,
@@ -387,6 +393,12 @@ def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
         for kind, rec in (("scheduled", sched), ("classic", classic)):
             rec["cli_ms_per_frame_in_turns"] = in_turns[kind]
         entry = dict(plan=plan, lanes=FRAME_LANES, scheduled=sched, classic=classic)
+        if storage == "float32":  # past one_read's B = 8: two_read, two tiles of 8
+            wide_plan = plan_sweep(P, V, SIXTEEN_LANES, storage)
+            _, wide = run("float32_sixteen", ["--rtm_dtype", storage, "--no_guess",
+                                              "--batch_frames", str(SIXTEEN_LANES)])
+            launched(wide, wide_plan, wide["loop_steps"], "fp32 scheduler, 16 lanes")
+            entry["sixteen_lanes"] = dict(wide, plan=wide_plan, lanes=SIXTEEN_LANES)
         if storage == "int8":
             four_plan = plan_sweep(P, V, FOUR_LANES, storage)
             _, four = run("int8_four", ["--rtm_dtype", storage, "--no_guess",
@@ -431,8 +443,8 @@ def variants_phase(world, outdir: str, device: str = "cuda") -> dict:
 
     - ``-L --relaxation_decay 0.98`` over 4 frames (``one_read``), and
       ``--no_guess --batch_frames 8`` over the 32 frames through the
-      scheduler and the classic loop (equal files; fp32 and bf16
-      ``two_read``, int8 ``tensor_core``), int8 also at ``--batch_frames 4``
+      scheduler and the classic loop (equal files; fp32 ``one_read``, bf16
+      and int8 ``tensor_core``), int8 also at ``--batch_frames 4``
       (``one_read``): every launch the scheduled log update's, on the run's
       plan;
     - ``--momentum nesterov``, linear and log;
@@ -569,7 +581,13 @@ def variants_phase(world, outdir: str, device: str = "cuda") -> dict:
 # ---- kernel checks and timing ---------------------------------------------
 
 STORAGES = ("float32", "bfloat16", "int8")
+TC_STORAGES = ("bfloat16", "int8")  # the storage types tensor_core takes
 VARIANT = {"float32": "B1/B2", "bfloat16": "B3", "int8": "B4"}
+# the batch sizes each plan is checked at in the kernels phase: one_read's
+# instances (fp32 up to 8) and tensor_core's batch tiles (bf16 from B = 5,
+# where its one_read ends)
+ONE_READ_CHECK_B = {"float32": (1, 3, 4, 5, 8), "bfloat16": (1, 3, 4), "int8": (1, 3, 4)}
+TENSOR_CORE_CHECK_B = {"bfloat16": (5, 8, 16, 19, 32), "int8": (8, 16, 19, 32)}
 REPLACES = "sartsolver_tpu/ops/fused_sweep.py:829"
 SOURCE = "sartsolver_tpu_torch/ops/csrc/fused_sweep.cu"
 # the int8 Pallas probes: (name, TPU kernel, direct dot)
@@ -806,10 +824,12 @@ def _lanes(B: int):
 def _sched_timing(H, w, f, aux, scale, lanes, eps, rates, plan) -> dict:
     """The scheduled log update (``alpha_lane``) timed in turns with the
     fixed-exponent log sweep (α = 0.9, which takes the power too): fixed,
-    scheduled, scheduled, fixed, each the mean of its two medians; the plain
-    version's and the library's times (two ``torch.matmul`` around the
-    update on an fp32 copy of the dequantized matrix) beside the bound of
-    the same bytes (the exponents add 4 B bytes)."""
+    scheduled, scheduled, fixed, each the mean of its two medians; where the
+    plan is not ``two_read``, the scheduled update through forced
+    ``two_read`` in turns with it too; the plain version's and the library's
+    times (two ``torch.matmul`` around the update on an fp32 copy of the
+    dequantized matrix) beside the bound of the same bytes (the exponents add
+    4 B bytes)."""
     import torch
 
     from sartsolver_tpu_torch.ops.fused_sweep import _sweep, fused_sweep_reference
@@ -824,12 +844,17 @@ def _sched_timing(H, w, f, aux, scale, lanes, eps, rates, plan) -> dict:
     def fixed():
         return _sweep(H, w, f, aux, scale=scale, plan=plan, logarithmic=True, alpha=0.9, eps=eps)
 
-    def scheduled():
-        return _sweep(H, w, f, aux, scale=scale, plan=plan, logarithmic=True, eps=eps,
+    def scheduled(name=plan):
+        return _sweep(H, w, f, aux, scale=scale, plan=name, logarithmic=True, eps=eps,
                       alpha_lane=lanes)
 
     fixed_ms, ms, turns = _in_turns(fixed, scheduled)
-    out = dict(plan=plan, ms=ms, fixed_alpha_ms=fixed_ms, turns_ms=turns,
+    versus = {}
+    if plan != "two_read":
+        old_ms, _, old_turns = _in_turns(lambda: scheduled("two_read"), scheduled)
+        versus = dict(versus=dict(plan="two_read", ms=old_ms, turns_ms=old_turns,
+                                  **_bound(H, w, aux + [lanes], scale, "two_read", rates)))
+    out = dict(plan=plan, ms=ms, fixed_alpha_ms=fixed_ms, turns_ms=turns, **versus,
                device=_device_profile(scheduled),
                plain_ms=_median_ms(lambda: fused_sweep_reference(
                    H, w, f, aux, scale=scale, logarithmic=True, eps=eps, alpha_lane=lanes)),
@@ -840,11 +865,10 @@ def _sched_timing(H, w, f, aux, scale, lanes, eps, rates, plan) -> dict:
     return out
 
 
-# the scheduled log update's cases in the kernels phase: (plan, storage, B)
-# at 8192 x 65536, log with the penalty; the frames phase's paths run each
-SCHED_CASES = tuple(("one_read", st, B) for B in (1, 4) for st in ("float32", "bfloat16", "int8")
-                    ) + (("two_read", "float32", 8), ("two_read", "bfloat16", 8),
-                         ("tensor_core", "int8", 8))
+# the scheduled log update's cases in the kernels phase: (storage, B) at
+# 8192 x 65536, log with the penalty, each through plan_sweep's plan; the
+# variants phase's paths run the B = 1 ones, int8's B = 4 and every B = 8
+SCHED_CASES = tuple((st, B) for B in (1, 4, 8) for st in ("float32", "bfloat16", "int8"))
 
 
 def kernel_phase(card: str):
@@ -853,8 +877,8 @@ def kernel_phase(card: str):
     import torch
 
     from sartsolver_tpu_torch.ops.fused_sweep import (
-        ONE_READ_MAX_B, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, STORAGE, _sweep,
-        plan_sweep,
+        ONE_READ_MAX_B, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, STORAGE,
+        TENSOR_CORE_MIN_B, _sweep, plan_sweep,
     )
 
     alpha, eps = 0.7, 1e-7
@@ -886,19 +910,27 @@ def kernel_phase(card: str):
             for storage in STORAGES:
                 for P, V in ((8192, 65536), (8191, 4096), (ONE_READ_MIN_P[storage], 4096),
                              (1000, 3008)):
-                    for B in (1, 3, 4):
+                    for B in ONE_READ_CHECK_B[storage]:
                         check(P, V, B, logarithmic, with_pen, storage, plan="one_read")
+        # two_read forced where the new plans took over (B = 1 one_read; B = 8
+        # its batch tile of 8), and at a ragged shape with B = 8
         for storage in STORAGES:
-            check(8192, 65536, 1, logarithmic, True, storage, plan="two_read")
-        for B in (8, 16, 19, 32):
-            check(8192, 65536, B, logarithmic, True, "int8",
-                  key=f"int8@B{FRAME_LANES}" if B == FRAME_LANES else None)
-        check(1000, 3008, 19, logarithmic, True, "int8")
-        # the frames phase's batch through each float storage's plan
-        for storage in STORAGES[:2]:
+            for P, V, B in ((8192, 65536, 1), (8192, 65536, FRAME_LANES), (1000, 3001, 8)):
+                check(P, V, B, logarithmic, True, storage, plan="two_read")
+        # tensor_core for bf16 and int8 at the shapes that select it
+        for storage in TC_STORAGES:
+            for B in TENSOR_CORE_CHECK_B[storage]:
+                check(8192, 65536, B, logarithmic, True, storage,
+                      key=f"{storage}@B{B}" if B == FRAME_LANES else None)
+            check(1000, 3008, 19, logarithmic, True, storage)
+        # the frames phase's batches through each storage's plan, both
+        # penalties (fp32 also its 16-lane run, two_read)
+        for storage in STORAGES:
             for with_pen in (False, True):
                 check(8192, 65536, FRAME_LANES, logarithmic, with_pen, storage,
                       key=f"{storage}@B{FRAME_LANES}")
+        check(8192, 65536, SIXTEEN_LANES, logarithmic, True, "float32",
+              key=f"float32@B{SIXTEEN_LANES}")
     torch.cuda.empty_cache()
 
     # timing at the main path's shape and mode: B = 1, linear with the
@@ -917,22 +949,29 @@ def kernel_phase(card: str):
         torch.cuda.empty_cache()
 
     # each storage's plan at the frames phase's batch, linear with the
-    # penalty (the batch loops' runs) and log
-    for storage in STORAGES:
-        for logarithmic in (False, True):
-            H, w, f, aux, scale = _sweep_inputs(8192, 65536, FRAME_LANES, logarithmic,
-                                                not logarithmic, seed=9, storage=storage)
-            kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
-            key = f"{storage}@B{FRAME_LANES}" + ("_log" if logarithmic else "")
-            timing[key] = _timing(H, w, f, aux, scale, kw, rates,
-                                  plan_sweep(8192, 65536, FRAME_LANES, storage))
-            del H, w, f, aux, scale
-            torch.cuda.empty_cache()
+    # penalty (the batch loops' runs) and log, in turns with forced two_read;
+    # fp32 at B = 5 (one_read's smallest new instance) and bf16 at B = 32
+    # (tensor_core) beside two_read too, fp32 at B = 16 (two_read, two tiles
+    # of 8: the frames phase's 16-lane run) alone
+    for storage, B, logarithmic in ([(st, FRAME_LANES, lg) for st in STORAGES
+                                     for lg in (False, True)]
+                                    + [("float32", 5, False), ("bfloat16", 32, False),
+                                       ("float32", SIXTEEN_LANES, False)]):
+        H, w, f, aux, scale = _sweep_inputs(8192, 65536, B, logarithmic,
+                                            not logarithmic, seed=9, storage=storage)
+        kw = dict(logarithmic=logarithmic, alpha=1.0, eps=eps)
+        key = f"{storage}@B{B}" + ("_log" if logarithmic else "")
+        plan = plan_sweep(8192, 65536, B, storage)
+        timing[key] = _timing(H, w, f, aux, scale, kw, rates, plan,
+                              versus=None if plan == "two_read" else "two_read")
+        del H, w, f, aux, scale
+        torch.cuda.empty_cache()
 
     # the scheduled log update (one exponent per row, each row's distinct)
     # on each plan against the plain version, then timed in turns with the
     # fixed-exponent log sweep
-    for plan, storage, B in SCHED_CASES:
+    for storage, B in SCHED_CASES:
+        plan = plan_sweep(8192, 65536, B, storage)
         H, w, f, aux, scale = _sweep_inputs(8192, 65536, B, True, True, seed=30 + B,
                                             storage=storage)
         lanes = _lanes(B)
@@ -985,22 +1024,26 @@ def kernel_phase(card: str):
             torch.cuda.empty_cache()
         return out
 
-    # two_read against tensor_core over B, 8192 x 65536 int8, no penalty
-    # (the probes' mode); two_read against one_read over P, V and B for each
-    # storage with the penalty (the main path's mode), with tensor_core beside
-    # for int8 from B = 2
+    # two_read against tensor_core over B, 8192 x 65536, int8 and bf16, no
+    # penalty (the probes' mode); two_read against one_read over P, V and B
+    # for each storage with the penalty (the main path's mode; fp32 B = 1..8,
+    # the others 1..4), with tensor_core beside for bf16 and int8 from B = 2
     def one_read_plans(storage):
         def plans(B):
-            extra = ("tensor_core",) if storage == "int8" and B >= 2 else ()
+            extra = ("tensor_core",) if storage in TC_STORAGES and B >= 2 else ()
             return ("two_read", "one_read") + extra
         return plans
 
     crossovers = dict(tensor_core=crossover([(8192, 65536, B) for B in (2, 4, 8, 16, 32)],
                                             "int8", False,
-                                            lambda B: ("two_read", "tensor_core")))
+                                            lambda B: ("two_read", "tensor_core")),
+                      tensor_core_bfloat16=crossover(
+                          [(8192, 65536, B) for B in (2, 3, 4, 5, 8, 16, 32)], "bfloat16",
+                          False, lambda B: ("two_read", "tensor_core")))
     for storage in STORAGES:
         crossovers[f"one_read_{storage}"] = crossover(
-            [(P, V, B) for P, V in ONE_READ_CROSSOVER_PV for B in range(1, ONE_READ_MAX_B + 1)],
+            [(P, V, B) for P, V in ONE_READ_CROSSOVER_PV
+             for B in range(1, ONE_READ_MAX_B[storage] + 1)],
             storage, True, one_read_plans(storage))
     edges = {storage: one_read_edge(crossovers[f"one_read_{storage}"])
              for storage in STORAGES}
@@ -1013,10 +1056,11 @@ def kernel_phase(card: str):
                               "tolerance": KERNEL_TOL, "timing": timing,
                               "launches_per_iteration": 1}],
          crossover=crossovers, one_read_edge_measured=edges,
-         one_read_rule=dict(min_p=ONE_READ_MIN_P,
-                            over_tensor_core_min_p=ONE_READ_OVER_TENSOR_CORE_MIN_P),
+         one_read_rule=dict(min_p=ONE_READ_MIN_P, max_b=ONE_READ_MAX_B,
+                            over_tensor_core_min_p=ONE_READ_OVER_TENSOR_CORE_MIN_P,
+                            tensor_core_min_b=TENSOR_CORE_MIN_B),
          one_read_clusters={storage: {B: clusters(STORAGE[getattr(torch, storage)], B)
-                                      for B in range(1, ONE_READ_MAX_B + 1)}
+                                      for B in range(1, ONE_READ_MAX_B[storage] + 1)}
                             for storage in STORAGES},
          peak_mem_rate=rates[0], peak_fp32_rate=rates[1],
          peak_bf16_tensor_rate=rates[2],
@@ -1358,15 +1402,20 @@ def main() -> int:
                 errors[key], f"{VARIANT[storage]} at the batch loops' B = {FRAME_LANES}")
         log = timing[key + "_log"]
         r.update(log_ms=log["ms"], log_plain_ms=log["plain_ms"], log_bound_ms=log["bound_ms"],
-                 log_library_ms=log["library_ms"])
+                 log_library_ms=log["library_ms"], log_two_read_ms=log.get("versus", {}).get("ms"))
         rows.append(r)
+    wide = frames["float32"]["sixteen_lanes"]
+    key = f"float32@B{SIXTEEN_LANES}"
+    rows.append(row(f"fused_sweep@B{SIXTEEN_LANES}", timing[key],
+                    wide["launches_by_plan"][timing[key]["plan"]], errors[key],
+                    f"B1/B2 at --batch_frames {SIXTEEN_LANES} (two_read, tiles of 8)"))
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))
     # the scheduled log update, each plan with the runs of the variants
     # phase that launched it (B = 1: the serial decay run; B = 8: the scheduler
     # and the classic loop; int8 B = 4: four lanes)
-    for plan, storage, B in SCHED_CASES:
+    for storage, B in SCHED_CASES:
         v = variants[storage]
         runs_of = {1: ("decay_serial",), 8: ("decay_scheduled", "decay_classic"),
                    4: ("decay_four_lanes",) if storage == "int8" else ()}[B]
@@ -1374,8 +1423,8 @@ def main() -> int:
             continue  # checked and timed in the kernels phase; no CLI path at this B
         key = f"sched_{storage}@B{B}"
         r = row(f"fused_sweep_sched[{storage}]@B{B}", timing[key],
-                sum(v[n]["scheduled_by_plan"][plan] for n in runs_of), errors[key],
-                f"{VARIANT[storage]}, the scheduled log update (alpha_lane)")
+                sum(v[n]["scheduled_by_plan"][timing[key]["plan"]] for n in runs_of),
+                errors[key], f"{VARIANT[storage]}, the scheduled log update (alpha_lane)")
         r["fixed_alpha_ms"] = timing[key]["fixed_alpha_ms"]
         rows.append(r)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,14 +41,15 @@
 //   described below. What bounds the sweep is one read of H, P*V*sizeof(T)
 //   bytes: at P = 8192, V = 65536, 2.147 GB in fp32 (0.64 ms at the H100
 //   SXM's 3.35 TB/s), 1.07 GB in bf16, 0.54 GB in int8.
-// - one_read (every storage, B <= 4, P <= 8192, V a multiple of the panel's
-//   16 fp32, 32 bf16 or 64 int8 columns): H read once, a panel 64 bytes wide
-//   split along P over a thread-block cluster (namespace one_read); plan_sweep
-//   takes it from the P where it was measured faster, per storage type.
-// - tensor_core (int8 codes, V % 16 == 0): the three contractions on the bf16
-//   tensor cores with the fp32 vectors split exactly into three bf16 pieces
-//   (namespace tc). At B = 32 the 4*B*P*V operations bound the sweep: three
-//   bf16 products of 68.7 GFLOP at 989 TFLOP/s, 0.208 ms.
+// - one_read (B <= 8 for fp32, B <= 4 for bf16 and int8, P <= 8192, V a
+//   multiple of the panel's 16 fp32, 32 bf16 or 64 int8 columns): H read
+//   once, a panel 64 bytes wide split along P over a thread-block cluster
+//   (namespace one_read); plan_sweep takes it from the P where it was
+//   measured faster, per storage type.
+// - tensor_core (bf16 or int8 codes, V % 16 == 0): the three contractions
+//   on the bf16 tensor cores with the fp32 vectors split exactly into three
+//   bf16 pieces (namespace tc). At B = 32 the 4*B*P*V operations bound the
+//   sweep: three bf16 products of 68.7 GFLOP at 989 TFLOP/s, 0.208 ms.
 //
 // two_read: the TPU kernel keeps a [P, bs] column panel in VMEM and
 // accumulates `fitted` across a sequential grid, so H is read once. Here
@@ -65,9 +66,11 @@
 //     axis in a fixed order, then a fixed butterfly of shuffles sums the
 //     lanes. fitted is written once per row.
 //
-// Batches are processed NB rows at a time (grid.y); rows past B are clamped
-// duplicates whose results are discarded, so each batch tile reads H again.
-// Ragged P and V are masked.
+// Batches are processed NB rows at a time (grid.y; NB = 1, 2, 4 or 8, bf16
+// at most 4: dispatch_nb);
+// rows past B are clamped duplicates whose results are discarded, so each
+// batch tile reads H again. NB changes no row's order of summation. Ragged P
+// and V are masked.
 //
 // No plan uses atomics: a given plan and shape give byte-identical results
 // run to run.
@@ -402,14 +405,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Plan "tensor_core": int8 codes at large B on the bf16 tensor cores.
+// Plan "tensor_core": bf16 storage or int8 codes at large B on the bf16
+// tensor cores.
 //
 // Every fp32 operand x is split exactly into three bf16 pieces, x_hi =
 // bf16(x), x_mid = bf16(x - x_hi), x_lo = bf16(x - x_hi - x_mid) (24
 // significant bits in all, so hi + mid + lo == x for normal fp32 values).
-// A code (|c| <= 127) is exact in bf16 and a bf16 x bf16 product is exact in
-// fp32, so three mma.sync.m16n8k16 products with fp32 accumulation give an
-// fp32 contraction. Batch rows are padded with zero rows to the MMA's M
+// A code (|c| <= 127) is exact in bf16, a stored bf16 value is the MMA's B
+// operand as it is, and a bf16 x bf16 product is exact in fp32, so three
+// mma.sync.m16n8k16 products with fp32 accumulation give an fp32
+// contraction. Batch rows are padded with zero rows to the MMA's M
 // (16, or 32 per batch chunk), and their results are discarded.
 //
 // Four launches: the split of w ([3, Bpad, Ppad] bf16), the bp + update
@@ -420,14 +425,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // of the partials in split order.
 //
 // Both product kernels stream 64-deep chunks of K through a kStages-deep
-// cp.async ring in shared memory (the A pieces and the raw codes), so loads
-// stay in flight while the tensor cores work; codes become bf16 in
-// registers. The thread's four k-slots of an MMA step ({2t, 2t+1, 2t+8,
-// 2t+9} of the m16n8k16 layout) stand for four consecutive k, so an A row
-// gives them as one 8-byte load, the forward kernel's codes row as one
-// 4-byte word, and the bp kernel's codes as one byte of each of four rows
-// (the 4 bytes a thread reads per row are its columns of four n8 tiles).
-// The products' order is fixed, so launches are byte-identical.
+// cp.async ring in shared memory (the A pieces and the raw tile of H), so
+// loads stay in flight while the tensor cores work; codes become bf16 in
+// registers, bf16 storage is only regrouped. The thread's four k-slots of an
+// MMA step ({2t, 2t+1, 2t+8, 2t+9} of the m16n8k16 layout) stand for four
+// consecutive k, so an A row gives them as one 8-byte load, the forward
+// kernel's row of H as one 4-byte word of codes (8 bytes of bf16), and the
+// bp kernel's H as one element of each of four rows (the 4 elements a
+// thread reads per row are its columns of four n8 tiles: a word of codes,
+// 8 bytes of bf16). The products' order is fixed, so launches are
+// byte-identical.
+//
+// bf16 storage moves twice the bytes of codes and is read twice (the bp and
+// the forward launch), 2 x 1.07 GB at 8192 x 65536, where one_read cannot
+// run (B > 4) and two_read reads it once per batch tile of 8 in each launch.
 //
 // Accumulation: the tensor cores' fp32 accumulation need not round to
 // nearest along an MMA chain. So each 64-deep chunk of K (12 MMAs: 4 steps
@@ -499,17 +510,18 @@ __global__ void split_kernel(const float* __restrict__ src, int rows, int cols,
 
 // Shared memory of one pipeline stage: the A tile, 3 pieces x R rows x 64 k
 // (bf16, 128 bytes a row, 16-byte chunks XOR-swizzled by row & 7), then
-// 8 KB of codes (bp: 64 rows of P x 128 columns; forward: 128 rows of P x
-// 64 columns).
-template <int MT>
+// the tile of H, 8192 elements of its storage type (bp: 64 rows of P x 128
+// columns; forward: 128 rows of P x 64 columns): 8 KB of codes, 16 KB of
+// bf16.
+template <typename T, int MT>
 struct Stage {
   static constexpr int kRows = 16 * MT;
   static constexpr int kABytes = 3 * kRows * kChunk * 2;
-  static constexpr int kBytes = kABytes + 8192;
+  static constexpr int kBytes = kABytes + 8192 * (int)sizeof(T);
 };
 
-template <int MT>
-constexpr int smem_bytes() { return kStages * Stage<MT>::kBytes; }
+template <typename T, int MT>
+constexpr int smem_bytes() { return kStages * Stage<T, MT>::kBytes; }
 
 // Copy the A tile of one K chunk: rows b0.. of each piece (stride ld
 // elements, pieces `piece` apart), columns k0..k0+63 (zero past kend).
@@ -517,7 +529,7 @@ template <int MT>
 __device__ __forceinline__ void load_a_tile(unsigned char* st, const bf16_bits* src,
                                             long long piece, long long ld, int b0,
                                             long long k0, long long kend) {
-  constexpr int R = Stage<MT>::kRows;
+  constexpr int R = 16 * MT;
   bf16_bits* a = reinterpret_cast<bf16_bits*>(st);
   for (int i = threadIdx.x; i < 3 * R * 8; i += kThreads) {
     const int q = i / (R * 8), rem = i - q * R * 8, row = rem >> 3, c = rem & 7;
@@ -533,7 +545,7 @@ __device__ __forceinline__ void load_a_tile(unsigned char* st, const bf16_bits* 
 template <int MT>
 __device__ __forceinline__ void lds_a(unsigned (&a)[4], const unsigned char* st, int q,
                                       int m, int gid, int tid, int s) {
-  constexpr int R = Stage<MT>::kRows;
+  constexpr int R = 16 * MT;
   const bf16_bits* t = reinterpret_cast<const bf16_bits*>(st) + q * R * kChunk;
   const int r0 = m * 16 + gid, r1 = r0 + 8, c = 2 * tid + (s >> 1), off = (s & 1) * 4;
   const uint2 x0 = *reinterpret_cast<const uint2*>(t + r0 * kChunk + ((c ^ (r0 & 7)) << 3) + off);
@@ -580,18 +592,50 @@ __device__ __forceinline__ void promote(float (&acc)[MT][kNT][4], const float (&
       for (int e = 0; e < 4; ++e) acc[m][t][e] = __fadd_rn(acc[m][t][e], part[m][t][e]);
 }
 
-// bp = w @ codes on the tensor cores, then the update; writes f_new [B, V]
-// and the split forward operand xs [3, Bpad, V] (zero in padded rows). The
-// block's codes tile is 64 rows x 128 columns a stage; the thread reads
-// word (8 warp + gid) of rows 16 tid + 4 s + j, whose words are
-// XOR-swizzled by 8 * (row / 16) so the four tids hit other banks.
-template <int MT>
+// The four B-operand registers of an MMA step that a thread's four columns
+// of H give (one per n8 tile t), from its rows k0 .. k0 + 3: raw holds the
+// thread's word of each row, four codes, or for bf16 its 8 bytes as two
+// words (lo: columns 0 and 1, hi: 2 and 3; the first column in the low half).
+template <typename T>
+__device__ __forceinline__ void bp_operand(unsigned (&bf)[kNT][2], const uint2 (&raw)[4]);
+template <>
+__device__ __forceinline__ void bp_operand<int8_t>(unsigned (&bf)[kNT][2], const uint2 (&raw)[4]) {
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    bf[t][0] = pack_bf16(code(raw[0].x, t), code(raw[1].x, t));
+    bf[t][1] = pack_bf16(code(raw[2].x, t), code(raw[3].x, t));
+  }
+}
+template <>
+__device__ __forceinline__ void bp_operand<bf16_bits>(unsigned (&bf)[kNT][2],
+                                                      const uint2 (&raw)[4]) {
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    const unsigned sel = (t & 1) ? 0x7632 : 0x5410;  // the high or the low halves
+    bf[t][0] = __byte_perm(t < 2 ? raw[0].x : raw[0].y, t < 2 ? raw[1].x : raw[1].y, sel);
+    bf[t][1] = __byte_perm(t < 2 ? raw[2].x : raw[2].y, t < 2 ? raw[3].x : raw[3].y, sel);
+  }
+}
+
+// bp = w @ H on the tensor cores, then the update; writes f_new [B, V] and
+// the split forward operand xs [3, Bpad, V] (zero in padded rows). The
+// block's tile of H is 64 rows x 128 columns a stage, its 16-byte chunks
+// XOR-swizzled by (chunks a row / 4) * (row / 16) so the four tids hit other
+// banks; the thread reads its columns n0 + 4 gid .. + 3 of rows
+// 16 tid + 4 s + j. int8 codes: bp is summed in code space and rounded
+// times the voxel's scale before the update; the forward operand is f_new
+// times the scale, rounded.
+template <typename T, int MT>
 __global__ void __launch_bounds__(kThreads)
-bp_update_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scale,
+bp_update_kernel(const T* __restrict__ H, const float* __restrict__ scale,
                  const bf16_bits* __restrict__ ws, const float* __restrict__ f,
                  AuxPanels aux, float* __restrict__ f_new, bf16_bits* __restrict__ xs,
                  int P, int Ppad, int V, int B, int Bpad, int mode, int has_pen,
                  float alpha, float eps) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  constexpr int kRowBytes = 128 * (int)sizeof(T);  // a row of the tile
+  constexpr int kRowChunks = kRowBytes / 16;
+  constexpr int kPerChunk = 16 / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tid = lane & 3;
@@ -600,18 +644,18 @@ bp_update_kernel(const int8_t* __restrict__ codes, const float* __restrict__ sca
   const long long n0 = nb + warp * kNT * 8;              // the warp's
   const long long piece = (long long)Bpad * Ppad;
   const int n_iter = Ppad / kChunk;
+  auto swizzle = [](int c, int row) { return c ^ ((kRowChunks / 4) * ((row >> 4) & 3)); };
 
   auto load_stage = [&](int it) {
-    unsigned char* st = smem + (it % kStages) * Stage<MT>::kBytes;
+    unsigned char* st = smem + (it % kStages) * Stage<T, MT>::kBytes;
     const long long k0 = (long long)it * kChunk;
     load_a_tile<MT>(st, ws, piece, Ppad, b0, k0, Ppad);
-    unsigned char* bt = st + Stage<MT>::kABytes;
-    for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
-      const int row = i >> 3, c = i & 7;
-      const long long p = k0 + row, n = nb + c * 16;
+    unsigned char* bt = st + Stage<T, MT>::kABytes;
+    for (int i = threadIdx.x; i < 64 * kRowChunks; i += kThreads) {
+      const int row = i / kRowChunks, c = i % kRowChunks;
+      const long long p = k0 + row, n = nb + c * kPerChunk;
       const bool ok = p < P && n < V;  // V % 16 == 0: a chunk is all in or out
-      cp_async16(bt + row * 128 + ((c ^ (2 * ((row >> 4) & 3))) << 4),
-                 codes + (ok ? p * V + n : 0), ok);
+      cp_async16(bt + row * kRowBytes + (swizzle(c, row) << 4), H + (ok ? p * V + n : 0), ok);
     }
   };
 
@@ -622,26 +666,32 @@ bp_update_kernel(const int8_t* __restrict__ codes, const float* __restrict__ sca
     if (i < n_iter) load_stage(i);
     cp_async_commit();
   }
-  const int word = (warp * 8 + gid) ^ (8 * tid);
+  // the thread's 4 columns: a word (codes) or two (bf16) of each row
+  constexpr int kWordsOf4 = (int)sizeof(T);
+  const int chunk = swizzle((kWordsOf4 * (8 * warp + gid)) / 4, 16 * tid);
+  const int word = chunk * 4 + (kWordsOf4 * (8 * warp + gid)) % 4;
   for (int it = 0; it < n_iter; ++it) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
     if (it + kStages - 1 < n_iter) load_stage(it + kStages - 1);
     cp_async_commit();
-    const unsigned char* st = smem + (it % kStages) * Stage<MT>::kBytes;
-    const unsigned* bt = reinterpret_cast<const unsigned*>(st + Stage<MT>::kABytes);
+    const unsigned char* st = smem + (it % kStages) * Stage<T, MT>::kBytes;
+    const unsigned* bt = reinterpret_cast<const unsigned*>(st + Stage<T, MT>::kABytes);
     if (kPromote) zero<MT>(part);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      unsigned raw[4];
+      uint2 raw[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) raw[j] = bt[(tid * 16 + 4 * s + j) * 32 + word];
-      unsigned bf[kNT][2];
-#pragma unroll
-      for (int t = 0; t < kNT; ++t) {
-        bf[t][0] = pack_bf16(code(raw[0], t), code(raw[1], t));
-        bf[t][1] = pack_bf16(code(raw[2], t), code(raw[3], t));
+      for (int j = 0; j < 4; ++j) {
+        const unsigned* row = bt + (tid * 16 + 4 * s + j) * (kRowBytes / 4) + word;
+        if constexpr (kWordsOf4 == 2) {
+          raw[j] = *reinterpret_cast<const uint2*>(row);
+        } else {
+          raw[j] = make_uint2(*row, 0u);
+        }
       }
+      unsigned bf[kNT][2];
+      bp_operand<T>(bf, raw);
       mma_step<MT>(acc, part, st, bf, gid, tid, s);
     }
     if (kPromote) promote<MT>(acc, part);
@@ -662,24 +712,31 @@ bp_update_kernel(const int8_t* __restrict__ codes, const float* __restrict__ sca
         float x = 0.0f;
         if (b < B) {
           const long long i = (long long)b * V + v;
-          const float s = scale[v];
-          const float fn = update(mode, has_pen, alpha, eps, f[i],
-                                  __fmul_rn(acc[m][t][e], s), aux, b, v);
+          const float s = kScaled ? scale[v] : 1.0f;
+          const float bp = kScaled ? __fmul_rn(acc[m][t][e], s) : acc[m][t][e];
+          const float fn = update(mode, has_pen, alpha, eps, f[i], bp, aux, b, v);
           f_new[i] = fn;
-          x = __fmul_rn(fn, s);
+          x = kScaled ? __fmul_rn(fn, s) : fn;
         }
         const long long o = (long long)b * V + v;
         split3(x, xs[o], xs[vpiece + o], xs[2 * vpiece + o]);
       }
 }
 
-// partial[split] = xs @ codes^T over the split's range of V. The block's
-// codes tile is 128 rows of P x 64 columns a stage; the thread reads 16
-// bytes (its k-slots of four steps) of rows 32 warp + 8 t + gid.
-template <int MT>
+// partial[split] = xs @ H^T over the split's range of V. The block's tile
+// of H is 128 rows of P x 64 columns a stage; the thread reads the 16
+// elements k = 16 tid .. + 15 (its k-slots of four steps) of rows
+// 32 warp + 8 t + gid: 16 bytes of codes, or 32 bytes of bf16 whose 16-byte
+// chunks are XOR-swizzled by row & 7 (the tid's chunks then meet no other
+// tid's bank).
+template <typename T, int MT>
 __global__ void __launch_bounds__(kThreads)
-forward_kernel(const int8_t* __restrict__ codes, const bf16_bits* __restrict__ xs,
+forward_kernel(const T* __restrict__ H, const bf16_bits* __restrict__ xs,
                float* __restrict__ partial, int P, int V, int Bpad, int ksplit) {
+  constexpr bool kCodes = std::is_same<T, int8_t>::value;
+  constexpr int kRowBytes = 64 * (int)sizeof(T);
+  constexpr int kRowChunks = kRowBytes / 16;
+  constexpr int kPerChunk = 16 / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tid = lane & 3;
@@ -691,17 +748,18 @@ forward_kernel(const int8_t* __restrict__ codes, const bf16_bits* __restrict__ x
   const long long kend = min((long long)V, kbeg + ksplit);
   const long long piece = (long long)Bpad * V;
   const int n_iter = (int)((kend - kbeg + kChunk - 1) / kChunk);
+  auto swizzle = [](int c, int row) { return kCodes ? c : c ^ (row & 7); };
 
   auto load_stage = [&](int it) {
-    unsigned char* st = smem + (it % kStages) * Stage<MT>::kBytes;
+    unsigned char* st = smem + (it % kStages) * Stage<T, MT>::kBytes;
     const long long k0 = kbeg + (long long)it * kChunk;
     load_a_tile<MT>(st, xs, piece, V, b0, k0, kend);
-    unsigned char* bt = st + Stage<MT>::kABytes;
-    for (int i = threadIdx.x; i < 128 * 4; i += kThreads) {
-      const int row = i >> 2, c = i & 3;
-      const long long p = pb + row, k = k0 + c * 16;
+    unsigned char* bt = st + Stage<T, MT>::kABytes;
+    for (int i = threadIdx.x; i < 128 * kRowChunks; i += kThreads) {
+      const int row = i / kRowChunks, c = i % kRowChunks;
+      const long long p = pb + row, k = k0 + c * kPerChunk;
       const bool ok = p < P && k < kend;  // kend % 16 == 0
-      cp_async16(bt + row * 64 + c * 16, codes + (ok ? p * V + k : 0), ok);
+      cp_async16(bt + row * kRowBytes + (swizzle(c, row) << 4), H + (ok ? p * V + k : 0), ok);
     }
   };
 
@@ -717,21 +775,35 @@ forward_kernel(const int8_t* __restrict__ codes, const bf16_bits* __restrict__ x
     __syncthreads();
     if (it + kStages - 1 < n_iter) load_stage(it + kStages - 1);
     cp_async_commit();
-    const unsigned char* st = smem + (it % kStages) * Stage<MT>::kBytes;
-    const unsigned char* bt = st + Stage<MT>::kABytes;
-    uint4 raw[kNT];
+    const unsigned char* st = smem + (it % kStages) * Stage<T, MT>::kBytes;
+    const unsigned char* bt = st + Stage<T, MT>::kABytes;
+    // the thread's 16 elements of each of its rows, as 4 (codes) or 8 words
+    unsigned raw[kNT][4 * sizeof(T)];
 #pragma unroll
-    for (int t = 0; t < kNT; ++t)
-      raw[t] = *reinterpret_cast<const uint4*>(bt + (warp * 32 + 8 * t + gid) * 64 + tid * 16);
+    for (int t = 0; t < kNT; ++t) {
+      const int row = warp * 32 + 8 * t + gid;
+#pragma unroll
+      for (int h = 0; h < (int)sizeof(T); ++h) {
+        const uint4 q = *reinterpret_cast<const uint4*>(
+            bt + row * kRowBytes + (swizzle(tid * (int)sizeof(T) + h, row) << 4));
+        raw[t][4 * h] = q.x; raw[t][4 * h + 1] = q.y;
+        raw[t][4 * h + 2] = q.z; raw[t][4 * h + 3] = q.w;
+      }
+    }
     if (kPromote) zero<MT>(part);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       unsigned bf[kNT][2];
 #pragma unroll
       for (int t = 0; t < kNT; ++t) {
-        const unsigned w = s == 0 ? raw[t].x : s == 1 ? raw[t].y : s == 2 ? raw[t].z : raw[t].w;
-        bf[t][0] = pack_bf16(code(w, 0), code(w, 1));
-        bf[t][1] = pack_bf16(code(w, 2), code(w, 3));
+        if constexpr (kCodes) {
+          const unsigned w = raw[t][s];
+          bf[t][0] = pack_bf16(code(w, 0), code(w, 1));
+          bf[t][1] = pack_bf16(code(w, 2), code(w, 3));
+        } else {  // k0, k0 + 1 and k0 + 2, k0 + 3, the first in the low half
+          bf[t][0] = raw[t][2 * s];
+          bf[t][1] = raw[t][2 * s + 1];
+        }
       }
       mma_step<MT>(acc, part, st, bf, gid, tid, s);
     }
@@ -770,7 +842,8 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Plan "one_read": small B, H read once, every storage type.
+// Plan "one_read": small B (fp32 up to 8, bf16 and int8 up to 4), H read
+// once, every storage type.
 //
 // A thread-block cluster of kCluster CTAs splits P: CTA r holds rows
 // [r R, (r + 1) R) (R = ceil(P / kCluster) <= kMaxRows) of a panel 64 bytes
@@ -800,15 +873,22 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
 // and the partials' mbarrier (two slots, so a CTA may push the next panel's
 // partial while another still reads this one's). The slabs' 16-byte chunks
 // are XOR-swizzled by row (TMA's 64-byte swizzle) so that both passes read
-// shared memory without bank conflicts.
+// shared memory without bank conflicts. The weights are kept row-major,
+// w[row][b] padded to 4 or 8 batch rows, so the bp pass reads one row's
+// weights for all batch rows as one or two 16-byte loads (at NB = 8, 3
+// shared-memory loads for 8 FMAs a row, not 9). With two slabs the next
+// panel's copy is issued at the top of a panel, after a block barrier that
+// follows the previous panel's fitted pass, so it overlaps this panel's
+// bp pass too; with three it is issued after the bp pass.
 //
 // Measured on the H100 (PERF.md §6, phases from sweep_measure.py): a
 // cluster barrier per panel cost 0.55-0.9 us in its arrive (the release
 // waits for the thread's memory operations), and loading slabs with
 // cp.async from every thread 0.35-0.63 us more to issue; the push exchange
 // and TMA take both off the chain. bf16 and int8 run 512 threads where
-// their shared memory fits (shorter compute passes), fp32 256; a ring of
-// three slabs where it fits, else two. What bounds it is one read of H
+// their shared memory fits (shorter compute passes), fp32 256 up to B = 4
+// and 512 from B = 5; a ring of three slabs where it fits, else two (fp32
+// from B = 5: 128 KB of slabs, 32 KB of weights). What bounds it is one read of H
 // (bytes): at 8192 x 65536, B = 1 fp32 and bf16 stream H at 2.5-2.7 TB/s;
 // int8 is held back first by its two compute passes (most of a panel).
 //
@@ -823,7 +903,7 @@ constexpr int kCluster = 8;
 constexpr int kRowBytes = 64;          // a panel's row segment
 constexpr int kWords = kRowBytes / 4;  // 32-bit words a row
 constexpr int kMaxRows = 1024;
-constexpr int kMaxB = 4;
+constexpr int kMaxB = 8;               // fp32; bf16 and int8 take at most 4
 constexpr int kMaxClusters = 16;
 constexpr int kBoxRows = 256;          // rows of a TMA box (at most 256)
 constexpr int kSmemLimit = 232448;     // shared memory a block may use (sm_90)
@@ -836,8 +916,11 @@ struct SmemOf {
   // added by a shuffle first where a word holds more than one column)
   static constexpr int kRedGroups = Threads / kWords / (kPerWord > 1 ? 2 : 1);
 
+  // a row's weights for every batch row as one or two 16-byte loads
+  static constexpr int kWStride = NB <= 2 ? NB : (NB + 3) / 4 * 4;
+
   unsigned slab[Stages][kMaxRows * kWords];  // first: 1024-byte aligned
-  float w[NB][kMaxRows];
+  float w[kMaxRows][kWStride];
   float red[kRedGroups][NB][kCols];
   float part[2][kCluster][NB][kCols];  // every rank's partial bp, two slots
   float fnew[NB][kCols];
@@ -846,12 +929,19 @@ struct SmemOf {
 };
 
 // The kernel's shape for a storage type and batch size: 512 threads for bf16
-// and int8 where the shared memory fits, else 256; three slabs where they
-// fit, else two.
+// and int8 where the shared memory fits, else 256; fp32 256 up to NB = 4
+// and 512 from NB = 5 (measured on the H100, sweep_measure.py threads: 512
+// took 6-16% less at B = 5 and 8, 4% more at B = 4; a measurement build
+// sets SART_ONE_READ_FP32_WIDE_THREADS to 256 to compare); three slabs where
+// they fit, else two.
+#ifndef SART_ONE_READ_FP32_WIDE_THREADS
+#define SART_ONE_READ_FP32_WIDE_THREADS 512
+#endif
 template <typename T, int NB>
 struct Cfg {
   static constexpr int kThreads =
-      sizeof(T) < 4 && sizeof(SmemOf<T, NB, 512, 3>) <= kSmemLimit ? 512 : 256;
+      sizeof(T) == 4 ? (NB > 4 ? SART_ONE_READ_FP32_WIDE_THREADS : 256)
+      : sizeof(SmemOf<T, NB, 512, 3>) <= kSmemLimit ? 512 : 256;
   static constexpr int kStages = sizeof(SmemOf<T, NB, kThreads, 3>) <= kSmemLimit ? 3 : 2;
   using Smem = SmemOf<T, NB, kThreads, kStages>;
   static constexpr int kGroups = kThreads / kWords;           // bp row groups
@@ -881,6 +971,27 @@ __device__ __forceinline__ void unpack<int8_t>(unsigned x, float* out) {
   for (int i = 0; i < 4; ++i)
     out[i] = __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650 + i)),
                        8388736.0f);  // 2^23 + 128
+}
+
+// Row r's weights of the NB batch rows, from its kWStride floats
+template <int NB, int S>
+__device__ __forceinline__ void load_w(const float (&row)[S], float (&wv)[NB]) {
+  if constexpr (S == 1) {
+    wv[0] = row[0];
+  } else if constexpr (S == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(row);
+    wv[0] = q.x;
+    wv[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < S / 4; ++k) {
+      const float4 q = reinterpret_cast<const float4*>(row)[k];
+      const float e[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * k + j < NB) wv[4 * k + j] = e[j];
+    }
+  }
 }
 
 // E floats to shared memory as one store
@@ -991,9 +1102,9 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
   const int t = threadIdx.x;
   const bool issuer = t == kThreads - 32;  // off the update threads' warps
 
-  for (int i = t; i < NB * kMaxRows; i += kThreads) {
+  for (int i = t; i < Smem::kWStride * kMaxRows; i += kThreads) {
     const int b = i / kMaxRows, r = i - b * kMaxRows;
-    sm.w[b][r] = r < nrows ? w[(long long)b * P + row0 + r] : 0.0f;
+    sm.w[r][b] = b < NB && r < nrows ? w[(long long)b * P + row0 + r] : 0.0f;
   }
   // a panel's rows of this CTA as whole TMA boxes (rows past P arrive as
   // zeros, rows past nrows are not read)
@@ -1039,7 +1150,14 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
 #else
   auto phase = [](int) {};
 #endif
+  // two slabs: the next panel's copy is issued at the top of this one
+  constexpr bool kIssueEarly = S == 2;
   for (int i = 0; i < mine; ++i) {
+    if constexpr (kIssueEarly) {
+      // every thread is past panel i - 1's fitted pass: its slab is free
+      __syncthreads();
+      if (issuer && i + 1 < mine) load_panel(i + 1);
+    }
     const long long v = (long long)(cid + i * G) * C + uc;
     float fu = 0.0f, a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, s = 1.0f;
     if (upd) {  // in flight while the partial bp is summed
@@ -1060,14 +1178,13 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[b][e] = 0.0f;
     for (int r = g; r < nrows; r += kGroups) {
-      float h[E];
+      float h[E], wv[NB];
       unpack<T>(slab[slab_at(r, c)], h);
+      load_w<NB>(sm.w[r], wv);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float wv = sm.w[b][r];
+      for (int b = 0; b < NB; ++b)
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[b][e] = fmaf(wv, h[e], acc[b][e]);
-      }
+        for (int e = 0; e < E; ++e) acc[b][e] = fmaf(wv[b], h[e], acc[b][e]);
     }
     if constexpr (E > 1) {
       // the warp's even group (lanes 0-15) plus its odd group (16-31)
@@ -1096,9 +1213,9 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
       for (int r = 0; r < kCluster; ++r) push(&sm.part[i & 1][rank][ub][uc], r, sum, &sm.got[i & 1]);
     }
     phase(2);
-    // the slab of panel i - 1 is free: every thread has passed the block
-    // barrier after this panel's bp pass
-    if (issuer && i + S - 1 < mine) load_panel(i + S - 1);
+    // three slabs: the slab of panel i - 1 is free, every thread has passed
+    // the block barrier after this panel's bp pass
+    if (!kIssueEarly && issuer && i + S - 1 < mine) load_panel(i + S - 1);
     phase(3);
     if (upd) mbar_wait(&sm.got[i & 1], (i >> 1) & 1);
     phase(4);
@@ -1208,10 +1325,19 @@ cudaError_t launch(const T* H, const Args& a) {
   return cudaGetLastError();
 }
 
+// Batch tiles of 1, 2, 4 or 8 rows (bf16 at most 4: its tile of 8 took 14%
+// longer than two tiles of 4 at 8192 x 65536, B = 8, on the H100, its
+// forward kernel the slower; PERF.md, the kernel table).
+template <typename T>
+constexpr int two_read_max_nb() { return std::is_same<T, bf16_bits>::value ? 4 : 8; }
+
 template <typename T, int VW>
 cudaError_t dispatch_nb(const T* H, const Args& a) {
   if (a.B == 1) return launch<T, 1, VW>(H, a);
   if (a.B == 2) return launch<T, 2, VW>(H, a);
+  if constexpr (two_read_max_nb<T>() == 8) {
+    if (a.B > 4) return launch<T, 8, VW>(H, a);
+  }
   return launch<T, 4, VW>(H, a);
 }
 
@@ -1266,17 +1392,17 @@ long long scratch_bytes(int plan, long long P, long long V, long long B) {
   return -1;
 }
 
-template <int MT>
-cudaError_t launch_tc(const int8_t* codes, const Args& a, const TcShape& s) {
+template <typename T, int MT>
+cudaError_t launch_tc(const T* H, const Args& a, const TcShape& s) {
   bf16_bits* ws = reinterpret_cast<bf16_bits*>(a.scratch);
   bf16_bits* xs = reinterpret_cast<bf16_bits*>(a.scratch + s.ws_bytes);
   float* partial = reinterpret_cast<float*>(a.scratch + s.ws_bytes + s.xs_bytes);
-  constexpr int smem = tc::smem_bytes<MT>();
+  constexpr int smem = tc::smem_bytes<T, MT>();
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(tc::bp_update_kernel<MT>,
+    cudaError_t e = cudaFuncSetAttribute(tc::bp_update_kernel<T, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(tc::forward_kernel<MT>,
+    return cudaFuncSetAttribute(tc::forward_kernel<T, MT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }();
   if (attr != cudaSuccess) return attr;
@@ -1285,15 +1411,15 @@ cudaError_t launch_tc(const int8_t* codes, const Args& a, const TcShape& s) {
   if (err != cudaSuccess) return err;
   const unsigned nbatch = (unsigned)(s.Bpad / s.rows);
   const dim3 grid_bp((unsigned)((a.V + tc::kBlockN - 1) / tc::kBlockN), nbatch);
-  tc::bp_update_kernel<MT><<<grid_bp, tc::kThreads, smem, a.stream>>>(
-      codes, a.scale, ws, a.f, a.aux, a.f_new, xs, a.P, s.Ppad, a.V, a.B, s.Bpad,
+  tc::bp_update_kernel<T, MT><<<grid_bp, tc::kThreads, smem, a.stream>>>(
+      H, a.scale, ws, a.f, a.aux, a.f_new, xs, a.P, s.Ppad, a.V, a.B, s.Bpad,
       a.mode, a.has_pen, a.alpha, a.eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_fwd((unsigned)((a.P + tc::kBlockN - 1) / tc::kBlockN),
                       (unsigned)s.splits, nbatch);
-  tc::forward_kernel<MT><<<grid_fwd, tc::kThreads, smem, a.stream>>>(
-      codes, xs, partial, a.P, a.V, s.Bpad, s.ksplit);
+  tc::forward_kernel<T, MT><<<grid_fwd, tc::kThreads, smem, a.stream>>>(
+      H, xs, partial, a.P, a.V, s.Bpad, s.ksplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<264, 256, 0, a.stream>>>(partial, s.splits, s.Bpad, a.B,
@@ -1301,9 +1427,11 @@ cudaError_t launch_tc(const int8_t* codes, const Args& a, const TcShape& s) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_tc(const int8_t* codes, const Args& a) {
+template <typename T>
+cudaError_t dispatch_tc(const void* H, const Args& a) {
+  const T* h = static_cast<const T*>(H);
   const TcShape s = tc_shape(a.P, a.V, a.B);
-  return s.MT == 1 ? launch_tc<1>(codes, a, s) : launch_tc<2>(codes, a, s);
+  return s.MT == 1 ? launch_tc<T, 1>(h, a, s) : launch_tc<T, 2>(h, a, s);
 }
 
 // Clusters of the one_read kernel that the card holds at once (at most
@@ -1336,8 +1464,21 @@ int one_read_clusters() {
   return clusters;
 }
 
+// The largest B of the one_read instances of a storage type (fp32 8, else 4)
+template <typename T>
+constexpr int one_read_max_b() { return sizeof(T) == 4 ? one_read::kMaxB : 4; }
+
 template <typename T>
 int one_read_clusters_at(long long B) {
+  if constexpr (one_read_max_b<T>() == 8) {
+    switch (B) {
+      case 5: return one_read_clusters<T, 5>();
+      case 6: return one_read_clusters<T, 6>();
+      case 7: return one_read_clusters<T, 7>();
+      case 8: return one_read_clusters<T, 8>();
+      default: break;
+    }
+  }
   switch (B) {
     case 1: return one_read_clusters<T, 1>();
     case 2: return one_read_clusters<T, 2>();
@@ -1412,6 +1553,15 @@ cudaError_t launch_one_read(const T* H, const Args& a) {
 template <typename T>
 cudaError_t dispatch_one_read(const void* H, const Args& a) {
   const T* h = static_cast<const T*>(H);
+  if constexpr (one_read_max_b<T>() == 8) {
+    switch (a.B) {
+      case 5: return launch_one_read<T, 5>(h, a);
+      case 6: return launch_one_read<T, 6>(h, a);
+      case 7: return launch_one_read<T, 7>(h, a);
+      case 8: return launch_one_read<T, 8>(h, a);
+      default: break;
+    }
+  }
   switch (a.B) {
     case 1: return launch_one_read<T, 1>(h, a);
     case 2: return launch_one_read<T, 2>(h, a);
@@ -1428,13 +1578,16 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
              const void* H) {
   const bool h16 = (uintptr_t)H % 16 == 0;
   switch (plan) {
-    case kTwoRead: return (B + 3) / 4 <= 65535;
+    case kTwoRead: {  // grid.y: the batch tiles
+      const int nb = storage == 1 ? two_read_max_nb<bf16_bits>() : two_read_max_nb<float>();
+      return (B + nb - 1) / nb <= 65535;
+    }
     case kOneRead:  // V in whole panels (16, 32 or 64 columns)
-      return B <= one_read::kMaxB &&
+      return B <= (storage == 0 ? one_read_max_b<float>() : one_read_max_b<int8_t>()) &&
              P <= (long long)one_read::kCluster * one_read::kMaxRows &&
              V % (one_read::kRowBytes / element_bytes(storage)) == 0 && h16;
     case kTensorCore:
-      return storage == 2 && V % 16 == 0 && h16 && (B + 31) / 32 <= 65535;
+      return (storage == 1 || storage == 2) && V % 16 == 0 && h16 && (B + 31) / 32 <= 65535;
     default: return false;
   }
 }
@@ -1449,7 +1602,7 @@ extern "C" long long sart_fused_sweep_scratch_bytes(int plan, long long P,
 }
 
 // Clusters the one_read plan runs for the storage type (0 fp32, 1 bf16,
-// 2 int8 codes) at batch size B (1..4) on the current card: persistent, at
+// 2 int8 codes) at batch size B (1..8 fp32, 1..4 else) on the current card: persistent, at
 // most 16, as many as the card holds at once; 0 where the card holds none.
 extern "C" int sart_one_read_clusters(int storage, int B) {
   switch (storage) {
@@ -1528,13 +1681,14 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
   a.eps = eps;
   a.scratch = static_cast<unsigned char*>(scratch);
   a.stream = static_cast<cudaStream_t>(stream);
-  const int8_t* codes = static_cast<const int8_t*>(H);
   switch (plan) {
     case kOneRead:
       if (storage == 0) return (int)dispatch_one_read<float>(H, a);
       if (storage == 1) return (int)dispatch_one_read<bf16_bits>(H, a);
       return (int)dispatch_one_read<int8_t>(H, a);
-    case kTensorCore: return (int)dispatch_tc(codes, a);
+    case kTensorCore:
+      if (storage == 1) return (int)dispatch_tc<bf16_bits>(H, a);
+      return (int)dispatch_tc<int8_t>(H, a);
     default: break;
   }
   cudaError_t err;

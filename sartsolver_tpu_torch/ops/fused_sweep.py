@@ -39,15 +39,18 @@ are fp32; the plain version itself takes any float dtype.
 Each call on the card runs the plan :func:`plan_sweep` gives its shape and
 storage, a fixed rule of arithmetic:
 
-- ``"one_read"``: ``B <= ONE_READ_MAX_B``, ``ONE_READ_MIN_P[storage] <= P <=
-  ONE_READ_MAX_P`` and ``V`` a multiple of ``ONE_READ_V_MULTIPLE[storage]``
-  (16 fp32, 32 bf16 or 64 int8 columns: a panel 64 bytes wide; H read once,
-  the panel split over a thread-block cluster);
-- ``"tensor_core"``: int8 codes at ``B >= TENSOR_CORE_MIN_B`` and ``V`` a
-  multiple of ``TENSOR_CORE_V_MULTIPLE`` (the bf16 tensor cores with the fp32
-  vectors split exactly into three bf16 pieces), except where ``one_read``
-  applies from ``P >= ONE_READ_OVER_TENSOR_CORE_MIN_P``;
-- ``"two_read"``: everything else (two launches, H read twice).
+- ``"one_read"``: ``B <= ONE_READ_MAX_B[storage]`` (fp32 8, bf16 and int8
+  4), ``ONE_READ_MIN_P[storage] <= P <= ONE_READ_MAX_P`` and ``V`` a multiple
+  of ``ONE_READ_V_MULTIPLE[storage]`` (16 fp32, 32 bf16 or 64 int8 columns:
+  a panel 64 bytes wide; H read once, the panel split over a thread-block
+  cluster);
+- ``"tensor_core"``: bf16 or int8 storage at ``B >=
+  TENSOR_CORE_MIN_B[storage]`` and ``V`` a multiple of
+  ``TENSOR_CORE_V_MULTIPLE`` (the bf16 tensor cores with the fp32 vectors
+  split exactly into three bf16 pieces), except where ``one_read`` applies
+  from ``P >= ONE_READ_OVER_TENSOR_CORE_MIN_P[storage]``;
+- ``"two_read"``: everything else (two launches, each reading H once per
+  batch tile of up to 8 rows).
 
 A plan runs wherever its preconditions (:func:`plan_refusal`) hold; the
 rule takes a new plan only where it was measured faster than ``two_read``.
@@ -70,22 +73,23 @@ STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PLANS = {"two_read": 0, "one_read": 1, "tensor_core": 2}
 
 # one_read: a panel of 64-byte row segments split over a cluster of 8 blocks,
-# at most 1024 rows a block (the slabs' shared memory), at most 4 batch rows
-# (registers); V in whole panels. The rule takes it from the smallest P at
-# which it beat two_read at every B <= 4 in every call on the H100 at
-# V = 65536 (PERF.md, the crossover tables: bf16 tied at P = 1024, B = 1 in
-# one call; fp32's edge is the one measured before the kernel took TMA)
+# at most 1024 rows a block (the slabs' shared memory); at most 8 batch rows
+# for fp32 (its slabs and weights in shared memory) and 4 for bf16 and int8
+# (their larger B goes to tensor_core); V in whole panels. The rule takes it
+# from the smallest P at which it beat two_read at every B of its range in
+# every call on the H100 at V = 65536 (PERF.md, the crossover tables)
 ONE_READ_MAX_P = 8 * 1024
-ONE_READ_MAX_B = 4
+ONE_READ_MAX_B = {"float32": 8, "bfloat16": 4, "int8": 4}
 ONE_READ_V_MULTIPLE = {"float32": 16, "bfloat16": 32, "int8": 64}
-ONE_READ_MIN_P = {"float32": 7 * 1024, "bfloat16": 2 * 1024, "int8": 1024}
+ONE_READ_MIN_P = {"float32": 1024, "bfloat16": 2 * 1024, "int8": 1024}
 # tensor_core: from this batch size on it beats two_read at 8192 x 65536 on
-# the H100 (PERF.md, the crossover table); V in whole 16-code runs (aligned
-# 16-byte loads of a row). Where both apply (int8 at B = 4), one_read beat it
-# from this P on, and lost below.
-TENSOR_CORE_MIN_B = 4
+# the H100 (PERF.md, the crossover tables); V in whole 16-element runs
+# (aligned 16-byte loads of a row). Where both apply, one_read takes the
+# shape from this P on: int8 at B = 4, where one_read beat the tensor cores
+# from it and lost below; bf16 at B = 3 and 4 wherever its one_read applies.
+TENSOR_CORE_MIN_B = {"bfloat16": 3, "int8": 4}
 TENSOR_CORE_V_MULTIPLE = 16
-ONE_READ_OVER_TENSOR_CORE_MIN_P = 5 * 1024
+ONE_READ_OVER_TENSOR_CORE_MIN_P = {"bfloat16": 0, "int8": 5 * 1024}
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # H, storage, scale
@@ -110,14 +114,14 @@ def plan_refusal(plan: str, P: int, V: int, B: int, storage: str) -> Optional[st
     if plan not in PLANS:
         return f"unknown plan {plan!r}; one of {sorted(PLANS)}"
     if plan == "one_read":
-        multiple = ONE_READ_V_MULTIPLE[storage]
-        if B > ONE_READ_MAX_B or P > ONE_READ_MAX_P or V % multiple:
-            return (f"one_read needs B <= {ONE_READ_MAX_B}, P <= {ONE_READ_MAX_P} "
+        multiple, most = ONE_READ_V_MULTIPLE[storage], ONE_READ_MAX_B[storage]
+        if B > most or P > ONE_READ_MAX_P or V % multiple:
+            return (f"one_read needs B <= {most}, P <= {ONE_READ_MAX_P} "
                     f"and V a multiple of {multiple} for {storage} "
                     f"(B={B}, P={P}, V={V})")
     elif plan == "tensor_core":
-        if storage != "int8":
-            return f"{plan} takes int8 codes, not {storage}"
+        if storage not in TENSOR_CORE_MIN_B:
+            return f"{plan} takes bf16 or int8 storage, not {storage}"
         if V % TENSOR_CORE_V_MULTIPLE:
             return f"{plan} needs V a multiple of {TENSOR_CORE_V_MULTIPLE} (V={V})"
     return None
@@ -125,11 +129,11 @@ def plan_refusal(plan: str, P: int, V: int, B: int, storage: str) -> Optional[st
 
 def plan_sweep(P: int, V: int, B: int, storage: str) -> str:
     """The plan a call of this shape and storage runs on the card."""
-    tensor_core = (storage == "int8" and B >= TENSOR_CORE_MIN_B
+    tensor_core = (B >= TENSOR_CORE_MIN_B.get(storage, B + 1)
                    and plan_refusal("tensor_core", P, V, B, storage) is None)
     lowest = ONE_READ_MIN_P[storage]
     if tensor_core:
-        lowest = max(lowest, ONE_READ_OVER_TENSOR_CORE_MIN_P)
+        lowest = max(lowest, ONE_READ_OVER_TENSOR_CORE_MIN_P[storage])
     if P >= lowest and plan_refusal("one_read", P, V, B, storage) is None:
         return "one_read"
     return "tensor_core" if tensor_core else "two_read"

@@ -5,7 +5,8 @@ does not repeat on every run. Run from the root of a checkout:
 ``python3 sweep_measure.py ab OTHER``
     The fused sweep of this checkout against that of another checkout of
     the repository (for example the parent commit, unpacked with ``git
-    archive``), at 8192 x 65536, B = 1, linear with the penalty (the CLI's
+    archive``), at 8192 x 65536, B = 1, 4 and 8 (the CLI's frame, the int8
+    four-lane loop, the batch loops), linear with the penalty (the CLI's
     main mode), for each storage type, with ``chip_smoke.py``'s timing
     inputs: through each checkout's own plan for the shape, and through
     forced ``two_read`` where the checkout can force a plan. Timed in turns,
@@ -26,10 +27,17 @@ does not repeat on every run. Run from the root of a checkout:
     conversion, shared-memory and arithmetic instruction class of the SASS
     (``I2F*`` is the conversion unit the int8 path avoids).
 
+``python3 sweep_measure.py threads``
+    ``one_read`` for fp32 from B = 5 built as shipped (512 threads a CTA)
+    and with ``SART_ONE_READ_FP32_WIDE_THREADS=256`` into
+    ``build/sweep_measure/``, timed in turns (256, shipped, shipped, 256) at
+    8192 x 65536, B = 5 and 8, linear with the penalty, each checked against
+    the plain version.
+
 ``python3 sweep_measure.py phases``
     The ``one_read`` kernel built with ``SART_ONE_READ_PHASES`` into
-    ``build/sweep_measure/``, run at 8192 x 65536, B = 1 and 4, linear with
-    the penalty, for each storage type (``chip_smoke.py``'s timing inputs):
+    ``build/sweep_measure/``, run at 8192 x 65536, B = 1 and 4 (fp32 also
+    8), linear with the penalty, for each storage type (``chip_smoke.py``'s timing inputs):
     per panel, the mean time thread 0 of a CTA spends in each phase of the
     panel loop (waiting for its slab, the bp pass, summing and pushing the
     CTA's partial, issuing the next slab's copies, waiting for the other
@@ -52,6 +60,7 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 50
 STORAGES = ("float32", "bfloat16", "int8")
+AB_BATCHES = (1, 4, 8)
 
 
 def _turn(root: str) -> dict:
@@ -68,20 +77,22 @@ def _turn(root: str) -> dict:
         raise SystemExit(f"sweep_measure: imported {mod.__file__}, not from {root}")
     out = {}
     for storage in STORAGES:
-        H, w, f, aux, scale = chip_smoke._sweep_inputs(8192, 65536, 1, False, True, seed=7,
-                                                       storage=storage)
-        calls = {"own_plan": lambda: mod.fused_sweep(H, w, f, aux, scale=scale,
-                                                     logarithmic=False)}
-        if hasattr(mod, "_sweep"):
-            calls["two_read"] = lambda: mod._sweep(H, w, f, aux, scale=scale,
-                                                   logarithmic=False, plan="two_read")
-        out[storage] = {name: dict(ms=chip_smoke._median_ms(call, reps=REPS),
-                                   device=chip_smoke._device_profile(call, calls=20))
-                        for name, call in calls.items()}
-        out[storage]["own_plan"]["plan"] = (mod.plan_sweep(8192, 65536, 1, storage)
-                                            if hasattr(mod, "plan_sweep") else "two_read")
-        del H, w, f, aux, scale, calls
-        torch.cuda.empty_cache()
+        for B in AB_BATCHES:
+            H, w, f, aux, scale = chip_smoke._sweep_inputs(8192, 65536, B, False, True,
+                                                           seed=7, storage=storage)
+            calls = {"own_plan": lambda: mod.fused_sweep(H, w, f, aux, scale=scale,
+                                                         logarithmic=False)}
+            if hasattr(mod, "_sweep"):
+                calls["two_read"] = lambda: mod._sweep(H, w, f, aux, scale=scale,
+                                                       logarithmic=False, plan="two_read")
+            rec = {name: dict(ms=chip_smoke._median_ms(call, reps=REPS),
+                              device=chip_smoke._device_profile(call, calls=20))
+                   for name, call in calls.items()}
+            rec["own_plan"]["plan"] = (mod.plan_sweep(8192, 65536, B, storage)
+                                       if hasattr(mod, "plan_sweep") else "two_read")
+            out[f"{storage}@B{B}"] = rec
+            del H, w, f, aux, scale, calls
+            torch.cuda.empty_cache()
     return out
 
 
@@ -103,16 +114,16 @@ def ab(other: str) -> None:
         turns.append((name, json.loads(res.stdout.strip().splitlines()[-1])))
         print(json.dumps({"turn": name, "root": root, **turns[-1][1]}), flush=True)
     summary = {}
-    for storage in STORAGES:
+    for case in turns[0][1]:
         for call in ("own_plan", "two_read"):
-            ms = {n: [t[storage][call]["ms"] for m, t in turns
-                      if m == n and call in t[storage]] for n in ("other", "this")}
+            ms = {n: [t[case][call]["ms"] for m, t in turns
+                      if m == n and call in t[case]] for n in ("other", "this")}
             if not all(ms.values()):
                 continue
             row = {n: sum(v) / len(v) for n, v in ms.items()}
             row["this_over_other"] = row["this"] / row["other"]
-            row["plans"] = {n: t[storage][call].get("plan", call) for n, t in turns}
-            summary[f"{storage}_{call}"] = row
+            row["plans"] = {n: t[case][call].get("plan", call) for n, t in turns}
+            summary[f"{case}_{call}"] = row
     print(json.dumps({"ab_ms": summary}), flush=True)
 
 
@@ -144,6 +155,45 @@ def promotion() -> None:
         _build._loaded["fused_sweep"] = shipped
 
 
+def threads() -> None:
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.ops import _build
+    from sartsolver_tpu_torch.ops.fused_sweep import _sweep
+
+    out_dir = os.path.join(REPO, "build", "sweep_measure")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libfused_sweep-fp32-256.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    "-DSART_ONE_READ_FP32_WIDE_THREADS=256", "-o", path,
+                    str(_build.CSRC / "fused_sweep.cu")], check=True)
+    libs = {"512": _build.load("fused_sweep"), "256": ctypes.CDLL(path)}
+    try:
+        for B in (5, 8):
+            H, w, f, aux, scale = chip_smoke._sweep_inputs(8192, 65536, B, False, True, seed=7)
+            kw = dict(logarithmic=False)
+            rec = {"B": B}
+            for name, lib in libs.items():
+                _build._loaded["fused_sweep"] = lib
+                record, _ = chip_smoke._check_kernel(H, w, f, aux, scale, kw, "float32",
+                                                     plan="one_read", enforce=False)
+                rec[f"check_{name}"] = record
+
+            def timed(name):
+                def call():
+                    _build._loaded["fused_sweep"] = libs[name]
+                    return _sweep(H, w, f, aux, scale=scale, plan="one_read", **kw)
+                return call
+            rec["ms_256"], rec["ms_512"], rec["turns_ms"] = chip_smoke._in_turns(
+                timed("256"), timed("512"))
+            print(json.dumps(rec), flush=True)
+            del H, w, f, aux, scale
+            torch.cuda.empty_cache()
+    finally:
+        _build._loaded["fused_sweep"] = libs["512"]
+
+
 PHASES = ("wait", "bp", "push", "issue", "gather", "update", "fitted")
 PANEL_BYTES = 64  # one_read's row segment
 
@@ -168,7 +218,7 @@ def phases() -> None:
     P, V = 8192, 65536
     try:
         for storage in STORAGES:
-            for B in (1, 4):
+            for B in (1, 4, 8) if storage == "float32" else (1, 4):
                 H, w, f, aux, scale = chip_smoke._sweep_inputs(P, V, B, False, True, seed=7,
                                                                storage=storage)
 
@@ -272,6 +322,8 @@ def main(argv) -> int:
         promotion()
     elif argv == ["sass"]:
         sass()
+    elif argv == ["threads"]:
+        threads()
     elif argv == ["phases"]:
         phases()
     else:

@@ -91,10 +91,12 @@ def _numpy_sweep(H, w, f, aux, logarithmic):
     return f_new, f_new @ H.T
 
 
+# B = 8: the batch loops' batch (fp32 one_read, bf16 and int8 tensor_core on
+# the card)
 @pytest.mark.parametrize("aux_rows", ["1", "B"])
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 8])
 def test_plain_sweep_matches_pallas_kernel(B, logarithmic, with_pen, aux_rows):
     H, w, f, aux = _inputs(P, V, B, logarithmic, with_pen, aux_rows)
     want = jax_fused_sweep(H, w, f, aux, _log_update if logarithmic else _lin_update,
@@ -108,7 +110,7 @@ def test_plain_sweep_matches_pallas_kernel(B, logarithmic, with_pen, aux_rows):
 
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("storage", ["bfloat16", "int8"])
 def test_plain_sweep_matches_pallas_kernel_reduced_storage(storage, B, logarithmic,
                                                            with_pen):

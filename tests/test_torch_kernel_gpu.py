@@ -121,32 +121,36 @@ def _check_plan(plan, P, V, B, logarithmic, with_pen, storage, seed, expect_defa
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
-@pytest.mark.parametrize("shape", [(8192, 65536, 8), (8192, 65536, 16), (8192, 65536, 19),
-                                   (8192, 65536, 32), (1000, 3008, 19)])
-def test_tensor_core_plan_matches_plain_version(shape, logarithmic, with_pen):
-    """int8 codes at large B on the tensor cores (1000 x 3008 x 19: ragged P
-    and B)."""
-    _check_plan("tensor_core", *shape, logarithmic, with_pen, "int8",
+@pytest.mark.parametrize("storage,shape", [
+    (st, shape) for st in ("int8", "bfloat16")
+    for shape in ((8192, 65536, 8), (8192, 65536, 16), (8192, 65536, 19), (8192, 65536, 32),
+                  (1000, 3008, 19))] + [("bfloat16", (8192, 65536, 5))])
+def test_tensor_core_plan_matches_plain_version(storage, shape, logarithmic, with_pen):
+    """int8 codes and bf16 storage at large B on the tensor cores (bf16 from
+    B = 5, where its one_read ends; 1000 x 3008 x 19: ragged P and B)."""
+    _check_plan("tensor_core", *shape, logarithmic, with_pen, storage,
                 seed=sum(shape) + 2 * logarithmic + with_pen, expect_default=True)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("with_pen", [False, True])
 @pytest.mark.parametrize("logarithmic", [False, True])
-@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("storage,B", [(st, B) for st in ("float32", "bfloat16", "int8")
+                                       for B in (1, 3, 4)]
+                         + [("float32", 5), ("float32", 8)])
 @pytest.mark.parametrize("PV", [(8192, 65536), (8191, 4096), ("edge", 4096), (1000, 3008)])
-def test_one_read_plan_matches_plain_version(PV, B, logarithmic, with_pen, storage):
+def test_one_read_plan_matches_plain_version(PV, storage, B, logarithmic, with_pen):
     """Every storage at small B through the cluster kernel (B = 4: int8's
-    instance with two slabs): the main shape (P at the plan's upper limit), a
+    instance with two slabs; fp32 B = 5 and 8: two slabs, the next one issued
+    at the top of a panel): the main shape (P at the plan's upper limit), a
     ragged P just under it, P at the storage's lower edge of the rule, and a
     small shape that the rule leaves to two_read (forced)."""
     P, V = PV
     if P == "edge":
         P = ONE_READ_MIN_P[storage]
-    tensor_core = storage == "int8" and B >= TENSOR_CORE_MIN_B
+    tensor_core = B >= TENSOR_CORE_MIN_B.get(storage, B + 1) and V % 16 == 0
     lowest = max(ONE_READ_MIN_P[storage],
-                 ONE_READ_OVER_TENSOR_CORE_MIN_P if tensor_core else 0)
+                 ONE_READ_OVER_TENSOR_CORE_MIN_P[storage] if tensor_core else 0)
     _check_plan("one_read", P, V, B, logarithmic, with_pen, storage,
                 seed=P + V + B + 2 * logarithmic + with_pen, expect_default=P >= lowest)
 
@@ -156,13 +160,48 @@ def test_one_read_plan_matches_plain_version(PV, B, logarithmic, with_pen, stora
 @pytest.mark.parametrize("logarithmic", [False, True])
 def test_two_read_forced_at_the_new_plans_shapes(logarithmic, storage):
     """The old path stays covered where the new plans took over: every
-    storage at the main shape (B = 1, one_read), int8 also at the probes'
-    B = 32 (tensor_core)."""
+    storage at the main shape (B = 1, one_read) and at the batch loops'
+    B = 8 (fp32 one_read, bf16 and int8 tensor_core: two_read's tile of 8
+    rows, bf16's of 4), bf16 and int8 also at the probes' B = 32
+    (tensor_core)."""
     _check_plan("two_read", 8192, 65536, 1, logarithmic, True, storage, seed=5 + logarithmic,
                 expect_default=False)
-    if storage == "int8":
+    _check_plan("two_read", 8192, 65536, 8, logarithmic, True, storage, seed=7 + logarithmic,
+                expect_default=False)
+    if storage != "float32":
         _check_plan("two_read", 8192, 65536, 32, logarithmic, True, storage,
                     seed=6 + logarithmic, expect_default=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("shape", [(8192, 65536, 8), (1000, 3001, 8)])
+def test_two_read_nb8_equals_two_calls_of_b4(shape, logarithmic, storage):
+    """two_read's batch tile of 8 rows (fp32 and int8; bf16 keeps tiles of
+    4) gives each row the bytes that the tile of 4 gives it: NB changes no
+    row's order of summation (the bp kernel sums rows warp + 8k, the forward
+    kernel lane-strided vectors of one row). B = 8 forced against rows 0-3
+    and 4-7 as two calls of B = 4, with per-row aux panels and the scheduled
+    exponent per row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    P, V, B = shape
+    H, w, f, aux, scale = _inputs(P, V, B, logarithmic, True, seed=P + V + logarithmic,
+                                  storage=storage)
+    aux = [a.expand(B, V).contiguous() for a in aux]
+    kw = dict(logarithmic=logarithmic, scale=scale, eps=EPS)
+    lanes = None
+    if logarithmic:
+        lanes = (0.9 - 0.05 * torch.arange(B, device="cuda", dtype=torch.float32))[:, None]
+    whole = _sweep(H, w, f, aux, plan="two_read", alpha_lane=lanes, **kw)
+    halves = [_sweep(H, w[r].contiguous(), f[r].contiguous(), [a[r].contiguous() for a in aux],
+                     plan="two_read", alpha_lane=None if lanes is None else lanes[r].contiguous(),
+                     **kw)
+              for r in (slice(0, 4), slice(4, 8))]
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(whole[k], torch.cat([h[k] for h in halves]))
 
 
 @pytest.mark.gpu
@@ -171,18 +210,21 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
     (1) and no other plan run in its place; through the wrapper: ValueError."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    H, w, f, aux, _ = _inputs(64, 512, 5, False, False, seed=3)
+    H, w, f, aux, _ = _inputs(64, 512, 9, False, False, seed=3)
     codes, scale = quantize_rtm(H)
     bf16 = H.to(torch.bfloat16)
     kw = dict(logarithmic=False, alpha=1.0, eps=0.0)
     refused = [  # (H, scale, B, V, plan)
-        (H, None, 5, 512, "one_read"),                  # B = 5 > 4
+        (H, None, 9, 512, "one_read"),                  # fp32: B = 9 > 8
         (H, None, 4, 500, "one_read"),                  # fp32: V % 16 != 0
+        (H, None, 8, 500, "one_read"),                  # fp32, B = 8: V % 16 != 0
         (bf16, None, 4, 496, "one_read"),               # bf16: V % 32 != 0
+        (bf16, None, 5, 512, "one_read"),               # bf16, B = 5 > 4
         (codes, scale[None, :], 4, 480, "one_read"),    # int8: V % 64 != 0
         (codes, scale[None, :], 5, 512, "one_read"),    # int8, B = 5 > 4
         (H, None, 5, 512, "tensor_core"),               # fp32 storage
         (codes, scale[None, :], 5, 500, "tensor_core"),  # V % 16 != 0
+        (bf16, None, 8, 504, "tensor_core"),            # bf16: V % 16 != 0
         (H, None, 5, 512, 9),                           # no such plan
     ]
     for rtm, sc, B, V, plan in refused:
@@ -192,13 +234,18 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
                                  scale=None if sc is None else sc[:, :V].contiguous(),
                                  plan_code=code, **kw)
         assert err == 1, (rtm.dtype, B, V, plan, err)
-    with pytest.raises(ValueError, match="one_read needs B <= 4"):
+    with pytest.raises(ValueError, match="one_read needs B <= 8"):
         _sweep(H, w, f, aux, plan="one_read", **kw)
+    with pytest.raises(ValueError, match="one_read needs B <= 4"):
+        _sweep(bf16, w[:5].contiguous(), f[:5].contiguous(), aux, plan="one_read", **kw)
+    with pytest.raises(ValueError, match="tensor_core needs V a multiple of 16"):
+        _sweep(bf16[:, :504].contiguous(), w[:8].contiguous(), f[:8, :504].contiguous(),
+               [a[:, :504].contiguous() for a in aux], plan="tensor_core", **kw)
     with pytest.raises(ValueError, match="V a multiple of 64 for int8"):
         _sweep(codes[:, :480].contiguous(), w[:4].contiguous(), f[:4, :480].contiguous(),
                [a[:, :480].contiguous() for a in aux], scale=scale[None, :480].contiguous(),
                plan="one_read", **kw)
-    with pytest.raises(ValueError, match="tensor_core takes int8 codes"):
+    with pytest.raises(ValueError, match="tensor_core takes bf16 or int8"):
         _sweep(H, w, f, aux, plan="tensor_core", **kw)
 
 
@@ -211,6 +258,9 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
     ("two_read", "float32", (8192, 65536, 8)), ("two_read", "bfloat16", (8192, 65536, 8)),
     ("two_read", "int8", (1000, 3001, 3)), ("tensor_core", "int8", (8192, 65536, 8)),
     ("tensor_core", "int8", (1000, 3008, 19)),
+    ("one_read", "float32", (8192, 65536, 8)), ("one_read", "float32", (8192, 65536, 5)),
+    ("one_read", "float32", (8191, 4096, 8)), ("tensor_core", "bfloat16", (8192, 65536, 8)),
+    ("tensor_core", "bfloat16", (8192, 65536, 32)), ("tensor_core", "bfloat16", (1000, 3008, 19)),
 ])
 def test_scheduled_log_update_matches_plain_version(plan, storage, shape, with_pen,
                                                     alpha_rows):

@@ -52,6 +52,8 @@ def _chain_laplacian(V):
 @pytest.mark.parametrize("logarithmic", [False, True])
 @pytest.mark.parametrize("storage,P,V,lanes,plan", [
     ("float32", 512, 256, 8, "two_read"),
+    ("float32", 8192, 256, 8, "one_read"),
+    ("bfloat16", 512, 256, 8, "tensor_core"),
     ("int8", 512, 256, 8, "tensor_core"),
     ("bfloat16", 2048, 256, 4, "one_read"),
     ("int8", 5120, 256, 4, "one_read"),
@@ -108,22 +110,24 @@ def test_scheduled_lanes_equal_the_grouped_loop_on_the_card(storage, P, V, lanes
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("storage,plan", [("float32", "two_read"), ("bfloat16", "two_read"),
-                                          ("int8", "tensor_core")])
+@pytest.mark.parametrize("storage,P,plan", [
+    ("float32", 512, "two_read"), ("float32", 8192, "one_read"),
+    ("bfloat16", 512, "tensor_core"), ("int8", 512, "tensor_core")])
 @pytest.mark.parametrize("variant", [
     dict(logarithmic=True, relaxation_decay=0.97),
     dict(momentum="nesterov"),
     dict(logarithmic=True, momentum="nesterov", relaxation_decay=0.98),
     dict(divergence_recovery=2, relaxation_decay=0.99),
 ], ids=["log-decay", "momentum", "log-momentum-decay", "guard-decay"])
-def test_variants_scheduled_equal_the_grouped_loop_on_the_card(variant, storage, plan):
+def test_variants_scheduled_equal_the_grouped_loop_on_the_card(variant, storage, P, plan):
     """The solver variants at B = 8: every retired lane equals the grouped
-    loop's frame byte for byte, every launch on the plan of B = 8 (the
-    scheduled log update's launches counted as such), and with the guard a
-    NaN frame retires DIVERGED (-2) with a zero row in both loops."""
+    loop's frame byte for byte, every launch on the plan of B = 8 (fp32
+    two_read or one_read by P, bf16 and int8 tensor_core; the scheduled log
+    update's launches counted as such), and with the guard a NaN frame
+    retires DIVERGED (-2) with a zero row in both loops."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    lanes, P, V = 8, 512, 256
+    lanes, V = 8, 256
     assert plan_sweep(P, V, lanes, storage) == plan
     H, frames = _mixed_case(P, V, 2 * lanes + lanes // 2, seed=P + 3)
     if variant.get("divergence_recovery"):

@@ -19,9 +19,12 @@ from sartsolver_tpu_torch.ops.fused_sweep import (
     plan_refusal, plan_sweep,
 )
 
-MIN_B = TENSOR_CORE_MIN_B
-OVER_TC_P = ONE_READ_OVER_TENSOR_CORE_MIN_P
+MIN_B = TENSOR_CORE_MIN_B["int8"]
+BF16_MIN_B = TENSOR_CORE_MIN_B["bfloat16"]
+OVER_TC_P = ONE_READ_OVER_TENSOR_CORE_MIN_P["int8"]
 FP32_MIN_P = ONE_READ_MIN_P["float32"]
+FP32_MAX_B = ONE_READ_MAX_B["float32"]
+MAX_B = ONE_READ_MAX_B["int8"]  # bf16 and int8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -37,15 +40,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (8192, 65536, 1, "bfloat16", "one_read"),
     (8192, 65536, 1, "int8", "one_read"),
     # edges of the one-read limit: P, B, V in whole 16-column panels
-    (ONE_READ_MAX_P, 16, ONE_READ_MAX_B, "float32", "one_read"),
-    (8192, 65536, ONE_READ_MAX_B + 1, "float32", "two_read"),
+    (ONE_READ_MAX_P, 16, FP32_MAX_B, "float32", "one_read"),
+    (8192, 65536, FP32_MAX_B + 1, "float32", "two_read"),
     (8192, 65536 - ONE_READ_V_MULTIPLE["float32"], 1, "float32", "one_read"),
     (8192, 65536 - 1, 1, "float32", "two_read"),
     # the lower edge of P, where one_read stops beating two_read
     (FP32_MIN_P, 16, 1, "float32", "one_read"),
-    (FP32_MIN_P, 65536, ONE_READ_MAX_B, "float32", "one_read"),
+    (FP32_MIN_P, 65536, FP32_MAX_B, "float32", "one_read"),
     (FP32_MIN_P - 1, 65536, 1, "float32", "two_read"),
-    (4096, 65536, 1, "float32", "two_read"),
+    (FP32_MIN_P - 1, 65536, FP32_MAX_B, "float32", "two_read"),
+    (4096, 65536, 1, "float32", "one_read"),
+    (4096, 65536, FP32_MAX_B, "float32", "one_read"),
     (1, 16, 1, "float32", "two_read"),
     (1000, 3008, 3, "float32", "two_read"),
     (1000, 3001, 3, "float32", "two_read"),
@@ -56,7 +61,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (OVER_TC_P, 65536, MIN_B, "int8", "one_read"),
     (OVER_TC_P - 1, 65536, MIN_B, "int8", "tensor_core"),
     (OVER_TC_P - 1, 65536, MIN_B - 1, "int8", "one_read"),
-    (8192, 65536, ONE_READ_MAX_B + 1, "int8", "tensor_core"),
+    (8192, 65536, MAX_B + 1, "int8", "tensor_core"),
     (16384, 65536, MIN_B, "int8", "tensor_core"),
     (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B, "int8", "tensor_core"),
     (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B - 1, "int8", "two_read"),
@@ -64,10 +69,39 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (1000, 3008, 19, "int8", "tensor_core"),
     (1000, 3001, 19, "int8", "two_read"),
     (8192, 65536, 4096, "int8", "tensor_core"),
-    # the tensor cores take int8 codes only; one_read at most B = 4
-    (8192, 65536, 32, "bfloat16", "two_read"),
+    # the tensor cores take bf16 and int8 storage; one_read at most B = 4
+    # for them, 8 for fp32
+    (8192, 65536, 32, "bfloat16", "tensor_core"),
     (8192, 65536, 32, "float32", "two_read"),
     (8192, 65536, 2, "bfloat16", "one_read"),
+    # the batch loops' B = 8: fp32 one_read up to B = 8, then two_read; bf16
+    # one_read up to B = 4, then tensor_core where V is in 16-element runs
+    (8192, 65536, 8, "float32", "one_read"),
+    (8192, 65536, 5, "float32", "one_read"),
+    (8192, 65536, 9, "float32", "two_read"),
+    (8192, 65536, 16, "float32", "two_read"),
+    (8192, 65536 - 16, 8, "float32", "one_read"),
+    (8192, 65536 - 8, 8, "float32", "two_read"),
+    (8192, 65536, 4, "bfloat16", "one_read"),
+    (8192, 65536, 5, "bfloat16", "tensor_core"),
+    # bf16 on the tensor cores from B = 3 where its one_read does not apply
+    (8192, 65536, BF16_MIN_B - 1, "bfloat16", "one_read"),
+    (8192, 65536, BF16_MIN_B, "bfloat16", "one_read"),
+    (1024, 65536, BF16_MIN_B - 1, "bfloat16", "two_read"),
+    (1024, 65536, BF16_MIN_B, "bfloat16", "tensor_core"),
+    (1024, 65536, 4, "bfloat16", "tensor_core"),
+    (16384, 65536, BF16_MIN_B, "bfloat16", "tensor_core"),
+    (16384, 65536, BF16_MIN_B - 1, "bfloat16", "two_read"),
+    (8192, 65536 - 16, 4, "bfloat16", "tensor_core"),
+    (8192, 65536, 8, "bfloat16", "tensor_core"),
+    (8192, 65536, 16, "bfloat16", "tensor_core"),
+    (8192, 65536, 19, "bfloat16", "tensor_core"),
+    (1000, 3008, 19, "bfloat16", "tensor_core"),
+    (8192, 65536 - 8, 8, "bfloat16", "two_read"),
+    (8192, 65536 + 8, 32, "bfloat16", "two_read"),
+    (1000, 3001, 19, "bfloat16", "two_read"),
+    (16384, 65536, 8, "bfloat16", "tensor_core"),
+    (16384, 65536, 8, "float32", "two_read"),
 ])
 def test_plan_of_each_shape(P, V, B, storage, plan):
     assert plan_sweep(P, V, B, storage) == plan
@@ -75,10 +109,22 @@ def test_plan_of_each_shape(P, V, B, storage, plan):
 
 
 def test_crossover_batch_is_above_the_main_path():
-    """The CLI solves one frame at a time: int8 at B = 1 never takes the
-    tensor cores."""
-    assert 1 < TENSOR_CORE_MIN_B <= 32
-    assert plan_sweep(8192, 65536, 1, "int8") != "tensor_core"
+    """The CLI solves one frame at a time: bf16 and int8 at B = 1 never take
+    the tensor cores."""
+    for storage in ("bfloat16", "int8"):
+        assert 1 < TENSOR_CORE_MIN_B[storage] <= 32
+        assert plan_sweep(8192, 65536, 1, storage) != "tensor_core"
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_batch_loops_b8_reads_h_once_or_on_the_tensor_cores(storage):
+    """At the batch loops' B = 8 on the e2e world's shape no storage is left
+    on two_read: fp32 reads H once, bf16 and int8 run on the tensor cores;
+    bf16 keeps one_read through B = 4."""
+    want = {"float32": "one_read", "bfloat16": "tensor_core", "int8": "tensor_core"}
+    assert plan_sweep(8192, 65536, 8, storage) == want[storage]
+    for B in range(1, ONE_READ_MAX_B["bfloat16"] + 1):
+        assert plan_sweep(ONE_READ_MIN_P["bfloat16"], 65536, B, "bfloat16") == "one_read"
 
 
 def _reduced_storage_cases():
@@ -88,11 +134,11 @@ def _reduced_storage_cases():
     cases = []
     for st in ("bfloat16", "int8"):
         lo, m = ONE_READ_MIN_P[st], ONE_READ_V_MULTIPLE[st]
-        past_b = "tensor_core" if st == "int8" else "two_read"
+        past_b = "tensor_core"
         cases += [
             (lo, 65536, 1, st, "one_read"),
             (lo, 65536, 3, st, "one_read"),
-            (lo, 65536, ONE_READ_MAX_B, st, past_b if st == "int8" else "one_read"),
+            (lo, 65536, MAX_B, st, past_b if st == "int8" else "one_read"),
             (lo - 1, 65536, 1, st, "two_read"),
             (ONE_READ_MAX_P, 65536, 1, st, "one_read"),
             (ONE_READ_MAX_P + 1, 65536, 1, st, "two_read"),
@@ -100,7 +146,7 @@ def _reduced_storage_cases():
             (8192, 65536 - m, 1, st, "one_read"),
             (8192, 65536 - m // 2, 1, st, "two_read"),
             (8192, 65536 - 1, 1, st, "two_read"),
-            (8192, 65536, ONE_READ_MAX_B + 1, st, past_b),
+            (8192, 65536, MAX_B + 1, st, past_b),
         ]
     return cases
 
@@ -141,13 +187,16 @@ def _cpu_inputs(P, V, B, storage, seed=0):
     ("one_read", 64, 272, 1, "bfloat16", "V a multiple of 32 for bfloat16"),
     ("one_read", 64, 256 - 1, 1, "int8", "V a multiple of 64 for int8"),
     ("one_read", 64, 256 - 16, 1, "bfloat16", "V a multiple of 32 for bfloat16"),
-    ("one_read", 64, 256, ONE_READ_MAX_B + 1, "int8", "one_read needs B <= 4"),
+    ("one_read", 64, 256, MAX_B + 1, "int8", "one_read needs B <= 4"),
+    ("one_read", 64, 256, MAX_B + 1, "bfloat16", "one_read needs B <= 4"),
     ("one_read", ONE_READ_MAX_P + 1, 256, 1, "bfloat16", "P <= 8192"),
-    ("one_read", 64, 256, ONE_READ_MAX_B + 1, "float32", "one_read needs B <= 4"),
+    ("one_read", 64, 256, FP32_MAX_B + 1, "float32", "one_read needs B <= 8"),
     ("one_read", 64, 250, 1, "float32", "V a multiple of 16"),
     ("one_read", ONE_READ_MAX_P + 1, 16, 1, "float32", "P <= 8192"),
-    ("tensor_core", 64, 256, 32, "float32", "tensor_core takes int8 codes, not float32"),
-    ("tensor_core", 64, 256, 32, "bfloat16", "tensor_core takes int8 codes"),
+    ("tensor_core", 64, 256, 32, "float32",
+     "tensor_core takes bf16 or int8 storage, not float32"),
+    ("tensor_core", 64, 248, 32, "bfloat16", "tensor_core needs V a multiple of 16"),
+    ("tensor_core", 64, 250, 8, "bfloat16", "tensor_core needs V a multiple of 16"),
     ("tensor_core", 64, 250, 32, "int8", "tensor_core needs V a multiple of 16"),
     ("tensor_core", 64, 264, 32, "int8", "tensor_core needs V a multiple of 16"),
     ("fastest", 64, 256, 1, "float32", "unknown plan 'fastest'"),
@@ -163,8 +212,10 @@ def test_wrapper_refuses_a_forced_plan_whose_preconditions_fail(plan, P, V, B, s
 
 @pytest.mark.parametrize("plan, storage, B", [
     ("two_read", "float32", 1), ("two_read", "int8", 32), ("one_read", "float32", 3),
-    ("one_read", "bfloat16", 1), ("one_read", "int8", 4),
+    ("one_read", "bfloat16", 1), ("one_read", "int8", 4), ("one_read", "float32", 8),
     ("tensor_core", "int8", 1), ("tensor_core", "int8", 19),
+    ("tensor_core", "bfloat16", 5), ("tensor_core", "bfloat16", 32),
+    ("two_read", "bfloat16", 8),
 ])
 def test_a_forced_plan_on_cpu_tensors_runs_the_plain_version(plan, storage, B):
     """A plan that may run is checked, then CPU tensors take the plain
