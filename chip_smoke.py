@@ -36,11 +36,21 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    Each storage's plan at the batch loops' B = 8 (fp32 ``one_read``, bf16
    and int8 ``tensor_core``) is checked and timed in turns with forced
    ``two_read`` too, linear with the penalty and log, as are fp32 at B = 5
-   and bf16 at B = 32; fp32 at B = 16 (``two_read``) is timed alone. The
+   and bf16 at B = 32; fp32 at B = 16 (``two_read``) is timed alone.
+   ``two_read``'s own rows (``TWO_READ_ROWS``: fp32 at B = 32, the tall
+   world's 16384 x 65536 for each storage, a tall and narrow 65536 x 16384,
+   the capacity demo's bf16 49152 x 131072 and int8 65536 x 131072 shapes),
+   their inputs made on the card and freed before the next row, are checked
+   and timed beside the bound, the two-read floor (H read twice) and the
+   library, with each call's CUDA kernels and their device ms; a call
+   launches the same kernels at B = 1, 16 and 32, and ``two_read`` is also
+   checked at ragged 9000 x 3001 x 3 and at B = 40 (two passes of 32). The
    scheduled log update (``alpha_lane``, one exponent per row, distinct) is
    checked on each storage's plan at B = 1, 4 and 8, log with the penalty,
    and timed in turns with the fixed-exponent log sweep (α = 0.9) and, off
-   ``two_read``, with forced ``two_read``.
+   ``two_read``, with forced ``two_read``. The crossover tables print the
+   edges they measure (``one_read_edge_measured``,
+   ``tensor_core_min_b_measured``) beside the rule's.
 4. ``solve``: the realistic-scale world of ``benchmarks/e2e_world.py``
    (2 cameras of 64 x 64, a 256 x 256 x 1 grid, a 2 GiB fp32 RTM, 32
    frames, 1% noise, a chain Laplacian) written to HDF5 by this script's own
@@ -63,8 +73,9 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    every launch on ``plan_sweep(8192, 65536, 8, storage)``, the
    scheduler's launches equal to the loop steps it printed, the classic
    loop's to the sum of its groups' loop counts); int8 at
-   ``--batch_frames 4`` (``one_read``); fp32 at ``--batch_frames 16``
-   (``two_read``, tiles of 8); ``--chain_frames 4`` against
+   ``--batch_frames 4``; fp32 at ``--batch_frames 16`` and 32 (``two_read``,
+   one pass over H for every batch row), scheduler and classic loop, equal
+   files; ``--chain_frames 4`` against
    ``--chain_frames 1`` for fp32 and int8 (equal files, launches equal to
    the iterations). Counts are zeroed just before each run and read just
    after; ms per frame, loop iterations, occupancy, launches by plan and
@@ -84,6 +95,12 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    as above; then through the plain version: the same statuses, and over
    ``BATCH_CROSS_ITERATIONS`` iterations without the stall test each
    frame's fitted space within ``CROSS_TOL`` of the kernel's.
+4d. ``tall_world``: the world with cameras of 128 x 64 (P = 16384, past
+   ``one_read``'s P; 4 GiB fp32) through the CLI for each ``--rtm_dtype``,
+   linear with the Laplacian over 4 frames at ``--chain_frames 1``
+   (:func:`tall_world_phase`): statuses, fitted errors within
+   ``FIT_BOUND``, every launch on ``two_read``, one per iteration; ms per
+   frame. It runs last, after the e2e world's RTM files are deleted.
 5. ``plain_crosscheck``: frame 0 solved through the kernel and through the
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
@@ -101,6 +118,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
@@ -137,8 +155,13 @@ MAX_ITERATIONS = 500  # -m cap of the main path's runs
 # the int8 run on one_read, and --chain_frames against the serial loop
 FRAME_LANES = 8
 FOUR_LANES = 4
-SIXTEEN_LANES = 16  # fp32 beyond one_read's B = 8: two_read in tiles of 8
+SIXTEEN_LANES = 16  # fp32 beyond one_read's B = 8: two_read, one pass over H
+THIRTY_TWO_LANES = 32  # fp32 at the JAX package's reported batch: two_read
 CHAIN_FRAMES = 4
+# the tall world: the e2e grid seen by 2 cameras of 128 x 64 (P = 16384, past
+# one_read's 8192, so every storage runs two_read); 4 frames each
+TALL_CAM = (128, 64)
+TALL_FRAMES = 4
 
 # card -> (memory rate in B/s, fp32 rate outside the tensor cores in FLOP/s,
 # bf16 dense tensor-core rate in FLOP/s); NVIDIA's data sheets, dense rates
@@ -393,12 +416,21 @@ def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
         for kind, rec in (("scheduled", sched), ("classic", classic)):
             rec["cli_ms_per_frame_in_turns"] = in_turns[kind]
         entry = dict(plan=plan, lanes=FRAME_LANES, scheduled=sched, classic=classic)
-        if storage == "float32":  # past one_read's B = 8: two_read, two tiles of 8
-            wide_plan = plan_sweep(P, V, SIXTEEN_LANES, storage)
-            _, wide = run("float32_sixteen", ["--rtm_dtype", storage, "--no_guess",
-                                              "--batch_frames", str(SIXTEEN_LANES)])
-            launched(wide, wide_plan, wide["loop_steps"], "fp32 scheduler, 16 lanes")
-            entry["sixteen_lanes"] = dict(wide, plan=wide_plan, lanes=SIXTEEN_LANES)
+        if storage == "float32":  # past one_read's B = 8: two_read, one pass over H
+            for lanes, name in ((SIXTEEN_LANES, "sixteen_lanes"),
+                                (THIRTY_TWO_LANES, "thirty_two_lanes")):
+                wide_plan = plan_sweep(P, V, lanes, storage)
+                wide_flags = ["--rtm_dtype", storage, "--no_guess", "--batch_frames", str(lanes)]
+                wide_sol, wide = run(f"float32_{lanes}", wide_flags)
+                launched(wide, wide_plan, wide["loop_steps"], f"fp32 scheduler, {lanes} lanes")
+                classic_sol, classic = run(f"float32_{lanes}_classic",
+                                           [*wide_flags, "--no_continuous_batching"])
+                loops = group_loops(classic_sol["iterations"], lanes)
+                classic.update(loop_iterations=loops)
+                if T % lanes == 0:
+                    launched(classic, wide_plan, loops, f"fp32 classic loop, {lanes} lanes")
+                same(wide_sol, classic_sol, f"fp32 at {lanes} lanes: scheduler against classic")
+                entry[name] = dict(wide, plan=wide_plan, lanes=lanes, classic=classic)
         if storage == "int8":
             four_plan = plan_sweep(P, V, FOUR_LANES, storage)
             _, four = run("int8_four", ["--rtm_dtype", storage, "--no_guess",
@@ -578,6 +610,58 @@ def variants_phase(world, outdir: str, device: str = "cuda") -> dict:
     return record
 
 
+def tall_world_phase(outdir: str, device: str = "cuda", **world_kw) -> dict:
+    """The tall world through the CLI per storage: 2 cameras of ``TALL_CAM``
+    on the e2e grid (P = 16384, past one_read's P, so every storage runs
+    two_read), linear with the Laplacian over ``TALL_FRAMES`` frames at
+    ``--chain_frames 1``; every status 0 or the cap, fitted errors within
+    ``FIT_BOUND``, and on the card every launch on ``plan_sweep``'s plan for
+    the shape (two_read), one per iteration, counted from 0 just before the
+    run. ``world_kw`` sizes the world down for the CPU tests."""
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+
+    world = write_world(outdir, **{"cam": TALL_CAM, **world_kw})
+    p = world["paths"]
+    P, V = world["H"].shape
+    on_card = device == "cuda"
+    record = dict(shape=[P, V], frames=TALL_FRAMES)
+    for storage in STORAGES:
+        plan = plan_sweep(P, V, 1, storage)
+        if on_card and plan != "two_read":
+            raise AssertionError(f"tall world {storage}: plan {plan}, two_read expected")
+        out = os.path.join(outdir, f"tall_{storage}.h5")
+        if on_card:
+            import torch
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, ms, _ = run_cli(["-o", out, p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"],
+                             p["img_b"], "-m", str(MAX_ITERATIONS), "-l", p["laplacian"],
+                             "-t", f"0:{0.1 * TALL_FRAMES - 0.05:.2f}", "--chain_frames", "1",
+                             "--rtm_dtype", storage], device=device)
+        wall = time.perf_counter() - t0
+        by_plan = dict(fused_sweep.launches_by_plan)
+        if rc != 0 or len(ms) != TALL_FRAMES:
+            raise AssertionError(f"tall world {storage}: exit {rc}, {len(ms)} frames")
+        sol, err = check_solution(out, world, TALL_FRAMES, MAX_ITERATIONS, device)
+        its = int(sol["iterations"].sum())
+        want = dict.fromkeys(by_plan, 0)
+        want[plan] = its
+        if on_card and by_plan != want:
+            raise AssertionError(f"tall world {storage}: {by_plan} launches for {its} iterations")
+        rec = dict(plan=plan, wall_s=wall, frame_ms=ms, ms_per_frame=statistics.mean(ms),
+                   warm_ms_per_frame=statistics.mean(ms[1:]), iterations=sol["iterations"].tolist(),
+                   status=sol["status"].tolist(), fit_err=err.tolist(), launches_by_plan=by_plan)
+        if on_card:
+            rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        record[storage] = rec
+    return record
+
+
 # ---- kernel checks and timing ---------------------------------------------
 
 STORAGES = ("float32", "bfloat16", "int8")
@@ -588,8 +672,21 @@ VARIANT = {"float32": "B1/B2", "bfloat16": "B3", "int8": "B4"}
 # where its one_read ends)
 ONE_READ_CHECK_B = {"float32": (1, 3, 4, 5, 8), "bfloat16": (1, 3, 4), "int8": (1, 3, 4)}
 TENSOR_CORE_CHECK_B = {"bfloat16": (5, 8, 16, 19, 32), "int8": (8, 16, 19, 32)}
+# the batch sizes of the tensor_core / two_read crossover tables
+TC_CROSSOVER_B = (2, 3, 4, 5, 6, 7, 8, 16, 32)
 REPLACES = "sartsolver_tpu/ops/fused_sweep.py:829"
 SOURCE = "sartsolver_tpu_torch/ops/csrc/fused_sweep.cu"
+# two_read's own rows (storage, P, V, B), linear with the penalty: fp32 past
+# one_read's B = 8 on the e2e shape; the tall world's shape for each storage;
+# a tall and narrow matrix; the capacity demo's bf16 and int8 shapes
+# (benchmarks/capacity_demo.py), each at B = 1 and at the largest B that
+# two_read takes for it
+TWO_READ_ROWS = (("float32", 8192, 65536, THIRTY_TWO_LANES),
+                 ("float32", 16384, 65536, 1), ("float32", 16384, 65536, FRAME_LANES),
+                 ("bfloat16", 16384, 65536, 1), ("int8", 16384, 65536, 1),
+                 ("float32", 65536, 16384, 1),
+                 ("bfloat16", 49152, 131072, 1), ("bfloat16", 49152, 131072, 2),
+                 ("int8", 65536, 131072, 1), ("int8", 65536, 131072, 3))
 # the int8 Pallas probes: (name, TPU kernel, direct dot)
 PROBES = (
     ("int8_dequant_probe", "benchmarks/int8_dequant_probe.py:17", False),
@@ -761,7 +858,8 @@ def _bound(H, w, aux, scale, plan, rates) -> dict:
     bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / rate * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bound_rate=rate_name, bytes=nbytes, flops=flops)
+                bound_rate=rate_name, bytes=nbytes, flops=flops,
+                two_read_floor_ms=2 * bytes_ms)
 
 
 def _timing(H, w, f, aux, scale, kw, rates, plan, versus=None) -> dict:
@@ -778,7 +876,6 @@ def _timing(H, w, f, aux, scale, kw, rates, plan, versus=None) -> dict:
     P, V = H.shape
     B = w.shape[0]
     logarithmic, eps = kw["logarithmic"], kw.get("eps", 0.0)
-    Hd = H.float() if scale is None else H.float() * scale
 
     def library():
         bp = torch.matmul(w, Hd)
@@ -801,15 +898,26 @@ def _timing(H, w, f, aux, scale, kw, rates, plan, versus=None) -> dict:
     out = dict(
         plan=plan, ms=ms, device=_device_profile(kernel(plan)),
         plain_ms=_median_ms(lambda: fused_sweep_reference(H, w, f, aux, scale=scale, **kw)),
-        library_ms=_median_ms(library),
         **_bound(H, w, aux, scale, plan, rates),
         shape=[P, V, B], storage=str(H.dtype)[6:],
         mode="log" if logarithmic else "linear", pen=len(aux) > (2 if logarithmic else 1),
     )
+    # the fp32 copy after the plain version's run, scaled in place: the
+    # capacity shapes' copy is 26-34 GB
+    torch.cuda.empty_cache()
+    Hd = H.float() if scale is None else H.float().mul_(scale)
+    out["library_ms"] = _median_ms(library)
+    del Hd
+    torch.cuda.empty_cache()
     if other is not None:
         out["versus"] = dict(other, **_bound(H, w, aux, scale, versus, rates))
-    del Hd
     return out
+
+
+def _kernel_names(profile: dict) -> list:
+    """The CUDA kernels of a profiled call by name, template arguments
+    dropped."""
+    return sorted({name.split("<")[0] for name in profile["ms_by_kernel"]})
 
 
 def _lanes(B: int):
@@ -877,8 +985,7 @@ def kernel_phase(card: str):
     import torch
 
     from sartsolver_tpu_torch.ops.fused_sweep import (
-        ONE_READ_MAX_B, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, STORAGE,
-        TENSOR_CORE_MIN_B, _sweep, plan_sweep,
+        ONE_READ_MAX_B, ONE_READ_MIN_P, STORAGE, TENSOR_CORE_MIN_B, _sweep, plan_sweep,
     )
 
     alpha, eps = 0.7, 1e-7
@@ -912,10 +1019,12 @@ def kernel_phase(card: str):
                              (1000, 3008)):
                     for B in ONE_READ_CHECK_B[storage]:
                         check(P, V, B, logarithmic, with_pen, storage, plan="one_read")
-        # two_read forced where the new plans took over (B = 1 one_read; B = 8
-        # its batch tile of 8), and at a ragged shape with B = 8
+        # two_read forced where the other plans took over (B = 1 one_read,
+        # B = 8), and at ragged shapes: B = 8, a tall P with V odd, and B = 40
+        # (two passes of 32 batch rows)
         for storage in STORAGES:
-            for P, V, B in ((8192, 65536, 1), (8192, 65536, FRAME_LANES), (1000, 3001, 8)):
+            for P, V, B in ((8192, 65536, 1), (8192, 65536, FRAME_LANES), (1000, 3001, 8),
+                            (9000, 3001, 3), (1000, 3001, 40)):
                 check(P, V, B, logarithmic, True, storage, plan="two_read")
         # tensor_core for bf16 and int8 at the shapes that select it
         for storage in TC_STORAGES:
@@ -966,6 +1075,31 @@ def kernel_phase(card: str):
                               versus=None if plan == "two_read" else "two_read")
         del H, w, f, aux, scale
         torch.cuda.empty_cache()
+
+    # two_read's own rows, linear with the penalty: checked and timed beside
+    # the bound, the two-read floor and the library; the inputs are made on
+    # the card and freed before the next row
+    for storage, P, V, B in TWO_READ_ROWS:
+        key = f"{storage}@{P}x{V}xB{B}"
+        H, w, f, aux, scale = _sweep_inputs(P, V, B, False, True, seed=40 + B, storage=storage)
+        kw = dict(logarithmic=False, alpha=1.0, eps=eps)
+        record, err = _check_kernel(H, w, f, aux, scale, kw, storage, plan="two_read")
+        checks.append(record)
+        errors[key] = err
+        torch.cuda.empty_cache()
+        timing[key] = _timing(H, w, f, aux, scale, kw, rates, "two_read")
+        del H, w, f, aux, scale
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one pass over H for every batch row: a call launches the same CUDA
+    # kernels at B = 1, 16 and 32
+    names = {1: _kernel_names(timing["float32"]["versus"]["device"]),  # forced beside one_read
+             SIXTEEN_LANES: _kernel_names(timing[f"float32@B{SIXTEEN_LANES}"]["device"]),
+             THIRTY_TWO_LANES: _kernel_names(
+                 timing[f"float32@8192x65536xB{THIRTY_TWO_LANES}"]["device"])}
+    if len({tuple(n) for n in names.values()}) != 1:
+        raise AssertionError(f"two_read launches other kernels at other B: {names}")
+    two_read_kernels = names[1]
 
     # the scheduled log update (one exponent per row, each row's distinct)
     # on each plan against the plain version, then timed in turns with the
@@ -1034,11 +1168,11 @@ def kernel_phase(card: str):
             return ("two_read", "one_read") + extra
         return plans
 
-    crossovers = dict(tensor_core=crossover([(8192, 65536, B) for B in (2, 4, 8, 16, 32)],
+    crossovers = dict(tensor_core=crossover([(8192, 65536, B) for B in TC_CROSSOVER_B],
                                             "int8", False,
                                             lambda B: ("two_read", "tensor_core")),
                       tensor_core_bfloat16=crossover(
-                          [(8192, 65536, B) for B in (2, 3, 4, 5, 8, 16, 32)], "bfloat16",
+                          [(8192, 65536, B) for B in TC_CROSSOVER_B], "bfloat16",
                           False, lambda B: ("two_read", "tensor_core")))
     for storage in STORAGES:
         crossovers[f"one_read_{storage}"] = crossover(
@@ -1047,6 +1181,8 @@ def kernel_phase(card: str):
             storage, True, one_read_plans(storage))
     edges = {storage: one_read_edge(crossovers[f"one_read_{storage}"])
              for storage in STORAGES}
+    tc_edges = {storage: tensor_core_edge(crossovers[name]) for storage, name in
+                (("int8", "tensor_core"), ("bfloat16", "tensor_core_bfloat16"))}
 
     from sartsolver_tpu_torch.ops import _build
 
@@ -1056,17 +1192,30 @@ def kernel_phase(card: str):
                               "tolerance": KERNEL_TOL, "timing": timing,
                               "launches_per_iteration": 1}],
          crossover=crossovers, one_read_edge_measured=edges,
+         tensor_core_min_b_measured=tc_edges,
          one_read_rule=dict(min_p=ONE_READ_MIN_P, max_b=ONE_READ_MAX_B,
-                            over_tensor_core_min_p=ONE_READ_OVER_TENSOR_CORE_MIN_P,
                             tensor_core_min_b=TENSOR_CORE_MIN_B),
          one_read_clusters={storage: {B: clusters(STORAGE[getattr(torch, storage)], B)
                                       for B in range(1, ONE_READ_MAX_B[storage] + 1)}
                             for storage in STORAGES},
+         two_read_kernels_at_b1_16_32=two_read_kernels,
          peak_mem_rate=rates[0], peak_fp32_rate=rates[1],
          peak_bf16_tensor_rate=rates[2],
          library_note="two torch.matmul on an fp32 copy of the dequantized "
                       "matrix: 4 bytes per element for every storage")
     return errors, timing
+
+
+def tensor_core_edge(table):
+    """From a tensor_core crossover table over B: the smallest B from which
+    tensor_core beat two_read at every larger B of the table (None where it
+    lost at the largest)."""
+    lowest = None
+    for r in sorted(table, key=lambda r: -r["B"]):
+        if not r["tensor_core_ms"] < r["two_read_ms"]:
+            break
+        lowest = r["B"]
+    return lowest
 
 
 def one_read_edge(table) -> dict:
@@ -1375,7 +1524,15 @@ def main() -> int:
                                                     loop_steps=stats.loop_steps,
                                                     strides=stats.strides))
         emit("profile", **profiles)
+        for name in ("rtm_a_seg1", "rtm_a_seg2", "rtm_b"):
+            os.remove(p[name])  # the e2e RTM's 2 GiB on disk, before the tall world's 4 GiB
         del lap, world
+        gc.collect()
+        torch.cuda.empty_cache()
+        tall_dir = os.path.join(tmp, "tall")
+        os.makedirs(tall_dir)
+        tall = tall_world_phase(tall_dir)
+        emit("tall_world", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **tall)
 
     def row(name, t, launches, err, variant, replaces=REPLACES):
         r = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -1404,11 +1561,25 @@ def main() -> int:
         r.update(log_ms=log["ms"], log_plain_ms=log["plain_ms"], log_bound_ms=log["bound_ms"],
                  log_library_ms=log["library_ms"], log_two_read_ms=log.get("versus", {}).get("ms"))
         rows.append(r)
-    wide = frames["float32"]["sixteen_lanes"]
-    key = f"float32@B{SIXTEEN_LANES}"
-    rows.append(row(f"fused_sweep@B{SIXTEEN_LANES}", timing[key],
-                    wide["launches_by_plan"][timing[key]["plan"]], errors[key],
-                    f"B1/B2 at --batch_frames {SIXTEEN_LANES} (two_read, tiles of 8)"))
+    for lanes, name, key in (
+            (SIXTEEN_LANES, "sixteen_lanes", f"float32@B{SIXTEEN_LANES}"),
+            (THIRTY_TWO_LANES, "thirty_two_lanes", f"float32@8192x65536xB{THIRTY_TWO_LANES}")):
+        wide = frames["float32"][name]
+        plan = timing[key]["plan"]
+        r = row(f"fused_sweep@B{lanes}", timing[key],
+                wide["launches_by_plan"][plan] + wide["classic"]["launches_by_plan"][plan],
+                errors[key], f"B1/B2 at --batch_frames {lanes} (two_read, one pass over H)")
+        r["two_read_floor_ms"] = timing[key]["two_read_floor_ms"]
+        rows.append(r)
+    # the tall world's shape, each storage through two_read (P past one_read's)
+    for storage in STORAGES:
+        P, V = tall["shape"]
+        key = f"{storage}@{P}x{V}xB1"
+        r = row(("fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]")
+                + f"@{P}x{V}", timing[key], tall[storage]["launches_by_plan"]["two_read"],
+                errors[key], f"{VARIANT[storage]} on the tall world (P = {P}, two_read)")
+        r["two_read_floor_ms"] = timing[key]["two_read_floor_ms"]
+        rows.append(r)
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

@@ -37,10 +37,11 @@
 // Three plans, chosen by the caller (ops/fused_sweep.py:plan_sweep) and
 // refused here, never replaced, when their preconditions fail:
 //
-// - two_read (every storage, any shape): two launches that each read H,
-//   described below. What bounds the sweep is one read of H, P*V*sizeof(T)
-//   bytes: at P = 8192, V = 65536, 2.147 GB in fp32 (0.64 ms at the H100
-//   SXM's 3.35 TB/s), 1.07 GB in bf16, 0.54 GB in int8.
+// - two_read (every storage, any shape): two passes over H, each reading it
+//   once for up to 32 batch rows (namespace two_read). What bounds the sweep
+//   is one read of H, P*V*sizeof(T) bytes: at P = 8192, V = 65536, 2.147 GB
+//   in fp32 (0.64 ms at the H100 SXM's 3.35 TB/s), 1.07 GB in bf16, 0.54 GB
+//   in int8; two reads take twice that.
 // - one_read (B <= 8 for fp32, B <= 4 for bf16 and int8, P <= 8192, V a
 //   multiple of the panel's 16 fp32, 32 bf16 or 64 int8 columns): H read
 //   once, a panel 64 bytes wide split along P over a thread-block cluster
@@ -51,27 +52,6 @@
 //   bf16 pieces (namespace tc). At B = 32 the 4*B*P*V operations bound the
 //   sweep: three bf16 products of 68.7 GFLOP at 989 TFLOP/s, 0.208 ms.
 //
-// two_read: the TPU kernel keeps a [P, bs] column panel in VMEM and
-// accumulates `fitted` across a sequential grid, so H is read once. Here
-// the grid is parallel and a whole panel does not fit in shared memory, so
-// this plan reads H twice, in two launches on the caller's stream:
-//
-//   bp_update_kernel: one block per panel of 32*VW voxels. Warp k of the 8
-//     sums rows p = k, k+8, k+16, ... in ascending order (each lane holds VW
-//     neighbouring columns, loaded as one vector when VW = 4: a float4, 8
-//     bytes of bf16 or a char4 of codes); a fixed-order sum over the 8 warps
-//     in shared memory finishes bp, and the block applies the update and
-//     writes f_new.
-//   forward_kernel: each warp owns R pixel rows; lanes stride over the voxel
-//     axis in a fixed order, then a fixed butterfly of shuffles sums the
-//     lanes. fitted is written once per row.
-//
-// Batches are processed NB rows at a time (grid.y; NB = 1, 2, 4 or 8, bf16
-// at most 4: dispatch_nb);
-// rows past B are clamped duplicates whose results are discarded, so each
-// batch tile reads H again. NB changes no row's order of summation. Ragged P
-// and V are masked.
-//
 // No plan uses atomics: a given plan and shape give byte-identical results
 // run to run.
 
@@ -81,16 +61,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cmath>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kWarps = 8;           // warps per block, both kernels
-constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 8;          // rows in flight per warp, bp kernel
-constexpr int kRowsPerWarp = 2;     // pixel rows per warp, forward kernel
 
 struct AuxPanels {
   const float* ptr[3];
@@ -109,67 +86,6 @@ __device__ __forceinline__ float row_alpha(const AuxPanels& aux, float alpha, in
 // bits of the fp32 value it stands for, so the conversion is a shift and is
 // exact (no rounding, infinities and NaNs kept).
 typedef uint16_t bf16_bits;
-
-__device__ __forceinline__ float bf16_to_float(unsigned bits) {
-  return __uint_as_float(bits << 16);
-}
-
-// VW neighbouring elements of storage type T, loaded as one vector when
-// VW = 4 and converted exactly to fp32.
-template <typename T, int VW> struct Vec;
-template <> struct Vec<float, 1> {
-  float x[1];
-  __device__ __forceinline__ static Vec load(const float* p) {
-    Vec v;
-    v.x[0] = __ldg(p);
-    return v;
-  }
-};
-template <> struct Vec<float, 4> {
-  float x[4];
-  __device__ __forceinline__ static Vec load(const float* p) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    Vec v;
-    v.x[0] = q.x; v.x[1] = q.y; v.x[2] = q.z; v.x[3] = q.w;
-    return v;
-  }
-};
-template <> struct Vec<bf16_bits, 1> {
-  float x[1];
-  __device__ __forceinline__ static Vec load(const bf16_bits* p) {
-    Vec v;
-    v.x[0] = bf16_to_float(__ldg(p));
-    return v;
-  }
-};
-template <> struct Vec<bf16_bits, 4> {
-  float x[4];
-  __device__ __forceinline__ static Vec load(const bf16_bits* p) {
-    // four bf16 in one 8-byte load; the lower half of each word comes first
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    Vec v;
-    v.x[0] = bf16_to_float(q.x & 0xffffu); v.x[1] = bf16_to_float(q.x >> 16);
-    v.x[2] = bf16_to_float(q.y & 0xffffu); v.x[3] = bf16_to_float(q.y >> 16);
-    return v;
-  }
-};
-template <> struct Vec<int8_t, 1> {
-  float x[1];
-  __device__ __forceinline__ static Vec load(const int8_t* p) {
-    Vec v;
-    v.x[0] = (float)__ldg(reinterpret_cast<const signed char*>(p));
-    return v;
-  }
-};
-template <> struct Vec<int8_t, 4> {
-  float x[4];
-  __device__ __forceinline__ static Vec load(const int8_t* p) {
-    const char4 q = __ldg(reinterpret_cast<const char4*>(p));
-    Vec v;
-    v.x[0] = (float)q.x; v.x[1] = (float)q.y; v.x[2] = (float)q.z; v.x[3] = (float)q.w;
-    return v;
-  }
-};
 
 // The elementwise update, written with explicit roundings (no fused
 // multiply-add) so it rounds like the plain PyTorch version. a0..a2 are the
@@ -210,185 +126,6 @@ __device__ __forceinline__ float update(int mode, int has_pen, float alpha,
                      eps, f, bp, a0, a1, a2);
 }
 
-// kScaled (int8 codes): bp is in code space and is rounded times the voxel's
-// scale before the update.
-template <typename T, int NB, int VW>
-__global__ void __launch_bounds__(kThreads)
-bp_update_kernel(const T* __restrict__ H, const float* __restrict__ scale,
-                 const float* __restrict__ w, const float* __restrict__ f,
-                 AuxPanels aux, float* __restrict__ f_new, int P, int V, int B,
-                 int mode, int has_pen, float alpha, float eps) {
-  constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  constexpr int kPanel = 32 * VW;
-  __shared__ float part[kWarps][NB][kPanel];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long panel0 = (long long)blockIdx.x * kPanel;
-  const long long v0 = panel0 + (long long)lane * VW;
-  const int b0 = blockIdx.y * NB;
-
-  const float* wrow[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    wrow[b] = w + (long long)min(b0 + b, B - 1) * P;
-
-  float acc[NB][VW];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int k = 0; k < VW; ++k) acc[b][k] = 0.0f;
-
-  // VW = 4 is only launched when V % 4 == 0, so v0 < V covers the whole
-  // vector; with VW = 1 it is the plain column mask.
-  if (v0 < V) {
-    const T* hcol = H + v0;
-    int p = warp;
-    for (; p + (kUnroll - 1) * kWarps < P; p += kUnroll * kWarps) {
-      Vec<T, VW> h[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        h[u] = Vec<T, VW>::load(hcol + (long long)(p + u * kWarps) * V);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const float wv = __ldg(wrow[b] + p + u * kWarps);
-#pragma unroll
-          for (int k = 0; k < VW; ++k) acc[b][k] = fmaf(wv, h[u].x[k], acc[b][k]);
-        }
-      }
-    }
-    for (; p < P; p += kWarps) {
-      const Vec<T, VW> h = Vec<T, VW>::load(hcol + (long long)p * V);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float wv = __ldg(wrow[b] + p);
-#pragma unroll
-        for (int k = 0; k < VW; ++k) acc[b][k] = fmaf(wv, h.x[k], acc[b][k]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int k = 0; k < VW; ++k) part[warp][b][lane * VW + k] = acc[b][k];
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < NB * kPanel; idx += kThreads) {
-    const int b = idx / kPanel;
-    const int c = idx - b * kPanel;
-    const long long v = panel0 + c;
-    const int bb = b0 + b;
-    if (v < V && bb < B) {
-      float bp = part[0][b][c];
-#pragma unroll
-      for (int k = 1; k < kWarps; ++k) bp += part[k][b][c];
-      if (kScaled) bp = __fmul_rn(bp, scale[v]);
-      const long long i = (long long)bb * V + v;
-      f_new[i] = update(mode, has_pen, alpha, eps, f[i], bp, aux, bb, v);
-    }
-  }
-}
-
-// kScaled (int8 codes): the forward operand is f_new * scale, rounded.
-template <typename T, int NB, int VW>
-__global__ void __launch_bounds__(kThreads)
-forward_kernel(const T* __restrict__ H, const float* __restrict__ scale,
-               const float* __restrict__ f_new, float* __restrict__ fitted,
-               int P, int V, int B) {
-  constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long p0 = ((long long)blockIdx.x * kWarps + warp) * kRowsPerWarp;
-  const int b0 = blockIdx.y * NB;
-
-  const T* hrow[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-    hrow[r] = H + (p0 + r < P ? p0 + r : (long long)P - 1) * V;
-  const float* frow[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    frow[b] = f_new + (long long)min(b0 + b, B - 1) * V;
-
-  float acc[kRowsPerWarp][NB];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[r][b] = 0.0f;
-
-  // the forward operand's vector at i: f_new, times the scale when kScaled
-  auto operand = [&](int b, long long i) {
-    Vec<float, VW> x = Vec<float, VW>::load(frow[b] + i * VW);
-    if (kScaled) {
-      const Vec<float, VW> s = Vec<float, VW>::load(scale + i * VW);
-#pragma unroll
-      for (int k = 0; k < VW; ++k) x.x[k] = __fmul_rn(x.x[k], s.x[k]);
-    }
-    return x;
-  };
-
-  const long long nvec = V / VW;
-  long long i = lane;
-  // two vectors per lane in flight per row, then the tail
-  for (; i + 32 < nvec; i += 64) {
-    Vec<T, VW> h0[kRowsPerWarp], h1[kRowsPerWarp];
-    Vec<float, VW> x0[NB], x1[NB];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      h0[r] = Vec<T, VW>::load(hrow[r] + i * VW);
-      h1[r] = Vec<T, VW>::load(hrow[r] + (i + 32) * VW);
-    }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      x0[b] = operand(b, i);
-      x1[b] = operand(b, i + 32);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-#pragma unroll
-        for (int k = 0; k < VW; ++k) acc[r][b] = fmaf(x0[b].x[k], h0[r].x[k], acc[r][b]);
-#pragma unroll
-        for (int k = 0; k < VW; ++k) acc[r][b] = fmaf(x1[b].x[k], h1[r].x[k], acc[r][b]);
-      }
-  }
-  for (; i < nvec; i += 32) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const Vec<T, VW> h = Vec<T, VW>::load(hrow[r] + i * VW);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const Vec<float, VW> x = operand(b, i);
-#pragma unroll
-        for (int k = 0; k < VW; ++k) acc[r][b] = fmaf(x.x[k], h.x[k], acc[r][b]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float s = acc[r][b];
-      // a + b == b + a exactly, so every lane ends with the same sum
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      acc[r][b] = s;
-    }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (p0 + r < P && b0 + b < B)
-          fitted[(long long)(b0 + b) * P + p0 + r] = acc[r][b];
-  }
-}
-
 // 16 bytes from global to shared memory, asynchronously; zeros where !ok
 // (gmem must still be a valid address)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
@@ -402,6 +139,30 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The columns of storage type T in the 32-bit word x, first column in the
+// low bits, converted exactly to fp32 without the conversion unit: a bf16
+// value is the upper half of its fp32 pattern; a code c + 128 in the low byte
+// of 2^23's pattern is the float 2^23 + c + 128.
+template <typename T>
+__device__ __forceinline__ void unpack(unsigned x, float* out);
+template <>
+__device__ __forceinline__ void unpack<float>(unsigned x, float* out) {
+  out[0] = __uint_as_float(x);
+}
+template <>
+__device__ __forceinline__ void unpack<bf16_bits>(unsigned x, float* out) {
+  out[0] = __uint_as_float(x << 16);
+  out[1] = __uint_as_float(x & 0xffff0000u);
+}
+template <>
+__device__ __forceinline__ void unpack<int8_t>(unsigned x, float* out) {
+  const unsigned biased = x ^ 0x80808080u;  // each byte c + 128
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650 + i)),
+                       8388736.0f);  // 2^23 + 128
 }
 
 // ---------------------------------------------------------------------------
@@ -842,6 +603,607 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
 }
 
 // ---------------------------------------------------------------------------
+// Plan "two_read": every storage type and shape. It replaces the TPU
+// kernel's one-read column panel where no one-read plan applies (P > 8192,
+// fp32 past B = 8, V off the panels' multiples): two passes over H, each
+// reading it once for up to kMaxMB batch rows (a larger B runs in batch
+// tiles of 32, each a pass of its own). Five kernels a call, the same at
+// every B:
+//
+//   transpose_w_kernel: w [B, P] -> wT [Pp, Ws], zero past B and P, so the
+//     weights of one row of H for every batch row are contiguous.
+//   bp_kernel: a block owns a tile of voxel columns (64 lanes of TN columns:
+//     16 bytes of them a lane up to MB = 4, 1 KB of each row; 4 a lane from
+//     MB = 8, 32 lanes at MB = 32) and one of S splits of P. A ring of
+//     kStages cp.async stages brings 16 KB of H (Kt rows) and the rows'
+//     weights [Kt, MB] into shared memory. Row group g of 4 sums the split's
+//     rows g, g + 4, ... in ascending order, thread (g, batch group, lane c)
+//     its TM batch rows at its TN columns, and the groups' sums meet as
+//     (q0 + q1) + (q2 + q3). Every batch group reads the same tile, so H
+//     leaves device memory once for all MB rows; a row of weights is one to
+//     four 16-byte shared loads for TM x TN FMAs. Writes partials [S, B, V].
+//   finish_kernel: bp = the S partials summed in split order (rounded times
+//     the scale for codes), the update, f_new [B, V] and the forward operand
+//     xs [Bpad, Vp] (f_new, times the scale for codes, rounded; zero in
+//     padded rows and columns), computed once a call.
+//   forward_kernel: a block owns 64 pixel rows and one of S2 splits of V.
+//     Lane kl of 8 takes piece kl (16 bytes) of each 128-byte step of a row
+//     and sums its pieces in ascending order; the 8 lanes of a row meet in a
+//     fixed butterfly. The operand [MB, V] is read from shared memory, where
+//     cp.async brings it a chunk at a time, double-buffered: it crosses L2
+//     once per 64 rows. Up to MB = 8 a lane holds 2 rows with 4 steps of
+//     them in flight in registers; from MB = 16 it holds 8 rows for half
+//     the batch rows (its twin lane, the other half, loads the same pieces
+//     in the same request), and H comes through a cp.async ring in shared
+//     memory (FwdStaged), since the accumulators leave no registers for
+//     loads in flight. Writes partials [S2, B, P].
+//   sum_partials_kernel: fitted = the S2 partials summed in split order.
+//
+// S and S2 follow from (P, V) alone: each is picked so the blocks fill the
+// 132 SMs evenly, and capped so that no accumulator sums more than 1024
+// terms in a row (a long fp32 chain drifts from the exact sum as it grows).
+// A thread sums its rows (bp) or pieces (forward) in ascending order
+// whatever its batch rows, so every output's order of summation depends on
+// P, V, the storage type and whether H's rows are 16-byte aligned, never on
+// B or on the row's place in the batch: a row gives the same bytes in any
+// batch and alone. H's rows off 16-byte alignment (V * sizeof(T) % 16 !=
+// 0, or H itself) take forward_kernel and bp_kernel with element-wise loads
+// of H (kVec = false).
+//
+// What bounds it: one read of H a pass (bytes) up to about B = 32 for fp32,
+// whose 2 B FLOP per 4 bytes come near the card's 20 FLOP a byte there;
+// fp32 stays on CUDA-core FMAs. Measured on the H100 (sweep kernels and
+// shared-memory loads, PERF.md): a 16-byte shared load that 8 lanes of a
+// quarter-warp read at 8 addresses takes 4 cycles a warp, at one address 2,
+// which is what bounds the forward pass's operand reads per FMA
+// (sweep_measure.py lds); H streams in 128-byte steps of a row (forward)
+// and 1 KB rows (bp), runs long enough for full DRAM bursts.
+// ---------------------------------------------------------------------------
+namespace two_read {
+
+constexpr int kMaxMB = 32;       // batch rows a pass
+constexpr int kSMs = 132;        // the H100 SXM's; the splits aim to fill them evenly
+// bp
+constexpr int kCols = 256;       // voxel columns of a nominal block: the splits' unit
+constexpr int kGroups = 4;       // row groups of a block: rows p0 + g, p0 + g + 4, ...
+constexpr int kStages = 4;       // cp.async ring depth
+constexpr int kStageBytes = 16384;  // bytes of H a stage
+constexpr int kMinSplitRows = 256;
+constexpr int kMaxSplitRows = 4096;  // a row group sums at most 1024 rows in a row
+// forward
+constexpr int kRows = 64;        // pixel rows a block
+constexpr int kSplitColsAlign = 1024;  // a split's columns, a multiple of every chunk
+constexpr int kMinSplitCols = 1024;
+constexpr int kMaxSplitCols = 8192;  // a lane sums at most 1024 columns in a row
+
+// The bp kernel's shape for storage type T and MB batch rows a pass
+template <typename T, int MB>
+struct Bp {
+  static constexpr int TM = MB < 16 ? MB : 16;  // batch rows a thread
+  static constexpr int BG = MB / TM;            // groups of batch rows
+  // columns a thread: 16 bytes of them up to MB = 4 (fewer instructions a
+  // byte for bf16 and codes), else 4
+  static constexpr int TN = MB <= 4 ? 16 / (int)sizeof(T) : 4;
+  static constexpr int Lanes = MB < 32 ? 64 : 32;  // threads along the columns
+  static constexpr int Cols = Lanes * TN;       // columns a block
+  static constexpr int kThreads = kGroups * BG * Lanes;
+  static constexpr int Kt = kStageBytes / (Cols * (int)sizeof(T));  // rows a stage
+  static constexpr int WS = MB < 4 ? 4 : MB;    // floats of a row of weights
+  static constexpr int kStage = kStageBytes + Kt * WS * 4;
+  static constexpr int kSmem = kStages * kStage;
+  static constexpr int kSlot = MB * Cols;       // floats of one row group's sums
+  static_assert(BG * TM == MB && Kt % kGroups == 0, "two_read: bp shape");
+  static_assert(2 * kSlot * 4 <= kSmem, "two_read: bp reduction slots");
+};
+
+// The forward kernel's shape for storage type T and MB batch rows a pass.
+// Lane (kl, bh, rl) of a warp: kl = lane % 8 holds piece kl of each
+// 128-byte step; from MB = 16 on the batch rows are split between bh = 0
+// and 1, two lanes that load the same pieces of H in one request; rl picks
+// its R rows rl, rl + RL, ... of the warp's RL R (RL = 4 / BH row lanes).
+// Ahead steps of a row are in flight a lane; the operand comes in chunks of
+// C columns (the warps meet once a chunk). None of it changes a sum's
+// order: a row's pieces go to lanes kl by their place in the row alone.
+template <typename T, int MB>
+struct Fwd {
+  static constexpr int BH = MB < 16 ? 1 : 2;  // batch halves
+  static constexpr int MBL = MB / BH;          // batch rows a lane
+  static constexpr int RL = 4 / BH;            // row lanes of a warp
+  static constexpr int R = MB < 16 ? 2 : 8;    // rows a lane
+  static constexpr int kWarps = kRows / (RL * R);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int Ahead = MB < 16 ? 4 : 1;
+  static constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte piece
+  static constexpr int kStep = 8 * E;            // columns of a 128-byte step
+  static constexpr int C = MB <= 4 ? 1024 : Ahead * kStep > 256 ? Ahead * kStep : 256;
+  static constexpr int kSmem = 2 * MB * C * 4;
+  static_assert(C % (Ahead * kStep) == 0 && kSplitColsAlign % C == 0 &&
+                    RL * R * kWarps == kRows && MBL * BH == MB,
+                "two_read: forward shape");
+};
+
+// src [rows, cols] -> dst [cols_pad, ld] (dst[c][r] = src[r][c], zero past
+// rows and cols); 32 x 32 tiles through shared memory, block (32, 8)
+__global__ void transpose_w_kernel(const float* __restrict__ src, int rows, int cols,
+                                   int cols_pad, int ld, float* __restrict__ dst) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+#pragma unroll
+  for (int j = 0; j < 32; j += 8) {
+    const int r = r0 + ty + j, c = c0 + tx;
+    tile[ty + j][tx] = (r < rows && c < cols) ? src[(long long)r * cols + c] : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 32; j += 8) {
+    const int c = c0 + ty + j, r = r0 + tx;
+    if (c < cols_pad && r < ld) dst[(long long)c * ld + r] = tile[tx][ty + j];
+  }
+}
+
+// TN neighbouring columns of a tile row (4, 8 or 16 bytes), converted
+// exactly to fp32
+template <typename T, int TN>
+__device__ __forceinline__ void load_cols(const T* p, float (&h)[TN]) {
+  constexpr int kWords = TN * (int)sizeof(T) / 4;
+  constexpr int W = 4 / (int)sizeof(T);  // columns a word
+  unsigned x[kWords];
+  if constexpr (kWords == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else if constexpr (kWords == 2) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    x[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) unpack<T>(x[k], h + k * W);
+}
+
+// TM floats of a row of weights as one to four shared loads
+template <int TM>
+__device__ __forceinline__ void load_weights(const float* row, float (&wv)[TM]) {
+  if constexpr (TM == 1) {
+    wv[0] = row[0];
+  } else if constexpr (TM == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(row);
+    wv[0] = q.x;
+    wv[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < TM / 4; ++k) {
+      const float4 q = reinterpret_cast<const float4*>(row)[k];
+      wv[4 * k] = q.x; wv[4 * k + 1] = q.y; wv[4 * k + 2] = q.z; wv[4 * k + 3] = q.w;
+    }
+  }
+}
+
+// part[split, b, v] = sum of w[b, p] H[p, v] over the split's rows p0 ..
+// p1 - 1: row group g sums rows p0 + g, p0 + g + 4, ... in ascending order,
+// and the groups' sums meet as (q0 + q1) + (q2 + q3). Grid: (column blocks,
+// S, batch tiles); thread t is column lane t % L of batch group (t / L) %
+// BG in row group t / (L BG), L = Cols / TN.
+template <typename T, int MB, bool kVec>
+__global__ void __launch_bounds__(Bp<T, MB>::kThreads)
+bp_kernel(const T* __restrict__ H, const float* __restrict__ wT, float* __restrict__ part,
+          int P, int V, int B, int Ws, int rows_per_split) {
+  using K = Bp<T, MB>;
+  constexpr int TM = K::TM, TN = K::TN, Kt = K::Kt, WS = K::WS, NT = K::kThreads;
+  constexpr int kC = K::Cols, kL = K::Lanes;
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements of a 16-byte chunk
+  constexpr int kRowChunks = kC / kPer;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int cl = t % kL, bg = (t / kL) % K::BG, g = t / (kL * K::BG);
+  const long long nb = (long long)blockIdx.x * kC;
+  const int split = blockIdx.y;
+  const int b0 = blockIdx.z * MB;
+  const int p0 = split * rows_per_split;
+  const int p1 = min(P, p0 + rows_per_split);
+  const int n_tiles = (p1 - p0 + Kt - 1) / Kt;
+
+  auto load_stage = [&](int it) {
+    unsigned char* st = smem + (it % kStages) * K::kStage;
+    T* ht = reinterpret_cast<T*>(st);
+    float* wt = reinterpret_cast<float*>(st + kStageBytes);
+    const int r0 = p0 + it * Kt;
+    if constexpr (kVec) {
+      for (int i = t; i < Kt * kRowChunks; i += NT) {
+        const int r = i / kRowChunks, c = i - r * kRowChunks;
+        const long long n = nb + (long long)c * kPer;
+        const bool ok = r0 + r < p1 && n < V;  // a chunk is all in or all out
+        cp_async16(ht + r * kC + c * kPer, H + (ok ? (long long)(r0 + r) * V + n : 0), ok);
+      }
+    } else {
+      for (int i = t; i < Kt * kC; i += NT) {
+        const int r = i / kC, c = i - r * kC;
+        const long long n = nb + c;
+        ht[i] = (r0 + r < p1 && n < V) ? H[(long long)(r0 + r) * V + n] : T(0);
+      }
+    }
+    for (int i = t; i < Kt * (WS / 4); i += NT) {
+      const int r = i / (WS / 4), c = i - r * (WS / 4);
+      const bool ok = r0 + r < p1;
+      cp_async16(wt + r * WS + 4 * c, wT + (ok ? (long long)(r0 + r) * Ws + b0 + 4 * c : 0), ok);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int b = 0; b < TM; ++b)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[b][c] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_stage(i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the stage has landed; the one refilled below is read by no one
+    if (it + kStages - 1 < n_tiles) load_stage(it + kStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (it % kStages) * K::kStage;
+    const T* ht = reinterpret_cast<const T*>(st) + TN * cl;
+    const float* wt = reinterpret_cast<const float*>(st + kStageBytes) + bg * TM;
+    const int rows = min(Kt, p1 - p0 - it * Kt);
+#pragma unroll 4
+    for (int r = g; r < Kt; r += kGroups) {
+      if (r < rows) {
+        float h[TN], wv[TM];
+        load_cols<T, TN>(ht + r * kC, h);
+        load_weights<TM>(wt + r * WS, wv);
+#pragma unroll
+        for (int b = 0; b < TM; ++b)
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[b][c] = fmaf(wv[b], h[c], acc[b][c]);
+      }
+    }
+  }
+
+  // (q0 + q1) + (q2 + q3) through the ring's memory: slot k holds one row
+  // group's sums, [TM * TN][BG * L] (neighbouring threads, neighbouring words)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  const int li = t % (kL * K::BG);
+  auto slot = [&](int k, int b, int c) -> float& {
+    return red[k * K::kSlot + (b * TN + c) * (kL * K::BG) + li];
+  };
+  if (g & 1) {
+#pragma unroll
+    for (int b = 0; b < TM; ++b)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) slot(g >> 1, b, c) = acc[b][c];
+  }
+  __syncthreads();
+  if (!(g & 1)) {
+#pragma unroll
+    for (int b = 0; b < TM; ++b)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[b][c] += slot(g >> 1, b, c);
+  }
+  __syncthreads();
+  if (g == 2) {
+#pragma unroll
+    for (int b = 0; b < TM; ++b)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) slot(0, b, c) = acc[b][c];
+  }
+  __syncthreads();
+  if (g != 0) return;
+#pragma unroll
+  for (int b = 0; b < TM; ++b) {
+    const int bb = b0 + bg * TM + b;
+    if (bb >= B) continue;
+    float* out = part + ((long long)split * B + bb) * V;
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const long long v = nb + TN * cl + c;
+      if (v < V) out[v] = acc[b][c] + slot(0, b, c);
+    }
+  }
+}
+
+// bp from the S partials in split order, the update, f_new and the forward
+// operand xs [Bpad, Vp] (zero past B and V).
+template <typename T>
+__global__ void finish_kernel(const float* __restrict__ part, int S,
+                              const float* __restrict__ scale, const float* __restrict__ f,
+                              AuxPanels aux, float* __restrict__ f_new, float* __restrict__ xs,
+                              int B, int Bpad, int V, int Vp, int mode, int has_pen,
+                              float alpha, float eps) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  const long long total = (long long)Bpad * Vp;
+  const long long plane = (long long)B * V;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int b = (int)(i / Vp);
+    const int v = (int)(i - (long long)b * Vp);
+    float x = 0.0f;
+    if (b < B && v < V) {
+      const long long o = (long long)b * V + v;
+      float bp = part[o];
+      for (int s = 1; s < S; ++s) bp += part[s * plane + o];
+      const float sc = kScaled ? scale[v] : 1.0f;
+      if (kScaled) bp = __fmul_rn(bp, sc);
+      const float fn = update(mode, has_pen, alpha, eps, f[o], bp, aux, b, v);
+      f_new[o] = fn;
+      x = kScaled ? __fmul_rn(fn, sc) : fn;
+    }
+    xs[i] = x;
+  }
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& q, int k) {
+  return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+}
+
+// Elements 4j .. 4j + 3 of a 16-byte piece of H as fp32
+template <typename T, int j>
+__device__ __forceinline__ void quad_of(const uint4& q, float (&h)[4]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __uint_as_float(word_of(q, e));
+  } else if constexpr (sizeof(T) == 2) {
+    unpack<T>(word_of(q, 2 * j), h);
+    unpack<T>(word_of(q, 2 * j + 1), h + 2);
+  } else {
+    unpack<T>(word_of(q, j), h);
+  }
+}
+
+// acc[i][b] += h[i][e] x[b][4j + e] for e < 4 (and 4j + e < lim): the
+// operand's float4 j of the lane's piece, batch row b, at xp + b C + 32 j
+template <int R, int MB, int C>
+__device__ __forceinline__ void fma_quad(float (&acc)[R][MB], const float (&h)[R][4],
+                                         const float* xp, int j, int lim) {
+#pragma unroll
+  for (int b = 0; b < MB; ++b) {
+    const float4 q = *reinterpret_cast<const float4*>(xp + b * C + 32 * j);
+    const float x[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * j + e < lim) acc[i][b] = fmaf(h[i][e], x[e], acc[i][b]);
+  }
+}
+
+// A 16-byte piece of each of R rows (raw) against the operand, its J
+// float4s in order
+template <typename T, int R, int MB, int C, int J, int j>
+__device__ __forceinline__ void fma_piece(float (&acc)[R][MB], const uint4 (&raw)[R],
+                                          const float* xp) {
+  if constexpr (j < J) {
+    float h[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) quad_of<T, j>(raw[i], h[i]);
+    fma_quad<R, MB, C>(acc, h, xp, j, 4 * J);
+    fma_piece<T, R, MB, C, J, j + 1>(acc, raw, xp);
+  }
+}
+
+// The forward pass from MB = 16 on, H's rows 16-byte aligned, stages H
+// through shared memory by cp.async, a 128-byte step of the block's rows a
+// stage beside the operand's step, kStages stages in flight: the
+// accumulators of 8 rows x MB / 2 batch rows leave no registers for loads
+// in flight. The same lanes and sums, so the same bytes.
+template <typename T, int MB>
+struct FwdStaged {
+  using K = Fwd<T, MB>;
+  static constexpr int kStages = 4;
+  static constexpr int kHBytes = kRows * 128;                 // a step of every row
+  static constexpr int kStage = kHBytes + MB * K::kStep * 4;  // and of every batch row's operand
+  static constexpr int kSmem = kStages * kStage;
+  static_assert(K::BH == 2 && K::Ahead == 1, "two_read: staged forward shape");
+};
+
+// The forward kernel's shared memory: the staged ring from MB = 16 on (H's
+// rows 16-byte aligned), else the operand's double buffer
+template <typename T, int MB, bool kVec>
+constexpr int forward_smem() {
+  if constexpr (kVec && MB >= 16) {
+    return FwdStaged<T, MB>::kSmem;
+  } else {
+    return Fwd<T, MB>::kSmem;
+  }
+}
+
+// part[split, b, p] = sum of xs[b, k] H[p, k] over the split's columns.
+// Grid: (row blocks, S2, batch tiles). A lane sums its pieces of each of
+// its rows in ascending order, for its batch rows; the 8 lanes of a row
+// meet in a fixed butterfly. The operand's chunk is kept with the float4s
+// of each step permuted so that the 8 lanes of a row read 8 neighbouring
+// float4s in each shared load: float4 kl J + j of a step (lane kl's j-th)
+// sits at j 8 + kl.
+template <typename T, int MB, bool kVec>
+__global__ void __launch_bounds__(Fwd<T, MB>::kThreads)
+forward_kernel(const T* __restrict__ H, const float* __restrict__ xs, float* __restrict__ part,
+               int P, int V, int Vp, int B, int cols_per_split) {
+  using K = Fwd<T, MB>;
+  constexpr int R = K::R, RL = K::RL, MBL = K::MBL, E = K::E, kStep = K::kStep, C = K::C;
+  constexpr int A = K::Ahead, NT = K::kThreads;
+  constexpr int J = E / 4;                // the piece's float4s of the operand
+  constexpr int kSteps = C / kStep;       // steps a chunk
+  constexpr int kQ = C / 4;               // float4s of a chunk row
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xsm = reinterpret_cast<float*>(smem);  // [2][MB][C]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int kl = lane & 7;
+  const int bh = K::BH == 1 ? 0 : (lane >> 3) & 1;
+  const int rl = lane >> (K::BH == 1 ? 3 : 4);
+  const long long prow0 = (long long)blockIdx.x * kRows + warp * RL * R + rl;
+  const int split = blockIdx.y;
+  const int b0 = blockIdx.z * MB;
+  const long long k0 = (long long)split * cols_per_split;
+  const long long k1 = min((long long)V, k0 + cols_per_split);
+  const int n_chunks = (int)((k1 - k0 + C - 1) / C);
+  // lane kl's piece of global step g starts at column k0 + g kStep + kl E
+  auto piece_at = [&](int g) { return k0 + (long long)g * kStep + kl * E; };
+
+  float acc[R][MBL];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int b = 0; b < MBL; ++b) acc[i][b] = 0.0f;
+
+  if constexpr (kVec && MB >= 16) {
+    using S = FwdStaged<T, MB>;
+    constexpr int NS = S::kStages;
+    const long long pb = (long long)blockIdx.x * kRows;
+    const int row0 = (int)(prow0 - pb);  // the lane's first row in the block
+    const int n_steps = (int)((k1 - k0 + kStep - 1) / kStep);
+    auto load_stage = [&](int g) {
+      unsigned char* st = smem + (g % NS) * S::kStage;
+      float* xst = reinterpret_cast<float*>(st + S::kHBytes);
+      const long long kg = k0 + (long long)g * kStep;
+      for (int i = t; i < kRows * 8; i += NT) {
+        const int r = i >> 3, c = i & 7;
+        const long long p = pb + r, kc = kg + c * E;
+        const bool ok = p < P && kc < k1;  // a piece is all in or all out
+        cp_async16(st + r * 128 + c * 16, H + (ok ? p * V + kc : 0), ok);
+      }
+      for (int i = t; i < MB * 2 * E; i += NT) {  // kg + kStep <= Vp
+        const int b = i / (2 * E), q = i - b * (2 * E);
+        const int pos = (q % J) * 8 + q / J;
+        cp_async16(xst + b * kStep + 4 * pos, xs + (long long)(b0 + b) * Vp + kg + 4 * q, true);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < NS - 1; ++i) {
+      if (i < n_steps) load_stage(i);
+      cp_async_commit();
+    }
+    for (int g = 0; g < n_steps; ++g) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();  // the stage has landed; the one refilled below is read by no one
+      if (g + NS - 1 < n_steps) load_stage(g + NS - 1);
+      cp_async_commit();
+      if (piece_at(g) < k1) {
+        const unsigned char* st = smem + (g % NS) * S::kStage;
+        uint4 raw[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          raw[i] = *reinterpret_cast<const uint4*>(st + (row0 + RL * i) * 128 + kl * 16);
+        const float* xp =
+            reinterpret_cast<const float*>(st + S::kHBytes) + bh * MBL * kStep + 4 * kl;
+        fma_piece<T, R, MBL, kStep, J, 0>(acc, raw, xp);
+      }
+    }
+  } else {
+    const T* hrow[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long p = prow0 + RL * i;
+      hrow[i] = H + (p < P ? p : (long long)P - 1) * V;
+    }
+
+    auto load_chunk = [&](int c) {
+      float* dst = xsm + (c & 1) * MB * C;
+      const long long kc = k0 + (long long)c * C;  // kc + C <= Vp
+      for (int i = t; i < MB * kQ; i += NT) {
+        const int b = i / kQ, q = i - b * kQ;
+        const int s = q / (2 * E), qq = q - s * (2 * E);
+        const int pos = s * (2 * E) + (qq % J) * 8 + qq / J;
+        cp_async16(dst + b * C + 4 * pos, xs + (long long)(b0 + b) * Vp + kc + 4 * q, true);
+      }
+    };
+    uint4 ring[A][R];
+    auto fetch = [&](int g, uint4 (&raw)[R]) {
+      const long long kc = piece_at(g);
+      if (kVec && kc < k1) {  // V * sizeof(T) % 16 == 0: a piece is all in or all out
+#pragma unroll
+        for (int i = 0; i < R; ++i) raw[i] = __ldg(reinterpret_cast<const uint4*>(hrow[i] + kc));
+      }
+    };
+    if constexpr (kVec) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) fetch(a, ring[a]);
+    }
+    load_chunk(0);
+    cp_async_commit();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) {
+        load_chunk(c + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // the lane's batch rows of the chunk
+      const float* xc = xsm + (c & 1) * MB * C + bh * MBL * C;
+      for (int s0 = 0; s0 < kSteps; s0 += A) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) {  // ring slot a holds step s0 + a
+          const int s = s0 + a;
+          const int g = c * kSteps + s;
+          const long long kc = piece_at(g);
+          const float* xp = xc + 4 * (s * 2 * E + kl);
+          if constexpr (kVec) {
+            if (kc < k1) fma_piece<T, R, MBL, C, J, 0>(acc, ring[a], xp);
+            fetch(g + A, ring[a]);
+          } else if (kc < k1) {
+            const int lim = (int)min((long long)E, k1 - kc);
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              float h[R][4];
+#pragma unroll
+              for (int i = 0; i < R; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int el = 4 * j + e;
+                  unsigned word = 0;
+                  if (el < lim) {
+                    if constexpr (sizeof(T) == 4) word = __float_as_uint(hrow[i][kc + el]);
+                    else if constexpr (sizeof(T) == 2) word = hrow[i][kc + el];
+                    else word = (unsigned char)hrow[i][kc + el];
+                  }
+                  float x[4];
+                  unpack<T>(word, x);  // the element in the low bits
+                  h[i][e] = x[0];
+                }
+              fma_quad<R, MBL, C>(acc, h, xp, j, lim);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the buffer is refilled two chunks on
+    }
+  }
+
+  // the 8 lanes of a row: a fixed butterfly (a + b == b + a exactly, so
+  // every lane ends with the same sum)
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int b = 0; b < MBL; ++b) {
+      float v = acc[i][b];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      acc[i][b] = v;
+    }
+  if (kl == 0) {
+    const int bl = b0 + bh * MBL;  // the lane's first batch row
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long p = prow0 + RL * i;
+      if (p >= P) continue;
+#pragma unroll
+      for (int b = 0; b < MBL; ++b)
+        if (bl + b < B) part[((long long)split * B + bl + b) * P + p] = acc[i][b];
+    }
+  }
+}
+
+}  // namespace two_read
+
+// ---------------------------------------------------------------------------
 // Plan "one_read": small B (fp32 up to 8, bf16 and int8 up to 4), H read
 // once, every storage type.
 //
@@ -948,30 +1310,6 @@ struct Cfg {
   static constexpr int kRowsPerThread = kMaxRows / kThreads;  // fitted pass
   static_assert(sizeof(Smem) <= kSmemLimit, "one_read: shared memory");
 };
-
-// The columns of storage type T in the 32-bit word x, first column in the
-// low bits, converted exactly to fp32 without the conversion unit: a bf16
-// value is the upper half of its fp32 pattern; a code c + 128 in the low byte
-// of 2^23's pattern is the float 2^23 + c + 128.
-template <typename T>
-__device__ __forceinline__ void unpack(unsigned x, float* out);
-template <>
-__device__ __forceinline__ void unpack<float>(unsigned x, float* out) {
-  out[0] = __uint_as_float(x);
-}
-template <>
-__device__ __forceinline__ void unpack<bf16_bits>(unsigned x, float* out) {
-  out[0] = __uint_as_float(x << 16);
-  out[1] = __uint_as_float(x & 0xffff0000u);
-}
-template <>
-__device__ __forceinline__ void unpack<int8_t>(unsigned x, float* out) {
-  const unsigned biased = x ^ 0x80808080u;  // each byte c + 128
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    out[i] = __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650 + i)),
-                       8388736.0f);  // 2^23 + 128
-}
 
 // Row r's weights of the NB batch rows, from its kWStride floats
 template <int NB, int S>
@@ -1309,50 +1647,125 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int NB, int VW>
-cudaError_t launch(const T* H, const Args& a) {
-  const unsigned nbatch = (unsigned)((a.B + NB - 1) / NB);
-  const dim3 grid_bp((unsigned)((a.V + 32 * VW - 1) / (32 * VW)), nbatch);
-  bp_update_kernel<T, NB, VW><<<grid_bp, kThreads, 0, a.stream>>>(
-      H, a.scale, a.w, a.f, a.aux, a.f_new, a.P, a.V, a.B, a.mode, a.has_pen,
-      a.alpha, a.eps);
+long long align256(long long n) { return (n + 255) / 256 * 256; }
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+long long round_up(long long a, long long b) { return ceil_div(a, b) * b; }
+
+// The two_read plan's geometry and its scratch: wT [Pp, Ws], the bp
+// partials [S, B, V], the forward operand xs [Bpad, Vp] and the forward
+// partials [S2, B, P], fp32, each 256-byte aligned. The splits S (of P)
+// and S2 (of V) follow from the shape alone, never from B.
+struct TrShape {
+  int MB, tiles, Bpad, Ws, Pp, Vp, S, rows_per_split, S2, cols_per_split;
+  long long wt_bytes, bp_bytes, xs_bytes, fwd_bytes;
+};
+
+// The split count for `units` blocks a split, at most `most`: the smallest
+// that fills the SMs at least 1.5 blocks deep with at most a tenth of them
+// idle in the last round, else the one that idles the fewest.
+long long pick_splits(long long units, long long most) {
+  long long best = 1;
+  double best_use = 0.0;
+  for (long long s = 1; s <= most && s <= 64; ++s) {
+    const double rounds = (double)(units * s) / two_read::kSMs;
+    const double use = rounds / std::ceil(rounds);
+    if (rounds >= 1.5 && use >= 0.9) return s;
+    if (use > best_use) {
+      best_use = use;
+      best = s;
+    }
+  }
+  return best;
+}
+
+TrShape tr_shape(long long P, long long V, long long B) {
+  using namespace two_read;
+  TrShape s;
+  s.MB = B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : B <= 16 ? 16 : kMaxMB;
+  s.tiles = (int)ceil_div(B, s.MB);
+  s.Bpad = s.MB * s.tiles;
+  s.Ws = s.Bpad < 4 ? 4 : s.Bpad;
+  s.Pp = (int)round_up(P, 32);
+  s.Vp = (int)round_up(V, kSplitColsAlign);
+  long long want = std::max(pick_splits(ceil_div(V, kCols), ceil_div(P, kMinSplitRows)),
+                            ceil_div(P, kMaxSplitRows));
+  s.rows_per_split = (int)std::min(round_up(ceil_div(P, want), 64), P);
+  s.S = (int)ceil_div(P, s.rows_per_split);
+  want = std::max(pick_splits(ceil_div(P, kRows), ceil_div(V, kMinSplitCols)),
+                  ceil_div(V, kMaxSplitCols));
+  s.cols_per_split = (int)round_up(ceil_div(V, want), kSplitColsAlign);
+  s.S2 = (int)ceil_div(V, s.cols_per_split);
+  s.wt_bytes = align256((long long)s.Pp * s.Ws * 4);
+  s.bp_bytes = align256((long long)s.S * B * V * 4);
+  s.xs_bytes = align256((long long)s.Bpad * s.Vp * 4);
+  s.fwd_bytes = align256((long long)s.S2 * B * P * 4);
+  return s;
+}
+
+template <typename T, int MB, bool kVec>
+cudaError_t launch_two_read(const T* H, const Args& a, const TrShape& s) {
+  using namespace two_read;
+  using K = Bp<T, MB>;
+  constexpr int kFwdSmem = forward_smem<T, MB, kVec>();
+  float* wT = reinterpret_cast<float*>(a.scratch);
+  float* bp = reinterpret_cast<float*>(a.scratch + s.wt_bytes);
+  float* xs = reinterpret_cast<float*>(a.scratch + s.wt_bytes + s.bp_bytes);
+  float* fwd = reinterpret_cast<float*>(a.scratch + s.wt_bytes + s.bp_bytes + s.xs_bytes);
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(bp_kernel<T, MB, kVec>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(forward_kernel<T, MB, kVec>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid_t((unsigned)(s.Pp / 32), (unsigned)ceil_div(s.Ws, 32));
+  transpose_w_kernel<<<grid_t, dim3(32, 8), 0, a.stream>>>(a.w, a.B, a.P, s.Pp, s.Ws, wT);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows_per_block = kWarps * kRowsPerWarp;
-  const dim3 grid_fwd((unsigned)((a.P + rows_per_block - 1) / rows_per_block), nbatch);
-  forward_kernel<T, NB, VW><<<grid_fwd, kThreads, 0, a.stream>>>(
-      H, a.scale, a.f_new, a.fitted, a.P, a.V, a.B);
+  const dim3 grid_bp((unsigned)ceil_div(a.V, K::Cols), (unsigned)s.S, (unsigned)s.tiles);
+  bp_kernel<T, MB, kVec><<<grid_bp, K::kThreads, K::kSmem, a.stream>>>(
+      H, wT, bp, a.P, a.V, a.B, s.Ws, s.rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)s.Bpad * s.Vp;
+  const unsigned grid_f = (unsigned)std::min(ceil_div(n, 256), 8LL * kSMs);
+  finish_kernel<T><<<grid_f, 256, 0, a.stream>>>(bp, s.S, a.scale, a.f, a.aux, a.f_new,
+                                                      xs, a.B, s.Bpad, a.V, s.Vp, a.mode,
+                                                      a.has_pen, a.alpha, a.eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_fwd((unsigned)ceil_div(a.P, kRows), (unsigned)s.S2, (unsigned)s.tiles);
+  forward_kernel<T, MB, kVec><<<grid_fwd, Fwd<T, MB>::kThreads, kFwdSmem, a.stream>>>(
+      H, xs, fwd, a.P, a.V, s.Vp, a.B, s.cols_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<264, 256, 0, a.stream>>>(fwd, s.S2, a.B, a.B, a.P, a.fitted);
   return cudaGetLastError();
 }
 
-// Batch tiles of 1, 2, 4 or 8 rows (bf16 at most 4: its tile of 8 took 14%
-// longer than two tiles of 4 at 8192 x 65536, B = 8, on the H100, its
-// forward kernel the slower; PERF.md, the kernel table).
-template <typename T>
-constexpr int two_read_max_nb() { return std::is_same<T, bf16_bits>::value ? 4 : 8; }
-
-template <typename T, int VW>
-cudaError_t dispatch_nb(const T* H, const Args& a) {
-  if (a.B == 1) return launch<T, 1, VW>(H, a);
-  if (a.B == 2) return launch<T, 2, VW>(H, a);
-  if constexpr (two_read_max_nb<T>() == 8) {
-    if (a.B > 4) return launch<T, 8, VW>(H, a);
+template <typename T, bool kVec>
+cudaError_t dispatch_two_read_mb(const T* H, const Args& a, const TrShape& s) {
+  switch (s.MB) {
+    case 1: return launch_two_read<T, 1, kVec>(H, a, s);
+    case 2: return launch_two_read<T, 2, kVec>(H, a, s);
+    case 4: return launch_two_read<T, 4, kVec>(H, a, s);
+    case 8: return launch_two_read<T, 8, kVec>(H, a, s);
+    case 16: return launch_two_read<T, 16, kVec>(H, a, s);
+    default: return launch_two_read<T, two_read::kMaxMB, kVec>(H, a, s);
   }
-  return launch<T, 4, VW>(H, a);
 }
 
-// The vector path needs whole vectors per row (V % 4 == 0) and H, f_new
-// and the scale aligned for a 4-element load of their types.
+// The 16-byte loads of H need its rows 16-byte aligned; other shapes take
+// element-wise loads of H through the same kernels.
 template <typename T>
-cudaError_t dispatch(const void* H, const Args& a) {
+cudaError_t dispatch_two_read(const void* H, const Args& a) {
   const T* h = static_cast<const T*>(H);
-  const bool vec4 = a.V % 4 == 0 && (uintptr_t)H % (4 * sizeof(T)) == 0 &&
-                    (uintptr_t)a.f_new % 16 == 0 &&
-                    (uintptr_t)a.scale % 16 == 0;
-  return vec4 ? dispatch_nb<T, 4>(h, a) : dispatch_nb<T, 1>(h, a);
+  const TrShape s = tr_shape(a.P, a.V, a.B);
+  const bool vec = (uintptr_t)H % 16 == 0 && ((long long)a.V * sizeof(T)) % 16 == 0;
+  return vec ? dispatch_two_read_mb<T, true>(h, a, s) : dispatch_two_read_mb<T, false>(h, a, s);
 }
-
-long long align256(long long n) { return (n + 255) / 256 * 256; }
 
 // The tensor_core plan's geometry, from the shape alone, and its scratch:
 // w's pieces [3, Bpad, Ppad] bf16, then xs [3, Bpad, V] bf16, then the
@@ -1383,7 +1796,10 @@ TcShape tc_shape(long long P, long long V, long long B) {
 }
 
 long long scratch_bytes(int plan, long long P, long long V, long long B) {
-  if (plan == kTwoRead) return 0;
+  if (plan == kTwoRead) {
+    const TrShape s = tr_shape(P, V, B);
+    return s.wt_bytes + s.bp_bytes + s.xs_bytes + s.fwd_bytes;
+  }
   if (plan == kOneRead) return align256((long long)one_read::kMaxClusters * B * P * 4);
   if (plan == kTensorCore) {
     const TcShape s = tc_shape(P, V, B);
@@ -1578,9 +1994,9 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
              const void* H) {
   const bool h16 = (uintptr_t)H % 16 == 0;
   switch (plan) {
-    case kTwoRead: {  // grid.y: the batch tiles
-      const int nb = storage == 1 ? two_read_max_nb<bf16_bits>() : two_read_max_nb<float>();
-      return (B + nb - 1) / nb <= 65535;
+    case kTwoRead: {  // grid.y: the splits; grid.z: the batch tiles
+      const TrShape s = tr_shape(P, V, B);
+      return s.S <= 65535 && s.S2 <= 65535 && s.tiles <= 65535;
     }
     case kOneRead:  // V in whole panels (16, 32 or 64 columns)
       return B <= (storage == 0 ? one_read_max_b<float>() : one_read_max_b<int8_t>()) &&
@@ -1594,8 +2010,7 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
 
 }  // namespace
 
-// Bytes of scratch the plan needs at this shape (0 for two_read); -1 for an
-// unknown plan. The caller allocates it, 256-byte aligned.
+// Bytes of scratch the plan needs at this shape; -1 for an unknown plan. The caller allocates it, 256-byte aligned.
 extern "C" long long sart_fused_sweep_scratch_bytes(int plan, long long P,
                                                     long long V, long long B) {
   return scratch_bytes(plan, P, V, B);
@@ -1691,12 +2106,7 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
       return (int)dispatch_tc<int8_t>(H, a);
     default: break;
   }
-  cudaError_t err;
-  if (storage == 0)
-    err = dispatch<float>(H, a);
-  else if (storage == 1)
-    err = dispatch<bf16_bits>(H, a);
-  else
-    err = dispatch<int8_t>(H, a);
-  return (int)err;
+  if (storage == 0) return (int)dispatch_two_read<float>(H, a);
+  if (storage == 1) return (int)dispatch_two_read<bf16_bits>(H, a);
+  return (int)dispatch_two_read<int8_t>(H, a);
 }

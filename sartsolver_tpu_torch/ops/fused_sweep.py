@@ -45,12 +45,14 @@ storage, a fixed rule of arithmetic:
   a panel 64 bytes wide; H read once, the panel split over a thread-block
   cluster);
 - ``"tensor_core"``: bf16 or int8 storage at ``B >=
-  TENSOR_CORE_MIN_B[storage]`` and ``V`` a multiple of
-  ``TENSOR_CORE_V_MULTIPLE`` (the bf16 tensor cores with the fp32 vectors
-  split exactly into three bf16 pieces), except where ``one_read`` applies
-  from ``P >= ONE_READ_OVER_TENSOR_CORE_MIN_P[storage]``;
-- ``"two_read"``: everything else (two launches, each reading H once per
-  batch tile of up to 8 rows).
+  TENSOR_CORE_MIN_B[storage]`` (past ``one_read``'s B, so the two never
+  compete) and ``V`` a multiple of ``TENSOR_CORE_V_MULTIPLE`` (the bf16
+  tensor cores with the fp32 vectors split exactly into three bf16 pieces);
+- ``"two_read"``: everything else (two passes, each reading H once for up
+  to 32 batch rows: a tile of H in shared memory serves every batch row in
+  the bp pass, and the forward pass keeps the operand in shared memory; the
+  splits of P and V, so every row's order of summation, follow from the
+  shape alone, never from B).
 
 A plan runs wherever its preconditions (:func:`plan_refusal`) hold; the
 rule takes a new plan only where it was measured faster than ``two_read``.
@@ -81,15 +83,12 @@ PLANS = {"two_read": 0, "one_read": 1, "tensor_core": 2}
 ONE_READ_MAX_P = 8 * 1024
 ONE_READ_MAX_B = {"float32": 8, "bfloat16": 4, "int8": 4}
 ONE_READ_V_MULTIPLE = {"float32": 16, "bfloat16": 32, "int8": 64}
-ONE_READ_MIN_P = {"float32": 1024, "bfloat16": 2 * 1024, "int8": 1024}
+ONE_READ_MIN_P = {"float32": 4 * 1024, "bfloat16": 4 * 1024, "int8": 2 * 1024}
 # tensor_core: from this batch size on it beats two_read at 8192 x 65536 on
 # the H100 (PERF.md, the crossover tables); V in whole 16-element runs
-# (aligned 16-byte loads of a row). Where both apply, one_read takes the
-# shape from this P on: int8 at B = 4, where one_read beat the tensor cores
-# from it and lost below; bf16 at B = 3 and 4 wherever its one_read applies.
-TENSOR_CORE_MIN_B = {"bfloat16": 3, "int8": 4}
+# (aligned 16-byte loads of a row)
+TENSOR_CORE_MIN_B = {"bfloat16": 5, "int8": 5}
 TENSOR_CORE_V_MULTIPLE = 16
-ONE_READ_OVER_TENSOR_CORE_MIN_P = {"bfloat16": 0, "int8": 5 * 1024}
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # H, storage, scale
@@ -129,14 +128,12 @@ def plan_refusal(plan: str, P: int, V: int, B: int, storage: str) -> Optional[st
 
 def plan_sweep(P: int, V: int, B: int, storage: str) -> str:
     """The plan a call of this shape and storage runs on the card."""
-    tensor_core = (B >= TENSOR_CORE_MIN_B.get(storage, B + 1)
-                   and plan_refusal("tensor_core", P, V, B, storage) is None)
-    lowest = ONE_READ_MIN_P[storage]
-    if tensor_core:
-        lowest = max(lowest, ONE_READ_OVER_TENSOR_CORE_MIN_P[storage])
-    if P >= lowest and plan_refusal("one_read", P, V, B, storage) is None:
+    if P >= ONE_READ_MIN_P[storage] and plan_refusal("one_read", P, V, B, storage) is None:
         return "one_read"
-    return "tensor_core" if tensor_core else "two_read"
+    if (B >= TENSOR_CORE_MIN_B.get(storage, B + 1)
+            and plan_refusal("tensor_core", P, V, B, storage) is None):
+        return "tensor_core"
+    return "two_read"
 
 
 def _update_reference(f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
@@ -159,23 +156,47 @@ def _update_reference(f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
     return torch.clamp_min(upd, 0)
 
 
+# rows and columns of H a block of the plain version's products
+REFERENCE_BLOCK = 8192
+
+
+def _blocks(n: int):
+    return [slice(s, min(s + REFERENCE_BLOCK, n)) for s in range(0, n, REFERENCE_BLOCK)]
+
+
 def fused_sweep_reference(rtm: Tensor, w: Tensor, f: Tensor,
                           aux: Sequence[Tensor], *, logarithmic: bool,
                           alpha: float = 1.0, eps: float = 0.0,
                           scale: Optional[Tensor] = None,
                           alpha_lane: Optional[Tensor] = None
                           ) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the sweep: two matrix products around the
-    update. Any device, any float dtype of the operands; a matrix stored in
-    another dtype is upcast whole first (exact for bf16 and int8 codes)."""
-    H = rtm.to(w.dtype)
-    bp = w @ H
-    if scale is not None:
-        bp = bp * scale
-    f_new = _update_reference(f, bp, aux, logarithmic=logarithmic,
-                              alpha=alpha, eps=eps, alpha_lane=alpha_lane)
-    fwd = f_new if scale is None else f_new * scale
-    return f_new, fwd @ H.T
+    """Plain PyTorch version of the sweep, over panels of at most
+    ``REFERENCE_BLOCK`` voxel columns as the TPU kernel walks its panels:
+    each panel's bp (its products summed over blocks of ``REFERENCE_BLOCK``
+    pixel rows, in order), update and forward product, the panels' forward
+    products summed in order. No sum a matrix product takes is longer than
+    one block (a library's single long fp32 chain drifts from the exact sum
+    as it grows), and a matrix stored in another dtype is upcast a panel at a
+    time (exact for bf16 and int8 codes). A matrix of one block in each
+    direction takes one product each way. Any device, any float dtype of the
+    operands."""
+    P, V = rtm.shape
+    f_new = torch.empty(f.shape, dtype=w.dtype, device=w.device)
+    fitted = None
+    for c in _blocks(V):
+        Hc = rtm[:, c].to(w.dtype)
+        bp = None
+        for r in _blocks(P):
+            part = w[:, r] @ Hc[r]
+            bp = part if bp is None else bp + part
+        if scale is not None:
+            bp = bp * scale[:, c]
+        fc = _update_reference(f[:, c], bp, [a[:, c] for a in aux], logarithmic=logarithmic,
+                               alpha=alpha, eps=eps, alpha_lane=alpha_lane)
+        f_new[:, c] = fc
+        part = (fc if scale is None else fc * scale[:, c]) @ Hc.T
+        fitted = part if fitted is None else fitted + part
+    return f_new, fitted
 
 
 def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
@@ -305,8 +326,7 @@ def _kernel_call(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
     B = w.shape[0]
     f_new = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
     fitted = torch.empty((B, P), dtype=torch.float32, device=rtm.device)
-    # two_read needs no scratch
-    nbytes = 0 if plan_code == PLANS["two_read"] else max(int(size_fn(plan_code, P, V, B)), 0)
+    nbytes = max(int(size_fn(plan_code, P, V, B)), 0)
     # the caching allocator hands out 512-byte aligned blocks
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=rtm.device) if nbytes else None
     ptrs = [a.data_ptr() for a in aux] + [None] * (3 - len(aux))

@@ -5,11 +5,14 @@ does not repeat on every run. Run from the root of a checkout:
 ``python3 sweep_measure.py ab OTHER``
     The fused sweep of this checkout against that of another checkout of
     the repository (for example the parent commit, unpacked with ``git
-    archive``), at 8192 x 65536, B = 1, 4 and 8 (the CLI's frame, the int8
-    four-lane loop, the batch loops), linear with the penalty (the CLI's
-    main mode), for each storage type, with ``chip_smoke.py``'s timing
-    inputs: through each checkout's own plan for the shape, and through
-    forced ``two_read`` where the checkout can force a plan. Timed in turns,
+    archive``), at 8192 x 65536, B = 1, 4, 8, 16 and 32 (the CLI's frame,
+    the int8 four-lane loop, the batch loops), and at ``chip_smoke.py``'s
+    tall two_read rows (P past 8192: the tall world's shape, a tall and
+    narrow matrix, the capacity demo's bf16 and int8 shapes), linear with
+    the penalty (the CLI's main mode), for each storage type, with
+    ``chip_smoke.py``'s timing inputs: through each checkout's own plan for
+    the shape, and through forced ``two_read`` where the checkout can force
+    a plan. Timed in turns,
     other, this, this, other, each turn a process of its own that imports
     its checkout's package: ms per call (CUDA events around the wrapper's
     call, so the host's work in the wrapper is counted) and device ms per
@@ -44,6 +47,21 @@ does not repeat on every run. Run from the root of a checkout:
     ranks' partials, the update, the fitted pass), beside the shipped
     build's ms per call.
 
+``python3 sweep_measure.py lds``
+    Cycles a warp spends in one shared-memory load, for the access patterns
+    the sweep kernels use: a 16-byte load that every lane reads at one
+    address, 8 lanes of each quarter-warp at 8 neighbouring addresses (each
+    quarter the same 8), 32 lanes at 32, each quarter-warp at one address,
+    and a 4-byte load at 8 addresses (a small CUDA program written into
+    ``build/sweep_measure/`` and built there).
+
+``python3 sweep_measure.py accuracy``
+    ``two_read`` and the plain version each against an fp64 product on a
+    subset (64 pixel rows of fitted), at ``chip_smoke.py``'s tall rows
+    (``TWO_READ_ROWS`` past P = 8192), linear with the penalty: fitted from
+    each one's own f_new, so the error of the forward product alone; beside
+    them the same product as one ``torch.matmul`` over all of V.
+
 Each prints one JSON line per measurement, and the card's name and power
 limit first.
 """
@@ -60,7 +78,8 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 50
 STORAGES = ("float32", "bfloat16", "int8")
-AB_BATCHES = (1, 4, 8)
+AB_BATCHES = (1, 4, 8, 16, 32)
+TALL_REPS = 20
 
 
 def _turn(root: str) -> dict:
@@ -76,23 +95,25 @@ def _turn(root: str) -> dict:
     if not os.path.abspath(mod.__file__).startswith(os.path.join(root, "")):
         raise SystemExit(f"sweep_measure: imported {mod.__file__}, not from {root}")
     out = {}
-    for storage in STORAGES:
-        for B in AB_BATCHES:
-            H, w, f, aux, scale = chip_smoke._sweep_inputs(8192, 65536, B, False, True,
-                                                           seed=7, storage=storage)
-            calls = {"own_plan": lambda: mod.fused_sweep(H, w, f, aux, scale=scale,
-                                                         logarithmic=False)}
-            if hasattr(mod, "_sweep"):
-                calls["two_read"] = lambda: mod._sweep(H, w, f, aux, scale=scale,
-                                                       logarithmic=False, plan="two_read")
-            rec = {name: dict(ms=chip_smoke._median_ms(call, reps=REPS),
-                              device=chip_smoke._device_profile(call, calls=20))
-                   for name, call in calls.items()}
-            rec["own_plan"]["plan"] = (mod.plan_sweep(8192, 65536, B, storage)
-                                       if hasattr(mod, "plan_sweep") else "two_read")
-            out[f"{storage}@B{B}"] = rec
-            del H, w, f, aux, scale, calls
-            torch.cuda.empty_cache()
+    cases = ([(storage, 8192, 65536, B) for storage in STORAGES for B in AB_BATCHES]
+             + [row for row in chip_smoke.TWO_READ_ROWS if row[1] > 8192])
+    for storage, P, V, B in cases:
+        H, w, f, aux, scale = chip_smoke._sweep_inputs(P, V, B, False, True,
+                                                       seed=7, storage=storage)
+        calls = {"own_plan": lambda: mod.fused_sweep(H, w, f, aux, scale=scale,
+                                                     logarithmic=False)}
+        if hasattr(mod, "_sweep"):
+            calls["two_read"] = lambda: mod._sweep(H, w, f, aux, scale=scale,
+                                                   logarithmic=False, plan="two_read")
+        reps = REPS if P <= 8192 else TALL_REPS
+        rec = {name: dict(ms=chip_smoke._median_ms(call, reps=reps),
+                          device=chip_smoke._device_profile(call, calls=5))
+               for name, call in calls.items()}
+        rec["own_plan"]["plan"] = (mod.plan_sweep(P, V, B, storage)
+                                   if hasattr(mod, "plan_sweep") else "two_read")
+        out[f"{storage}@B{B}" if P == 8192 else f"{storage}@{P}x{V}xB{B}"] = rec
+        del H, w, f, aux, scale, calls
+        torch.cuda.empty_cache()
     return out
 
 
@@ -259,6 +280,121 @@ def phases() -> None:
         _build._loaded["fused_sweep"] = shipped
 
 
+LDS_SOURCE = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <cuda_runtime.h>
+// every warp loops over shared loads of one pattern; the last two numbers
+// printed are SM cycles per warp-load, from the kernel's time at the clock
+template <int MODE>
+__global__ void lds(float* out, int iters) {
+  __shared__ __align__(16) float s[4096];
+  for (int i = threadIdx.x; i < 4096; i += blockDim.x) s[i] = i * 0.001f;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int off = MODE == 0 ? 0 : MODE == 1 ? (lane & 7) * 4 : MODE == 2 ? lane * 4
+                : MODE == 3 ? (lane >> 3) * 4 : (lane & 7);
+  float4 a = make_float4(0, 0, 0, 0);
+  float b = 0;
+  for (int i = 0; i < iters; ++i) {
+    const int o = (off + (i & 7) * 128) & 4095;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (MODE < 4) {
+        const float4 q = *reinterpret_cast<const float4*>(s + ((o + u * 128) & 4095));
+        a.x += q.x; a.y += q.y; a.z += q.z; a.w += q.w;
+      } else {
+        b += s[(o + u * 128) & 4095];
+      }
+    }
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a.x + a.y + a.z + a.w + b;
+}
+template <int MODE>
+void run(float* out, const char* name, double ghz) {
+  const int iters = 2048, sms = 132;
+  lds<MODE><<<sms, 1024>>>(out, iters);
+  cudaDeviceSynchronize();
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  cudaEventRecord(a);
+  lds<MODE><<<sms, 1024>>>(out, iters);
+  cudaEventRecord(b);
+  cudaEventSynchronize(b);
+  float ms;
+  cudaEventElapsedTime(&ms, a, b);
+  const double loads = 32.0 * iters * 16;  // a block of 32 warps per SM
+  printf("%s %.4f %.4f\n", name, ms, ms * 1e-3 * ghz * 1e9 / loads);
+}
+int main(int argc, char** argv) {
+  const double ghz = atof(argv[1]);
+  float* out;
+  cudaMalloc(&out, 132 * 1024 * sizeof(float));
+  run<0>(out, "lds128_one_address", ghz);
+  run<1>(out, "lds128_8_addresses_each_quarter", ghz);
+  run<2>(out, "lds128_32_addresses", ghz);
+  run<3>(out, "lds128_one_address_per_quarter", ghz);
+  run<4>(out, "lds32_8_addresses", ghz);
+  return cudaGetLastError() == cudaSuccess ? 0 : 1;
+}
+"""
+
+
+def lds() -> None:
+    from sartsolver_tpu_torch.ops import _build
+
+    out_dir = os.path.join(REPO, "build", "sweep_measure")
+    os.makedirs(out_dir, exist_ok=True)
+    src, exe = os.path.join(out_dir, "lds.cu"), os.path.join(out_dir, "lds")
+    with open(src, "w") as f:
+        f.write(LDS_SOURCE)
+    subprocess.run([_build.nvcc_path(), "-O3", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-o", exe, src], check=True)
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    res = subprocess.run([exe, str(float(mhz) / 1e3)], capture_output=True, text=True, check=True)
+    for line in res.stdout.splitlines():
+        name, ms, cycles = line.split()
+        print(json.dumps({"pattern": name, "ms": float(ms), "sm_clock_mhz": float(mhz),
+                          "cycles_per_warp_load": float(cycles)}), flush=True)
+
+
+def accuracy() -> None:
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.ops.fused_sweep import _sweep, fused_sweep_reference
+
+    for storage, P, V, B in (row for row in chip_smoke.TWO_READ_ROWS if row[1] > 8192):
+        H, w, f, aux, scale = chip_smoke._sweep_inputs(P, V, B, False, True, seed=40 + B,
+                                                       storage=storage)
+        kw = dict(logarithmic=False)
+        kernel = _sweep(H, w, f, aux, scale=scale, plan="two_read", **kw)
+        plain = fused_sweep_reference(H, w, f, aux, scale=scale, **kw)
+        rows = torch.arange(0, P, P // 64, device="cuda")
+        Hr = H[rows].double() * (1.0 if scale is None else scale.double())
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        # the forward product as one library product over all of V (codes
+        # against the operand f_new * scale)
+        fwd = plain[0] if scale is None else plain[0] * scale
+        one = fwd @ H.float().T
+        one_vs_fp64 = rel(one[:, rows].double(), plain[0].double() @ Hr.T)
+        del one
+        print(json.dumps({
+            "fitted_one_product_vs_fp64": one_vs_fp64,
+            "storage": storage, "shape": [P, V, B],
+            "f_new_kernel_vs_plain": rel(kernel[0].double(), plain[0].double()),
+            "fitted_kernel_vs_plain": rel(kernel[1].double(), plain[1].double()),
+            "fitted_kernel_vs_fp64": rel(kernel[1][:, rows].double(), kernel[0].double() @ Hr.T),
+            "fitted_plain_vs_fp64": rel(plain[1][:, rows].double(), plain[0].double() @ Hr.T),
+        }), flush=True)
+        del H, w, f, aux, scale, kernel, plain, Hr
+        torch.cuda.empty_cache()
+
+
 def sass() -> None:
     import re
     from pathlib import Path
@@ -326,6 +462,10 @@ def main(argv) -> int:
         threads()
     elif argv == ["phases"]:
         phases()
+    elif argv == ["lds"]:
+        lds()
+    elif argv == ["accuracy"]:
+        accuracy()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -118,6 +118,13 @@ def test_plain_sweep_matches_pallas_kernel_reduced_storage(storage, B, logarithm
     Pallas kernel dequantizes exactly and computes in fp32, with the int8
     update closures of models/sart.py and fwd_scale=0; the port's wrapper
     takes the codes' scale as its own argument."""
+    for g_, w_ in zip(*_reduced_storage_sweeps(storage, P, V, B, logarithmic, with_pen)):
+        np.testing.assert_allclose(g_, np.asarray(w_), rtol=1e-6, atol=1e-7)
+
+
+def _reduced_storage_sweeps(storage, P, V, B, logarithmic, with_pen):
+    """(the port's wrapper, the interpreted Pallas kernel) on the same bf16
+    or int8 sweep."""
     import jax.numpy as jnp
 
     H, w, f, aux = _inputs(P, V, B, logarithmic, with_pen, "1", seed=2)
@@ -133,9 +140,67 @@ def test_plain_sweep_matches_pallas_kernel_reduced_storage(storage, B, logarithm
         want = jax_fused_sweep(codes, w, f, [scale] + aux,
                                _log_update_int8 if logarithmic else _lin_update_int8,
                                fwd_scale=0, interpret=True)
-    got = _torch_sweep(fused_sweep, tH, w, f, aux, logarithmic, scale)
+    return _torch_sweep(fused_sweep, tH, w, f, aux, logarithmic, scale), want
+
+
+def _assert_sum_close(got, want):
+    """Within 1e-5 of the output's scale: the bar of long fp32 sums. A sum
+    of n fp32 terms taken in one chain carries rounding of order
+    sqrt(n) 2^-24 of its terms' magnitude, about 1e-6 for the 256 voxels of
+    a fitted pixel or the 2048 pixels of the tall matrix's bp, in each
+    implementation alone (torch's CPU GEMM takes one chain from 16 batch
+    rows on), so two of them meet the B <= 8 tests' 1e-6 bar only by
+    chance."""
     for g_, w_ in zip(got, want):
-        np.testing.assert_allclose(g_, np.asarray(w_), rtol=1e-6, atol=1e-7)
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g_, w_, rtol=1e-5, atol=1e-5 * np.abs(w_).max())
+
+
+# B = 16 and 32: fp32's batch loops past one_read (two_read on the card, one
+# pass over H for every batch row)
+@pytest.mark.parametrize("aux_rows", ["1", "B"])
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("B", [16, 32])
+def test_plain_sweep_matches_pallas_kernel_wide_batch(B, logarithmic, with_pen, aux_rows):
+    H, w, f, aux = _inputs(P, V, B, logarithmic, with_pen, aux_rows)
+    want = jax_fused_sweep(H, w, f, aux, _log_update if logarithmic else _lin_update,
+                           interpret=True)
+    _assert_sum_close(_torch_sweep(fused_sweep, H, w, f, aux, logarithmic), want)
+
+
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("B", [16, 32])
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_plain_sweep_matches_pallas_kernel_wide_batch_reduced_storage(storage, B, logarithmic,
+                                                                      with_pen):
+    _assert_sum_close(*_reduced_storage_sweeps(storage, P, V, B, logarithmic, with_pen))
+
+
+# a tall matrix (P >> V): on the card P past one_read's 8192 runs two_read
+# (a camera of more than about 90 x 90 pixels, the capacity demo's shapes)
+TALL_P, TALL_V = 2048, 256
+
+
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_plain_sweep_matches_pallas_kernel_on_a_tall_matrix(B, logarithmic, with_pen):
+    H, w, f, aux = _inputs(TALL_P, TALL_V, B, logarithmic, with_pen, "B", seed=6)
+    want = jax_fused_sweep(H, w, f, aux, _log_update if logarithmic else _lin_update,
+                           interpret=True)
+    _assert_sum_close(_torch_sweep(fused_sweep, H, w, f, aux, logarithmic), want)
+
+
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_plain_sweep_matches_pallas_kernel_on_a_tall_matrix_reduced_storage(
+        storage, B, logarithmic):
+    """bf16 at B = 1 and 2 and int8 at B = 1 to 3 run two_read on the card
+    (the capacity demo's storage types); with the penalty."""
+    _assert_sum_close(*_reduced_storage_sweeps(storage, TALL_P, TALL_V, B, logarithmic, True))
 
 
 @pytest.mark.parametrize("with_pen", [False, True])
@@ -150,6 +215,33 @@ def test_plain_sweep_on_ragged_shapes(B, logarithmic, with_pen):
     for g_, w_ in zip(got, want):
         # fp32 against fp64: relative to the output's scale
         np.testing.assert_allclose(g_, w_, rtol=1e-5, atol=1e-5 * np.abs(w_).max())
+
+
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("shape", [(8200, 40, 2), (24, 8300, 3), (8193, 8193, 1)])
+def test_plain_sweep_in_blocks_matches_fp64(shape, logarithmic):
+    """Past REFERENCE_BLOCK rows or columns the plain version walks H in
+    blocks (panels of columns, each panel's bp summed over blocks of rows,
+    the panels' forward products summed in order): the same sweep as an
+    fp64 numpy one, at the tolerance of fp32 sums."""
+    P_, V_, B = shape
+    H, w, f, aux = _inputs(P_, V_, B, logarithmic, True, "B", seed=7)
+    got = _torch_sweep(fused_sweep_reference, H, w, f, aux, logarithmic)
+    want = _numpy_sweep(H, w, f, aux, logarithmic)
+    _assert_sum_close(got, want)
+
+
+def test_plain_sweep_in_one_block_is_one_product_each_way():
+    """A matrix of one block each way takes one product each way: the bytes
+    of w @ H and f_new @ H^T."""
+    H, w, f, aux = (torch.as_tensor(a) if not isinstance(a, list)
+                    else [torch.as_tensor(x) for x in a]
+                    for a in _inputs(P, V, 3, False, True, "B", seed=8))
+    f_new, fitted = fused_sweep_reference(H, w, f, aux, logarithmic=False)
+    bp = w @ H
+    want = torch.clamp_min(f + aux[0] * bp - aux[1], 0)
+    assert torch.equal(f_new, want)
+    assert torch.equal(fitted, want @ H.T)
 
 
 def test_wrapper_checks_its_inputs():

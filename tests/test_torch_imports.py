@@ -73,7 +73,9 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
         for kind in ("scheduled", "classic"):
             assert len(entry[kind]["cli_ms_per_frame_in_turns"]) == 2
     assert set(frames["int8"]) >= {"four_lanes", "chain"}
-    assert set(frames["float32"]) >= {"chain", "sixteen_lanes"}
+    assert set(frames["float32"]) >= {"chain", "sixteen_lanes", "thirty_two_lanes"}
+    for name in ("sixteen_lanes", "thirty_two_lanes"):
+        assert frames["float32"][name]["classic"]["loop_iterations"] > 0
     # the variants phase: the scheduled log update's loops agree, the armed
     # guard equals the unguarded run, a NaN frame is DIVERGED and exits 2
     variants = cs.variants_phase(world, str(tmp_path), device="cpu")
@@ -83,3 +85,22 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
         assert entry["guard_linear"]["byte_equal_to_unguarded"]
         assert entry["decay_scheduled"]["loop_steps"] > 0
     assert "decay_four_lanes" in variants["int8"] and "refused" in variants["int8"]["guard_log"]
+
+
+def test_chip_smoke_tall_world_at_small_size(tmp_path):
+    """chip_smoke.py's tall-world phase on the CPU at a small size: the
+    world written with taller cameras, one CLI run per storage type over its
+    frames, statuses and fitted errors within the script's bound."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    tall = cs.tall_world_phase(str(tmp_path), device="cpu", nx=16, ny=16, cam=(8, 8))
+    assert tall["shape"] == [128, 256] and tall["frames"] == cs.TALL_FRAMES
+    for storage in cs.STORAGES:
+        rec = tall[storage]
+        assert len(rec["frame_ms"]) == cs.TALL_FRAMES
+        assert max(rec["fit_err"]) <= cs.FIT_BOUND
+        assert all(st == 0 or it == cs.MAX_ITERATIONS
+                   for st, it in zip(rec["status"], rec["iterations"]))

@@ -15,7 +15,7 @@ import torch
 
 from sartsolver_tpu_torch.models.sart import quantize_rtm
 from sartsolver_tpu_torch.ops.fused_sweep import (
-    ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P, PLANS, TENSOR_CORE_MIN_B, _kernel_call,
+    ONE_READ_MIN_P, PLANS, _kernel_call,
     _sweep, fused_sweep, fused_sweep_reference, plan_sweep,
 )
 
@@ -148,22 +148,19 @@ def test_one_read_plan_matches_plain_version(PV, storage, B, logarithmic, with_p
     P, V = PV
     if P == "edge":
         P = ONE_READ_MIN_P[storage]
-    tensor_core = B >= TENSOR_CORE_MIN_B.get(storage, B + 1) and V % 16 == 0
-    lowest = max(ONE_READ_MIN_P[storage],
-                 ONE_READ_OVER_TENSOR_CORE_MIN_P[storage] if tensor_core else 0)
     _check_plan("one_read", P, V, B, logarithmic, with_pen, storage,
-                seed=P + V + B + 2 * logarithmic + with_pen, expect_default=P >= lowest)
+                seed=P + V + B + 2 * logarithmic + with_pen,
+                expect_default=P >= ONE_READ_MIN_P[storage])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("logarithmic", [False, True])
 def test_two_read_forced_at_the_new_plans_shapes(logarithmic, storage):
-    """The old path stays covered where the new plans took over: every
+    """two_read stays covered where the other plans took over: every
     storage at the main shape (B = 1, one_read) and at the batch loops'
-    B = 8 (fp32 one_read, bf16 and int8 tensor_core: two_read's tile of 8
-    rows, bf16's of 4), bf16 and int8 also at the probes' B = 32
-    (tensor_core)."""
+    B = 8 (fp32 one_read, bf16 and int8 tensor_core), bf16 and int8 also at
+    the probes' B = 32 (tensor_core)."""
     _check_plan("two_read", 8192, 65536, 1, logarithmic, True, storage, seed=5 + logarithmic,
                 expect_default=False)
     _check_plan("two_read", 8192, 65536, 8, logarithmic, True, storage, seed=7 + logarithmic,
@@ -178,12 +175,18 @@ def test_two_read_forced_at_the_new_plans_shapes(logarithmic, storage):
 @pytest.mark.parametrize("logarithmic", [False, True])
 @pytest.mark.parametrize("shape", [(8192, 65536, 8), (1000, 3001, 8)])
 def test_two_read_nb8_equals_two_calls_of_b4(shape, logarithmic, storage):
-    """two_read's batch tile of 8 rows (fp32 and int8; bf16 keeps tiles of
-    4) gives each row the bytes that the tile of 4 gives it: NB changes no
-    row's order of summation (the bp kernel sums rows warp + 8k, the forward
-    kernel lane-strided vectors of one row). B = 8 forced against rows 0-3
-    and 4-7 as two calls of B = 4, with per-row aux panels and the scheduled
+    """two_read's pass of 8 batch rows gives each row the bytes that a pass
+    of 4 gives it: the batch changes no row's order of summation (the bp
+    pass sums a split's rows in order, the forward pass a row's pieces, the
+    splits follow from P and V alone). B = 8 forced against rows 0-3 and 4-7
+    as two calls of B = 4, with per-row aux panels and the scheduled
     exponent per row."""
+    _check_rows_in_calls(shape, logarithmic, storage, [slice(0, 4), slice(4, 8)])
+
+
+def _check_rows_in_calls(shape, logarithmic, storage, parts):
+    """B rows forced through two_read in one call, byte-equal to the same
+    rows cut into ``parts`` (slices of the batch) as calls of their own."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     P, V, B = shape
@@ -193,15 +196,62 @@ def test_two_read_nb8_equals_two_calls_of_b4(shape, logarithmic, storage):
     kw = dict(logarithmic=logarithmic, scale=scale, eps=EPS)
     lanes = None
     if logarithmic:
-        lanes = (0.9 - 0.05 * torch.arange(B, device="cuda", dtype=torch.float32))[:, None]
+        lanes = (0.9 - 0.01 * torch.arange(B, device="cuda", dtype=torch.float32))[:, None]
     whole = _sweep(H, w, f, aux, plan="two_read", alpha_lane=lanes, **kw)
-    halves = [_sweep(H, w[r].contiguous(), f[r].contiguous(), [a[r].contiguous() for a in aux],
-                     plan="two_read", alpha_lane=None if lanes is None else lanes[r].contiguous(),
-                     **kw)
-              for r in (slice(0, 4), slice(4, 8))]
+    cut = [_sweep(H, w[r].contiguous(), f[r].contiguous(), [a[r].contiguous() for a in aux],
+                  plan="two_read", alpha_lane=None if lanes is None else lanes[r].contiguous(),
+                  **kw)
+           for r in parts]
     torch.cuda.synchronize()
     for k in range(2):
-        assert torch.equal(whole[k], torch.cat([h[k] for h in halves]))
+        assert torch.equal(whole[k], torch.cat([c[k] for c in cut]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("shape", [(8192, 65536, 16), (8192, 65536, 32), (1000, 3001, 32),
+                                   (9000, 3001, 16)])
+def test_two_read_wide_batch_equals_halves(shape, logarithmic, storage):
+    """B = 16 and 32 (one pass over H for every row) byte-equal to two calls
+    of B / 2."""
+    B = shape[2]
+    _check_rows_in_calls(shape, logarithmic, storage, [slice(0, B // 2), slice(B // 2, B)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("shape", [(8192, 65536, 16), (8192, 65536, 32), (1000, 3001, 19)])
+def test_two_read_wide_batch_equals_each_row_alone(shape, logarithmic, storage):
+    """Every row of B = 16, 19 and 32 byte-equal to its own call at B = 1."""
+    _check_rows_in_calls(shape, logarithmic, storage,
+                         [slice(b, b + 1) for b in range(shape[2])])
+
+
+# two_read's own shapes: fp32 past one_read's B = 8 (B = 16, 32, and 40:
+# two batch passes of 32), P past one_read's 8192 (a taller world, a tall and
+# narrow matrix, bf16 at B = 2 and int8 at B = 3), ragged P, V and B (V odd:
+# element-wise loads of H); bf16 and int8 also at B = 16 and 32 forced
+TWO_READ_SHAPES = [
+    ("float32", (8192, 65536, 16)), ("float32", (8192, 65536, 32)),
+    ("float32", (16384, 65536, 1)), ("float32", (16384, 65536, 8)),
+    ("float32", (65536, 16384, 1)), ("float32", (1000, 3001, 40)),
+    ("bfloat16", (16384, 65536, 2)), ("int8", (16384, 65536, 3)),
+    ("bfloat16", (8192, 65536, 16)), ("int8", (8192, 65536, 32)),
+] + [(st, shape) for st in ("float32", "bfloat16", "int8")
+     for shape in ((9000, 3001, 3), (1000, 3001, 19), (1000, 3000, 5))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_pen", [False, True])
+@pytest.mark.parametrize("logarithmic", [False, True])
+@pytest.mark.parametrize("storage,shape", TWO_READ_SHAPES)
+def test_two_read_plan_matches_plain_version(storage, shape, logarithmic, with_pen):
+    P, V, B = shape
+    _check_plan("two_read", P, V, B, logarithmic, with_pen, storage,
+                seed=P + V + B + 2 * logarithmic + with_pen,
+                expect_default=plan_sweep(P, V, B, storage) == "two_read")
 
 
 @pytest.mark.gpu
@@ -261,6 +311,9 @@ def test_kernel_refuses_a_plan_whose_preconditions_fail():
     ("one_read", "float32", (8192, 65536, 8)), ("one_read", "float32", (8192, 65536, 5)),
     ("one_read", "float32", (8191, 4096, 8)), ("tensor_core", "bfloat16", (8192, 65536, 8)),
     ("tensor_core", "bfloat16", (8192, 65536, 32)), ("tensor_core", "bfloat16", (1000, 3008, 19)),
+    ("two_read", "float32", (8192, 65536, 16)), ("two_read", "float32", (8192, 65536, 32)),
+    ("two_read", "float32", (65536, 16384, 1)), ("two_read", "float32", (9000, 3001, 3)),
+    ("two_read", "bfloat16", (1000, 3001, 19)), ("two_read", "int8", (16384, 65536, 3)),
 ])
 def test_scheduled_log_update_matches_plain_version(plan, storage, shape, with_pen,
                                                     alpha_rows):

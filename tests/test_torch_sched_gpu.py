@@ -55,7 +55,7 @@ def _chain_laplacian(V):
     ("float32", 8192, 256, 8, "one_read"),
     ("bfloat16", 512, 256, 8, "tensor_core"),
     ("int8", 512, 256, 8, "tensor_core"),
-    ("bfloat16", 2048, 256, 4, "one_read"),
+    ("bfloat16", 4096, 256, 4, "one_read"),
     ("int8", 5120, 256, 4, "one_read"),
 ])
 def test_scheduled_lanes_equal_the_grouped_loop_on_the_card(storage, P, V, lanes, plan,

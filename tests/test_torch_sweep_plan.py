@@ -14,14 +14,13 @@ import pytest
 import torch
 
 from sartsolver_tpu_torch.ops.fused_sweep import (
-    ONE_READ_MAX_B, ONE_READ_MAX_P, ONE_READ_MIN_P, ONE_READ_OVER_TENSOR_CORE_MIN_P,
+    ONE_READ_MAX_B, ONE_READ_MAX_P, ONE_READ_MIN_P,
     ONE_READ_V_MULTIPLE, TENSOR_CORE_MIN_B, _sweep, fused_sweep, fused_sweep_reference,
     plan_refusal, plan_sweep,
 )
 
 MIN_B = TENSOR_CORE_MIN_B["int8"]
 BF16_MIN_B = TENSOR_CORE_MIN_B["bfloat16"]
-OVER_TC_P = ONE_READ_OVER_TENSOR_CORE_MIN_P["int8"]
 FP32_MIN_P = ONE_READ_MIN_P["float32"]
 FP32_MAX_B = ONE_READ_MAX_B["float32"]
 MAX_B = ONE_READ_MAX_B["int8"]  # bf16 and int8
@@ -54,13 +53,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (1, 16, 1, "float32", "two_read"),
     (1000, 3008, 3, "float32", "two_read"),
     (1000, 3001, 3, "float32", "two_read"),
-    # edges of the tensor-core rule: the crossover batch, V in 16-code runs,
-    # and one_read in its place from the P where it beat the tensor cores
-    (8192, 65536, MIN_B, "int8", "one_read"),
+    # edges of the tensor-core rule: the crossover batch (past one_read's
+    # B, so the two never compete), V in 16-code runs
+    (8192, 65536, MIN_B, "int8", "tensor_core"),
     (8192, 65536, MIN_B - 1, "int8", "one_read"),
-    (OVER_TC_P, 65536, MIN_B, "int8", "one_read"),
-    (OVER_TC_P - 1, 65536, MIN_B, "int8", "tensor_core"),
-    (OVER_TC_P - 1, 65536, MIN_B - 1, "int8", "one_read"),
+    (ONE_READ_MIN_P["int8"], 65536, MIN_B - 1, "int8", "one_read"),
+    (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B - 1, "int8", "two_read"),
+    (1024, 65536, MIN_B, "int8", "tensor_core"),
     (8192, 65536, MAX_B + 1, "int8", "tensor_core"),
     (16384, 65536, MIN_B, "int8", "tensor_core"),
     (ONE_READ_MIN_P["int8"] - 1, 65536, MIN_B, "int8", "tensor_core"),
@@ -84,15 +83,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (8192, 65536 - 8, 8, "float32", "two_read"),
     (8192, 65536, 4, "bfloat16", "one_read"),
     (8192, 65536, 5, "bfloat16", "tensor_core"),
-    # bf16 on the tensor cores from B = 3 where its one_read does not apply
+    # bf16 on the tensor cores from B = 5, past its one_read's B = 4
     (8192, 65536, BF16_MIN_B - 1, "bfloat16", "one_read"),
-    (8192, 65536, BF16_MIN_B, "bfloat16", "one_read"),
+    (8192, 65536, BF16_MIN_B, "bfloat16", "tensor_core"),
     (1024, 65536, BF16_MIN_B - 1, "bfloat16", "two_read"),
     (1024, 65536, BF16_MIN_B, "bfloat16", "tensor_core"),
-    (1024, 65536, 4, "bfloat16", "tensor_core"),
+    (1024, 65536, 4, "bfloat16", "two_read"),
     (16384, 65536, BF16_MIN_B, "bfloat16", "tensor_core"),
     (16384, 65536, BF16_MIN_B - 1, "bfloat16", "two_read"),
-    (8192, 65536 - 16, 4, "bfloat16", "tensor_core"),
+    (8192, 65536 - 16, 4, "bfloat16", "two_read"),
     (8192, 65536, 8, "bfloat16", "tensor_core"),
     (8192, 65536, 16, "bfloat16", "tensor_core"),
     (8192, 65536, 19, "bfloat16", "tensor_core"),
@@ -106,6 +105,28 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_plan_of_each_shape(P, V, B, storage, plan):
     assert plan_sweep(P, V, B, storage) == plan
     assert plan_refusal(plan, P, V, B, storage) is None
+
+
+# two_read's rows: fp32 past one_read's B = 8 on the e2e world's shape, and
+# every matrix past one_read's P = 8192 (a taller world, a tall and narrow
+# one, the capacity demo's bf16 and int8 shapes) at the batch sizes where no
+# other plan applies
+@pytest.mark.parametrize("P, V, B, storage", [
+    (8192, 65536, 16, "float32"),
+    (8192, 65536, 32, "float32"),
+    (16384, 65536, 1, "float32"),
+    (16384, 65536, 8, "float32"),
+    (65536, 16384, 1, "float32"),
+    (49152, 131072, 1, "bfloat16"),
+    (49152, 131072, 2, "bfloat16"),
+    (65536, 131072, 1, "int8"),
+    (65536, 131072, 3, "int8"),
+    (16384, 65536, 1, "bfloat16"),
+    (16384, 65536, 1, "int8"),
+])
+def test_tall_matrices_and_wide_fp32_batches_take_two_read(P, V, B, storage):
+    assert plan_sweep(P, V, B, storage) == "two_read"
+    assert plan_refusal("two_read", P, V, B, storage) is None
 
 
 def test_crossover_batch_is_above_the_main_path():
@@ -130,7 +151,7 @@ def test_batch_loops_b8_reads_h_once_or_on_the_tensor_cores(storage):
 def _reduced_storage_cases():
     """The one_read rule's edges for bf16 and int8: each storage's lower P
     edge and ONE_READ_MAX_P, V at and off its multiple, B at
-    ONE_READ_MAX_B and one past it."""
+    ONE_READ_MAX_B and one past it (the tensor cores')."""
     cases = []
     for st in ("bfloat16", "int8"):
         lo, m = ONE_READ_MIN_P[st], ONE_READ_V_MULTIPLE[st]
@@ -138,7 +159,7 @@ def _reduced_storage_cases():
         cases += [
             (lo, 65536, 1, st, "one_read"),
             (lo, 65536, 3, st, "one_read"),
-            (lo, 65536, MAX_B, st, past_b if st == "int8" else "one_read"),
+            (lo, 65536, MAX_B, st, "one_read"),
             (lo - 1, 65536, 1, st, "two_read"),
             (ONE_READ_MAX_P, 65536, 1, st, "one_read"),
             (ONE_READ_MAX_P + 1, 65536, 1, st, "two_read"),
@@ -259,3 +280,24 @@ def test_chip_smoke_reads_the_one_read_edge_from_a_crossover_table():
     assert chip_smoke.one_read_edge(table)["over_tensor_core_min_p"] == {2: 6144}
     table[4]["one_read_ms"] = 2.0                                     # lost at the top
     assert chip_smoke.one_read_edge(table)["min_p"] is None
+
+
+def test_chip_smoke_reads_the_tensor_core_edge_from_a_crossover_table():
+    """The smallest B from which tensor_core beat two_read at every larger
+    B of the table; None where it lost at the largest."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+
+    def row(B, two, tc):
+        return {"P": 8192, "V": 65536, "B": B, "two_read_ms": two, "tensor_core_ms": tc}
+
+    table = [row(2, 0.5, 0.7), row(4, 0.6, 0.5), row(5, 0.7, 0.8), row(8, 0.9, 0.8),
+             row(16, 1.3, 0.8)]
+    assert chip_smoke.tensor_core_edge(table) == 8
+    table[2]["tensor_core_ms"] = 0.6
+    assert chip_smoke.tensor_core_edge(table) == 4
+    table[-1]["tensor_core_ms"] = 1.4
+    assert chip_smoke.tensor_core_edge(table) is None
