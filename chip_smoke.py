@@ -88,6 +88,18 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    a copy of the world with a NaN pixel in frame 3, that frame DIVERGED with
    a zero row and exit 2; every scheduled-log launch counted, on the plan of
    its run's B; each frame's ms.
+4b'. ``os``: ordered subsets through the CLI on the world at
+   ``--os_subsets OS_SUBSETS``, per storage (:func:`os_phase`): linear with
+   the Laplacian and log with ``--momentum nesterov``, each warm started
+   over 4 frames at ``--chain_frames 1`` and through ``--no_guess
+   --batch_frames 8`` in the scheduler and the classic loop (equal files);
+   statuses, fitted errors within ``FIT_BOUND``, no fused-sweep launch;
+   iterations, ms per frame and peak device bytes beside the fused path's
+   runs of the same flags (warm started, and in the scheduler) and the
+   stored matrix's bytes. Then ``debug_nans``
+   (:func:`debug_nans_phase`): a NaN pixel exits 0 from the chain and
+   raises from the scheduler, as on the CPU, and the flag changes no byte
+   of a healthy scheduler run or OS chain (ms per frame with and without).
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -108,7 +120,11 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 6. ``profile``: under ``torch.profiler`` for each storage type, frame 0
    once more, and the first 8 frames as one group of the classic loop
    (``solve_batch``) and through 8 scheduler lanes: device time by kernel,
-   the wall time and the device's idle share.
+   the wall time and the device's idle share; and frame 0 from the guess
+   at ``--os_subsets OS_SUBSETS`` (``os_frame0``), its device ms split into
+   the subset forwards, the subset back projections and the full forward
+   (the OS cycle's ``record_function`` ranges), the rest of the device's
+   ms and the host's.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -659,6 +675,149 @@ def tall_world_phase(outdir: str, device: str = "cuda", **world_kw) -> dict:
         if on_card:
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
         record[storage] = rec
+    return record
+
+
+OS_SUBSETS = 4  # the os phase's --os_subsets
+# the os phase's runs: linear with the Laplacian, and the log solver with
+# momentum (the JAX package's headline OS configuration)
+OS_MODES = (("linear", lambda p: ["-l", p["laplacian"]]),
+            ("log_momentum", lambda p: ["-L", "--momentum", "nesterov"]))
+# the OS cycle's profiler ranges (models/sart.py:_span)
+OS_RANGES = ("os_subset_forward", "os_subset_back", "os_full_forward")
+
+
+def os_phase(world, outdir: str, device: str = "cuda") -> dict:
+    """Ordered subsets through the CLI on the world, per storage, at
+    ``--os_subsets OS_SUBSETS`` beside the fused path at the same flags:
+    linear with the Laplacian and log with Nesterov momentum, each warm
+    started over 4 frames at ``--chain_frames 1`` (the fused run first,
+    then the OS run) and through ``--no_guess --batch_frames FRAME_LANES``
+    (OS in the scheduler and the classic loop, equal files byte for byte;
+    the fused path in the scheduler). Every frame's status 0 or the cap and
+    its fitted error within ``FIT_BOUND``; on the card no fused-sweep launch
+    in an OS run (counts zeroed just before, read just after) and each
+    run's peak device bytes beside the stored matrix's."""
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, reset_launch_counts
+
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    on_card = device == "cuda"
+    if on_card:
+        import torch
+    os_flags = ["--os_subsets", str(OS_SUBSETS)]
+    stored_bytes = {"float32": 4 * P * V, "bfloat16": 2 * P * V, "int8": P * V + 4 * V}
+
+    def run(name, flags, n_frames, os_on):
+        out = os.path.join(outdir, f"os_{name}.h5")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, ms, text = run_cli(["-o", out, *inputs, "-m", str(MAX_ITERATIONS),
+                                *(os_flags if os_on else []), *flags], device=device)
+        rec = dict(wall_s=time.perf_counter() - t0, fused_sweep_launches=fused_sweep.launches)
+        if on_card:  # the run's own peak, before the check uploads H
+            rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        if rc != 0 or len(ms) != n_frames:
+            raise AssertionError(f"os {name}: exit {rc}, {len(ms)} of {n_frames} frames")
+        if os_on and "sweep=os-subset" not in text:
+            raise AssertionError(f"os {name}: the run's header names no subset cycle")
+        if os_on and on_card and fused_sweep.launches:
+            raise AssertionError(f"os {name}: {dict(fused_sweep.launches_by_plan)} fused-sweep "
+                                 "launches in an OS run")
+        sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, device)
+        rec.update(cli_ms_per_frame=statistics.mean(ms), fit_err_max=float(err.max()))
+        if n_frames <= 8:
+            rec.update(frame_ms=ms, iterations=sol["iterations"].tolist(),
+                       status=sol["status"].tolist())
+        else:
+            rec["frame_iterations"] = int(sol["iterations"].sum())
+        m = re.search(r"continuous batching: lanes=\d+ strides=(\d+) loop_steps=(\d+) ", text)
+        if m:
+            rec.update(strides=int(m[1]), loop_steps=int(m[2]))
+        return sol, rec
+
+    record = {"os_subsets": OS_SUBSETS}
+    for storage in STORAGES:
+        st = ["--rtm_dtype", storage]
+        entry = {"stored_matrix_bytes": stored_bytes[storage]}
+        for mode, mode_flags in OS_MODES:
+            chain_flags = [*st, *mode_flags(p), "-t", "0:0.35", "--chain_frames", "1"]
+            _, fused_chain = run(f"{storage}_{mode}_fused_chain", chain_flags, 4, False)
+            _, chain = run(f"{storage}_{mode}_chain", chain_flags, 4, True)
+            chain.update(
+                guess_frame_ms_over_fused=chain["frame_ms"][0] / fused_chain["frame_ms"][0],
+                warm_ms_per_frame_over_fused=(statistics.mean(chain["frame_ms"][1:])
+                                              / statistics.mean(fused_chain["frame_ms"][1:])))
+            batch = [*st, *mode_flags(p), "--no_guess", "--batch_frames", str(FRAME_LANES)]
+            sched_sol, sched = run(f"{storage}_{mode}_sched", batch, T, True)
+            classic_sol, classic = run(f"{storage}_{mode}_classic",
+                                       [*batch, "--no_continuous_batching"], T, True)
+            for key in ("value", "status", "iterations"):
+                if not np.array_equal(sched_sol[key], classic_sol[key]):
+                    raise AssertionError(f"os {storage} {mode}: scheduler and classic loop "
+                                         f"differ in solution/{key}")
+            classic["loop_iterations"] = group_loops(classic_sol["iterations"], FRAME_LANES)
+            _, fused_sched = run(f"{storage}_{mode}_fused_sched", batch, T, False)
+            sched["ms_per_frame_over_fused"] = (sched["cli_ms_per_frame"]
+                                                / fused_sched["cli_ms_per_frame"])
+            entry[mode] = dict(chain=chain, fused_chain=fused_chain, scheduled=sched,
+                               classic=classic, fused_scheduled=fused_sched)
+        record[storage] = entry
+    return record
+
+
+def debug_nans_phase(world, outdir: str, device: str = "cuda") -> dict:
+    """``--debug_nans`` on the world, fp32: on a copy whose frame 3 has a NaN
+    pixel the warm-started chain exits 0 (the masks leave the pixel out of
+    the solve, as the JAX CLI's run shows) and the scheduler raises
+    ``FloatingPointError`` (its lanes keep their measurements, as the JAX
+    scheduler's do); on the healthy world the flag changes no byte of the
+    scheduler's file or of an OS chain's, beside each run's ms per frame
+    with and without it."""
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    nan_paths = _write_poisoned_images(world, outdir, 3)
+    nan_inputs = inputs[:3] + [nan_paths["img_a"], p["img_b"]]
+    T = world["G"].shape[1]
+    base = ["-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
+    sched = ["--no_guess", "--batch_frames", str(FRAME_LANES)]
+    record = {}
+    rc, ms, _ = run_cli(["-o", os.path.join(outdir, "dn_nan_chain.h5"), *nan_inputs, *base,
+                         "-t", "0:0.35", "--chain_frames", "1", "--debug_nans"], device=device)
+    if rc != 0 or len(ms) != 4:
+        raise AssertionError(f"debug_nans, NaN pixel, chain: exit {rc}, {len(ms)} frames")
+    record["nan_pixel_chain"] = "exit 0"
+    try:
+        run_cli(["-o", os.path.join(outdir, "dn_nan_sched.h5"), *nan_inputs, *base, *sched,
+                 "--debug_nans"], device=device)
+    except FloatingPointError as err:
+        record["nan_pixel_scheduler"] = f"FloatingPointError: {err}"
+    else:
+        raise AssertionError("debug_nans, NaN pixel, scheduler: no FloatingPointError")
+    for name, flags, n_frames in (
+            ("scheduler", sched, T),
+            ("os_chain", ["--os_subsets", str(OS_SUBSETS), "-t", "0:0.35", "--chain_frames", "1"],
+             4)):
+        sols, timing = [], {}
+        for extra in ([], ["--debug_nans"]):
+            out = os.path.join(outdir, f"dn_{name}{len(extra)}.h5")
+            rc, ms, _ = run_cli(["-o", out, *inputs, *base, *flags, *extra], device=device)
+            if rc != 0 or len(ms) != n_frames:
+                raise AssertionError(f"debug_nans {name}: exit {rc}, {len(ms)} frames")
+            sol, _ = check_solution(out, world, n_frames, MAX_ITERATIONS, device)
+            sols.append(sol)
+            timing["with_flag" if extra else "without"] = statistics.mean(ms)
+        for key in sols[0]:
+            if not np.array_equal(sols[0][key], sols[1][key]):
+                raise AssertionError(f"debug_nans {name}: solution/{key} differs with the flag")
+        record[name] = dict(byte_equal=True, cli_ms_per_frame=timing)
     return record
 
 
@@ -1328,9 +1487,27 @@ def batch_phase(world, lap, device="cuda") -> dict:
     return record
 
 
-def profile_run(fn) -> tuple:
+def _range_device_ms(prof, ranges) -> dict:
+    """Device ms of the CUDA kernels launched inside each named
+    ``record_function`` range (the kernels linked to the range's ops, summed
+    down its tree), summed over the range's occurrences."""
+    import torch
+
+    def device_us(ev):
+        return (sum(k.duration for k in ev.kernels)
+                + sum(device_us(c) for c in ev.cpu_children))
+
+    out = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] += device_us(e) / 1e3
+    return out
+
+
+def profile_run(fn, ranges=()) -> tuple:
     """``fn()`` once under ``torch.profiler``: device time by kernel against
-    the wall time of the call, so the device's idle share; returns
+    the wall time of the call, so the device's idle share; with ``ranges``
+    (``record_function`` names) also the device ms inside each; returns
     ``(record, fn's result)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1341,8 +1518,10 @@ def profile_run(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a record_function range may show on the device's
+    # timeline too, spanning the gaps between its kernels
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     by_kernel, spans = {}, []
     for e in events:
         spans.append((e.time_range.start, e.time_range.end))
@@ -1357,9 +1536,12 @@ def profile_run(fn) -> tuple:
             end = stop
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     busy_ms = busy_us / 1e3
-    return dict(wall_ms=wall_ms, device_events=len(events), device_busy_ms=busy_ms,
-                idle_share=(1.0 - busy_ms / wall_ms) if events else None,
-                top_device_ms={k[:90]: v for k, v in top}), out
+    record = dict(wall_ms=wall_ms, device_events=len(events), device_busy_ms=busy_ms,
+                  idle_share=(1.0 - busy_ms / wall_ms) if events else None,
+                  top_device_ms={k[:90]: v for k, v in top})
+    if ranges:
+        record["range_device_ms"] = _range_device_ms(prof, ranges)
+    return record, out
 
 
 def main() -> int:
@@ -1473,6 +1655,11 @@ def main() -> int:
         emit("frames", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **frames)
         variants = variants_phase(world, tmp)
         emit("variants", max_iterations=MAX_ITERATIONS, fit_bound=FIT_BOUND, **variants)
+        t0 = time.perf_counter()
+        os_rec = os_phase(world, tmp)
+        emit("os", seconds=time.perf_counter() - t0, max_iterations=MAX_ITERATIONS,
+             fit_bound=FIT_BOUND, **os_rec)
+        emit("debug_nans", **debug_nans_phase(world, tmp))
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -1517,7 +1704,26 @@ def main() -> int:
                                             on_result=lambda *r: r[5]())
                 lanes, stats = profile_run(lambda: batcher.run(
                     (frame, float(t), [float(t)]) for t, frame in enumerate(group)))
-            profiles[storage] = dict(frame0, iterations=int(res.iterations),
+            # one OS guess frame: its iterations' device ms split into the
+            # subset forwards, the subset back projections and the full
+            # forward; the rest of the wall time is the host's
+            os_opts = SolverOptions(max_iterations=MAX_ITERATIONS, os_subsets=OS_SUBSETS,
+                                    rtm_dtype=st_opts.rtm_dtype)
+            with DistributedSARTSolver(world["H"], lap, opts=os_opts,
+                                       device="cuda") as solver:
+                solve(solver.problem, g0, opts=os_opts, device="cuda")  # warm-up
+                os_frame0, os_res = profile_run(
+                    lambda: solve(solver.problem, g0, opts=os_opts, device="cuda"),
+                    ranges=OS_RANGES)
+            its = int(os_res.iterations)
+            split = os_frame0["range_device_ms"]
+            os_frame0.update(
+                iterations=its, os_subsets=OS_SUBSETS,
+                per_iteration_ms={k: v / its for k, v in split.items()},
+                rest_device_ms=os_frame0["device_busy_ms"] - sum(split.values()),
+                host_ms=os_frame0["wall_ms"] - os_frame0["device_busy_ms"],
+                wall_ms_per_iteration=os_frame0["wall_ms"] / its)
+            profiles[storage] = dict(frame0, iterations=int(res.iterations), os_frame0=os_frame0,
                                      batch=dict(grouped, frames=FRAME_LANES,
                                                 loop_iterations=int(iters.max())),
                                      scheduled=dict(lanes, frames=FRAME_LANES,

@@ -38,12 +38,17 @@ fp32 on the host, rounded to bf16 or quantized to int8 codes there, and only
 the stored matrix is uploaded.
 
 The solver variants of the JAX CLI: ``--relaxation_decay`` (iteration k
-steps by ``relaxation * decay**k``), ``--momentum nesterov`` and
+steps by ``relaxation * decay**k``), ``--momentum nesterov``,
 ``--divergence_recovery N`` (a frame that diverges is rolled back with a
 halved step up to N times, then written with status DIVERGED, -2, as is a
-frame with non-finite pixels; the run goes on and exits 2). Each works in
-every frame loop. ``--fused_sweep`` as in the JAX CLI, without its
-``interpret`` mode.
+frame with non-finite pixels; the run goes on and exits 2) and
+``--os_subsets N`` (ordered subsets: the subset cycle replaces the fused
+sweep, on every storage). Each works in every frame loop. ``--fused_sweep``
+as in the JAX CLI, without its ``interpret`` mode.
+
+``--debug_nans`` aborts the run with ``FloatingPointError`` (a traceback,
+no row written for it) at the first NaN the solver keeps, where the JAX
+CLI's ``jax_debug_nans`` aborts (``sartsolver_tpu_torch/debug_nans.py``).
 
 Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``
 """
@@ -96,6 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Geometric relaxation schedule: iteration k uses "
                         "relaxation * decay^k. Default 1.0 (fixed "
                         "relaxation, reference behavior).")
+    p.add_argument("--os_subsets", type=int, default=1,
+                   help="Ordered-subsets SART: cycle each iteration's "
+                        "update over N interleaved pixel-row subsets; must "
+                        "divide the pixel extent padded to a multiple of 8. "
+                        "Default 1 (classic sweep, byte-identical).")
     p.add_argument("--momentum", default="off", choices=["off", "nesterov"],
                    help="Nesterov/FISTA momentum over the SART update "
                         "with gradient-based restart; resets on every "
@@ -168,6 +178,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch. 1 disables. Applies to the default "
                         "warm-start loop; ignored with "
                         "--no_guess/--batch_frames.")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="Abort with a traceback at the first NaN the solver "
+                        "keeps (an iterate, a projection, a metric, a "
+                        "scheduler lane's state) instead of propagating it "
+                        "into the solution (one host sync a step; debugging "
+                        "only).")
     p.add_argument("input_files", nargs="*",
                    help="List of ray transfer matrix and camera image hdf5 files.")
     return p
@@ -198,6 +214,12 @@ def _validate(args) -> None:
     if args.divergence_recovery < 0:
         fail("Argument divergence_recovery must be >= 0, "
              f"{args.divergence_recovery} given.")
+    if args.os_subsets < 1:
+        fail(f"Argument os_subsets must be >= 1, {args.os_subsets} given.")
+    if args.os_subsets > 1 and args.fused_sweep in ("on", "interpret"):
+        fail(f"Argument os_subsets > 1 runs the subset-cycle sweep; "
+             f"--fused_sweep {args.fused_sweep} cannot be honored there — "
+             "use auto or off.")
     if args.fused_sweep == "interpret":
         fail("Argument fused_sweep='interpret' runs the JAX package's Pallas "
              "interpreter, which this package does not have; use auto, on or "
@@ -251,7 +273,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         INT8_MAX_CONTRACTION, resolve_fused, torch_dtype,
     )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
-    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.resilience.degrade import GroupSizeLadder, dispatch_guarded
     from sartsolver_tpu_torch.sched import ContinuousBatcher
 
@@ -313,6 +335,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             relaxation_decay=args.relaxation_decay,
             momentum=args.momentum,
             divergence_recovery=args.divergence_recovery,
+            os_subsets=args.os_subsets,
             fused_sweep=args.fused_sweep,
         )
         opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
@@ -323,7 +346,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             fused = resolve_fused(opts)
         except ValueError as err:  # fused_sweep='on' where it cannot engage
             raise SartInputError(str(err)) from None
-        if storage == "int8" and not fused:
+        try:
+            os_padded_rows(npixel, opts.os_subsets)
+        except ValueError as err:  # --os_subsets divides no extent the solver pads to
+            raise SartInputError(str(err)) from None
+        # the OS cycle's products upcast int8 codes themselves: int8 needs
+        # the fused sweep only on the classic sweep
+        if storage == "int8" and not fused and opts.os_subsets == 1:
             why = (" (divergence_recovery keeps the logarithmic solver off it)"
                    if opts.divergence_recovery and opts.logarithmic else "")
             raise SartInputError(
@@ -356,12 +385,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                              dtype=np.float64 if storage == "float64" else np.float32)
         if storage == "bfloat16":
             rtm = torch.from_numpy(rtm).to(torch.bfloat16)
-        solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device)
+        solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
+                                       debug_nans=args.debug_nans)
         del rtm
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
-        sweep = "fused" if fused else "two-matmul"
+        sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused
+                 else "two-matmul")
         print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
-              f"sweep={sweep} rtm=[{npixel}, {nvoxel}]")
+              f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
+              + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else ""))
 
         # one stream of (frame, time, camera times), shared by the loops
         frames = ((composite_image.frame(i), composite_image.frame_time(i),

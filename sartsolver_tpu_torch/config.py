@@ -134,6 +134,13 @@ class SolverOptions:
     - ``momentum``: ``"nesterov"`` extrapolates the iterate before each
       sweep (additively for the linear solver, multiplicatively for the log
       solver), with gradient-based restart; ``"off"`` is the plain update.
+    - ``os_subsets``: ordered-subsets SART. Each outer iteration cycles
+      the update over this many interleaved pixel-row subsets (subset t is
+      rows ``t::os_subsets``), each with a fresh residual, its own ray
+      density and mask, then projects the final iterate once in full for
+      the Eq. 5 test. Must divide the pixel extent. 1 (the default) is the
+      classic sweep; with ``fused_sweep="auto"`` the subset cycle replaces
+      the fused sweep, and ``"on"`` is refused.
     - ``divergence_recovery``: with R > 0 an iteration whose ``||Hf||^2``
       or metric is not finite, or whose ``||Hf||^2`` exceeds
       ``divergence_threshold * max(||g||^2, 1)``, is rolled back and the
@@ -172,10 +179,10 @@ class SolverOptions:
     momentum: str = "off"
     divergence_recovery: int = 0
     divergence_threshold: float = 1.0e4
+    os_subsets: int = 1
 
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
-    os_subsets: int = 1
     integrity: bool = False
     sparse_rtm: str = "off"
     lowrank_rtm: str = "off"
@@ -211,10 +218,22 @@ class SolverOptions:
             raise ValueError(
                 "Attribute relaxation_decay must be within (0, 1] interval."
             )
-        if self.momentum not in ("off", "nesterov"):
-            raise ValueError("Attribute momentum must be 'off' or 'nesterov'.")
         if self.max_iterations <= 0:
             raise ValueError("Attribute max_iterations must be positive.")
+        if self.os_subsets < 1:
+            raise ValueError(
+                "Attribute os_subsets must be >= 1 (1 disables ordered-"
+                "subsets cycling)."
+            )
+        if self.momentum not in ("off", "nesterov"):
+            raise ValueError("Attribute momentum must be 'off' or 'nesterov'.")
+        if self.os_subsets > 1 and self.fused_sweep == "on":
+            raise ValueError(
+                "Attribute os_subsets > 1 runs the subset-cycle sweep "
+                "(one subset per update); an explicit fused_sweep="
+                f"'{self.fused_sweep}' cannot be honored there — use "
+                "'auto' or 'off'."
+            )
         if self.dtype not in ("float32", "float64"):
             raise ValueError("dtype must be 'float32' or 'float64'.")
         if self.rtm_dtype not in (None, "float32", "float64", "bfloat16", "int8"):
@@ -253,7 +272,6 @@ class SolverOptions:
 
 # (field, the only value this package accepts)
 _NOT_PORTED = (
-    ("os_subsets", 1),
     ("integrity", False),
     ("sparse_rtm", "off"),
     ("lowrank_rtm", "off"),

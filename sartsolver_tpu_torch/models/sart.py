@@ -39,10 +39,23 @@ adding no op to it:
   non-finite or explodes is rolled back and its step halved, up to R times,
   then stops ``DIVERGED``; a frame whose input is not finite stops
   ``DIVERGED`` at iteration 0 with a zero solution.
+
+``os_subsets > 1`` replaces the sweep by the ordered-subsets cycle
+(:meth:`_SweepContext.run_os_sweep`): each iteration updates against the
+interleaved pixel-row subsets ``t::os`` in turn, each with a fresh residual,
+then projects the final iterate once in full. Its products are the plain
+ones of :mod:`~sartsolver_tpu_torch.ops.os_subsets` on every storage (int8
+included, whose codes are upcast exactly a block at a time), and it composes
+with the three variants above as the sweep does.
+
+With ``debug_nans=True`` every path checks the values it keeps for NaN at
+its step boundaries and raises ``FloatingPointError``
+(:mod:`~sartsolver_tpu_torch.debug_nans`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from sartsolver_tpu_torch import debug_nans as nanchk
 from sartsolver_tpu_torch.config import (
     DIVERGED,
     MAX_ITERATIONS_EXCEEDED,
@@ -59,6 +73,12 @@ from sartsolver_tpu_torch.config import (
 from sartsolver_tpu_torch.device import check_on, resolve_device
 from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep
 from sartsolver_tpu_torch.ops.laplacian import LaplacianCOO, coo_matvec
+from sartsolver_tpu_torch.ops.os_subsets import (
+    os_subset_back,
+    os_subset_forward,
+    os_subset_pixels,
+    os_subset_rows,
+)
 from sartsolver_tpu_torch.ops.projection import (
     _sym_codes,
     _sym_scale,
@@ -162,6 +182,29 @@ def compute_ray_stats_int8(codes: Tensor, scale: Tensor, *,
     return s * colsum.to(dtype), length
 
 
+def _subset_colsums(rtm: Tensor, n: int, dtype: torch.dtype,
+                    scale: Optional[Tensor]) -> Tensor:
+    """``[n, V]`` column sums of the interleaved row subsets ``t::n`` (the
+    OS cycle's per-subset ray densities), a block of rows at a time; int8
+    codes sum in int32 (exact) and are scaled after."""
+    P, V = rtm.shape
+    step = max(n, _CHUNK_ELEMENTS // max(V, 1) // n * n)
+    acc = torch.zeros((n, V), dtype=torch.int32 if scale is not None else dtype,
+                      device=rtm.device)
+    for r0 in range(0, P, step):
+        acc += rtm[r0:r0 + step].reshape(-1, n, V).sum(dim=0, dtype=acc.dtype)
+    return scale[None, :] * acc.to(dtype) if scale is not None else acc
+
+
+def _span(name: str):
+    """A ``torch.profiler`` range around one part of the OS cycle while a
+    profiler records (it splits an iteration's device time by part), else
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
                  opts: SolverOptions, device="cuda",
                  rtm_scale=None) -> SARTProblem:
@@ -228,12 +271,14 @@ def resolve_fused(opts: SolverOptions) -> bool:
     """Whether the loop runs through the fused sweep: fp32 compute over
     fp32, bf16 or int8 storage, with ``"auto"`` or ``"on"``. The fp64
     profile and fp64 storage decline — quietly for ``"auto"``, with a
-    ValueError for ``"on"``. So does the log solver with
+    ValueError for ``"on"``. The ordered-subsets cycle (``os_subsets > 1``)
+    replaces the fused sweep under ``"auto"`` (``SolverOptions`` refuses it
+    with ``"on"``). So does the log solver with
     ``divergence_recovery``, as in the JAX package
     (``sartsolver_tpu/models/sart.py:_resolve_fused``): the guard's per-frame
     step scale enters the log update as its exponent, which the JAX kernel's
     literal-constant closure cannot carry."""
-    if opts.fused_sweep == "off":
+    if opts.fused_sweep == "off" or opts.os_subsets > 1:
         return False
     if opts.divergence_recovery and opts.logarithmic:
         if opts.fused_sweep == "on":
@@ -260,8 +305,9 @@ class _SweepContext:
     """Masks, inverse ray stats, the penalty and one iteration's sweep."""
 
     def __init__(self, problem: SARTProblem, opts: SolverOptions,
-                 sweep_fn: SweepFn):
+                 sweep_fn: SweepFn, debug_nans: bool = False):
         self.opts = opts
+        self.debug_nans = debug_nans
         self.dtype = torch_dtype(opts.dtype)
         self.rtm = problem.rtm
         self.lap = problem.laplacian
@@ -269,8 +315,10 @@ class _SweepContext:
         self.eps = _tiny(opts.log_epsilon)
         self.fused = resolve_fused(opts)
         self.sweep_fn = sweep_fn
-        # int8 codes: the loop's kernel dequantizes them exactly; the
-        # projections outside it quantize their vector operand
+        self.os = int(opts.os_subsets)
+        # int8 codes: the loop's kernel (or the OS cycle's products)
+        # dequantizes them exactly; the projections outside it quantize
+        # their vector operand
         self.scale = None
         if problem.rtm.dtype == torch.int8:
             if problem.rtm_scale is None:
@@ -278,7 +326,7 @@ class _SweepContext:
                     "int8 RTM needs SARTProblem.rtm_scale; build the problem "
                     "with make_problem(..., opts with rtm_dtype='int8')."
                 )
-            if not self.fused:
+            if not self.fused and self.os == 1:
                 raise ValueError(
                     "rtm_dtype='int8' requires the fused sweep, but it "
                     f"resolved off (fused_sweep='{opts.fused_sweep}'). Use "
@@ -299,14 +347,33 @@ class _SweepContext:
             torch.zeros_like(length),
         ).to(self.dtype)
         self.vm = self.vmask.to(self.dtype)[None, :]
+        if self.os > 1:
+            # per-subset ray densities and masks: a sub-step normalizes by
+            # its own subset's column sums and never updates a voxel that
+            # its subset barely sees or that is masked globally
+            P = problem.rtm.shape[0]
+            if P % self.os:
+                raise ValueError(
+                    f"os_subsets={self.os} must divide the (per-shard, "
+                    f"padded) pixel extent {P}."
+                )
+            dens_sub = _subset_colsums(problem.rtm, self.os, self.dtype, self.scale)
+            self.vmask_sub = (dens_sub > opts.ray_density_threshold) & self.vmask[None, :]
+            self.inv_density_sub = torch.where(
+                self.vmask_sub,
+                opts.relaxation / torch.where(self.vmask_sub, dens_sub, torch.ones_like(dens_sub)),
+                torch.zeros_like(dens_sub),
+            ).to(self.dtype)
+        self.os_nan_rows = None  # [os, B] with debug_nans: NaN rows after each sub-step
 
         dev = dens.device
         self.scheduled = opts.relaxation_decay != 1.0
         self.decay = torch.tensor(opts.relaxation_decay, dtype=self.dtype, device=dev)
         self.relax = torch.tensor(opts.relaxation, dtype=self.dtype, device=dev)
         self.momentum = opts.momentum != "off"
-        # only the linear solver extrapolates H f by linearity
-        self.carry_fit = self.momentum and not opts.logarithmic
+        # only the linear classic sweep extrapolates H f by linearity (the
+        # OS cycle recomputes every subset residual)
+        self.carry_fit = self.momentum and not opts.logarithmic and self.os == 1
         self.mom_floor = torch.tensor(_tiny(max(opts.log_epsilon, 1e-30)),
                                       dtype=self.dtype, device=dev)
         self.recovery = int(opts.divergence_recovery)
@@ -350,6 +417,117 @@ class _SweepContext:
         obs = self.bp_any(torch.where(meas_mask, g, zero) * self.inv_length)
         return torch.where(self.vmask[None, :], obs, torch.zeros_like(obs))
 
+    def make_obs_sub(self, g: Tensor, meas_mask: Tensor) -> Tensor:
+        """The OS cycle's per-subset observations ``[B, os, V]``: subset t's
+        back-projection of the measurement, masked by its own voxel mask;
+        once per measurement, as :meth:`make_obs`."""
+        outs = []
+        for t in range(self.os):
+            g_t = os_subset_pixels(g, t, self.os)
+            w_t = (torch.where(os_subset_pixels(meas_mask, t, self.os), g_t,
+                               torch.zeros_like(g_t))
+                   * os_subset_pixels(self.inv_length, t, self.os)[None, :])
+            obs_t = os_subset_back(os_subset_rows(self.rtm, t, self.os), w_t, self.scale)
+            outs.append(torch.where(self.vmask_sub[t][None, :], obs_t, torch.zeros_like(obs_t)))
+        return torch.stack(outs, dim=1)
+
+    def log_exponent(self, B: int, dk: Optional[Tensor], ascale: Optional[Tensor]):
+        """The log update's exponent ``relaxation * dk * ascale``: ``[B, 1]``,
+        or the plain float when neither factor is on."""
+        if dk is None and ascale is None:
+            return self.opts.relaxation
+        exponent = self.relax.expand(B)
+        if dk is not None:
+            exponent = exponent * dk
+        if ascale is not None:
+            exponent = exponent * ascale
+        return exponent[:, None]
+
+    def run_os_sweep(self, f: Tensor, dk: Optional[Tensor], ascale: Optional[Tensor],
+                     g: Tensor, meas_mask: Tensor, obs_sub: Optional[Tensor]
+                     ) -> Tuple[Tensor, Tensor]:
+        """``(f_upd, fitted_upd)``: one outer iteration of the ordered-subsets
+        cycle (``sartsolver_tpu/models/sart.py:run_os_sweep``). Sub-step t
+        updates against the rows ``t::os`` with a fresh residual at the
+        iterate the sub-steps before it left, its own inverse density (or
+        observation) and mask; ``dk`` and ``ascale`` compose as in
+        :meth:`run_sweep`; the Laplacian penalty is taken at the current
+        iterate and scaled by ``1/os``, so a cycle applies the classic
+        iteration's strength. Then one exact full forward projection of the
+        final iterate: for int8 the subset products interleaved back, never
+        the quantized-vector projection."""
+        n = self.os
+        pen_scale = 1.0 / n
+        exponent = eps = None
+        if self.opts.logarithmic:
+            exponent = self.log_exponent(f.shape[0], dk, ascale)
+            eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
+        nan_rows = []
+        for t in range(n):
+            panel = os_subset_rows(self.rtm, t, n)
+            m_t = os_subset_pixels(meas_mask, t, n)
+            il_t = os_subset_pixels(self.inv_length, t, n)[None, :]
+            with _span("os_subset_forward"):
+                fitted_t = os_subset_forward(panel, f, self.scale)
+            if self.opts.logarithmic:
+                w = torch.where(m_t, fitted_t, torch.zeros_like(fitted_t)) * il_t
+                with _span("os_subset_back"):
+                    fit = os_subset_back(panel, w, self.scale)
+                # the fp32 products widen to the compute dtype before the
+                # ratio, as the JAX cycle's fp64 epsilon widens them
+                fit = torch.where(self.vmask_sub[t][None, :], fit,
+                                  torch.zeros_like(fit)).to(self.dtype)
+                obs_t = obs_sub[:, t].to(self.dtype)
+                f_new = f * ((obs_t + eps) / (fit + eps)) ** exponent
+                if self.lap is not None:
+                    f_new = f_new * torch.exp(-(self.compute_penalty(torch.log(f)) * pen_scale))
+            else:
+                g_t = os_subset_pixels(g, t, n)
+                w = torch.where(m_t, g_t - fitted_t, torch.zeros_like(g_t)) * il_t
+                if dk is not None:
+                    w = w * dk[:, None]
+                if ascale is not None:
+                    w = w * ascale[:, None]
+                with _span("os_subset_back"):
+                    bp = os_subset_back(panel, w, self.scale)
+                upd = f + self.inv_density_sub[t][None, :] * bp
+                if self.lap is not None:
+                    upd = upd - self.compute_penalty(f) * pen_scale
+                f_new = torch.clamp_min(upd, 0)
+            f = f_new
+            if self.debug_nans:
+                nan_rows.append(nanchk.row_flags(f))
+        if self.debug_nans:
+            self.os_nan_rows = torch.stack(nan_rows)
+        with _span("os_full_forward"):
+            if self.scale is not None:
+                parts = [os_subset_forward(os_subset_rows(self.rtm, t, n), f, self.scale)
+                         for t in range(n)]
+                fitted = torch.stack(parts, dim=2).reshape(f.shape[0], self.rtm.shape[0])
+            else:
+                fitted = self.fp_any(f)
+        return f, fitted
+
+    def check_kept(self, where: str, f: Tensor, fitted: Tensor, conv: Tensor) -> None:
+        """``debug_nans`` on an iteration's kept iterate, projection and
+        Eq. 5 metric (nothing when off); an OS iterate names the first
+        sub-step whose result held the NaN."""
+        if not self.debug_nans:
+            return
+        what = nanchk.first_nan(("the iterate", f), ("the forward projection", fitted),
+                                ("the Eq. 5 metric", conv))
+        if what is None:
+            return
+        if what == "the iterate":
+            step = "the sweep"
+            if self.os > 1:
+                step = "the OS cycle"
+                hit = (self.os_nan_rows & torch.isnan(f).any(dim=1)[None, :]).any(dim=1)
+                if bool(hit.any()):
+                    step = f"OS sub-step {int(hit.to(torch.int8).argmax())}"
+            what = f"the iterate after {step}"
+        nanchk.fail(what, where)
+
     def run_fused(self, w: Tensor, f: Tensor, aux, **kw):
         """One call of the fused sweep; int8 codes carry their scale."""
         if self.scale is not None:
@@ -383,15 +561,7 @@ class _SweepContext:
             fit = self.bp_any(w)
             fit = torch.where(self.vmask[None, :], fit, torch.zeros_like(fit))
             eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
-            exponent = opts.relaxation
-            if dk is not None or ascale is not None:
-                exponent = self.relax.expand(f.shape[0])
-                if dk is not None:
-                    exponent = exponent * dk
-                if ascale is not None:
-                    exponent = exponent * ascale
-                exponent = exponent[:, None]
-            ratio = ((obs + eps) / (fit + eps)) ** exponent
+            ratio = ((obs + eps) / (fit + eps)) ** self.log_exponent(f.shape[0], dk, ascale)
             return f * ratio * torch.exp(-penalty), None
         w = torch.where(meas_mask, g - fitted, torch.zeros_like(g)) * self.inv_length
         if dk is not None:
@@ -442,20 +612,25 @@ class _SweepContext:
         solve and the scheduler's stride. ``mom`` is the momentum state
         ``(f_prev, fitted_prev or None, tk)``: the sweep then runs at the
         extrapolated point ``y`` (the penalty taken there too), while the
-        frozen frames keep ``f``."""
+        frozen frames keep ``f``. With ``os_subsets > 1`` the OS cycle
+        replaces the sweep (``obs`` is then ``[B, os, V]``); it computes
+        every subset residual at ``y`` itself, so no projection of ``y``."""
         opts = self.opts
         base, fitted_base, y, t_next = f, fitted, None, None
         if mom is not None:
             f_prev, fitted_prev, tk = mom
             y, beta, t_next = self.extrapolate(f, f_prev, tk)
             base = y
-            if opts.logarithmic:
+        if self.os > 1:
+            f_upd, fitted_upd = self.run_os_sweep(base, dk, ascale, g, meas_mask, obs)
+        else:
+            if mom is not None and opts.logarithmic:
                 fitted_base = self.fp_any(y)  # no linearity: one projection
-            else:
+            elif mom is not None:
                 fitted_base = fitted + beta * (fitted - fitted_prev)  # H y, exactly
-        penalty = self.compute_penalty(torch.log(base) if opts.logarithmic else base)
-        f_upd, fitted_upd = self.run_sweep(base, fitted_base, penalty, g, meas_mask, obs,
-                                           dk, ascale)
+            penalty = self.compute_penalty(torch.log(base) if opts.logarithmic else base)
+            f_upd, fitted_upd = self.run_sweep(base, fitted_base, penalty, g, meas_mask, obs,
+                                               dk, ascale)
         frozen = done[:, None]
         f_new = torch.where(frozen, f, f_upd)  # converged frames freeze
         if fitted_upd is None:
@@ -539,6 +714,7 @@ def solve_normalized_batch(
     return_fitted: bool = False,
     device="cuda",
     sweep_fn: SweepFn = fused_sweep,
+    debug_nans: bool = False,
 ) -> "SolveResult | Tuple[SolveResult, Tensor]":
     """Solver core on pre-normalized measurements: B independent frames in
     one loop.
@@ -550,9 +726,12 @@ def solve_normalized_batch(
     ``return_fitted=True`` also returns the loop-exit ``fitted == H @
     solution`` ``[B, P]``. ``sweep_fn`` is the fused sweep's implementation;
     only tests and the chip smoke run set it, to the plain version.
+    ``debug_nans=True`` raises ``FloatingPointError`` at the first NaN the
+    solve keeps (``sartsolver_tpu_torch/debug_nans.py``).
 
     The variants (``sartsolver_tpu/models/sart.py:1894-2066``, without the
-    integrity check and the OS cycle): the schedule factor of the loop's
+    integrity check): the OS cycle in place of the sweep, with the log
+    variant's per-subset observations; the schedule factor of the loop's
     count; the momentum state ``(f_prev, fitted_prev, t_k)``, started at
     ``(f0, fitted0, 1)``; the divergence guard's per-frame step scale,
     recovery count and DIVERGED latch, a rolled-back frame never passing
@@ -566,7 +745,7 @@ def solve_normalized_batch(
              f0=f0, fitted0=fitted0)
     dtype = torch_dtype(opts.dtype)
     B = g.shape[0]
-    kit = _SweepContext(problem, opts, sweep_fn)
+    kit = _SweepContext(problem, opts, sweep_fn, debug_nans)
     g = g.to(dtype)
     meas_mask = g >= 0  # [B, P]
 
@@ -587,7 +766,9 @@ def solve_normalized_batch(
 
     tol = torch.tensor(opts.conv_tolerance, dtype=dtype, device=dev)
     msq = msq.to(dtype)
-    obs = kit.make_obs(g, meas_mask) if opts.logarithmic else None
+    obs = None
+    if opts.logarithmic:
+        obs = kit.make_obs_sub(g, meas_mask) if kit.os > 1 else kit.make_obs(g, meas_mask)
 
     conv_prev = torch.zeros(B, dtype=dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -603,6 +784,10 @@ def solve_normalized_batch(
         iters = torch.where(bad_in, torch.zeros_like(iters), iters)
         ascale = torch.ones(B, dtype=dtype, device=dev)
         recov = torch.zeros(B, dtype=torch.int32, device=dev)
+    if debug_nans:
+        nanchk.check("the start of the solve",
+                     ("the guess" if use_guess else "the warm start", f),
+                     ("the set-up projection", fitted), ("the observation back-projection", obs))
     if kit.momentum:  # t_1 = 1: the first iteration extrapolates nothing
         mom = (f, fitted if kit.carry_fit else None, torch.ones(B, dtype=dtype, device=dev))
     it = 0
@@ -615,6 +800,7 @@ def solve_normalized_batch(
         if kit.recovery:
             f_new, fitted_new, conv, ascale, recov, bad, exhausted = kit.guard(
                 step, f, fitted, conv_prev, done, msq, ascale, recov)
+        kit.check_kept(f"iteration {it + 1}", f_new, fitted_new, conv)
         if it >= 1:  # Eq. 5 stall test, from the second iteration on
             newly = ~done & (torch.abs(conv - conv_prev) < tol)
             if bad is not None:  # a rolled-back metric is not a stall
@@ -652,6 +838,7 @@ def solve_chain_normalized(
     use_guess_first: bool,
     fitted0: Optional[Tensor] = None,
     device="cuda",
+    debug_nans: bool = False,
 ) -> Tuple[SolveResult, Tensor]:
     """K warm-chained frames, each a B = 1 solve of
     :func:`solve_normalized_batch`: frame 0 from the Eq. 4 guess (or the
@@ -674,7 +861,7 @@ def solve_chain_normalized(
         return solve_normalized_batch(
             problem, g[k:k + 1], msq[k:k + 1], f_start, opts=opts,
             use_guess=use_guess, fitted0=fit_start, return_fitted=True,
-            device=device,
+            device=device, debug_nans=debug_nans,
         )
 
     if use_guess_first:
@@ -709,7 +896,7 @@ class SchedState(NamedTuple):
     done: Tensor  # [B] bool, frozen (converged, capped, diverged or inert)
     status: Tensor  # [B] int32, SUCCESS / MAX_ITERATIONS_EXCEEDED / DIVERGED
     iters: Tensor  # [B] int32, iteration count latched at retirement
-    obs: Optional[Tensor]  # [B, V] log variant's observation; None linear
+    obs: Optional[Tensor]  # [B, V] log variant's observation ([B, os, V] with OS); None linear
     ascale: Optional[Tensor] = None  # [B] the guard's step scale
     recov: Optional[Tensor] = None  # [B] int32, the guard's recoveries spent
     f_prev: Optional[Tensor] = None  # [B, V] momentum: the previous iterate
@@ -726,6 +913,7 @@ def sched_step_normalized(
     *,
     opts: SolverOptions,
     device="cuda",
+    debug_nans: bool = False,
 ) -> SchedState:
     """One scheduler stride: load the ``refill`` lanes, then run at most
     ``opts.schedule_stride`` iterations of every lane that is not done.
@@ -734,9 +922,10 @@ def sched_step_normalized(
     does, with the same ops: the Eq. 4 guess, its floors, its forward
     projection and, for the log variant, ``obs`` (taken for every lane and
     kept for the refilled ones); its momentum and guard state start over,
-    and the guard's pre-flight check runs on the refilled lanes only. The
-    host knows ``refill``, so a stride with no refill (``g_new``/``msq_new``
-    may be None) skips that part.
+    and the guard's pre-flight check runs on the refilled lanes only (with
+    ``os_subsets > 1`` ``obs`` holds the per-subset observations ``[B, os,
+    V]``). The host knows ``refill``, so a stride with no refill
+    (``g_new``/``msq_new`` may be None) skips that part.
 
     Each lane runs its own stall test from its own second iteration, its own
     schedule factor and guard, and stops at ``max_iterations``; ``iters``
@@ -747,7 +936,7 @@ def sched_step_normalized(
     """
     dev = resolve_device(device)
     dtype = torch_dtype(opts.dtype)
-    kit = _SweepContext(problem, opts, fused_sweep)
+    kit = _SweepContext(problem, opts, fused_sweep, debug_nans)
     refill = np.asarray(refill, bool)
     if refill.any():
         check_on(dev, g_new=g_new, msq_new=msq_new)
@@ -758,7 +947,9 @@ def sched_step_normalized(
         f0 = _floor_start(kit.initial_guess(g), opts).to(dtype)
         fitted0 = kit.fp_any(f0)
         obs = state.obs
-        if opts.logarithmic:
+        if opts.logarithmic and kit.os > 1:
+            obs = torch.where(lanes[:, None, None], kit.make_obs_sub(g, g >= 0), state.obs)
+        elif opts.logarithmic:
             obs = torch.where(rows, kit.make_obs(g, g >= 0), state.obs)
         f = torch.where(rows, f0, state.f)
         fitted = torch.where(rows, fitted0, state.fitted)
@@ -788,6 +979,10 @@ def sched_step_normalized(
             it=torch.where(lanes, torch.zeros_like(state.it), state.it),
             done=done, status=status, iters=iters, obs=obs, **extra,
         )
+        if debug_nans:  # the lanes' state is the stride's result, measurements too
+            nanchk.check("the refill of a scheduler stride", ("the lanes' measurements", g),
+                         ("the guess", state.f), ("the set-up projection", state.fitted),
+                         ("the observation back-projection", obs))
 
     g, msq, obs = state.g, state.msq, state.obs
     meas_mask = g >= 0
@@ -816,6 +1011,7 @@ def sched_step_normalized(
             live_ok = live & ~bad  # a rolled-back metric is not a stall
         else:
             live_ok = live
+        kit.check_kept(f"step {step + 1} of a scheduler stride", f_new, fitted_new, conv)
         newly = live_ok & (torch.abs(conv - conv_prev) < tol)
         if step == 0:
             newly &= armed

@@ -12,6 +12,14 @@ Frames arrive as host arrays in physical units and are normalized on the
 host (:func:`~sartsolver_tpu_torch.models.sart.prepare_measurement`).
 Results stay on the device: their scalars come back in one packed copy,
 their solutions when fetched.
+
+Ordered subsets (``os_subsets > 1``) accept what the JAX solver accepts:
+that solver pads the pixel rows to a multiple of ``ROW_ALIGN`` with zero
+rows whose measurements are -1 (masked), and ``os_subsets`` must divide the
+padded extent. Where it does not divide the pixel count itself, this solver
+pads the same way (a zero row adds nothing to any product, sum or ray
+stat, and a masked pixel nothing to a residual), so its subsets hold the
+JAX subsets' rows; otherwise it uploads the matrix as given.
 """
 
 from __future__ import annotations
@@ -33,6 +41,38 @@ from sartsolver_tpu_torch.models.sart import (
     solve_normalized_batch,
     torch_dtype,
 )
+
+
+# the JAX solver's pixel-row alignment on one device
+# (sartsolver_tpu/parallel/mesh.py:ROW_ALIGN)
+ROW_ALIGN = 8
+
+
+def os_padded_rows(npixel: int, os_subsets: int) -> int:
+    """The pixel rows the solver holds: ``npixel``, or for ordered subsets
+    that do not divide it the JAX solver's padded extent ``ceil(npixel /
+    ROW_ALIGN) * ROW_ALIGN``. Raises ValueError, with the JAX solver's
+    message, where ``os_subsets`` does not divide the padded extent (as the
+    JAX solver does, even where it divides ``npixel``)."""
+    if os_subsets <= 1:
+        return npixel
+    padded = -(-npixel // ROW_ALIGN) * ROW_ALIGN
+    if padded % os_subsets:
+        raise ValueError(
+            f"os_subsets={os_subsets} must divide the (per-shard, padded) "
+            f"pixel extent {padded}."
+        )
+    return npixel if npixel % os_subsets == 0 else padded
+
+
+def _pad_rows(rtm, rows: int):
+    """``rtm`` [P, V] (a host array or a tensor) with zero rows appended up
+    to ``rows``."""
+    extra = rows - rtm.shape[0]
+    if isinstance(rtm, torch.Tensor):
+        return torch.cat([rtm, rtm.new_zeros((extra, rtm.shape[1]))])
+    rtm = np.asarray(rtm)
+    return np.concatenate([rtm, np.zeros((extra, rtm.shape[1]), rtm.dtype)])
 
 
 class DeviceSolveResult:
@@ -126,15 +166,23 @@ class DistributedSARTSolver:
     ``rtm`` [P, V] is a host array or a tensor, stored as
     ``opts.rtm_dtype`` (int8: quantized where it lies); ``laplacian`` a :class:`~sartsolver_tpu_torch.ops.laplacian.LaplacianCOO`
     on ``device``. :meth:`close` (or leaving a ``with`` block) releases the
-    device copy of the matrix.
+    device copy of the matrix. ``debug_nans=True``: every solve raises
+    ``FloatingPointError`` at the first NaN it keeps (``debug_nans.py``).
     """
 
-    def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda"):
+    def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda",
+                 debug_nans: bool = False):
         self.device = resolve_device(device)
         self.opts = opts
+        self.debug_nans = debug_nans
         self.dtype = torch_dtype(opts.dtype)
+        npixel = np.shape(rtm)[0]
+        # the rows the device holds: npixel, or the OS cycle's padded extent
+        self.rows = os_padded_rows(npixel, opts.os_subsets)
+        if self.rows != npixel:
+            rtm = _pad_rows(rtm, self.rows)
         self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device)
-        self.npixel, self.nvoxel = self.problem.rtm.shape
+        self.npixel, self.nvoxel = npixel, self.problem.rtm.shape[1]
 
     def close(self) -> None:
         """Release the device copy of the problem; results stay valid."""
@@ -161,9 +209,16 @@ class DistributedSARTSolver:
         if G.ndim != 2 or G.shape[1] != self.npixel:
             raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
         gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
-        g = torch.as_tensor(np.stack(gs), device=self.device).to(self.dtype)
+        g = torch.as_tensor(self._pad_frames(np.stack(gs)), device=self.device).to(self.dtype)
         msq = torch.as_tensor(np.asarray(msqs), device=self.device).to(self.dtype)
         return g, msq, np.asarray(norms, np.float64)
+
+    def _pad_frames(self, g: np.ndarray) -> np.ndarray:
+        """Normalized frames [B, npixel] with the padded rows' -1 (masked)."""
+        if self.rows == self.npixel:
+            return g
+        return np.concatenate([g, np.full((g.shape[0], self.rows - self.npixel), -1.0)],
+                              axis=1)
 
     def solve_batch(self, measurements) -> DeviceSolveResult:
         """Solve B independent frames [B, P] in one batched loop, each from
@@ -174,7 +229,7 @@ class DistributedSARTSolver:
         seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype, device=self.device)
         res, fitted = solve_normalized_batch(
             problem, g, msq, seed, opts=self.opts, use_guess=True,
-            return_fitted=True, device=self.device,
+            return_fitted=True, device=self.device, debug_nans=self.debug_nans,
         )
         return DeviceSolveResult(res, norms, fitted_norm=fitted)
 
@@ -198,7 +253,7 @@ class DistributedSARTSolver:
         res, fitted = solve_chain_normalized(
             problem, g, msq, seed, torch.as_tensor(rescale, device=self.device),
             opts=self.opts, use_guess_first=warm is None, fitted0=fitted0,
-            device=self.device,
+            device=self.device, debug_nans=self.debug_nans,
         )
         return DeviceSolveResult(res, norms, fitted_norm=fitted)
 
@@ -208,32 +263,36 @@ class DistributedSARTSolver:
         """Fresh, all-inert lane state for :meth:`sched_step`: ``g = -1``
         (every pixel masked), ``f = 1`` (log-safe), ``msq = 1``, done; with
         the guard, step scale 1 and no recovery spent; with momentum, ``f_prev
-        = 1`` (the inert iterate), ``fitted_prev = 0`` and ``t = 1``."""
+        = 1`` (the inert iterate), ``fitted_prev = 0`` (the linear classic
+        sweep only) and ``t = 1``. The log variant's ``obs`` is ``[B, os,
+        V]`` with ordered subsets, else ``[B, V]``."""
         self._live_problem()
         B = int(lanes)
         if B < 1:
             raise ValueError("Lane count must be positive.")
         kw = dict(dtype=self.dtype, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
+        n_os = self.opts.os_subsets
+        obs_shape = (B, n_os, self.nvoxel) if n_os > 1 else (B, self.nvoxel)
         state = SchedState(
-            g=torch.full((B, self.npixel), -1.0, **kw),
+            g=torch.full((B, self.rows), -1.0, **kw),
             msq=torch.ones(B, **kw),
             f=torch.ones((B, self.nvoxel), **kw),
-            fitted=torch.zeros((B, self.npixel), **kw),
+            fitted=torch.zeros((B, self.rows), **kw),
             conv=torch.zeros(B, **kw),
             it=torch.zeros(B, **i32),
             done=torch.ones(B, dtype=torch.bool, device=self.device),
             status=torch.full((B,), MAX_ITERATIONS_EXCEEDED, **i32),
             iters=torch.zeros(B, **i32),
-            obs=torch.zeros((B, self.nvoxel), **kw) if self.opts.logarithmic else None,
+            obs=torch.zeros(obs_shape, **kw) if self.opts.logarithmic else None,
         )
         if self.opts.divergence_recovery:
             state = state._replace(ascale=torch.ones(B, **kw), recov=torch.zeros(B, **i32))
         if self.opts.momentum != "off":
             state = state._replace(
                 f_prev=torch.ones((B, self.nvoxel), **kw), tk=torch.ones(B, **kw),
-                fitted_prev=(None if self.opts.logarithmic
-                             else torch.zeros((B, self.npixel), **kw)))
+                fitted_prev=(None if self.opts.logarithmic or n_os > 1
+                             else torch.zeros((B, self.rows), **kw)))
         return SchedLaneState(state, B)
 
     def sched_step(self, lane_state: SchedLaneState, refills) -> None:
@@ -249,7 +308,7 @@ class DistributedSARTSolver:
         refill = np.zeros(B, bool)
         g_new = msq_new = None
         if refills:
-            g_stage = np.full((B, self.npixel), -1.0)
+            g_stage = np.full((B, self.rows), -1.0)
             msq_stage = np.ones(B)
             for b, meas in refills:
                 meas = np.asarray(meas, np.float64)
@@ -258,13 +317,14 @@ class DistributedSARTSolver:
                                      f"{meas.shape}, expected ({self.npixel},).")
                 if refill[b]:
                     raise ValueError(f"Lane {b} refilled twice in one stride.")
-                g_stage[b], msq_stage[b], norms[b] = prepare_measurement(meas, self.opts)
+                g_stage[b, :self.npixel], msq_stage[b], norms[b] = prepare_measurement(
+                    meas, self.opts)
                 refill[b] = True
             g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)
             msq_new = torch.as_tensor(msq_stage, device=self.device).to(self.dtype)
         new_state = sched_step_normalized(
             problem, lane_state.state, g_new, msq_new, refill, opts=self.opts,
-            device=self.device,
+            device=self.device, debug_nans=self.debug_nans,
         )
         lane_state.state = new_state
         lane_state.norms = norms

@@ -1,12 +1,14 @@
 """The solver variants of the port against the JAX package: the relaxation
-schedule (``relaxation_decay``), Nesterov momentum and the divergence guard
-(``divergence_recovery``), in the batched solve, the warm-start chain and
+schedule (``relaxation_decay``), Nesterov momentum, the divergence guard
+(``divergence_recovery``) and ordered subsets (``os_subsets``, alone and
+composed with the others), in the batched solve, the warm-start chain and
 the scheduler's stride (tests/test_accel.py and tests/test_resilience.py's
 cases).
 
 On the CPU the port's sweep is its plain version; the JAX side runs its
 fused sweep in Pallas interpret mode (the scheduled log update through its
-α aux panel), or its two-matmul path where the fused sweep declines.
+α aux panel), or its two-matmul path where the fused sweep declines. Both
+run the OS cycle's plain subset products where ``os_subsets > 1``.
 
 Bars: fp32 runs every frame to the cap (tolerance 0) and is held at the
 JAX suite's rtol 2e-4 / atol 1e-5 (tests/test_sharded_fused.py) with equal
@@ -44,6 +46,10 @@ VARIANTS = {
     "momentum": dict(momentum="nesterov"),
     "guard": dict(divergence_recovery=2),
     "all": dict(relaxation_decay=0.95, momentum="nesterov", divergence_recovery=2),
+    "os": dict(os_subsets=4),
+    "os_momentum": dict(os_subsets=4, momentum="nesterov"),
+    "os_all": dict(os_subsets=4, relaxation_decay=0.95, momentum="nesterov",
+                   divergence_recovery=2),
 }
 
 
@@ -328,16 +334,20 @@ def test_nan_frame_diverges_with_zero_solution(logarithmic):
 
 def _inert(mod, B, dtype, opts):
     """All-inert lanes as both packages' ``sched_lanes`` make them, with the
-    guard's and momentum's per-lane state."""
+    guard's and momentum's per-lane state (with OS the per-subset
+    observations, and no carried projection for momentum)."""
+    n_os = opts.os_subsets
     fields = dict(
         g=np.full((B, P), -1.0, dtype), msq=np.ones(B, dtype), f=np.ones((B, V), dtype),
         fitted=np.zeros((B, P), dtype), conv=np.zeros(B, dtype), it=np.zeros(B, np.int32),
         done=np.ones(B, bool), status=np.full(B, -1, np.int32), iters=np.zeros(B, np.int32),
-        obs=np.zeros((B, V), dtype) if opts.logarithmic else None,
+        obs=(np.zeros((B, n_os, V) if n_os > 1 else (B, V), dtype) if opts.logarithmic
+             else None),
         ascale=np.ones(B, dtype), recov=np.zeros(B, np.int32))
     if opts.momentum != "off":
         fields.update(f_prev=np.ones((B, V), dtype), tk=np.ones(B, dtype),
-                      fitted_prev=None if opts.logarithmic else np.zeros((B, P), dtype))
+                      fitted_prev=(None if opts.logarithmic or n_os > 1
+                                   else np.zeros((B, P), dtype)))
     if mod is jsart:
         return jsart.SchedState(**{k: None if v is None else jnp.asarray(v)
                                    for k, v in fields.items()})
@@ -417,7 +427,7 @@ def test_scheduler_equals_the_batched_loop(variant, logarithmic):
     if VARIANTS[variant].get("divergence_recovery"):
         frames = _with_nan(frames)
     # tolerances at which these frames' iteration counts spread below the cap
-    tol = 1e-5 if variant == "guard" and not logarithmic else 1e-7
+    tol = {"guard": 1e-5, "os": 1e-6}.get(variant, 1e-7) if not logarithmic else 1e-7
     opts = SolverOptions(max_iterations=300, conv_tolerance=tol, logarithmic=logarithmic,
                          schedule_stride=5, **VARIANTS[variant])
     K = 3

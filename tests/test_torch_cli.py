@@ -8,6 +8,11 @@ the fp64 profile also agrees in statuses, iterations and values (rtol 1e-8),
 the fp32 profile in fitted space.
 """
 
+import os
+import re
+import subprocess
+import sys
+
 import h5py
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ from sartsolver_tpu.cli import main as jax_main
 from sartsolver_tpu_torch.cli import main as torch_main
 from sartsolver_tpu_torch.io.solution import row_checksum
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FP64 = ["--use_cpu", "-m", "300", "-c", "1e-6"]
 FP32 = ["-m", "40", "-c", "1e-12"]  # a short budget; -c 1e-12 stops only at a stall
 
@@ -307,3 +313,163 @@ def test_cli_log_guard_refusals(world, tmp_path, argv, message, capsys):
     assert torch_main(["-o", str(tmp_path / "o.h5"), *_inputs(paths), "--device", "cpu",
                        "-L", "--divergence_recovery", "2", *argv]) == 1
     assert message in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# ordered subsets (--os_subsets) and --debug_nans
+# ---------------------------------------------------------------------------
+
+OS_CASES = {
+    # P = 14: the JAX solver pads its rows to 16, which 4 divides
+    "os4": ["--os_subsets", "4"],
+    "os2-log": ["--os_subsets", "2", "-L"],
+    "os4-momentum-scheduled": ["--os_subsets", "4", "--momentum", "nesterov", "--no_guess",
+                               "--batch_frames", "3"],
+    "os2-int8": ["--os_subsets", "2", "--rtm_dtype", "int8"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(OS_CASES))
+def test_cli_os_subsets_match_jax_cli(world, tmp_path, case, capsys):
+    """--os_subsets through both CLIs, fp32 (int8 storage needs no fused
+    sweep in either with OS): the run's header names the subset cycle,
+    equal frame times, a status that agrees with its own iteration count,
+    every frame within 5e-3 in fitted space (the fp32 CLI bar)."""
+    paths, H, *_ = world
+    flags = FP32 + OS_CASES[case]
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *_inputs(paths), *flags, "--pixel_shards", "1"]) == 0
+    capsys.readouterr()
+    assert torch_main(["-o", port_out, *_inputs(paths), *flags, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    n_os = OS_CASES[case][1]
+    assert f"compute=float32 sweep=os-subset rtm=[14, 16] os_subsets={n_os}" in out
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    assert out.count("Processed in:") == len(jsol["time"])
+    for key in ("time", f"time_{fx.CAM_A}", f"time_{fx.CAM_B}"):
+        np.testing.assert_array_equal(tsol[key], jsol[key], err_msg=key)
+    np.testing.assert_array_equal(tsol["status"] != 0, tsol["iterations"] == 40)
+    for i in range(len(jsol["time"])):
+        ref = H @ jsol["value"][i]
+        err = np.linalg.norm(H @ tsol["value"][i] - ref) / np.linalg.norm(ref)
+        assert err <= 5e-3, (i, err)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--os_subsets", "4"], ["--os_subsets", "2", "-L"],
+    ["--os_subsets", "4", "--momentum", "nesterov", "-L", "--divergence_recovery", "2"],
+    ["--os_subsets", "4", "--no_guess", "--batch_frames", "3"],
+], ids=["os4", "os2-log", "os4-log-momentum-guard", "os4-scheduled"])
+def test_cli_os_subsets_fp64_match_jax_cli(world, tmp_path, extra):
+    """The fp64 parity profile with --os_subsets: statuses, iterations and
+    values (1e-8) equal to the JAX CLI's, P = 14 padded to 16 included."""
+    paths, *_ = world
+    flags = FP64 + extra
+    jax_out, port_out = str(tmp_path / "jax.h5"), str(tmp_path / "port.h5")
+    assert jax_main(["-o", jax_out, *_inputs(paths), *flags, "--pixel_shards", "1"]) == 0
+    assert torch_main(["-o", port_out, *_inputs(paths), *flags]) == 0
+    jsol, _, _ = _read(jax_out)
+    tsol, _, _ = _read(port_out)
+    for key in ("status", "iterations"):
+        np.testing.assert_array_equal(tsol[key], jsol[key], err_msg=key)
+    np.testing.assert_allclose(tsol["value"], jsol["value"], rtol=1e-8)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--os_subsets", "0"], "Argument os_subsets must be >= 1, 0 given."),
+    (["--os_subsets", "2", "--fused_sweep", "on"],
+     "Argument os_subsets > 1 runs the subset-cycle sweep; --fused_sweep on"),
+])
+def test_cli_os_flag_errors_match_jax_cli(world, tmp_path, argv, message, capsys):
+    """Refused by both CLIs with the JAX message and exit 1."""
+    paths, *_ = world
+    for main in (jax_main, torch_main):
+        with pytest.raises(SystemExit) as err:
+            main(["-o", str(tmp_path / "o.h5"), *_inputs(paths), *argv])
+        assert err.value.code == 1
+        assert message in capsys.readouterr().err
+
+
+def test_cli_os_subsets_that_do_not_divide_are_refused(world, tmp_path, capsys):
+    """--os_subsets 3 on P = 14: 3 divides neither 14 nor the padded 16. The
+    JAX CLI raises the solver's ValueError; the port prints the same
+    message and exits 1."""
+    paths, *_ = world
+    message = "os_subsets=3 must divide the (per-shard, padded) pixel extent 16."
+    with pytest.raises(ValueError, match=re.escape(message)):
+        jax_main(["-o", str(tmp_path / "j.h5"), *_inputs(paths), *FP32, "--os_subsets", "3",
+                  "--pixel_shards", "1"])
+    capsys.readouterr()
+    assert torch_main(["-o", str(tmp_path / "t.h5"), *_inputs(paths), *FP32,
+                       "--os_subsets", "3", "--device", "cpu"]) == 1
+    assert message in capsys.readouterr().err
+
+
+def _jax_debug_nans(argv):
+    """The JAX CLI with --debug_nans: ``(raised, exit code)``. In a process
+    of its own: ``jax_debug_nans`` is process-wide, and in a process that
+    has run other JAX CLI calls (an int8 ``--fused_sweep interpret`` run,
+    say) a NaN result can get past it."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", SART_COMPILATION_CACHE="",
+               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-m", "sartsolver_tpu.cli", *argv, "--debug_nans",
+                           "--pixel_shards", "1"], capture_output=True, text=True, env=env,
+                          timeout=300)
+    raised = proc.returncode not in (0, 2) and "FloatingPointError" in proc.stderr
+    return raised, proc.returncode
+
+
+@pytest.mark.parametrize("flags,raises", [
+    ([], False),
+    (["--divergence_recovery", "2"], False),
+    (["-L"], False),
+    (["--chain_frames", "1"], False),
+    (["--os_subsets", "4"], False),
+    (["--os_subsets", "4", "--divergence_recovery", "2"], False),
+    (["--no_guess", "--batch_frames", "3", "--no_continuous_batching"], False),
+    # the scheduler's lanes keep their measurements, NaN pixel included
+    (["--no_guess", "--batch_frames", "3"], True),
+    (["--no_guess", "--batch_frames", "3", "--divergence_recovery", "2"], True),
+    (["--no_guess", "--batch_frames", "3", "--os_subsets", "4"], True),
+    # the fp64 profile's guess takes the NaN pixel in
+    (["--no_guess", "--use_cpu"], True),
+    (["--no_guess", "--use_cpu", "--divergence_recovery", "2"], False),
+])
+def test_cli_debug_nans_raises_where_the_jax_cli_raises(world, tmp_path, flags, raises, capsys):
+    """A NaN pixel in frame 1 under --debug_nans: the port raises
+    FloatingPointError on exactly the runs where the JAX CLI raises
+    (a NaN in a result of the solve: a lane's state, an iterate), and
+    otherwise exits with the JAX CLI's code (2 where the guard writes the
+    frame DIVERGED)."""
+    paths, *_ = world
+    _poison_frame(paths)
+    fp = FP64[1:] if "--use_cpu" in flags else FP32
+    argv = [*_inputs(paths), *fp, *flags]
+    jax_raised, jax_rc = _jax_debug_nans(["-o", str(tmp_path / "jax.h5"), *argv])
+    assert jax_raised == raises
+    port = ["-o", str(tmp_path / "port.h5"), *argv, "--debug_nans"]
+    if "--use_cpu" not in flags:
+        port += ["--device", "cpu"]
+    if raises:
+        with pytest.raises(FloatingPointError, match=r"NaN in .* \(--debug_nans\)"):
+            torch_main(port)
+    else:
+        assert torch_main(port) == jax_rc
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["-L"], ["--no_guess", "--batch_frames", "3"], ["--os_subsets", "4"],
+    ["--os_subsets", "2", "-L", "--no_guess", "--batch_frames", "3"],
+], ids=["chain", "log", "scheduled", "os4", "os2-log-scheduled"])
+def test_cli_debug_nans_changes_no_byte(world, tmp_path, flags):
+    """A healthy run with --debug_nans writes the same file as without it."""
+    paths, *_ = world
+    outs = []
+    for extra in ([], ["--debug_nans"]):
+        out = str(tmp_path / f"port{len(extra)}.h5")
+        assert torch_main(["-o", out, *_inputs(paths), *FP32, "-l", paths["laplacian"],
+                           "--device", "cpu", *flags, *extra]) == 0
+        outs.append(_read(out)[0])
+    for key in outs[0]:
+        np.testing.assert_array_equal(outs[0][key], outs[1][key], err_msg=key)

@@ -87,6 +87,32 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
     assert "decay_four_lanes" in variants["int8"] and "refused" in variants["int8"]["guard_log"]
 
 
+def test_chip_smoke_os_and_debug_nans_phases_at_small_size(tmp_path):
+    """chip_smoke.py's os and debug_nans phases on the CPU at a small size:
+    each storage's OS runs solve within the script's bound, scheduler and
+    classic loop agree byte for byte, the poisoned world exits 0 from the
+    chain and raises from the scheduler, and the flag changes no byte."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=12)
+    rec = cs.os_phase(world, str(tmp_path), device="cpu")
+    assert rec["os_subsets"] == cs.OS_SUBSETS
+    for storage in cs.STORAGES:
+        for mode, _ in cs.OS_MODES:
+            entry = rec[storage][mode]
+            assert len(entry["chain"]["frame_ms"]) == 4
+            assert entry["chain"]["fit_err_max"] <= cs.FIT_BOUND
+            assert entry["scheduled"]["loop_steps"] > 0
+            assert entry["classic"]["loop_iterations"] > 0
+    dn = cs.debug_nans_phase(world, str(tmp_path), device="cpu")
+    assert dn["nan_pixel_chain"] == "exit 0"
+    assert dn["nan_pixel_scheduler"].startswith("FloatingPointError: NaN in the lanes'")
+    assert dn["scheduler"]["byte_equal"] and dn["os_chain"]["byte_equal"]
+
+
 def test_chip_smoke_tall_world_at_small_size(tmp_path):
     """chip_smoke.py's tall-world phase on the CPU at a small size: the
     world written with taller cameras, one CLI run per storage type over its

@@ -257,7 +257,7 @@ def test_sweep_fn_parameter_reaches_the_loop():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("os_subsets", 2), ("integrity", True), ("sparse_rtm", "auto"),
+    ("integrity", True), ("sparse_rtm", "auto"),
     ("lowrank_rtm", "4"), ("rtm_dtype", "float16"),
 ])
 def test_options_not_ported_raise(field, value):
