@@ -100,6 +100,20 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    (:func:`debug_nans_phase`): a NaN pixel exits 0 from the chain and
    raises from the scheduler, as on the CPU, and the flag changes no byte
    of a healthy scheduler run or OS chain (ms per frame with and without).
+4b''. ``obs``: the observability layer through the CLI on the world
+   (:func:`obs_phase`), per storage the chain loop over 8 frames and
+   ``--no_guess --batch_frames 8`` over the 32, each without sinks and then
+   with ``--timing``, ``--metrics_out``, ``SART_METRICS_PROM`` and
+   ``SART_TRACE_EVENTS``: the artifact passes ``metrics --check``, its
+   frame records are the file's rows, the file is the same bytes as
+   without sinks, ``frames_total`` and ``sched_strides_total`` are what
+   stdout printed; emitted: the phase split (validate, ingest and upload,
+   frame loop, voxel map; in the ingest, the ``ingest.rtm`` span and its
+   first ``device.put``) beside the wall time, ms per frame with sinks on
+   and off. Then the fp32 scheduler under ``--profile_dir``: one profiler
+   step per stride, ``one_read``'s kernels inside the steps equal to its
+   launches; ``device_peaks`` of the card (the H100 row) and the roofline
+   utilization of that loop (``hbm_util`` at most 1.05).
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -818,6 +832,185 @@ def debug_nans_phase(world, outdir: str, device: str = "cuda") -> dict:
             if not np.array_equal(sols[0][key], sols[1][key]):
                 raise AssertionError(f"debug_nans {name}: solution/{key} differs with the flag")
         record[name] = dict(byte_equal=True, cli_ms_per_frame=timing)
+    return record
+
+
+OBS_LOOPS = (("chain", ["-t", "0:0.75"], 8),  # (name, flags, frames) of the obs phase
+             ("scheduler", ["--no_guess", "--batch_frames", str(FRAME_LANES)], None))
+OBS_PHASES = (("validate_ms", "validate + index inputs"),
+              ("ingest_upload_ms", "ingest RTM + upload"),
+              ("frame_loop_ms", "frame loop (solve + prefetch + flush)"),
+              ("voxel_map_ms", "write voxel map"))
+# the fused sweep's kernel of one_read, one per call
+ONE_READ_KERNEL = "sweep_kernel<"
+
+
+def _trace_steps(path: str, kernel: str) -> dict:
+    """From a ``--profile_dir`` trace: the ProfilerStep ranges on the host,
+    and for each the CUDA kernels named ``kernel`` whose launches (joined by
+    their correlation ids) lie inside it."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith("ProfilerStep#"))
+    # the host side of each launch: the CUDA API call carrying its correlation id
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat", "").startswith("cuda_")
+                   and "correlation" in e.get("args", {})}
+    per_step, outside = [0] * len(steps), 0
+    for e in events:
+        if e.get("cat") != "kernel" or kernel not in e.get("name", ""):
+            continue
+        ts = launched_at.get(e.get("args", {}).get("correlation"))
+        hit = [i for i, (t0, t1) in enumerate(steps) if ts is not None and t0 <= ts <= t1]
+        if hit:
+            per_step[hit[0]] += 1
+        else:
+            outside += 1
+    return dict(steps=len(steps), kernels_in_steps=sum(per_step), kernels_outside=outside,
+                min_kernels_a_step=min(per_step, default=0))
+
+
+def obs_phase(world, outdir: str, device: str = "cuda", card: str = "") -> dict:
+    """The observability layer through the CLI on the world, per storage: the
+    chain loop over 8 frames and ``--no_guess --batch_frames 8`` (the
+    scheduler, every frame), each run without sinks and then with
+    ``--timing``, ``--metrics_out``, ``SART_METRICS_PROM`` and
+    ``SART_TRACE_EVENTS``. Each sinks run's artifact passes the port's
+    ``metrics --check``, its frame records are the solution file's rows
+    (count, status, iterations), the file is the same bytes as the run
+    without sinks, ``frames_total`` counts the frames printed and
+    ``sched_strides_total`` the strides. Emitted, not gated: the phase split
+    of the run's wall time (validate, ingest and upload, frame loop,
+    voxel-map write) from the artifact, with the trace's ``ingest.rtm`` span
+    and its first ``device.put`` (the upload), the wall ms per frame and the
+    CLI's ms per frame with sinks on and off. Then once, fp32 scheduler with
+    ``--profile_dir``: one profiler step per stride, and on the card the
+    fused sweep's kernels in those steps equal its launches in the run. On
+    the card also ``device_peaks`` for the card (the H100 row) and the
+    roofline utilization of the fp32 scheduler's loop steps (``hbm_util``
+    at most 1.05)."""
+    from sartsolver_tpu_torch.cli import PROFILE_TRACE
+    from sartsolver_tpu_torch.io import h5
+    from sartsolver_tpu_torch.obs import roofline
+    from sartsolver_tpu_torch.obs.cli import metrics_main
+    from sartsolver_tpu_torch.obs.schema import load_jsonl
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, reset_launch_counts
+
+    p = world["paths"]
+    base = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    on_card = device == "cuda"
+
+    def run(name, flags, n_frames, sinks):
+        out = os.path.join(outdir, f"obs_{name}.h5")
+        art = os.path.join(outdir, f"obs_{name}.jsonl")
+        extra = ["--timing", "--metrics_out", art] if sinks else []
+        if sinks:
+            os.environ["SART_METRICS_PROM"] = os.path.join(outdir, f"obs_{name}.prom")
+            os.environ["SART_TRACE_EVENTS"] = os.path.join(outdir, f"obs_{name}.trace.json")
+        try:
+            t0 = time.perf_counter()
+            rc, ms, text = run_cli(["-o", out, *base, *flags, *extra], device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("SART_METRICS_PROM", None)
+            os.environ.pop("SART_TRACE_EVENTS", None)
+        if rc != 0 or len(ms) != n_frames:
+            raise AssertionError(f"obs {name}: exit {rc}, {len(ms)} of {n_frames} frames")
+        check_solution(out, world, n_frames, MAX_ITERATIONS, device)
+        with open(out, "rb") as f:
+            data = f.read()
+        return data, text, dict(wall_ms=wall * 1e3, wall_ms_per_frame=wall * 1e3 / n_frames,
+                                cli_ms_per_frame=statistics.mean(ms)), art
+
+    def check_artifact(name, art, out, text, n_frames):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = metrics_main(["--check", art])
+        if rc != 0:
+            raise AssertionError(f"obs {name}: metrics --check exit {rc}: {buf.getvalue()}")
+        records = [r for _, r in load_jsonl(art)[0]]
+        frames = [r for r in records if r["type"] == "frame"]
+        with h5.File(out, "r") as f:
+            status, iters = f["solution/status"][:], f["solution/iterations"][:]
+        if (len(frames) != n_frames or [r["status"] for r in frames] != status.tolist()
+                or [r["iterations"] for r in frames] != iters.tolist()):
+            raise AssertionError(f"obs {name}: frame records differ from the solution rows")
+        metric = {(r["name"], tuple(sorted(r["labels"].items()))): r for r in records
+                  if r["type"] == "metric"}
+        frames_total = sum(r["value"] for (n, _), r in metric.items() if n == "frames_total")
+        if frames_total != text.count("Processed in:"):
+            raise AssertionError(f"obs {name}: frames_total {frames_total} against "
+                                 f"{text.count('Processed in:')} frames printed")
+        m = re.search(r"continuous batching: lanes=\d+ strides=(\d+) loop_steps=(\d+)", text)
+        if m and metric[("sched_strides_total", ())]["value"] != int(m[1]):
+            raise AssertionError(f"obs {name}: sched_strides_total against {m[1]} strides")
+        split = {key: metric[("phase_seconds", (("phase", phase),))]["sum"] * 1e3
+                 for key, phase in OBS_PHASES}
+        # the ingest phase's spans: the read and the solver's construction
+        # (ingest.rtm), and inside it the first device.put (make_problem:
+        # int8 quantization on the host, the upload, the ray stats)
+        with open(art[:-len(".jsonl")] + ".trace.json") as f:
+            spans = json.load(f)["traceEvents"]
+        first = {}
+        for e in sorted(spans, key=lambda e: e["ts"]):
+            first.setdefault(e["name"], e["dur"] / 1e3)
+        split["ingest_rtm_span_ms"] = first["ingest.rtm"]
+        split["first_device_put_span_ms"] = first["device.put"]
+        return split, (int(m[1]), int(m[2])) if m else None
+
+    record = {}
+    for storage in STORAGES:
+        entry = {}
+        for loop, flags, n_frames in OBS_LOOPS:
+            n_frames = n_frames or T
+            flags = [*flags, "--rtm_dtype", storage]
+            name = f"{storage}_{loop}"
+            plain, _, off, _ = run(name + "_plain", flags, n_frames, sinks=False)
+            data, text, on, art = run(name + "_sinks", flags, n_frames, sinks=True)
+            if data != plain:
+                raise AssertionError(f"obs {name}: the sinks changed the solution file")
+            split, sched = check_artifact(name, art, os.path.join(outdir, f"obs_{name}_sinks.h5"),
+                                          text, n_frames)
+            entry[loop] = dict(frames=n_frames, phase_split_ms=split,
+                               split_sum_ms=sum(split[key] for key, _ in OBS_PHASES),
+                               sinks_on=on, sinks_off=off, byte_equal=True)
+            if sched:
+                entry[loop].update(strides=sched[0], loop_steps=sched[1])
+        record[storage] = entry
+
+    # fp32 scheduler under --profile_dir: one step per stride, the sweep's
+    # kernels inside them
+    prof_dir = os.path.join(outdir, "obs_profile")
+    reset_launch_counts()
+    rc, ms, text = run_cli(["-o", os.path.join(outdir, "obs_profile.h5"), *base,
+                            *OBS_LOOPS[1][1], "--profile_dir", prof_dir], device=device)
+    launches = dict(fused_sweep.launches_by_plan)
+    strides = int(re.search(r"strides=(\d+)", text)[1])
+    steps = _trace_steps(os.path.join(prof_dir, PROFILE_TRACE), ONE_READ_KERNEL)
+    if rc != 0 or len(ms) != T or steps["steps"] != strides:
+        raise AssertionError(f"obs profile: exit {rc}, {len(ms)} frames, {steps} "
+                             f"for {strides} strides")
+    if on_card and (steps["kernels_in_steps"] != launches["one_read"] or steps["kernels_outside"]
+                    or sum(launches.values()) != launches["one_read"]):
+        raise AssertionError(f"obs profile: {steps} against launches {launches}")
+    record["profile"] = dict(steps, strides=strides, launches_by_plan=launches,
+                             trace_bytes=os.path.getsize(os.path.join(prof_dir, PROFILE_TRACE)))
+    if on_card:
+        peaks = roofline.device_peaks("gpu", card)
+        if not peaks["source"].startswith("table:h100"):
+            raise AssertionError(f"device_peaks for {card!r}: {peaks['source']}")
+        fp32 = record["float32"]["scheduler"]
+        iter_s = fp32["loop_steps"] / (fp32["phase_split_ms"]["frame_loop_ms"] / 1e3)
+        util = roofline.utilization(*roofline.sweep_cost_model(P, V, FRAME_LANES, 4, 1),
+                                    iter_s, peaks)
+        if util["hbm_util"] > 1.05:
+            raise AssertionError(f"roofline of the fp32 scheduler: {util}")
+        record["roofline"] = dict(util, loop_steps_per_s=iter_s, device_peaks=peaks)
     return record
 
 
@@ -1660,6 +1853,9 @@ def main() -> int:
         emit("os", seconds=time.perf_counter() - t0, max_iterations=MAX_ITERATIONS,
              fit_bound=FIT_BOUND, **os_rec)
         emit("debug_nans", **debug_nans_phase(world, tmp))
+        t0 = time.perf_counter()
+        obs = obs_phase(world, tmp, card=card)
+        emit("obs", seconds=time.perf_counter() - t0, **obs)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)

@@ -50,12 +50,25 @@ as in the JAX CLI, without its ``interpret`` mode.
 no row written for it) at the first NaN the solver keeps, where the JAX
 CLI's ``jax_debug_nans`` aborts (``sartsolver_tpu_torch/debug_nans.py``).
 
-Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``
+Observability as in the JAX CLI (``obs/``): ``--timing`` prints the phase
+summary (``validate + index inputs``, ``ingest RTM + upload``, ``frame loop
+(solve + prefetch + flush)``, ``write voxel map``, with the per-frame and
+per-group solve rows), the sweep path the solver engaged and the run's
+summary; ``--metrics_out FILE`` writes the JSONL run artifact,
+``SART_METRICS_PROM`` a Prometheus textfile and ``SART_TRACE_EVENTS`` a
+Chrome trace of the host spans; ``--profile_dir DIR`` a ``torch.profiler``
+trace of the frame loop. With no sink and no ``--timing`` stdout and the
+solution file are what they are without the layer. ``sartsolve metrics``
+validates, summarizes and diffs artifacts of either package.
+
+Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``,
+``python -m sartsolver_tpu_torch.cli metrics [--check | --diff] FILE...``
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import os
 import sys
@@ -184,6 +197,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "scheduler lane's state) instead of propagating it "
                         "into the solution (one host sync a step; debugging "
                         "only).")
+    p.add_argument("--profile_dir", default=None,
+                   help="Write a torch.profiler trace of the frame loop "
+                        "here. Each frame group (serial and chain paths) / "
+                        "scheduler stride (batched path) is one profiler "
+                        "step, so the device trace aligns with obs spans "
+                        "and frame serials instead of one undifferentiated "
+                        "blob.")
+    p.add_argument("--timing", action="store_true",
+                   help="Print a per-phase wall-clock summary (validation, "
+                        "RTM ingest and upload, the frame loop with its "
+                        "per-frame and per-group solve rows — the first "
+                        "includes the kernel's first load — and the "
+                        "voxel-map write) at the end of the run.")
+    o11y = p.add_argument_group(
+        "observability options",
+        "structured telemetry: host-side only, zero-cost when disabled. "
+        "Environment sinks: SART_METRICS_PROM writes a Prometheus textfile "
+        "at end of run, SART_TRACE_EVENTS writes Chrome trace-event JSON "
+        "(Perfetto) of the pipeline's host phases alongside --profile_dir's "
+        "torch.profiler trace.")
+    o11y.add_argument("--metrics_out", default=None, metavar="FILE",
+                      help="Write the run's telemetry artifact here as "
+                           "JSONL (meta, per-frame solve records, "
+                           "availability events, end-of-run metrics, "
+                           "summary); validate/summarize/diff it with "
+                           "`sartsolve metrics`.")
     p.add_argument("input_files", nargs="*",
                    help="List of ray transfer matrix and camera image hdf5 files.")
     return p
@@ -248,8 +287,57 @@ def _validate(args) -> None:
              f"required, {len(args.input_files)} given.")
 
 
+class _FrameLoopProfile:
+    """``--profile_dir``: ``torch.profiler`` over the frame loop, one
+    profiler step per frame group or scheduler stride (the JAX CLI's
+    ``StepTraceAnnotation``), its Chrome trace written into the directory
+    as ``PROFILE_TRACE`` when the loop ends. On the card it records CUDA
+    activity too. A trace that cannot be taken or written fails the run."""
+
+    def __init__(self, directory: str, device):
+        from torch.profiler import ProfilerAction, ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, PROFILE_TRACE)
+        # a schedule that records every step: with one, the profiler marks
+        # each step as a ProfilerStep#N range
+        self._prof = profile(activities=activities,
+                             schedule=lambda _step: ProfilerAction.RECORD,
+                             on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+        self._opened = False
+
+    def __enter__(self) -> "_FrameLoopProfile":
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._prof.__exit__(*exc)
+
+    def step(self) -> None:
+        """Called as each group or stride begins: the step the profiler
+        opened at its start is the first one's, each later call closes the
+        previous step and opens the next."""
+        if self._opened:
+            self._prof.step()
+        self._opened = True
+
+
+# the file --profile_dir writes
+PROFILE_TRACE = "sartsolve.pt.trace.json"
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "metrics":
+        # artifact tooling: validate, summarize and diff --metrics_out
+        # artifacts; dispatched before the solver parser, which would read
+        # "metrics" as an input file
+        from sartsolver_tpu_torch.obs.cli import metrics_main
+
+        return metrics_main(argv[1:])
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as err:
@@ -257,6 +345,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(1 if err.code else 0) from None
     _validate(args)
 
+    from sartsolver_tpu_torch.obs.run import RunTelemetry
+    from sartsolver_tpu_torch.resilience.failures import RunSummary
+
+    # a fresh per-run metrics registry (--timing's PhaseTimer is a view
+    # over it) and the sinks --metrics_out, SART_METRICS_PROM and
+    # SART_TRACE_EVENTS ask for; with none, nothing more is written or
+    # printed
+    telem = RunTelemetry.from_cli(args.metrics_out)
+    summary = RunSummary()
+    try:
+        return _run(args, telem, summary)
+    finally:
+        # an error exit's artifact, marked partial: a no-op after the
+        # completed run's finalize, or with no sink
+        telem.finalize_local(summary)
+
+
+def _run(args, telem, summary) -> int:
+    """The solve of :func:`main` after its flags are validated: per-frame
+    and per-event accounting goes to ``telem`` (``obs/run.py``) and
+    ``summary`` (``resilience/failures.py``)."""
     import torch
 
     from sartsolver_tpu_torch.config import (
@@ -270,19 +379,35 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sartsolver_tpu_torch.io.solution import SolutionWriter
     from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
     from sartsolver_tpu_torch.models.sart import (
-        INT8_MAX_CONTRACTION, resolve_fused, torch_dtype,
+        FUSED_ENGAGEMENT, INT8_MAX_CONTRACTION, resolve_fused, torch_dtype,
     )
+    from sartsolver_tpu_torch.obs import trace as obs_trace
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
     from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.resilience.degrade import GroupSizeLadder, dispatch_guarded
     from sartsolver_tpu_torch.sched import ContinuousBatcher
+    from sartsolver_tpu_torch.utils.timing import PhaseTimer
 
+    timer = PhaseTimer(registry=telem.registry)
+    t_phase = _time.perf_counter()
     try:
         device = resolve_device("cpu" if args.use_cpu else args.device)
     except RuntimeError as err:
         print(err, file=sys.stderr)
         return 1
 
+    def mark(phase: str) -> None:
+        """End a --timing phase. The device finishes the phase's work first
+        (an upload or the ray stats may still run when the host returns),
+        so each phase holds its own device time: a handful of syncs a run."""
+        nonlocal t_phase
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = _time.perf_counter()
+        timer.add(phase, now - t_phase)
+        t_phase = now
+
+    FUSED_ENGAGEMENT["last"] = None
     try:
         time_intervals = parse_time_intervals(args.time_range)
 
@@ -302,6 +427,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
         rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
+        mark("validate + index inputs")
 
         # continuous-batching stride: the flag, else SART_SCHEDULE_STRIDE,
         # else the SolverOptions default (16); a malformed value fails
@@ -366,6 +492,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"exceeds the int32-accumulation bound {INT8_MAX_CONTRACTION}; "
                 "use fp32/bfloat16 storage."
             )
+        # artifact provenance, the JAX CLI's meta fields; the variant fields
+        # also ride every frame record (obs/run.py)
+        telem.set_run_info(
+            backend=device.type, mesh="1x1", processes=1, rtm_dtype=str(storage),
+            compute_dtype=str(opts.dtype), fused_sweep=str(opts.fused_sweep),
+            logarithmic=bool(args.logarithmic), os_subsets=int(opts.os_subsets),
+            momentum=str(opts.momentum), operator="dense",
+        )
+        telem.registry.gauge("solver_os_subsets").set(float(opts.os_subsets))
+        telem.registry.gauge("solver_momentum_on").set(
+            1.0 if opts.momentum != "off" else 0.0)
 
         lap = None
         if args.laplacian_file:
@@ -381,38 +518,49 @@ def main(argv: Optional[List[str]] = None) -> int:
         # it (make_problem quantizes a host matrix to int8 on the host), and
         # uploaded once. bf16 is rounded first, so the ray stats are those
         # of the stored matrix, as the JAX CLI's are.
-        rtm = read_rtm_block(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                             dtype=np.float64 if storage == "float64" else np.float32)
-        if storage == "bfloat16":
-            rtm = torch.from_numpy(rtm).to(torch.bfloat16)
-        solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
-                                       debug_nans=args.debug_nans)
-        del rtm
+        with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
+            rtm = read_rtm_block(sorted_matrix_files, rtm_name, npixel, nvoxel,
+                                 dtype=np.float64 if storage == "float64" else np.float32)
+            if storage == "bfloat16":
+                rtm = torch.from_numpy(rtm).to(torch.bfloat16)
+            solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
+                                           debug_nans=args.debug_nans)
+            del rtm
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
         sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused
                  else "two-matmul")
         print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
               f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
               + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else ""))
+        mark("ingest RTM + upload")
 
         # one stream of (frame, time, camera times), shared by the loops
         frames = ((composite_image.frame(i), composite_image.frame_time(i),
                    composite_image.camera_frame_time(i))
                   for i in range(len(composite_image)))
 
-        def degrade_event(message: str) -> None:
+        def note_event(message: str) -> None:
+            """An availability event (an OOM halving, the scheduler's
+            hand-back): stderr, the end-of-run summary and the telemetry."""
             print(message, file=sys.stderr)
+            summary.record_event(message)
+            telem.record_event(message)
 
         # ---- frame loops (main.cpp:131-140) ------------------------------
-        diverged = []  # times of the frames written DIVERGED
+        profile = (_FrameLoopProfile(args.profile_dir, device) if args.profile_dir
+                   else None)
+        step = profile.step if profile is not None else (lambda: None)
 
         with solver, SolutionWriter(args.output_file, camera_names, nvoxel,
-                                    max_cache_size=args.max_cached_solutions) as writer:
+                                    max_cache_size=args.max_cached_solutions) as writer, \
+                profile if profile is not None else contextlib.nullcontext():
 
-            def write(solution, status, ftime, cam_times, iterations):
+            def write(solution, status, ftime, cam_times, iterations, convergence,
+                      ms, group):
+                """One row: the file, the run summary and the telemetry."""
                 writer.add(solution, status, ftime, cam_times, iterations=iterations)
-                if status == DIVERGED:
-                    diverged.append(ftime)
+                summary.record_status(status, ftime)
+                telem.record_frame(ftime, status, iterations, convergence, ms, group)
 
             def run_grouped(K, batch, solve_group, items):
                 """The frame-group protocol of the batch and chain loops:
@@ -431,9 +579,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
                 A group's time per frame runs from the end of the previous
                 group (reading and writing frames included), as the
-                scheduler's runs from its previous retirement."""
+                scheduler's runs from its previous retirement. At K = 1 (the
+                serial loop) the telemetry names each frame's group
+                ``frame`` and its --timing row ``solve frame``, as the JAX
+                CLI's serial loop does."""
                 label = "batch" if batch else "chain"
-                ladder = GroupSizeLadder(K, on_event=degrade_event) if batch else None
+                group_label = label if K > 1 else "frame"
+                timer_row = f"solve {label} (pipelined wall)" if K > 1 else "solve frame"
+                ladder = GroupSizeLadder(K, on_event=note_event) if batch else None
                 pending = []
                 t_last = _time.perf_counter()
 
@@ -446,6 +599,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                         if batch and len(group) < size:
                             dark = np.zeros((size - len(group), stack.shape[1]))
                             stack = np.concatenate([stack, dark])
+                        step()
                         result, _ = dispatch_guarded(lambda: solve_group(stack),
                                                      ladder=ladder)
                         if result is None:  # OOM: the same frames, halved
@@ -454,11 +608,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                         statuses, iterations = result.status, result.iterations
                         solutions = result.fetch_solutions()
                         now = _time.perf_counter()
+                        # inside the frame-loop phase: a detail row, kept
+                        # out of the total
+                        timer.add(timer_row, now - t_last, detail=True)
                         per_frame_ms = (now - t_last) * 1e3 / len(group)
                         t_last = now
                         for b, (_, ftime, cam_times) in enumerate(group):
                             write(solutions[b], int(statuses[b]), ftime, cam_times,
-                                  int(iterations[b]))
+                                  int(iterations[b]), float(result.convergence[b]),
+                                  per_frame_ms, group_label)
                             print(f"Processed in: {per_frame_ms} ms (average over "
                                   f"{label} of {len(group)}; {int(iterations[b])} "
                                   "iterations)")
@@ -478,14 +636,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 iterations. After a device OOM the grouped loop finishes the
                 run at half the size, on the frames the scheduler handed
                 back chained with the same frame iterator."""
-                def on_result(ftime, cam_times, status, iterations, _conv, fetcher,
+                def on_result(ftime, cam_times, status, iterations, convergence, fetcher,
                               per_frame_ms):
-                    write(fetcher(), status, ftime, cam_times, iterations)
+                    write(fetcher(), status, ftime, cam_times, iterations, convergence,
+                          per_frame_ms, "sched")
+                    timer.add("solve sched (pipelined wall)", per_frame_ms / 1e3,
+                              detail=True)
                     print(f"Processed in: {per_frame_ms} ms (continuous batch of {K} "
                           f"lanes; {iterations} iterations)")
 
                 batcher = ContinuousBatcher(solver, lanes=K, on_result=on_result,
-                                            on_event=degrade_event)
+                                            on_event=note_event, on_stride=step)
                 stats = batcher.run(frames)
                 print(f"continuous batching: lanes={K} strides={stats.strides} "
                       f"loop_steps={stats.loop_steps} occupancy={stats.occupancy}")
@@ -509,12 +670,23 @@ def main(argv: Optional[List[str]] = None) -> int:
 
                 run_grouped(args.chain_frames, False, solve_chain_group, frames)
 
-        grid.write_hdf5(args.output_file, "voxel_map")
+        mark("frame loop (solve + prefetch + flush)")
+        with obs_trace.span("flush.voxel_map"):
+            grid.write_hdf5(args.output_file, "voxel_map")
+        mark("write voxel map")
+        if args.timing:
+            print(timer.summary())
+            print(f"fused sweep: requested={args.fused_sweep} "
+                  f"resolved={opts.fused_sweep} "
+                  f"engaged={FUSED_ENGAGEMENT['last'] or 'not traced'}")
+            print(summary.format())
+        diverged = summary.failed_times  # the port writes no FAILED or SDC rows
         if diverged:
             shown = ", ".join(f"{t:g}" for t in diverged[:8])
             print(f"{len(diverged)} frame(s) DIVERGED (status {DIVERGED}) at time(s) "
                   f"{shown}{' ...' if len(diverged) > 8 else ''}", file=sys.stderr)
-            return 2
+        telem.finalize(summary)
+        return 2 if summary.n_failed else 0
     except KeyError as err:
         # a missing dataset or attribute raises KeyError
         print(f"Missing dataset or attribute in input files: {err}", file=sys.stderr)
@@ -524,7 +696,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         # other exception is a bug and tracebacks
         print(err, file=sys.stderr)
         return 1
-    return 0
 
 
 if __name__ == "__main__":

@@ -71,6 +71,7 @@ from sartsolver_tpu_torch.config import (
     SolverOptions,
 )
 from sartsolver_tpu_torch.device import check_on, resolve_device
+from sartsolver_tpu_torch.obs import metrics as obs_metrics
 from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep
 from sartsolver_tpu_torch.ops.laplacian import LaplacianCOO, coo_matvec
 from sartsolver_tpu_torch.ops.os_subsets import (
@@ -92,6 +93,14 @@ from sartsolver_tpu_torch.ops.projection import (
 # with fp32 range). Kept although this card has real fp64: the log floors
 # and epsilons below must clamp exactly as the reference solver does.
 MIN_POSITIVE = 1.2e-37
+
+# The sweep path the most recently built solver loop runs, in the JAX
+# package's vocabulary (``sartsolver_tpu/models/sart.py:FUSED_ENGAGEMENT``):
+# "compiled" for the CUDA kernel, "plain" for the kernel's plain version
+# (CPU tensors, where the JAX package would run its Pallas interpreter),
+# "off" for the two-matmul sweep, "os-subset" for the ordered-subsets
+# cycle; None before any solve. Observability only: ``--timing`` prints it.
+FUSED_ENGAGEMENT = {"last": None}
 
 SweepFn = Callable[..., Tuple[Tensor, Tensor]]
 
@@ -316,6 +325,10 @@ class _SweepContext:
         self.fused = resolve_fused(opts)
         self.sweep_fn = sweep_fn
         self.os = int(opts.os_subsets)
+        FUSED_ENGAGEMENT["last"] = (
+            "os-subset" if self.os > 1 else "off" if not self.fused
+            else "compiled" if self.rtm.is_cuda and sweep_fn is fused_sweep
+            else "plain")
         # int8 codes: the loop's kernel (or the OS cycle's products)
         # dequantizes them exactly; the projections outside it quantize
         # their vector operand
@@ -1047,7 +1060,8 @@ def prepare_measurement(measurement, opts: SolverOptions):
     measurements, remapped to 1.0 for a dark frame so the stop test still
     terminates. Non-finite pixels are excluded from ``norm`` (a NaN-poisoned
     frame still denormalizes by a finite factor) and, as non-positive
-    measurements, from the solve's mask, with a warning. They stay
+    measurements, from the solve's mask, with a warning; each call counts
+    them into the ``nonfinite_pixels_total`` counter. They stay
     non-finite in ``g`` (and a +inf pixel makes ``msq`` infinite), so the
     divergence guard's pre-flight check sees them
     (``sartsolver_tpu/models/sart.py:2742-2752``).
@@ -1055,6 +1069,7 @@ def prepare_measurement(measurement, opts: SolverOptions):
     g64 = np.asarray(measurement, dtype=np.float64)
     n_bad = int(np.count_nonzero(~np.isfinite(g64)))
     if n_bad:
+        obs_metrics.get_registry().counter("nonfinite_pixels_total").inc(n_bad)
         warnings.warn(
             f"measurement frames contain {n_bad} non-finite pixel(s); they "
             "are excluded from normalization, ||g||^2 and the solve",

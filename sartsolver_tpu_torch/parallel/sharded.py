@@ -11,7 +11,8 @@ JAX class takes a mesh; the multi-GPU slice extends it.
 Frames arrive as host arrays in physical units and are normalized on the
 host (:func:`~sartsolver_tpu_torch.models.sart.prepare_measurement`).
 Results stay on the device: their scalars come back in one packed copy,
-their solutions when fetched.
+their solutions when fetched. Uploads are ``device.put`` trace spans and
+fetches ``result.fetch{what=...}`` spans, as in the JAX module.
 
 Ordered subsets (``os_subsets > 1``) accept what the JAX solver accepts:
 that solver pads the pixel rows to a multiple of ``ROW_ALIGN`` with zero
@@ -41,6 +42,7 @@ from sartsolver_tpu_torch.models.sart import (
     solve_normalized_batch,
     torch_dtype,
 )
+from sartsolver_tpu_torch.obs import trace as obs_trace
 
 
 # the JAX solver's pixel-row alignment on one device
@@ -97,7 +99,8 @@ class DeviceSolveResult:
 
     def _fetch_scalars(self) -> tuple:
         if self._scalars is None:
-            packed = self._packed.cpu().numpy()
+            with obs_trace.span("result.fetch", what="scalars"):
+                packed = self._packed.cpu().numpy()
             self._scalars = (packed[0].astype(np.int32), packed[1].astype(np.int32),
                              packed[2])
         return self._scalars
@@ -117,7 +120,8 @@ class DeviceSolveResult:
     def fetch_solutions(self) -> np.ndarray:
         """[B, V] fp64 solutions in physical units; one copy, cached."""
         if self._host is None:
-            sol = self.solution_norm.double().cpu().numpy()
+            with obs_trace.span("result.fetch", what="solution"):
+                sol = self.solution_norm.double().cpu().numpy()
             self._host = sol * self.norms[:, None]
         return self._host
 
@@ -144,8 +148,10 @@ class SchedLaneState:
         until the next step."""
         if self._scalars is None:
             st = self.state
-            packed = torch.stack([st.done.double(), st.status.double(), st.iters.double(),
-                                  st.conv.double(), st.it.double()]).cpu().numpy()
+            with obs_trace.span("result.fetch", what="sched_scalars"):
+                packed = torch.stack([st.done.double(), st.status.double(),
+                                      st.iters.double(), st.conv.double(),
+                                      st.it.double()]).cpu().numpy()
             self._scalars = (packed[0] > 0.5, packed[1].astype(np.int32),
                              packed[2].astype(np.int32), packed[3],
                              packed[4].astype(np.int32))
@@ -157,7 +163,11 @@ class SchedLaneState:
         another frame in the lane."""
         row = self.state.f[b].clone()
         norm = float(self.norms[b])
-        return lambda: row.double().cpu().numpy() * norm
+
+        def fetch():
+            with obs_trace.span("result.fetch", what="sched_lane"):
+                return row.double().cpu().numpy() * norm
+        return fetch
 
 
 class DistributedSARTSolver:
@@ -181,7 +191,8 @@ class DistributedSARTSolver:
         self.rows = os_padded_rows(npixel, opts.os_subsets)
         if self.rows != npixel:
             rtm = _pad_rows(rtm, self.rows)
-        self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device)
+        with obs_trace.span("device.put"):
+            self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device)
         self.npixel, self.nvoxel = npixel, self.problem.rtm.shape[1]
 
     def close(self) -> None:
@@ -209,8 +220,10 @@ class DistributedSARTSolver:
         if G.ndim != 2 or G.shape[1] != self.npixel:
             raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
         gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
-        g = torch.as_tensor(self._pad_frames(np.stack(gs)), device=self.device).to(self.dtype)
-        msq = torch.as_tensor(np.asarray(msqs), device=self.device).to(self.dtype)
+        with obs_trace.span("device.put"):
+            g = torch.as_tensor(self._pad_frames(np.stack(gs)),
+                                device=self.device).to(self.dtype)
+            msq = torch.as_tensor(np.asarray(msqs), device=self.device).to(self.dtype)
         return g, msq, np.asarray(norms, np.float64)
 
     def _pad_frames(self, g: np.ndarray) -> np.ndarray:
@@ -320,8 +333,9 @@ class DistributedSARTSolver:
                 g_stage[b, :self.npixel], msq_stage[b], norms[b] = prepare_measurement(
                     meas, self.opts)
                 refill[b] = True
-            g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)
-            msq_new = torch.as_tensor(msq_stage, device=self.device).to(self.dtype)
+            with obs_trace.span("device.put"):
+                g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)
+                msq_new = torch.as_tensor(msq_stage, device=self.device).to(self.dtype)
         new_state = sched_step_normalized(
             problem, lane_state.state, g_new, msq_new, refill, opts=self.opts,
             device=self.device, debug_nans=self.debug_nans,

@@ -18,6 +18,11 @@ takes over from the continuous-batching scheduler after its OOM):
 plain ``RuntimeError``. After an OOM the allocator's cached blocks are
 released before the re-dispatch, so the halved group does not fail again on
 fragmentation.
+
+Telemetry, as in the JAX module: the ladder's level is the
+``frame_group_size`` gauge and each halving ticks
+``oom_degradations_total``; every dispatch is a ``solve.dispatch`` trace
+span.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from sartsolver_tpu_torch.obs import metrics as obs_metrics
+from sartsolver_tpu_torch.obs import trace as obs_trace
 
 # Substrings marking a device allocation failure in an error's text (the
 # CUDA caching allocator's "CUDA out of memory", XLA's RESOURCE_EXHAUSTED).
@@ -52,6 +60,10 @@ class GroupSizeLadder:
         self.size = int(size)
         self.events: List[Tuple[int, int]] = []  # (from, to) per halving
         self._on_event = on_event
+        registry = obs_metrics.get_registry()
+        self._size_gauge = registry.gauge("frame_group_size")
+        self._oom_counter = registry.counter("oom_degradations_total")
+        self._size_gauge.set(self.size)
 
     def note_oom(self, err: BaseException) -> bool:
         """Record an OOM at the current size. True when the ladder halved
@@ -68,6 +80,8 @@ class GroupSizeLadder:
                 f"{new} — the reduction sticks for the rest of the run"
             )
         self.size = new
+        self._size_gauge.set(new)
+        self._oom_counter.inc()
         return True
 
     def summary(self) -> Optional[str]:
@@ -94,7 +108,8 @@ def dispatch_guarded(dispatch: Callable[[], object], *,
     with the ladder exhausted or absent, propagates unchanged.
     """
     try:
-        return dispatch(), None
+        with obs_trace.span("solve.dispatch"):
+            return dispatch(), None
     except RuntimeError as err:  # torch.cuda.OutOfMemoryError is one
         if (ladder is not None and is_resource_exhausted(err)
                 and ladder.note_oom(err)):

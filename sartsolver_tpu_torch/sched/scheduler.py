@@ -25,6 +25,13 @@ Contracts kept from the grouped loop:
   caller in frame order (``SchedRunStats.leftover``), for the grouped
   loop's halving ladder: the lane count cannot halve itself. Any other
   dispatch error raises.
+
+Telemetry, the JAX scheduler's six instruments, updated once per stride
+from the values the stride already read back: ``sched_lane_occupancy``
+(the run's occupancy so far), ``sched_stride_occupancy`` (one sample per
+stride), ``sched_lanes_retired_total``, ``sched_lanes_backfilled_total``,
+``sched_strides_total`` and ``sched_deadline_shed_total`` (CLI frames carry
+no deadline: it stays 0). Each dispatch is a ``solve.dispatch`` trace span.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from sartsolver_tpu_torch.resilience.degrade import is_resource_exhausted
+from sartsolver_tpu_torch.obs import metrics as obs_metrics
+from sartsolver_tpu_torch.resilience.degrade import dispatch_guarded, is_resource_exhausted
 
 
 @dataclass
@@ -48,6 +56,7 @@ class SchedRunStats:
     strides: int = 0  # device dispatches
     loop_steps: int = 0  # solver iterations the device executed
     useful_iters: int = 0  # per-frame iterations summed over retirees
+    backfilled: int = 0  # lane loads (the initial fill included)
     # un-emitted frames, in frame order, after a device OOM: the caller
     # re-solves them on the grouped loop at a halved group size; None on
     # every other path
@@ -82,10 +91,13 @@ class ContinuousBatcher:
     per_frame_ms)`` receives each retired frame in frame order (``fetcher``
     is a zero-argument callable resolving the solution in physical units).
     ``on_event`` receives one line per notable event (the OOM hand-back).
+    ``on_stride`` (optional) is called just before each stride's dispatch:
+    the CLI's ``--profile_dir`` steps the profiler there.
     """
 
     def __init__(self, solver, *, lanes: int, on_result: Callable,
                  on_event: Optional[Callable[[str], None]] = None,
+                 on_stride: Optional[Callable[[], None]] = None,
                  refill_quantum: Optional[int] = None):
         if lanes < 1:
             raise ValueError("Lane count must be positive.")
@@ -99,6 +111,16 @@ class ContinuousBatcher:
         self._refill_quantum = max(1, min(int(refill_quantum), self._lanes))
         self._on_result = on_result
         self._on_event = on_event
+        self._on_stride = on_stride
+        registry = obs_metrics.get_registry()
+        self._occ_gauge = registry.gauge("sched_lane_occupancy")
+        self._occ_hist = registry.histogram("sched_stride_occupancy")
+        self._retired_ctr = registry.counter("sched_lanes_retired_total")
+        self._backfill_ctr = registry.counter("sched_lanes_backfilled_total")
+        self._stride_ctr = registry.counter("sched_strides_total")
+        # CLI frames carry no deadline: registered as in the JAX scheduler,
+        # it stays 0
+        registry.counter("sched_deadline_shed_total")
 
     def _emit_ready(self) -> None:
         """Flush the reorder buffer's contiguous prefix (frame order)."""
@@ -149,8 +171,10 @@ class ContinuousBatcher:
             refills = intake()
             if not occupied:
                 break
+            if self._on_stride is not None:
+                self._on_stride()
             try:
-                solver.sched_step(lane_state, refills)
+                dispatch_guarded(lambda: solver.sched_step(lane_state, refills))
             except RuntimeError as err:  # torch.cuda.OutOfMemoryError is one
                 if not is_resource_exhausted(err):
                     raise
@@ -167,6 +191,9 @@ class ContinuousBatcher:
                     )
                 return stats
             stats.strides += 1
+            stats.backfilled += len(refills)
+            self._stride_ctr.inc()
+            self._backfill_ctr.inc(len(refills))
             done, status, iters, conv, itv = lane_state.scalars()
             # the device loop ends early once every lane is done, so count
             # what ran: the longest advance of an occupied lane
@@ -179,11 +206,15 @@ class ContinuousBatcher:
             stats.loop_steps += steps
             stats._capacity += steps * B
             stats.useful_iters += useful
+            if steps:
+                self._occ_hist.observe(useful / (steps * B))
+            self._occ_gauge.set(round(stats.occupancy, 6))
             # retire: convergence order on the device, frame order out
             now = time.perf_counter()
             retired = sorted((lane for lane in occupied if done[lane]),
                              key=lambda b: occupied[b].seq)
             per_frame_ms = (now - t_last) * 1e3 / max(len(retired), 1)
+            self._retired_ctr.inc(len(retired))
             for lane in retired:
                 slot = occupied.pop(lane)
                 self._emit_buf[slot.seq] = (

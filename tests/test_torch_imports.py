@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of sartsolver_tpu_torch, and
 chip_smoke.py and sweep_measure.py, loads neither JAX nor any module of the
-JAX package. Also a
+JAX package, and its observability layer loads neither torch nor numpy.
+Also a
 small-size run of chip_smoke.py's world, solve checks, frames phase and
 variants phase on the CPU."""
 
@@ -35,6 +36,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     count, bad = out.stdout.strip().split(" ", 1)
     assert int(count) >= 15, out.stdout
     assert bad == "[]", bad
+
+
+_OBS_PROBE = """
+import importlib, pkgutil, sys
+import sartsolver_tpu_torch.obs as obs
+names = [m.name for m in pkgutil.walk_packages(obs.__path__, obs.__name__ + ".")]
+for name in names + ["sartsolver_tpu_torch.utils.timing",
+                     "sartsolver_tpu_torch.utils.atomicio",
+                     "sartsolver_tpu_torch.resilience.failures"]:
+    importlib.import_module(name)
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("torch", "numpy", "jax", "jaxlib", "sartsolver_tpu"))
+print(len(names), heavy)
+"""
+
+
+def test_obs_imports_only_the_standard_library():
+    """sartsolver_tpu_torch.obs, the phase timer and the run summary load
+    without torch or numpy (a benchmark harness loads them without starting
+    CUDA), and without JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _OBS_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    count, heavy = out.stdout.strip().split(" ", 1)
+    assert int(count) == 7, out.stdout
+    assert heavy == "[]", heavy
 
 
 def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
@@ -130,3 +157,30 @@ def test_chip_smoke_tall_world_at_small_size(tmp_path):
         assert max(rec["fit_err"]) <= cs.FIT_BOUND
         assert all(st == 0 or it == cs.MAX_ITERATIONS
                    for st, it in zip(rec["status"], rec["iterations"]))
+
+
+def test_chip_smoke_obs_phase_at_small_size(tmp_path):
+    """chip_smoke.py's obs phase on the CPU at a small size: each storage's
+    chain and scheduler runs with every sink on write the same bytes as
+    without, their artifacts pass the checks, the phase split covers the
+    run, and the profiled scheduler has one step per stride (the kernel
+    counts and the roofline are the card's)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=12)
+    rec = cs.obs_phase(world, str(tmp_path), device="cpu")
+    for storage in cs.STORAGES:
+        for loop, _, _ in cs.OBS_LOOPS:
+            entry = rec[storage][loop]
+            split = entry["phase_split_ms"]
+            assert entry["byte_equal"] and set(split) == {key for key, _ in cs.OBS_PHASES} | {
+                "ingest_rtm_span_ms", "first_device_put_span_ms"}
+            assert split["first_device_put_span_ms"] <= split["ingest_rtm_span_ms"] <= \
+                split["ingest_upload_ms"]
+            assert 0 < entry["split_sum_ms"] <= entry["sinks_on"]["wall_ms"]
+        assert rec[storage]["scheduler"]["strides"] > 0
+    assert rec["profile"]["steps"] == rec["profile"]["strides"] > 0
+    assert "roofline" not in rec

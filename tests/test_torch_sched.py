@@ -225,7 +225,8 @@ def test_batcher_matches_jax_batcher():
     opts = SolverOptions.cpu_parity(max_iterations=300, conv_tolerance=1e-6,
                                     schedule_stride=5)
     with JaxSolver(H, None, opts=_jax_opts(opts), mesh=make_mesh(1, 1)) as jsolver:
-        want, _ = _run_sched(jsolver, _items(frames), lanes=3, batcher_cls=JaxBatcher)
+        want, jax_stats = _run_sched(jsolver, _items(frames), lanes=3,
+                                     batcher_cls=JaxBatcher)
     with _solver(H, opts) as solver:
         got, stats = _run_sched(solver, _items(frames), lanes=3)
     assert [r[0] for r in got] == [r[0] for r in want] == [float(i) for i in range(9)]
@@ -235,6 +236,7 @@ def test_batcher_matches_jax_batcher():
                                np.stack([r[3] for r in want]), rtol=1e-8)
     assert len({r[2] for r in got}) >= 3  # lanes retire at different strides
     assert stats.frames == 9
+    assert stats.backfilled == jax_stats.backfilled == 9  # every frame loaded once
 
 
 # ---------------------------------------------------------------------------

@@ -164,3 +164,52 @@ def test_variants_scheduled_equal_the_grouped_loop_on_the_card(variant, storage,
     if variant.get("divergence_recovery"):
         assert [d[1] for d in dense].count(-2) == 1
         assert not got[5][0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_sinks_change_no_byte_of_the_scheduled_cli_run_on_the_card(tmp_path, monkeypatch,
+                                                                    storage):
+    """The CLI's scheduler at 8 lanes on the card, with every sink on
+    (--metrics_out, SART_METRICS_PROM, SART_TRACE_EVENTS): the solution file
+    is the same bytes as without them and as the classic loop's, and the
+    artifact's frames and stride count are the run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import os
+    import re
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(repo)
+    from sartsolver_tpu_torch.obs.cli import metrics_main
+
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=12)
+    p = world["paths"]
+    argv = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", "300", "-l", p["laplacian"], "--rtm_dtype", storage,
+            "--no_guess", "--batch_frames", "8"]
+    files, texts = {}, {}
+    for name, extra in (("plain", []), ("classic", ["--no_continuous_batching"]),
+                        ("sinks", ["--metrics_out", str(tmp_path / "run.jsonl")])):
+        if name == "sinks":
+            monkeypatch.setenv("SART_METRICS_PROM", str(tmp_path / "run.prom"))
+            monkeypatch.setenv("SART_TRACE_EVENTS", str(tmp_path / "run.trace.json"))
+        out = str(tmp_path / f"{name}.h5")
+        rc, ms, texts[name] = cs.run_cli(["-o", out, *argv, *extra])
+        assert rc == 0 and len(ms) == 12
+        with open(out, "rb") as f:
+            files[name] = f.read()
+    assert files["sinks"] == files["plain"] == files["classic"]
+    assert metrics_main(["--check", str(tmp_path / "run.jsonl")]) == 0
+    with open(tmp_path / "run.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert len([r for r in records if r["type"] == "frame"]) == 12
+    strides = int(re.search(r"strides=(\d+)", texts["sinks"])[1])
+    assert [r["value"] for r in records if r.get("name") == "sched_strides_total"] == [strides]
+    assert records[0]["backend"] == "cuda"
