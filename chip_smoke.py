@@ -108,12 +108,29 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    frame records are the file's rows, the file is the same bytes as
    without sinks, ``frames_total`` and ``sched_strides_total`` are what
    stdout printed; emitted: the phase split (validate, ingest and upload,
-   frame loop, voxel map; in the ingest, the ``ingest.rtm`` span and its
-   first ``device.put``) beside the wall time, ms per frame with sinks on
-   and off. Then the fp32 scheduler under ``--profile_dir``: one profiler
+   frame loop, voxel map; in the ingest, the ``ingest.rtm`` span with its
+   passes over the file and its first ``device.put``, the solver's
+   construction) beside the wall time, ms per frame with sinks on and
+   off. Then the fp32 scheduler under ``--profile_dir``: one profiler
    step per stride, ``one_read``'s kernels inside the steps equal to its
    launches; ``device_peaks`` of the card (the H100 row) and the roofline
    utilization of that loop (``hbm_util`` at most 1.05).
+4b'''. ``ingest``: the chunked RTM ingest (``parallel/multihost.py``) on
+   the world per storage (:func:`ingest_phase`): each pass's seconds, its
+   read and upload seconds and the read's GB/s, the ray stats' seconds,
+   the peak device bytes (at most the stored matrix, two fp32 chunks and
+   the ray stats); the stored matrix bit for bit against the host recipe
+   (``read_rtm_block``, bf16 rounded and int8 quantized on the host), on the
+   files as written and on a copy with matrices chunked 256 rows a chunk;
+   the CLI's host memory growth in a child process (at most two fp32
+   chunks and a stated margin); the CLI with ``--timing`` on the chain over
+   8 frames and the scheduler over the 32, at the defaults and with one
+   chunk, prefetch off and a writer queue of one: the same bytes and
+   launches. Then the fault drill: ``SART_FAULT=hdf5.rtm_ingest:io:1:1``
+   on the chain recovers with the healthy file, and
+   ``SART_FAULT=solve.dispatch:error:1:1`` writes one FAILED row, the
+   others equal to a healthy run's; a healthy run with a FAILED row fails
+   the phase.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -951,17 +968,25 @@ def obs_phase(world, outdir: str, device: str = "cuda", card: str = "") -> dict:
             raise AssertionError(f"obs {name}: sched_strides_total against {m[1]} strides")
         split = {key: metric[("phase_seconds", (("phase", phase),))]["sum"] * 1e3
                  for key, phase in OBS_PHASES}
-        # the ingest phase's spans: the read and the solver's construction
-        # (ingest.rtm), and inside it the first device.put (make_problem:
-        # int8 quantization on the host, the upload, the ray stats)
+        # the ingest phase's spans: the chunked read and upload and the
+        # solver's construction (ingest.rtm); inside it the passes over the
+        # file (ingest.pass: the store, or int8's colmax and quantize) and
+        # the first device.put (the solver's construction: the ray stats on
+        # the device and the extension's load). The rest of the phase is
+        # the Laplacian, the frame index and the voxel grid.
         with open(art[:-len(".jsonl")] + ".trace.json") as f:
             spans = json.load(f)["traceEvents"]
-        first = {}
+        first, passes = {}, {}
         for e in sorted(spans, key=lambda e: e["ts"]):
             first.setdefault(e["name"], e["dur"] / 1e3)
+            if e["name"] == "ingest.pass":
+                passes[f"pass_{e['args']['what']}_ms"] = e["dur"] / 1e3
         split["ingest_rtm_span_ms"] = first["ingest.rtm"]
         split["first_device_put_span_ms"] = first["device.put"]
-        return split, (int(m[1]), int(m[2])) if m else None
+        ingest = dict(passes, solver_construction_ms=first["device.put"])
+        ingest["rest_of_ingest_rtm_ms"] = first["ingest.rtm"] - sum(ingest.values())
+        ingest["outside_ingest_rtm_ms"] = split["ingest_upload_ms"] - first["ingest.rtm"]
+        return split, ingest, (int(m[1]), int(m[2])) if m else None
 
     record = {}
     for storage in STORAGES:
@@ -974,9 +999,9 @@ def obs_phase(world, outdir: str, device: str = "cuda", card: str = "") -> dict:
             data, text, on, art = run(name + "_sinks", flags, n_frames, sinks=True)
             if data != plain:
                 raise AssertionError(f"obs {name}: the sinks changed the solution file")
-            split, sched = check_artifact(name, art, os.path.join(outdir, f"obs_{name}_sinks.h5"),
-                                          text, n_frames)
-            entry[loop] = dict(frames=n_frames, phase_split_ms=split,
+            split, ingest, sched = check_artifact(
+                name, art, os.path.join(outdir, f"obs_{name}_sinks.h5"), text, n_frames)
+            entry[loop] = dict(frames=n_frames, phase_split_ms=split, ingest_split_ms=ingest,
                                split_sum_ms=sum(split[key] for key, _ in OBS_PHASES),
                                sinks_on=on, sinks_off=off, byte_equal=True)
             if sched:
@@ -1011,6 +1036,335 @@ def obs_phase(world, outdir: str, device: str = "cuda", card: str = "") -> dict:
         if util["hbm_util"] > 1.05:
             raise AssertionError(f"roofline of the fp32 scheduler: {util}")
         record["roofline"] = dict(util, loop_steps_per_s=iter_s, device_peaks=peaks)
+    return record
+
+
+# ---- the ingest phase -----------------------------------------------------
+
+INGEST_CHUNK_ROWS = 256  # the row-chunked copy's chunk height
+# what the CLI process may add to its resident memory during a run besides
+# its two pinned staging chunks: the frames, the solution rows, the writer's
+# and prefetcher's queues, torch's host allocations
+INGEST_RSS_MARGIN = 256 << 20
+RTM_KEYS = ("rtm_a_seg1", "rtm_a_seg2", "rtm_b")
+
+# a CLI run in a child process that reports its resident memory: the same
+# flags run first on a small world (the CUDA context, the libraries' code
+# pages, the extension), then a thread samples VmRSS every 2 ms while the
+# CLI runs on the world; the largest sample less the resident size before
+# the run is the run's growth. (Sampling, because a container may expose
+# no VmHWM, refuse /proc/self/clear_refs, and report ru_maxrss for all its
+# processes together.)
+_RSS_CHILD = r"""
+import contextlib, io, json, os, sys, tempfile, threading, time
+sys.path.insert(0, os.environ["CHIP_SMOKE_REPO"])
+import chip_smoke
+from sartsolver_tpu_torch import cli
+
+argv = sys.argv[1:]
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    small = chip_smoke.write_world(d, nx=16, ny=16, cam=(8, 4), n_frames=12)["paths"]
+    files = [small[k] for k in ("rtm_a_seg1", "rtm_a_seg2", "rtm_b", "img_a", "img_b")]
+    flags = argv[argv.index("-m"):]
+    del flags[flags.index("-l"):flags.index("-l") + 2]
+    assert cli.main(["-o", os.path.join(d, "warm.h5"), *files, *flags,
+                     "-l", small["laplacian"]]) == 0
+
+
+def rss():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+
+
+rss0 = rss()
+peak, done = [rss0], threading.Event()
+
+
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        time.sleep(0.002)
+
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+rc = cli.main(argv)
+done.set()
+sampler.join()
+print(json.dumps({"rc": rc, "rss_before": rss0, "rss_peak": max(peak[0], rss()),
+                  "rss_after": rss()}))
+"""
+
+
+def write_chunked_copy(paths: dict, outdir: str, rows: int = INGEST_CHUNK_ROWS) -> dict:
+    """The world's RTM files copied with their ``value`` matrices chunked
+    ``rows`` rows a chunk (the port's writer: unfiltered chunks, a chunk
+    B-tree), everything else as it was; returns the copies' paths."""
+    from sartsolver_tpu_torch.io import h5
+
+    def copy(src, dst):
+        for k, v in src.attrs.items():
+            dst.attrs[k] = v
+        for name in src:
+            obj = src[name]
+            if isinstance(obj, h5.Group):
+                copy(obj, dst.create_group(name))
+                continue
+            data = np.asarray(obj)
+            chunked = name == "value" and data.ndim == 2 and data.shape[0] > rows
+            ds = dst.create_dataset(name, data=data,
+                                    chunks=(rows, data.shape[1]) if chunked else None)
+            for k, v in obj.attrs.items():
+                ds.attrs[k] = v
+
+    out = {}
+    for key in RTM_KEYS:
+        out[key] = os.path.join(outdir, os.path.basename(paths[key]))
+        with h5.File(paths[key], "r") as fin, h5.File(out[key], "w") as fout:
+            copy(fin, fout)
+    return out
+
+
+def _ingest_once(files, P, V, storage, device, chunk_rows=None) -> dict:
+    """One ingest through ``parallel/multihost.py``: the stored matrix (and
+    int8 scales), each pass's seconds, read and upload seconds, the read's
+    GB/s, the peak device bytes above what was allocated before, and the
+    ray stats' seconds and peak."""
+    import torch
+
+    from sartsolver_tpu_torch.models.sart import compute_ray_stats, compute_ray_stats_int8
+    from sartsolver_tpu_torch.parallel.multihost import (
+        read_and_quantize_rtm, read_and_shard_rtm,
+    )
+
+    sorted_files = {"camA": [files["rtm_a_seg1"], files["rtm_a_seg2"]],
+                    "camB": [files["rtm_b"]]}
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    timings = {}
+    t0 = time.perf_counter()
+    if storage == "int8":
+        stored, scale = read_and_quantize_rtm(sorted_files, "with_reflections", P, V, device,
+                                              chunk_rows=chunk_rows, timings=timings)
+    else:
+        stored = read_and_shard_rtm(sorted_files, "with_reflections", P, V, device,
+                                    dtype=storage, chunk_rows=chunk_rows, timings=timings)
+        scale = None
+    rec = dict(seconds=time.perf_counter() - t0, passes=timings,
+               read_gb_per_s={k: v["bytes"] / v["read_seconds"] / 1e9
+                              for k, v in timings.items()})
+    if on_card:
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        rec["stored_bytes"] = stored.numel() * stored.element_size()
+        torch.cuda.reset_peak_memory_stats()
+        mem1 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if scale is None:
+        stats = compute_ray_stats(stored, dtype=torch.float32)
+    else:
+        stats = compute_ray_stats_int8(stored, scale, dtype=torch.float32)
+    if on_card:
+        torch.cuda.synchronize()
+        rec["ray_stats_peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem1
+    rec["ray_stats_seconds"] = time.perf_counter() - t0
+    del stats
+    return rec, stored, scale
+
+
+def ingest_phase(world, outdir: str, device: str = "cuda") -> dict:
+    """The chunked RTM ingest on the world (:func:`_ingest_once`), per
+    storage: the stored matrix bit for bit against the host recipe
+    (``read_rtm_block`` whole on the host; bf16 rounded there, int8 through
+    ``quantize_rtm`` on the CPU), on the files as written and on a copy with
+    row-chunked matrices (``write_chunked_copy``); the seconds, GB/s and
+    peaks, the device peak at most the stored matrix plus two fp32 chunks
+    and the ray stats' vectors. Then, on the card, the CLI's resident
+    memory in a child process (the chain over 8 frames): its growth at most
+    two fp32 chunks plus ``INGEST_RSS_MARGIN``. Then the CLI with
+    ``--timing`` per storage on the chain over 8 frames and the scheduler
+    over the world's frames, at the defaults with ``SART_INGEST_PREFETCH=1``
+    and with one chunk, ``SART_INGEST_PREFETCH=0`` and
+    ``SART_WRITER_QUEUE=1``: the same bytes and launches, the phase split
+    and the ingest's spans. Then the fault drill on the fp32 chain:
+    ``hdf5.rtm_ingest:io:1:1`` recovers with the same file, and
+    ``solve.dispatch:error:1:1`` at ``--chain_frames 1`` writes frame 0
+    FAILED and frames 1-7 as a healthy run over them writes them; a healthy
+    run with a FAILED row fails the phase."""
+    import torch
+
+    from sartsolver_tpu_torch.io import h5
+    from sartsolver_tpu_torch.io.raytransfer import read_rtm_block
+    from sartsolver_tpu_torch.models.sart import quantize_rtm
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, reset_launch_counts
+    from sartsolver_tpu_torch.parallel.multihost import default_chunk_rows
+    from sartsolver_tpu_torch.resilience import faults
+
+    p = world["paths"]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    on_card = device == "cuda"
+    chunk = min(default_chunk_rows(V), P)
+    record = dict(shape=[P, V], chunk_rows=chunk, chunked_copy_rows=INGEST_CHUNK_ROWS)
+
+    # the host recipe
+    t0 = time.perf_counter()
+    sorted_files = {"camA": [p["rtm_a_seg1"], p["rtm_a_seg2"]], "camB": [p["rtm_b"]]}
+    host = torch.from_numpy(read_rtm_block(sorted_files, "with_reflections", P, V))
+    record["host_read_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = {"float32": (host, None), "bfloat16": (host.to(torch.bfloat16), None),
+            "int8": quantize_rtm(host)}
+    record["host_recipe_seconds"] = time.perf_counter() - t0
+    del host
+
+    t0 = time.perf_counter()
+    chunked_dir = os.path.join(outdir, "chunked")
+    os.makedirs(chunked_dir, exist_ok=True)
+    chunked = write_chunked_copy(p, chunked_dir)
+    record["chunked_copy_write_seconds"] = time.perf_counter() - t0
+    for storage in STORAGES:
+        entry = {}
+        for layout, files in (("contiguous", p), ("chunked", chunked)):
+            rec, stored, scale = _ingest_once(files, P, V, storage, device)
+            ref, ref_scale = want[storage]
+            same = torch.equal(stored.cpu(), ref) and (
+                scale is None or torch.equal(scale.cpu(), ref_scale))
+            if not same:
+                raise AssertionError(f"ingest {storage} {layout}: the stored matrix differs "
+                                     "from the host recipe's")
+            rec["bit_equal_to_host_recipe"] = True
+            if on_card:
+                limit = rec["stored_bytes"] + 2 * chunk * V * 4 + (P + V) * 4 + (4 << 20)
+                rec["peak_device_limit_bytes"] = limit
+                if rec["peak_device_bytes"] > limit:
+                    raise AssertionError(f"ingest {storage} {layout}: peak device bytes "
+                                         f"{rec['peak_device_bytes']} above {limit}")
+            del stored, scale
+            entry[layout] = rec
+        record[storage] = entry
+    for key in RTM_KEYS:  # the copy's 2 GiB on disk
+        os.remove(chunked[key])
+    del want
+
+    base = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
+    if on_card:  # the CLI's resident memory, in a child process
+        for storage in STORAGES:
+            out = os.path.join(outdir, f"ingest_rss_{storage}.h5")
+            env = {**os.environ, "CHIP_SMOKE_REPO": REPO}
+            run = subprocess.run([sys.executable, "-c", _RSS_CHILD, "-o", out, *base,
+                                  *OBS_LOOPS[0][1], "--rtm_dtype", storage],
+                                 env=env, capture_output=True, text=True, timeout=300)
+            if run.returncode != 0:
+                raise AssertionError(f"ingest rss {storage}: exit {run.returncode}: "
+                                     f"{run.stderr[-2000:]}")
+            rss = json.loads(run.stdout.strip().splitlines()[-1])
+            rss["growth_bytes"] = rss["rss_peak"] - rss["rss_before"]
+            rss["limit_bytes"] = 2 * chunk * V * 4 + INGEST_RSS_MARGIN
+            if rss["rc"] != 0 or rss["growth_bytes"] > rss["limit_bytes"]:
+                raise AssertionError(f"ingest rss {storage}: {rss}")
+            record[storage]["cli_host_rss"] = rss
+
+    def cli_run(name, flags, n_frames, env, expect=0, failed=0, check=True):
+        out = os.path.join(outdir, f"ingest_{name}.h5")
+        art = os.path.join(outdir, f"ingest_{name}.jsonl")
+        trace = os.path.join(outdir, f"ingest_{name}.trace.json")
+        saved = {k: os.environ.get(k) for k in (*env, "SART_TRACE_EVENTS")}
+        os.environ.update(env)
+        os.environ["SART_TRACE_EVENTS"] = trace
+        faults.reset()
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            rc, ms, text = run_cli(["-o", out, *base, *flags, "--timing", "--metrics_out", art],
+                                   device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            faults.reset()
+        if rc != expect or len(ms) != n_frames - failed:  # a FAILED frame prints no time
+            raise AssertionError(f"ingest {name}: exit {rc}, {len(ms)} of {n_frames} frames")
+        with h5.File(out, "r") as f:
+            status = f["solution/status"][:]
+        if expect == 0:
+            if (status == -3).any():
+                raise AssertionError(f"ingest {name}: a healthy run wrote FAILED rows")
+            if check:  # the window starts at frame 0
+                check_solution(out, world, n_frames, MAX_ITERATIONS, device)
+        metric = {(r["name"], tuple(sorted(r["labels"].items()))): r
+                  for _, r in load_jsonl(art)[0] if r["type"] == "metric"}
+        split = {key: metric[("phase_seconds", (("phase", phase),))]["sum"] * 1e3
+                 for key, phase in OBS_PHASES}
+        with open(trace) as f:
+            spans = json.load(f)["traceEvents"]
+        for e in spans:
+            if e["name"] == "ingest.pass":
+                split[f"pass_{e['args']['what']}_ms"] = e["dur"] / 1e3
+            elif e["name"] in ("ingest.rtm", "device.put") and \
+                    f"{e['name']}_first_ms" not in split:
+                split[f"{e['name']}_first_ms"] = e["dur"] / 1e3
+        with open(out, "rb") as f:
+            data = f.read()
+        return data, text, dict(wall_ms=wall * 1e3, cli_ms_per_frame=statistics.mean(ms),
+                                phase_split_ms=split, status=status.tolist(),
+                                launches_by_plan=dict(fused_sweep.launches_by_plan))
+
+    from sartsolver_tpu_torch.obs.schema import load_jsonl
+
+    configs = (("default", {"SART_INGEST_PREFETCH": "1"}),
+               ("one_chunk", {"SART_INGEST_CHUNK_ROWS": str(P), "SART_INGEST_PREFETCH": "0",
+                              "SART_WRITER_QUEUE": "1"}))
+    healthy = {}
+    for storage in STORAGES:
+        for loop, flags, n_frames in OBS_LOOPS:
+            n_frames = n_frames or T
+            runs = {}
+            for cfg, env in configs:
+                data, _, rec = cli_run(f"{storage}_{loop}_{cfg}",
+                                       [*flags, "--rtm_dtype", storage], n_frames, env)
+                runs[cfg] = (data, rec)
+            (a, ra), (b, rb) = runs["default"], runs["one_chunk"]
+            if a != b or ra["launches_by_plan"] != rb["launches_by_plan"]:
+                raise AssertionError(f"ingest {storage} {loop}: the pipeline's settings changed "
+                                     "the file or the launches")
+            healthy[storage, loop] = a
+            record[storage][f"cli_{loop}"] = dict(frames=n_frames, byte_equal=True,
+                                                  **{cfg: r for cfg, (_, r) in runs.items()})
+
+    # the fault drill, fp32 chain over 8 frames
+    chain = [*OBS_LOOPS[0][1], "--rtm_dtype", "float32"]
+    data, text, rec = cli_run("fault_rtm_ingest", chain, 8,
+                              {"SART_FAULT": "hdf5.rtm_ingest:io:1:1"})
+    if data != healthy["float32", "chain"] or \
+            "retries at hdf5.rtm_ingest: " not in text or "1 recovered" not in text:
+        raise AssertionError("fault drill hdf5.rtm_ingest: not recovered to the healthy file")
+    drill = dict(rtm_ingest=dict(rec, recovered=True, byte_equal_to_healthy=True))
+    _, _, rec = cli_run("fault_solve", ["-t", "0:0.75", "--chain_frames", "1",
+                                        "--rtm_dtype", "float32"], 8,
+                        {"SART_FAULT": "solve.dispatch:error:1:1"}, expect=2, failed=1)
+    _, _, ref = cli_run("fault_solve_reference", ["-t", "0.05:0.75", "--chain_frames", "1",
+                                                  "--rtm_dtype", "float32"], 7, {},
+                          check=False)
+    with h5.File(os.path.join(outdir, "ingest_fault_solve.h5"), "r") as f:
+        got = {k: f["solution"][k][:] for k in ("value", "status", "iterations")}
+    with h5.File(os.path.join(outdir, "ingest_fault_solve_reference.h5"), "r") as f:
+        want_rows = {k: f["solution"][k][:] for k in ("value", "status", "iterations")}
+    if got["status"][0] != -3 or got["iterations"][0] != -1 or (got["value"][0] != 0).any() \
+            or (got["status"][1:] == -3).any() or any(
+                not np.array_equal(got[k][1:], want_rows[k]) for k in got):
+        raise AssertionError(f"fault drill solve.dispatch: statuses {got['status']}")
+    drill["solve_dispatch"] = dict(rec, failed_rows=1, rest_equal_to_healthy=True)
+    record["fault_drill"] = drill
     return record
 
 
@@ -1856,6 +2210,9 @@ def main() -> int:
         t0 = time.perf_counter()
         obs = obs_phase(world, tmp, card=card)
         emit("obs", seconds=time.perf_counter() - t0, **obs)
+        t0 = time.perf_counter()
+        ingest = ingest_phase(world, tmp)
+        emit("ingest", seconds=time.perf_counter() - t0, **ingest)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)

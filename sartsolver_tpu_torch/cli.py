@@ -2,8 +2,8 @@
 
 Counterpart of ``sartsolver_tpu/cli.py``'s one-shot solve
 (main.cpp:25-151): parse and validate the reference flags, classify and
-cross-check the input files, build the composite measurement stream, read
-the RTM whole on the host and upload it once, then solve the frames in order
+cross-check the input files, build the composite measurement stream, stream
+the RTM into a device buffer once, then solve the frames in order
 — each warm-started from the previous frame's solution unless
 ``--no_guess`` — and write the solution file and the voxel map.
 
@@ -33,9 +33,24 @@ fused-sweep kernel; ``--device cpu`` runs the same profile on the CPU with
 the kernel's plain version. ``--use_cpu`` is the fp64 parity profile on the
 CPU, as in the JAX package.
 
-``--rtm_dtype`` picks the stored matrix's dtype. The matrix is read whole as
-fp32 on the host, rounded to bf16 or quantized to int8 codes there, and only
-the stored matrix is uploaded.
+``--rtm_dtype`` picks the stored matrix's dtype. The matrix is streamed in
+row chunks (``SART_INGEST_CHUNK_ROWS``) through pinned host buffers into a
+device buffer of that dtype (``parallel/multihost.py``): the host never
+holds the matrix, bf16 is rounded and int8 quantized (two passes over the
+file) on the device.
+
+The read / solve / write pipeline of the JAX CLI: a reader thread
+prefetches the frames (``utils/prefetch.py``) and a writer thread writes
+the solution file (``utils/asyncwriter.py``, ``SART_WRITER_QUEUE`` frames
+queued, default 16). The RTM's row chunks and the frames are read under a
+bounded retry policy (``SART_RETRY_*``). A frame whose read fails past its
+retries, or whose staging or solve dispatch fails with a recoverable error
+(``resilience/failures.py:RECOVERABLE_FRAME_ERRORS``), is written as a
+FAILED row (status -3, zeros) and the run goes on, exiting 2; the warm start
+carries over the dead frame. ``--fail_fast`` turns that isolation off. An
+RTM ingest that exhausts its retries, or a failed flush of the solution
+file, exits 3. ``SART_FAULT`` arms the named fault sites
+(``resilience/faults.py``) for drills.
 
 The solver variants of the JAX CLI: ``--relaxation_decay`` (iteration k
 steps by ``relaxation * decay**k``), ``--momentum nesterov``,
@@ -84,7 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="Impurity flux reconstruction for ITER: emissivity "
                     "(PyTorch, one device).",
         epilog="exit codes: 0 success; 1 input/flag error; 2 run completed "
-               "with DIVERGED frames.",
+               "with FAILED/DIVERGED frames; 3 aborted on an unrecoverable "
+               "infrastructure failure after retries (the RTM ingest) or a "
+               "failed write of the solution file.",
     )
     p.add_argument("-o", "--output_file", default="solution.h5",
                    help="Filename to save the solution.")
@@ -197,6 +214,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "scheduler lane's state) instead of propagating it "
                         "into the solution (one host sync a step; debugging "
                         "only).")
+    p.add_argument("--fail_fast", action="store_true",
+                   help="Disable per-frame failure isolation: the first "
+                        "frame whose ingest or solve fails aborts the "
+                        "run (the reference's behavior) instead of "
+                        "being recorded as a FAILED status row (-3) "
+                        "while the run continues.")
     p.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the frame loop "
                         "here. Each frame group (serial and chain paths) / "
@@ -375,7 +398,6 @@ def _run(args, telem, summary) -> int:
     from sartsolver_tpu_torch.io import hdf5files as hf
     from sartsolver_tpu_torch.io.image import CompositeImage
     from sartsolver_tpu_torch.io.laplacian_io import read_laplacian
-    from sartsolver_tpu_torch.io.raytransfer import read_rtm_block
     from sartsolver_tpu_torch.io.solution import SolutionWriter
     from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
     from sartsolver_tpu_torch.models.sart import (
@@ -383,11 +405,24 @@ def _run(args, telem, summary) -> int:
     )
     from sartsolver_tpu_torch.obs import trace as obs_trace
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
+    from sartsolver_tpu_torch.parallel.multihost import (
+        read_and_quantize_rtm, read_and_shard_rtm,
+    )
     from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.resilience.degrade import GroupSizeLadder, dispatch_guarded
+    from sartsolver_tpu_torch.resilience.failures import (
+        EXIT_INFRASTRUCTURE, FRAME_FAILED, RECOVERABLE_FRAME_ERRORS, FrameFailure,
+        OutputWriteError, failed_row,
+    )
+    from sartsolver_tpu_torch.resilience.retry import RetriesExhausted, reset_retry_stats
     from sartsolver_tpu_torch.sched import ContinuousBatcher
+    from sartsolver_tpu_torch.utils.asyncwriter import AsyncSolutionWriter, DeferredWriteError
+    from sartsolver_tpu_torch.utils.prefetch import FramePrefetcher
     from sartsolver_tpu_torch.utils.timing import PhaseTimer
 
+    # per-run accounting: the retry counters feed this run's summary and
+    # artifact, not a process-lifetime total
+    reset_retry_stats()
     timer = PhaseTimer(registry=telem.registry)
     t_phase = _time.perf_counter()
     try:
@@ -473,7 +508,7 @@ def _run(args, telem, summary) -> int:
         except ValueError as err:  # fused_sweep='on' where it cannot engage
             raise SartInputError(str(err)) from None
         try:
-            os_padded_rows(npixel, opts.os_subsets)
+            held_rows = os_padded_rows(npixel, opts.os_subsets)
         except ValueError as err:  # --os_subsets divides no extent the solver pads to
             raise SartInputError(str(err)) from None
         # the OS cycle's products upcast int8 codes themselves: int8 needs
@@ -514,18 +549,22 @@ def _run(args, telem, summary) -> int:
             sorted_image_files, rtm_frame_masks, time_intervals, npixel,
             max_cache_size=args.max_cached_frames,
         )
-        # the whole matrix on the host, stored there as the card will hold
-        # it (make_problem quantizes a host matrix to int8 on the host), and
-        # uploaded once. bf16 is rounded first, so the ray stats are those
-        # of the stored matrix, as the JAX CLI's are.
+        # the matrix streamed in row chunks into a device buffer of the
+        # stored dtype (int8: two passes), with the ordered-subsets padding
+        # rows; the ray stats are those of the stored matrix, taken on the
+        # device, as the JAX CLI's are
         with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
-            rtm = read_rtm_block(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                                 dtype=np.float64 if storage == "float64" else np.float32)
-            if storage == "bfloat16":
-                rtm = torch.from_numpy(rtm).to(torch.bfloat16)
+            rtm_scale = None
+            if storage == "int8":
+                rtm, rtm_scale = read_and_quantize_rtm(
+                    sorted_matrix_files, rtm_name, npixel, nvoxel, device, rows=held_rows)
+            else:
+                rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
+                                         device, dtype=storage, rows=held_rows)
             solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
-                                           debug_nans=args.debug_nans)
-            del rtm
+                                           debug_nans=args.debug_nans,
+                                           rtm_scale=rtm_scale, npixel=npixel)
+            del rtm, rtm_scale
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
         sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused
                  else "two-matmul")
@@ -534,10 +573,13 @@ def _run(args, telem, summary) -> int:
               + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else ""))
         mark("ingest RTM + upload")
 
-        # one stream of (frame, time, camera times), shared by the loops
-        frames = ((composite_image.frame(i), composite_image.frame_time(i),
-                   composite_image.camera_frame_time(i))
-                  for i in range(len(composite_image)))
+        # per-frame failure isolation: a frame whose read fails past its
+        # retries arrives as a FrameFailure item, and a group whose staging
+        # or dispatch fails with a recoverable error is caught in the loops;
+        # either way its frames are FAILED rows and the run goes on
+        isolate = not args.fail_fast
+        writer_queue = max(1, int(os.environ.get("SART_WRITER_QUEUE", "16")))
+        diverged_times = []
 
         def note_event(message: str) -> None:
             """An availability event (an OOM halving, the scheduler's
@@ -551,16 +593,38 @@ def _run(args, telem, summary) -> int:
                    else None)
         step = profile.step if profile is not None else (lambda: None)
 
-        with solver, SolutionWriter(args.output_file, camera_names, nvoxel,
-                                    max_cache_size=args.max_cached_solutions) as writer, \
+        # the writer thread holds at most SART_WRITER_QUEUE rows (or their
+        # device fetches); 1 runs the loop in lockstep with the writer. One
+        # stream of (frame, time, camera times) items, shared by the loops.
+        with solver, AsyncSolutionWriter(
+                SolutionWriter(args.output_file, camera_names, nvoxel,
+                               max_cache_size=args.max_cached_solutions),
+                max_pending=writer_queue) as writer, \
+                FramePrefetcher(composite_image, isolate_failures=isolate) as frames, \
                 profile if profile is not None else contextlib.nullcontext():
 
             def write(solution, status, ftime, cam_times, iterations, convergence,
                       ms, group):
-                """One row: the file, the run summary and the telemetry."""
+                """One row: the file (``solution`` an array or a device
+                fetch the writer thread resolves), the run summary and the
+                telemetry."""
                 writer.add(solution, status, ftime, cam_times, iterations=iterations)
                 summary.record_status(status, ftime)
+                if status == DIVERGED:
+                    diverged_times.append(ftime)
                 telem.record_frame(ftime, status, iterations, convergence, ms, group)
+
+            def record_failed(ftime, cam_times, err):
+                """A FAILED row (-3, zeros, -1 iterations) for a frame that
+                produced nothing; the telemetry keys its counter by the
+                error's class."""
+                writer.add(failed_row(nvoxel), FRAME_FAILED, ftime, cam_times,
+                           iterations=-1)
+                summary.record_status(FRAME_FAILED, ftime)
+                telem.record_frame(ftime, FRAME_FAILED, -1, None, None, "failed",
+                                   error=type(err).__name__)
+                print(f"Frame at t={ftime}: FAILED ({type(err).__name__}: {err})",
+                      file=sys.stderr)
 
             def run_grouped(K, batch, solve_group, items):
                 """The frame-group protocol of the batch and chain loops:
@@ -576,6 +640,12 @@ def _run(args, telem, summary) -> int:
                 one-deep pipelining is left out: each solve reads a done
                 flag every iteration, so a dispatch returns only when its
                 group is done and there is nothing to overlap.
+
+                A FrameFailure item dispatches what is pending, then writes
+                its FAILED row; a dispatch that fails with a recoverable
+                error writes its group's frames as FAILED rows (the warm
+                carry is left as it was: the next group starts from the
+                last good frame). Without isolation that error raises.
 
                 A group's time per frame runs from the end of the previous
                 group (reading and writing frames included), as the
@@ -600,13 +670,21 @@ def _run(args, telem, summary) -> int:
                             dark = np.zeros((size - len(group), stack.shape[1]))
                             stack = np.concatenate([stack, dark])
                         step()
-                        result, _ = dispatch_guarded(lambda: solve_group(stack),
-                                                     ladder=ladder)
+                        try:
+                            result, _ = dispatch_guarded(lambda: solve_group(stack),
+                                                         ladder=ladder)
+                        except RECOVERABLE_FRAME_ERRORS as err:
+                            if not isolate:
+                                raise
+                            for _, ftime, cam_times in group:
+                                record_failed(ftime, cam_times, err)
+                            del pending[:len(group)]
+                            t_last = _time.perf_counter()
+                            continue
                         if result is None:  # OOM: the same frames, halved
                             size = ladder.size
                             continue
                         statuses, iterations = result.status, result.iterations
-                        solutions = result.fetch_solutions()
                         now = _time.perf_counter()
                         # inside the frame-loop phase: a detail row, kept
                         # out of the total
@@ -614,7 +692,10 @@ def _run(args, telem, summary) -> int:
                         per_frame_ms = (now - t_last) * 1e3 / len(group)
                         t_last = now
                         for b, (_, ftime, cam_times) in enumerate(group):
-                            write(solutions[b], int(statuses[b]), ftime, cam_times,
+                            # the rows come off the device on the writer's
+                            # thread, in one copy for the group
+                            write(lambda b=b, result=result: result.fetch_solutions()[b],
+                                  int(statuses[b]), ftime, cam_times,
                                   int(iterations[b]), float(result.convergence[b]),
                                   per_frame_ms, group_label)
                             print(f"Processed in: {per_frame_ms} ms (average over "
@@ -623,6 +704,11 @@ def _run(args, telem, summary) -> int:
                         del pending[:len(group)]
 
                 for item in items:
+                    if isinstance(item, FrameFailure):
+                        # rows stay in frame order: what is pending first
+                        flush(final=True)
+                        record_failed(item.time, item.camera_times, item.error)
+                        continue
                     pending.append(item)
                     if len(pending) >= (ladder.size if ladder else K):
                         flush(final=False)
@@ -638,7 +724,7 @@ def _run(args, telem, summary) -> int:
                 back chained with the same frame iterator."""
                 def on_result(ftime, cam_times, status, iterations, convergence, fetcher,
                               per_frame_ms):
-                    write(fetcher(), status, ftime, cam_times, iterations, convergence,
+                    write(fetcher, status, ftime, cam_times, iterations, convergence,
                           per_frame_ms, "sched")
                     timer.add("solve sched (pipelined wall)", per_frame_ms / 1e3,
                               detail=True)
@@ -646,13 +732,17 @@ def _run(args, telem, summary) -> int:
                           f"lanes; {iterations} iterations)")
 
                 batcher = ContinuousBatcher(solver, lanes=K, on_result=on_result,
+                                            on_failed=record_failed, isolate=isolate,
                                             on_event=note_event, on_stride=step)
-                stats = batcher.run(frames)
+                # one iterator for both: a second iterator over the
+                # prefetcher would wait for an end marker already taken
+                stream = iter(frames)
+                stats = batcher.run(stream)
                 print(f"continuous batching: lanes={K} strides={stats.strides} "
                       f"loop_steps={stats.loop_steps} occupancy={stats.occupancy}")
                 if stats.leftover is not None:
                     run_grouped(max(K // 2, 1), True, solver.solve_batch,
-                                itertools.chain(stats.leftover, frames))
+                                itertools.chain(stats.leftover, stream))
 
             if args.no_guess:
                 if args.batch_frames > 1 and not args.no_continuous_batching:
@@ -679,14 +769,35 @@ def _run(args, telem, summary) -> int:
             print(f"fused sweep: requested={args.fused_sweep} "
                   f"resolved={opts.fused_sweep} "
                   f"engaged={FUSED_ENGAGEMENT['last'] or 'not traced'}")
+        # the run's resilience accounting whenever anything failed, was
+        # retried or degraded (always under --timing)
+        if summary.n_failed or summary.had_retries() or summary.events or args.timing:
             print(summary.format())
-        diverged = summary.failed_times  # the port writes no FAILED or SDC rows
-        if diverged:
-            shown = ", ".join(f"{t:g}" for t in diverged[:8])
-            print(f"{len(diverged)} frame(s) DIVERGED (status {DIVERGED}) at time(s) "
-                  f"{shown}{' ...' if len(diverged) > 8 else ''}", file=sys.stderr)
+        if diverged_times:
+            shown = ", ".join(f"{t:g}" for t in diverged_times[:8])
+            print(f"{len(diverged_times)} frame(s) DIVERGED (status {DIVERGED}) at "
+                  f"time(s) {shown}{' ...' if len(diverged_times) > 8 else ''}",
+                  file=sys.stderr)
         telem.finalize(summary)
-        return 2 if summary.n_failed else 0
+        return summary.exit_code()
+    except RetriesExhausted as err:
+        # a retried site (the RTM ingest, a frame read under --fail_fast)
+        # failed for good: infrastructure, not input
+        print(f"Unrecoverable after retries: {err}", file=sys.stderr)
+        return EXIT_INFRASTRUCTURE
+    except OutputWriteError as err:
+        # a flush of the solution file failed; the file keeps its last
+        # committed flush
+        print(err, file=sys.stderr)
+        return EXIT_INFRASTRUCTURE
+    except DeferredWriteError as err:
+        # the writer thread latched a recoverable failure (a device fetch
+        # that ran out of memory, an I/O error outside the flush); a bug as
+        # the cause still tracebacks
+        if isinstance(err.__cause__, RECOVERABLE_FRAME_ERRORS):
+            print(f"Asynchronous writer failed: {err}", file=sys.stderr)
+            return EXIT_INFRASTRUCTURE
+        raise
     except KeyError as err:
         # a missing dataset or attribute raises KeyError
         print(f"Missing dataset or attribute in input files: {err}", file=sys.stderr)

@@ -14,6 +14,14 @@ storage, the version-4 chunk indexes (chunked datasets in files written
 with the library's newest format), compound or enum types — raises
 :class:`H5FormatError` naming it.
 
+A read touches only what it selects: a row range of a chunked dataset
+(``dset[r0:r1]``, ``dset[i]``) decodes only the chunks that meet those
+rows, each once (``DECODE_STATS`` counts them), and
+:meth:`Dataset.read_direct` fills a caller's buffer — possibly a column
+window of a wider one — with a row range: from a contiguous dataset, or an
+unfiltered chunk as wide as the rows, straight from the file (``preadv``,
+one iovec a row: one copy out of the page cache).
+
 Writing produces the library's default (earliest) format: a version-0
 superblock, version-1 object headers, symbol-table groups and
 variable-length strings in one global heap. A dataset is contiguous, or
@@ -52,6 +60,38 @@ class H5FormatError(OSError):
 
 def _pad8(n: int) -> int:
     return (n + 7) & ~7
+
+
+# chunks decoded by the process (a row-range read decodes each chunk it
+# meets once; the tests count them)
+DECODE_STATS = {"chunks": 0}
+
+# iovecs one preadv takes
+_IOV_MAX = os.sysconf("SC_IOV_MAX") if hasattr(os, "sysconf") else 1024
+
+
+def _pread_rows(fd: int, offset: int, dest: np.ndarray, path: str) -> None:
+    """Fill ``dest`` (2-D, each row contiguous) from the file's contiguous
+    bytes at ``offset``: the whole array in one read where it is
+    contiguous, else one iovec per row, ``_IOV_MAX`` rows a ``preadv``."""
+    if dest.flags.c_contiguous:
+        views = [memoryview(dest.reshape(-1)).cast("B")]
+    else:
+        views = [memoryview(row).cast("B") for row in dest]
+    for i in range(0, len(views), max(1, _IOV_MAX)):
+        batch = views[i:i + max(1, _IOV_MAX)]
+        want = sum(v.nbytes for v in batch)
+        got = os.preadv(fd, batch, offset)
+        pos = 0
+        for v in batch:  # after a short read, the rest one view at a time
+            start = min(max(got - pos, 0), v.nbytes)
+            while start < v.nbytes:
+                n = os.preadv(fd, [v[start:]], offset + pos + start)
+                if n <= 0:
+                    raise H5FormatError(f"{path}: truncated at byte {offset + pos + start}")
+                start += n
+            pos += v.nbytes
+        offset += want
 
 
 # ---------------------------------------------------------------------------
@@ -475,27 +515,115 @@ class Dataset:
 
     def _read_chunked(self) -> np.ndarray:
         """Chunks never written read as the fill value."""
-        r, (_, addr, chunk) = self._reader, self._layout
-        out = np.full(self._shape, 0 if self.fillvalue is None else self.fillvalue, self.dtype)
-        if addr == UNDEF:
-            return out
-        for offset, size, mask, caddr in r.chunks(addr, len(chunk)):
-            raw = r.read(caddr, size)
-            for i, (fid, _vals) in reversed(list(enumerate(self._filters))):
-                if mask & (1 << i):
-                    continue
-                if fid == 1:
-                    raw = zlib.decompress(raw)
-                elif fid == 2:
-                    item = self._dtype.itemsize
-                    raw = np.frombuffer(raw, np.uint8).reshape(item, -1).T.tobytes()
-                else:
-                    raise H5FormatError(f"{r.path}: filter {fid} of {self.name}")
-            block = np.frombuffer(raw, self._dtype, count=int(np.prod(chunk))).reshape(chunk)
-            dst = tuple(slice(o, min(o + c, s)) for o, c, s in zip(offset, chunk, self._shape))
-            src = tuple(slice(0, d.stop - d.start) for d in dst)
-            out[dst] = block[src]
+        out = np.empty(self._shape, self.dtype)
+        self._chunked_rows(0, self._shape[0] if self._shape else 0, out)
         return out
+
+    def _decode(self, raw: bytes, mask: int) -> np.ndarray:
+        """One stored chunk through its filters (deflate, shuffle), as a
+        block of the chunk shape."""
+        r, chunk = self._reader, self._layout[2]
+        for i, (fid, _vals) in reversed(list(enumerate(self._filters))):
+            if mask & (1 << i):
+                continue
+            if fid == 1:
+                raw = zlib.decompress(raw)
+            elif fid == 2:
+                item = self._dtype.itemsize
+                raw = np.frombuffer(raw, np.uint8).reshape(item, -1).T.tobytes()
+            else:
+                raise H5FormatError(f"{r.path}: filter {fid} of {self.name}")
+        DECODE_STATS["chunks"] += 1
+        return np.frombuffer(raw, self._dtype, count=int(np.prod(chunk))).reshape(chunk)
+
+    def _chunked_rows(self, r0: int, r1: int, out: np.ndarray) -> None:
+        """Rows ``[r0, r1)`` of a chunked dataset into ``out`` (their shape):
+        only the chunks that intersect the rows are read and decoded, each
+        once; rows of chunks never written hold the fill value."""
+        r, (_, addr, chunk) = self._reader, self._layout
+        fill = 0 if self.fillvalue is None else self.fillvalue
+        if r1 <= r0:
+            return
+        stored = [] if addr == UNDEF else [
+            c for c in r.chunks(addr, len(chunk))
+            if c[0][0] < r1 and c[0][0] + chunk[0] > r0]
+        # the chunk grid cells the rows meet: fewer stored means some never
+        # were written, and their rows hold the fill value
+        cells = (r1 - 1) // chunk[0] - r0 // chunk[0] + 1
+        for s, c in zip(self._shape[1:], chunk[1:]):
+            cells *= -(-s // c)
+        if len(stored) < cells:
+            out[...] = fill
+        # an unfiltered chunk as wide as the rows goes from the file into
+        # out's rows in one copy, as a contiguous dataset does
+        whole_rows = (tuple(chunk[1:]) == tuple(self._shape[1:]) and out.ndim == 2
+                      and out.dtype == self._dtype and out.strides[1] == out.itemsize)
+        row_bytes = self._dtype.itemsize * int(np.prod(chunk[1:]))
+        for offset, size, mask, caddr in stored:
+            lo, hi = max(offset[0], r0), min(offset[0] + chunk[0], r1)
+            unfiltered = all(mask & (1 << i) for i in range(len(self._filters)))
+            if whole_rows and unfiltered:
+                _pread_rows(r.fh.fileno(), r.base + caddr + (lo - offset[0]) * row_bytes,
+                            out[lo - r0:hi - r0], r.path)
+                DECODE_STATS["chunks"] += 1
+                continue
+            block = self._decode(r.read(caddr, size), mask)
+            dst = (slice(lo - r0, hi - r0),) + tuple(
+                slice(o, min(o + c, s))
+                for o, c, s in zip(offset[1:], chunk[1:], self._shape[1:]))
+            src = (slice(lo - offset[0], hi - offset[0]),) + tuple(
+                slice(0, d.stop - d.start) for d in dst[1:])
+            out[dst] = block[src]
+
+    def _row_range(self, key):
+        """``(r0, r1, rest)`` where ``key`` selects a row range with unit step
+        (an int keeps the row axis and drops it through ``rest``), else
+        None."""
+        if not self._shape:
+            return None
+        first, rest = (key[0], key[1:]) if isinstance(key, tuple) else (key, ())
+        n = self._shape[0]
+        if isinstance(first, (int, np.integer)):
+            i = int(first) + (n if first < 0 else 0)
+            if not 0 <= i < n:
+                raise IndexError(f"index {first} is out of bounds for axis 0 with size {n}")
+            return i, i + 1, (0,) + tuple(rest)
+        if isinstance(first, slice):
+            r0, r1, step = first.indices(n)
+            if step == 1:
+                return r0, max(r0, r1), (slice(None),) + tuple(rest)
+        return None
+
+    def read_direct(self, dest: np.ndarray, rows: Tuple[int, int]) -> None:
+        """Rows ``[rows[0], rows[1])`` into ``dest``, an array of their shape
+        — possibly a view of columns of a wider buffer, its rows each
+        contiguous. A contiguous dataset is read from the file straight into
+        ``dest`` (one ``preadv`` a batch of rows: one copy, from the page
+        cache); a chunked one decodes only the chunks the rows meet, each
+        once."""
+        r0, r1 = int(rows[0]), int(rows[1])
+        if not (0 <= r0 <= r1 <= (self.shape[0] if self.shape else 0)):
+            raise IndexError(f"{self.name}: rows [{r0}, {r1}) outside {self.shape}")
+        if tuple(dest.shape) != (r1 - r0,) + tuple(self.shape[1:]):
+            raise ValueError(f"{self.name}: destination {dest.shape} for rows "
+                             f"[{r0}, {r1}) of {self.shape}")
+        if self._data is not None:
+            dest[...] = self._data[r0:r1]
+            return
+        lay = self._layout
+        if lay[0] == "chunked":
+            self._chunked_rows(r0, r1, dest)
+        elif lay[0] == "contiguous" and lay[1] != UNDEF and self._shape:
+            row_bytes = self._dtype.itemsize * int(np.prod(self._shape[1:]))
+            at = self._reader.base + lay[1] + r0 * row_bytes
+            direct = (dest.dtype == self._dtype and dest.ndim == 2
+                      and dest.strides[1] == dest.itemsize)
+            target = dest if direct else np.empty(dest.shape, self._dtype)
+            _pread_rows(self._reader.fh.fileno(), at, target, self._reader.path)
+            if not direct:
+                dest[...] = target
+        else:
+            dest[...] = self._read_all()[r0:r1]
 
     def __getitem__(self, key) -> np.ndarray:
         if self._data is not None:
@@ -508,6 +636,12 @@ class Dataset:
                 return np.array(view[key], dtype=self.dtype)
             finally:
                 del view
+        rows = self._row_range(key) if lay[0] == "chunked" else None
+        if rows is not None:
+            r0, r1, rest = rows
+            out = np.empty((r1 - r0,) + tuple(self._shape[1:]), self.dtype)
+            self._chunked_rows(r0, r1, out)
+            return np.array(out[rest])
         return np.array(self._read_all()[key])
 
     def __array__(self, dtype=None, copy=None):

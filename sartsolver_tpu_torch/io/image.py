@@ -238,7 +238,15 @@ class CompositeImage:
         """Fill the block cache starting at composite frame ``itime``
         (image.cpp:268-331): per overlapping camera, hyperslab-read each
         needed frame once, compress via the RTM frame mask, and keep this
-        instance's pixel range."""
+        instance's pixel range.
+
+        Named fault site ``hdf5.frame_read`` (``resilience/faults.py``): the
+        whole cache fill is the retry unit of the prefetcher's frame-read
+        retry loop, and a failed fill leaves the cache untouched; a ``nan``
+        or ``corrupt`` fault perturbs the block read."""
+        from sartsolver_tpu_torch.resilience import faults
+
+        faults.fire(faults.SITE_FRAME_READ)
         cache_size_t = min(self.max_cache_size, len(self.time) - itime)
         cached = np.zeros((cache_size_t, self.npix))
         lo_need, hi_need = self.offset, self.offset + self.npix
@@ -261,5 +269,5 @@ class CompositeImage:
             if hi_need <= start_pixel:
                 break
 
-        self._cached_frames = cached
+        self._cached_frames = faults.corrupt(faults.SITE_FRAME_READ, cached)
         self.cache_offset = itime

@@ -15,7 +15,10 @@ values. Either package reads the other's files, and the JAX writer's
 Files go through :mod:`sartsolver_tpu_torch.io.h5`, which rewrites the
 file whole on each flush through a temporary file renamed over it: a flush
 is atomic, so the rows and the ``completed`` counter always agree. The cost
-is a rewrite of the rows already written on every flush.
+is a rewrite of the rows already written on every flush. A flush is the
+named fault site ``io.flush``; a failed flush raises
+:class:`~sartsolver_tpu_torch.resilience.failures.OutputWriteError` (the
+CLI's infrastructure exit), the file keeping its last committed flush.
 """
 
 from __future__ import annotations
@@ -85,13 +88,25 @@ class SolutionWriter:
             self.flush()
 
     def flush(self) -> None:
-        """Write the buffered frames out."""
+        """Write the buffered frames out. A failure is not retried in place
+        (a flush retried blind could append twice): it is raised as
+        ``OutputWriteError``."""
         if not self._solutions:
             return
-        if self.first_flush:
-            self._create()
-        else:
-            self._update()
+        from sartsolver_tpu_torch.resilience import faults
+        from sartsolver_tpu_torch.resilience.failures import OutputWriteError
+
+        try:
+            faults.fire(faults.SITE_FLUSH)
+            if self.first_flush:
+                self._create()
+            else:
+                self._update()
+        except OSError as err:
+            raise OutputWriteError(
+                f"flush of {self.filename} failed ({err}); the file is "
+                "resumable up to its last committed flush (--resume)"
+            ) from err
         self.first_flush = False
         self._solutions.clear()
         self._status.clear()

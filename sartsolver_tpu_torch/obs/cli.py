@@ -20,7 +20,7 @@ Exit codes: 0 ok; 1 invalid input (unreadable file, schema violations);
 2 ``--diff --threshold`` regression detected.
 
 ``sartsolve top``, the live view of a running solve, comes with the flight
-recorder (ROADMAP queue A item 3).
+recorder (ROADMAP queue A item 2).
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@ registry current (``--timing`` reads it) but writes and prints nothing.
 The multi-process aggregation (one end-of-run allgather of every process's
 snapshot) comes with the multi-GPU slice, ROADMAP queue A item 5; its pure
 parts, :func:`_encode_snapshot` and :func:`aggregate_snapshots` over an
-injected ``allgather``, are here. The retry and fault-trip counters the
-JAX module folds in at the end come with queue A item 3.
+injected ``allgather``, are here. At the end of a run the per-site retry
+counters (``retry_attempts_total``, ``retry_recoveries_total``,
+``retry_exhausted_total``) and ``fault_trips_total`` are folded in, as the
+JAX module does.
 """
 
 from __future__ import annotations
@@ -200,6 +202,22 @@ class RunTelemetry:
             ))
         self.registry.counter("availability_events_total").inc()
 
+    def _import_run_counters(self) -> None:
+        """Fold the run's other host-side accounting into the registry so
+        the artifact is self-contained: per-site retry stats and fault
+        trips (``resilience/``). Imported here: this module loads without
+        numpy, which they use."""
+        from sartsolver_tpu_torch.resilience.faults import fault_trips
+        from sartsolver_tpu_torch.resilience.retry import retry_stats
+
+        for site, stats in sorted(retry_stats().items()):
+            for key in ("attempts", "recoveries", "exhausted"):
+                if stats[key]:
+                    self.registry.counter(f"retry_{key}_total", site=site).inc(stats[key])
+        for site, trips in sorted(fault_trips().items()):
+            if trips:
+                self.registry.counter("fault_trips_total", site=site).inc(trips)
+
     # ---- finalization ----------------------------------------------------
 
     def _records(self, snapshot: List[dict], summary,
@@ -245,6 +263,7 @@ class RunTelemetry:
         if not self.enabled:
             self._teardown_trace()
             return
+        self._import_run_counters()
         self._write_sinks(self.registry.snapshot(), summary)
 
     def finalize_local(self, summary=None) -> None:
@@ -259,6 +278,7 @@ class RunTelemetry:
             self._teardown_trace()
             return
         try:
+            self._import_run_counters()
             self._write_sinks(self.registry.snapshot(), summary,
                               partial=True)
         except Exception as err:  # noqa: BLE001 - must never mask the abort

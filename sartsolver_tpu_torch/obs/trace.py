@@ -169,7 +169,7 @@ _buffer: Optional[TraceBuffer] = None
 
 
 def _tap_beacons(target) -> None:
-    """Where the watchdog's beacon stream (queue A item 3) connects:
+    """Where the watchdog's beacon stream (queue A item 2) connects:
     ``target`` is :meth:`TraceBuffer.beacon`, or None to disconnect. The
     port has no beacon source yet."""
 

@@ -1,1 +1,2 @@
-"""The upload-once, solve-many-frames solver (one device for now)."""
+"""The upload-once, solve-many-frames solver and the chunked RTM ingest
+that fills its matrix (one device for now)."""

@@ -37,12 +37,14 @@ from sartsolver_tpu_torch.models.sart import (
     SolveResult,
     make_problem,
     prepare_measurement,
+    resolve_fused,
     sched_step_normalized,
     solve_chain_normalized,
     solve_normalized_batch,
     torch_dtype,
 )
 from sartsolver_tpu_torch.obs import trace as obs_trace
+from sartsolver_tpu_torch.resilience import faults
 
 
 # the JAX solver's pixel-row alignment on one device
@@ -174,25 +176,48 @@ class DistributedSARTSolver:
     """Upload-once, solve-many-frames solver on one device.
 
     ``rtm`` [P, V] is a host array or a tensor, stored as
-    ``opts.rtm_dtype`` (int8: quantized where it lies); ``laplacian`` a :class:`~sartsolver_tpu_torch.ops.laplacian.LaplacianCOO`
-    on ``device``. :meth:`close` (or leaving a ``with`` block) releases the
-    device copy of the matrix. ``debug_nans=True``: every solve raises
-    ``FloatingPointError`` at the first NaN it keeps (``debug_nans.py``).
+    ``opts.rtm_dtype`` (int8: quantized where it lies, or already int8
+    codes with their scales ``rtm_scale`` [V]); a tensor already on
+    ``device`` in the stored dtype (the chunked ingest's,
+    ``parallel/multihost.py``) is used as it is. ``npixel`` (default the
+    matrix's rows) is the pixel count of a matrix that already holds the
+    ordered-subsets padding rows. ``laplacian`` a
+    :class:`~sartsolver_tpu_torch.ops.laplacian.LaplacianCOO` on ``device``.
+    On the card the fused sweep's CUDA extension is built (if needed) and
+    loaded here, so an extension that fails to build or load fails the
+    construction and never a frame's dispatch. :meth:`close` (or leaving a
+    ``with`` block) releases the device copy of the matrix.
+    ``debug_nans=True``: every solve raises ``FloatingPointError`` at the
+    first NaN it keeps (``debug_nans.py``).
+
+    Named fault sites (``resilience/faults.py``): ``solve.dispatch`` at the
+    entry of every solve and scheduler stride, ``device.put`` where a frame
+    group or a stride's refills are staged.
     """
 
     def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda",
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, rtm_scale=None,
+                 npixel: Optional[int] = None):
         self.device = resolve_device(device)
         self.opts = opts
         self.debug_nans = debug_nans
         self.dtype = torch_dtype(opts.dtype)
-        npixel = np.shape(rtm)[0]
+        held = np.shape(rtm)[0]
+        npixel = held if npixel is None else int(npixel)
         # the rows the device holds: npixel, or the OS cycle's padded extent
         self.rows = os_padded_rows(npixel, opts.os_subsets)
-        if self.rows != npixel:
+        if held == npixel and self.rows != npixel:
             rtm = _pad_rows(rtm, self.rows)
+        elif held != self.rows:
+            raise ValueError(f"rtm of {held} rows for {npixel} pixels: {self.rows} "
+                             "rows expected.")
         with obs_trace.span("device.put"):
-            self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device)
+            self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device,
+                                        rtm_scale=rtm_scale)
+            if self.device.type == "cuda" and resolve_fused(opts):
+                from sartsolver_tpu_torch.ops import _build
+
+                _build.load("fused_sweep")
         self.npixel, self.nvoxel = npixel, self.problem.rtm.shape[1]
 
     def close(self) -> None:
@@ -220,6 +245,7 @@ class DistributedSARTSolver:
         if G.ndim != 2 or G.shape[1] != self.npixel:
             raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
         gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
+        faults.fire(faults.SITE_DEVICE_PUT)
         with obs_trace.span("device.put"):
             g = torch.as_tensor(self._pad_frames(np.stack(gs)),
                                 device=self.device).to(self.dtype)
@@ -237,6 +263,7 @@ class DistributedSARTSolver:
         """Solve B independent frames [B, P] in one batched loop, each from
         the Eq. 4 guess. The caller pads a short tail if it wants a fixed
         batch size."""
+        faults.fire(faults.SITE_SOLVE)
         problem = self._live_problem()
         g, msq, norms = self._stage_frames(measurements)
         seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype, device=self.device)
@@ -253,6 +280,7 @@ class DistributedSARTSolver:
         this solver: its last frame's solution and loop-exit ``fitted``,
         still on the device), else from the Eq. 4 guess. Per frame equal to
         K serial solves."""
+        faults.fire(faults.SITE_SOLVE)
         problem = self._live_problem()
         g, msq, norms = self._stage_frames(measurements)
         rescale = np.ones(len(norms))
@@ -315,6 +343,7 @@ class DistributedSARTSolver:
         runs; an empty list is a pure drain stride. The new state is
         committed only after the stride ran: a failed dispatch leaves the
         previous state intact."""
+        faults.fire(faults.SITE_SOLVE)
         problem = self._live_problem()
         B = lane_state.lanes
         norms = lane_state.norms.copy()
@@ -333,6 +362,7 @@ class DistributedSARTSolver:
                 g_stage[b, :self.npixel], msq_stage[b], norms[b] = prepare_measurement(
                     meas, self.opts)
                 refill[b] = True
+            faults.fire(faults.SITE_DEVICE_PUT)
             with obs_trace.span("device.put"):
                 g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)
                 msq_new = torch.as_tensor(msq_stage, device=self.device).to(self.dtype)

@@ -1,1 +1,3 @@
-"""Availability: the OOM degradation ladder of the frame-group loops."""
+"""Availability: the failure taxonomy and exit codes, bounded retries, the
+fault-injection registry and the OOM degradation ladder of the frame-group
+loops."""

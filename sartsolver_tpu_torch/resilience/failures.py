@@ -1,25 +1,87 @@
-"""Frame statuses by name and the end-of-run summary that ``--timing``
-prints.
+"""Failure taxonomy: statuses, exceptions, exit codes, the run summary.
 
-Counterpart of ``sartsolver_tpu/resilience/failures.py``'s
-:func:`status_name` and :class:`RunSummary`. The status codes beyond the
-solver's own (``config.py``: 0 converged, -1 at the iteration cap, -2
-diverged) are the JAX package's pipeline codes, named here so that an
-artifact of either package reads the same: -3 FRAME_FAILED, -4
-SDC_DETECTED, -5 DEADLINE_EXCEEDED. The port writes none of them yet: the
-per-frame isolation that writes FAILED rows, and the retry accounting of
-the summary, come with ROADMAP queue A item 3.
+Counterpart of ``sartsolver_tpu/resilience/failures.py``. The status codes
+beyond the solver's own (``config.py``: 0 converged, -1 at the iteration
+cap, -2 diverged) are the JAX package's pipeline codes, so an artifact or
+a solution file of either package reads the same:
+
+- ``-3`` FRAME_FAILED: the frame produced no solution (its read's retries
+  were exhausted, or its staging or solve dispatch failed with a
+  recoverable error); the row holds zeros and ``iterations = -1``;
+- ``-4`` SDC_DETECTED and ``-5`` DEADLINE_EXCEEDED, which the port does not
+  write yet.
+
+Exit codes of the CLI: 0 every frame converged or at the cap; 1 an input
+or flag error; 2 (``EXIT_PARTIAL``) the run completed with DIVERGED or
+FAILED frames; 3 (``EXIT_INFRASTRUCTURE``) the run aborted on an
+unrecoverable infrastructure failure (the RTM ingest's retries exhausted, a
+solution-file flush failed); 4 (``EXIT_INTERRUPTED``) is kept for the
+graceful stop, which is not ported yet.
+
+What per-frame isolation may absorb into a FAILED row is
+:data:`RECOVERABLE_FRAME_ERRORS`: I/O errors, injected faults, exhausted
+retries and a device out-of-memory (``torch.cuda.OutOfMemoryError``, the
+counterpart of the JAX package's ``JaxRuntimeError``) — and nothing wider.
+A CUDA extension that fails to build or load, a kernel plan the extension
+refuses, a sticky CUDA error or an internal bug fails the run.
+
+The module loads with the standard library alone (the observability layer
+imports it): :data:`RECOVERABLE_FRAME_ERRORS` is made, with torch, on first
+use.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 from sartsolver_tpu_torch.config import DIVERGED, MAX_ITERATIONS_EXCEEDED, SUCCESS
 
 FRAME_FAILED = -3
 SDC_DETECTED = -4
 DEADLINE_EXCEEDED = -5
+
+EXIT_OK = 0
+EXIT_INPUT_ERROR = 1
+EXIT_PARTIAL = 2
+EXIT_INFRASTRUCTURE = 3
+EXIT_INTERRUPTED = 4
+
+
+class OutputWriteError(RuntimeError):
+    """A solution-file flush failed mid-run. Not an ``OSError``, so the CLI
+    maps it to EXIT_INFRASTRUCTURE and not to the input-error exit."""
+
+
+class FrameFailure(NamedTuple):
+    """A frame the prefetcher could not deliver (its read's retries were
+    exhausted). Shaped like the ``(frame, time, camera_times)`` stream
+    items, ``frame`` None; the frame loops record a FAILED row for it."""
+
+    frame: None
+    time: float
+    camera_times: List[float]
+    error: BaseException
+
+
+def __getattr__(name: str):
+    # RECOVERABLE_FRAME_ERRORS, made on first use: it names torch's OOM
+    # error and the injected faults (numpy), which this module does not
+    # load at import
+    if name == "RECOVERABLE_FRAME_ERRORS":
+        import torch
+
+        from sartsolver_tpu_torch.resilience.faults import InjectedFault
+        from sartsolver_tpu_torch.resilience.retry import RetriesExhausted
+
+        value = (
+            OSError,  # includes InjectedIOError and real I/O errors
+            InjectedFault,  # includes InjectedOOM
+            RetriesExhausted,
+            torch.cuda.OutOfMemoryError,  # a device OOM the ladder did not absorb
+        )
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def status_name(status: int) -> str:
@@ -34,7 +96,8 @@ def status_name(status: int) -> str:
 
 
 class RunSummary:
-    """End-of-run accounting of per-frame outcomes and availability events."""
+    """End-of-run accounting of per-frame outcomes, retry activity and
+    availability events."""
 
     def __init__(self) -> None:
         self.counts = {SUCCESS: 0, MAX_ITERATIONS_EXCEEDED: 0,
@@ -63,6 +126,12 @@ class RunSummary:
         return (self.counts[DIVERGED] + self.counts[FRAME_FAILED]
                 + self.counts[SDC_DETECTED])
 
+    def had_retries(self) -> bool:
+        return any(v["recoveries"] or v["exhausted"] for v in _retry_stats().values())
+
+    def exit_code(self) -> int:
+        return EXIT_PARTIAL if self.n_failed else EXIT_OK
+
     def format(self) -> str:
         parts = [
             f"{n} {status_name(s)}"
@@ -79,6 +148,26 @@ class RunSummary:
                 "  failed frame time(s): " + shown
                 + (f" (+{more} more)" if more > 0 else "")
             )
+        for site, v in sorted(_retry_stats().items()):
+            if v["recoveries"] or v["exhausted"]:
+                lines.append(
+                    f"  retries at {site}: {v['attempts']} attempt(s), "
+                    f"{v['recoveries']} recovered, {v['exhausted']} exhausted"
+                )
         for event in self.events:
             lines.append(f"  {event}")
         return "\n".join(lines)
+
+
+def _retry_stats():
+    from sartsolver_tpu_torch.resilience.retry import retry_stats
+
+    return retry_stats()
+
+
+def failed_row(nvoxel: int):
+    """The row written for a FAILED frame: zeros (the dataset's fill value);
+    its status says what it is."""
+    import numpy as np
+
+    return np.zeros(nvoxel, np.float64)

@@ -21,10 +21,17 @@ Contracts kept from the grouped loop:
   converged, at the iteration cap, or DIVERGED by the divergence guard
   (in the stride, or at its refill for a non-finite frame, after no
   iteration).
+- **Failure isolation**: the prefetcher's
+  :class:`~sartsolver_tpu_torch.resilience.failures.FrameFailure` items
+  pass through as FAILED rows in frame order without taking a lane; with
+  ``isolate``, a dispatch that fails with a recoverable error
+  (``RECOVERABLE_FRAME_ERRORS``) fails the frames in its lanes, in order
+  (the grouped loop's "the group produced nothing"), and the run goes on
+  with fresh lanes. Without ``isolate`` that error raises.
 - **OOM**: a device out-of-memory hands every un-emitted frame back to the
-  caller in frame order (``SchedRunStats.leftover``), for the grouped
-  loop's halving ladder: the lane count cannot halve itself. Any other
-  dispatch error raises.
+  caller in frame order (``SchedRunStats.leftover``, FrameFailure items
+  included), for the grouped loop's halving ladder: the lane count cannot
+  halve itself.
 
 Telemetry, the JAX scheduler's six instruments, updated once per stride
 from the values the stride already read back: ``sched_lane_occupancy``
@@ -45,14 +52,17 @@ import numpy as np
 import torch
 
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
+from sartsolver_tpu_torch.resilience import failures
 from sartsolver_tpu_torch.resilience.degrade import dispatch_guarded, is_resource_exhausted
+from sartsolver_tpu_torch.resilience.failures import FrameFailure
 
 
 @dataclass
 class SchedRunStats:
     """End-of-run scheduler accounting (plus the OOM fallback payload)."""
 
-    frames: int = 0  # results emitted
+    frames: int = 0  # results emitted (FAILED rows included)
+    failed: int = 0  # FrameFailure rows and the lanes of failed dispatches
     strides: int = 0  # device dispatches
     loop_steps: int = 0  # solver iterations the device executed
     useful_iters: int = 0  # per-frame iterations summed over retirees
@@ -90,12 +100,17 @@ class ContinuousBatcher:
     ``on_result(ftime, cam_times, status, iterations, convergence, fetcher,
     per_frame_ms)`` receives each retired frame in frame order (``fetcher``
     is a zero-argument callable resolving the solution in physical units).
+    ``on_failed(ftime, cam_times, error)`` receives FAILED frames in the
+    same ordered stream (a FrameFailure item with no ``on_failed`` raises
+    its error). ``isolate``: a recoverable dispatch error fails the lanes'
+    frames instead of raising (the CLI's per-frame isolation).
     ``on_event`` receives one line per notable event (the OOM hand-back).
     ``on_stride`` (optional) is called just before each stride's dispatch:
     the CLI's ``--profile_dir`` steps the profiler there.
     """
 
     def __init__(self, solver, *, lanes: int, on_result: Callable,
+                 on_failed: Optional[Callable] = None, isolate: bool = False,
                  on_event: Optional[Callable[[str], None]] = None,
                  on_stride: Optional[Callable[[], None]] = None,
                  refill_quantum: Optional[int] = None):
@@ -110,6 +125,8 @@ class ContinuousBatcher:
             refill_quantum = max(1, self._lanes // 4)
         self._refill_quantum = max(1, min(int(refill_quantum), self._lanes))
         self._on_result = on_result
+        self._on_failed = on_failed
+        self._isolate = isolate
         self._on_event = on_event
         self._on_stride = on_stride
         registry = obs_metrics.get_registry()
@@ -125,19 +142,26 @@ class ContinuousBatcher:
     def _emit_ready(self) -> None:
         """Flush the reorder buffer's contiguous prefix (frame order)."""
         while self._next_emit in self._emit_buf:
-            payload, _frame = self._emit_buf.pop(self._next_emit)
+            kind, payload, _frame = self._emit_buf.pop(self._next_emit)
             self._next_emit += 1
             self._stats.frames += 1
-            self._on_result(*payload)
+            if kind == "failed":
+                self._stats.failed += 1
+                ftime, cam_times, err = payload
+                if self._on_failed is None:
+                    raise err
+                self._on_failed(ftime, cam_times, err)
+            else:
+                self._on_result(*payload)
 
     def run(self, items) -> SchedRunStats:
-        """Consume the ``(frame, time, camera_times)`` stream until it is
-        drained. ``stats.leftover`` is not None exactly when a device OOM
+        """Consume the ``(frame, time, camera_times) | FrameFailure`` stream
+        until it is drained. ``stats.leftover`` is not None exactly when a device OOM
         handed the run back to the grouped loop."""
         solver = self._solver
         B = self._lanes
         stats = self._stats = SchedRunStats()
-        self._emit_buf = {}  # seq -> (on_result payload, raw frame)
+        self._emit_buf = {}  # seq -> ("result" | "failed", payload, raw frame)
         self._next_emit = 0
         it = iter(items)
         exhausted = False
@@ -157,10 +181,16 @@ class ContinuousBatcher:
                 return refills
             while free and not exhausted:
                 try:
-                    frame, ftime, cam_times = next(it)
+                    item = next(it)
                 except StopIteration:
                     exhausted = True
                     break
+                if isinstance(item, FrameFailure):  # a FAILED row, no lane
+                    self._emit_buf[seq] = ("failed", (item.time, item.camera_times,
+                                                      item.error), None)
+                    seq += 1
+                    continue
+                frame, ftime, cam_times = item
                 lane = free.popleft()
                 occupied[lane] = _Slot(seq, np.asarray(frame), ftime, cam_times)
                 refills.append((lane, occupied[lane].frame))
@@ -170,14 +200,28 @@ class ContinuousBatcher:
         while True:
             refills = intake()
             if not occupied:
+                self._emit_ready()  # trailing FAILED rows
                 break
             if self._on_stride is not None:
                 self._on_stride()
             try:
                 dispatch_guarded(lambda: solver.sched_step(lane_state, refills))
-            except RuntimeError as err:  # torch.cuda.OutOfMemoryError is one
-                if not is_resource_exhausted(err):
-                    raise
+            except Exception as err:
+                if not (isinstance(err, RuntimeError) and is_resource_exhausted(err)):
+                    if not (self._isolate
+                            and isinstance(err, failures.RECOVERABLE_FRAME_ERRORS)):
+                        raise
+                    # the dispatch produced nothing: every frame in the
+                    # lanes fails, in order, and the run goes on with fresh
+                    # lanes
+                    for slot in occupied.values():
+                        self._emit_buf[slot.seq] = (
+                            "failed", (slot.ftime, slot.cam_times, err), None)
+                    occupied.clear()
+                    free = deque(range(B))
+                    lane_state = solver.sched_lanes(B)
+                    self._emit_ready()
+                    continue
                 # the one failure a fixed lane count cannot absorb: every
                 # un-emitted frame goes back, in frame order
                 torch.cuda.empty_cache()
@@ -218,6 +262,7 @@ class ContinuousBatcher:
             for lane in retired:
                 slot = occupied.pop(lane)
                 self._emit_buf[slot.seq] = (
+                    "result",
                     (slot.ftime, slot.cam_times, int(status[lane]), int(iters[lane]),
                      float(conv[lane]), lane_state.lane_solution_fetcher(lane),
                      per_frame_ms),
@@ -237,8 +282,9 @@ class ContinuousBatcher:
         Completed but unemitted results are re-solved from their raw frames:
         emitting them after the fallback re-solves an earlier frame would
         break row order."""
-        entries = [(seq, (frame, payload[0], payload[1]))
-                   for seq, (payload, frame) in self._emit_buf.items()]
+        entries = [(seq, FrameFailure(None, *payload) if kind == "failed"
+                     else (frame, payload[0], payload[1]))
+                   for seq, (kind, payload, frame) in self._emit_buf.items()]
         entries += [(slot.seq, (slot.frame, slot.ftime, slot.cam_times))
                     for slot in occupied.values()]
         self._emit_buf.clear()

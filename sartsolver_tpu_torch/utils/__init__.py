@@ -1,2 +1,3 @@
 """Host utilities: named locks, atomic file publishes and the ``--timing``
-phase timer. Standard library only."""
+phase timer (standard library only), and the I/O pipeline's two threads,
+the frame prefetcher and the asynchronous solution writer."""

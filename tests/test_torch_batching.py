@@ -343,8 +343,10 @@ def _oom_halves_the_group(world, tmp_path, monkeypatch, where, capsys, variants)
 
 def test_cli_chain_oom_propagates(world, tmp_path, monkeypatch):
     """The chain loop has no ladder: it solves its frames one at a time at
-    B = 1, so a smaller group would need no less memory, and a device OOM
-    there ends the run."""
+    B = 1, so a smaller group would need no less memory. Under
+    ``--fail_fast`` a device OOM there ends the run; with per-frame
+    isolation (the default) it is a recoverable frame error, as in the JAX
+    CLI: the group's frames are FAILED rows and the run exits 2."""
     paths, *_ = world
 
     def failing(self, *args, **kw):
@@ -352,7 +354,12 @@ def test_cli_chain_oom_propagates(world, tmp_path, monkeypatch):
 
     monkeypatch.setattr(DistributedSARTSolver, "solve_chain", failing)
     with pytest.raises(torch.cuda.OutOfMemoryError):
-        _port(paths, str(tmp_path / "oom.h5"), "--device", "cpu", "--chain_frames", "4")
+        _port(paths, str(tmp_path / "oom.h5"), "--device", "cpu", "--chain_frames", "4",
+              "--fail_fast")
+    out = str(tmp_path / "isolated.h5")
+    assert _port(paths, out, "--device", "cpu", "--chain_frames", "4") == 2
+    with h5py.File(out, "r") as f:
+        assert (f["solution/status"][:] == -3).all()
 
 
 @pytest.mark.parametrize("argv,env,message", [

@@ -38,6 +38,29 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "[]", bad
 
 
+# the I/O pipeline's modules (the chunked ingest, retries, faults, the
+# prefetcher, the async writer), each imported alone
+_PIPELINE_MODULES = (
+    "sartsolver_tpu_torch.parallel.multihost", "sartsolver_tpu_torch.resilience.retry",
+    "sartsolver_tpu_torch.resilience.faults", "sartsolver_tpu_torch.utils.prefetch",
+    "sartsolver_tpu_torch.utils.asyncwriter", "sartsolver_tpu_torch.io.raytransfer",
+)
+
+
+def test_io_pipeline_modules_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "for name in sys.argv[1:]:\n"
+             "    importlib.import_module(name)\n"
+             "from sartsolver_tpu_torch.resilience import failures\n"
+             "assert len(failures.RECOVERABLE_FRAME_ERRORS) == 4\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'sartsolver_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe, *_PIPELINE_MODULES], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 _OBS_PROBE = """
 import importlib, pkgutil, sys
 import sartsolver_tpu_torch.obs as obs
@@ -184,3 +207,35 @@ def test_chip_smoke_obs_phase_at_small_size(tmp_path):
         assert rec[storage]["scheduler"]["strides"] > 0
     assert rec["profile"]["steps"] == rec["profile"]["strides"] > 0
     assert "roofline" not in rec
+
+
+def test_chip_smoke_ingest_phase_at_small_size(tmp_path):
+    """chip_smoke.py's ingest phase on the CPU at a small size: every
+    storage's stored matrix equals the host recipe on the files as written
+    and on their row-chunked copy, the CLI writes the same bytes at the
+    defaults and with one chunk, prefetch off and a writer queue of one, and
+    the fault drill recovers or writes its one FAILED row (the peaks and the
+    host memory are the card's)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=12)
+    rec = cs.ingest_phase(world, str(tmp_path), device="cpu")
+    assert rec["shape"] == [64, 256]
+    for storage in cs.STORAGES:
+        for layout in ("contiguous", "chunked"):
+            entry = rec[storage][layout]
+            assert entry["bit_equal_to_host_recipe"]
+            want = {"colmax", "quantize"} if storage == "int8" else {"store"}
+            assert set(entry["passes"]) == want
+        for loop, _, _ in cs.OBS_LOOPS:
+            run = rec[storage][f"cli_{loop}"]
+            assert run["byte_equal"] and set(run) == {"frames", "byte_equal", "default",
+                                                      "one_chunk"}
+            split = run["default"]["phase_split_ms"]
+            assert split["ingest.rtm_first_ms"] <= split["ingest_upload_ms"]
+    drill = rec["fault_drill"]
+    assert drill["rtm_ingest"]["recovered"] and drill["solve_dispatch"]["failed_rows"] == 1
+    assert drill["solve_dispatch"]["status"][0] == -3
