@@ -131,6 +131,35 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    ``SART_FAULT=solve.dispatch:error:1:1`` writes one FAILED row, the
    others equal to a healthy run's; a healthy run with a FAILED row fails
    the phase.
+4b''''. ``resilience``: the resilience of a run on the world
+   (:func:`resilience_phase`). Per storage, ``--resume`` after a half run
+   (``-t``) for the chain (8 frames, ``--chain_frames 1``) and for the
+   scheduler (``--no_guess --batch_frames 8``, the 32 frames): the
+   ``Processed in`` count, the rows before the cut the uninterrupted run's
+   bytes, the rows after it its statuses and within ``RESUME_FIT_TOL`` in
+   fitted space; each uninterrupted run again with ``--integrity``
+   (``one_read`` at B = 1 and fp32 B = 8, ``tensor_core`` for bf16 and int8
+   at B = 8) and fp32 at ``--batch_frames 16`` (``two_read``; the tall
+   world's runs in ``tall_world``): the same bytes, no trip, the largest
+   residual over its band, every launch on the run's plan, ms per frame on
+   and off. On the fp32 chain, one flush a frame, in subprocesses: SIGKILL
+   inside the ``torn`` and ``pre-counter`` windows, then ``--resume``;
+   SIGUSR1 (the status snapshot, rendered by ``top --once``) then SIGTERM
+   (exit 4), then ``--resume``. The hang watchdog
+   (``SART_WATCHDOG_TIMEOUT=2``, ``solve.dispatch:hang:1:1``): a FAILED row
+   and exit 2; under ``--fail_fast`` exit 3 and a crash bundle. The
+   resident matrix corrupted (``device.buffer:corrupt``): the solver API's
+   status and trip iteration, the re-audit, and the CLI's quarantine (exit
+   3) after re-solving on the same plan; the JAX package's recipe
+   (``x * 256 + 1``), the forward check's detection limit at this size,
+   and the CLI's quarantine by the re-audit. The ingest with the integrity
+   layer's sums on the card and off, in turns, the same sums on the host,
+   and the CLI's ``ingest RTM + upload`` with and without
+   ``--integrity``; ms per frame with it on and off, ``INTEGRITY_TURNS``
+   runs each way over the 32 frames, fp32 scheduler and chain. Then the
+   flush timed alone (:func:`flush_timing`): appends of ``FLUSH_ROWS`` rows
+   at V = 65,536 after ``FLUSH_AT`` rows, and ``write voxel map`` after
+   ``VOXEL_MAP_AT`` rows.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -143,7 +172,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    linear with the Laplacian over 4 frames at ``--chain_frames 1``
    (:func:`tall_world_phase`): statuses, fitted errors within
    ``FIT_BOUND``, every launch on ``two_read``, one per iteration; ms per
-   frame. It runs last, after the e2e world's RTM files are deleted.
+   frame; each run again with ``--integrity`` (:func:`integrity_pair`). It
+   runs last, after the e2e world's RTM files are deleted.
 5. ``plain_crosscheck``: frame 0 solved through the kernel and through the
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
@@ -175,6 +205,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from typing import Optional
 
 import numpy as np
 
@@ -705,6 +737,13 @@ def tall_world_phase(outdir: str, device: str = "cuda", **world_kw) -> dict:
                    status=sol["status"].tolist(), fit_err=err.tolist(), launches_by_plan=by_plan)
         if on_card:
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        # the same run with --integrity: the ABFT check on two_read's output
+        # trips nothing and changes no byte of the file
+        rec["integrity"] = integrity_pair(
+            out, ["-o", out, p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"],
+                  p["img_b"], "-m", str(MAX_ITERATIONS), "-l", p["laplacian"],
+                  "-t", f"0:{0.1 * TALL_FRAMES - 0.05:.2f}", "--chain_frames", "1",
+                  "--rtm_dtype", storage], plan, device, plain_ms=ms)
         record[storage] = rec
     return record
 
@@ -862,6 +901,567 @@ OBS_PHASES = (("validate_ms", "validate + index inputs"),
 ONE_READ_KERNEL = "sweep_kernel<"
 
 
+# ---- resilience: --resume, the kill drills, SIGTERM, the watchdog, integrity ----
+
+# the rows after a resume's cut against the uninterrupted run's, in fitted
+# space (ROADMAP §C items 2-4: the fp32 stall crossing moves with a warm
+# start's path)
+RESUME_FIT_TOL = 5e-3
+# the flush timing: rows a flush appends, and the rows already in the file
+# at the flushes timed; the voxel map's write after these many rows
+FLUSH_ROWS = 100
+FLUSH_AT = (100, 400, 1600)
+VOXEL_MAP_AT = (8, 32, 1600)
+RESILIENCE_TIMEOUT = 300  # seconds, each subprocess of the drills
+INTEGRITY_TURNS = 5  # runs with --integrity on, and as many off, in turns
+REAUDIT_EVERY = 2  # SART_INTEGRITY_REAUDIT of the JAX recipe's CLI run
+
+
+def _read_rows(path):
+    from sartsolver_tpu_torch.io import h5
+
+    with h5.File(path, "r") as f:
+        out = {k: f["solution"][k][:] for k in f["solution"]}
+        out["completed"] = int(f["solution"].attrs["completed"])
+    return out
+
+
+def _fitted_distance(world, a, b, device):
+    """Per row ``||H (a - b)|| / ||H b||``."""
+    import torch
+
+    H = torch.as_tensor(world["H"], device=device)
+    fa = H @ torch.as_tensor(a.T, dtype=torch.float32, device=device)
+    fb = H @ torch.as_tensor(b.T, dtype=torch.float32, device=device)
+    return ((fa - fb).norm(dim=0) / fb.norm(dim=0).clamp_min(1e-30)).cpu().numpy()
+
+
+def check_resumed(path, ref_path, world, cut, device, what):
+    """A resumed file against the uninterrupted run's: complete, every
+    row's checksum its own, the rows before ``cut`` the same bytes, the
+    rest the same statuses and within ``RESUME_FIT_TOL`` in fitted space."""
+    from sartsolver_tpu_torch.io.solution import row_checksum
+
+    got, want = _read_rows(path), _read_rows(ref_path)
+    n = len(want["time"])
+    if got["completed"] != n or any(got[k].shape[0] != n for k in want if k != "completed"):
+        raise AssertionError(f"{what}: {got['completed']} of {n} rows")
+    if [int(c) for c in got["checksum"]] != [int(row_checksum(r)) for r in got["value"]]:
+        raise AssertionError(f"{what}: a row fails its checksum")
+    for key in ("value", "status", "iterations"):
+        if not np.array_equal(got[key][:cut], want[key][:cut]):
+            raise AssertionError(f"{what}: rows before the cut differ in {key}")
+    # a frame's time is taken from the -t window's grid: an ulp apart
+    if not np.allclose(got["time"], want["time"], rtol=1e-12, atol=0):
+        raise AssertionError(f"{what}: times {got['time']} against {want['time']}")
+    if not np.array_equal(got["status"], want["status"]):
+        raise AssertionError(f"{what}: statuses {got['status']} against {want['status']}")
+    dist = _fitted_distance(world, got["value"][cut:], want["value"][cut:], device)
+    if not (dist <= RESUME_FIT_TOL).all():
+        raise AssertionError(f"{what}: fitted distance {dist} above {RESUME_FIT_TOL}")
+    return dict(rows=n, cut=cut, rows_after_cut_bytes_equal=bool(
+                    np.array_equal(got["value"][cut:], want["value"][cut:])),
+                iterations_after_cut=got["iterations"][cut:].tolist(),
+                reference_iterations_after_cut=want["iterations"][cut:].tolist(),
+                fitted_distance_after_cut_max=float(dist.max()) if dist.size else 0.0)
+
+
+def integrity_pair(plain_out, argv, plan, device, plain_ms):
+    """``argv`` (the run that wrote ``plain_out``) again with
+    ``--integrity`` into a file beside it: exit 0, no trip, the same bytes;
+    on the card every launch on ``plan``. Returns ms per frame on and off,
+    the largest residual over its band, the launches."""
+    from sartsolver_tpu_torch.models.sart import abft_worst_ratio, record_abft_worst
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, reset_launch_counts
+
+    out = plain_out + ".integrity.h5"
+    argv = list(argv)
+    argv[argv.index("-o") + 1] = out
+    reset_launch_counts()
+    record_abft_worst(True)
+    try:
+        rc, ms, text = run_cli([*argv, "--integrity"], device=device)
+    finally:
+        record_abft_worst(False)
+    ratio = abft_worst_ratio()
+    by_plan = dict(fused_sweep.launches_by_plan)
+    if rc != 0 or len(ms) != len(plain_ms) or "SDC" in text:
+        raise AssertionError(f"--integrity run {out}: exit {rc}, {len(ms)} frames")
+    with open(plain_out, "rb") as a, open(out, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"--integrity run {out}: not the same bytes as without")
+    if not 0 <= ratio < 1:
+        raise AssertionError(f"--integrity run {out}: largest residual / band {ratio}")
+    if device == "cuda" and (by_plan.get(plan, 0) <= 0
+                             or any(n for k, n in by_plan.items() if k != plan)):
+        raise AssertionError(f"--integrity run {out}: launches {by_plan}, on {plan} expected")
+    return dict(byte_equal=True, worst_residual_over_band=ratio, launches_by_plan=by_plan,
+                ms_per_frame_on=statistics.mean(ms), ms_per_frame_off=statistics.mean(plain_ms))
+
+
+def _signal_run(argv, env, steps):
+    """The CLI in a subprocess; ``steps`` is a list of (marker, occurrence,
+    signal): at the ``occurrence``-th ``SART_FLUSH_POINT marker`` line send
+    the signal. Returns (exit code, stderr after the last step, seconds)."""
+    import signal as _signal
+    import threading
+
+    cmd = [sys.executable, "-m", "sartsolver_tpu_torch.cli", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    timer = threading.Timer(RESILIENCE_TIMEOUT, proc.kill)
+    timer.start()
+    try:
+        seen, pending = {}, list(steps)
+        for line in proc.stderr:
+            if not pending:
+                break
+            marker, occurrence, sig = pending[0]
+            if line.strip() == f"SART_FLUSH_POINT {marker}":
+                seen[marker] = seen.get(marker, 0) + 1
+                if seen[marker] >= occurrence:
+                    proc.send_signal(sig)
+                    pending.pop(0)
+                    if sig == _signal.SIGKILL:
+                        break
+        if pending:
+            raise AssertionError(f"{argv}: the run ended before {pending[0][:2]}")
+        rest = proc.stderr.read()
+        proc.wait(timeout=RESILIENCE_TIMEOUT)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    return proc.returncode, rest, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for an in-process CLI run (and the fault
+    registry's reading of SART_FAULT), then restore them."""
+    from sartsolver_tpu_torch.resilience import faults
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    faults.reset()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+
+
+def flush_timing(outdir: str, world, rows: int = FLUSH_ROWS, flush_at=FLUSH_AT,
+                 voxel_map_at=VOXEL_MAP_AT) -> dict:
+    """The solution writer's flush timed alone at the world's V: appends of
+    ``rows`` rows in place, each timed, until the file holds the largest of
+    ``flush_at`` plus ``rows``; the voxel map's write into files of
+    ``voxel_map_at`` rows (the largest: the growing file itself)."""
+    from sartsolver_tpu_torch.io.solution import SolutionWriter
+    from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
+
+    V = world["H"].shape[1]
+    grid = make_voxel_grid([world["paths"]["rtm_b"]], "rtm/voxel_map")
+    block = np.random.default_rng(11).random((rows, V))
+
+    def fill(writer, n, t0):
+        for i in range(n):
+            t = float(t0 + i)
+            writer.add(block[i % rows], 0, t, [t, t], iterations=1)
+
+    voxel_map = {}
+    for n in voxel_map_at[:-1]:
+        path = os.path.join(outdir, f"flush_{n}.h5")
+        with SolutionWriter(path, ["camA", "camB"], V, max_cache_size=10**9) as w:
+            fill(w, n, 0)
+        t0 = time.perf_counter()
+        grid.write_hdf5(path, "voxel_map")
+        voxel_map[str(n)] = (time.perf_counter() - t0) * 1e3
+        os.remove(path)
+    path = os.path.join(outdir, "flush_series.h5")
+    flush_ms = {}
+    w = SolutionWriter(path, ["camA", "camB"], V, max_cache_size=10**9)
+    T = 0
+    while T <= max(flush_at):
+        if T == voxel_map_at[-1]:
+            t0 = time.perf_counter()
+            grid.write_hdf5(path, "voxel_map")
+            voxel_map[str(T)] = (time.perf_counter() - t0) * 1e3
+        fill(w, rows, T)
+        t0 = time.perf_counter()
+        w.flush()
+        dt = (time.perf_counter() - t0) * 1e3
+        if T in flush_at or T == 0:
+            flush_ms[str(T)] = dt
+        T += rows
+    size = os.path.getsize(path)
+    got = _read_rows(path)
+    if got["completed"] != T or got["value"].shape != (T, V):
+        raise AssertionError(f"flush series: {got['completed']} rows, {T} written")
+    os.remove(path)
+    lo, hi = flush_ms[str(min(flush_at))], flush_ms[str(max(flush_at))]
+    return dict(rows_per_flush=rows, nvoxel=V, flush_ms_at_rows=flush_ms,
+                flush_ratio_last_to_first=hi / lo, voxel_map_ms_at_rows=voxel_map,
+                file_bytes=size, rows_written=T)
+
+
+def host_ingest_sums(files, P: int, V: int, stored) -> dict:
+    """The ingest's ray-stat sums on the host instead of the card, timed:
+    the fp32 row chunks read as the ingest reads them, and
+    ``IngestStats.add`` on the numpy rows; held against the column and row
+    sums of ``stored`` (the matrix on the device)."""
+    import torch
+
+    from sartsolver_tpu_torch.io.raytransfer import read_rtm_block
+    from sartsolver_tpu_torch.parallel.multihost import default_chunk_rows
+    from sartsolver_tpu_torch.resilience import integrity
+
+    chunk = min(default_chunk_rows(V), P)
+    stats = integrity.IngestStats(P, V)
+    read_s = 0.0
+    t0 = time.perf_counter()
+    for r0 in range(0, P, chunk):
+        n = min(chunk, P - r0)
+        t1 = time.perf_counter()
+        rows = read_rtm_block(files, "with_reflections", n, V, r0, dtype=np.float32)
+        read_s += time.perf_counter() - t1
+        stats.add(integrity.storage_round(rows, "float32"), r0, 0)
+    secs = time.perf_counter() - t0
+    issues = integrity.verify_ray_stats(
+        stats, stored.sum(dim=0, dtype=torch.float32).cpu().numpy(),
+        stored.sum(dim=1, dtype=torch.float32).cpu().numpy())
+    if issues:
+        raise AssertionError(f"ingest stats on the host: {issues}")
+    return dict(seconds=secs, read_seconds=read_s, sums_seconds=secs - read_s)
+
+
+def jax_recipe_drill(world, outdir: str, device: str, cli, frames: str) -> dict:
+    """The JAX package's ``device.buffer`` recipe, ``x * 256 + 1`` on element
+    [0, 0] of the fp32 matrix (the port flips an exponent bit instead), on
+    the card. The forward check sees a change ``d`` of element [i, j] where
+    ``d * f_j > tol * (|rho . f| + 1)``: from a clean solve of frame 0 (its
+    normalized iterate ``f``), the smallest such ``d`` for element [0, 0]
+    and for the most sensitive column, beside the recipe's ``d``. Then the
+    recipe through the solver (the largest residual over its band the
+    check met, the status, the re-audit) and through the CLI with
+    ``SART_INTEGRITY_REAUDIT`` at REAUDIT_EVERY: the re-audit quarantines
+    (exit 3)."""
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.models.sart import abft_worst_ratio, record_abft_worst
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.resilience import faults, integrity
+
+    H = world["H"]
+    P, V = H.shape
+    g0 = world["G"][:, :1].T.astype(np.float64)
+
+    def jax_recipe(self):
+        if faults.take_corrupt(faults.SITE_DEVICE_BUFFER):
+            rtm = self._live_problem().rtm
+            rtm[0, 0] = rtm[0, 0] * 256 + 1
+
+    opts = SolverOptions(max_iterations=MAX_ITERATIONS, integrity=True)
+    tol = integrity.abft_tolerance(opts.dtype, "float32", P, V)
+    original = DistributedSARTSolver._maybe_corrupt_resident
+    DistributedSARTSolver._maybe_corrupt_resident = jax_recipe
+    try:
+        with DistributedSARTSolver(H, opts=opts, device=device) as solver:
+            f = solver.solve_batch(g0).solution_norm[0].double().cpu().numpy()
+            band = tol * (abs(float(H.sum(axis=0, dtype=np.float64) @ f)) + 1.0)
+            h00 = float(solver._live_problem().rtm[0, 0])
+            record_abft_worst(True)
+            faults.inject(faults.SITE_DEVICE_BUFFER, "corrupt", count=1)
+            try:
+                res = solver.solve_batch(g0)
+            finally:
+                faults.clear_faults()
+                record_abft_worst(False)
+            api = dict(status=int(res.status[0]), iterations=int(res.iterations[0]),
+                       worst_residual_over_band=abft_worst_ratio(),
+                       reaudit=solver.reaudit_ray_stats())
+        if not api["reaudit"]:
+            raise AssertionError(f"the JAX recipe: the re-audit saw nothing, {api}")
+        out = os.path.join(outdir, "corrupt_jax_recipe.h5")
+        with _env(SART_FAULT="device.buffer:corrupt:1:1", SART_INTEGRITY_REAUDIT=REAUDIT_EVERY):
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                rc, ms, text, _ = cli(out, "-t", frames, "--chain_frames", "1", "--integrity")
+    finally:
+        DistributedSARTSolver._maybe_corrupt_resident = original
+    if rc != 3 or "Quarantined" not in err.getvalue():
+        raise AssertionError(f"the JAX recipe through the CLI: exit {rc}\n"
+                             f"{err.getvalue()[-2000:]}")
+    fmax = float(f.max())
+    return dict(
+        element_change=h00 * 255 + 1, element=h00, band=band, abft_tolerance=tol,
+        smallest_change_seen_at_0_0=band / f[0] if f[0] > 0 else None,
+        smallest_change_seen_any_element=band / fmax if fmax > 0 else None,
+        solver_api=api, cli_exit=rc, cli_frames_written=len(ms),
+        cli_quarantined_by=("resident re-audit" if "resident re-audit" in err.getvalue()
+                            else "ABFT check"), reaudit_every=REAUDIT_EVERY)
+
+
+def resilience_phase(world, outdir: str, device: str = "cuda",
+                     flush_kw: Optional[dict] = None, turns: int = INTEGRITY_TURNS) -> dict:
+    """The resilience of a run on the world (:func:`flush_timing` for the
+    flush alone). Per storage, ``--resume`` after a half run (``-t``) for
+    the chain (linear with the Laplacian over 8 frames at ``--chain_frames
+    1``) and for the scheduler (``--no_guess --batch_frames 8`` over all the
+    frames), held by :func:`check_resumed`; each uninterrupted run again
+    with ``--integrity`` (:func:`integrity_pair`: ``one_read`` at B = 1,
+    ``tensor_core`` at bf16 and int8 B = 8, ``one_read`` fp32 B = 8), and
+    fp32 at ``--batch_frames 16`` (``two_read``). Then on the fp32 chain,
+    one flush a frame: SIGKILL inside ``torn`` and ``pre-counter`` and a
+    ``--resume``; SIGUSR1 then SIGTERM (exit 4; ``top --once`` renders the
+    snapshot), and a ``--resume``; the hang watchdog
+    (``SART_WATCHDOG_TIMEOUT=2``, ``solve.dispatch:hang:1:1``): a FAILED row
+    and exit 2, exit 3 and a crash bundle under ``--fail_fast``. Then the
+    resident matrix corrupted (``device.buffer:corrupt``): the check trips
+    (the solver API gives the iteration), the re-audit sees it, and the CLI run
+    quarantines (exit 3) after re-solving through the same plan; the JAX
+    package's recipe (:func:`jax_recipe_drill`). Then the ingest with the
+    integrity layer's sums on the card and off, the same sums on the host
+    (:func:`host_ingest_sums`), the CLI's ``ingest RTM + upload`` with and
+    without ``--integrity``, and its ms per frame in ``turns`` turns each
+    way."""
+    import signal as _signal
+
+    import torch
+
+    from sartsolver_tpu_torch.obs.cli import top_main
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+    from sartsolver_tpu_torch.parallel.multihost import read_and_shard_rtm
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.resilience import faults, integrity
+    from sartsolver_tpu_torch.resilience.failures import SDC_DETECTED
+
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    base = [*inputs, "-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
+    P, V = world["H"].shape
+    T = world["G"].shape[1]
+    chain_t, chain_half = "0:0.75", "0:0.35"  # 8 frames, cut after 4
+    sched_half = f"0:{0.1 * (T // 2) - 0.05:.2f}"
+    record = {}
+
+    def cli(out, *flags):
+        reset_launch_counts()
+        rc, ms, text = run_cli(["-o", out, *base, *flags], device=device)
+        return rc, ms, text, dict(fused_sweep.launches_by_plan)
+
+    # --resume per storage and loop, and the uninterrupted run with --integrity
+    for storage in STORAGES:
+        entry = {}
+        for loop, flags, n, half, cut in (
+                ("chain", ["-t", chain_t, "--chain_frames", "1"], 8, chain_half, 4),
+                ("scheduler", ["--no_guess", "--batch_frames", str(FRAME_LANES)], T,
+                 sched_half, T // 2)):
+            flags = [*flags, "--rtm_dtype", storage]
+            ref = os.path.join(outdir, f"res_{storage}_{loop}_ref.h5")
+            rc, ms, _, by_plan = cli(ref, *flags)
+            if rc != 0 or len(ms) != n:
+                raise AssertionError(f"{storage} {loop}: exit {rc}, {len(ms)} frames")
+            out = os.path.join(outdir, f"res_{storage}_{loop}.h5")
+            half_flags = [f if f != chain_t else half for f in flags]
+            if loop == "scheduler":
+                half_flags = [*flags, "-t", half]
+            rc, ms_half, _, _ = cli(out, *half_flags)
+            rc2, ms_res, _, _ = cli(out, *flags, "--resume")
+            if rc or rc2 or len(ms_half) != cut or len(ms_res) != n - cut:
+                raise AssertionError(f"{storage} {loop} resume: exits {rc}, {rc2}; "
+                                     f"{len(ms_half)} + {len(ms_res)} frames")
+            rec = check_resumed(out, ref, world, cut, device, f"{storage} {loop} resume")
+            rec["processed_in_resume"] = len(ms_res)
+            plan = plan_sweep(P, V, 1 if loop == "chain" else FRAME_LANES, storage)
+            args = ["-o", ref, *base, *flags]
+            rec["integrity"] = integrity_pair(ref, args, plan, device, ms)
+            entry[loop] = rec
+        record[storage] = entry
+    sixteen = os.path.join(outdir, "res_float32_16.h5")
+    flags16 = ["--no_guess", "--batch_frames", str(SIXTEEN_LANES)]
+    rc, ms, _, _ = cli(sixteen, *flags16)
+    if rc != 0:
+        raise AssertionError(f"fp32 at {SIXTEEN_LANES} lanes: exit {rc}")
+    record["float32_two_read_integrity"] = integrity_pair(
+        sixteen, ["-o", sixteen, *base, *flags16], plan_sweep(P, V, SIXTEEN_LANES, "float32"),
+        device, ms)
+
+    # the drills on the fp32 chain, one flush a frame
+    drill = [*base, "-t", chain_t, "--chain_frames", "1", "--max_cached_solutions", "1",
+             "--rtm_dtype", "float32", "--device", device]
+    ref = os.path.join(outdir, "res_float32_chain_ref.h5")
+    env = dict(os.environ, PYTHONPATH=REPO, SART_TEST_FLUSH_DELAY="0.5", SART_WRITER_QUEUE="1")
+    kills = {}
+    for marker, occurrence in (("torn", 2), ("pre-counter", 2)):
+        out = os.path.join(outdir, f"kill_{marker}.h5")
+        rc, _, secs = _signal_run(["-o", out, *drill], env,
+                                  [(marker, occurrence, _signal.SIGKILL)])
+        if rc != -_signal.SIGKILL:
+            raise AssertionError(f"kill at {marker}: exit {rc}")
+        before = _read_rows(out)["completed"]
+        rc, ms, _, _ = cli(out, "-t", chain_t, "--chain_frames", "1", "--rtm_dtype",
+                           "float32", "--resume")
+        if rc != 0 or before + len(ms) != 8:
+            raise AssertionError(f"resume after the kill at {marker}: exit {rc}, "
+                                 f"{before} + {len(ms)} rows")
+        kills[marker] = dict(rows_at_kill=before, seconds=secs,
+                             **check_resumed(out, ref, world, before, device,
+                                             f"kill at {marker}"))
+    record["kill"] = kills
+
+    out = os.path.join(outdir, "sigterm.h5")
+    rc, rest, secs = _signal_run(["-o", out, *drill], env,
+                                 [("torn", 1, _signal.SIGUSR1), ("torn", 2, _signal.SIGTERM)])
+    status_path = out + ".status.json"
+    if rc != 4 or "Interrupted by SIGTERM" not in rest or not os.path.exists(status_path):
+        raise AssertionError(f"SIGTERM: exit {rc}, status file {os.path.exists(status_path)}"
+                             f"\n{rest[-2000:]}")
+    with open(status_path) as f:
+        snapshot = json.load(f)
+    screen = io.StringIO()
+    with contextlib.redirect_stdout(screen):
+        top_rc = top_main([status_path, "--once"])
+    if top_rc != 0 or "frames_done" not in screen.getvalue():
+        raise AssertionError(f"top --once: exit {top_rc}\n{screen.getvalue()}")
+    stopped = _read_rows(out)["completed"]
+    rc, ms, _, _ = cli(out, "-t", chain_t, "--chain_frames", "1", "--rtm_dtype", "float32",
+                       "--resume")
+    if rc != 0 or stopped + len(ms) != 8:
+        raise AssertionError(f"resume after SIGTERM: exit {rc}, {stopped} + {len(ms)} rows")
+    record["sigterm"] = dict(exit=4, rows_at_stop=stopped, seconds=secs,
+                             status_frames_done=snapshot["frames_done"],
+                             top_lines=screen.getvalue().count("\n"),
+                             **check_resumed(out, ref, world, stopped, device, "SIGTERM"))
+
+    hang = {}
+    for name, extra, want in (("isolated", [], 2), ("fail_fast", ["--fail_fast"], 3)):
+        out = os.path.join(outdir, f"hang_{name}.h5")
+        with _env(SART_WATCHDOG_TIMEOUT=2, SART_WATCHDOG_GRACE=60, SART_HANG_RELEASE=120,
+                  SART_FAULT="solve.dispatch:hang:1:1"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                rc, ms, text, _ = cli(out, "-t", chain_half, "--chain_frames", "1", *extra)
+            secs = time.perf_counter() - t0
+        if rc != want:
+            raise AssertionError(f"hang {name}: exit {rc}, {want} expected\n"
+                                 f"{err.getvalue()[-2000:]}")
+        rec = dict(exit=rc, seconds=secs)
+        if name == "isolated":
+            rows = _read_rows(out)
+            if list(rows["status"][:1]) != [-3] or len(rows["status"]) != 4:
+                raise AssertionError(f"hang isolated: statuses {rows['status']}")
+            rec["status"] = rows["status"].tolist()
+        else:
+            with open(out + ".crash.json") as f:
+                bundle = json.load(f)
+            if not bundle["reason"].startswith("watchdog abort"):
+                raise AssertionError(f"hang fail_fast: crash bundle {bundle['reason']}")
+            rec["crash_bundle_reason"] = bundle["reason"]
+            rec["crash_bundle_ring_events"] = len(bundle["ring"])
+        hang[name] = rec
+    record["watchdog"] = hang
+
+    # the resident matrix corrupted: the solver API shows the iteration of
+    # the trip, the CLI the recompute through the same plan and the quarantine
+    opts = SolverOptions(max_iterations=MAX_ITERATIONS, integrity=True)
+    with DistributedSARTSolver(world["H"], opts=opts, device=device) as solver:
+        faults.inject(faults.SITE_DEVICE_BUFFER, "corrupt", count=1)
+        try:
+            res = solver.solve_batch(world["G"][:, :1].T.astype(np.float64))
+        finally:
+            faults.clear_faults()
+        tripped = dict(status=int(res.status[0]), iterations=int(res.iterations[0]),
+                       reaudit=solver.reaudit_ray_stats())
+    if tripped["status"] != SDC_DETECTED or not tripped["reaudit"]:
+        raise AssertionError(f"resident corruption: {tripped}")
+    out = os.path.join(outdir, "corrupt.h5")
+    with _env(SART_FAULT="device.buffer:corrupt:1:1"):
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc, ms, text, by_plan = cli(out, "-t", chain_half, "--chain_frames", "1",
+                                        "--integrity")
+    one = plan_sweep(P, V, 1, "float32")
+    if rc != 3 or "Quarantined" not in err.getvalue() or (
+            device == "cuda" and (by_plan.get(one, 0) < 2 or sum(by_plan.values()) != by_plan[one])):
+        raise AssertionError(f"corrupt: exit {rc}, launches {by_plan}\n{err.getvalue()[-2000:]}")
+    record["corrupt"] = dict(solver_api=tripped, cli_exit=rc, launches_by_plan=by_plan,
+                             recompute_plan=one)
+    record["corrupt_jax_recipe"] = jax_recipe_drill(world, outdir, device, cli, chain_half)
+
+    # the ingest with the integrity layer's parts, in turns: nothing; the
+    # sums on the card; the double read with the sums on the card (what
+    # --integrity runs)
+    from sartsolver_tpu_torch.io import hdf5files as hf
+
+    files = hf.sort_rtm_files(hf.categorize_input_files(inputs)[0])
+    ingest = {}
+    for name, sums, double in (("off", False, False), ("sums_device", True, False),
+                               ("double_read_sums_device", True, True),
+                               ("off", False, False)):
+        integrity.configure(double)
+        stats = integrity.IngestStats(P, V) if sums else None
+        timings = {}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = read_and_shard_rtm(files, "with_reflections", P, V, device, dtype="float32",
+                                 ingest_stats=stats, timings=timings)
+        if stats is not None:
+            stats.finish()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if stats is not None:
+            dens = buf.sum(dim=0, dtype=torch.float32).cpu().numpy()
+            length = buf.sum(dim=1, dtype=torch.float32).cpu().numpy()
+            issues = integrity.verify_ray_stats(stats, dens, length)
+            if issues:
+                raise AssertionError(f"ingest stats ({name}): {issues}")
+        ingest.setdefault(name, []).append(dict(seconds=secs,
+                                                read_seconds=timings["store"]["read_seconds"]))
+        if name == "sums_device":
+            ingest["sums_host"] = [host_ingest_sums(files, P, V, buf)]
+        del buf
+    integrity.configure(False)
+    cli_ingest = {}
+    for name, extra in (("off", []), ("integrity", ["--integrity"]), ("off", [])):
+        out = os.path.join(outdir, f"ingest_{name}.h5")
+        rc, ms, text, _ = cli(out, "-t", chain_half, "--chain_frames", "1", "--timing", *extra)
+        m = re.search(r"ingest RTM \+ upload\s+([0-9.]+) ms", text)
+        if rc != 0 or not m:
+            raise AssertionError(f"ingest {name}: exit {rc}")
+        cli_ingest.setdefault(name, []).append(float(m[1]))
+    record["ingest"] = dict(read_and_shard_rtm_seconds=ingest,
+                            cli_ingest_upload_ms=cli_ingest)
+
+    # ms per frame with --integrity on and off, ``turns`` turns each way
+    # over all the frames, on the fp32 scheduler (B = 8, one_read) and
+    # chain (B = 1): each run's mean, their median and spread per setting
+    in_turns = {}
+    for loop, flags in (("scheduler", ["--no_guess", "--batch_frames", str(FRAME_LANES)]),
+                        ("chain", ["--chain_frames", "1"])):
+        runs = {"off": [], "on": []}
+        for kind in ("off", "on") * turns:
+            out = os.path.join(outdir, f"turns_{loop}_{kind}.h5")
+            rc, ms, _, _ = cli(out, *flags, *(["--integrity"] if kind == "on" else []))
+            if rc != 0 or len(ms) != T:
+                raise AssertionError(f"integrity in turns, {loop} {kind}: exit {rc}, "
+                                     f"{len(ms)} frames")
+            runs[kind].append(statistics.mean(ms))
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        in_turns[loop] = dict(ms_per_frame=runs, median=med,
+                              spread={k: max(v) / min(v) - 1 for k, v in runs.items()},
+                              overhead_of_medians=med["on"] / med["off"] - 1)
+    record["integrity_ms_per_frame_in_turns"] = in_turns
+    record["flush"] = flush_timing(outdir, world, **(flush_kw or {}))
+    return record
+
+
 def _trace_steps(path: str, kernel: str) -> dict:
     """From a ``--profile_dir`` trace: the ProfilerStep ranges on the host,
     and for each the CUDA kernels named ``kernel`` whose launches (joined by
@@ -978,6 +1578,8 @@ def obs_phase(world, outdir: str, device: str = "cuda", card: str = "") -> dict:
             spans = json.load(f)["traceEvents"]
         first, passes = {}, {}
         for e in sorted(spans, key=lambda e: e["ts"]):
+            if e.get("cat") == "beacon":  # the watchdog beacons' phase spans
+                continue
             first.setdefault(e["name"], e["dur"] / 1e3)
             if e["name"] == "ingest.pass":
                 passes[f"pass_{e['args']['what']}_ms"] = e["dur"] / 1e3
@@ -2213,6 +2815,9 @@ def main() -> int:
         t0 = time.perf_counter()
         ingest = ingest_phase(world, tmp)
         emit("ingest", seconds=time.perf_counter() - t0, **ingest)
+        t0 = time.perf_counter()
+        resilience = resilience_phase(world, tmp)
+        emit("resilience", seconds=time.perf_counter() - t0, **resilience)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)

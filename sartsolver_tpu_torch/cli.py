@@ -65,6 +65,37 @@ as in the JAX CLI, without its ``interpret`` mode.
 no row written for it) at the first NaN the solver keeps, where the JAX
 CLI's ``jax_debug_nans`` aborts (``sartsolver_tpu_torch/debug_nans.py``).
 
+The resilience of a run, as in the JAX CLI (``sartsolver_tpu/cli.py:41-57``):
+
+- ``--resume`` skips the frames the output file already holds (a frame
+  time within 1e-12), warm-starts the chain from its last row and appends;
+  a torn last flush is truncated first, a corrupt row or another voxel
+  count or camera set refuses the resume (exit 1). FAILED rows are not
+  retried.
+- SIGTERM or SIGINT stops the run at the next frame-group boundary (a
+  scheduler stride): the group in flight drains, the file is flushed and
+  the run exits 4, resumable; a second signal aborts at once
+  (``resilience/shutdown.py``).
+- ``SART_WATCHDOG_TIMEOUT`` arms the hang watchdog
+  (``resilience/watchdog.py``): a frame whose staging or dispatch hangs is
+  interrupted and written FAILED (exit 2), or with ``--fail_fast`` (or a
+  hang outside the frame loop) the run exits 3; past the grace it exits 3
+  by ``os._exit``. ``SART_HEARTBEAT_FILE`` is rewritten on every frame.
+  The CUDA extension's first build beacons only before and after ``nvcc``:
+  a cold build longer than the timeout aborts the run.
+- The flight recorder (``obs/flight.py``): SIGUSR1 writes the status
+  snapshot to ``<output>.status.json`` (and a line on stderr), and every
+  abnormal exit writes ``<output>.crash.json``; ``sartsolve top FILE``
+  renders either, a heartbeat file or a Prometheus textfile.
+- ``--integrity`` (or ``SART_INTEGRITY=1``): the in-solve ABFT check on the
+  fused sweep's output, the RTM chunks read twice and digested, the ray
+  stats held against the ingest's sums after the upload and re-audited
+  every ``SART_INTEGRITY_REAUDIT`` frames (default 64). A frame that trips
+  is re-solved once through the same kernel and plan; a frame that trips
+  again is written FAILED, and ``SART_SDC_ABORT_THRESHOLD`` such frames
+  (default 2), or a resident mismatch, quarantine the run (exit 3). The
+  ingest's sums run where the stored rows lie (fp64 on the card).
+
 Observability as in the JAX CLI (``obs/``): ``--timing`` prints the phase
 summary (``validate + index inputs``, ``ingest RTM + upload``, ``frame loop
 (solve + prefetch + flush)``, ``write voxel map``, with the per-frame and
@@ -77,7 +108,8 @@ solution file are what they are without the layer. ``sartsolve metrics``
 validates, summarizes and diffs artifacts of either package.
 
 Usage: ``python -m sartsolver_tpu_torch.cli -o solution.h5 RTM... IMAGE...``,
-``python -m sartsolver_tpu_torch.cli metrics [--check | --diff] FILE...``
+``python -m sartsolver_tpu_torch.cli metrics [--check | --diff] FILE...``,
+``python -m sartsolver_tpu_torch.cli top [--once] FILE``
 """
 
 from __future__ import annotations
@@ -100,8 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "(PyTorch, one device).",
         epilog="exit codes: 0 success; 1 input/flag error; 2 run completed "
                "with FAILED/DIVERGED frames; 3 aborted on an unrecoverable "
-               "infrastructure failure after retries (the RTM ingest) or a "
-               "failed write of the solution file.",
+               "infrastructure failure after retries (the RTM ingest), a "
+               "failed write of the solution file, a watchdog hard abort or "
+               "an integrity quarantine; 4 stopped by SIGTERM/SIGINT after "
+               "draining the in-flight frame group (resumable with "
+               "--resume). Subcommands: `metrics` (run artifacts), `top` "
+               "(live view of a run's status snapshot, heartbeat or "
+               "Prometheus textfile).",
     )
     p.add_argument("-o", "--output_file", default="solution.h5",
                    help="Filename to save the solution.")
@@ -167,6 +204,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_guess", action="store_true",
                    help="Do not use solution found on previous time moment as "
                         "initial guess for the next one.")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume an interrupted run: skip frames already "
+                        "present in the output file, warm-start from its "
+                        "last solution and append (requires the same inputs "
+                        "and flags as the original run).")
     p.add_argument("--use_cpu", action="store_true",
                    help="Perform all calculations on CPUs (fp64 parity profile).")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -214,6 +256,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "scheduler lane's state) instead of propagating it "
                         "into the solution (one host sync a step; debugging "
                         "only).")
+    p.add_argument("--integrity", action="store_true",
+                   help="End-to-end numerical-integrity layer (also "
+                        "SART_INTEGRITY=1): per-iteration ABFT checksums "
+                        "(sum(Hf)=rho.f on the fused sweep's output, "
+                        "sum(H^T w)=lambda.w on the two-matmul sweep), RTM "
+                        "chunks read twice and digested with a re-read on "
+                        "mismatch, post-upload rho/lambda verification, and "
+                        "a resident re-audit every SART_INTEGRITY_REAUDIT "
+                        "frames. A detected frame is re-solved once, then "
+                        "FAILED; SART_SDC_ABORT_THRESHOLD terminal frames "
+                        "(or a resident mismatch) quarantine the run with "
+                        "exit 3. Off, the run is what it is without it.")
     p.add_argument("--fail_fast", action="store_true",
                    help="Disable per-frame failure isolation: the first "
                         "frame whose ingest or solve fails aborts the "
@@ -361,6 +415,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from sartsolver_tpu_torch.obs.cli import metrics_main
 
         return metrics_main(argv[1:])
+    if argv and argv[0] == "top":
+        # the live view of a run, from the files it publishes
+        from sartsolver_tpu_torch.obs.cli import top_main
+
+        return top_main(argv[1:])
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as err:
@@ -409,10 +468,15 @@ def _run(args, telem, summary) -> int:
         read_and_quantize_rtm, read_and_shard_rtm,
     )
     from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
+    from sartsolver_tpu_torch.io.solution import read_resume_state
+    from sartsolver_tpu_torch.obs import flight as obs_flight
+    from sartsolver_tpu_torch.resilience import integrity as integ_mod
+    from sartsolver_tpu_torch.resilience import shutdown, watchdog
     from sartsolver_tpu_torch.resilience.degrade import GroupSizeLadder, dispatch_guarded
     from sartsolver_tpu_torch.resilience.failures import (
-        EXIT_INFRASTRUCTURE, FRAME_FAILED, RECOVERABLE_FRAME_ERRORS, FrameFailure,
-        OutputWriteError, failed_row,
+        EXIT_INFRASTRUCTURE, EXIT_INTERRUPTED, FRAME_FAILED, RECOVERABLE_FRAME_ERRORS,
+        SDC_DETECTED, FrameFailure, IntegrityError, OutputWriteError,
+        PersistentCorruptionError, WatchdogTimeout, failed_row,
     )
     from sartsolver_tpu_torch.resilience.retry import RetriesExhausted, reset_retry_stats
     from sartsolver_tpu_torch.sched import ContinuousBatcher
@@ -443,6 +507,38 @@ def _run(args, telem, summary) -> int:
         t_phase = now
 
     FUSED_ENGAGEMENT["last"] = None
+
+    def note_event(message: str) -> None:
+        """An availability event (an OOM halving, the scheduler's
+        hand-back, a watchdog fire, a quarantine): stderr, the end-of-run
+        summary, the telemetry and the flight ring."""
+        print(message, file=sys.stderr)
+        summary.record_event(message)
+        telem.record_event(message)
+        obs_flight.record_event("event", message)
+
+    # the graceful stop (SIGTERM/SIGINT: drain, flush, exit 4), installed
+    # before the ingest so a stop during it is remembered; the flight ring
+    # on the beacon stream, SIGUSR1's status snapshot and the crash bundle
+    # of every abnormal exit (the watchdog's os._exit through its hook); the
+    # hang watchdog over the whole run (SART_WATCHDOG_TIMEOUT)
+    shutdown.install()
+    obs_flight.install()
+    bundle_path = obs_flight.default_bundle_path(args.output_file)
+    prev_usr1 = obs_flight.install_status_handler(
+        obs_flight.default_status_path(args.output_file))
+    abort = {"reason": None}
+    watchdog.set_crash_hook(
+        lambda reason: obs_flight.write_crash_bundle(bundle_path, reason, summary))
+    wd = watchdog.Watchdog.from_env(on_event=note_event)
+    if wd is not None:
+        wd.start()
+    stop_state = {"interrupted": False}
+
+    def stop_now() -> bool:
+        """The group-boundary stop poll: a flag the signal handler set."""
+        return shutdown.stop_requested()
+
     try:
         time_intervals = parse_time_intervals(args.time_range)
 
@@ -462,6 +558,9 @@ def _run(args, telem, summary) -> int:
         )
         npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
         rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
+        # a resume is checked from the file's metadata before the ingest
+        resume_state = (read_resume_state(args.output_file, camera_names, nvoxel)
+                        if args.resume else None)
         mark("validate + index inputs")
 
         # continuous-batching stride: the flag, else SART_SCHEDULE_STRIDE,
@@ -483,7 +582,14 @@ def _run(args, telem, summary) -> int:
                 f"SART_SCHEDULE_STRIDE must be >= 1, {schedule_stride} given."
             )
 
+        # the integrity layer: the flag or SART_INTEGRITY; configure() turns
+        # the ingest's double reads on, the in-solve check rides the options
+        integrity_on = bool(args.integrity) or integ_mod.env_enabled()
+        integ_mod.configure(integrity_on)
+        sdc_policy = (integ_mod.SdcEscalation(on_event=note_event, summary=summary)
+                      if integrity_on else None)
         common = dict(
+            integrity=integrity_on,
             schedule_stride=schedule_stride,
             logarithmic=args.logarithmic,
             ray_density_threshold=args.ray_density_threshold,
@@ -553,18 +659,30 @@ def _run(args, telem, summary) -> int:
         # stored dtype (int8: two passes), with the ordered-subsets padding
         # rows; the ray stats are those of the stored matrix, taken on the
         # device, as the JAX CLI's are
+        # with integrity on, the ingest also sums the stored values for
+        # the ray stats' check after the upload
+        ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
         with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
             rtm_scale = None
             if storage == "int8":
                 rtm, rtm_scale = read_and_quantize_rtm(
-                    sorted_matrix_files, rtm_name, npixel, nvoxel, device, rows=held_rows)
+                    sorted_matrix_files, rtm_name, npixel, nvoxel, device, rows=held_rows,
+                    ingest_stats=ingest_stats)
             else:
                 rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                                         device, dtype=storage, rows=held_rows)
+                                         device, dtype=storage, rows=held_rows,
+                                         ingest_stats=ingest_stats)
             solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
                                            debug_nans=args.debug_nans,
                                            rtm_scale=rtm_scale, npixel=npixel)
             del rtm, rtm_scale
+        if ingest_stats is not None:
+            # the staging or the layout on the device corrupted the matrix:
+            # every solve it would serve is poisoned, quarantine now
+            issues = solver.verify_ray_stats(ingest_stats)
+            if issues:
+                sdc_policy.resident_failure(
+                    "post-upload ray-stats verification: " + "; ".join(issues))
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
         sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused
                  else "two-matmul")
@@ -580,13 +698,50 @@ def _run(args, telem, summary) -> int:
         isolate = not args.fail_fast
         writer_queue = max(1, int(os.environ.get("SART_WRITER_QUEUE", "16")))
         diverged_times = []
+        written_times = (resume_state.times if resume_state is not None
+                         else np.empty(0))
 
-        def note_event(message: str) -> None:
-            """An availability event (an OOM halving, the scheduler's
-            hand-back): stderr, the end-of-run summary and the telemetry."""
-            print(message, file=sys.stderr)
-            summary.record_event(message)
-            telem.record_event(message)
+        def already_written(t: float) -> bool:
+            return bool(np.any(np.abs(written_times - t) <= 1e-12))
+
+        # the resident re-audit, every SART_INTEGRITY_REAUDIT frames
+        reaudit_every = int(os.environ.get("SART_INTEGRITY_REAUDIT", "64"))
+        audit_state = {"since": 0}
+
+        def integ_tick(n_frames: int) -> None:
+            if sdc_policy is None or reaudit_every <= 0:
+                return
+            audit_state["since"] += n_frames
+            if audit_state["since"] < reaudit_every:
+                return
+            audit_state["since"] = 0
+            issues = solver.reaudit_ray_stats()
+            if issues:
+                sdc_policy.resident_failure("resident re-audit: " + "; ".join(issues))
+
+        def sdc_guarded(solve_fn, restore=None):
+            """Re-solve a group once whose statuses carry SDC_DETECTED, by
+            the same kernel and plan (``restore`` resets a warm carry the
+            first attempt moved on); frames still SDC are written FAILED.
+            The statuses are read right after each dispatch anyway."""
+            if sdc_policy is None:
+                return solve_fn
+
+            def guarded(stack):
+                result = solve_fn(stack)
+                sdc = np.asarray(result.status) == SDC_DETECTED
+                if sdc.any():
+                    sdc_policy.detected(int(sdc.sum()))
+                    sdc_policy.note_recompute(int(sdc.sum()))
+                    if restore is not None:
+                        restore()
+                    result = solve_fn(stack)
+                    repeat = np.asarray(result.status) == SDC_DETECTED
+                    if repeat.any():
+                        sdc_policy.detected(int(repeat.sum()))
+                return result
+
+            return guarded
 
         # ---- frame loops (main.cpp:131-140) ------------------------------
         profile = (_FrameLoopProfile(args.profile_dir, device) if args.profile_dir
@@ -598,10 +753,14 @@ def _run(args, telem, summary) -> int:
         # stream of (frame, time, camera times) items, shared by the loops.
         with solver, AsyncSolutionWriter(
                 SolutionWriter(args.output_file, camera_names, nvoxel,
-                               max_cache_size=args.max_cached_solutions),
+                               max_cache_size=args.max_cached_solutions,
+                               resume=resume_state if resume_state is not None else False),
                 max_pending=writer_queue) as writer, \
-                FramePrefetcher(composite_image, isolate_failures=isolate) as frames, \
+                FramePrefetcher(composite_image, isolate_failures=isolate) as prefetched, \
                 profile if profile is not None else contextlib.nullcontext():
+            # a resumed run skips the frames the file holds (FAILED rows too)
+            frames = (prefetched if resume_state is None else
+                      (item for item in prefetched if not already_written(item[1])))
 
             def write(solution, status, ftime, cam_times, iterations, convergence,
                       ms, group):
@@ -613,6 +772,7 @@ def _run(args, telem, summary) -> int:
                 if status == DIVERGED:
                     diverged_times.append(ftime)
                 telem.record_frame(ftime, status, iterations, convergence, ms, group)
+                watchdog.beacon(watchdog.PHASE_FRAME_DONE)
 
             def record_failed(ftime, cam_times, err):
                 """A FAILED row (-3, zeros, -1 iterations) for a frame that
@@ -623,6 +783,7 @@ def _run(args, telem, summary) -> int:
                 summary.record_status(FRAME_FAILED, ftime)
                 telem.record_frame(ftime, FRAME_FAILED, -1, None, None, "failed",
                                    error=type(err).__name__)
+                watchdog.beacon(watchdog.PHASE_FRAME_DONE)
                 print(f"Frame at t={ftime}: FAILED ({type(err).__name__}: {err})",
                       file=sys.stderr)
 
@@ -643,9 +804,14 @@ def _run(args, telem, summary) -> int:
 
                 A FrameFailure item dispatches what is pending, then writes
                 its FAILED row; a dispatch that fails with a recoverable
-                error writes its group's frames as FAILED rows (the warm
-                carry is left as it was: the next group starts from the
-                last good frame). Without isolation that error raises.
+                error (a hang the watchdog interrupted included) writes its
+                group's frames as FAILED rows (the warm carry is left as it
+                was: the next group starts from the last good frame).
+                Without isolation that error raises. A frame still
+                SDC_DETECTED after ``solve_group``'s recompute
+                (``sdc_guarded``) is a FAILED row too. A stop request is
+                honored where no frame is pending: nothing new is
+                dispatched, and the run exits 4.
 
                 A group's time per frame runs from the end of the previous
                 group (reading and writing frames included), as the
@@ -692,6 +858,13 @@ def _run(args, telem, summary) -> int:
                         per_frame_ms = (now - t_last) * 1e3 / len(group)
                         t_last = now
                         for b, (_, ftime, cam_times) in enumerate(group):
+                            if sdc_policy is not None and int(statuses[b]) == SDC_DETECTED:
+                                # the recompute reproduced the trip: a FAILED
+                                # row (the policy may quarantine the run)
+                                sdc_policy.record_terminal(ftime)
+                                record_failed(ftime, cam_times, IntegrityError(
+                                    integ_mod.SDC_REPRODUCED))
+                                continue
                             # the rows come off the device on the writer's
                             # thread, in one copy for the group
                             write(lambda b=b, result=result: result.fetch_solutions()[b],
@@ -702,8 +875,12 @@ def _run(args, telem, summary) -> int:
                                   f"{label} of {len(group)}; {int(iterations[b])} "
                                   "iterations)")
                         del pending[:len(group)]
+                        integ_tick(len(group))
 
                 for item in items:
+                    if not pending and stop_now():
+                        stop_state["interrupted"] = True
+                        break
                     if isinstance(item, FrameFailure):
                         # rows stay in frame order: what is pending first
                         flush(final=True)
@@ -726,6 +903,7 @@ def _run(args, telem, summary) -> int:
                               per_frame_ms):
                     write(fetcher, status, ftime, cam_times, iterations, convergence,
                           per_frame_ms, "sched")
+                    integ_tick(1)
                     timer.add("solve sched (pipelined wall)", per_frame_ms / 1e3,
                               detail=True)
                     print(f"Processed in: {per_frame_ms} ms (continuous batch of {K} "
@@ -733,36 +911,60 @@ def _run(args, telem, summary) -> int:
 
                 batcher = ContinuousBatcher(solver, lanes=K, on_result=on_result,
                                             on_failed=record_failed, isolate=isolate,
-                                            on_event=note_event, on_stride=step)
+                                            on_event=note_event, on_stride=step,
+                                            stop_check=stop_now,
+                                            integrity_policy=sdc_policy)
                 # one iterator for both: a second iterator over the
                 # prefetcher would wait for an end marker already taken
                 stream = iter(frames)
                 stats = batcher.run(stream)
+                stop_state["interrupted"] |= stats.interrupted
                 print(f"continuous batching: lanes={K} strides={stats.strides} "
                       f"loop_steps={stats.loop_steps} occupancy={stats.occupancy}")
                 if stats.leftover is not None:
-                    run_grouped(max(K // 2, 1), True, solver.solve_batch,
+                    run_grouped(max(K // 2, 1), True, sdc_guarded(solver.solve_batch),
                                 itertools.chain(stats.leftover, stream))
 
             if args.no_guess:
                 if args.batch_frames > 1 and not args.no_continuous_batching:
                     run_scheduled(args.batch_frames)
                 else:
-                    run_grouped(args.batch_frames, True, solver.solve_batch, frames)
+                    run_grouped(args.batch_frames, True, sdc_guarded(solver.solve_batch),
+                                frames)
             else:
                 # the warm carry (the last result, on the device) crosses
-                # group boundaries
-                chain = {"warm": None}
+                # group boundaries; a resumed run seeds its first group
+                # from the file's last row, on the host
+                chain = {"warm": None, "f0": (resume_state.last_solution
+                                              if resume_state is not None else None)}
+                snap = {}
 
                 def solve_chain_group(stack):
-                    chain["warm"] = solver.solve_chain(stack, warm=chain["warm"])
+                    # the carry the group starts from, for sdc_guarded's
+                    # recompute (the first attempt moves it on)
+                    snap.update(chain)
+                    chain["warm"] = solver.solve_chain(stack, f0=chain["f0"],
+                                                       warm=chain["warm"])
+                    chain["f0"] = None
                     return chain["warm"]
 
-                run_grouped(args.chain_frames, False, solve_chain_group, frames)
+                run_grouped(args.chain_frames, False,
+                            sdc_guarded(solve_chain_group,
+                                        restore=lambda: chain.update(snap)),
+                            frames)
 
         mark("frame loop (solve + prefetch + flush)")
+        # its own watchdog budget, not the silence before it
+        watchdog.beacon(watchdog.PHASE_FLUSH)
         with obs_trace.span("flush.voxel_map"):
-            grid.write_hdf5(args.output_file, "voxel_map")
+            from sartsolver_tpu_torch.io import h5
+
+            has_grid = False
+            if os.path.exists(args.output_file):
+                with h5.File(args.output_file, "r") as f:
+                    has_grid = "voxel_map" in f
+            if not has_grid:  # a resumed run's file has it already
+                grid.write_hdf5(args.output_file, "voxel_map")
         mark("write voxel map")
         if args.timing:
             print(timer.summary())
@@ -770,8 +972,12 @@ def _run(args, telem, summary) -> int:
                   f"resolved={opts.fused_sweep} "
                   f"engaged={FUSED_ENGAGEMENT['last'] or 'not traced'}")
         # the run's resilience accounting whenever anything failed, was
-        # retried or degraded (always under --timing)
-        if summary.n_failed or summary.had_retries() or summary.events or args.timing:
+        # retried, degraded or stopped (always under --timing). Only a stop
+        # that cut the run exits 4: a signal after the last boundary means
+        # every frame completed.
+        interrupted = stop_state["interrupted"]
+        if (summary.n_failed or summary.had_retries() or summary.events
+                or summary.sdc_detected or interrupted or args.timing):
             print(summary.format())
         if diverged_times:
             shown = ", ".join(f"{t:g}" for t in diverged_times[:8])
@@ -779,24 +985,48 @@ def _run(args, telem, summary) -> int:
                   f"time(s) {shown}{' ...' if len(diverged_times) > 8 else ''}",
                   file=sys.stderr)
         telem.finalize(summary)
+        if interrupted:
+            # the group in flight drained, the writer flushed, the voxel
+            # map in place: the file is a consistent prefix of the run
+            sig = shutdown.stop_signal() or "a stop request"
+            abort["reason"] = f"interrupted by {sig} (exit {EXIT_INTERRUPTED})"
+            print(f"Interrupted by {sig}: {summary.n_frames} frame(s) written; the "
+                  "output file is resumable (--resume).", file=sys.stderr)
+            return EXIT_INTERRUPTED
         return summary.exit_code()
     except RetriesExhausted as err:
         # a retried site (the RTM ingest, a frame read under --fail_fast)
         # failed for good: infrastructure, not input
+        abort["reason"] = f"retries exhausted: {err}"
         print(f"Unrecoverable after retries: {err}", file=sys.stderr)
+        return EXIT_INFRASTRUCTURE
+    except WatchdogTimeout as err:
+        # a hang the watchdog interrupted that isolation could not absorb
+        # (--fail_fast, or outside the frame loop): the file is resumable
+        abort["reason"] = f"watchdog abort: {err}"
+        print(f"Aborted by the hang watchdog: {err}", file=sys.stderr)
+        return EXIT_INFRASTRUCTURE
+    except PersistentCorruptionError as err:
+        # the integrity layer quarantined the run: corruption no recompute
+        # clears; the file is resumable up to its last committed flush
+        abort["reason"] = f"SDC quarantine: {err}"
+        print(f"Quarantined: {err}", file=sys.stderr)
         return EXIT_INFRASTRUCTURE
     except OutputWriteError as err:
         # a flush of the solution file failed; the file keeps its last
         # committed flush
+        abort["reason"] = f"output write failure: {err}"
         print(err, file=sys.stderr)
         return EXIT_INFRASTRUCTURE
     except DeferredWriteError as err:
         # the writer thread latched a recoverable failure (a device fetch
-        # that ran out of memory, an I/O error outside the flush); a bug as
-        # the cause still tracebacks
+        # that ran out of memory or hung, an I/O error outside the flush);
+        # a bug as the cause still tracebacks
         if isinstance(err.__cause__, RECOVERABLE_FRAME_ERRORS):
+            abort["reason"] = f"async writer failure: {err}"
             print(f"Asynchronous writer failed: {err}", file=sys.stderr)
             return EXIT_INFRASTRUCTURE
+        abort["reason"] = f"unhandled {type(err).__name__}: {err}"
         raise
     except KeyError as err:
         # a missing dataset or attribute raises KeyError
@@ -807,6 +1037,22 @@ def _run(args, telem, summary) -> int:
         # other exception is a bug and tracebacks
         print(err, file=sys.stderr)
         return 1
+    except BaseException as err:
+        # a bug, or a second signal's abort: it tracebacks, after the
+        # crash bundle
+        abort["reason"] = f"unhandled {type(err).__name__}: {err}"
+        raise
+    finally:
+        # the crash bundle of an abnormal exit (the watchdog's os._exit
+        # wrote its own through the crash hook), then every handler back
+        if abort["reason"] is not None:
+            obs_flight.write_crash_bundle(bundle_path, abort["reason"], summary)
+        watchdog.set_crash_hook(None)
+        obs_flight.uninstall_status_handler(prev_usr1)
+        obs_flight.uninstall()
+        if wd is not None:
+            wd.stop()
+        shutdown.uninstall()
 
 
 if __name__ == "__main__":

@@ -181,9 +181,14 @@ class SolverOptions:
     divergence_threshold: float = 1.0e4
     os_subsets: int = 1
 
+    # The in-solve ABFT integrity check (``--integrity``): each iteration
+    # holds sum(H f) against rho . f (and, on the two-matmul path, sum(H^T
+    # w) against lambda . w) within resilience/integrity.py:abft_tolerance;
+    # a frame that trips freezes with status SDC_DETECTED (-4).
+    integrity: bool = False
+
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
-    integrity: bool = False
     sparse_rtm: str = "off"
     lowrank_rtm: str = "off"
 
@@ -272,7 +277,6 @@ class SolverOptions:
 
 # (field, the only value this package accepts)
 _NOT_PORTED = (
-    ("integrity", False),
     ("sparse_rtm", "off"),
     ("lowrank_rtm", "off"),
 )

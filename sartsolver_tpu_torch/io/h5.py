@@ -32,11 +32,18 @@ dimensions end with the element size, a version-1 B-tree of type 1 as the
 chunk index (nodes of 2K = 64 entries, allocated whole, so the library can
 insert into them in place), every chunk stored whole and unfiltered, and the
 fill value in both fill-value messages. The HDF5 library can therefore
-``resize`` such a dataset and append to the file. A file opened for writing
-is held in memory and written out whole on ``close()``, through a temporary
-file renamed over the target, so a reader never sees a torn file. Datasets
-may be resized in memory, chunked ones up to their ``maxshape``; a file
-opened ``"r+"`` keeps each dataset's layout, maximum shape and fill value.
+``resize`` such a dataset and append to the file. A file created ``"w"`` is
+held in memory and written out whole on ``close()``, through a temporary
+file renamed over the target, so a reader never sees a torn file.
+
+A file opened ``"r+"`` is changed in place (:class:`_Edit`), never
+rewritten: chunked datasets resize within their ``maxshape`` and take
+writes, new chunks at the end of the file entered in the chunk B-tree
+(which splits its nodes and grows levels as the library's does); existing
+numeric attributes are overwritten; new groups and datasets are written at
+the end and linked into a symbol-table group. ``File.flush`` commits in
+crash order and ``fsync``s. Such files stay ones the HDF5 library reads and
+extends. Any other in-place change raises :class:`H5FormatError`.
 """
 
 from __future__ import annotations
@@ -100,9 +107,11 @@ def _pread_rows(fd: int, offset: int, dest: np.ndarray, path: str) -> None:
 class _Reader:
     """Parses one open file; addresses are relative to the superblock."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, writable: bool = False):
         self.path = path
-        self.fh = open(path, "rb")
+        # unbuffered: reads go through pread, so a write through the same
+        # descriptor is never hidden behind a stale buffer
+        self.fh = open(path, "r+b" if writable else "rb", buffering=0)
         try:
             self._superblock()
         except BaseException:
@@ -113,10 +122,12 @@ class _Reader:
         self.fh.close()
 
     def read(self, addr: int, n: int) -> bytes:
-        self.fh.seek(self.base + addr)
-        data = self.fh.read(n)
-        if len(data) != n:
-            raise H5FormatError(f"{self.path}: truncated at address {addr}")
+        data = os.pread(self.fh.fileno(), n, self.base + addr)
+        while len(data) < n:
+            more = os.pread(self.fh.fileno(), n - len(data), self.base + addr + len(data))
+            if not more:
+                raise H5FormatError(f"{self.path}: truncated at address {addr}")
+            data += more
         return data
 
     def _superblock(self) -> None:
@@ -131,10 +142,18 @@ class _Reader:
             raise H5FormatError(f"{self.path} is not an HDF5 file")
         self.base = at
         head = self.read(8, 16)
-        version = head[0]
+        version = self.sb_version = head[0]
+        # the B-tree widths (K) of symbol-table nodes and chunk indexes:
+        # version 1 stores the chunk index's, version 0 has the default
+        self.leaf_k, self.chunk_k = _LEAF_K, _CHUNK_K
         if version in (0, 1):
             self.so, self.sl = head[5], head[6]
+            self.leaf_k = struct.unpack_from("<H", head, 8)[0]
+            if version == 1:
+                self.chunk_k = struct.unpack_from("<H", self.read(24, 2), 0)[0]
             pos = 8 + 16 + (4 if version == 1 else 0)
+            self.eof_at = pos + 2 * self.so  # after base and free-space addresses
+            self.stored_eof = self._addr(self.read(self.eof_at, 8), 0)
             pos += 4 * self.so  # base, free-space, end-of-file, driver
             entry = self.read(pos, 2 * self.so + 24)
             self.root = self._addr(entry, self.so)
@@ -153,8 +172,14 @@ class _Reader:
 
     # -- object headers ----------------------------------------------------
     def messages(self, addr: int) -> List[Tuple[int, bytes]]:
+        return [(mtype, data) for mtype, data, _ in self.messages_at(addr)]
+
+    def messages_at(self, addr: int) -> List[Tuple[int, bytes, Optional[int]]]:
+        """``(type, data, address of the data)`` of each message; the
+        address is None in a version-2 header (its chunks carry a checksum,
+        so a message there cannot be edited in place here)."""
         if self.read(addr, 4) == b"OHDR":
-            return self._messages_v2(addr)
+            return [(mtype, data, None) for mtype, data in self._messages_v2(addr)]
         head = self.read(addr, 16)
         if head[0] != 1:
             raise H5FormatError(f"{self.path}: object header version {head[0]}")
@@ -166,8 +191,11 @@ class _Reader:
             while pos + 8 <= length and len(out) < count:
                 mtype, msize, mflags = struct.unpack_from("<HHB", buf, pos)
                 data = buf[pos + 8:pos + 8 + msize]
+                at = start + pos + 8
                 pos += 8 + msize
-                self._collect(mtype, mflags, data, out, blocks)
+                found: List[Tuple[int, bytes]] = []
+                self._collect(mtype, mflags, data, found, blocks)
+                out.extend((t, d, at) for t, d in found)
         return out
 
     def _messages_v2(self, addr: int) -> List[Tuple[int, bytes]]:
@@ -318,8 +346,15 @@ class _Reader:
         return np.frombuffer(data, dt, count=1, offset=pos + 4)[0]
 
     def attributes(self, msgs) -> Dict[str, object]:
-        out: Dict[str, object] = {}
-        for mtype, data in msgs:
+        return {name: value for name, (value, _slot) in self.attribute_slots(msgs).items()}
+
+    def attribute_slots(self, msgs) -> Dict[str, Tuple[object, Optional[Tuple]]]:
+        """name -> ``(value, slot)``; ``slot`` is ``(address of the raw
+        value, dtype, shape)`` where ``msgs`` carry the messages' addresses
+        (:meth:`messages_at`) and the value is numeric, else None."""
+        out: Dict[str, Tuple[object, Optional[Tuple]]] = {}
+        for msg in msgs:
+            mtype, data, at = msg if len(msg) == 3 else (*msg, None)
             if mtype == 0x15 and self._addr(data, 4 if data[1] & 1 else 2) != UNDEF:
                 raise H5FormatError(f"{self.path}: dense attribute storage")
             if mtype != 0x0C:
@@ -334,7 +369,11 @@ class _Reader:
             pos += pad(tsize)
             shape = self.shape(data[pos:pos + ssize])
             pos += pad(ssize)
-            out[name] = self._value(self.dtype(tdata), self.dtype_size(tdata), shape, data[pos:])
+            dt = self.dtype(tdata)
+            value = self._value(dt, self.dtype_size(tdata), shape, data[pos:])
+            slot = ((at + pos, dt, shape) if at is not None and isinstance(dt, np.dtype)
+                    and shape is not None else None)
+            out[name] = (value, slot)
         return out
 
     def _value(self, dt, itemsize, shape, raw):
@@ -424,9 +463,17 @@ class _Reader:
 # the h5py-like objects
 
 class AttributeManager:
-    def __init__(self, values: Dict[str, object], writable: bool):
+    """``slots`` (files opened ``"r+"``): name -> where an existing numeric
+    attribute's value lies, for an overwrite in place; ``edit`` the file's
+    in-place writer. Without ``edit`` the attributes live in memory (a new
+    object's, written when the file is)."""
+
+    def __init__(self, values: Dict[str, object], writable: bool,
+                 slots: Optional[Dict[str, Tuple]] = None, edit=None):
         self._values = values
         self._writable = writable
+        self._slots = slots or {}
+        self._edit = edit
 
     def __getitem__(self, name: str):
         return self._values[name]
@@ -449,6 +496,10 @@ class AttributeManager:
     def create(self, name: str, value, dtype=None) -> None:
         if not self._writable:
             raise OSError("the file is open read-only")
+        if self._edit is not None:
+            self._values[name] = self._edit.overwrite_attribute(
+                name, self._slots.get(name), value)
+            return
         if isinstance(value, str):
             self._values[name] = value
         else:
@@ -463,9 +514,11 @@ class Dataset:
 
     def __init__(self, name: str, *, data: Optional[np.ndarray] = None, reader=None,
                  msgs=None, writable: bool = False, maxshape=None, chunks=None,
-                 fillvalue=None):
+                 fillvalue=None, edit=None):
         self.name = name
         self._writable = writable
+        self._edit = edit
+        self._tree = None  # the chunk index, loaded by a first in-place write
         self.maxshape, self.chunks, self.fillvalue = maxshape, chunks, fillvalue
         if data is not None:
             self._data = np.ascontiguousarray(data)
@@ -473,7 +526,9 @@ class Dataset:
             return
         self._data = None
         self._reader = reader
-        info = dict(msgs)
+        msgs = [m if len(m) == 3 else (*m, None) for m in msgs]
+        self._msg_at = {t: at for t, _, at in msgs}
+        info = {t: d for t, d, _ in msgs}
         shape = reader.shape(info[0x01])
         if shape is None or 0x03 not in info or 0x08 not in info:
             raise H5FormatError(f"{reader.path}: {name} is not a plain dataset")
@@ -483,7 +538,10 @@ class Dataset:
         self._shape, self._dtype = shape, dt
         self._layout = reader.layout(info[0x08], len(shape))
         self._filters = reader.filters(info[0x0B]) if 0x0B in info else []
-        self.attrs = AttributeManager(reader.attributes(msgs), writable)
+        self._space_version = info[0x01][0]
+        slots = reader.attribute_slots(msgs)
+        self.attrs = AttributeManager({k: v for k, (v, _) in slots.items()}, writable,
+                                      {k: sl for k, (_, sl) in slots.items()}, edit)
         if self._layout[0] == "chunked":
             self.chunks = self._layout[2]
             self.maxshape = reader.maxshape(info[0x01]) or shape
@@ -536,6 +594,17 @@ class Dataset:
         DECODE_STATS["chunks"] += 1
         return np.frombuffer(raw, self._dtype, count=int(np.prod(chunk))).reshape(chunk)
 
+    def _stored_chunks(self):
+        """``(offset, size, filter_mask, address)`` of every stored chunk:
+        from the in-memory index once an in-place write loaded it (whose
+        pending chunks are then written: a read sees its file's writes)."""
+        if self._tree is not None:
+            self._tree.write_data()
+            return [(off, size, mask, addr)
+                    for off, (size, mask, addr) in self._tree.index.items()]
+        addr = self._layout[1]
+        return [] if addr == UNDEF else self._reader.chunks(addr, len(self._layout[2]))
+
     def _chunked_rows(self, r0: int, r1: int, out: np.ndarray) -> None:
         """Rows ``[r0, r1)`` of a chunked dataset into ``out`` (their shape):
         only the chunks that intersect the rows are read and decoded, each
@@ -544,9 +613,8 @@ class Dataset:
         fill = 0 if self.fillvalue is None else self.fillvalue
         if r1 <= r0:
             return
-        stored = [] if addr == UNDEF else [
-            c for c in r.chunks(addr, len(chunk))
-            if c[0][0] < r1 and c[0][0] + chunk[0] > r0]
+        stored = [c for c in self._stored_chunks()
+                  if c[0][0] < r1 and c[0][0] + chunk[0] > r0]
         # the chunk grid cells the rows meet: fewer stored means some never
         # were written, and their rows hold the fill value
         cells = (r1 - 1) // chunk[0] - r0 // chunk[0] + 1
@@ -654,16 +722,43 @@ class Dataset:
 
     def __setitem__(self, key, value) -> None:
         self._require_writable()
-        self._data[key] = value
+        if self._data is not None:
+            self._data[key] = value
+            return
+        self._edit.write_dataset(self, self._box(key), value)
+
+    def _box(self, key) -> Tuple[Tuple[int, int], ...]:
+        """The ``[lo, hi)`` bounds per axis that ``key`` selects: ints and
+        slices of unit step (an in-place write takes no other selection)."""
+        key = key if isinstance(key, tuple) else (key,)
+        key = key + (slice(None),) * (len(self._shape) - len(key))
+        box = []
+        for k, n in zip(key, self._shape):
+            if isinstance(k, (int, np.integer)):
+                i = int(k) + (n if k < 0 else 0)
+                if not 0 <= i < n:
+                    raise IndexError(f"{self.name}: index {k} out of bounds for {n}")
+                box.append((i, i + 1))
+            elif isinstance(k, slice) and k.indices(n)[2] == 1:
+                lo, hi, _ = k.indices(n)
+                box.append((lo, max(lo, hi)))
+            else:
+                raise H5FormatError(f"{self.name}: in-place write of selection {key!r}")
+        return tuple(box)
 
     def resize(self, shape) -> None:
         """New rows hold the fill value (0 where none is defined). A chunked
-        dataset grows only within its ``maxshape``."""
+        dataset grows only within its ``maxshape``. In a file opened
+        ``"r+"`` the new extent reaches the file with the next
+        :meth:`File.flush` (its dataspace is rewritten in place)."""
         self._require_writable()
         shape = tuple(int(s) for s in shape)
         if self.maxshape is not None and (len(shape) != len(self.maxshape) or any(
                 m is not None and n > m for n, m in zip(shape, self.maxshape))):
             raise ValueError(f"{self.name}: shape {shape} exceeds maxshape {self.maxshape}")
+        if self._data is None:
+            self._edit.resize_dataset(self, shape)
+            return
         fill = 0 if self.fillvalue is None else self.fillvalue
         new = np.full(shape, fill, self._data.dtype)
         common = tuple(slice(0, min(a, b)) for a, b in zip(shape, self._data.shape))
@@ -673,30 +768,34 @@ class Dataset:
 
 class Group:
     def __init__(self, name: str, *, reader=None, addr: Optional[int] = None,
-                 writable: bool = False):
+                 writable: bool = False, edit=None):
         self.name = name
         self._writable = writable
+        self._edit = edit if reader is not None else None
+        self._addr = addr
         self._children: Dict[str, object] = {}
         if reader is None:
             self.attrs = AttributeManager({}, writable)
             return
-        msgs = reader.messages(addr)
-        self.attrs = AttributeManager(reader.attributes(msgs), writable)
-        for child, caddr in reader.links(msgs).items():
+        msgs = reader.messages_at(addr)
+        slots = reader.attribute_slots(msgs)
+        self.attrs = AttributeManager({k: v for k, (v, _) in slots.items()}, writable,
+                                      {k: sl for k, (_, sl) in slots.items()}, self._edit)
+        for child, caddr in reader.links([(t, d) for t, d, _ in msgs]).items():
             self._children[child] = (reader, caddr)  # opened on first use
 
     def _child(self, name: str):
         obj = self._children[name]
         if isinstance(obj, tuple):
             reader, addr = obj
-            msgs = reader.messages(addr)
+            msgs = reader.messages_at(addr)
             path = f"{self.name.rstrip('/')}/{name}"
-            if all(t != 0x08 for t, _ in msgs):  # no data layout: a group
-                obj = Group(path, reader=reader, addr=addr, writable=self._writable)
+            if all(t != 0x08 for t, _, _ in msgs):  # no data layout: a group
+                obj = Group(path, reader=reader, addr=addr, writable=self._writable,
+                            edit=self._edit)
             else:
-                obj = Dataset(path, reader=reader, msgs=msgs, writable=self._writable)
-                if self._writable:  # files opened for writing live in memory
-                    obj = _in_memory(obj)
+                obj = Dataset(path, reader=reader, msgs=msgs, writable=self._writable,
+                              edit=self._edit)
             self._children[name] = obj
         return obj
 
@@ -737,7 +836,15 @@ class Group:
         parent, name = self._parent_for_new(path)
         grp = Group(f"{parent.name.rstrip('/')}/{name}", writable=True)
         parent._children[name] = grp
+        parent._new_child(name, grp)
         return grp
+
+    def _new_child(self, name: str, obj) -> None:
+        """In a file opened ``"r+"``, a new member of a group stored in the
+        file is written at its end and linked in when the file is flushed;
+        the members of a new group go with it."""
+        if self._edit is not None:
+            self._edit.new.append((self, name, obj))
 
     def create_dataset(self, path: str, shape=None, dtype=None, data=None, *,
                        maxshape=None, chunks=None, fillvalue=None) -> Dataset:
@@ -767,19 +874,14 @@ class Group:
         dset = Dataset(f"{parent.name.rstrip('/')}/{name}", data=arr, writable=True,
                        maxshape=maxshape, chunks=chunks, fillvalue=fillvalue)
         parent._children[name] = dset
+        parent._new_child(name, dset)
         return dset
 
 
-def _in_memory(dset: Dataset) -> Dataset:
-    out = Dataset(dset.name, data=np.asarray(dset), writable=True, maxshape=dset.maxshape,
-                  chunks=dset.chunks, fillvalue=dset.fillvalue)
-    out.attrs = AttributeManager(dict(dset.attrs._values), True)
-    return out
-
-
 class File(Group):
-    """``mode``: "r" (read, lazily), "w" (create or truncate) or "r+" (read
-    and write an existing file)."""
+    """``mode``: "r" (read, lazily), "w" (create or truncate: the file is
+    built in memory and written whole on ``close()``) or "r+" (read and
+    write an existing file in place, :class:`_Edit`)."""
 
     def __init__(self, path, mode: str = "r"):
         self.filename = os.fspath(path)
@@ -787,32 +889,34 @@ class File(Group):
         self._reader = None
         if mode not in ("r", "w", "r+"):
             raise ValueError(f"mode {mode!r}")
-        writable = mode != "r"
         if mode == "w":
             super().__init__("/", writable=True)
             return
-        reader = self._reader = _Reader(self.filename)
+        reader = self._reader = _Reader(self.filename, writable=mode == "r+")
         try:
-            super().__init__("/", reader=reader, addr=reader.root, writable=writable)
-            if writable:  # a file opened for writing lives in memory
-                self._load_all(self)
+            edit = _Edit(reader) if mode == "r+" else None
+            super().__init__("/", reader=reader, addr=reader.root, writable=mode == "r+",
+                             edit=edit)
         except BaseException:
             reader.close()
             raise
-        if writable:
-            reader.close()
-            self._reader = None
 
-    def _load_all(self, group: Group) -> None:
-        for name in list(group._children):
-            obj = group._child(name)
-            if isinstance(obj, Group):
-                self._load_all(obj)
+    def flush(self) -> None:
+        """``"r+"``: write what is pending — new objects and their links,
+        the chunk indexes, the end-of-file address, then the dataspaces —
+        and ``fsync`` the file. A no-op in the other modes."""
+        if self._edit is not None:
+            self._edit.flush()
 
     def close(self) -> None:
         if self._reader is not None:
-            self._reader.close()
-            self._reader = None
+            try:
+                if self._edit is not None:
+                    self._edit.flush()
+            finally:
+                self._edit = None
+                self._reader.close()
+                self._reader = None
         elif self._writable:
             _write_file(self.filename, self)
             self._writable = False
@@ -821,8 +925,12 @@ class File(Group):
         return self
 
     def __exit__(self, exc_type, *exc) -> None:
-        if exc_type is not None and self._reader is None:
-            self._writable = False  # leave the previous file untouched
+        if exc_type is not None:
+            # leave the file as its last flush left it: "w" writes nothing,
+            # "r+" writes no pending metadata (chunks already written lie
+            # past the dataspaces or the end of the file)
+            self._writable = False
+            self._edit = None
         self.close()
 
 
@@ -1024,25 +1132,31 @@ def _strings(grp: Group, found: List[str]) -> List[str]:
     return found
 
 
+def _global_heap(out, strings: List[str]) -> Dict[str, Tuple[int, int]]:
+    """A global heap collection holding ``strings`` (the variable-length
+    string attributes' values), written at ``out``'s position; returns each
+    string's ``(collection address, index)``."""
+    if not strings:
+        return {}
+    objs = b""
+    for i, s in enumerate(strings, start=1):
+        raw = s.encode()
+        objs += struct.pack("<HH4xQ", i, 0, len(raw)) + raw
+        objs += b"\0" * (_pad8(len(raw)) - len(raw))
+    size = max(4096, _pad8(16 + len(objs) + 16))
+    free = struct.pack("<HH4xQ", 0, 0, size - 16 - len(objs))
+    coll = b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + objs + free
+    coll += b"\0" * (size - len(coll))
+    caddr = _Writer(out, {}).alloc(coll)
+    return {s: (caddr, i) for i, s in enumerate(strings, start=1)}
+
+
 def _write_file(path: str, root: Group) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
         with open(tmp, "wb") as out:
             out.write(bytes(96))  # superblock, written last
-            strings = _strings(root, [])
-            table: Dict[str, Tuple[int, int]] = {}
-            if strings:
-                objs = b""
-                for i, s in enumerate(strings, start=1):
-                    raw = s.encode()
-                    objs += struct.pack("<HH4xQ", i, 0, len(raw)) + raw
-                    objs += b"\0" * (_pad8(len(raw)) - len(raw))
-                size = max(4096, _pad8(16 + len(objs) + 16))
-                free = struct.pack("<HH4xQ", 0, 0, size - 16 - len(objs))
-                coll = b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + objs + free
-                coll += b"\0" * (size - len(coll))
-                caddr = _Writer(out, {}).alloc(coll)
-                table = {s: (caddr, i) for i, s in enumerate(strings, start=1)}
+            table = _global_heap(out, _strings(root, []))
             root_addr, btree, heap = _Writer(out, table).group(root)
             eof = out.seek(0, os.SEEK_END)
             out.seek(0)
@@ -1058,3 +1172,419 @@ def _write_file(path: str, root: Group) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+# ---------------------------------------------------------------------------
+# writing in place ("r+")
+
+class _Edit:
+    """The in-place writer of a file opened ``"r+"``: what the solution
+    writers need, done as the HDF5 library does it, and nothing else.
+
+    - a chunked dataset is resized within its maximum shape; its dataspace
+      message is rewritten in place (same rank, same size) at the next
+      :meth:`flush`. Shrinking writes the fill value over the stored chunks'
+      part past the new extent, so rows that come back read as the fill;
+    - a write fills the chunks it meets: a stored, unfiltered chunk in place
+      (its size does not change), a new chunk at the end of the file,
+      entered in the chunk B-tree (:class:`_ChunkTree`);
+    - an existing numeric attribute of the same type and shape is
+      overwritten in place;
+    - a new group or dataset is written whole at the end of the file and
+      linked into a stored symbol-table group that has a free entry in its
+      symbol-table node (the local heap's data segment, grown by the name,
+      moves to the end of the file);
+    - the superblock's end-of-file address follows the allocations.
+
+    Anything else raises :class:`H5FormatError` naming the operation: the
+    file is never rewritten whole. :meth:`flush` writes the pending
+    metadata in crash order — new objects and their links, the chunk
+    indexes, the end-of-file address, then the dataspaces — and ``fsync``s:
+    a file killed before it holds its previous extents, with the new
+    chunks unreferenced past them.
+    """
+
+    def __init__(self, reader: _Reader):
+        r = self.r = reader
+        if r.base != 0:
+            raise H5FormatError(f"{r.path}: in-place update of a file with a user block")
+        if r.sb_version not in (0, 1):
+            raise H5FormatError(f"{r.path}: in-place update under a version-"
+                                f"{r.sb_version} superblock (it holds a checksum)")
+        self.fd = r.fh.fileno()
+        # allocate past everything the file holds: a torn earlier write may
+        # have left bytes past its recorded end
+        self.eof = _pad8(max(r.stored_eof, os.fstat(self.fd).st_size))
+        self.eof_dirty = False
+        self.resized: Dict[int, Dataset] = {}
+        self.trees: Dict[int, "_ChunkTree"] = {}
+        self.new: List[Tuple[Group, str, object]] = []
+
+    def alloc(self, n: int) -> int:
+        addr = self.eof
+        self.eof = _pad8(addr + n)
+        self.eof_dirty = True
+        return addr
+
+    def write(self, addr: int, data) -> None:
+        view = memoryview(data).cast("B")
+        while len(view):
+            n = os.pwrite(self.fd, view, addr)
+            view, addr = view[n:], addr + n
+
+    # -- datasets ----------------------------------------------------------
+    def _chunked(self, dset: Dataset, what: str):
+        if dset._layout[0] != "chunked":
+            raise H5FormatError(f"{self.r.path}: in-place {what} of {dset._layout[0]} "
+                                f"dataset {dset.name}")
+        if dset._msg_at.get(0x01) is None or dset._msg_at.get(0x08) is None:
+            raise H5FormatError(f"{self.r.path}: in-place {what} of {dset.name} "
+                                "(a version-2 object header)")
+        if dset._tree is None:
+            dset._tree = _ChunkTree(self, dset)
+            self.trees[id(dset)] = dset._tree
+        return dset._tree
+
+    def resize_dataset(self, dset: Dataset, shape: Tuple[int, ...]) -> None:
+        tree = self._chunked(dset, "resize")
+        old = dset._shape
+        if len(shape) != len(old):
+            raise H5FormatError(f"{self.r.path}: resize of {dset.name} to rank {len(shape)}")
+        if any(n < o for n, o in zip(shape, old)):
+            # stored chunks keep their place; their part past the new
+            # extent takes the fill value, as the library's pruning leaves it
+            chunk = dset._layout[2]
+            for off in list(tree.index):
+                box = [(o, min(o + c, n)) for o, c, n in zip(off, chunk, old)]
+                if any(lo >= hi for lo, hi in box):
+                    continue
+                if all(hi <= n for (_, hi), n in zip(box, shape)):
+                    continue
+                block = tree.read_block(off)
+                keep = tuple(slice(0, max(0, min(c, n - o)))
+                             for o, c, n in zip(off, chunk, shape))
+                fresh = np.full(chunk, tree.fill, block.dtype)
+                fresh[keep] = block[keep]
+                tree.write_block(off, fresh)
+        dset._shape = tuple(shape)
+        self.resized[id(dset)] = dset
+
+    def write_dataset(self, dset: Dataset, box, value) -> None:
+        tree = self._chunked(dset, "write")
+        chunk = dset._layout[2]
+        want = tuple(hi - lo for lo, hi in box)
+        value = np.broadcast_to(np.asarray(value, dset._dtype), want)
+        if not all(hi > lo for lo, hi in box):
+            return
+        grid = [range((lo // c) * c, hi, c) for (lo, hi), c in zip(box, chunk)]
+        for off in (tuple(int(o) for o in cell)
+                    for cell in np.stack(np.meshgrid(*grid, indexing="ij"), -1)
+                    .reshape(-1, len(chunk))):
+            dst = tuple(slice(max(lo, o) - o, min(hi, o + c) - o)
+                        for (lo, hi), o, c in zip(box, off, chunk))
+            src = tuple(slice(max(lo, o) - lo, min(hi, o + c) - lo)
+                        for (lo, hi), o, c in zip(box, off, chunk))
+            whole = all(d.start == 0 and d.stop == c for d, c in zip(dst, chunk))
+            if off in tree.index and not whole:
+                block = tree.read_block(off)
+            else:
+                block = np.full(chunk, tree.fill, dset._dtype)
+            block[dst] = value[src]
+            tree.write_block(off, block)
+
+    # -- attributes --------------------------------------------------------
+    def overwrite_attribute(self, name: str, slot, value):
+        if slot is None or isinstance(value, str):
+            raise H5FormatError(f"{self.r.path}: in-place write of attribute {name!r} "
+                                "(only an existing numeric attribute is overwritten)")
+        addr, dt, shape = slot
+        arr = np.asarray(value)
+        cast = arr.astype(dt)
+        if (arr.shape != tuple(shape) or arr.dtype.kind != dt.kind
+                or not np.array_equal(cast, arr)):
+            raise H5FormatError(f"{self.r.path}: in-place write of attribute {name!r} "
+                                f"as {arr.dtype}{arr.shape} over {dt}{tuple(shape)}")
+        self.write(addr, np.ascontiguousarray(cast).tobytes())
+        out = cast.astype(dt.newbyteorder("="))
+        return out[()] if out.shape == () else out
+
+    # -- new objects -------------------------------------------------------
+    def _write_new(self) -> List[Tuple[int, bytes]]:
+        """Write the new objects at the end of the file, and each link's
+        grown heap segment; returns the writes that then link them in."""
+        pending, self.new = self.new, []
+        links: List[Tuple[int, bytes]] = []
+        for parent, name, obj in pending:
+            if parent._addr is None:
+                continue  # a member of a new group: written with it
+            with open(self.r.path, "r+b") as out:
+                out.seek(self.eof)
+                w = _Writer(out, {})
+                w.strings = _global_heap(out, _strings(obj, []) if isinstance(obj, Group)
+                                         else [v for _, v in obj.attrs.items()
+                                               if isinstance(v, str)])
+                addr = w.group(obj)[0] if isinstance(obj, Group) else w.dataset(obj)
+                out.flush()
+                self.eof = _pad8(out.tell())
+            self.eof_dirty = True
+            links += self._link(parent._addr, name, addr)
+            # the new object is now stored: it reopens as the file's own
+            parent._children[name] = (self.r, addr)
+        return links
+
+    def _link(self, group_addr: int, name: str, target: int) -> List[Tuple[int, bytes]]:
+        """Enter ``name -> target`` into the symbol-table group at
+        ``group_addr``: the name is appended to the local heap, whose data
+        segment is written anew at the end of the file now; returned are
+        the writes that commit the link — the heap's header, the entry
+        inserted in name order into the symbol-table node that holds its
+        range, and that node's key where the name is its largest."""
+        r, path = self.r, self.r.path
+        stab = [d for t, d in r.messages(group_addr) if t == 0x11]
+        if not stab:
+            raise H5FormatError(f"{path}: linking {name!r} into a group without a "
+                                "symbol table (link messages)")
+        btree, heap = r._addr(stab[0], 0), r._addr(stab[0], 8)
+        head = r.read(heap, 32)
+        size, daddr = r._addr(head, 8), r._addr(head, 24)
+        data = r.read(daddr, size)
+        raw = name.encode() + b"\0"
+        raw += b"\0" * (_pad8(len(raw)) - len(raw))
+        name_off = size
+        data += raw
+        bt = r.read(btree, 24)
+        if bt[:4] != b"TREE" or bt[4] != 0:
+            raise H5FormatError(f"{path}: bad group B-tree at {btree}")
+        used = struct.unpack_from("<H", bt, 6)[0]
+        if bt[5] != 0 or used == 0:
+            raise H5FormatError(f"{path}: linking {name!r} into a group B-tree of "
+                                f"{bt[5] + 1} level(s) and {used} node(s)")
+        body = r.read(btree + 24, 16 * used + 8)
+        keys = [r._addr(body, 16 * i) for i in range(used + 1)]
+        key_name = [_Reader._cstr(data, k).encode() for k in keys]
+        bname = name.encode()
+        i = next((j for j in range(used) if bname <= key_name[j + 1]), used - 1)
+        snod = r._addr(body, 8 + 16 * i)
+        head = r.read(snod, 8)
+        if head[:4] != b"SNOD":
+            raise H5FormatError(f"{path}: bad symbol node at {snod}")
+        count = struct.unpack_from("<H", head, 6)[0]
+        if count >= 2 * r.leaf_k:
+            raise H5FormatError(f"{path}: linking {name!r}: the group's symbol-table "
+                                "node is full")
+        ents = [r.read(snod + 8 + 40 * e, 40) for e in range(count)]
+        names = [_Reader._cstr(data, r._addr(e, 0)).encode() for e in ents]
+        if bname in names:
+            raise ValueError(f"Unable to create {name!r} (name already exists)")
+        pos = sum(n < bname for n in names)
+        ents.insert(pos, struct.pack("<QQII16x", name_off, target, 0, 0))
+        new_daddr = self.alloc(len(data))
+        self.write(new_daddr, data)
+        out = [(heap + 8, struct.pack("<Q", len(data))),
+               (heap + 24, struct.pack("<Q", new_daddr)),
+               (snod + 6, struct.pack("<H", count + 1)),
+               (snod + 8, b"".join(ents))]
+        if bname > key_name[i + 1]:
+            out.append((btree + 24 + 16 * (i + 1), struct.pack("<Q", name_off)))
+        return out
+
+    # -- the commit --------------------------------------------------------
+    def flush(self) -> None:
+        """Commit in crash order: the new data (written already) and
+        objects, then the end-of-file address that covers them, ``fsync``;
+        then what references them — links, chunk-index nodes — and the
+        dataspaces last, ``fsync``."""
+        links = self._write_new()
+        for tree in self.trees.values():
+            tree.write_data()
+        if self.eof_dirty:
+            if os.fstat(self.fd).st_size < self.eof:
+                os.ftruncate(self.fd, self.eof)  # the library reads past no end
+            self.write(self.r.eof_at, struct.pack("<Q", self.eof))
+            self.eof_dirty = False
+            os.fsync(self.fd)
+        for addr, data in links:
+            self.write(addr, data)
+        for tree in self.trees.values():
+            tree.flush()
+        for dset in self.resized.values():
+            at = dset._msg_at[0x01] + (8 if dset._space_version == 1 else 4)
+            self.write(at, struct.pack(f"<{len(dset._shape)}Q", *dset._shape))
+        self.resized.clear()
+        os.fsync(self.fd)
+
+
+class _ChunkTree:
+    """The version-1 B-tree chunk index of one dataset, loaded whole on its
+    first in-place write, changed in memory and written back by
+    :meth:`flush` (nodes keep their addresses; they are allocated whole, 2K
+    entries). An insertion that fills a node splits it as the library does —
+    the right-most node keeps 90% of its entries, the left-most 10%, any
+    other half — and a root that splits keeps its address: its entries move
+    to a new node and it becomes the parent of the two, a level up."""
+
+    def __init__(self, edit: _Edit, dset: Dataset):
+        self.edit, self.dset = edit, dset
+        r = edit.r
+        self.chunk = dset._layout[2]
+        self.rank = len(self.chunk)
+        self.item = dset._dtype.itemsize
+        self.nbytes = int(np.prod(self.chunk)) * self.item
+        self.two_k = 2 * r.chunk_k
+        self.ksize = 8 + 8 * (self.rank + 1)
+        self.node_bytes = 24 + 8 * self.two_k + self.ksize * (self.two_k + 1)
+        self.unfiltered = not dset._filters
+        fill = 0 if dset.fillvalue is None else dset.fillvalue
+        self.fill = np.asarray(fill, dset._dtype)
+        self.root = dset._layout[1]
+        self.root_dirty = False
+        self.nodes: Dict[int, list] = {}  # addr -> [level, keys, children, left, right]
+        self.dirty: set = set()
+        self.index: Dict[Tuple[int, ...], list] = {}  # chunk offsets -> [size, mask, addr]
+        self.pending: Dict[Tuple[int, ...], np.ndarray] = {}  # chunks to write
+        if self.root != UNDEF:
+            self._load(self.root)
+
+    def _load(self, addr: int) -> None:
+        r = self.edit.r
+        head = r.read(addr, 24)
+        if head[:4] != b"TREE" or head[4] != 1:
+            raise H5FormatError(f"{r.path}: bad chunk B-tree at {addr}")
+        level, used = head[5], struct.unpack_from("<H", head, 6)[0]
+        left, right = struct.unpack_from("<QQ", head, 8)
+        body = r.read(addr + 24, used * (self.ksize + 8) + self.ksize)
+        keys, children = [], []
+        for i in range(used + 1):
+            k = i * (self.ksize + 8)
+            keys.append(struct.unpack_from(f"<II{self.rank + 1}Q", body, k))
+            if i < used:
+                children.append(r._addr(body, k + self.ksize))
+        self.nodes[addr] = [level, keys, children, left, right]
+        for key, child in zip(keys, children):
+            if level:
+                self._load(child)
+            else:
+                self.index[tuple(key[2:2 + self.rank])] = [key[0], key[1], child]
+
+    # -- chunk data --------------------------------------------------------
+    def read_block(self, off) -> np.ndarray:
+        if off in self.pending:
+            return self.pending[off].copy()
+        size, mask, addr = self.index[off]
+        if not self._raw(mask) or size != self.nbytes:
+            raise H5FormatError(f"{self.edit.r.path}: in-place write into a filtered "
+                                f"chunk of {self.dset.name}")
+        return np.frombuffer(self.edit.r.read(addr, size), self.dset._dtype).reshape(
+            self.chunk).copy()
+
+    def _raw(self, mask: int) -> bool:
+        return self.unfiltered or all(mask & (1 << i) for i in range(len(self.dset._filters)))
+
+    def write_block(self, off, block: np.ndarray) -> None:
+        """A whole chunk: in place where it is stored, else at the end of
+        the file and entered in the index. The bytes wait in memory for
+        :meth:`write_data` (the commit's first step): a write block that
+        fails before the commit leaves the file as it was."""
+        data = np.ascontiguousarray(block, self.dset._dtype)
+        if off in self.index:
+            size, mask, addr = self.index[off]
+            if not self._raw(mask) or size != self.nbytes:
+                raise H5FormatError(f"{self.edit.r.path}: in-place write into a "
+                                    f"filtered chunk of {self.dset.name}")
+        else:
+            if self.dset._filters:
+                raise H5FormatError(f"{self.edit.r.path}: in-place write of a new chunk "
+                                    f"of filtered dataset {self.dset.name}")
+            addr = self.edit.alloc(self.nbytes)
+            self.index[off] = [self.nbytes, 0, addr]
+            self._insert((self.nbytes, 0) + tuple(off) + (0,), addr)
+        self.pending[off] = data
+
+    def write_data(self) -> None:
+        """The pending chunks' bytes, in address order."""
+        for off in sorted(self.pending, key=lambda o: self.index[o][2]):
+            self.edit.write(self.index[off][2], self.pending[off])
+        self.pending.clear()
+
+    # -- the B-tree --------------------------------------------------------
+    def _off(self, key) -> Tuple[int, ...]:
+        return tuple(key[2:2 + self.rank])
+
+    def _end(self, key) -> tuple:
+        """The right key one chunk past ``key``, as the library writes a
+        node's last key."""
+        return (0, 0) + tuple(o + c for o, c in zip(self._off(key), self.chunk)) + (self.item,)
+
+    def _new_node(self, level, keys, children, left=UNDEF, right=UNDEF) -> int:
+        addr = self.edit.alloc(self.node_bytes)
+        self.nodes[addr] = [level, keys, children, left, right]
+        self.dirty.add(addr)
+        return addr
+
+    def _insert(self, key, child: int) -> None:
+        if self.root == UNDEF:
+            self.root = self._new_node(0, [key, self._end(key)], [child])
+            self.root_dirty = True
+            return
+        split = self._insert_at(self.root, key, child)
+        if split is None:
+            return
+        # the root split: its entries move to a new node, and the root (at
+        # its address) becomes their parent, one level up
+        level, keys, children, left, right = self.nodes[self.root]
+        moved = self._new_node(level, keys, children, UNDEF, split[1])
+        self.nodes[split[1]][3] = moved
+        self.dirty.add(split[1])
+        new_keys = [keys[0], split[0], self.nodes[split[1]][1][-1]]
+        self.nodes[self.root] = [level + 1, new_keys, [moved, split[1]], UNDEF, UNDEF]
+        self.dirty.add(self.root)
+
+    def _insert_at(self, addr: int, key, child: int):
+        """Insert into the subtree at ``addr``; returns ``(separator key,
+        new node)`` where the node split, else None."""
+        node = self.nodes[addr]
+        level, keys, children = node[0], node[1], node[2]
+        off = self._off(key)
+        lefts = [self._off(k) for k in keys[:len(children)]]
+        if level == 0:
+            pos = sum(o < off for o in lefts)
+            keys.insert(pos, key)
+            children.insert(pos, child)
+            if pos == len(children) - 1 and not off < self._off(keys[-1]):
+                keys[-1] = self._end(key)
+        else:
+            i = max(0, sum(o <= off for o in lefts) - 1)
+            split = self._insert_at(children[i], key, child)
+            keys[i] = self.nodes[children[i]][1][0]
+            if split is not None:
+                keys.insert(i + 1, split[0])
+                children.insert(i + 1, split[1])
+            keys[-1] = self.nodes[children[-1]][1][-1]
+        self.dirty.add(addr)
+        if len(children) <= self.two_k:
+            return None
+        ratio = 0.9 if node[4] == UNDEF else 0.1 if node[3] == UNDEF else 0.5
+        nleft = min(len(children) - 1, max(1, int(self.two_k * ratio)))
+        new = self._new_node(level, keys[nleft:], children[nleft:], addr, node[4])
+        if node[4] != UNDEF:
+            self.nodes[node[4]][3] = new
+            self.dirty.add(node[4])
+        node[1], node[2], node[4] = keys[:nleft + 1], children[:nleft], new
+        return keys[nleft], new
+
+    def _pack(self, node) -> bytes:
+        level, keys, children, left, right = node
+        fmt = f"<II{self.rank + 1}Q"
+        body = b"".join(struct.pack(fmt, *k) + struct.pack("<Q", c)
+                        for k, c in zip(keys, children)) + struct.pack(fmt, *keys[-1])
+        raw = b"TREE" + struct.pack("<BBHQQ", 1, level, len(children), left, right) + body
+        return raw + bytes(self.node_bytes - len(raw))
+
+    def flush(self) -> None:
+        for addr in sorted(self.dirty):
+            self.edit.write(addr, self._pack(self.nodes[addr]))
+        self.dirty.clear()
+        if self.root_dirty:
+            # the layout message's chunk-index address (version 3, class 2)
+            self.edit.write(self.dset._msg_at[0x08] + 3, struct.pack("<Q", self.root))
+            self.root_dirty = False

@@ -1,30 +1,37 @@
 """Solution writer: buffered, incrementally-flushed HDF5 output.
 
-The JAX package's ``SolutionWriter`` (``sartsolver_tpu/io/solution.py``)
-without ``--resume``. Mirrors the reference's ``Solution`` (solution.cpp):
-solutions, statuses and times are buffered per frame and flushed every
-``max_cache_size`` frames and on close; the first flush creates extendible
-chunked datasets (``solution/value [T, nvoxel]``, ``time``,
-``time_<camera>``, ``iterations``, ``checksum``, ``status``), later flushes
-extend and append. The schema, including the per-row checksum and the
-``completed`` counter, is the JAX writer's, and so is the layout: chunked
-datasets of unlimited length, with the JAX writer's chunk shapes and fill
-values. Either package reads the other's files, and the JAX writer's
-``--resume`` appends to a file this writer wrote.
+The JAX package's ``SolutionWriter`` (``sartsolver_tpu/io/solution.py``).
+Mirrors the reference's ``Solution`` (solution.cpp): solutions, statuses and
+times are buffered per frame and flushed every ``max_cache_size`` frames and
+on close; the first flush creates extendible chunked datasets
+(``solution/value [T, nvoxel]``, ``time``, ``time_<camera>``, ``iterations``,
+``checksum``, ``status``), later flushes extend and append. The schema,
+including the per-row checksum and the ``completed`` counter, is the JAX
+writer's, and so is the layout: chunked datasets of unlimited length, with
+the JAX writer's chunk shapes and fill values. Either package reads the
+other's files and resumes them (``--resume``).
 
-Files go through :mod:`sartsolver_tpu_torch.io.h5`, which rewrites the
-file whole on each flush through a temporary file renamed over it: a flush
-is atomic, so the rows and the ``completed`` counter always agree. The cost
-is a rewrite of the rows already written on every flush. A flush is the
-named fault site ``io.flush``; a failed flush raises
-:class:`~sartsolver_tpu_torch.resilience.failures.OutputWriteError` (the
-CLI's infrastructure exit), the file keeping its last committed flush.
+Files go through :mod:`sartsolver_tpu_torch.io.h5`. The first flush writes
+a new file whole (through a temporary renamed over the target, so it
+appears complete or not at all); every later flush appends in place — the
+new chunks, the chunk indexes and the datasets' extents, ``fsync``, then
+the ``completed`` counter, ``fsync`` — so a flush costs its own rows, never
+the rows already written. A flush killed half way leaves a file whose
+counter still names its last committed flush: :func:`read_resume_state`
+trusts the counter and the shortest dataset, checks every completed row's
+CRC32, and the writer opened with ``resume=`` truncates a torn tail before
+it appends. A flush is the named fault site ``io.flush``; a failed flush
+raises :class:`~sartsolver_tpu_torch.resilience.failures.OutputWriteError`
+(the CLI's infrastructure exit), the file keeping its last committed flush.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 import zlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 from sartsolver_tpu_torch.io import h5
 import numpy as np
@@ -38,8 +45,86 @@ def stripe_digest(array: np.ndarray) -> int:
 
 def row_checksum(row: np.ndarray) -> np.uint32:
     """CRC32 of one solution row's fp64 bytes, written beside
-    ``solution/value``."""
+    ``solution/value`` and verified on ``--resume``."""
     return np.uint32(stripe_digest(np.asarray(row, np.float64)))
+
+
+def _crash_window(point: str) -> None:
+    """Test hook: with ``SART_TEST_FLUSH_DELAY`` set, announce the named
+    commit point on stderr (``SART_FLUSH_POINT <point>``) and sleep that
+    many seconds inside it, so a kill drill can SIGKILL the process there:
+    ``torn`` (the time dataset written, the others not yet) and
+    ``pre-counter`` (the rows durable, the counter stale). Nothing when
+    unset."""
+    delay = os.environ.get("SART_TEST_FLUSH_DELAY")
+    if delay:
+        sys.stderr.write(f"SART_FLUSH_POINT {point}\n")
+        sys.stderr.flush()
+        time.sleep(float(delay))
+
+
+class ResumeState(NamedTuple):
+    """What a previous (possibly interrupted) run already produced."""
+
+    times: np.ndarray  # [T] frame times already written
+    last_solution: Optional[np.ndarray]  # warm start for the next frame
+
+
+def read_resume_state(filename: str, camera_names: Sequence[str],
+                      nvoxel: int) -> Optional[ResumeState]:
+    """The frames a previous run of this output already wrote
+    (``sartsolver_tpu/io/solution.py:read_resume_state``).
+
+    None where the file does not exist, holds no solutions, or was cut in
+    its first flush (``status`` is created last). ``SartInputError`` where
+    it holds another voxel count or camera set, or where a completed row
+    fails its stored CRC32 (the file is corrupt). A frame counts as
+    completed only if every per-frame dataset holds it and the
+    ``completed`` counter — the flush's last write — covers it."""
+    from sartsolver_tpu_torch.config import SartInputError
+
+    if not os.path.exists(filename):
+        return None
+    with h5.File(filename, "r") as f:
+        if "solution" not in f or "value" not in f["solution"]:
+            return None
+        group = f["solution"]
+        if "status" not in group or "time" not in group:
+            return None  # torn first flush: start afresh
+        value = group["value"]
+        if value.shape[1] != nvoxel:
+            raise SartInputError(
+                f"Cannot resume into {filename}: it holds solutions of "
+                f"{value.shape[1]} voxels, this problem has {nvoxel}.")
+        expected = {f"time_{name}" for name in camera_names}
+        have = {k for k in group if k.startswith("time_")}
+        if expected != have:
+            raise SartInputError(
+                f"Cannot resume into {filename}: camera set mismatch "
+                f"(file has {sorted(have)}, run has {sorted(expected)}).")
+        per_frame = [value, group["time"], group["status"]]
+        per_frame += [group[k] for k in ("iterations", "checksum") if k in group]
+        completed = min(*(d.shape[0] for d in per_frame),
+                        *(group[k].shape[0] for k in expected))
+        if "completed" in group.attrs:
+            completed = min(completed, int(group.attrs["completed"]))
+        if "checksum" in group and completed:
+            stored = np.asarray(group["checksum"][:completed], np.uint32)
+            # slabs of whole chunks: each chunk is read once
+            slab = max(1, (value.chunks or (completed,))[0])
+            for a in range(0, completed, slab):
+                b = min(a + slab, completed)
+                rows = value[a:b, :]
+                for i in range(a, b):
+                    if np.uint32(stored[i]) != row_checksum(rows[i - a]):
+                        raise SartInputError(
+                            f"Cannot resume into {filename}: solution row "
+                            f"{i} fails its stored checksum (the file is "
+                            "corrupt); re-run without --resume or restore "
+                            "the file.")
+        times = group["time"][:completed]
+        last = value[completed - 1, :] if completed else None
+        return ResumeState(np.asarray(times), last)
 
 
 class SolutionWriter:
@@ -49,7 +134,12 @@ class SolutionWriter:
         camera_names: Sequence[str],
         nvoxel: int,
         max_cache_size: int = 100,
+        resume: "bool | ResumeState" = False,
     ):
+        """``resume``: True (the file is inspected here) or the
+        :class:`ResumeState` the caller read; a torn tail past the
+        completed frames is truncated at once, so the appends continue
+        from a consistent file."""
         if nvoxel <= 0:
             raise ValueError("Argument nvoxel must be positive.")
         if max_cache_size <= 0:
@@ -57,7 +147,11 @@ class SolutionWriter:
         self.filename = filename
         self.nvox = nvoxel
         self.max_cache_size = max_cache_size
-        self.first_flush = True
+        state = (read_resume_state(filename, camera_names, nvoxel)
+                 if resume is True else (resume or None))
+        self.first_flush = state is None
+        if state is not None:
+            self._truncate_torn_tail(len(state.times))
         self._solutions: List[np.ndarray] = []
         self._status: List[int] = []
         self._iterations: List[int] = []
@@ -93,9 +187,10 @@ class SolutionWriter:
         ``OutputWriteError``."""
         if not self._solutions:
             return
-        from sartsolver_tpu_torch.resilience import faults
+        from sartsolver_tpu_torch.resilience import faults, watchdog
         from sartsolver_tpu_torch.resilience.failures import OutputWriteError
 
+        watchdog.beacon(watchdog.PHASE_FLUSH)
         try:
             faults.fire(faults.SITE_FLUSH)
             if self.first_flush:
@@ -125,9 +220,22 @@ class SolutionWriter:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _truncate_torn_tail(self, completed: int) -> None:
+        """Shrink every per-frame dataset to the completed-frame count (a
+        flush killed half way can leave them longer), in place."""
+        with h5.File(self.filename, "r+") as f:
+            group = f["solution"]
+            for key in group:
+                dset = group[key]
+                if dset.shape[0] > completed:
+                    dset.resize((completed,) + tuple(dset.shape[1:]))
+            f.flush()
+            group.attrs["completed"] = completed
+
     def _create(self) -> None:
-        """First flush: new file with extendible datasets (solution.cpp:60-112).
-        ``status`` is created last, as in the JAX writer."""
+        """First flush: new file with extendible datasets (solution.cpp:60-112),
+        written whole and renamed into place, ``status`` created last as in
+        the JAX writer."""
         n = len(self._solutions)
         with h5.File(self.filename, "w") as f:
             group = f.create_group("solution")
@@ -160,10 +268,14 @@ class SolutionWriter:
             group.attrs["completed"] = n
 
     def _update(self) -> None:
-        """Later flushes: extend + append (solution.cpp:114-165)."""
+        """Later flushes: extend and append in place (solution.cpp:114-165).
+        The commit points are the JAX writer's: the rows, the chunk indexes
+        and the extents, ``fsync``; then the ``completed`` counter, ``fsync``
+        (on close)."""
         n = len(self._solutions)
         with h5.File(self.filename, "r+") as f:
-            offset = f["solution/time"].shape[0]
+            group = f["solution"]
+            offset = group["time"].shape[0]
             new_size = offset + n
             per_frame = [
                 ("time", np.asarray(self._time)),
@@ -174,11 +286,17 @@ class SolutionWriter:
                 (f"time_{name}", np.asarray(times))
                 for name, times in self._camera_time.items()
             ]
-            for key, data in per_frame:
-                dset = f[f"solution/{key}"]
+            for i, (key, data) in enumerate(per_frame):
+                if key not in group:  # a file from before the dataset
+                    continue
+                dset = group[key]
                 dset.resize((new_size,))
                 dset[offset:] = data
-            dset = f["solution/value"]
+                if i == 0:
+                    _crash_window("torn")  # time written, the rest not yet
+            dset = group["value"]
             dset.resize((new_size, self.nvox))
             dset[offset:] = np.stack(self._solutions)
-            f["solution"].attrs["completed"] = new_size
+            f.flush()
+            _crash_window("pre-counter")  # rows durable, counter stale
+            group.attrs["completed"] = new_size

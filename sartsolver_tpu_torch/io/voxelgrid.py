@@ -12,6 +12,7 @@ round-trip of the map into the solution file.
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Optional, Sequence
 
 from sartsolver_tpu_torch.io import h5
@@ -88,8 +89,9 @@ class BaseVoxelGrid:
 
     def write_hdf5(self, filename: str, group_name: str) -> None:
         """Round-trip the stitched map into the output file
-        (voxelgrid.cpp:112-187)."""
-        with h5.File(filename, "r+") as f:
+        (voxelgrid.cpp:112-187): appended in place, or a new file where the
+        run wrote no frame (h5py's mode "a")."""
+        with h5.File(filename, "r+" if os.path.exists(filename) else "w") as f:
             group = f.create_group(group_name)
             for name, val in (
                 ("nx", self.nx), ("ny", self.ny), ("nz", self.nz),

@@ -51,6 +51,19 @@ with the three variants above as the sweep does.
 With ``debug_nans=True`` every path checks the values it keeps for NaN at
 its step boundaries and raises ``FloatingPointError``
 (:mod:`~sartsolver_tpu_torch.debug_nans`).
+
+``opts.integrity`` adds the in-solve ABFT check
+(``sartsolver_tpu/models/sart.py:1672-1708``): every iteration holds
+``sum(H f)`` — on the fused sweep, the kernel's own ``fitted`` output;
+after an OS cycle, its exact full projection — against ``rho . f`` per
+frame, and on the two-matmul path ``sum(H^T w)`` against ``lambda . w``,
+within :func:`~sartsolver_tpu_torch.resilience.integrity.abft_tolerance`.
+A frame that trips freezes on its entering iterate and stops with status
+``SDC_DETECTED``; a finite mismatch outranks the divergence guard's
+rollback. The tripped frames join ``done``, so the loops still read one
+device flag per iteration. Where a record is asked for
+(:func:`record_abft_worst`), :func:`abft_worst_ratio` reports the largest
+residual over its band the checks saw.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ from sartsolver_tpu_torch.ops.projection import (
     int8_back_project,
     int8_forward_project,
 )
+from sartsolver_tpu_torch.resilience.failures import SDC_DETECTED
 
 # The JAX package's smallest positive constant (its TPU build emulates fp64
 # with fp32 range). Kept although this card has real fp64: the log floors
@@ -103,6 +117,38 @@ MIN_POSITIVE = 1.2e-37
 FUSED_ENGAGEMENT = {"last": None}
 
 SweepFn = Callable[..., Tuple[Tensor, Tensor]]
+
+# The largest ABFT residual over its band, per device, over every solve
+# with the integrity check built while a record is kept: a device scalar,
+# read by abft_worst_ratio (one copy, on demand). Off by default, so the
+# check computes its trip bits and nothing else.
+_ABFT_WORST: dict = {}
+_ABFT_RECORD = {"on": False}
+
+
+def record_abft_worst(on: bool = True) -> None:
+    """Start a new record of the largest ABFT residual over its band
+    (``on``), or stop keeping one (the record stays readable). A measure of
+    the band's margin for the smoke run and the tests, not part of the
+    check."""
+    if on:
+        _ABFT_WORST.clear()
+    _ABFT_RECORD["on"] = bool(on)
+
+
+def abft_worst_ratio() -> float:
+    """The largest ``|s_a - s_b| / (tol * (max(|s_a|, |s_b|) + 1))`` an
+    integrity check met on a live frame (a trip is > 1) since
+    :func:`record_abft_worst` started the record; 0.0 where none ran."""
+    return max((float(t) for t in _ABFT_WORST.values()), default=0.0)
+
+
+def _note_abft(kit) -> None:
+    if kit.integrity and kit.abft_worst is not None:
+        dev = kit.abft_worst.device
+        prev = _ABFT_WORST.get(dev)
+        _ABFT_WORST[dev] = (kit.abft_worst if prev is None
+                            else torch.maximum(prev, kit.abft_worst))
 
 
 class SARTProblem(NamedTuple):
@@ -390,6 +436,19 @@ class _SweepContext:
         self.mom_floor = torch.tensor(_tiny(max(opts.log_epsilon, 1e-30)),
                                       dtype=self.dtype, device=dev)
         self.recovery = int(opts.divergence_recovery)
+        # the in-solve ABFT check: the band over the matrix as held (the
+        # padded rows included, as the JAX solver's padded extent is)
+        self.integrity = bool(opts.integrity)
+        self.bp_chk = None  # the two-matmul sweep's back-projection checksums
+        if self.integrity:
+            from sartsolver_tpu_torch.resilience.integrity import abft_tolerance
+
+            self.abft_tol = abft_tolerance(opts.dtype, opts.rtm_dtype,
+                                           problem.rtm.shape[0], problem.rtm.shape[1])
+            self.dens = dens.to(self.dtype)
+            self.length_row = length.to(self.dtype)[None, :]
+            self.abft_worst = (torch.zeros((), dtype=self.dtype, device=dev)
+                               if _ABFT_RECORD["on"] else None)
 
     def decay_factor(self, it: Tensor) -> Tensor:
         """``decay ** it`` [B] for the iterations ``it`` [B] each frame has
@@ -572,6 +631,8 @@ class _SweepContext:
                     alpha=float(opts.relaxation), eps=self.eps, **kw,
                 )
             fit = self.bp_any(w)
+            if self.integrity:  # the raw product: the identity holds for all of H^T w
+                self.bp_chk = (fit.sum(dim=1), (self.length_row * w).sum(dim=1))
             fit = torch.where(self.vmask[None, :], fit, torch.zeros_like(fit))
             eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
             ratio = ((obs + eps) / (fit + eps)) ** self.log_exponent(f.shape[0], dk, ascale)
@@ -588,7 +649,38 @@ class _SweepContext:
                 w, f, [self.inv_density[None, :]] + pen, logarithmic=False,
             )
         bp = self.bp_any(w)
+        if self.integrity:
+            self.bp_chk = (bp.sum(dim=1), (self.length_row * w).sum(dim=1))
         return torch.clamp_min(f + self.inv_density[None, :] * bp - penalty, 0), None
+
+    def abft_residual(self, s_a: Tensor, s_b: Tensor) -> Tuple[Tensor, Tensor]:
+        """``(tripped [B], ratio [B])``: ``ratio`` is ``|s_a - s_b|`` over the
+        band ``tol * (max(|s_a|, |s_b|) + 1)``, and a frame trips where it is
+        above 1 or not a number. So an infinite residual trips too (the JAX
+        check's ``err <= band`` holds for inf against an infinite band,
+        which lets an overflowed product pass; its contract is that a
+        non-finite residual trips)."""
+        band = torch.maximum(s_a.abs(), s_b.abs()).add_(1.0).mul_(self.abft_tol)
+        ratio = (s_a - s_b).abs_().div_(band)
+        return ~(ratio <= 1.0), ratio
+
+    def abft_check(self, f_new: Tensor, fitted_new: Tensor, done: Tensor) -> Tensor:
+        """[B] live frames whose iteration broke an ABFT identity
+        (``sartsolver_tpu/models/sart.py:abft_check``): the forward check
+        on every path, the back-projection check after a two-matmul
+        sweep. Where a record is kept (``abft_worst``), also folds the
+        largest residual ratio of the live frames into it."""
+        tripped, ratio = self.abft_residual(fitted_new.sum(dim=1), f_new @ self.dens)
+        if self.bp_chk is not None:
+            t_bp, r_bp = self.abft_residual(*self.bp_chk)
+            tripped, ratio = tripped | t_bp, torch.maximum(ratio, r_bp)
+            self.bp_chk = None
+        live = ~done
+        if self.abft_worst is not None:
+            # fmax: a ratio that is not a number (a trip) leaves the record as is
+            self.abft_worst = torch.fmax(
+                self.abft_worst, torch.where(live, ratio, torch.zeros_like(ratio)).amax())
+        return live & tripped
 
     def extrapolate(self, f: Tensor, f_prev: Tensor, tk: Tensor
                     ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -651,7 +743,19 @@ class _SweepContext:
         else:
             fitted_new = torch.where(frozen, fitted, fitted_upd)
         fsq = _sumsq(fitted_new, self.dtype, opts.precise_convergence)
-        return _Step(f_new, fitted_new, fsq, (msq - fsq) / msq, y, t_next)
+        conv = (msq - fsq) / msq
+        tripped = None
+        if self.integrity:
+            tripped = self.abft_check(f_new, fitted_new, done)
+            if self.recovery:
+                # a non-finite checksum is the divergence guard's to classify
+                tripped = tripped & (torch.isfinite(fsq) & torch.isfinite(conv))
+            # a tripped frame freezes on its entering state, the last
+            # iterate whose checksums held
+            rows = tripped[:, None]
+            f_new = torch.where(rows, f, f_new)
+            fitted_new = torch.where(rows, fitted, fitted_new)
+        return _Step(f_new, fitted_new, fsq, conv, y, t_next, tripped)
 
     def guard(self, step: "_Step", f: Tensor, fitted: Tensor, conv_prev: Tensor,
               done: Tensor, msq: Tensor, ascale: Tensor, recov: Tensor):
@@ -664,11 +768,15 @@ class _SweepContext:
         fsq, conv = step.fsq, step.conv
         bad = ~done & (~(torch.isfinite(fsq) & torch.isfinite(conv))
                        | (fsq > opts.divergence_threshold * torch.clamp_min(msq, 1.0)))
+        if step.tripped is not None:
+            bad = bad & ~step.tripped  # a finite SDC mismatch outranks the rollback
         exhausted = bad & (recov >= self.recovery)
         rows = bad[:, None]
         f_new = torch.where(rows, f, step.f)
         fitted_new = torch.where(rows, fitted, step.fitted)
         conv = torch.where(bad, conv_prev, conv)
+        if step.tripped is not None:
+            conv = torch.where(step.tripped, conv_prev, conv)
         ascale = torch.where(bad & ~exhausted, ascale * 0.5, ascale)
         return f_new, fitted_new, conv, ascale, recov + bad.to(torch.int32), bad, exhausted
 
@@ -690,6 +798,7 @@ class _Step(NamedTuple):
     conv: Tensor
     y: Optional[Tensor]
     t_next: Optional[Tensor]
+    tripped: Optional[Tensor] = None  # [B] the ABFT check's trips (integrity on)
 
 
 def _floor_start(f0: Tensor, opts: SolverOptions) -> Tensor:
@@ -803,12 +912,15 @@ def solve_normalized_batch(
                      ("the set-up projection", fitted), ("the observation back-projection", obs))
     if kit.momentum:  # t_1 = 1: the first iteration extrapolates nothing
         mom = (f, fitted if kit.carry_fit else None, torch.ones(B, dtype=dtype, device=dev))
+    sdc = torch.zeros_like(done) if kit.integrity else None
     it = 0
     while it < opts.max_iterations and not bool(done.all()):
         dk = (kit.decay_factor(torch.full((B,), it, dtype=torch.int32, device=dev))
               if kit.scheduled else None)
         step = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
-        f_new, fitted_new, conv = step.f, step.fitted, step.conv
+        f_new, fitted_new, conv, tripped = step.f, step.fitted, step.conv, step.tripped
+        if tripped is not None:
+            conv = torch.where(tripped, conv_prev, conv)
         bad = None
         if kit.recovery:
             f_new, fitted_new, conv, ascale, recov, bad, exhausted = kit.guard(
@@ -820,14 +932,20 @@ def solve_normalized_batch(
                 newly &= ~bad
         else:
             newly = torch.zeros_like(done)
+        if tripped is not None:  # a frozen SDC frame's metric is not a stall
+            newly = newly & ~tripped
         ended = newly
         if kit.recovery:
             ended = newly | exhausted
             diverged = diverged | exhausted
+        if tripped is not None:
+            ended = ended | tripped
+            sdc = sdc | tripped
         iters = torch.where(ended, torch.full_like(iters, it + 1), iters)
         if kit.momentum:
+            reset = bad if tripped is None else (tripped if bad is None else bad | tripped)
             mom = (f, fitted if kit.carry_fit else None,
-                   kit.momentum_tk(step.y, f_new, f, step.t_next, bad))
+                   kit.momentum_tk(step.y, f_new, f, step.t_next, reset))
         f, fitted, conv_prev, done = f_new, fitted_new, conv, done | ended
         it += 1
     status = torch.where(
@@ -836,6 +954,9 @@ def solve_normalized_batch(
     )
     if diverged is not None:
         status = torch.where(diverged, torch.full_like(iters, DIVERGED), status)
+    if sdc is not None:
+        status = torch.where(sdc, torch.full_like(iters, SDC_DETECTED), status)
+        _note_abft(kit)
     res = SolveResult(f, status, iters, conv_prev)
     return (res, fitted) if return_fitted else res
 
@@ -1011,11 +1132,14 @@ def sched_step_normalized(
     cap_step = opts.max_iterations - 1 - state.it
     converged = torch.zeros_like(done)
     diverged = torch.zeros_like(done) if kit.recovery else None
+    sdc = torch.zeros_like(done) if kit.integrity else None
     step = 0
     while step < opts.schedule_stride and not bool(done.all()):
         dk = kit.decay_factor(itl) if kit.scheduled else None
         out = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
-        f_new, fitted_new, conv = out.f, out.fitted, out.conv
+        f_new, fitted_new, conv, tripped = out.f, out.fitted, out.conv, out.tripped
+        if tripped is not None:
+            conv = torch.where(tripped, conv_prev, conv)
         live = ~done
         bad = None
         if kit.recovery:
@@ -1024,6 +1148,8 @@ def sched_step_normalized(
             live_ok = live & ~bad  # a rolled-back metric is not a stall
         else:
             live_ok = live
+        if tripped is not None:  # nor is a frozen SDC lane's
+            live_ok = live_ok & ~tripped
         kit.check_kept(f"step {step + 1} of a scheduler stride", f_new, fitted_new, conv)
         newly = live_ok & (torch.abs(conv - conv_prev) < tol)
         if step == 0:
@@ -1033,9 +1159,13 @@ def sched_step_normalized(
         if kit.recovery:
             diverged |= exhausted
             ended = newly | exhausted
+        if tripped is not None:
+            sdc |= tripped
+            ended = ended | tripped
         if kit.momentum:
+            reset = bad if tripped is None else (tripped if bad is None else bad | tripped)
             mom = (f, fitted if kit.carry_fit else None,
-                   kit.momentum_tk(out.y, f_new, f, out.t_next, bad))
+                   kit.momentum_tk(out.y, f_new, f, out.t_next, reset))
         itl = itl + live
         f, fitted = f_new, fitted_new
         conv_prev, done = conv, done | ended | (cap_step <= step)
@@ -1044,6 +1174,9 @@ def sched_step_normalized(
     status = torch.where(converged, torch.full_like(state.status, SUCCESS), state.status)
     if kit.recovery:
         status = torch.where(diverged, torch.full_like(status, DIVERGED), status)
+    if sdc is not None:
+        status = torch.where(sdc, torch.full_like(status, SDC_DETECTED), status)
+        _note_abft(kit)
     iters = torch.where(stopped, itl, state.iters)
     if mom is not None:
         state = state._replace(f_prev=mom[0], fitted_prev=mom[1], tk=mom[2])

@@ -19,15 +19,22 @@ solver's argument parser sees argv. Three modes:
 Exit codes: 0 ok; 1 invalid input (unreadable file, schema violations);
 2 ``--diff --threshold`` regression detected.
 
-``sartsolve top``, the live view of a running solve, comes with the flight
-recorder (ROADMAP queue A item 2).
+``sartsolve top FILE``: a refreshing one-screen view of a live run, from a
+file it publishes — its SIGUSR1 status snapshot (``<output>.status.json``,
+``obs/flight.py``), its heartbeat (``SART_HEARTBEAT_FILE``) or its
+Prometheus textfile (``SART_METRICS_PROM``); ``--once`` renders one screen
+and exits (1 where it could not), ``--lines`` caps it. It renders either
+package's files. A serving engine's HTTP endpoints come with the serving
+slice.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 from sartsolver_tpu_torch.obs import schema
@@ -939,3 +946,172 @@ def metrics_main(argv: Optional[List[str]] = None) -> int:
     else:
         _print_summary(args.artifacts[0], summary)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# `sartsolve top`: refreshing one-screen view of a live run
+# ---------------------------------------------------------------------------
+
+def build_top_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sartsolve top",
+        description="Refreshing one-screen view of a live run, rendered "
+                    "from a file it already publishes: the Prometheus "
+                    "textfile (SART_METRICS_PROM), the heartbeat file "
+                    "(SART_HEARTBEAT_FILE), or a SIGUSR1 status snapshot "
+                    "(<output>.status.json).",
+    )
+    p.add_argument("path", metavar="FILE",
+                   help="Prometheus textfile, heartbeat file, or status "
+                        "snapshot JSON to watch.")
+    p.add_argument("--interval", type=float, default=2.0, metavar="S",
+                   help="Refresh period in seconds (default 2).")
+    p.add_argument("--once", action="store_true",
+                   help="Render one frame and exit (scripting / tests).")
+    p.add_argument("--lines", type=int, default=40,
+                   help="Cap on rendered body lines (one screen).")
+    return p
+
+
+def _age_str(path: str) -> str:
+    try:
+        age = time.time() - os.stat(path).st_mtime
+        return f"{age:.1f}s ago"
+    except OSError:
+        return "?"
+
+
+def _render_heartbeat(path: str, text: str) -> List[str]:
+    fields = dict(
+        tok.split("=", 1) for tok in text.split() if "=" in tok
+    )
+    lines = [f"heartbeat {path} (updated {_age_str(path)})"]
+    for key in ("phase", "frames", "serial", "occupancy", "lanes"):
+        if key in fields:
+            lines.append(f"  {key:<10} {fields[key]}")
+    return lines
+
+
+def _render_prom(path: str, text: str,
+                 age: Optional[str] = None) -> List[str]:
+    lines = [f"prometheus {path} (updated {age or _age_str(path)})"]
+    for raw in text.splitlines():
+        raw = raw.strip()
+        if not raw or raw.startswith("#"):
+            continue
+        name, _, value = raw.rpartition(" ")
+        lines.append(f"  {name:<52} {value}")
+    return lines
+
+
+def _render_status(path: str, rec: dict, include_metrics: bool = True,
+                   age: Optional[str] = None) -> List[str]:
+    lines = [f"status {path} (snapshot {age or _age_str(path)})"]
+    lb = rec.get("last_beacon") or {}
+    lines.append(f"  frames_done {rec.get('frames_done')}   last beacon "
+                 f"{lb.get('phase')} (serial {lb.get('serial')}, "
+                 f"{lb.get('age_s')}s ago)")
+    ages = rec.get("beacon_ages") or {}
+    if ages:
+        lines.append("  beacon ages: " + "  ".join(
+            f"{ph}={age}s" for ph, age in ages.items()
+        ))
+    sched = rec.get("sched")
+    if sched:
+        lanes = sched.get("lanes")
+        lines.append(
+            f"  sched: occupancy {sched.get('occupancy')}  strides "
+            f"{sched.get('strides')}  in-flight lanes "
+            + (",".join(str(s) for s in lanes) if lanes else "-")
+        )
+    engine = rec.get("engine")
+    if engine:
+        active = engine.get("active_requests") or []
+        lines.append(
+            f"  engine: queue {engine.get('queue_depth')}  admitted "
+            f"{engine.get('admitted')}  shed {engine.get('shed')}  "
+            f"lanes {engine.get('lanes')}"
+            + (f"  degraded ({engine['degraded']})"
+               if engine.get("degraded") else "")
+            + ("  draining" if engine.get("draining") else "")
+        )
+        requests = engine.get("requests") or {}
+        if requests:
+            # live request table: id, trace id, current lifecycle span
+            for rid, info in sorted(requests.items()):
+                lines.append(
+                    f"  engine request {rid}: span "
+                    f"{info.get('span')} trace {info.get('trace')}"
+                )
+        else:
+            lines.append(
+                "  engine requests in flight: "
+                + (",".join(str(r) for r in active) if active else "-")
+            )
+        quarantined = engine.get("quarantined_tenants") or []
+        tenants = engine.get("tenants") or {}
+        if tenants:
+            lines.append("  engine tenants: " + "  ".join(
+                f"{name}(queued {st.get('queued', 0)}"
+                + (f", quarantined {st.get('quarantined_s')}s"
+                   if name in quarantined else "")
+                + ")"
+                for name, st in tenants.items()
+            ))
+    if include_metrics:
+        for m in rec.get("metrics") or []:
+            key = _metric_key(m)
+            if m.get("kind") == "histogram":
+                if m.get("count"):
+                    lines.append(f"  {key:<44} count {m['count']:g} "
+                                 f"mean {m['sum'] / m['count']:.2f}")
+            else:
+                lines.append(f"  {key:<44} {m.get('value', 0):g}")
+    return lines
+
+
+def render_top(path: str, max_lines: int = 40) -> str:
+    """One screen of ``path``, whatever kind of live file it is."""
+    with open(path) as f:
+        text = f.read()
+    stripped = text.lstrip()
+    if stripped.startswith("{"):
+        lines = _render_status(path, json.loads(stripped.splitlines()[0]))
+    elif stripped.startswith("#") or "# TYPE" in text:
+        lines = _render_prom(path, text)
+    elif "phase=" in stripped:
+        lines = _render_heartbeat(path, stripped)
+    else:
+        raise ValueError(
+            "unrecognized format (expected a Prometheus textfile, "
+            "heartbeat line, or status snapshot JSON)"
+        )
+    if len(lines) > max_lines:
+        dropped = len(lines) - max_lines
+        lines = lines[:max_lines] + [f"  ... (+{dropped} more)"]
+    return "\n".join(lines)
+
+
+def top_main(argv: Optional[List[str]] = None) -> int:
+    args = build_top_parser().parse_args(argv)
+    try:
+        while True:
+            failed = False
+            try:
+                screen = render_top(args.path, max_lines=args.lines)
+            except OSError as err:
+                screen, failed = f"{args.path}: {err}", True
+            except ValueError as err:
+                screen, failed = f"{args.path}: unparseable ({err})", True
+            if not args.once and sys.stdout.isatty():
+                # clear + home: a refreshing view, not a scrolling log
+                sys.stdout.write("\x1b[2J\x1b[H")
+            print(screen, flush=True)
+            if args.once:
+                # scripting mode: a probe that could not render must be
+                # distinguishable from a healthy screen (the live loop
+                # keeps going — the file may simply not exist *yet*)
+                return 1 if failed else 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0

@@ -169,9 +169,13 @@ _buffer: Optional[TraceBuffer] = None
 
 
 def _tap_beacons(target) -> None:
-    """Where the watchdog's beacon stream (queue A item 2) connects:
-    ``target`` is :meth:`TraceBuffer.beacon`, or None to disconnect. The
-    port has no beacon source yet."""
+    """Connect the watchdog's beacon stream to ``target``
+    (:meth:`TraceBuffer.beacon`: a beacon closes its thread's previous
+    phase span and opens the next), or with
+    None disconnect it; the flight ring's tap is left alone."""
+    from sartsolver_tpu_torch.resilience import watchdog
+
+    watchdog.set_beacon_tap(target)
 
 
 def active_buffer() -> Optional[TraceBuffer]:

@@ -9,6 +9,13 @@ and fails only when a kernel is asked for.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 all of them.
+
+A build inside a run announces itself to the hang watchdog (a ``build``
+beacon before ``nvcc`` starts and one when it is done); ``nvcc`` itself
+beacons nothing, so a cold build that outlasts ``SART_WATCHDOG_TIMEOUT``
+(and the grace after it) aborts the run with exit 3. Build first (any run
+on the card, ``load``, ``build_all``) or give the watchdog a timeout above
+the build's one to two minutes.
 """
 
 from __future__ import annotations
@@ -96,8 +103,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
+        from sartsolver_tpu_torch.resilience import watchdog
+
         job = _start_build(name)
         if job is not None:
+            watchdog.beacon(watchdog.PHASE_BUILD)
             _finish_build(name, job)
+            watchdog.beacon(watchdog.PHASE_BUILD)
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -33,6 +33,16 @@ codes byte for byte. On the CPU (``device="cpu"``, the tests' plain
 version and the fp64 profile) the same passes run with plain host buffers.
 Nothing gives way: a failed pinned allocation or stream fails the ingest.
 
+With the integrity layer on (``resilience/integrity.py:enabled``) each row
+chunk is read twice, the second time into a third host buffer, and the two
+reads compared byte for byte (the JAX package compares their CRC32s; the
+direct comparison sees every mismatch those see, at memory speed): a
+mismatch is a ``StripeDigestError`` (an ``OSError``), which the retry
+policy answers by reading the chunk again. ``ingest_stats=`` (an
+``IngestStats``) takes the ray stats' sums over the stored rows where they
+lie (fp64 sums on the card; for int8 the dequantized codes). Each chunk
+read is a hang-watchdog ``prefetch`` beacon.
+
 Each pass is an ``ingest.pass`` trace span (``what=`` ``store``,
 ``colmax`` or ``quantize``). ``timings=`` (a dict) receives each pass's
 seconds, its read seconds (the reader's), its upload seconds (the side
@@ -72,36 +82,49 @@ def prefetch_enabled() -> bool:
 
 
 def _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, r0,
-                         **kwargs) -> np.ndarray:
+                         check_out: Optional[np.ndarray] = None, **kwargs) -> np.ndarray:
     """One RTM row chunk read as fp32 under the ``hdf5.rtm_ingest`` retry
     policy. The read is idempotent (it fills its buffer whole), so a
     transient I/O failure costs one backoff, not the ingest; exhaustion
     raises ``RetriesExhausted`` (the CLI's infrastructure exit). ``nan`` and
-    ``corrupt`` faults perturb the chunk read."""
-    from sartsolver_tpu_torch.resilience import faults
+    ``corrupt`` faults perturb the chunk read. With the integrity layer on
+    the chunk is read twice (the second time into ``check_out``, a buffer
+    of at least its rows, where one is given) and the reads compared byte
+    for byte."""
+    from sartsolver_tpu_torch.resilience import faults, integrity, watchdog
     from sartsolver_tpu_torch.resilience.retry import retry_call
 
     out = kwargs.get("out")
 
-    def attempt() -> np.ndarray:
-        faults.fire(faults.SITE_RTM_INGEST)
+    def read_once(**kw) -> np.ndarray:
         stripe = read_rtm_block(sorted_matrix_files, rtm_name, n, nvoxel, r0,
-                                dtype=np.float32, **kwargs)
+                                dtype=np.float32, **kw)
         hit = faults.corrupt(faults.SITE_RTM_INGEST, stripe)
-        if hit is not stripe and out is not None:
-            out[...] = hit
-            return out
+        if hit is not stripe and kw.get("out") is not None:
+            kw["out"][...] = hit
+            return kw["out"]
         return hit
+
+    def attempt() -> np.ndarray:
+        watchdog.beacon(watchdog.PHASE_PREFETCH)  # chunk turnover is progress
+        faults.fire(faults.SITE_RTM_INGEST)
+        stripe = read_once(**kwargs)
+        if integrity.enabled():
+            # the dense rows read again (the sparse segments' cache serves
+            # its rows from memory, as the first read's)
+            check = read_once(**dict(kwargs, out=None if check_out is None else check_out[:n]))
+            # the fp32 words' bits (NaN payloads included), 4 bytes a compare
+            if not np.array_equal(np.ascontiguousarray(stripe).view(np.uint32),
+                                  np.ascontiguousarray(check).view(np.uint32)):
+                integrity.digest_mismatch(f"RTM stripe [{r0}:{r0 + n})")
+        return stripe
 
     stripe = retry_call(attempt, site=faults.SITE_RTM_INGEST)
     obs_metrics.get_registry().counter("bytes_ingested_total", source="rtm").inc(stripe.nbytes)
     return stripe
 
 
-def _refuse_hooks(ingest_stats, tile_stats) -> None:
-    if ingest_stats is not None:
-        raise NotImplementedError("ingest_stats= (the integrity layer's host ray "
-                                  "stats) comes with --integrity")
+def _refuse_hooks(tile_stats) -> None:
     if tile_stats is not None:
         raise NotImplementedError("tile_stats= (the block-sparse tile index) comes "
                                   "with --sparse_rtm")
@@ -113,11 +136,16 @@ def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
             timings: Optional[dict] = None) -> None:
     """One pass over the matrix's row chunks. Each chunk is read into a
     host staging buffer, copied to ``direct(r0, n)`` (a device view of the
-    stored matrix's rows) or to the device staging chunk, which
-    ``consume(r0, n, chunk)`` then turns into the stored rows."""
+    stored matrix's rows) or to the device staging chunk, and
+    ``consume(r0, n, chunk)`` (on the copy's stream) then turns it into the
+    stored rows or reads them."""
+    from sartsolver_tpu_torch.resilience import integrity
+
     cuda = dev.type == "cuda"
     n0 = min(chunk, npixel)
     starts = list(range(0, npixel, chunk))
+    # the integrity layer's second read of each chunk (one reader at a time)
+    check = np.empty((n0, nvoxel), np.float32) if integrity.enabled() else None
     # one host buffer per slot the pass uses (one where it has one chunk),
     # allocated at its first read
     host: List = [None, None]
@@ -136,7 +164,7 @@ def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
         t0 = time.perf_counter()
         if host[slot] is None:
             host[slot] = torch.empty((n0, nvoxel), dtype=torch.float32, pin_memory=cuda)
-        _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, r0,
+        _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, r0, check_out=check,
                              out=host[slot].numpy()[:n], sparse_cache=sparse_cache,
                              cache_rows=(0, npixel), cache_cols=(0, nvoxel))
         read_s[0] += time.perf_counter() - t0
@@ -206,8 +234,9 @@ def read_and_shard_rtm(
     """The RTM ``[rows, nvoxel]`` on ``device`` in ``dtype`` (``"float32"``,
     ``"bfloat16"`` or ``"float64"``, or the torch dtype), read in row chunks.
     ``rows`` (default ``npixel``) pads the matrix with zero rows, the
-    ordered-subsets padding of ``parallel/sharded.py``."""
-    _refuse_hooks(ingest_stats, tile_stats)
+    ordered-subsets padding of ``parallel/sharded.py``. ``ingest_stats``
+    takes the stored values' sums (module docstring)."""
+    _refuse_hooks(tile_stats)
     dev = resolve_device(device)
     dt = dtype if isinstance(dtype, torch.dtype) else {
         "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -219,13 +248,24 @@ def read_and_shard_rtm(
     buf = torch.empty((rows, nvoxel), dtype=dt, device=dev)
     buf[npixel:].zero_()
     chunk = _chunk(chunk_rows, npixel, nvoxel)
+    stored = None
+    if ingest_stats is not None:
+        def stored(r0, n):
+            ingest_stats.add(buf[r0:r0 + n], r0, 0)
+
     if dt == torch.float32:  # the upload lands in the matrix's rows
         _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
-                sparse_cache={}, direct=lambda r0, n: buf[r0:r0 + n], timings=timings)
-    else:  # rounded (bf16) or widened (fp64) from the fp32 chunk
-        _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
-                sparse_cache={}, consume=lambda r0, n, x: buf[r0:r0 + n].copy_(x),
+                sparse_cache={}, direct=lambda r0, n: buf[r0:r0 + n],
+                consume=None if stored is None else lambda r0, n, _x: stored(r0, n),
                 timings=timings)
+    else:  # rounded (bf16) or widened (fp64) from the fp32 chunk
+        def consume(r0, n, x):
+            buf[r0:r0 + n].copy_(x)
+            if stored is not None:
+                stored(r0, n)
+
+        _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
+                sparse_cache={}, consume=consume, timings=timings)
     return buf
 
 
@@ -247,8 +287,9 @@ def read_and_quantize_rtm(
     (and of the JAX package's ``read_and_quantize_rtm``). Pass 1 streams the
     chunks for the per-voxel column maxima; pass 2 streams them again,
     quantizing each into the codes. The sparse segments are read once for
-    both passes; the dense rows twice."""
-    _refuse_hooks(ingest_stats, tile_stats)
+    both passes; the dense rows twice. ``ingest_stats`` takes the
+    dequantized codes' sums in pass 2 (the JAX package's ``stats_dequant``)."""
+    _refuse_hooks(tile_stats)
     from sartsolver_tpu_torch.ops.projection import _sym_scale
 
     dev = resolve_device(device)
@@ -271,6 +312,9 @@ def read_and_quantize_rtm(
         # same correctly rounded division, half-to-even rounding and clip
         torch.div(x, scale, out=x)
         codes[r0:r0 + n].copy_(x.round_().clamp_(-127, 127))
+        if ingest_stats is not None:
+            ingest_stats.add(codes[r0:r0 + n].to(torch.float64)
+                             * scale.to(torch.float64), r0, 0)
 
     _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="quantize",
             sparse_cache=cache, consume=quantize, timings=timings)

@@ -12,7 +12,17 @@ Frames arrive as host arrays in physical units and are normalized on the
 host (:func:`~sartsolver_tpu_torch.models.sart.prepare_measurement`).
 Results stay on the device: their scalars come back in one packed copy,
 their solutions when fetched. Uploads are ``device.put`` trace spans and
-fetches ``result.fetch{what=...}`` spans, as in the JAX module.
+fetches ``result.fetch{what=...}`` spans, as in the JAX module; each is
+also a hang-watchdog beacon (``device.put``, ``result.fetch``), as is each
+solve's entry (``solve.dispatch``).
+
+With ``opts.integrity`` the solver keeps a snapshot of the ray stats taken
+at upload: :meth:`DistributedSARTSolver.verify_ray_stats` holds it against
+the ingest's sums, :meth:`DistributedSARTSolver.reaudit_ray_stats`
+recomputes the stats from the resident matrix and compares bit for bit
+(the reductions run in the same order on every call). The fault site
+``device.buffer`` (kind ``corrupt``) perturbs the resident matrix in place
+at a solve's entry, the stats left stale.
 
 Ordered subsets (``os_subsets > 1``) accept what the JAX solver accepts:
 that solver pads the pixel rows to a multiple of ``ROW_ALIGN`` with zero
@@ -35,6 +45,8 @@ from sartsolver_tpu_torch.device import resolve_device
 from sartsolver_tpu_torch.models.sart import (
     SchedState,
     SolveResult,
+    compute_ray_stats,
+    compute_ray_stats_int8,
     make_problem,
     prepare_measurement,
     resolve_fused,
@@ -44,7 +56,7 @@ from sartsolver_tpu_torch.models.sart import (
     torch_dtype,
 )
 from sartsolver_tpu_torch.obs import trace as obs_trace
-from sartsolver_tpu_torch.resilience import faults
+from sartsolver_tpu_torch.resilience import faults, watchdog
 
 
 # the JAX solver's pixel-row alignment on one device
@@ -101,6 +113,7 @@ class DeviceSolveResult:
 
     def _fetch_scalars(self) -> tuple:
         if self._scalars is None:
+            watchdog.beacon(watchdog.PHASE_FETCH)
             with obs_trace.span("result.fetch", what="scalars"):
                 packed = self._packed.cpu().numpy()
             self._scalars = (packed[0].astype(np.int32), packed[1].astype(np.int32),
@@ -122,6 +135,7 @@ class DeviceSolveResult:
     def fetch_solutions(self) -> np.ndarray:
         """[B, V] fp64 solutions in physical units; one copy, cached."""
         if self._host is None:
+            watchdog.beacon(watchdog.PHASE_FETCH)
             with obs_trace.span("result.fetch", what="solution"):
                 sol = self.solution_norm.double().cpu().numpy()
             self._host = sol * self.norms[:, None]
@@ -150,6 +164,7 @@ class SchedLaneState:
         until the next step."""
         if self._scalars is None:
             st = self.state
+            watchdog.beacon(watchdog.PHASE_FETCH)
             with obs_trace.span("result.fetch", what="sched_scalars"):
                 packed = torch.stack([st.done.double(), st.status.double(),
                                       st.iters.double(), st.conv.double(),
@@ -167,6 +182,7 @@ class SchedLaneState:
         norm = float(self.norms[b])
 
         def fetch():
+            watchdog.beacon(watchdog.PHASE_FETCH)
             with obs_trace.span("result.fetch", what="sched_lane"):
                 return row.double().cpu().numpy() * norm
         return fetch
@@ -190,9 +206,9 @@ class DistributedSARTSolver:
     ``debug_nans=True``: every solve raises ``FloatingPointError`` at the
     first NaN it keeps (``debug_nans.py``).
 
-    Named fault sites (``resilience/faults.py``): ``solve.dispatch`` at the
-    entry of every solve and scheduler stride, ``device.put`` where a frame
-    group or a stride's refills are staged.
+    Named fault sites (``resilience/faults.py``): ``solve.dispatch`` and
+    ``device.buffer`` at the entry of every solve and scheduler stride,
+    ``device.put`` where a frame group or a stride's refills are staged.
     """
 
     def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda",
@@ -211,6 +227,11 @@ class DistributedSARTSolver:
         elif held != self.rows:
             raise ValueError(f"rtm of {held} rows for {npixel} pixels: {self.rows} "
                              "rows expected.")
+        if laplacian is not None:
+            # the Laplacian's staging, a device.put of the JAX solver's
+            # construction (a hang here aborts the run, outside any frame)
+            watchdog.beacon(watchdog.PHASE_STAGE)
+            faults.fire(faults.SITE_DEVICE_PUT)
         with obs_trace.span("device.put"):
             self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device,
                                         rtm_scale=rtm_scale)
@@ -219,6 +240,77 @@ class DistributedSARTSolver:
 
                 _build.load("fused_sweep")
         self.npixel, self.nvoxel = npixel, self.problem.rtm.shape[1]
+        # the integrity layer's upload-time ray stats (host copies)
+        self._ray_stats_snapshot = self._ray_stats_now() if opts.integrity else None
+
+    # ---- numerical integrity ---------------------------------------------
+
+    def _ray_stats_now(self):
+        """``(rho [V], lambda [rows])`` of the resident matrix on the host,
+        by the functions the upload used (deterministic reductions)."""
+        problem = self._live_problem()
+        dtype = torch_dtype(self.opts.dtype)
+        if problem.rtm_scale is not None:
+            dens, length = compute_ray_stats_int8(problem.rtm, problem.rtm_scale,
+                                                  dtype=dtype)
+        else:
+            dens, length = compute_ray_stats(problem.rtm, dtype=dtype)
+        return dens.cpu().numpy().copy(), length.cpu().numpy().copy()
+
+    # the bit of a float element a device.buffer corruption flips: its
+    # exponent's top bit
+    _EXPONENT_TOP_BIT = {torch.float32: (torch.int32, 30), torch.bfloat16: (torch.int16, 14),
+                         torch.float64: (torch.int64, 62)}
+
+    def _maybe_corrupt_resident(self) -> None:
+        """The ``device.buffer`` corrupt fault: a trip changes element [0, 0]
+        of the resident matrix in place while the ray stats stay those of
+        the upload — resident bit rot, which the ABFT check and the
+        re-audit exist to catch. int8 codes become ``127 - code`` (the JAX
+        package's); a float element has its exponent's top bit flipped, as
+        a single-event upset would. (The JAX package's float recipe, ``x *
+        256 + 1``, moves ``sum(H f)`` of the e2e world, 8192 x 65536, by
+        about 6e-6 of itself, under the check's band of 2.1e-3: there only
+        the re-audit sees it.) One dict lookup when nothing is armed."""
+        if not faults.take_corrupt(faults.SITE_DEVICE_BUFFER):
+            return
+        rtm = self._live_problem().rtm
+        if rtm.dtype == torch.int8:
+            rtm[0, 0] = 127 - rtm[0, 0]
+        else:
+            itype, bit = self._EXPONENT_TOP_BIT[rtm.dtype]
+            rtm[0:1, 0:1].view(itype).bitwise_xor_(1 << bit)
+
+    def verify_ray_stats(self, ingest_stats) -> list:
+        """The upload-time rho/lambda against the ingest's sums
+        (:class:`~sartsolver_tpu_torch.resilience.integrity.IngestStats`):
+        a description of each mismatch, empty where they agree. Needs
+        ``opts.integrity``."""
+        from sartsolver_tpu_torch.resilience import integrity
+
+        if self._ray_stats_snapshot is None:
+            raise ValueError("verify_ray_stats needs SolverOptions.integrity=True (the "
+                             "upload-time rho/lambda snapshot is not kept otherwise).")
+        dens, length = self._ray_stats_snapshot
+        return integrity.verify_ray_stats(ingest_stats, dens[:self.nvoxel],
+                                          length[:self.npixel],
+                                          rtm_dtype=self.opts.rtm_dtype)
+
+    def reaudit_ray_stats(self) -> list:
+        """rho/lambda recomputed from the resident matrix against the
+        upload-time snapshot, bit for bit: any difference is resident bit
+        rot. A description of each mismatch, empty where clean. One pass
+        over the matrix; needs ``opts.integrity``."""
+        if self._ray_stats_snapshot is None:
+            raise ValueError("reaudit_ray_stats needs SolverOptions.integrity=True.")
+        out = []
+        for name, now, ref in zip(("ray_density", "ray_length"), self._ray_stats_now(),
+                                  self._ray_stats_snapshot):
+            if not np.array_equal(now, ref):
+                diff = np.flatnonzero(now != ref)
+                out.append(f"{name}: {diff.size} element(s) changed since upload "
+                           f"(first at index {int(diff[0])})")
+        return out
 
     def close(self) -> None:
         """Release the device copy of the problem; results stay valid."""
@@ -245,6 +337,7 @@ class DistributedSARTSolver:
         if G.ndim != 2 or G.shape[1] != self.npixel:
             raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
         gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
+        watchdog.beacon(watchdog.PHASE_STAGE)
         faults.fire(faults.SITE_DEVICE_PUT)
         with obs_trace.span("device.put"):
             g = torch.as_tensor(self._pad_frames(np.stack(gs)),
@@ -259,33 +352,58 @@ class DistributedSARTSolver:
         return np.concatenate([g, np.full((g.shape[0], self.rows - self.npixel), -1.0)],
                               axis=1)
 
-    def solve_batch(self, measurements) -> DeviceSolveResult:
-        """Solve B independent frames [B, P] in one batched loop, each from
-        the Eq. 4 guess. The caller pads a short tail if it wants a fixed
-        batch size."""
+    def _enter(self):
+        """A solve's entry: the dispatch beacon, the ``solve.dispatch`` and
+        ``device.buffer`` sites; the live problem."""
+        watchdog.beacon(watchdog.PHASE_DISPATCH)
         faults.fire(faults.SITE_SOLVE)
-        problem = self._live_problem()
+        self._maybe_corrupt_resident()
+        return self._live_problem()
+
+    def _host_seed(self, f0, norms: np.ndarray) -> torch.Tensor:
+        """Host seeds ``f0`` [B, V] in physical units, normalized by each
+        frame's norm, on the device."""
+        f0 = np.asarray(f0, np.float64).reshape(len(norms), -1)
+        if f0.shape[1] != self.nvoxel:
+            raise ValueError(f"f0 must be [B, {self.nvoxel}], got {f0.shape}.")
+        return torch.as_tensor(f0 / norms[:, None], device=self.device).to(self.dtype)
+
+    def solve_batch(self, measurements, f0=None) -> DeviceSolveResult:
+        """Solve B independent frames [B, P] in one batched loop, each from
+        the Eq. 4 guess, or from the host seeds ``f0`` [B, V] in physical
+        units (a resumed run's warm start). The caller pads a short tail if
+        it wants a fixed batch size."""
+        problem = self._enter()
         g, msq, norms = self._stage_frames(measurements)
-        seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype, device=self.device)
+        if f0 is None:
+            seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype,
+                               device=self.device)
+        else:
+            seed = self._host_seed(f0, norms)
         res, fitted = solve_normalized_batch(
-            problem, g, msq, seed, opts=self.opts, use_guess=True,
+            problem, g, msq, seed, opts=self.opts, use_guess=f0 is None,
             return_fitted=True, device=self.device, debug_nans=self.debug_nans,
         )
         return DeviceSolveResult(res, norms, fitted_norm=fitted)
 
-    def solve_chain(self, measurements, *,
+    def solve_chain(self, measurements, f0=None, *,
                     warm: Optional[DeviceSolveResult] = None) -> DeviceSolveResult:
         """Solve K warm-chained frames [K, P]: each frame from the previous
         one's solution. Frame 0 seeds from ``warm`` (a previous result of
         this solver: its last frame's solution and loop-exit ``fitted``,
-        still on the device), else from the Eq. 4 guess. Per frame equal to
-        K serial solves."""
-        faults.fire(faults.SITE_SOLVE)
-        problem = self._live_problem()
+        still on the device), else from the host seed ``f0`` [V] in
+        physical units (a resumed run's last row; its projection is taken
+        anew), else from the Eq. 4 guess. Per frame equal to K serial
+        solves. ``warm`` and ``f0`` together raise ``ValueError``."""
+        if warm is not None and f0 is not None:
+            raise ValueError("Pass either warm= (device) or f0= (host), not both.")
+        problem = self._enter()
         g, msq, norms = self._stage_frames(measurements)
         rescale = np.ones(len(norms))
         rescale[1:] = norms[:-1] / norms[1:]
-        if warm is None:
+        if f0 is not None:
+            seed, fitted0 = self._host_seed(f0, norms[:1]), None
+        elif warm is None:
             seed = torch.zeros((1, self.nvoxel), dtype=self.dtype, device=self.device)
             fitted0 = None
         else:
@@ -293,7 +411,7 @@ class DistributedSARTSolver:
             seed, fitted0 = warm.solution_norm[-1:], warm.fitted_norm[-1:]
         res, fitted = solve_chain_normalized(
             problem, g, msq, seed, torch.as_tensor(rescale, device=self.device),
-            opts=self.opts, use_guess_first=warm is None, fitted0=fitted0,
+            opts=self.opts, use_guess_first=warm is None and f0 is None, fitted0=fitted0,
             device=self.device, debug_nans=self.debug_nans,
         )
         return DeviceSolveResult(res, norms, fitted_norm=fitted)
@@ -343,8 +461,7 @@ class DistributedSARTSolver:
         runs; an empty list is a pure drain stride. The new state is
         committed only after the stride ran: a failed dispatch leaves the
         previous state intact."""
-        faults.fire(faults.SITE_SOLVE)
-        problem = self._live_problem()
+        problem = self._enter()
         B = lane_state.lanes
         norms = lane_state.norms.copy()
         refill = np.zeros(B, bool)
@@ -362,6 +479,7 @@ class DistributedSARTSolver:
                 g_stage[b, :self.npixel], msq_stage[b], norms[b] = prepare_measurement(
                     meas, self.opts)
                 refill[b] = True
+            watchdog.beacon(watchdog.PHASE_STAGE)
             faults.fire(faults.SITE_DEVICE_PUT)
             with obs_trace.span("device.put"):
                 g_new = torch.as_tensor(g_stage, device=self.device).to(self.dtype)

@@ -100,13 +100,17 @@ class GroupSizeLadder:
 
 def dispatch_guarded(dispatch: Callable[[], object], *,
                      ladder: Optional[GroupSizeLadder] = None):
-    """Run one dispatch with OOM classification for the ladder.
+    """Run one dispatch (a ``solve.dispatch`` beacon and trace span) with
+    OOM classification for the ladder.
 
     Returns ``(result, None)`` on success and ``(None, err)`` after an OOM
     that halved the ladder (the caller re-stacks the same frames at
     ``ladder.size`` and dispatches again). Every other error, and an OOM
     with the ladder exhausted or absent, propagates unchanged.
     """
+    from sartsolver_tpu_torch.resilience import watchdog
+
+    watchdog.beacon(watchdog.PHASE_DISPATCH)
     try:
         with obs_trace.span("solve.dispatch"):
             return dispatch(), None

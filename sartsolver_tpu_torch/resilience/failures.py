@@ -8,19 +8,23 @@ a solution file of either package reads the same:
 - ``-3`` FRAME_FAILED: the frame produced no solution (its read's retries
   were exhausted, or its staging or solve dispatch failed with a
   recoverable error); the row holds zeros and ``iterations = -1``;
-- ``-4`` SDC_DETECTED and ``-5`` DEADLINE_EXCEEDED, which the port does not
-  write yet.
+- ``-4`` SDC_DETECTED: the in-solve integrity check (``--integrity``)
+  tripped on the frame; the CLI re-solves it once and writes a frame that
+  trips again as FAILED;
+- ``-5`` DEADLINE_EXCEEDED, which only a serving engine writes.
 
 Exit codes of the CLI: 0 every frame converged or at the cap; 1 an input
 or flag error; 2 (``EXIT_PARTIAL``) the run completed with DIVERGED or
 FAILED frames; 3 (``EXIT_INFRASTRUCTURE``) the run aborted on an
 unrecoverable infrastructure failure (the RTM ingest's retries exhausted, a
-solution-file flush failed); 4 (``EXIT_INTERRUPTED``) is kept for the
-graceful stop, which is not ported yet.
+solution-file flush failed, the hang watchdog aborted, the integrity layer
+quarantined the run); 4 (``EXIT_INTERRUPTED``) a SIGTERM or SIGINT stopped
+the run at a frame-group boundary, the file resumable.
 
 What per-frame isolation may absorb into a FAILED row is
 :data:`RECOVERABLE_FRAME_ERRORS`: I/O errors, injected faults, exhausted
-retries and a device out-of-memory (``torch.cuda.OutOfMemoryError``, the
+retries, a hung frame the watchdog interrupted (:class:`WatchdogTimeout`)
+and a device out-of-memory (``torch.cuda.OutOfMemoryError``, the
 counterpart of the JAX package's ``JaxRuntimeError``) — and nothing wider.
 A CUDA extension that fails to build or load, a kernel plan the extension
 refuses, a sticky CUDA error or an internal bug fails the run.
@@ -52,6 +56,27 @@ class OutputWriteError(RuntimeError):
     maps it to EXIT_INFRASTRUCTURE and not to the input-error exit."""
 
 
+class WatchdogTimeout(RuntimeError):
+    """Raised into a stuck thread by the hang watchdog
+    (``resilience/watchdog.py``) once the progress beacons stalled past
+    ``SART_WATCHDOG_TIMEOUT``. Defined here so the taxonomy owns every
+    member of RECOVERABLE_FRAME_ERRORS: an interrupted staging or dispatch
+    becomes a FAILED row, as the injected faults it stands in for do."""
+
+
+class IntegrityError(RuntimeError):
+    """A frame's silent-data-corruption detection survived its recompute;
+    the frame becomes a FAILED row with this as its recorded error
+    (``resilience/integrity.py``)."""
+
+
+class PersistentCorruptionError(RuntimeError):
+    """Corruption a recompute cannot clear: the resident matrix (or its
+    staging) is wrong, so every further solve is poisoned. The CLI exits
+    EXIT_INFRASTRUCTURE (the file stays resumable) after a quarantine
+    event."""
+
+
 class FrameFailure(NamedTuple):
     """A frame the prefetcher could not deliver (its read's retries were
     exhausted). Shaped like the ``(frame, time, camera_times)`` stream
@@ -77,6 +102,7 @@ def __getattr__(name: str):
             OSError,  # includes InjectedIOError and real I/O errors
             InjectedFault,  # includes InjectedOOM
             RetriesExhausted,
+            WatchdogTimeout,  # a hung frame interrupted by the watchdog
             torch.cuda.OutOfMemoryError,  # a device OOM the ladder did not absorb
         )
         globals()[name] = value
@@ -103,9 +129,15 @@ class RunSummary:
         self.counts = {SUCCESS: 0, MAX_ITERATIONS_EXCEEDED: 0,
                        DIVERGED: 0, FRAME_FAILED: 0, SDC_DETECTED: 0}
         self.failed_times: List[float] = []
-        # availability events (OOM degradations): one-liners appended by
-        # their owners and echoed verbatim in format()
+        # availability events (OOM degradations, watchdog fires, stop
+        # requests, quarantines): one-liners appended by their owners (the
+        # watchdog's monitor thread too: a list append is atomic) and echoed
+        # verbatim in format()
         self.events: List[str] = []
+        # in-solve SDC detections (--integrity), before their recompute,
+        # and the frames re-solved for them
+        self.sdc_detected = 0
+        self.sdc_recomputed = 0
 
     def record_status(self, status: int, time: Optional[float] = None) -> None:
         status = int(status)
@@ -116,6 +148,10 @@ class RunSummary:
 
     def record_event(self, event: str) -> None:
         self.events.append(str(event))
+
+    def record_sdc(self, detected: int = 0, recomputed: int = 0) -> None:
+        self.sdc_detected += int(detected)
+        self.sdc_recomputed += int(recomputed)
 
     @property
     def n_frames(self) -> int:
@@ -154,6 +190,9 @@ class RunSummary:
                     f"  retries at {site}: {v['attempts']} attempt(s), "
                     f"{v['recoveries']} recovered, {v['exhausted']} exhausted"
                 )
+        if self.sdc_detected:
+            lines.append(f"  integrity: {self.sdc_detected} SDC detection(s), "
+                         f"{self.sdc_recomputed} frame(s) re-solved")
         for event in self.events:
             lines.append(f"  {event}")
         return "\n".join(lines)

@@ -28,21 +28,29 @@ Kinds:
 - ``nan``: a data site (:func:`corrupt`) gets its array NaN-poisoned;
   raising sites ignore it.
 - ``corrupt``: a data site gets element 0 scaled by 256 and offset by 1
-  (dtype kept): a finite bit flip no NaN check sees.
+  (dtype kept): a finite change no NaN check sees. ``device.buffer``
+  probes :func:`take_corrupt` and perturbs the resident matrix itself
+  (``parallel/sharded.py``: an exponent bit of a float element flipped,
+  an int8 code reflected); only the integrity layer (``--integrity``)
+  detects it.
 - ``oom``: :class:`InjectedOOM`, whose message carries the allocator's
   "out of memory" and XLA's ``RESOURCE_EXHAUSTED``: the OOM ladder
   (``resilience/degrade.py:is_resource_exhausted``) takes it for a device
   out-of-memory and halves as it does for ``torch.cuda.OutOfMemoryError``.
-- ``hang``: the site sleeps until ``SART_HANG_RELEASE`` seconds (default
-  300) pass, then raises :class:`InjectedFault`. The hang watchdog that
-  would interrupt it sooner is not ported yet.
+- ``hang``: the site sleeps in short steps until the hang watchdog
+  (``resilience/watchdog.py``) interrupts it with an asynchronous
+  ``WatchdogTimeout``, or until ``SART_HANG_RELEASE`` seconds (default 300)
+  pass; it then raises :class:`InjectedFault`, so a drill without a
+  watchdog fails instead of hanging.
 
 Sites (``FAULT_SITES``): ``hdf5.frame_read`` (``io/image.py``, the
 composite frame cache fill), ``hdf5.rtm_ingest`` (``parallel/multihost.py``,
 one RTM row chunk), ``prefetch.next`` (``utils/prefetch.py``, one frame of
 the worker), ``device.put`` (``parallel/sharded.py``, a frame group's
-staging), ``solve.dispatch`` (``parallel/sharded.py``, a solve's entry) and
-``io.flush`` (``io/solution.py``, a flush of the solution file).
+staging), ``solve.dispatch`` (``parallel/sharded.py``, a solve's entry),
+``device.buffer`` (``parallel/sharded.py``, the resident matrix, probed at
+each solve's entry) and ``io.flush`` (``io/solution.py``, a flush of the
+solution file).
 """
 
 from __future__ import annotations
@@ -70,10 +78,11 @@ SITE_PREFETCH = "prefetch.next"      # utils/prefetch.py: worker loop
 SITE_DEVICE_PUT = "device.put"       # parallel/sharded.py: frame staging
 SITE_SOLVE = "solve.dispatch"        # parallel/sharded.py: solve entry
 SITE_FLUSH = "io.flush"              # io/solution.py: output flush
+SITE_DEVICE_BUFFER = "device.buffer"  # parallel/sharded.py: resident RTM rot
 
 FAULT_SITES = frozenset({
     SITE_FRAME_READ, SITE_RTM_INGEST, SITE_PREFETCH, SITE_DEVICE_PUT,
-    SITE_SOLVE, SITE_FLUSH,
+    SITE_SOLVE, SITE_FLUSH, SITE_DEVICE_BUFFER,
 })
 
 FAULT_KINDS = ("io", "error", "nan", "hang", "oom", "corrupt")
@@ -204,9 +213,10 @@ class injected:
 
 
 def _hang(site: str, trip: int) -> None:
-    """Block in short sleeps until ``SART_HANG_RELEASE`` seconds pass, then
-    raise: the valve keeps a drill without a watchdog from hanging for
-    good."""
+    """Block in short sleeps, so the watchdog's asynchronous
+    ``WatchdogTimeout`` (delivered between bytecodes, each time a sleep
+    returns) interrupts it promptly; after ``SART_HANG_RELEASE`` seconds
+    raise, so a drill whose watchdog is off fails instead of hanging."""
     release = float(os.environ.get("SART_HANG_RELEASE", "300"))
     deadline = time.monotonic() + release
     while time.monotonic() < deadline:
@@ -249,6 +259,16 @@ def corrupt(site: str, array: np.ndarray) -> np.ndarray:
     flat = perturbed.reshape(-1)
     flat[0] = flat[0] * 256 + 1
     return perturbed
+
+
+def take_corrupt(site: str) -> bool:
+    """True where a ``corrupt`` fault trips at ``site``: for sites whose
+    data lies on the device and that perturb it themselves (the resident
+    matrix, ``device.buffer``)."""
+    fault = _active().get(site)
+    if fault is None or fault.kind != "corrupt":
+        return False
+    return fault.should_trip()
 
 
 def fault_trips() -> Dict[str, int]:

@@ -32,6 +32,18 @@ Contracts kept from the grouped loop:
   caller in frame order (``SchedRunStats.leftover``, FrameFailure items
   included), for the grouped loop's halving ladder: the lane count cannot
   halve itself.
+- **SDC** (``integrity_policy``, ``--integrity``): a lane that retires
+  SDC_DETECTED is re-queued once onto a fresh lane, ahead of new frames;
+  a second trip is a FAILED row in the same ordered stream
+  (``resilience/integrity.py:SdcEscalation`` may then quarantine).
+- **Stop** (``stop_check``, the CLI's SIGTERM flag): polled at each stride
+  boundary; once it answers True no new frame enters, the lanes in flight
+  drain, and ``SchedRunStats.interrupted`` is set — unless the stream was
+  already exhausted, when the drain completes the run.
+
+While :meth:`ContinuousBatcher.run` drives, the lanes' occupancy and
+in-flight frame serials feed the heartbeat line and the SIGUSR1 status
+snapshot (``watchdog.set_sched_status_provider``).
 
 Telemetry, the JAX scheduler's six instruments, updated once per stride
 from the values the stride already read back: ``sched_lane_occupancy``
@@ -52,9 +64,14 @@ import numpy as np
 import torch
 
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
-from sartsolver_tpu_torch.resilience import failures
+from sartsolver_tpu_torch.resilience import failures, watchdog
 from sartsolver_tpu_torch.resilience.degrade import dispatch_guarded, is_resource_exhausted
-from sartsolver_tpu_torch.resilience.failures import FrameFailure
+from sartsolver_tpu_torch.resilience.failures import (
+    SDC_DETECTED,
+    FrameFailure,
+    IntegrityError,
+)
+from sartsolver_tpu_torch.resilience.integrity import SDC_REPRODUCED
 
 
 @dataclass
@@ -67,6 +84,7 @@ class SchedRunStats:
     loop_steps: int = 0  # solver iterations the device executed
     useful_iters: int = 0  # per-frame iterations summed over retirees
     backfilled: int = 0  # lane loads (the initial fill included)
+    interrupted: bool = False  # a stop request truncated the stream
     # un-emitted frames, in frame order, after a device OOM: the caller
     # re-solves them on the grouped loop at a halved group size; None on
     # every other path
@@ -82,14 +100,15 @@ class SchedRunStats:
 class _Slot:
     """One occupied lane's host-side bookkeeping."""
 
-    __slots__ = ("seq", "frame", "ftime", "cam_times", "it_prev")
+    __slots__ = ("seq", "frame", "ftime", "cam_times", "it_prev", "sdc_retries")
 
     def __init__(self, seq, frame, ftime, cam_times):
         self.seq = seq
-        self.frame = frame  # kept for an OOM requeue (one [P] fp64 row)
+        self.frame = frame  # kept for an OOM requeue or an SDC recompute
         self.ftime = ftime
         self.cam_times = cam_times
         self.it_prev = 0
+        self.sdc_retries = 0  # re-queues after an integrity trip
 
 
 class ContinuousBatcher:
@@ -106,14 +125,19 @@ class ContinuousBatcher:
     frames instead of raising (the CLI's per-frame isolation).
     ``on_event`` receives one line per notable event (the OOM hand-back).
     ``on_stride`` (optional) is called just before each stride's dispatch:
-    the CLI's ``--profile_dir`` steps the profiler there.
+    the CLI's ``--profile_dir`` steps the profiler there. ``stop_check``
+    (optional) is polled at each stride boundary; ``integrity_policy`` (an
+    :class:`~sartsolver_tpu_torch.resilience.integrity.SdcEscalation`)
+    turns the SDC retry on.
     """
 
     def __init__(self, solver, *, lanes: int, on_result: Callable,
                  on_failed: Optional[Callable] = None, isolate: bool = False,
                  on_event: Optional[Callable[[str], None]] = None,
                  on_stride: Optional[Callable[[], None]] = None,
-                 refill_quantum: Optional[int] = None):
+                 refill_quantum: Optional[int] = None,
+                 stop_check: Optional[Callable[[], bool]] = None,
+                 integrity_policy=None):
         if lanes < 1:
             raise ValueError("Lane count must be positive.")
         self._solver = solver
@@ -129,6 +153,9 @@ class ContinuousBatcher:
         self._isolate = isolate
         self._on_event = on_event
         self._on_stride = on_stride
+        self._stop_check = stop_check
+        self._integrity = integrity_policy
+        self._occupied = self._stats = None  # the live view's sources
         registry = obs_metrics.get_registry()
         self._occ_gauge = registry.gauge("sched_lane_occupancy")
         self._occ_hist = registry.histogram("sched_stride_occupancy")
@@ -154,10 +181,32 @@ class ContinuousBatcher:
             else:
                 self._on_result(*payload)
 
+    def _live_status(self) -> Optional[dict]:
+        """Occupancy and in-flight lane serials for the heartbeat and the
+        SIGUSR1 snapshot: the run's own bookkeeping, read lock-free (it
+        runs in signal context), a racing insert degrading to no lane
+        list."""
+        from sartsolver_tpu_torch.utils.locking import stale_read
+
+        occupied, stats = self._occupied, self._stats
+        if occupied is None or stats is None:
+            return None
+        lanes = stale_read(lambda: sorted(slot.seq for slot in occupied.values()))
+        return {"occupancy": round(stats.occupancy, 3), "lanes": lanes,
+                "strides": stats.strides, "frames_emitted": stats.frames}
+
     def run(self, items) -> SchedRunStats:
         """Consume the ``(frame, time, camera_times) | FrameFailure`` stream
-        until it is drained. ``stats.leftover`` is not None exactly when a device OOM
-        handed the run back to the grouped loop."""
+        until it is drained, or a stop request truncates it.
+        ``stats.leftover`` is not None exactly when a device OOM handed the
+        run back to the grouped loop."""
+        watchdog.set_sched_status_provider(self._live_status)
+        try:
+            return self._run(items)
+        finally:
+            watchdog.set_sched_status_provider(None)
+
+    def _run(self, items) -> SchedRunStats:
         solver = self._solver
         B = self._lanes
         stats = self._stats = SchedRunStats()
@@ -167,19 +216,27 @@ class ContinuousBatcher:
         exhausted = False
         lane_state = solver.sched_lanes(B)
         free = deque(range(B))
-        occupied = {}  # lane index -> _Slot
+        occupied = self._occupied = {}  # lane index -> _Slot
+        sdc_retry = deque()  # slots awaiting their SDC recompute
         seq = 0
         t_last = time.perf_counter()
 
         def intake():
-            """Fill free lanes from the stream; below the refill quantum
-            (with work in flight) the free lanes ride empty one more
-            stride."""
+            """Fill free lanes: SDC recomputes first (their serial holds
+            up the ordered emission), then the stream; below the refill
+            quantum (with work in flight) the free lanes ride empty one
+            more stride."""
             nonlocal exhausted, seq
             refills = []
+            while sdc_retry and free:
+                slot = sdc_retry.popleft()
+                slot.it_prev = 0
+                lane = free.popleft()
+                occupied[lane] = slot
+                refills.append((lane, slot.frame))
             if occupied and len(free) < self._refill_quantum:
                 return refills
-            while free and not exhausted:
+            while free and not exhausted and not stats.interrupted:
                 try:
                     item = next(it)
                 except StopIteration:
@@ -198,6 +255,12 @@ class ContinuousBatcher:
             return refills
 
         while True:
+            if (self._stop_check is not None and not stats.interrupted
+                    and not exhausted and self._stop_check()):
+                # a stride-boundary stop: nothing new enters, the lanes in
+                # flight drain; once the stream is exhausted a stop cuts
+                # nothing, and the run completes
+                stats.interrupted = True
             refills = intake()
             if not occupied:
                 self._emit_ready()  # trailing FAILED rows
@@ -261,6 +324,21 @@ class ContinuousBatcher:
             self._retired_ctr.inc(len(retired))
             for lane in retired:
                 slot = occupied.pop(lane)
+                if self._integrity is not None and int(status[lane]) == SDC_DETECTED:
+                    # an integrity trip: re-solve once on a fresh lane; a
+                    # repeat is a FAILED row (the policy may quarantine)
+                    free.append(lane)
+                    self._integrity.detected()
+                    if slot.sdc_retries == 0:
+                        slot.sdc_retries = 1
+                        self._integrity.note_recompute()
+                        sdc_retry.append(slot)
+                        continue
+                    self._integrity.record_terminal(slot.ftime)
+                    self._emit_buf[slot.seq] = (
+                        "failed", (slot.ftime, slot.cam_times,
+                                   IntegrityError(SDC_REPRODUCED)), None)
+                    continue
                 self._emit_buf[slot.seq] = (
                     "result",
                     (slot.ftime, slot.cam_times, int(status[lane]), int(iters[lane]),

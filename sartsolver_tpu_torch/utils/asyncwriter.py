@@ -61,11 +61,24 @@ class AsyncSolutionWriter:
         self._error: Optional[BaseException] = None
         self._closed = False
         self._thread = threading.Thread(target=self._worker, daemon=True)
+        # a device fetch or a flush that hangs here may be interrupted by
+        # the watchdog: the worker latches the WatchdogTimeout like any
+        # write error and keeps draining
+        from sartsolver_tpu_torch.resilience import watchdog
+
+        watchdog.register_interruptible(self._thread)
         self._thread.start()
 
     def _worker(self) -> None:
         while True:
-            item = self._queue.get()
+            try:
+                item = self._queue.get()
+            except BaseException as err:
+                # interrupted while idle in get(): dying would strand the
+                # queue (close() could never hand over its sentinel)
+                if self._error is None:
+                    self._error = err
+                continue
             if item is None:
                 return
             if self._error is not None:

@@ -17,6 +17,11 @@ retries are exhausted:
   frame's place (its times come from the alignment tables, no I/O) and the
   stream goes on, so one dead frame costs one FAILED row.
 
+Each read is a hang-watchdog ``prefetch`` beacon, and the worker is
+registered as interruptible: a read that hangs is interrupted with
+``WatchdogTimeout`` at the watchdog's second stage, and with
+``isolate_failures`` becomes a FrameFailure like an exhausted read.
+
 Telemetry: ``prefetch_queue_depth`` (the queue's high-water mark),
 ``frames_prefetched_total`` and ``bytes_ingested_total{source="frames"}``;
 each read is a ``prefetch.read`` trace span.
@@ -31,8 +36,8 @@ from typing import Iterator, Optional
 from sartsolver_tpu_torch.io.image import CompositeImage
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
 from sartsolver_tpu_torch.obs import trace as obs_trace
-from sartsolver_tpu_torch.resilience import faults
-from sartsolver_tpu_torch.resilience.failures import FrameFailure
+from sartsolver_tpu_torch.resilience import faults, watchdog
+from sartsolver_tpu_torch.resilience.failures import FrameFailure, WatchdogTimeout
 from sartsolver_tpu_torch.resilience.retry import RetriesExhausted, RetryPolicy, retry_call
 
 
@@ -61,6 +66,8 @@ class FramePrefetcher:
         self._error: Optional[BaseException] = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
+        # registered before it starts: no beacon of it outruns the entry
+        watchdog.register_interruptible(self._thread)
         self._thread.start()
 
     def _put(self, item) -> bool:
@@ -91,12 +98,15 @@ class FramePrefetcher:
             for i in range(len(self._composite)):
                 if self._stop.is_set():
                     return
+                watchdog.beacon(watchdog.PHASE_PREFETCH)
                 try:
                     with obs_trace.span("prefetch.read", frame=i):
                         item = self._read_frame(i)
                     self._frames_counter.inc()
                     self._bytes_counter.inc(item[0].nbytes)
-                except RetriesExhausted as err:
+                except (RetriesExhausted, WatchdogTimeout) as err:
+                    # unreadable, or a read that hung and was interrupted:
+                    # the frame's times are host memory, so a FAILED row
                     if not self._isolate:
                         raise
                     item = FrameFailure(None, self._composite.frame_time(i),
@@ -118,6 +128,7 @@ class FramePrefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=5)
+        watchdog.unregister_interruptible(self._thread)
 
     def __enter__(self) -> "FramePrefetcher":
         return self

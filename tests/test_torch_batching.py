@@ -117,6 +117,33 @@ def test_solve_chain_normalized_matches_jax(logarithmic, with_lap, profile):
 
 
 @pytest.mark.parametrize("profile", ["fp64", "fp32"])
+def test_host_seeds_f0_match_the_jax_solver(profile):
+    """``f0=`` (a resumed run's warm start, host rows in physical units) on
+    ``solve_batch`` and ``solve_chain``: against the JAX solver's at the
+    bars; ``warm=`` and ``f0=`` together raise the JAX ``ValueError``."""
+    H, G = _case(4, seed=5)
+    opts = _options(profile, False, True)
+    tdt = tsart.torch_dtype(opts.dtype)
+    tlap = make_laplacian(*_lap_triplets(), nvoxel=V, dtype=tdt)
+    jlap = jax_make_laplacian(*_lap_triplets(), dtype=opts.dtype)
+    seeds = np.random.default_rng(6).uniform(0.5, 2.0, (2, V)) * 3.0
+    with JaxSolver(H, jlap, opts=_jax_opts(opts), mesh=make_mesh(1, 1)) as jsolver:
+        jb = jsolver.solve_batch(G[:2], seeds, device_result=True)
+        jc = jsolver.solve_chain(G[2:], f0=seeds[1])
+        with pytest.raises(ValueError, match="not both"):
+            jsolver.solve_chain(G[2:], f0=seeds[1], warm=jc)
+    with DistributedSARTSolver(H, tlap, opts=opts, device="cpu") as solver:
+        tb = solver.solve_batch(G[:2], f0=seeds)
+        tc = solver.solve_chain(G[2:], f0=seeds[1])
+        with pytest.raises(ValueError, match="not both"):
+            solver.solve_chain(G[2:], f0=seeds[1], warm=tc)
+    for got, want in ((tb, jb), (tc, jc)):
+        np.testing.assert_array_equal(got.status, want.status)
+        np.testing.assert_array_equal(got.iterations, want.iterations)
+        _assert_close(got.fetch_solutions(), want.fetch_solutions(), profile)
+
+
+@pytest.mark.parametrize("profile", ["fp64", "fp32"])
 def test_solver_solve_chain_matches_jax_and_serial(profile):
     """``DistributedSARTSolver.solve_chain`` over two chains joined by the
     device warm carry: against the JAX solver's at the bars, and inside the

@@ -99,10 +99,21 @@ def test_h5py_reads_what_it_writes(tmp_path):
 
 
 def test_read_write_appends_and_a_failed_block_leaves_the_file(tmp_path):
+    """``"r+"`` appends in place to an extendible (chunked) dataset; a block
+    that raises before the file closes leaves the file as it was; what the
+    in-place writer does not do (resize a contiguous dataset, add an
+    attribute) raises naming the operation."""
     path = str(tmp_path / "sol.h5")
     with h5.File(path, "w") as f:
-        f.create_group("solution").create_dataset("time", data=np.arange(2.0))
+        grp = f.create_group("solution")
+        grp.create_dataset("time", data=np.arange(2.0), maxshape=(None,), chunks=(2,))
+        grp.create_dataset("fixed", data=np.arange(2.0))
+        grp.attrs["completed"] = 2
     with h5.File(path, "r+") as f:
+        with pytest.raises(h5.H5FormatError, match="in-place resize of contiguous"):
+            f["solution/fixed"].resize((4,))
+        with pytest.raises(h5.H5FormatError, match="attribute 'other'"):
+            f["solution"].attrs["other"] = 1
         d = f["solution/time"]
         d.resize((4,))
         d[2:] = [5.0, 6.0]
@@ -143,13 +154,15 @@ def test_refuses_what_it_cannot_read(tmp_path):
         f["dense"]
 
 
-@pytest.mark.parametrize("n_rows", [3, 64, 65, 4100])
+@pytest.mark.parametrize("n_rows", [3, 64, 65, 200, 4100])
 def test_chunked_datasets_extend_in_the_hdf5_library(tmp_path, n_rows):
     """The layout h5py's default format writes for an extendible dataset:
     chunked with unlimited rows and the fill value; the HDF5 library resizes
     it and appends into the port's chunk index (one node up to 64 chunks, a
     tree above: 4100 chunks take two levels), and the port reads the result,
-    unwritten chunks as the fill value."""
+    unwritten chunks as the fill value. Then the port appends in place, in
+    flushes of several sizes (its leaves split and the root grows a level
+    past 64 chunks), and the library reads and extends that file again."""
     path = str(tmp_path / "grow.h5")
     value = np.arange(n_rows * 4, dtype=np.float64).reshape(n_rows, 4)
     with h5.File(path, "w") as f:
@@ -170,13 +183,36 @@ def test_chunked_datasets_extend_in_the_hdf5_library(tmp_path, n_rows):
         np.testing.assert_array_equal(f["it"][:], np.r_[np.arange(n_rows), 100 + np.arange(5),
                                                          [-1] * 4])
         assert f["it"].chunks == (7,) and f["it"].maxshape == (None,)
-    with h5.File(path, "r+") as f:  # the port keeps the layout through a rewrite
+    with h5.File(path, "r+") as f:  # the port keeps the layout, in place
         f["it"].resize((n_rows + 12,))
         with pytest.raises(ValueError, match="maxshape"):
             f["value"].resize((n_rows, 5))
     with h5py.File(path, "r") as f:
         assert f["it"].chunks == (7,) and f["it"][-1] == -1
         assert f["value"].maxshape == (None, 4)
+    rng = np.random.default_rng(n_rows)
+    value = np.concatenate([value, -np.arange(280.0).reshape(70, 4)])
+    it = np.r_[np.arange(n_rows), 100 + np.arange(5), [-1] * 7]
+    for step in (1, 5, 63, 66, 130):
+        rows, its = rng.random((step, 4)), rng.integers(0, 9, step).astype(np.int32)
+        with h5.File(path, "r+") as f:
+            for name, new in (("value", rows), ("it", its)):
+                d = f[name]
+                n = d.shape[0]
+                d.resize((n + step,) + d.shape[1:])
+                d[n:] = new
+        value, it = np.concatenate([value, rows]), np.r_[it, its]
+        with h5py.File(path, "r+") as f:
+            np.testing.assert_array_equal(f["value"][:], value)
+            np.testing.assert_array_equal(f["it"][:], it)
+            f["value"].resize((len(value) + 3, 4))
+            f["value"][-3:] = 7.0
+            f["it"].resize((len(it) + 3,))
+            f["it"][-3:] = 7
+        value, it = np.concatenate([value, np.full((3, 4), 7.0)]), np.r_[it, [7] * 3]
+        with h5.File(path) as f:
+            np.testing.assert_array_equal(f["value"][:], value)
+            np.testing.assert_array_equal(f["it"][:], it)
 
 
 def test_jax_writer_resumes_a_port_solution_file(tmp_path):

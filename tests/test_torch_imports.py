@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,12 +54,38 @@ def test_io_pipeline_modules_import_no_jax():
              "for name in sys.argv[1:]:\n"
              "    importlib.import_module(name)\n"
              "from sartsolver_tpu_torch.resilience import failures\n"
-             "assert len(failures.RECOVERABLE_FRAME_ERRORS) == 4\n"
+             "assert len(failures.RECOVERABLE_FRAME_ERRORS) == 5\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'sartsolver_tpu')))")
     out = subprocess.run([sys.executable, "-c", probe, *_PIPELINE_MODULES], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+# the resilience of a run (the graceful stop, the hang watchdog, the
+# integrity layer, the flight recorder), each imported alone in a fresh
+# process: none loads JAX or the JAX package, and the stop, the watchdog and
+# the flight recorder load neither torch nor numpy (a status poke and a
+# crash bundle need neither)
+_RESILIENCE_MODULES = (
+    "sartsolver_tpu_torch.resilience.shutdown", "sartsolver_tpu_torch.resilience.watchdog",
+    "sartsolver_tpu_torch.obs.flight", "sartsolver_tpu_torch.resilience.integrity",
+)
+
+
+@pytest.mark.parametrize("name", _RESILIENCE_MODULES)
+def test_resilience_modules_import_no_jax(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "importlib.import_module(sys.argv[1])\n"
+             "print(sorted({m.split('.')[0] for m in sys.modules} & "
+             "{'jax', 'jaxlib', 'sartsolver_tpu', 'torch', 'numpy'}))")
+    out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = eval(out.stdout.strip())
+    assert not set(loaded) & {"jax", "jaxlib", "sartsolver_tpu"}, loaded
+    if not name.endswith("integrity"):  # the integrity layer's sums are numpy
+        assert loaded == [], loaded
 
 
 _OBS_PROBE = """
@@ -83,7 +110,7 @@ def test_obs_imports_only_the_standard_library():
     out = subprocess.run([sys.executable, "-c", _OBS_PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     count, heavy = out.stdout.strip().split(" ", 1)
-    assert int(count) == 7, out.stdout
+    assert int(count) == 8, out.stdout  # obs/flight.py among them
     assert heavy == "[]", heavy
 
 
@@ -239,3 +266,39 @@ def test_chip_smoke_ingest_phase_at_small_size(tmp_path):
     drill = rec["fault_drill"]
     assert drill["rtm_ingest"]["recovered"] and drill["solve_dispatch"]["failed_rows"] == 1
     assert drill["solve_dispatch"]["status"][0] == -3
+
+
+def test_chip_smoke_resilience_phase_at_small_size(tmp_path):
+    """chip_smoke.py's resilience phase on the CPU at a small size: the
+    resumes of every storage and loop against the uninterrupted runs, the
+    --integrity runs' bytes, the SIGKILL and SIGTERM drills (subprocesses),
+    the watchdog's FAILED row and crash bundle, the quarantine under both
+    packages' corruption recipes, the ingest's sums in both places, the
+    loop's overhead in turns and the flush timing."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=12)
+    rec = cs.resilience_phase(world, str(tmp_path), device="cpu",
+                              flush_kw=dict(rows=10, flush_at=(10, 40, 160),
+                                            voxel_map_at=(8, 32, 160)), turns=1)
+    for storage in cs.STORAGES:
+        assert rec[storage]["chain"]["processed_in_resume"] == 4
+        assert rec[storage]["scheduler"]["processed_in_resume"] == 6
+        for loop in ("chain", "scheduler"):
+            assert rec[storage][loop]["integrity"]["byte_equal"]
+    assert rec["sigterm"]["exit"] == 4 and rec["sigterm"]["rows_at_stop"] < 8
+    assert rec["watchdog"]["isolated"]["status"][0] == -3
+    assert rec["corrupt"]["solver_api"]["status"] == -4
+    jax_recipe = rec["corrupt_jax_recipe"]
+    assert jax_recipe["cli_exit"] == 3 and jax_recipe["solver_api"]["reaudit"]
+    assert jax_recipe["smallest_change_seen_any_element"] > 0
+    assert set(rec["ingest"]["read_and_shard_rtm_seconds"]) == {
+        "off", "sums_device", "sums_host", "double_read_sums_device"}
+    turns = rec["integrity_ms_per_frame_in_turns"]
+    assert all(len(turns[loop]["ms_per_frame"][k]) == 1 for loop in ("scheduler", "chain")
+               for k in ("off", "on"))
+    assert set(rec["flush"]["flush_ms_at_rows"]) == {"0", "10", "40", "160"}
+

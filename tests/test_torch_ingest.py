@@ -364,11 +364,23 @@ def test_ingest_hooks_and_refusals(world):
     P, V = H.shape
     with pytest.raises(ValueError, match="read_and_quantize_rtm"):
         mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="int8")
-    for kw in ({"ingest_stats": object()}, {"tile_stats": object()}):
-        with pytest.raises(NotImplementedError):
-            mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="float32", **kw)
-        with pytest.raises(NotImplementedError):
-            mh.read_and_quantize_rtm(files, NAME, P, V, "cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="float32", tile_stats=object())
+    with pytest.raises(NotImplementedError):
+        mh.read_and_quantize_rtm(files, NAME, P, V, "cpu", tile_stats=object())
+    # ingest_stats= is the integrity layer's hook (tests/test_torch_integrity.py
+    # holds it against the JAX package): the sums of the values stored
+    from sartsolver_tpu_torch.resilience.integrity import IngestStats
+
+    stats = IngestStats(P, V)
+    mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="float32", ingest_stats=stats)
+    np.testing.assert_allclose(stats.finish().colsum,
+                               H.astype(np.float32).astype(np.float64).sum(axis=0))
+    stats = IngestStats(P, V)
+    codes, scale = mh.read_and_quantize_rtm(files, NAME, P, V, "cpu", ingest_stats=stats)
+    dequantized = codes.numpy().astype(np.float64) * scale.numpy().astype(np.float64)
+    np.testing.assert_allclose(stats.finish().rowsum, dequantized.sum(axis=1))
+    np.testing.assert_allclose(stats.rowabs, np.abs(dequantized).sum(axis=1))
 
 
 def test_rtm_bytes_counter(world):

@@ -262,7 +262,14 @@ def test_sweep_fn_parameter_reaches_the_loop():
 ])
 def test_options_not_ported_raise(field, value):
     """Options still to port raise naming the option; so does an RTM
-    storage dtype that neither package has."""
+    storage dtype that neither package has. ``integrity`` is ported now: it
+    is accepted, as the JAX package accepts it, and beside an option still
+    to port that option's refusal holds."""
+    if field == "integrity":
+        assert SolverOptions(integrity=value).integrity is JaxOptions(integrity=value).integrity
+        with pytest.raises(ValueError, match="sparse_rtm"):
+            SolverOptions(integrity=value, sparse_rtm="auto")
+        return
     with pytest.raises(ValueError, match=field):
         SolverOptions(**{field: value})
 
