@@ -160,6 +160,29 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    flush timed alone (:func:`flush_timing`): appends of ``FLUSH_ROWS`` rows
    at V = 65,536 after ``FLUSH_AT`` rows, and ``write voxel map`` after
    ``VOXEL_MAP_AT`` rows.
+   The phase ends with the in-solve checkpoints (:func:`solve_ckpt_drill`,
+   fp32 ``--no_guess --batch_frames 8`` over the 32 frames): SIGKILL inside
+   the held-open append of serial 2 (a subprocess), ``--resume`` from
+   serial 1 to the uninterrupted run's bytes; ms per frame at
+   ``--solve_ckpt_stride`` 1, 4 and 16 against off in turns (each run the
+   same bytes) and the bytes a record takes.
+4b5. ``sparse``: the block-sparse RTM (:func:`sparse_phase`) on a copy
+   of the world whose grid's top and bottom 64 rows no camera sees (voxels
+   [0, 16384) and [49152, 65536): 256 of the 512 tile columns empty, the
+   2% floor kept on the rest). Per storage the ingest and the solver's
+   construction dense and with the tile index (the sparse peak device
+   bytes no higher than the dense one's; the resident bytes), then linear
+   (8 frames) and log (4) at ``--sparse_rtm auto`` beside ``off``: equal
+   statuses, fitted distance within ``SPARSE_FIT_TOL``, every sparse
+   launch on ``plan_sweep(8192, 32768, 1, storage)``, one per iteration;
+   fp32 once at ``--sparse_rtm 0.05`` (the same columns held, the
+   thresholded operator's fit recorded), ``--no_guess --batch_frames 8``
+   (launches on the compacted B = 8 plan, equal to the loop steps) and
+   ``--os_subsets 4`` (no fused-sweep launch), each beside ``off``; ms per
+   frame sparse and dense. The compacted call (8192 x 32768, each storage
+   at B = 1, fp32 at B = 8) checked against its plain version through the
+   runs' plan and timed beside its bound, the plain version and the
+   library (two ``torch.matmul`` on the compacted fp32 matrix).
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -326,7 +349,6 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
     tests call it smaller."""
     V = nx * ny
     npix_cam = cam[0] * cam[1]
-    mask = np.ones(cam, np.int64)
     rng = np.random.default_rng(0)
     # banded response + diffuse reflection floor (reflections make the
     # matrix dense)
@@ -334,12 +356,22 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
     jj = np.arange(V, dtype=np.float32)[None, :] / V
     H = rng.random((2 * npix_cam, V), dtype=np.float32) * 0.9 + 0.1
     H *= np.exp(-((ii - jj) ** 2) * 200.0) + 0.02
+    f_true = rng.random(V, dtype=np.float32) * 1.5 + 0.5
+    return _write_world_files(outdir, H, f_true, nx, ny, cam, n_frames, rng)
 
+
+def _write_world_files(outdir, H, f_true, nx, ny, cam, n_frames, rng) -> dict:
+    """The world's files for ``H`` and ``f_true``: the RTM (camera A in two
+    voxel segments, the stitching path, camera B whole), ``n_frames``
+    frames of ``H @ (f_true * scale)`` with 1% noise from ``rng``, and the
+    chain Laplacian."""
+    P, V = H.shape
+    npix_cam = P // 2
+    mask = np.ones(cam, np.int64)
     cells = np.arange(V)
     half = V // 2
     paths = {k: os.path.join(outdir, f"{k}.h5") for k in (
         "rtm_a_seg1", "rtm_a_seg2", "rtm_b", "img_a", "img_b", "laplacian")}
-    # camera A in two voxel segments (the stitching path), camera B whole
     _write_rtm(paths["rtm_a_seg1"], "camA", mask, H[:npix_cam, :half], nx, ny,
                cells[:half], np.arange(half))
     _write_rtm(paths["rtm_a_seg2"], "camA", mask, H[:npix_cam, half:], nx, ny,
@@ -347,7 +379,6 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
     _write_rtm(paths["rtm_b"], "camB", mask, H[npix_cam:], nx, ny, cells, np.arange(V))
 
     times = np.arange(n_frames) * 0.1
-    f_true = rng.random(V, dtype=np.float32) * 1.5 + 0.5
     scales = 1.0 + 0.3 * np.sin(np.linspace(0, 2 * np.pi, n_frames))
     F = (f_true[:, None] * scales[None, :]).astype(np.float32)  # [V, T]
     G = H @ F
@@ -356,7 +387,21 @@ def write_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
     _write_image(paths["img_b"], "camB", G[npix_cam:].T.reshape(n_frames, *cam), times)
     _write_laplacian(paths["laplacian"], V)
     return {"paths": paths, "H": H, "f_true": f_true, "scales": scales,
-            "G": G, "times": times, "cam": cam}
+            "G": G, "times": times, "cam": cam, "grid": (nx, ny)}
+
+
+def write_dark_world(world, outdir: str, dark_rows: int) -> dict:
+    """The world with the grid's first and last ``dark_rows`` rows seen by
+    no camera: their voxels' columns zero in every file (the voxels outside
+    the vessel that a rectangular grid carries), the 2% reflection floor
+    kept on the rest; the frames made anew (1% noise, seed 1)."""
+    nx, ny = world["grid"]
+    H = world["H"].copy()
+    H[:, :dark_rows * ny] = 0.0
+    H[:, (nx - dark_rows) * ny:] = 0.0
+    os.makedirs(outdir, exist_ok=True)
+    return _write_world_files(outdir, H, world["f_true"], nx, ny, world["cam"],
+                              world["G"].shape[1], np.random.default_rng(1))
 
 
 def run_cli(argv, device: str = "cuda"):
@@ -372,9 +417,11 @@ def run_cli(argv, device: str = "cuda"):
     return rc, ms, text
 
 
-def check_solution(path, world, n_frames: int, cap: int, device, skip=()):
+def check_solution(path, world, n_frames: int, cap: int, device, skip=(),
+                   fit_bound: Optional[float] = FIT_BOUND):
     """Schema, statuses and fitted-space errors of one solution file; the
-    frames in ``skip`` are left to the caller (their errors come back 0)."""
+    frames in ``skip`` are left to the caller (their errors come back 0).
+    ``fit_bound`` None: the errors are returned, not held to a bound."""
     from sartsolver_tpu_torch.io import h5
     import torch
 
@@ -398,8 +445,8 @@ def check_solution(path, world, n_frames: int, cap: int, device, skip=()):
     ref = H @ truth
     err = ((fit - ref).norm(dim=0) / ref.norm(dim=0)).cpu().numpy()
     err[list(skip)] = 0.0
-    if not (err <= FIT_BOUND).all():
-        raise AssertionError(f"fitted-space errors {err} above {FIT_BOUND}")
+    if fit_bound is not None and not (err <= fit_bound).all():
+        raise AssertionError(f"fitted-space errors {err} above {fit_bound}")
     return sol, err
 
 
@@ -913,7 +960,7 @@ FLUSH_ROWS = 100
 FLUSH_AT = (100, 400, 1600)
 VOXEL_MAP_AT = (8, 32, 1600)
 RESILIENCE_TIMEOUT = 300  # seconds, each subprocess of the drills
-INTEGRITY_TURNS = 5  # runs with --integrity on, and as many off, in turns
+INTEGRITY_TURNS = 3  # runs with --integrity on, and as many off, in turns
 REAUDIT_EVERY = 2  # SART_INTEGRITY_REAUDIT of the JAX recipe's CLI run
 
 
@@ -1459,6 +1506,100 @@ def resilience_phase(world, outdir: str, device: str = "cuda",
                               overhead_of_medians=med["on"] / med["off"] - 1)
     record["integrity_ms_per_frame_in_turns"] = in_turns
     record["flush"] = flush_timing(outdir, world, **(flush_kw or {}))
+    record["solve_ckpt"] = solve_ckpt_drill(
+        world, outdir, device, os.path.join(outdir, "res_float32_scheduler_ref.h5"))
+    return record
+
+
+CKPT_STRIDES = (1, 4, 16)  # the --solve_ckpt_stride values timed against off
+
+
+def solve_ckpt_drill(world, outdir: str, device: str, ref: str) -> dict:
+    """In-solve checkpoints on the fp32 scheduler (``--no_guess
+    --batch_frames 8`` over every frame, linear with the Laplacian), whose
+    uninterrupted run wrote ``ref``. In a subprocess with
+    ``--solve_ckpt_stride 1``, SIGKILL inside the held-open append of
+    serial 2 (``SART_TEST_SOLVE_CKPT_DELAY``); ``--resume`` restores serial
+    1 and ends with ``ref``'s bytes. Then ms per frame at each of
+    ``CKPT_STRIDES`` against off, in turns (off, 1, 4, 16, 16, 4, 1, off),
+    each run's file ``ref``'s bytes, and the bytes a record takes."""
+    import signal as _signal
+    import threading
+
+    from sartsolver_tpu_torch.resilience.podckpt import SolveCheckpointStore
+
+    p = world["paths"]
+    T = world["G"].shape[1]
+    argv = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "--rtm_dtype", "float32",
+            "--no_guess", "--batch_frames", str(FRAME_LANES)]
+    want = _read_rows(ref)
+
+    def same_bytes(path, what):
+        got = _read_rows(path)
+        if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"solve checkpoints, {what}: not the uninterrupted bytes")
+
+    out = os.path.join(outdir, "ckpt_killed.h5")
+    env = dict(os.environ, PYTHONPATH=REPO, SART_TEST_SOLVE_CKPT_DELAY="0.5")
+    cmd = [sys.executable, "-m", "sartsolver_tpu_torch.cli", "-o", out, *argv,
+           "--solve_ckpt_stride", "1", "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    timer = threading.Timer(RESILIENCE_TIMEOUT, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stderr:
+            if line.strip() == "SART_SOLVE_CKPT_POINT pre-append serial=2":
+                proc.send_signal(_signal.SIGKILL)
+                break
+        else:
+            raise AssertionError("solve checkpoints: the run ended before serial 2")
+        proc.stderr.read()
+    finally:
+        timer.cancel()
+        proc.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
+    serials = SolveCheckpointStore(out + ".solveckpt").serials()
+    if proc.returncode != -_signal.SIGKILL or serials != [1]:
+        raise AssertionError(f"solve checkpoints: exit {proc.returncode}, serials {serials}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, ms, _ = run_cli(["-o", out, *argv, "--solve_ckpt_stride", "1", "--resume"],
+                            device=device)
+    m = re.search(r"resumed from solve checkpoint serial (\d+)", err.getvalue())
+    if rc != 0 or not m or int(m[1]) != 1:
+        raise AssertionError(f"solve checkpoints resume: exit {rc}, {err.getvalue()[-500:]}")
+    same_bytes(out, "the resumed run")
+    record = dict(killed_at_serial=2, killed_after_s=killed_s, resumed_from_serial=int(m[1]),
+                  resumed_rows=len(ms), resumed_bytes_equal=True)
+
+    runs = {k: [] for k in ("off", *CKPT_STRIDES)}
+    bytes_per_record = {}
+    order = ("off", *CKPT_STRIDES)
+    for stride in order + order[::-1]:
+        out = os.path.join(outdir, f"ckpt_{stride}.h5")
+        side = out + ".solveckpt"
+        if os.path.exists(side):
+            os.remove(side)
+        flags = [] if stride == "off" else ["--solve_ckpt_stride", str(stride)]
+        t0 = time.perf_counter()
+        rc, ms, _ = run_cli(["-o", out, *argv, *flags], device=device)
+        wall = time.perf_counter() - t0
+        if rc != 0 or len(ms) != T:
+            raise AssertionError(f"solve checkpoints at {stride}: exit {rc}, {len(ms)} frames")
+        same_bytes(out, f"--solve_ckpt_stride {stride}")
+        runs[stride].append(dict(cli_ms_per_frame=statistics.mean(ms),
+                                 wall_ms_per_frame=wall * 1e3 / T))
+        if stride != "off" and os.path.exists(side):  # a short run may write none
+            n = len(SolveCheckpointStore(side).serials())
+            bytes_per_record[stride] = os.path.getsize(side) / max(n, 1)
+    wall = {str(k): statistics.mean(r["wall_ms_per_frame"] for r in v) for k, v in runs.items()}
+    record.update(ms_per_frame_in_turns={str(k): v for k, v in runs.items()},
+                  wall_ms_per_frame=wall,
+                  overhead_of_wall={k: v / wall["off"] - 1 for k, v in wall.items()},
+                  bytes_per_record={str(k): v for k, v in bytes_per_record.items()})
     return record
 
 
@@ -1971,6 +2112,272 @@ def ingest_phase(world, outdir: str, device: str = "cuda") -> dict:
 
 
 # ---- kernel checks and timing ---------------------------------------------
+
+# ---- the block-sparse RTM (--sparse_rtm) -----------------------------------
+
+SPARSE_DARK_ROWS = 64  # the grid rows at the top and at the bottom no camera sees
+SPARSE_EPS = "0.05"  # the explicit threshold's run
+SPARSE_FIT_TOL = RESUME_FIT_TOL  # sparse against dense in fitted space (fp32)
+
+
+def _ingest_peak(world, storage, device, sparse: bool) -> dict:
+    """The ingest and the solver's construction of ``world`` at ``storage``,
+    dense or with the tile index (``--sparse_rtm auto``): the peak device
+    bytes above what was allocated before, the bytes allocated after (the
+    resident), the held matrix's shape and bytes, the index's occupancy."""
+    import torch
+
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.parallel.multihost import (
+        make_tile_stats, read_and_quantize_rtm, read_and_shard_rtm,
+    )
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+
+    p = world["paths"]
+    files = {"camA": [p["rtm_a_seg1"], p["rtm_a_seg2"]], "camB": [p["rtm_b"]]}
+    P, V = world["H"].shape
+    on_card = device == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    opts = SolverOptions(rtm_dtype=None if storage == "float32" else storage,
+                         sparse_rtm="auto" if sparse else "off")
+    stats = make_tile_stats(P, V) if sparse else None
+    t0 = time.perf_counter()
+    if storage == "int8":
+        rtm, scale = read_and_quantize_rtm(files, "with_reflections", P, V, device,
+                                           tile_stats=stats)
+    else:
+        rtm = read_and_shard_rtm(files, "with_reflections", P, V, device, dtype=storage,
+                                 tile_stats=stats)
+        scale = None
+    occ = stats.occupancy(0.0) if sparse else None
+    solver = DistributedSARTSolver(rtm, opts=opts, device=device, rtm_scale=scale,
+                                   tile_occupancy=occ)
+    del rtm, scale
+    held = solver.problem.rtm
+    rec = dict(seconds=time.perf_counter() - t0, held_shape=list(held.shape),
+               held_bytes=held.numel() * held.element_size(),
+               occupancy=None if occ is None else occ.occupancy_fraction())
+    if on_card:
+        torch.cuda.synchronize()
+        rec.update(peak_device_bytes=torch.cuda.max_memory_allocated() - mem0,
+                   resident_device_bytes=torch.cuda.memory_allocated() - mem0)
+    solver.close()
+    del solver, held
+    return rec
+
+
+def sparse_phase(world, outdir: str, device: str = "cuda", dark_rows: int = SPARSE_DARK_ROWS,
+                 rates=None) -> dict:
+    """The block-sparse RTM on the world with the grid's top and bottom
+    ``dark_rows`` rows dark (:func:`write_dark_world`; at the defaults
+    voxels [0, 16384) and [49152, 65536), 256 of the 512 tile columns).
+    Its frames' fitted errors against the noiseless measurement are
+    recorded, not held to ``FIT_BOUND``: the pixels whose band lay in the
+    dark rows see the floor alone, and the guess frame's error is above the
+    e2e world's (5.5% in fp32); the sparse run is held to the dense one's.
+    Per storage, the ingest and the solver's construction dense and
+    sparse: the peak device bytes (the sparse one's no higher), the
+    resident bytes, the held matrix. Per storage, linear with the Laplacian
+    over 8 frames and log over 4 (``--chain_frames 1``) with ``--sparse_rtm
+    auto`` beside ``off``: the statuses equal, the fitted distance to the
+    dense run within ``SPARSE_FIT_TOL``, the largest fitted error at most the
+    dense run's plus that; on the card every launch of the sparse run on
+    ``plan_sweep(P, V_occ, 1, storage)`` and as many as its iterations; ms
+    per frame of each. Once at ``--sparse_rtm 0.05`` (fp32 linear): the
+    same columns held, the thresholded operator's fit to the measurement
+    within ``FIT_BOUND``. fp32 ``--no_guess --batch_frames 8`` (the
+    scheduler's launches on ``plan_sweep(P, V_occ, 8, ...)`` equal to its
+    loop steps) and ``--os_subsets 4`` (no fused-sweep launch), each beside
+    ``off``. On the card, with ``rates``: the compacted call checked
+    against its plain version and timed (each storage at B = 1, fp32 at
+    B = 8) beside its bound, the plain version and the library."""
+    from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep, plan_sweep, reset_launch_counts
+
+    t_world = time.perf_counter()
+    sw = write_dark_world(world, os.path.join(outdir, "sparse_world"), dark_rows)
+    p = sw["paths"]
+    P, V = sw["H"].shape
+    T = sw["G"].shape[1]
+    on_card = device == "cuda"
+    record = dict(world_seconds=time.perf_counter() - t_world, dark_rows=dark_rows,
+                  dark_voxels=int(2 * dark_rows * sw["grid"][1]), ingest={})
+    base = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS)]
+    V_occ = None
+
+    for storage in STORAGES:
+        dense = _ingest_peak(sw, storage, device, sparse=False)
+        sparse = _ingest_peak(sw, storage, device, sparse=True)
+        V_occ = sparse["held_shape"][1]
+        if sparse["held_shape"] != [P, V - 2 * dark_rows * sw["grid"][1]]:
+            raise AssertionError(f"sparse {storage}: holds {sparse['held_shape']}")
+        record["ingest"][storage] = dict(dense=dense, sparse=sparse)
+        if on_card and sparse["peak_device_bytes"] > dense["peak_device_bytes"]:
+            raise AssertionError(f"sparse {storage} ingest peak above the dense one's: "
+                                 f"{record['ingest']}")
+
+    def run(name, flags, n, plan_shape=None, fit_bound=None):
+        out = os.path.join(outdir, f"sparse_{name}.h5")
+        reset_launch_counts()
+        rc, ms, text = run_cli(["-o", out, *base, *flags], device=device)
+        if rc != 0 or len(ms) != n:
+            raise AssertionError(f"sparse {name}: exit {rc}, {len(ms)} of {n} frames")
+        sol, err = check_solution(out, sw, n, MAX_ITERATIONS, device, fit_bound=fit_bound)
+        rec = dict(cli_ms_per_frame=statistics.mean(ms), frame_ms=ms,
+                   iterations=sol["iterations"].tolist(), status=sol["status"].tolist(),
+                   fit_err_max=float(err.max()),
+                   launches_by_plan=dict(fused_sweep.launches_by_plan))
+        m = re.search(r"continuous batching: lanes=\d+ strides=(\d+) loop_steps=(\d+)", text)
+        if m:
+            rec.update(strides=int(m[1]), loop_steps=int(m[2]))
+        m = re.search(r"sparse: tile occupancy ([0-9.]+) \(threshold ([^,]+), eps ([^,]+), "
+                      r"digest (0x[0-9a-f]+)", text)
+        if m:
+            rec.update(occupancy=float(m[1]), threshold=float(m[2]), digest=m[4])
+        m = re.search(r"voxels_held=(\d+)", text)
+        rec["voxels_held"] = int(m[1]) if m else V
+        if on_card and plan_shape is not None:
+            want = dict.fromkeys(rec["launches_by_plan"], 0)
+            want[plan_sweep(*plan_shape)] = (rec.get("loop_steps") if plan_shape[2] > 1
+                                             else int(sol["iterations"].sum()))
+            if rec["launches_by_plan"] != want:
+                raise AssertionError(f"sparse {name}: launches {rec['launches_by_plan']}, "
+                                     f"{want} expected")
+        return sol, rec
+
+    def pair(name, flags, n, B, fused=True):
+        """``flags`` with ``--sparse_rtm auto`` and ``off``, held together."""
+        s_sol, s_rec = run(f"{name}_auto", [*flags, "--sparse_rtm", "auto"], n,
+                           plan_shape=(P, V_occ, B, _storage_of(flags)) if fused else None)
+        d_sol, d_rec = run(f"{name}_off", [*flags, "--sparse_rtm", "off"], n,
+                           plan_shape=(P, V, B, _storage_of(flags)) if fused else None)
+        if on_card and not fused and (sum(s_rec["launches_by_plan"].values())
+                                      or sum(d_rec["launches_by_plan"].values())):
+            raise AssertionError(f"sparse {name}: a fused-sweep launch in the OS cycle")
+        if not np.array_equal(s_sol["status"], d_sol["status"]):
+            raise AssertionError(f"sparse {name}: statuses {s_sol['status']} against "
+                                 f"{d_sol['status']}")
+        if s_rec["fit_err_max"] > d_rec["fit_err_max"] + SPARSE_FIT_TOL:
+            raise AssertionError(f"sparse {name}: fitted error {s_rec['fit_err_max']} against "
+                                 f"the dense run's {d_rec['fit_err_max']}")
+        dist = _fitted_distance(sw, s_sol["value"], d_sol["value"], device)
+        if not (dist <= SPARSE_FIT_TOL).all():
+            raise AssertionError(f"sparse {name}: fitted distance {dist} to the dense run")
+        return dict(sparse=s_rec, dense=d_rec, fitted_distance_max=float(dist.max()),
+                    ms_per_frame_ratio=s_rec["cli_ms_per_frame"] / d_rec["cli_ms_per_frame"])
+
+    lap = ["-l", p["laplacian"]]
+    record["runs"] = {}
+    for storage in STORAGES:
+        # the compacted shape's first solve on this storage (its library
+        # handles and first launches) in a run of its own, kept out of the
+        # times below: the dense shape is warm from the phases before
+        run(f"{storage}_warm_up", ["--rtm_dtype", storage, "-t", "0:0.05",
+                                   "--sparse_rtm", "auto"], 1)
+    for storage in STORAGES:
+        st = ["--rtm_dtype", storage]
+        record["runs"][storage] = dict(
+            linear=pair(f"{storage}_linear", [*st, *lap, "-t", "0:0.75", "--chain_frames", "1"],
+                        8, 1),
+            log=pair(f"{storage}_log", [*st, "-L", "-t", "0:0.35", "--chain_frames", "1"], 4, 1))
+    fp32 = ["--rtm_dtype", "float32"]
+    record["runs"]["float32_batch"] = pair(
+        "float32_batch", [*fp32, *lap, "--no_guess", "--batch_frames", str(FRAME_LANES)], T,
+        FRAME_LANES)
+    record["runs"]["float32_os"] = pair(
+        "float32_os", [*fp32, *lap, "-t", "0:0.35", "--chain_frames", "1", "--os_subsets",
+                       str(OS_SUBSETS)], 4, 1, fused=False)
+    # the threshold: the floor's off-band tiles inside the kept columns
+    # dropped, no further column (a lossy solve: its fit is recorded, the
+    # statuses held); the thresholded operator's fit beside the full one's
+    eps_sol, eps_rec = run("float32_eps", [*fp32, *lap, "-t", "0:0.75", "--chain_frames", "1",
+                                           "--sparse_rtm", SPARSE_EPS], 8,
+                           plan_shape=(P, V_occ, 1, "float32"))
+    auto = record["runs"]["float32"]["linear"]["sparse"]
+    if eps_rec["voxels_held"] != V_occ or not (
+            eps_rec["threshold"] > 0 and eps_rec["occupancy"] < auto["occupancy"]):
+        raise AssertionError(f"sparse {SPARSE_EPS}: holds {eps_rec['voxels_held']} voxels, "
+                             f"occupancy {eps_rec['occupancy']} against {auto['occupancy']}")
+    eps_rec["thresholded_fit_err"] = _thresholded_fit(sw, eps_sol["value"], float(SPARSE_EPS),
+                                                      device).tolist()
+    eps_rec["full_fit_err_max"] = eps_rec.pop("fit_err_max")
+    record["runs"]["float32_eps"] = eps_rec
+    record["voxels_held"] = V_occ
+    record["launches"] = {
+        key: sum((r if kind is None else r[kind])["launches_by_plan"][plan_sweep(P, V_occ, B, st)]
+                 for r, kind in runs)
+        for key, B, st, runs in _sparse_launch_keys(record["runs"])}
+    if on_card and rates is not None:
+        record["kernels"] = _sparse_kernels(P, V_occ, rates)
+    for name in ("rtm_a_seg1", "rtm_a_seg2", "rtm_b"):
+        os.remove(p[name])
+    return record
+
+
+def _storage_of(flags) -> str:
+    return flags[flags.index("--rtm_dtype") + 1]
+
+
+def _sparse_launch_keys(runs):
+    """(kernel table key, B, storage, the runs that launched it) of the
+    compacted calls."""
+    for storage in STORAGES:
+        yield (storage, 1, storage,
+               [(runs[storage]["linear"], "sparse"), (runs[storage]["log"], "sparse")]
+               + ([(runs["float32_eps"], None)] if storage == "float32" else []))
+    yield (f"float32@B{FRAME_LANES}", FRAME_LANES, "float32",
+           [(runs["float32_batch"], "sparse")])
+
+
+def _thresholded_fit(sw, value, eps, device):
+    """Per frame ``||H_t value - H f_true s|| / ||H f_true s||``, ``H_t`` the
+    world's matrix with the tiles ``eps`` drops zeroed (on the device)."""
+    import torch
+
+    from sartsolver_tpu_torch.models.sart import zero_dropped_tiles_
+    from sartsolver_tpu_torch.ops.sparse import build_tile_occupancy
+
+    occ = build_tile_occupancy(sw["H"], epsilon=eps)
+    H = torch.as_tensor(sw["H"], device=device)
+    truth = torch.as_tensor(sw["f_true"][:, None] * sw["scales"][None, :value.shape[0]],
+                            dtype=torch.float32, device=device)
+    ref = H @ truth
+    zero_dropped_tiles_(H, occ.mask, occ.tile_rows, occ.tile_cols)
+    fit = H @ torch.as_tensor(value.T, dtype=torch.float32, device=device)
+    return ((fit - ref).norm(dim=0) / ref.norm(dim=0)).cpu().numpy()
+
+
+def _sparse_kernels(P, V_occ, rates) -> dict:
+    """The compacted call (``[P, V_occ]``) on the card: each storage at
+    B = 1 and fp32 at B = 8, linear with the penalty (log checked too),
+    checked against the plain version through the plan the runs took and
+    timed beside the bound, the plain version and the library (two
+    ``torch.matmul`` on the compacted fp32 matrix)."""
+    from sartsolver_tpu_torch.ops.fused_sweep import plan_sweep
+
+    out = {}
+    for key, B, storage in [(st, 1, st) for st in STORAGES] + [
+            (f"float32@B{FRAME_LANES}", FRAME_LANES, "float32")]:
+        plan = plan_sweep(P, V_occ, B, storage)
+        errs = []
+        for logarithmic in (False, True):
+            H, w, f, aux, scale = _sweep_inputs(P, V_occ, B, logarithmic, True,
+                                                seed=P + V_occ + B + logarithmic,
+                                                storage=storage)
+            kw = dict(logarithmic=logarithmic, alpha=0.7, eps=1e-7)
+            record, err = _check_kernel(H, w, f, aux, scale, kw, storage, plan=plan)
+            errs.append(err)
+            if not logarithmic:
+                timing = _timing(H, w, f, aux, scale, kw, rates, plan)
+            del H, w, f, aux, scale
+        out[key] = dict(timing, max_abs_err=max(errs))
+    return out
+
 
 STORAGES = ("float32", "bfloat16", "int8")
 TC_STORAGES = ("bfloat16", "int8")  # the storage types tensor_core takes
@@ -2818,6 +3225,9 @@ def main() -> int:
         t0 = time.perf_counter()
         resilience = resilience_phase(world, tmp)
         emit("resilience", seconds=time.perf_counter() - t0, **resilience)
+        t0 = time.perf_counter()
+        sparse = sparse_phase(world, tmp, rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        emit("sparse", seconds=time.perf_counter() - t0, **sparse)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -2944,6 +3354,15 @@ def main() -> int:
                 errors[key], f"{VARIANT[storage]} on the tall world (P = {P}, two_read)")
         r["two_read_floor_ms"] = timing[key]["two_read_floor_ms"]
         rows.append(r)
+    # the compacted call of the block-sparse runs (--sparse_rtm): the
+    # occupied columns of the dark world, each storage at B = 1, fp32 at 8
+    for key, t in sparse["kernels"].items():
+        P_s, V_s, B_s = t["shape"]
+        storage = t["storage"]
+        name = (("fused_sweep" if storage == "float32" else f"fused_sweep[{storage}]")
+                + f"_sparse@{P_s}x{V_s}" + (f"xB{B_s}" if B_s > 1 else ""))
+        rows.append(row(name, t, sparse["launches"][key], t["max_abs_err"],
+                        f"{VARIANT[storage]} on the occupied voxel columns (--sparse_rtm)"))
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

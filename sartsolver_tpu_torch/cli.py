@@ -96,6 +96,21 @@ The resilience of a run, as in the JAX CLI (``sartsolver_tpu/cli.py:41-57``):
   (default 2), or a resident mismatch, quarantine the run (exit 3). The
   ingest's sums run where the stored rows lie (fp64 on the card).
 
+``--sparse_rtm auto|off|EPS`` (or ``SART_SPARSE_RTM``) runs the block-sparse
+RTM: the ingest takes the matrix's 8 x 128 tile maxima on the device, the
+index (``ops/sparse.py``) is cut at ``EPS * max|H|`` (0 for ``auto``: exact
+zeros only), and the solver keeps only the occupied tile columns, the
+dropped tiles zeroed, so every sweep reads the occupied columns alone
+(``models/sart.py``). ``auto`` declines where it cannot engage; an explicit
+EPS exits 1 there.
+
+``--solve_ckpt_stride N`` (the scheduler only, ``--no_guess --batch_frames
+K``): every N strides the scheduler's whole state is appended to
+``<output>.solveckpt`` (``SART_SOLVE_CKPT_FILE`` names another file;
+``resilience/podckpt.py``); ``--resume`` restores the newest checkpoint
+whose lane count is K and that the output file's rows cover, and goes on
+mid-frame instead of re-solving every frame in flight from its guess.
+
 Observability as in the JAX CLI (``obs/``): ``--timing`` prints the phase
 summary (``validate + index inputs``, ``ingest RTM + upload``, ``frame loop
 (solve + prefetch + flush)``, ``write voxel map``, with the per-frame and
@@ -117,6 +132,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import itertools
+import math
 import os
 import sys
 import time as _time
@@ -193,6 +209,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "can (fp32 compute), on requires it, off runs the "
                         "two-matmul sweep. interpret (the JAX package's "
                         "Pallas interpreter) does not exist here.")
+    p.add_argument("--sparse_rtm", default=None, metavar="auto|off|EPS",
+                   help="Block-sparse RTM mode: 'auto' builds a lossless "
+                        "tile-occupancy index at ingest and keeps only the "
+                        "occupied (8 x 128 tile) voxel columns of the matrix "
+                        "on the device, so every sweep reads them alone — the "
+                        "same solve, bytes and FLOPs scaling with occupancy. "
+                        "A numeric EPS in [0, 1) drops tiles whose entries are "
+                        "all <= EPS*max|H| (lossy; rho/lambda and the Eq. 6 "
+                        "masks come from the thresholded operator). 'auto' "
+                        "declines where the sparse sweep cannot engage; an "
+                        "explicit EPS fails loudly there. Also via "
+                        "SART_SPARSE_RTM.")
     p.add_argument("-n", "--raytransfer_name", default="with_reflections",
                    help="Ray transfer matrix dataset name.")
     p.add_argument("-L", "--logarithmic", action="store_true",
@@ -274,6 +302,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "run (the reference's behavior) instead of "
                         "being recorded as a FAILED status row (-3) "
                         "while the run continues.")
+    p.add_argument("--solve_ckpt_stride", type=int, default=0, metavar="N",
+                   help="In-solve checkpointing (continuous-batching path "
+                        "only): every N scheduler strides, append a "
+                        "CRC-checksummed snapshot of the full lane state — "
+                        "iterates, momentum carries, divergence-ladder "
+                        "level, iteration counters, reorder buffer — to "
+                        "<output>.solveckpt (SART_SOLVE_CKPT_FILE "
+                        "overrides). --resume then restores the run "
+                        "mid-frame at the newest consistent checkpoint "
+                        "instead of re-running the initial guess and every "
+                        "prior sweep. 0 (default) disables: the run is "
+                        "byte-identical to one without the layer.")
     p.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the frame loop "
                         "here. Each frame group (serial and chain paths) / "
@@ -355,6 +395,34 @@ def _validate(args) -> None:
     if args.schedule_stride is not None and args.schedule_stride < 1:
         fail(f"Argument schedule_stride must be >= 1, "
              f"{args.schedule_stride} given.")
+    if args.solve_ckpt_stride < 0:
+        fail(f"Argument solve_ckpt_stride must be >= 0, "
+             f"{args.solve_ckpt_stride} given.")
+    if args.solve_ckpt_stride and (args.batch_frames <= 1
+                                   or args.no_continuous_batching):
+        fail("Argument solve_ckpt_stride snapshots the continuous-batching "
+             "scheduler's lane state; it needs --batch_frames > 1 without "
+             "--no_continuous_batching.")
+    if args.sparse_rtm is None:
+        # flag > SART_SPARSE_RTM > off (the schedule_stride pattern)
+        args.sparse_rtm = os.environ.get("SART_SPARSE_RTM", "off")
+    if args.sparse_rtm not in ("auto", "off"):
+        try:
+            eps = float(args.sparse_rtm)
+            ok = 0.0 <= eps < 1.0 and math.isfinite(eps)
+        except ValueError:
+            ok = False
+        if not ok:
+            fail("Argument sparse_rtm must be 'auto', 'off' or a relative "
+                 f"threshold in [0, 1), {args.sparse_rtm!r} given.")
+        if args.use_cpu:
+            fail("Argument sparse_rtm needs the fp32 device profile; an "
+                 "explicit threshold cannot be combined with --use_cpu "
+                 "(use 'auto', which declines there).")
+    if args.sparse_rtm != "off" and args.fused_sweep in ("on", "interpret"):
+        fail("Argument sparse_rtm engages the block-sparse panel sweep; "
+             f"--fused_sweep {args.fused_sweep} cannot be honored there — "
+             "use auto or off.")
     if args.max_cached_frames <= 0:
         fail("Argument max_cached_frames must be positive.")
     if args.max_cached_solutions <= 0:
@@ -465,7 +533,7 @@ def _run(args, telem, summary) -> int:
     from sartsolver_tpu_torch.obs import trace as obs_trace
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
     from sartsolver_tpu_torch.parallel.multihost import (
-        read_and_quantize_rtm, read_and_shard_rtm,
+        read_and_quantize_rtm, read_and_shard_rtm, sparse_tile_stats_or_decline,
     )
     from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.io.solution import read_resume_state
@@ -479,7 +547,9 @@ def _run(args, telem, summary) -> int:
         PersistentCorruptionError, WatchdogTimeout, failed_row,
     )
     from sartsolver_tpu_torch.resilience.retry import RetriesExhausted, reset_retry_stats
+    from sartsolver_tpu_torch.resilience import podckpt
     from sartsolver_tpu_torch.sched import ContinuousBatcher
+    from sartsolver_tpu_torch.sched.scheduler import sched_held_ftimes
     from sartsolver_tpu_torch.utils.asyncwriter import AsyncSolutionWriter, DeferredWriteError
     from sartsolver_tpu_torch.utils.prefetch import FramePrefetcher
     from sartsolver_tpu_torch.utils.timing import PhaseTimer
@@ -604,6 +674,7 @@ def _run(args, telem, summary) -> int:
             divergence_recovery=args.divergence_recovery,
             os_subsets=args.os_subsets,
             fused_sweep=args.fused_sweep,
+            sparse_rtm=args.sparse_rtm,
         )
         opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
                 else SolverOptions(**common))
@@ -662,33 +733,63 @@ def _run(args, telem, summary) -> int:
         # with integrity on, the ingest also sums the stored values for
         # the ray stats' check after the upload
         ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
+        # the block-sparse index's tile maxima, taken by the ingest where the
+        # stored rows lie ('auto' declines here on a flag, with a warning)
+        tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
         with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
             rtm_scale = None
             if storage == "int8":
                 rtm, rtm_scale = read_and_quantize_rtm(
                     sorted_matrix_files, rtm_name, npixel, nvoxel, device, rows=held_rows,
-                    ingest_stats=ingest_stats)
+                    ingest_stats=ingest_stats, tile_stats=tile_stats)
             else:
                 rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
                                          device, dtype=storage, rows=held_rows,
-                                         ingest_stats=ingest_stats)
-            solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
-                                           debug_nans=args.debug_nans,
-                                           rtm_scale=rtm_scale, npixel=npixel)
+                                         ingest_stats=ingest_stats, tile_stats=tile_stats)
+            try:
+                tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
+                            if tile_stats is not None else None)
+                # the solver keeps the occupied columns, in place in the
+                # ingest's buffer
+                solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
+                                               debug_nans=args.debug_nans,
+                                               rtm_scale=rtm_scale, npixel=npixel,
+                                               tile_occupancy=tile_occ)
+            except ValueError as err:  # a non-finite RTM entry, or EPS that cannot engage
+                raise SartInputError(str(err)) from None
             del rtm, rtm_scale
+        if tile_occ is not None:
+            # the index, known at ingest; whether the sweep engaged it is
+            # --timing's engaged= line
+            print(f"sparse: tile occupancy {tile_occ.occupancy_fraction():.3f} "
+                  f"(threshold {tile_occ.threshold:g}, eps {tile_occ.epsilon:g}, "
+                  f"digest {tile_occ.digest:#010x}; engagement in --timing)")
         if ingest_stats is not None:
-            # the staging or the layout on the device corrupted the matrix:
-            # every solve it would serve is poisoned, quarantine now
-            issues = solver.verify_ray_stats(ingest_stats)
-            if issues:
-                sdc_policy.resident_failure(
-                    "post-upload ray-stats verification: " + "; ".join(issues))
+            if (opts.sparse_epsilon() or 0) > 0 and tile_occ is not None \
+                    and not tile_occ.mask.all():
+                # the threshold zeroed tiles on the device after the ingest
+                # summed them: the sums cannot match the device's rho/lambda
+                print("Warning: post-upload ray-stats verification skipped: "
+                      "sparse_rtm threshold zeroed tiles after the host sums "
+                      "were accumulated (stripe digests, in-solve ABFT and the "
+                      "resident re-audit still cover the matrix).", file=sys.stderr)
+            else:
+                # the staging or the layout on the device corrupted the
+                # matrix: every solve it would serve is poisoned, quarantine
+                issues = solver.verify_ray_stats(ingest_stats)
+                if issues:
+                    sdc_policy.resident_failure(
+                        "post-upload ray-stats verification: " + "; ".join(issues))
+        telem.set_run_info(operator="tileskip" if tile_occ is not None else "dense")
         grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
-        sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused
-                 else "two-matmul")
+        sparse_on = solver.tile_occupancy is not None
+        sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused or sparse_on
+                 else "two-matmul") + ("-sparse" if sparse_on else "")
         print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
               f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
-              + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else ""))
+              + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else "")
+              + (f" sparse_rtm={opts.sparse_rtm} voxels_held="
+                 f"{solver.problem.rtm.shape[1]}" if sparse_on else ""))
         mark("ingest RTM + upload")
 
         # per-frame failure isolation: a frame whose read fails past its
@@ -909,14 +1010,56 @@ def _run(args, telem, summary) -> int:
                     print(f"Processed in: {per_frame_ms} ms (continuous batch of {K} "
                           f"lanes; {iterations} iterations)")
 
+                # in-solve checkpoints: the store, and on --resume the newest
+                # record whose lane count is K and whose emitted rows the
+                # file holds (the killed run's writer may not have flushed
+                # the snapshot's rows: fall back a stride); none usable is
+                # the plain resume
+                store = restore = None
+                W = 0 if resume_state is None else len(resume_state.times)
+                if args.solve_ckpt_stride:
+                    store = podckpt.SolveCheckpointStore(
+                        os.environ.get("SART_SOLVE_CKPT_FILE")
+                        or f"{args.output_file}.solveckpt")
+                if args.resume and store is not None:
+                    for serial in reversed(store.serials()):
+                        snap = store.load(serial)
+                        if (snap is None or int(snap.get("lanes", -1)) != K
+                                or int(snap["next_emit"]) > W):
+                            continue
+                        if snap["solver"].get("sig") != solver._sched_ckpt_sig():
+                            raise SartInputError(
+                                f"Solve checkpoint serial {serial} in {store.path} does "
+                                "not match this solver configuration (checkpoint "
+                                f"{snap['solver'].get('sig')!r}, solver "
+                                f"{solver._sched_ckpt_sig()!r}); resume with the flags "
+                                "of the run that wrote it.")
+                        restore = snap
+                        telem.registry.counter("solve_ckpt_resumed_total").inc()
+                        note_event(f"resumed from solve checkpoint serial {serial} "
+                                   f"({W} row(s) already written)")
+                        if os.environ.get("SART_TEST_POD_MARKERS"):
+                            sys.stderr.write(f"SART_POD_POINT resume serial={serial}\n")
+                            sys.stderr.flush()
+                        break
                 batcher = ContinuousBatcher(solver, lanes=K, on_result=on_result,
                                             on_failed=record_failed, isolate=isolate,
                                             on_event=note_event, on_stride=step,
                                             stop_check=stop_now,
-                                            integrity_policy=sdc_policy)
+                                            integrity_policy=sdc_policy,
+                                            ckpt_stride=args.solve_ckpt_stride or None,
+                                            ckpt_sink=None if store is None else store.save,
+                                            restore=restore,
+                                            restore_emitted=W if restore is not None else 0)
                 # one iterator for both: a second iterator over the
-                # prefetcher would wait for an end marker already taken
+                # prefetcher would wait for an end marker already taken;
+                # frames a restored checkpoint holds in flight do not enter
+                # again
                 stream = iter(frames)
+                if restore is not None:
+                    held = np.asarray(sched_held_ftimes(restore, W), np.float64)
+                    stream = (item for item in stream
+                              if not (held.size and np.any(np.abs(held - item[1]) <= 1e-12)))
                 stats = batcher.run(stream)
                 stop_state["interrupted"] |= stats.interrupted
                 print(f"continuous batching: lanes={K} strides={stats.strides} "

@@ -187,9 +187,20 @@ class SolverOptions:
     # a frame that trips freezes with status SDC_DETECTED (-4).
     integrity: bool = False
 
+    # Block-sparse RTM mode (``--sparse_rtm``): "off" (default) is the
+    # dense solver. "auto" builds a lossless tile-occupancy index (exact-
+    # zero 8 x 128 tiles only, ``ops/sparse.py``) and runs the sweep over
+    # the occupied voxel tile columns alone (``models/sart.py``): the
+    # matrix the card keeps holds those columns only, so bytes and FLOPs
+    # scale with occupancy. A number in [0, 1) is a relative threshold:
+    # tiles whose every entry satisfies |H_ij| <= eps * max|H| are zeroed
+    # before rho, lambda and the Eq. 6 masks are taken, so the solve is
+    # self-consistent with the thresholded operator. "auto" declines
+    # quietly where the sparse sweep cannot engage (fp64 compute, no
+    # index); a number raises there instead.
+    sparse_rtm: str = "off"
     # Options of the JAX package that this package does not implement yet.
     # Each must stay at its default; see _NOT_PORTED.
-    sparse_rtm: str = "off"
     lowrank_rtm: str = "off"
 
     @classmethod
@@ -206,6 +217,22 @@ class SolverOptions:
         kw.setdefault("guess_floor", 1.0e-30 if logarithmic else 0.0)
         kw.setdefault("log_epsilon", 1.0e-30)
         return cls(logarithmic=logarithmic, **kw)
+
+    def sparse_epsilon(self) -> float | None:
+        """The relative block-sparse threshold this option set requests:
+        ``None`` when sparse mode is off, ``0.0`` for ``"auto"``
+        (lossless: exact-zero tiles only), else the parsed value."""
+        if self.sparse_rtm == "off":
+            return None
+        if self.sparse_rtm == "auto":
+            return 0.0
+        return float(self.sparse_rtm)
+
+    def sparse_explicit(self) -> bool:
+        """An explicit numeric ``sparse_rtm`` threshold was requested:
+        inability to engage the sparse sweep raises instead of quietly
+        running dense (the fused_sweep='on' contract, applied here)."""
+        return self.sparse_rtm not in ("off", "auto")
 
     def __post_init__(self) -> None:
         if self.ray_density_threshold < 0:
@@ -265,6 +292,34 @@ class SolverOptions:
                 "Attribute schedule_stride must be >= 1 (iterations "
                 "between scheduler control returns)."
             )
+        if self.sparse_rtm not in ("auto", "off"):
+            try:
+                eps = float(self.sparse_rtm)
+            except ValueError:
+                raise ValueError(
+                    "Attribute sparse_rtm must be 'auto', 'off' or a "
+                    "relative threshold in [0, 1), "
+                    f"{self.sparse_rtm!r} given."
+                ) from None
+            if not (0.0 <= eps < 1.0) or not math.isfinite(eps):
+                raise ValueError(
+                    "Attribute sparse_rtm threshold must lie in [0, 1) "
+                    f"(a fraction of max|H|), {self.sparse_rtm!r} given."
+                )
+        if self.sparse_rtm != "off" and self.fused_sweep == "on":
+            raise ValueError(
+                "Attribute sparse_rtm engages the block-sparse sweep, which "
+                "picks its own kernel plan over the occupied columns; an "
+                f"explicit fused_sweep='{self.fused_sweep}' cannot be "
+                "honored there — use 'auto' or 'off'."
+            )
+        if self.lowrank_rtm != "off" and self.sparse_explicit():
+            raise ValueError(
+                "Attributes lowrank_rtm and an explicit sparse_rtm "
+                "threshold both claim the stored matrix: the factored "
+                "backend already tile-thresholds its sparse core — "
+                "drop one of the two."
+            )
         for name, default in _NOT_PORTED:
             value = getattr(self, name)
             if value != default:
@@ -277,6 +332,5 @@ class SolverOptions:
 
 # (field, the only value this package accepts)
 _NOT_PORTED = (
-    ("sparse_rtm", "off"),
     ("lowrank_rtm", "off"),
 )

@@ -52,6 +52,23 @@ With ``debug_nans=True`` every path checks the values it keeps for NaN at
 its step boundaries and raises ``FloatingPointError``
 (:mod:`~sartsolver_tpu_torch.debug_nans`).
 
+``opts.sparse_rtm`` (``"auto"`` or a threshold) runs the block-sparse
+RTM: :func:`make_problem` takes the matrix's tile-occupancy index
+(``ops/sparse.py``), keeps only the occupied 128-column tile columns of the
+matrix on the device, one column-compacted ``[P, V_occ]`` matrix (in place
+where it was handed a tensor), zeroes the tiles a nonzero threshold drops,
+and takes the ray stats of that matrix. Every product of the solve then
+reads the compacted matrix: the fused sweep is the hand-written kernel on
+it (the vectors gathered at the occupied columns, ``f_new`` scattered
+back, the rest given the elementwise update with ``bp = 0``, the JAX
+package's "base update"), as are the projections outside the loop and the
+OS cycle's strided subsets. An all-zero column's back-projection is exactly
+zero and it adds nothing to ``fitted``, so at threshold 0 the solve is the
+dense one up to the products' summation order. With no occupied column the
+sweep is skipped and ``fitted`` is 0. The engagement rules and their
+messages are the JAX package's (``sartsolver_tpu/models/sart.py:1057-1185``):
+``"auto"`` declines quietly, a threshold raises.
+
 ``opts.integrity`` adds the in-solve ABFT check
 (``sartsolver_tpu/models/sart.py:1672-1708``): every iteration holds
 ``sum(H f)`` — on the fused sweep, the kernel's own ``fitted`` output;
@@ -69,6 +86,7 @@ residual over its band the checks saw.
 from __future__ import annotations
 
 import contextlib
+import functools
 import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -85,7 +103,7 @@ from sartsolver_tpu_torch.config import (
 )
 from sartsolver_tpu_torch.device import check_on, resolve_device
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
-from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep
+from sartsolver_tpu_torch.ops.fused_sweep import _update_reference, fused_sweep
 from sartsolver_tpu_torch.ops.laplacian import LaplacianCOO, coo_matvec
 from sartsolver_tpu_torch.ops.os_subsets import (
     os_subset_back,
@@ -160,7 +178,12 @@ class SARTProblem(NamedTuple):
     laplacian: Optional[LaplacianCOO]
     # per-voxel dequantization scales of int8 codes (H_ij = rtm_scale[j] *
     # rtm[i, j]); None for float storage
-    rtm_scale: Optional[Tensor] = None  # [V], fp32
+    rtm_scale: Optional[Tensor] = None  # [V] ([V_occ] block-sparse), fp32
+    # block-sparse: the tile index the problem was built with, and the
+    # voxel columns ``rtm`` (then [P, V_occ]) and ``rtm_scale`` hold, or
+    # None where every column is occupied; ray_density stays [V]
+    occupancy: Optional[object] = None  # ops/sparse.py:TileOccupancy
+    cols: Optional[Tensor] = None  # [V_occ] int64, ascending
 
 
 class SolveResult(NamedTuple):
@@ -168,6 +191,10 @@ class SolveResult(NamedTuple):
     status: Tensor  # int32: SUCCESS / MAX_ITERATIONS_EXCEEDED / DIVERGED
     iterations: Tensor  # int32: completed iterations
     convergence: Tensor  # final Eq. 5 metric C^k
+
+
+def _storage_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -260,9 +287,129 @@ def _span(name: str):
     return contextlib.nullcontext()
 
 
+def sparse_reasons(opts: SolverOptions, occupancy, shape, storage: str) -> list:
+    """Why the block-sparse sweep cannot engage on a matrix of ``shape``
+    stored as ``storage`` with ``occupancy`` (the JAX package's reasons and
+    messages, ``sartsolver_tpu/models/sart.py:1093-1147``); empty where it
+    can. The JAX package's panel alignment and static-unroll cap do not
+    apply: the port skips whole 128-column tile columns at any shape."""
+    reasons = []
+    if occupancy is None:
+        reasons.append("no tile-occupancy index was supplied (build one at "
+                       "ingest, or via models.sart.make_sparse_problem)")
+    if opts.dtype != "float32" or storage not in ("float32", "bfloat16", "int8"):
+        reasons.append(f"dtype={opts.dtype} / rtm dtype={storage} (the sparse "
+                       "panel sweep computes in fp32 over fp32/bfloat16/int8 "
+                       "storage)")
+    if opts.divergence_recovery and opts.logarithmic and opts.os_subsets == 1:
+        reasons.append("divergence_recovery on the logarithmic solver (the "
+                       "panel closures cannot carry the per-frame traced "
+                       "exponent)")
+    if occupancy is not None and not (
+            occupancy.cols >= shape[1]
+            and -(-occupancy.cols // occupancy.tile_cols)
+            == -(-shape[1] // occupancy.tile_cols)
+            and -(-occupancy.rows // occupancy.tile_rows)
+            >= -(-shape[0] // occupancy.tile_rows)):
+        reasons.append(f"the occupancy index covers [{occupancy.rows}, "
+                       f"{occupancy.cols}] and cannot drive this "
+                       f"[{shape[0]}, {shape[1]}] matrix")
+    return reasons
+
+
+def resolve_sparse(opts: SolverOptions, occupancy, shape, storage: str) -> bool:
+    """Whether the block-sparse sweep engages: ``"auto"`` declines quietly
+    where :func:`sparse_reasons` names a reason, an explicit threshold
+    raises ValueError naming them; an engaged index is verified (its
+    digest) first."""
+    if opts.sparse_epsilon() is None:
+        return False
+    reasons = sparse_reasons(opts, occupancy, shape, storage)
+    if reasons:
+        if opts.sparse_explicit():
+            raise ValueError(
+                f"sparse_rtm='{opts.sparse_rtm}' requested but the block-sparse "
+                "sweep cannot engage: " + "; ".join(reasons) + ".")
+        return False
+    occupancy.verify()
+    return True
+
+
+def compact_columns_(mat: Tensor, cols: Tensor) -> Tensor:
+    """``mat[:, cols]`` written over the front of ``mat``'s own storage:
+    ``[R, V]`` contiguous to a ``[R, len(cols)]`` view of it, ``cols``
+    ascending. In row-major order a row's destination never lies past its
+    source, so rows are gathered by ascending blocks, each straight into
+    its destination where that ends before the block's source begins (the
+    blocks grow as the gap does), else one row through a one-row
+    temporary. No matrix-sized buffer is allocated."""
+    R, V = mat.shape
+    n = cols.numel()
+    if n == V:
+        return mat
+    flat = mat.view(-1)
+    r0 = 0
+    while r0 < R:
+        r1 = min(R, (r0 * V) // max(n, 1)) if n else R
+        if r1 <= r0:
+            r1 = r0 + 1
+            row = mat[r0].index_select(0, cols)
+            flat[r0 * n:r1 * n].copy_(row)
+        else:
+            torch.index_select(mat[r0:r1], 1, cols,
+                               out=flat[r0 * n:r1 * n].view(r1 - r0, n))
+        r0 = r1
+    return flat[:R * n].view(R, n)
+
+
+def zero_dropped_tiles_(mat: Tensor, keep: np.ndarray, tile_rows: int,
+                        tile_cols: int) -> None:
+    """Zero in place every tile of ``mat`` ``[R, V]`` whose entry of
+    ``keep`` (bool ``[>= ceil(R / tile_rows), ceil(V / tile_cols)]``) is
+    False (``ops/sparse.py:threshold_matrix`` semantics, where ``mat``
+    lies): a block of whole tile rows at a time, by a broadcast multiply
+    with the 0/1 tile mask."""
+    R, V = mat.shape
+    n_tr = -(-R // tile_rows)
+    keep = np.asarray(keep, bool)[:n_tr]
+    if keep.all():
+        return
+    main = V // tile_cols * tile_cols
+    step = max(1, (1 << 24) // max(V * tile_rows, 1)) * tile_rows
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        t0, t1 = r0 // tile_rows, -(-r1 // tile_rows)
+        if not (~keep[t0:t1]).any():
+            continue
+        k = keep[t0:t1]
+        m = torch.as_tensor(k, device=mat.device).to(mat.dtype)
+        rows = mat[r0:r1]
+        full = (r1 - r0) // tile_rows * tile_rows
+        for a, b, sel in ((0, full, slice(0, full // tile_rows)),
+                          (full, r1 - r0, slice(full // tile_rows, full // tile_rows + 1))):
+            if b <= a:
+                continue
+            blk = rows[a:b].unflatten(0, (-1, min(tile_rows, b - a)))
+            mk = m[sel]
+            if main:
+                blk[:, :, :main].unflatten(2, (main // tile_cols, tile_cols)).mul_(
+                    mk[:, None, :main // tile_cols, None])
+            if main < V:
+                blk[:, :, main:].mul_(mk[:, None, -1:])
+
+
+def _scatter_cols(x: Tensor, cols: Optional[Tensor], nvoxel: int) -> Tensor:
+    """``x`` ``[..., V_occ]`` spread into zeros ``[..., nvoxel]`` at
+    ``cols`` (``x`` itself where ``cols`` is None)."""
+    if cols is None:
+        return x
+    out = torch.zeros(x.shape[:-1] + (nvoxel,), dtype=x.dtype, device=x.device)
+    return out.index_copy_(-1, cols, x)
+
+
 def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
                  opts: SolverOptions, device="cuda",
-                 rtm_scale=None) -> SARTProblem:
+                 rtm_scale=None, tile_occupancy=None) -> SARTProblem:
     """Upload the RTM (a host array or a tensor) in the storage dtype and
     compute its ray stats in the compute dtype. ``laplacian`` must already
     live on ``device``.
@@ -277,6 +424,14 @@ def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
     host, so the card only ever holds the 1-byte codes), or it is already
     int8 codes and ``rtm_scale`` [V] their scales. The stats are those of
     the quantized matrix.
+
+    ``tile_occupancy`` (an ``ops/sparse.py:TileOccupancy`` of the matrix,
+    with ``opts.sparse_rtm`` on): where the block-sparse sweep engages
+    (:func:`resolve_sparse`), only the occupied tile columns are kept —
+    compacted in place (:func:`compact_columns_`) when ``rtm`` is a tensor,
+    which then becomes the problem's storage, else into a new array — the
+    tiles a nonzero threshold drops are zeroed, and the stats are those of
+    that matrix (``ray_density`` spread back to [V], zero elsewhere).
     """
     dev = resolve_device(device)
     dtype = torch_dtype(opts.dtype)
@@ -285,6 +440,22 @@ def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
         check_on(dev, laplacian=laplacian.vals)
     if np.ndim(rtm) != 2:
         raise ValueError(f"rtm must be [P, V], got shape {np.shape(rtm)}.")
+    nvoxel = np.shape(rtm)[1]
+    occ = (tile_occupancy if resolve_sparse(opts, tile_occupancy, np.shape(rtm),
+                                            _storage_name(sdt)) else None)
+    in_place = isinstance(rtm, torch.Tensor)
+    cols = None
+
+    def compact(x: Tensor, own: bool) -> Tensor:
+        """The occupied columns of ``x`` (the tile mask's dropped tiles
+        zeroed), in place where ``own``."""
+        nonlocal cols
+        idx = torch.as_tensor(occ.occupied_columns(nvoxel), device=x.device)
+        x = compact_columns_(x, idx) if own else x.index_select(1, idx)
+        col_tiles = np.flatnonzero(occ.mask.any(axis=0))
+        zero_dropped_tiles_(x, occ.mask[:, col_tiles], occ.tile_rows, occ.tile_cols)
+        cols = idx if idx.numel() < nvoxel else None
+        return x
     if sdt == torch.int8:
         if max(np.shape(rtm)) > INT8_MAX_CONTRACTION:
             raise ValueError(
@@ -310,16 +481,50 @@ def make_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
                 )
         codes = codes.to(dev).contiguous()
         scale = scale.to(dev, torch.float32)
+        if occ is not None:
+            codes = compact(codes, in_place or rtm_scale is None)
+            if cols is not None:
+                scale = scale.index_select(0, cols.to(dev))
+        cols = None if cols is None else cols.to(dev)
         dens, length = compute_ray_stats_int8(codes, scale, dtype=dtype)
-        return SARTProblem(codes, dens, length, laplacian, scale)
+        return SARTProblem(codes, _scatter_cols(dens, cols, nvoxel), length, laplacian,
+                           scale, occupancy=occ, cols=cols)
     if rtm_scale is not None:
         raise ValueError("rtm_scale is only valid with rtm_dtype='int8'.")
     rtm = torch.as_tensor(rtm)
+    if occ is not None:
+        rtm = compact(rtm.contiguous(), in_place and rtm.is_contiguous())
     if rtm.dtype == sdt or rtm.device.type == dev.type:
         rtm = rtm.to(dev)  # stored as given, or already there
+    cols = None if cols is None else cols.to(dev)
     dens, length = compute_ray_stats(rtm, dtype=dtype)
-    return SARTProblem(rtm.to(dev, sdt).contiguous(), dens.to(dev),
-                       length.to(dev), laplacian)
+    return SARTProblem(rtm.to(dev, sdt).contiguous(),
+                       _scatter_cols(dens.to(dev), cols, nvoxel),
+                       length.to(dev), laplacian, occupancy=occ, cols=cols)
+
+
+def make_sparse_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
+                        opts: SolverOptions, device="cuda"):
+    """:func:`make_problem` plus the block-sparse tile-occupancy pass of a
+    host matrix (``sartsolver_tpu/models/sart.py:make_sparse_problem``):
+    returns ``(problem, occupancy)``, ``(problem, None)`` when sparse mode
+    is off. The index is of the fp32 values given (with bf16 or int8
+    storage a tile whose every entry rounds to zero stays marked occupied,
+    a missed skip, never a skipped live tile); a nonzero threshold zeroes
+    the dropped tiles on the host first, as the JAX function does, so an
+    int8 matrix is quantized from the thresholded values. The chunked
+    ingest's equivalent is ``parallel/multihost.py``'s ``tile_stats=``."""
+    eps = opts.sparse_epsilon()
+    if eps is None:
+        return make_problem(rtm, laplacian, opts=opts, device=device), None
+    from sartsolver_tpu_torch.ops.sparse import build_tile_occupancy, threshold_matrix
+
+    mat = np.asarray(rtm, np.float32)
+    occ = build_tile_occupancy(mat, epsilon=eps)
+    if eps > 0:
+        mat = threshold_matrix(mat, occ)
+    return make_problem(mat, laplacian, opts=opts, device=device,
+                        tile_occupancy=occ), occ
 
 
 def resolve_fused(opts: SolverOptions) -> bool:
@@ -356,6 +561,15 @@ def resolve_fused(opts: SolverOptions) -> bool:
     return True
 
 
+@functools.lru_cache(maxsize=8)
+def _sparse_plan(occupancy) -> Tuple[float, int, int]:
+    """``(occupancy fraction, tile columns, tiles a sweep skips)`` of an
+    index, taken once per index (a context is built per solve and stride)."""
+    col_any = occupancy.mask.any(axis=0)
+    return (occupancy.occupancy_fraction(), len(col_any),
+            int((~col_any).sum()) * occupancy.grid_shape[0])
+
+
 class _SweepContext:
     """Masks, inverse ray stats, the penalty and one iteration's sweep."""
 
@@ -371,10 +585,24 @@ class _SweepContext:
         self.fused = resolve_fused(opts)
         self.sweep_fn = sweep_fn
         self.os = int(opts.os_subsets)
-        FUSED_ENGAGEMENT["last"] = (
-            "os-subset" if self.os > 1 else "off" if not self.fused
-            else "compiled" if self.rtm.is_cuda and sweep_fn is fused_sweep
-            else "plain")
+        # block-sparse: the problem holds the occupied columns (cols None:
+        # every column is); an explicit threshold over a problem built
+        # without an index raises here, as the JAX solver does
+        self.sparse = problem.occupancy
+        self.cols = problem.cols
+        self.nvoxel = problem.ray_density.shape[0]
+        if self.sparse is None and opts.sparse_explicit():
+            resolve_sparse(opts, None, problem.rtm.shape, _storage_name(problem.rtm.dtype))
+        if self.sparse is not None and self.os == 1:
+            self.fused = True  # the hand kernel over the occupied columns
+        kind = ("os-subset" if self.os > 1 else "off" if not self.fused
+                else "compiled" if self.rtm.is_cuda and sweep_fn is fused_sweep
+                else "plain")
+        FUSED_ENGAGEMENT["last"] = (kind if self.sparse is None else
+                                    "os-subset-sparse" if self.os > 1 else f"sparse-{kind}")
+        self._skip_ctr = None
+        if self.sparse is not None:
+            self._note_sparse()
         # int8 codes: the loop's kernel (or the OS cycle's products)
         # dequantizes them exactly; the projections outside it quantize
         # their vector operand
@@ -416,7 +644,9 @@ class _SweepContext:
                     f"os_subsets={self.os} must divide the (per-shard, "
                     f"padded) pixel extent {P}."
                 )
-            dens_sub = _subset_colsums(problem.rtm, self.os, self.dtype, self.scale)
+            dens_sub = _scatter_cols(
+                _subset_colsums(problem.rtm, self.os, self.dtype, self.scale),
+                self.cols, self.nvoxel)
             self.vmask_sub = (dens_sub > opts.ray_density_threshold) & self.vmask[None, :]
             self.inv_density_sub = torch.where(
                 self.vmask_sub,
@@ -450,6 +680,33 @@ class _SweepContext:
             self.abft_worst = (torch.zeros((), dtype=self.dtype, device=dev)
                                if _ABFT_RECORD["on"] else None)
 
+    def _note_sparse(self) -> None:
+        """The sparse plan's gauges (``ops/fused_sweep.py:_sparse_trace_obs``
+        of the JAX package): the occupancy, the tile columns and their
+        width; the counter of the tiles each sweep skips is advanced by
+        :meth:`_count_skipped`."""
+        occ = self.sparse
+        path = "sparse_os" if self.os > 1 else "sparse_panel"
+        fraction, n_tile_cols, self._skip_tiles = _sparse_plan(occ)
+        reg = obs_metrics.get_registry()
+        reg.gauge("rtm_tile_occupancy").set(fraction)
+        reg.gauge("fused_panel_count", path=path).set(n_tile_cols)
+        reg.gauge("fused_panel_voxels", path=path).set(occ.tile_cols)
+        self._skip_ctr = reg.counter("sparse_tiles_skipped_total", path=path)
+
+    def _count_skipped(self) -> None:
+        if self._skip_ctr is not None:
+            self._skip_ctr.inc(self._skip_tiles)
+
+    def gather(self, x: Tensor) -> Tensor:
+        """``x`` ``[..., V]`` at the occupied columns (``x`` itself when
+        the problem holds every column)."""
+        return x if self.cols is None else x.index_select(-1, self.cols)
+
+    def spread(self, x: Tensor) -> Tensor:
+        """``x`` ``[..., V_occ]`` back in ``[..., V]``, zero elsewhere."""
+        return _scatter_cols(x, self.cols, self.nvoxel)
+
     def decay_factor(self, it: Tensor) -> Tensor:
         """``decay ** it`` [B] for the iterations ``it`` [B] each frame has
         completed: one op, the same for the batched loop (every frame at the
@@ -459,16 +716,22 @@ class _SweepContext:
 
     def bp_any(self, w: Tensor) -> Tensor:
         """``H^T w`` on whatever the problem stores: the one back-projection
-        seam of every path outside the fused loop."""
+        seam of every path outside the fused loop (block-sparse: over the
+        occupied columns, zero elsewhere)."""
+        if self.rtm.shape[1] == 0:
+            return torch.zeros(w.shape[:-1] + (self.nvoxel,), dtype=w.dtype, device=w.device)
         if self.scale is not None:
-            return int8_back_project(self.rtm, self.scale, w)
-        return back_project(self.rtm, w)
+            return self.spread(int8_back_project(self.rtm, self.scale, w))
+        return self.spread(back_project(self.rtm, w))
 
     def fp_any(self, f: Tensor) -> Tensor:
         """``H f`` on whatever the problem stores: the forward seam."""
+        if self.rtm.shape[1] == 0:
+            return torch.zeros(f.shape[:-1] + (self.rtm.shape[0],), dtype=f.dtype,
+                               device=f.device)
         if self.scale is not None:
-            return int8_forward_project(self.rtm, self.scale, f)
-        return forward_project(self.rtm, f)
+            return int8_forward_project(self.rtm, self.scale, self.gather(f))
+        return forward_project(self.rtm, self.gather(f))
 
     def compute_penalty(self, x: Tensor) -> Tensor:
         """``beta * L @ x`` per frame (zeros without a Laplacian)."""
@@ -499,7 +762,8 @@ class _SweepContext:
             w_t = (torch.where(os_subset_pixels(meas_mask, t, self.os), g_t,
                                torch.zeros_like(g_t))
                    * os_subset_pixels(self.inv_length, t, self.os)[None, :])
-            obs_t = os_subset_back(os_subset_rows(self.rtm, t, self.os), w_t, self.scale)
+            obs_t = self.spread(os_subset_back(os_subset_rows(self.rtm, t, self.os), w_t,
+                                               self.scale))
             outs.append(torch.where(self.vmask_sub[t][None, :], obs_t, torch.zeros_like(obs_t)))
         return torch.stack(outs, dim=1)
 
@@ -535,16 +799,17 @@ class _SweepContext:
             exponent = self.log_exponent(f.shape[0], dk, ascale)
             eps = torch.tensor(self.eps, dtype=self.dtype, device=f.device)
         nan_rows = []
+        self._count_skipped()
         for t in range(n):
             panel = os_subset_rows(self.rtm, t, n)
             m_t = os_subset_pixels(meas_mask, t, n)
             il_t = os_subset_pixels(self.inv_length, t, n)[None, :]
             with _span("os_subset_forward"):
-                fitted_t = os_subset_forward(panel, f, self.scale)
+                fitted_t = os_subset_forward(panel, self.gather(f), self.scale)
             if self.opts.logarithmic:
                 w = torch.where(m_t, fitted_t, torch.zeros_like(fitted_t)) * il_t
                 with _span("os_subset_back"):
-                    fit = os_subset_back(panel, w, self.scale)
+                    fit = self.spread(os_subset_back(panel, w, self.scale))
                 # the fp32 products widen to the compute dtype before the
                 # ratio, as the JAX cycle's fp64 epsilon widens them
                 fit = torch.where(self.vmask_sub[t][None, :], fit,
@@ -561,7 +826,7 @@ class _SweepContext:
                 if ascale is not None:
                     w = w * ascale[:, None]
                 with _span("os_subset_back"):
-                    bp = os_subset_back(panel, w, self.scale)
+                    bp = self.spread(os_subset_back(panel, w, self.scale))
                 upd = f + self.inv_density_sub[t][None, :] * bp
                 if self.lap is not None:
                     upd = upd - self.compute_penalty(f) * pen_scale
@@ -573,7 +838,8 @@ class _SweepContext:
             self.os_nan_rows = torch.stack(nan_rows)
         with _span("os_full_forward"):
             if self.scale is not None:
-                parts = [os_subset_forward(os_subset_rows(self.rtm, t, n), f, self.scale)
+                f_occ = self.gather(f)
+                parts = [os_subset_forward(os_subset_rows(self.rtm, t, n), f_occ, self.scale)
                          for t in range(n)]
                 fitted = torch.stack(parts, dim=2).reshape(f.shape[0], self.rtm.shape[0])
             else:
@@ -601,10 +867,26 @@ class _SweepContext:
         nanchk.fail(what, where)
 
     def run_fused(self, w: Tensor, f: Tensor, aux, **kw):
-        """One call of the fused sweep; int8 codes carry their scale."""
+        """One call of the fused sweep; int8 codes carry their scale.
+        Block-sparse: the kernel runs on the compacted matrix with ``f`` and
+        the aux panels gathered at the occupied columns; every other column
+        takes the update with ``bp = 0`` (the JAX package's base update,
+        ``ops/fused_sweep.py:561-566``: the penalty still moves it), and the
+        kernel's columns are scattered over it. No occupied column: no
+        launch, ``fitted = 0``."""
         if self.scale is not None:
             kw["scale"] = self.scale[None, :]
-        return self.sweep_fn(self.rtm, w, f, aux, **kw)
+        self._count_skipped()
+        if self.cols is None:
+            return self.sweep_fn(self.rtm, w, f, aux, **kw)
+        base = _update_reference(f, torch.zeros_like(f), aux,
+                                 logarithmic=kw["logarithmic"], alpha=kw.get("alpha", 1.0),
+                                 eps=kw.get("eps", 0.0), alpha_lane=kw.get("alpha_lane"))
+        if self.cols.numel() == 0:
+            return base, torch.zeros_like(w)
+        f_occ, fitted = self.sweep_fn(self.rtm, w, self.gather(f),
+                                      [self.gather(a) for a in aux], **kw)
+        return base.index_copy_(1, self.cols, f_occ), fitted
 
     def run_sweep(self, f: Tensor, fitted: Tensor, penalty: Tensor,
                   g: Tensor, meas_mask: Tensor, obs: Optional[Tensor],
@@ -1228,7 +1510,7 @@ def solve(problem: SARTProblem, measurement, f0=None, *, opts: SolverOptions,
     dtype = torch_dtype(opts.dtype)
     g64, msq, norm = prepare_measurement(measurement, opts)
     g = torch.as_tensor(g64, device=dev).to(dtype)
-    nvoxel = problem.rtm.shape[1]
+    nvoxel = problem.ray_density.shape[0]
     use_guess = f0 is None
     if use_guess:
         f0 = torch.zeros(nvoxel, dtype=dtype, device=dev)

@@ -99,6 +99,14 @@ _HELP = {
     "sched_deadline_shed_total": "Lanes force-retired past their deadline.",
     "solver_os_subsets": "Ordered-subsets count of the run (--os_subsets).",
     "solver_momentum_on": "1 when the run uses --momentum, else 0.",
+    "rtm_tile_occupancy":
+        "Fraction of 8x128 RTM tiles holding data (--sparse_rtm).",
+    "sparse_tiles_skipped_total":
+        "RTM tiles the block-sparse sweeps skipped, by path.",
+    "solve_ckpt_written_total":
+        "In-solve checkpoint records appended (--solve_ckpt_stride).",
+    "solve_ckpt_resumed_total":
+        "Runs resumed from an in-solve checkpoint.",
 }
 
 # Histogram sub-series: what each exported moment is.

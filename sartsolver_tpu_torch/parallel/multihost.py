@@ -43,6 +43,13 @@ policy answers by reading the chunk again. ``ingest_stats=`` (an
 lie (fp64 sums on the card; for int8 the dequantized codes). Each chunk
 read is a hang-watchdog ``prefetch`` beacon.
 
+``tile_stats=`` (a :class:`~sartsolver_tpu_torch.ops.sparse.TileMaxStats`
+from :func:`make_tile_stats`) takes the block-sparse tile index's maxima of
+the stored values, where they lie, one chunk at a time: the fp32 or bf16
+rows as stored, for int8 the codes times their scales in pass 2 (the JAX
+recipe's storage-rounded index). Each chunk is reduced on the device to its
+``[rows/8, V/128]`` tile maxima, a few KB that join the grid on the host.
+
 Each pass is an ``ingest.pass`` trace span (``what=`` ``store``,
 ``colmax`` or ``quantize``). ``timings=`` (a dict) receives each pass's
 seconds, its read seconds (the reader's), its upload seconds (the side
@@ -124,10 +131,132 @@ def _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, r0,
     return stripe
 
 
-def _refuse_hooks(tile_stats) -> None:
-    if tile_stats is not None:
-        raise NotImplementedError("tile_stats= (the block-sparse tile index) comes "
-                                  "with --sparse_rtm")
+# the JAX package's voxel-column alignment: the tile index covers the
+# matrix padded to whole 128-column tiles
+COL_ALIGN = 128
+# rows of a chunk reduced to tile maxima at once: the reduction's output
+# stays at a few tens of KB beside the stored matrix
+_TILE_BLOCK_ROWS = 256
+
+
+def _padded(n: int, align: int) -> int:
+    return -(-n // align) * align
+
+
+def make_tile_stats(npixel: int, nvoxel: int):
+    """A :class:`~sartsolver_tpu_torch.ops.sparse.TileMaxStats` sized as the
+    JAX package's (``sartsolver_tpu/parallel/multihost.py:make_tile_stats``
+    on one device): the grid of the matrix padded to whole 8 x 128 tiles,
+    whose padding never receives a value, so the padded panels are born
+    unoccupied. Feed it through :func:`read_and_shard_rtm` or
+    :func:`read_and_quantize_rtm` as ``tile_stats=``, then cut it into an
+    index (``stats.occupancy(eps)``)."""
+    from sartsolver_tpu_torch.ops.sparse import TileMaxStats
+
+    return TileMaxStats(_padded(npixel, ROW_ALIGN), _padded(nvoxel, COL_ALIGN))
+
+
+def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int):
+    """The block-sparse ingest gate
+    (``sartsolver_tpu/parallel/multihost.py:sparse_tile_stats_or_decline``):
+    a :class:`~sartsolver_tpu_torch.ops.sparse.TileMaxStats` to feed through
+    the chunked read, or None when sparse mode is off or declines on a flag
+    ('auto', with the JAX package's stderr warning). An explicit threshold
+    raises ``SartInputError`` with the reason instead."""
+    import sys
+
+    from sartsolver_tpu_torch.config import SartInputError
+    from sartsolver_tpu_torch.ops.sparse import static_decline_reason
+
+    if opts.sparse_epsilon() is None:
+        return None
+    reason = static_decline_reason(opts, 1)
+    if reason is not None:
+        if opts.sparse_explicit():
+            raise SartInputError(f"Argument sparse_rtm={opts.sparse_rtm}: {reason}.")
+        print(f"Warning: sparse_rtm declines here ({reason}); running dense.",
+              file=sys.stderr)
+        return None
+    return make_tile_stats(npixel, nvoxel)
+
+
+def _tile_maxima(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
+    """``max |x|`` over each tile of ``x`` ``[k * m, V]`` viewed as ``k`` tile
+    rows of ``m`` rows: ``[k, ceil(V / tile_cols)]`` fp32, the last tile
+    column cut at V. Reductions over views: no copy of ``x`` is made."""
+    k = x.shape[0] // tile_rows if x.shape[0] >= tile_rows else 1
+    rows = x.unflatten(0, (k, x.shape[0] // k))
+    V = x.shape[1]
+    main = V // tile_cols * tile_cols
+    parts = []
+    if main:
+        parts.append(torch.linalg.vector_norm(
+            rows[:, :, :main].unflatten(2, (main // tile_cols, tile_cols)),
+            ord=float("inf"), dim=(1, 3)))
+    if main < V:
+        parts.append(torch.linalg.vector_norm(rows[:, :, main:], ord=float("inf"),
+                                              dim=(1, 2))[:, None])
+    return torch.cat(parts, dim=1).float() if len(parts) > 1 else parts[0].float()
+
+
+def _fold_max_(t: torch.Tensor, dim: int) -> None:
+    """Reduce ``|t|`` along ``dim`` into its index 0 in place (``t`` already
+    holds absolute values): halves folded onto each other with
+    ``torch.maximum``, which keeps a NaN."""
+    m = t.shape[dim]
+    while m > 1:
+        h = m // 2
+        torch.maximum(t.narrow(dim, 0, h), t.narrow(dim, m - h, h), out=t.narrow(dim, 0, h))
+        m -= h
+
+
+def _tile_maxima_in_place(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
+    """The tile maxima of ``x`` ``[k * tile_rows, V]`` (whole tile rows, a
+    staging chunk whose values are not needed after) reduced in place in
+    ``x`` itself: ``[k, ceil(V / tile_cols)]``, a contiguous view into the
+    second row of ``x``, which holds nothing else by then. No device memory
+    is allocated."""
+    k, V = x.shape[0] // tile_rows, x.shape[1]
+    main = V // tile_cols * tile_cols
+    nct = -(-V // tile_cols)
+    x.abs_()
+    rows = x.unflatten(0, (k, tile_rows))
+    _fold_max_(rows, 1)
+    first = rows[:, 0]  # [k, V]: each tile row's column maxima
+    if main:
+        _fold_max_(first[:, :main].unflatten(1, (main // tile_cols, tile_cols)), 2)
+    if main < V:
+        _fold_max_(first[:, main:], 1)
+    out = rows[0, 1, :k * nct].view(k, nct)  # a row the folds emptied
+    if main:
+        out[:, :main // tile_cols].copy_(first[:, :main:tile_cols])
+    if main < V:
+        out[:, -1].copy_(first[:, main])
+    return out
+
+
+def _feed_tile_stats(tile_stats, x: torch.Tensor, r0: int, scratch: bool = False) -> None:
+    """Fold the stored rows ``x`` ``[n, V]`` (rows ``r0 ..`` of the matrix)
+    into ``tile_stats``: their tile maxima taken where they lie, a block of
+    whole tile rows at a time, then copied to the host grid. ``scratch``:
+    ``x`` is a staging chunk whose values are not needed after, and its
+    whole tile rows are reduced in place (:func:`_tile_maxima_in_place`),
+    so the feed allocates no device memory beside the ingest's own."""
+    tr, tc = tile_stats.tile_rows, tile_stats.tile_cols
+    n = x.shape[0]
+    head = min(n, (-r0) % tr)  # the rows of a tile the previous chunk began
+    body = head + (n - head) // tr * tr
+    step = max(tr, _TILE_BLOCK_ROWS // tr * tr)
+    cuts = [(0, head)] + [(s, min(s + step, body)) for s in range(head, body, step)] \
+        + [(body, n)]
+    for s, e in cuts:
+        if e > s:
+            whole = (e - s) % tr == 0 and (s + r0) % tr == 0
+            if scratch and whole and (e - s) // tr * -(-x.shape[1] // tc) <= x.shape[1]:
+                grid = _tile_maxima_in_place(x[s:e], tr, tc)
+            else:
+                grid = _tile_maxima(x[s:e], tr, tc)
+            tile_stats.add_grid(grid.cpu().numpy(), (r0 + s) // tr)
 
 
 def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
@@ -235,8 +364,8 @@ def read_and_shard_rtm(
     ``"bfloat16"`` or ``"float64"``, or the torch dtype), read in row chunks.
     ``rows`` (default ``npixel``) pads the matrix with zero rows, the
     ordered-subsets padding of ``parallel/sharded.py``. ``ingest_stats``
-    takes the stored values' sums (module docstring)."""
-    _refuse_hooks(tile_stats)
+    takes the stored values' sums and ``tile_stats`` their tile maxima
+    (module docstring)."""
     dev = resolve_device(device)
     dt = dtype if isinstance(dtype, torch.dtype) else {
         "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -249,9 +378,12 @@ def read_and_shard_rtm(
     buf[npixel:].zero_()
     chunk = _chunk(chunk_rows, npixel, nvoxel)
     stored = None
-    if ingest_stats is not None:
+    if ingest_stats is not None or tile_stats is not None:
         def stored(r0, n):
-            ingest_stats.add(buf[r0:r0 + n], r0, 0)
+            if ingest_stats is not None:
+                ingest_stats.add(buf[r0:r0 + n], r0, 0)
+            if tile_stats is not None:
+                _feed_tile_stats(tile_stats, buf[r0:r0 + n], r0)
 
     if dt == torch.float32:  # the upload lands in the matrix's rows
         _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
@@ -261,8 +393,12 @@ def read_and_shard_rtm(
     else:  # rounded (bf16) or widened (fp64) from the fp32 chunk
         def consume(r0, n, x):
             buf[r0:r0 + n].copy_(x)
-            if stored is not None:
-                stored(r0, n)
+            if ingest_stats is not None:
+                ingest_stats.add(buf[r0:r0 + n], r0, 0)
+            if tile_stats is not None:
+                # the stored values, back in the staging chunk: the maxima
+                # reduced there, in place
+                _feed_tile_stats(tile_stats, x.copy_(buf[r0:r0 + n]), r0, scratch=True)
 
         _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
                 sparse_cache={}, consume=consume, timings=timings)
@@ -288,8 +424,9 @@ def read_and_quantize_rtm(
     chunks for the per-voxel column maxima; pass 2 streams them again,
     quantizing each into the codes. The sparse segments are read once for
     both passes; the dense rows twice. ``ingest_stats`` takes the
-    dequantized codes' sums in pass 2 (the JAX package's ``stats_dequant``)."""
-    _refuse_hooks(tile_stats)
+    dequantized codes' sums in pass 2 (the JAX package's ``stats_dequant``),
+    ``tile_stats`` their tile maxima (the codes times the scales, in place
+    on the staging chunk once the codes are stored)."""
     from sartsolver_tpu_torch.ops.projection import _sym_scale
 
     dev = resolve_device(device)
@@ -315,6 +452,8 @@ def read_and_quantize_rtm(
         if ingest_stats is not None:
             ingest_stats.add(codes[r0:r0 + n].to(torch.float64)
                              * scale.to(torch.float64), r0, 0)
+        if tile_stats is not None:
+            _feed_tile_stats(tile_stats, x.mul_(scale), r0, scratch=True)
 
     _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="quantize",
             sparse_cache=cache, consume=quantize, timings=timings)

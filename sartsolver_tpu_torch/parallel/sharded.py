@@ -24,6 +24,20 @@ recomputes the stats from the resident matrix and compares bit for bit
 ``device.buffer`` (kind ``corrupt``) perturbs the resident matrix in place
 at a solve's entry, the stats left stale.
 
+``tile_occupancy=`` (the ingest's block-sparse index, with
+``opts.sparse_rtm``; for a host matrix without one the solver indexes the
+matrix's fp32 values itself, as the JAX solver does) keeps only the occupied tile columns of the matrix on
+the device (``models/sart.py:make_problem``, in place in the ingest's
+buffer); the solver's vectors stay ``[V]``. The ``device.buffer``
+corruption and the re-audit act on that matrix, the one the sweeps read.
+
+For the in-solve checkpoints (``--solve_ckpt_stride``),
+:meth:`DistributedSARTSolver.export_sched_lanes` takes every field of the
+lanes' :class:`~sartsolver_tpu_torch.models.sart.SchedState` to the host bit
+for bit, beside the per-lane fp64 norms, under a signature of the solver's
+configuration; :meth:`DistributedSARTSolver.restore_sched_lanes` stages such
+a snapshot as live lanes, or refuses one whose signature differs.
+
 Ordered subsets (``os_subsets > 1``) accept what the JAX solver accepts:
 that solver pads the pixel rows to a multiple of ``ROW_ALIGN`` with zero
 rows whose measurements are -1 (masked), and ``os_subsets`` must divide the
@@ -45,6 +59,7 @@ from sartsolver_tpu_torch.device import resolve_device
 from sartsolver_tpu_torch.models.sart import (
     SchedState,
     SolveResult,
+    _scatter_cols,
     compute_ray_stats,
     compute_ray_stats_int8,
     make_problem,
@@ -195,7 +210,9 @@ class DistributedSARTSolver:
     ``opts.rtm_dtype`` (int8: quantized where it lies, or already int8
     codes with their scales ``rtm_scale`` [V]); a tensor already on
     ``device`` in the stored dtype (the chunked ingest's,
-    ``parallel/multihost.py``) is used as it is. ``npixel`` (default the
+    ``parallel/multihost.py``) is used as it is (with ``tile_occupancy``,
+    the block-sparse index, compacted in place to its occupied columns).
+    ``npixel`` (default the
     matrix's rows) is the pixel count of a matrix that already holds the
     ordered-subsets padding rows. ``laplacian`` a
     :class:`~sartsolver_tpu_torch.ops.laplacian.LaplacianCOO` on ``device``.
@@ -213,7 +230,7 @@ class DistributedSARTSolver:
 
     def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda",
                  debug_nans: bool = False, rtm_scale=None,
-                 npixel: Optional[int] = None):
+                 npixel: Optional[int] = None, tile_occupancy=None):
         self.device = resolve_device(device)
         self.opts = opts
         self.debug_nans = debug_nans
@@ -227,6 +244,18 @@ class DistributedSARTSolver:
         elif held != self.rows:
             raise ValueError(f"rtm of {held} rows for {npixel} pixels: {self.rows} "
                              "rows expected.")
+        if (tile_occupancy is None and opts.sparse_epsilon() is not None
+                and not isinstance(rtm, torch.Tensor)):
+            # a host matrix: its index of the fp32 values, on the padded
+            # grid the ingest's index covers, a band of rows at a time
+            from sartsolver_tpu_torch.ops.sparse import accumulate_tile_max
+            from sartsolver_tpu_torch.parallel.multihost import make_tile_stats
+
+            host = np.asarray(rtm)
+            tile_occupancy = accumulate_tile_max(
+                make_tile_stats(npixel, host.shape[1]),
+                host if host.dtype == np.float32 else host.astype(np.float32),
+            ).occupancy(opts.sparse_epsilon())
         if laplacian is not None:
             # the Laplacian's staging, a device.put of the JAX solver's
             # construction (a hang here aborts the run, outside any frame)
@@ -234,12 +263,13 @@ class DistributedSARTSolver:
             faults.fire(faults.SITE_DEVICE_PUT)
         with obs_trace.span("device.put"):
             self.problem = make_problem(rtm, laplacian, opts=opts, device=self.device,
-                                        rtm_scale=rtm_scale)
-            if self.device.type == "cuda" and resolve_fused(opts):
+                                        rtm_scale=rtm_scale, tile_occupancy=tile_occupancy)
+            if self.device.type == "cuda" and (resolve_fused(opts)
+                                               or self.problem.occupancy is not None):
                 from sartsolver_tpu_torch.ops import _build
 
                 _build.load("fused_sweep")
-        self.npixel, self.nvoxel = npixel, self.problem.rtm.shape[1]
+        self.npixel, self.nvoxel = npixel, self.problem.ray_density.shape[0]
         # the integrity layer's upload-time ray stats (host copies)
         self._ray_stats_snapshot = self._ray_stats_now() if opts.integrity else None
 
@@ -255,6 +285,7 @@ class DistributedSARTSolver:
                                                   dtype=dtype)
         else:
             dens, length = compute_ray_stats(problem.rtm, dtype=dtype)
+        dens = _scatter_cols(dens, problem.cols, problem.ray_density.shape[0])
         return dens.cpu().numpy().copy(), length.cpu().numpy().copy()
 
     # the bit of a float element a device.buffer corruption flips: its
@@ -275,6 +306,8 @@ class DistributedSARTSolver:
         if not faults.take_corrupt(faults.SITE_DEVICE_BUFFER):
             return
         rtm = self._live_problem().rtm
+        if rtm.numel() == 0:
+            return
         if rtm.dtype == torch.int8:
             rtm[0, 0] = 127 - rtm[0, 0]
         else:
@@ -311,6 +344,12 @@ class DistributedSARTSolver:
                 out.append(f"{name}: {diff.size} element(s) changed since upload "
                            f"(first at index {int(diff[0])})")
         return out
+
+    @property
+    def tile_occupancy(self):
+        """The block-sparse index the solver runs on, None where it runs
+        dense (sparse off, or 'auto' declined)."""
+        return self._live_problem().occupancy
 
     def close(self) -> None:
         """Release the device copy of the problem; results stay valid."""
@@ -491,3 +530,63 @@ class DistributedSARTSolver:
         lane_state.state = new_state
         lane_state.norms = norms
         lane_state._scalars = None
+
+    # ---- in-solve checkpoints (resilience/podckpt.py) ----------------------
+
+    def _sched_ckpt_sig(self) -> str:
+        """The configuration signature stored in a solve checkpoint
+        (``sartsolver_tpu/parallel/sharded.py:_sched_ckpt_sig``, naming this
+        package): a resume under other solver knobs would restore lane state
+        whose meaning changed (dtype, storage, momentum carries, subset
+        stacking, the held shapes), so the restore refuses instead."""
+        opts = self.opts
+        return "|".join(str(v) for v in (
+            "torch", opts.dtype, opts.rtm_dtype, opts.momentum, int(opts.logarithmic),
+            opts.os_subsets, opts.schedule_stride, int(opts.divergence_recovery > 0),
+            self.rows, self.nvoxel,
+        ))
+
+    def export_sched_lanes(self, lane_state: SchedLaneState) -> dict:
+        """Host snapshot of the lanes for a solve checkpoint: every
+        ``SchedState`` field copied to the host bit for bit (None where its
+        variant is off), the per-lane fp64 norms and the signature."""
+        st = lane_state.state
+        return {
+            "sig": self._sched_ckpt_sig(),
+            "lanes": int(lane_state.lanes),
+            "norms": np.asarray(lane_state.norms, np.float64).copy(),
+            "state": {name: (None if getattr(st, name) is None
+                             else getattr(st, name).cpu().numpy().copy())
+                      for name in SchedState._fields},
+        }
+
+    def restore_sched_lanes(self, exported: dict, kill_lanes=()) -> SchedLaneState:
+        """Stage an :meth:`export_sched_lanes` snapshot as live lanes, in the
+        dtypes and on the device :meth:`sched_lanes` gives them.
+        ``kill_lanes`` are reset to the inert lane first: lanes whose
+        occupant the killed run already retired and wrote. Raises
+        ValueError where the snapshot's signature is not this solver's."""
+        self._live_problem()
+        if exported.get("sig") != self._sched_ckpt_sig():
+            raise ValueError(
+                "Solve checkpoint does not match this solver configuration "
+                f"(checkpoint {exported.get('sig')!r}, solver {self._sched_ckpt_sig()!r}).")
+        B = int(exported["lanes"])
+        st = {k: (None if v is None else np.array(v, copy=True))
+              for k, v in exported["state"].items()}
+        norms = np.array(exported["norms"], np.float64, copy=True)
+        inert = {"g": -1.0, "msq": 1, "f": 1, "fitted": 0, "conv": 0, "it": 0,
+                 "done": True, "status": MAX_ITERATIONS_EXCEEDED, "iters": 0,
+                 "obs": 0, "ascale": 1, "recov": 0, "f_prev": 1, "fitted_prev": 0, "tk": 1}
+        for b in kill_lanes:
+            for name, value in inert.items():
+                if st.get(name) is not None:
+                    st[name][b] = value
+            norms[b] = 1.0
+        # the signature fixes every field's dtype and shape
+        fields = {name: None if st.get(name) is None
+                  else torch.from_numpy(st[name]).to(self.device)
+                  for name in SchedState._fields}
+        lanes = SchedLaneState(SchedState(**fields), B)
+        lanes.norms = norms
+        return lanes

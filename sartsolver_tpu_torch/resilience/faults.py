@@ -49,8 +49,9 @@ one RTM row chunk), ``prefetch.next`` (``utils/prefetch.py``, one frame of
 the worker), ``device.put`` (``parallel/sharded.py``, a frame group's
 staging), ``solve.dispatch`` (``parallel/sharded.py``, a solve's entry),
 ``device.buffer`` (``parallel/sharded.py``, the resident matrix, probed at
-each solve's entry) and ``io.flush`` (``io/solution.py``, a flush of the
-solution file).
+each solve's entry), ``io.flush`` (``io/solution.py``, a flush of the
+solution file) and ``solve.checkpoint`` (``resilience/podckpt.py``, the
+append of an in-solve checkpoint record).
 """
 
 from __future__ import annotations
@@ -79,10 +80,11 @@ SITE_DEVICE_PUT = "device.put"       # parallel/sharded.py: frame staging
 SITE_SOLVE = "solve.dispatch"        # parallel/sharded.py: solve entry
 SITE_FLUSH = "io.flush"              # io/solution.py: output flush
 SITE_DEVICE_BUFFER = "device.buffer"  # parallel/sharded.py: resident RTM rot
+SITE_SOLVE_CHECKPOINT = "solve.checkpoint"  # resilience/podckpt.py: ckpt append
 
 FAULT_SITES = frozenset({
     SITE_FRAME_READ, SITE_RTM_INGEST, SITE_PREFETCH, SITE_DEVICE_PUT,
-    SITE_SOLVE, SITE_FLUSH, SITE_DEVICE_BUFFER,
+    SITE_SOLVE, SITE_FLUSH, SITE_DEVICE_BUFFER, SITE_SOLVE_CHECKPOINT,
 })
 
 FAULT_KINDS = ("io", "error", "nan", "hang", "oom", "corrupt")

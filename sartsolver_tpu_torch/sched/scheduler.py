@@ -41,6 +41,17 @@ Contracts kept from the grouped loop:
   drain, and ``SchedRunStats.interrupted`` is set — unless the stream was
   already exhausted, when the drain completes the run.
 
+- **Checkpoints** (``ckpt_stride``, ``ckpt_sink``; ``--solve_ckpt_stride``):
+  every ``ckpt_stride`` strides the run's whole state — the solver's lanes
+  (``export_sched_lanes``), the occupied and awaiting-recompute slots with
+  their raw frames, the reorder buffer with its rows fetched, the ordering
+  and stats counters — goes to ``ckpt_sink(serial, snapshot)``, the serial
+  being the stride count. ``restore`` re-enters such a snapshot;
+  ``restore_emitted`` is the rows the output file already holds (the killed
+  run wrote on past its snapshot): every restored entry below it is dropped,
+  its lane reset to inert, and emission resumes there. The stats counters
+  carry across, so serials stay monotonic over a resume.
+
 While :meth:`ContinuousBatcher.run` drives, the lanes' occupancy and
 in-flight frame serials feed the heartbeat line and the SIGUSR1 status
 snapshot (``watchdog.set_sched_status_provider``).
@@ -137,9 +148,15 @@ class ContinuousBatcher:
                  on_stride: Optional[Callable[[], None]] = None,
                  refill_quantum: Optional[int] = None,
                  stop_check: Optional[Callable[[], bool]] = None,
-                 integrity_policy=None):
+                 integrity_policy=None, ckpt_stride: Optional[int] = None,
+                 ckpt_sink: Optional[Callable[[int, dict], None]] = None,
+                 restore: Optional[dict] = None, restore_emitted: int = 0):
         if lanes < 1:
             raise ValueError("Lane count must be positive.")
+        self._ckpt_stride = int(ckpt_stride) if ckpt_stride else None
+        self._ckpt_sink = ckpt_sink
+        self._restore = restore
+        self._restore_emitted = int(restore_emitted)
         self._solver = solver
         self._lanes = int(lanes)
         # A refill stride pays the Eq. 4 guess (two extra reads of the
@@ -214,11 +231,15 @@ class ContinuousBatcher:
         self._next_emit = 0
         it = iter(items)
         exhausted = False
-        lane_state = solver.sched_lanes(B)
-        free = deque(range(B))
-        occupied = self._occupied = {}  # lane index -> _Slot
-        sdc_retry = deque()  # slots awaiting their SDC recompute
-        seq = 0
+        sdc_retry = self._sdc_retry = deque()  # slots awaiting their SDC recompute
+        if self._restore is not None:
+            lane_state, free, seq = self._apply_restore(stats, B)
+            occupied = self._occupied
+        else:
+            lane_state = solver.sched_lanes(B)
+            free = deque(range(B))
+            occupied = self._occupied = {}  # lane index -> _Slot
+            seq = 0
         t_last = time.perf_counter()
 
         def intake():
@@ -262,6 +283,7 @@ class ContinuousBatcher:
                 # nothing, and the run completes
                 stats.interrupted = True
             refills = intake()
+            self._seq = seq  # for the stride-boundary snapshot
             if not occupied:
                 self._emit_ready()  # trailing FAILED rows
                 break
@@ -353,7 +375,125 @@ class ContinuousBatcher:
             if retired:
                 t_last = now
             self._emit_ready()
+            if (self._ckpt_sink is not None and self._ckpt_stride
+                    and stats.strides % self._ckpt_stride == 0):
+                self._ckpt_sink(stats.strides, self._snapshot(lane_state))
         return stats
+
+    # ---- in-solve checkpoints ---------------------------------------------
+
+    @staticmethod
+    def _slot_entry(slot, lane=None) -> dict:
+        ent = {"seq": int(slot.seq), "ftime": slot.ftime, "cam_times": slot.cam_times,
+               "it_prev": int(slot.it_prev), "sdc_retries": int(slot.sdc_retries),
+               "frame": np.asarray(slot.frame)}
+        if lane is not None:
+            ent["lane"] = int(lane)
+        return ent
+
+    def _snapshot(self, lane_state) -> dict:
+        """The run state a resume needs, taken at a stride boundary
+        (``sartsolver_tpu/sched/scheduler.py:_snapshot``): the occupied and
+        awaiting-recompute slots with their raw frames, the reorder buffer
+        with each result's row fetched now (the lanes it reads are
+        overwritten by later strides), the ordering and stats counters and
+        the solver's lanes."""
+        stats = self._stats
+        emit = []
+        for seq_i, (kind, payload, frame) in self._emit_buf.items():
+            if kind == "failed":
+                ftime, cam_times, err = payload
+                emit.append({"seq": int(seq_i), "kind": "failed", "ftime": ftime,
+                             "cam_times": cam_times, "error": str(err)})
+            else:
+                ftime, cam_times, status, iters, conv, fetcher, ms = payload
+                emit.append({"seq": int(seq_i), "kind": "result", "ftime": ftime,
+                             "cam_times": cam_times, "status": int(status),
+                             "iters": int(iters), "conv": float(conv),
+                             "row": np.asarray(fetcher()), "ms": float(ms),
+                             "frame": None if frame is None else np.asarray(frame)})
+        return {
+            "serial": int(stats.strides),
+            "lanes": int(self._lanes),
+            "seq": int(self._seq),
+            "next_emit": int(self._next_emit),
+            "stats": {"frames": stats.frames, "failed": stats.failed,
+                      "backfilled": stats.backfilled, "strides": stats.strides,
+                      "loop_steps": stats.loop_steps, "useful_iters": stats.useful_iters,
+                      "capacity": stats._capacity},
+            "occupied": [self._slot_entry(slot, lane)
+                         for lane, slot in self._occupied.items()],
+            "sdc_retry": [self._slot_entry(slot) for slot in self._sdc_retry],
+            "emit": emit,
+            "solver": self._solver.export_sched_lanes(lane_state),
+        }
+
+    def _apply_restore(self, stats: SchedRunStats, B: int):
+        """Re-enter a :meth:`_snapshot` payload
+        (``sartsolver_tpu/sched/scheduler.py:_apply_restore``): returns
+        ``(lane_state, free, seq)`` and seeds the reorder buffer, the
+        occupied map, the SDC-retry queue and the stats counters. Entries
+        below ``restore_emitted`` (W, rows the file already holds: the
+        run's frame-order prefix) are dropped, their lanes reset to inert,
+        and emission resumes at W. A snapshot of another lane count, or one
+        ahead of the file, raises ValueError."""
+        snap = self._restore
+        W = self._restore_emitted
+        if int(snap.get("lanes", B)) != B:
+            raise ValueError(f"Solve checkpoint has {snap.get('lanes')} lanes; this run "
+                             f"was started with {B} — resume with the same --batch_frames.")
+        if int(snap["next_emit"]) > W:
+            raise ValueError(f"Solve checkpoint is ahead of the output file "
+                             f"({snap['next_emit']} emitted vs {W} rows written) — "
+                             "pick an earlier checkpoint.")
+        st = snap["stats"]
+        stats.frames, stats.failed = int(st["frames"]), int(st["failed"])
+        stats.backfilled, stats.strides = int(st["backfilled"]), int(st["strides"])
+        stats.loop_steps, stats.useful_iters = int(st["loop_steps"]), int(st["useful_iters"])
+        stats._capacity = int(st["capacity"])
+
+        def slot_of(ent) -> _Slot:
+            slot = _Slot(int(ent["seq"]), np.asarray(ent["frame"]), ent["ftime"],
+                         ent["cam_times"])
+            slot.it_prev, slot.sdc_retries = int(ent["it_prev"]), int(ent["sdc_retries"])
+            return slot
+
+        occupied = self._occupied = {}
+        kill_lanes = []
+        for ent in snap["occupied"]:
+            if int(ent["seq"]) < W:  # retired and written by the killed run
+                kill_lanes.append(int(ent["lane"]))
+                stats.frames += 1
+                continue
+            occupied[int(ent["lane"])] = slot_of(ent)
+        for ent in snap["sdc_retry"]:
+            if int(ent["seq"]) < W:
+                stats.frames += 1
+                continue
+            self._sdc_retry.append(slot_of(ent))
+        for ent in snap["emit"]:
+            seq_i = int(ent["seq"])
+            if seq_i < W:
+                stats.frames += 1
+                stats.failed += ent["kind"] == "failed"
+                continue
+            if ent["kind"] == "failed":
+                self._emit_buf[seq_i] = (
+                    "failed", (ent["ftime"], ent["cam_times"], RuntimeError(ent["error"])),
+                    None)
+            else:
+                row = np.asarray(ent["row"])
+                frame = ent.get("frame")
+                self._emit_buf[seq_i] = (
+                    "result",
+                    (ent["ftime"], ent["cam_times"], int(ent["status"]), int(ent["iters"]),
+                     float(ent["conv"]), (lambda r=row: r), float(ent["ms"])),
+                    None if frame is None else np.asarray(frame))
+        self._next_emit = max(int(snap["next_emit"]), W)
+        seq = max(int(snap["seq"]), W)
+        lane_state = self._solver.restore_sched_lanes(snap["solver"], kill_lanes=kill_lanes)
+        free = deque(b for b in range(B) if b not in occupied)
+        return lane_state, free, seq
 
     def _requeue(self, occupied) -> List:
         """Un-emitted frames in frame order for the grouped-loop fallback.
@@ -367,3 +507,14 @@ class ContinuousBatcher:
                     for slot in occupied.values()]
         self._emit_buf.clear()
         return [item for _, item in sorted(entries, key=lambda e: e[0])]
+
+
+def sched_held_ftimes(snapshot: dict, emitted: int) -> List:
+    """Frame times a run restored from ``snapshot`` serves from the
+    checkpoint (its lanes, its slots awaiting a recompute, its buffered
+    results): a resumed stream must skip them besides the rows already
+    written, or they would be solved twice. Entries below ``emitted`` are
+    dropped at the restore (written already), so they are not held."""
+    W = int(emitted)
+    return [ent["ftime"] for key in ("occupied", "sdc_retry", "emit")
+            for ent in snapshot.get(key, ()) if int(ent["seq"]) >= W]

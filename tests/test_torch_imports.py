@@ -301,4 +301,53 @@ def test_chip_smoke_resilience_phase_at_small_size(tmp_path):
     assert all(len(turns[loop]["ms_per_frame"][k]) == 1 for loop in ("scheduler", "chain")
                for k in ("off", "on"))
     assert set(rec["flush"]["flush_ms_at_rows"]) == {"0", "10", "40", "160"}
+    ckpt = rec["solve_ckpt"]
+    assert ckpt["resumed_from_serial"] == 1 and ckpt["resumed_bytes_equal"]
+    assert set(ckpt["wall_ms_per_frame"]) == {"off", "1", "4", "16"}
+    assert ckpt["bytes_per_record"]["1"] > 0
 
+
+def test_chip_smoke_sparse_phase_at_small_size(tmp_path):
+    """chip_smoke.py's sparse phase on the CPU at a small size: the dark
+    world holds half its tile columns, each storage's sparse and dense
+    ingests, the linear and log runs at 'auto' beside 'off' (equal
+    statuses, fitted distance within the bar), the scheduler and OS runs,
+    and the threshold's run holding the same columns."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=32, ny=16, cam=(8, 4), n_frames=12)
+    rec = cs.sparse_phase(world, str(tmp_path), device="cpu", dark_rows=8)
+    assert rec["voxels_held"] == 256 and rec["dark_voxels"] == 256
+    for storage in cs.STORAGES:
+        ingest = rec["ingest"][storage]
+        assert ingest["sparse"]["held_shape"] == [64, 256]
+        assert ingest["dense"]["held_shape"] == [64, 512]
+        for kind in ("linear", "log"):
+            run = rec["runs"][storage][kind]
+            assert run["sparse"]["voxels_held"] == 256 and run["dense"]["voxels_held"] == 512
+            assert run["fitted_distance_max"] <= cs.SPARSE_FIT_TOL
+    assert rec["runs"]["float32_batch"]["sparse"]["loop_steps"] > 0
+    assert rec["runs"]["float32_eps"]["occupancy"] < 0.5
+    assert not os.path.exists(os.path.join(str(tmp_path), "sparse_world", "rtm_b.h5"))
+
+
+
+# the block-sparse index and the in-solve checkpoints, each imported alone:
+# neither loads JAX, and the index is host-only numpy (no torch either)
+_SPARSE_CKPT_MODULES = ("sartsolver_tpu_torch.ops.sparse",
+                        "sartsolver_tpu_torch.resilience.podckpt")
+
+
+@pytest.mark.parametrize("name", _SPARSE_CKPT_MODULES)
+def test_sparse_and_checkpoint_modules_import_no_jax(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "importlib.import_module(sys.argv[1])\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'sartsolver_tpu', 'torch')))")
+    out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -364,10 +364,21 @@ def test_ingest_hooks_and_refusals(world):
     P, V = H.shape
     with pytest.raises(ValueError, match="read_and_quantize_rtm"):
         mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="int8")
-    with pytest.raises(NotImplementedError):
-        mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="float32", tile_stats=object())
-    with pytest.raises(NotImplementedError):
-        mh.read_and_quantize_rtm(files, NAME, P, V, "cpu", tile_stats=object())
+    # tile_stats= is the block-sparse index's hook (tests/test_torch_sparse.py
+    # holds it against the JAX package): the tile maxima of the values
+    # stored, on the matrix padded to whole 8 x 128 tiles
+    from sartsolver_tpu_torch.ops.sparse import build_tile_occupancy
+
+    tiles = mh.make_tile_stats(P, V)
+    mh.read_and_shard_rtm(files, NAME, P, V, "cpu", dtype="float32", tile_stats=tiles,
+                          chunk_rows=3)
+    padded = np.zeros((tiles.rows, tiles.cols), np.float32)
+    padded[:P, :V] = H
+    assert tiles.occupancy(0.0) == build_tile_occupancy(padded)
+    tiles = mh.make_tile_stats(P, V)
+    codes, scale = mh.read_and_quantize_rtm(files, NAME, P, V, "cpu", tile_stats=tiles)
+    padded[:P, :V] = codes.numpy().astype(np.float32) * scale.numpy()
+    assert tiles.occupancy(0.0) == build_tile_occupancy(padded)
     # ingest_stats= is the integrity layer's hook (tests/test_torch_integrity.py
     # holds it against the JAX package): the sums of the values stored
     from sartsolver_tpu_torch.resilience.integrity import IngestStats

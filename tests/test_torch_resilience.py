@@ -73,7 +73,7 @@ def test_fault_spec_parsing_and_validation():
             faults.parse_fault_spec(bad)
     assert faults.FAULT_SITES == {
         "hdf5.frame_read", "hdf5.rtm_ingest", "prefetch.next", "device.put",
-        "solve.dispatch", "io.flush", "device.buffer"}
+        "solve.dispatch", "io.flush", "device.buffer", "solve.checkpoint"}
     assert faults.FAULT_SITES <= jfaults.FAULT_SITES
     assert faults.FAULT_KINDS == jfaults.FAULT_KINDS
 

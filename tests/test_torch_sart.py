@@ -262,13 +262,19 @@ def test_sweep_fn_parameter_reaches_the_loop():
 ])
 def test_options_not_ported_raise(field, value):
     """Options still to port raise naming the option; so does an RTM
-    storage dtype that neither package has. ``integrity`` is ported now: it
-    is accepted, as the JAX package accepts it, and beside an option still
-    to port that option's refusal holds."""
+    storage dtype that neither package has. ``integrity`` and ``sparse_rtm``
+    are ported now: each is accepted, as the JAX package accepts it, and
+    beside an option still to port that option's refusal holds."""
     if field == "integrity":
         assert SolverOptions(integrity=value).integrity is JaxOptions(integrity=value).integrity
-        with pytest.raises(ValueError, match="sparse_rtm"):
-            SolverOptions(integrity=value, sparse_rtm="auto")
+        with pytest.raises(ValueError, match="lowrank_rtm"):
+            SolverOptions(integrity=value, lowrank_rtm="4")
+        return
+    if field == "sparse_rtm":
+        assert (SolverOptions(sparse_rtm=value).sparse_epsilon()
+                == JaxOptions(sparse_rtm=value).sparse_epsilon() == 0.0)
+        with pytest.raises(ValueError, match="lowrank_rtm"):
+            SolverOptions(sparse_rtm=value, lowrank_rtm="4")
         return
     with pytest.raises(ValueError, match=field):
         SolverOptions(**{field: value})
