@@ -183,6 +183,29 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    at B = 1, fp32 at B = 8) checked against its plain version through the
    runs' plan and timed beside its bound, the plain version and the
    library (two ``torch.matmul`` on the compacted fp32 matrix).
+4b6. ``operators``: the operator backends (:func:`operators_phase`). The
+   reflective world (:func:`write_reflective_world`: the e2e layout, the
+   vessel columns [16384, 49152) banded with a 10% floor, a rank-4
+   wall-reflection term on every column below 5% of max|H|): the factored
+   RTM's gate once, timed by its parts (read, split, rSVD, the parity
+   gate's two solves), the factored solver's held matrix and factor bytes
+   per storage; per storage ``--lowrank_rtm auto`` against ``off``, linear
+   over 8 frames (the chain) and log over 4, fp32 also ``--lowrank_rtm 4``,
+   ``--no_guess --batch_frames 8`` and ``--os_subsets 4``: rank 4 in every
+   run, statuses equal to the dense run's, fitted distance within
+   ``OPERATOR_FIT_TOL``, ms per frame, the wall's split from ``--timing``,
+   peak device bytes; ``--lowrank_rtm 2`` exits 1; ``auto`` declines
+   loudly on the e2e world. The geometry world
+   (:func:`write_geometry_world`: a 64 x 64 x 16 grid, two 64 x 64 pinhole
+   cameras; its materialized matrix as the dense twin's files):
+   ``--geometry`` linear, log, ``--no_guess --batch_frames 8`` and
+   ``--os_subsets 4`` against the dense twin (statuses, fitted distance,
+   the projector's launches above 0), ``--rtm_dtype int8 --geometry`` exits
+   1; the projector's kernel table: its entries bit for bit against the
+   plain version on the CPU for ``IMPLICIT_CHECK_COLUMNS`` columns, forward
+   and back at B = 1 and 8 against the plain version within ``KERNEL_TOL``,
+   timed beside the bound (operations), the plain version and
+   ``torch.matmul`` on the materialized matrix.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -402,6 +425,97 @@ def write_dark_world(world, outdir: str, dark_rows: int) -> dict:
     os.makedirs(outdir, exist_ok=True)
     return _write_world_files(outdir, H, world["f_true"], nx, ny, world["cam"],
                               world["G"].shape[1], np.random.default_rng(1))
+
+
+def write_reflective_world(outdir: str, nx: int = 256, ny: int = 256, cam=(64, 64),
+                           n_frames: int = 32) -> dict:
+    """The reflective world of the factored RTM: the e2e world's layout
+    and frames, the vessel columns [V/4, 3V/4) holding the banded response
+    with a 10% floor, ``(0.1 + 0.9u)(exp(-200(i-j)^2) + 0.1)``, and every
+    column a smooth positive rank-4 wall-reflection term ``R = sum_k a_k
+    b_k^T`` (cosine modes over pixel and voxel index) scaled to at most
+    0.035 max|H|; the whole scaled so that the median row sum is 1. Every
+    8 x 128 tile of the vessel columns holds an entry above 5% of max|H|,
+    none outside them does: after the 5% tile split the residual is R on
+    the outer columns, exactly rank 4."""
+    V = nx * ny
+    P = 2 * cam[0] * cam[1]
+    os.makedirs(outdir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    H = np.zeros((P, V), np.float32)
+    v0, v1 = V // 4, 3 * V // 4
+    ii = np.arange(P, dtype=np.float32)[:, None] / P
+    jj = np.arange(v0, v1, dtype=np.float32)[None, :] / V
+    H[:, v0:v1] = ((rng.random((P, v1 - v0), dtype=np.float32) * 0.9 + 0.1)
+                   * (np.exp(-((ii - jj) ** 2) * 200.0) + 0.1))
+    i = np.arange(P, dtype=np.float64) / P
+    j = np.arange(V, dtype=np.float64) / V
+    a = np.stack([1.0 + 0.5 * np.cos(2 * np.pi * (k + 1) * i) for k in range(4)], axis=1)
+    b = np.stack([1.0 + 0.5 * np.cos(2 * np.pi * (k + 1) * j + k) for k in range(4)], axis=1)
+    R = a @ b.T
+    H += (R * (0.035 * float(H.max()) / R.max())).astype(np.float32)
+    # a ray's whole response (the median row sum) one: at the e2e world's
+    # scale (row sums near 4000) the Eq. 4 guess overshoots by that factor
+    # and the fp32 solve's first iterations cancel, 3e-4 of fp64 after 20
+    # iterations at 8192 x 65536 on the H100, above the factored RTM's
+    # parity gate (2e-4); scaled, 3e-6 (the split is relative to max|H|)
+    H *= np.float32(1.0 / np.median(H.sum(axis=1, dtype=np.float64)))
+    f_true = rng.random(V, dtype=np.float32) * 1.5 + 0.5
+    return _write_world_files(outdir, H, f_true, nx, ny, cam, n_frames, rng)
+
+
+GEOMETRY_PITCH = 1.0  # the detectors' pitch in voxels for cameras as wide as the grid
+
+
+def geometry_record(nx: int = 64, ny: int = 64, nz: int = 16, cam=(64, 64)):
+    """The geometry world's record: an ``nx x ny x nz`` grid of unit
+    voxels and two pinhole cameras of ``cam`` pixels, ``camA`` looking at
+    the grid's centre along +x from its side and ``camB`` down along -z
+    from above, each at a distance of twice the grid's width, the pitch
+    one voxel (each detector spans the grid at the centre's plane)."""
+    from sartsolver_tpu_torch.operators.geometry import parse_geometry
+
+    c = [nx / 2.0, ny / 2.0, nz / 2.0]
+    rows, cols = cam
+    pitch = GEOMETRY_PITCH * nx / cols
+    return parse_geometry({
+        "format": "sart-geometry", "version": 1,
+        "grid": {"shape": [nx, ny, nz], "origin": [0.0, 0.0, 0.0],
+                 "spacing": [1.0, 1.0, 1.0]},
+        "cameras": [
+            {"name": "camA", "rows": rows, "cols": cols, "position": [-2.0 * nx, c[1], c[2]],
+             "target": c, "up": [0.0, 0.0, 1.0], "pitch": pitch},
+            {"name": "camB", "rows": rows, "cols": cols, "position": [c[0], c[1], 2.0 * nx],
+             "target": c, "up": [0.0, 1.0, 0.0], "pitch": pitch},
+        ],
+    })
+
+
+def write_geometry_world(outdir: str, nx: int = 64, ny: int = 64, nz: int = 16, cam=(64, 64),
+                         n_frames: int = 32, device: str = "cuda") -> dict:
+    """The geometry world: the record of :func:`geometry_record` saved as
+    ``geometry.json``, its materialized matrix (the plain version's entries,
+    built on ``device``) as the dense twin's RTM files in the e2e layout,
+    and ``n_frames`` frames of ``H @ (f_true * scale)`` with 1% noise as the
+    two cameras' image files. ``inputs``: the dense twin's input files."""
+    from sartsolver_tpu_torch.operators.geometry import save_geometry
+    from sartsolver_tpu_torch.operators.implicit import (
+        ImplicitOperator, divisor_panel, materialize_rtm,
+    )
+
+    rec = geometry_record(nx, ny, nz, cam)
+    os.makedirs(outdir, exist_ok=True)
+    op = ImplicitOperator(rec)
+    spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=divisor_panel(rec.nvoxel))
+    H = materialize_rtm(op.payload(), spec, device=device)
+    rng = np.random.default_rng(2)
+    f_true = rng.random(rec.nvoxel, dtype=np.float32) * 1.5 + 0.5
+    world = _write_world_files(outdir, H, f_true, nx, ny * nz, cam, n_frames, rng)
+    world["geometry"] = os.path.join(outdir, "geometry.json")
+    save_geometry(rec, world["geometry"])
+    p = world["paths"]
+    world["inputs"] = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    return world
 
 
 def run_cli(argv, device: str = "cuda"):
@@ -2958,6 +3072,311 @@ def one_read_edge(table) -> dict:
     return out
 
 
+# ---- phase operators: the factored RTM and the matrix-free operator ------
+
+OPERATOR_FIT_TOL = 5e-3  # an operator run against its dense twin, fitted space
+LOWRANK_RANK = 4  # the rank the reflective world's residual has
+IMPLICIT_SOURCE = "sartsolver_tpu_torch/ops/csrc/implicit.cu"
+IMPLICIT_REPLACES = ("none: sartsolver_tpu/operators/implicit.py:117-227 rebuilds H in "
+                     "plain XLA (no pallas_call)")
+# fp32 arithmetic a ray-voxel pair costs in seg_length (ops/csrc/implicit.cu),
+# counted from the source: per axis two __fsub_rn, two __fmul_rn, fminf and
+# fmaxf (18); the folds of near and far over the axes (4); the clamp of the
+# entry at 0, the segment's __fsub_rn and its clamp (3)
+IMPLICIT_OPS_PER_PAIR = 25
+IMPLICIT_CHECK_COLUMNS = 64  # columns whose entries are held bit for bit
+
+
+def _timing_rows(text: str) -> dict:
+    """``--timing``'s phase rows, ms by name."""
+    return {m.group(1).strip(): float(m.group(2))
+            for m in re.finditer(r"^  (\S.*?)\s+([0-9.]+) ms", text, re.M)}
+
+
+def _operator_run(argv, world, n_frames, device, launches=None) -> tuple:
+    """One CLI run of the phase: ``(record, solution)`` — exit code, ms per
+    frame, iterations, statuses, fitted errors, the wall's split from
+    ``--timing``, peak device bytes; ``launches`` a callable returning the
+    implicit kernel's counts, zeroed before and read after."""
+    import torch
+
+    from sartsolver_tpu_torch.operators import implicit as im
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    im.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, ms, text = run_cli([*argv, "--timing"], device)
+    wall = time.perf_counter() - t0
+    rec = dict(exit=rc, wall_s=wall, frame_ms=ms, timing_ms=_timing_rows(text),
+               implicit_launches={"forward": im.implicit_forward.launches,
+                                  "back": im.implicit_back.launches})
+    if device == "cuda":
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    line = [ln for ln in text.splitlines() if ln.startswith(("lowrank:", "implicit:"))]
+    rec["operator_line"] = line[0] if line else None
+    if rc != 0:
+        return rec, None
+    out = argv[argv.index("-o") + 1]
+    sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, device, fit_bound=None)
+    rec.update(iterations=sol["iterations"].tolist(), status=sol["status"].tolist(),
+               fit_err=err.tolist(), ms_per_frame=sum(ms) / max(len(ms), 1))
+    return rec, sol
+
+
+def _pair(world, a, b, device) -> dict:
+    """An operator run against its dense twin: statuses equal, fitted
+    distance (relative, per frame) within ``OPERATOR_FIT_TOL``."""
+    d = _fitted_distance(world, a["value"], b["value"], device)
+    if a["status"].tolist() != b["status"].tolist() or not (np.asarray(d) <= OPERATOR_FIT_TOL).all():
+        raise AssertionError(f"operator run against its dense twin: statuses "
+                             f"{a['status'].tolist()} / {b['status'].tolist()}, fitted "
+                             f"distance {d}")
+    return dict(fitted_distance=[float(x) for x in np.atleast_1d(d)])
+
+
+def _resident(op, storage, device) -> dict:
+    """The factored solver's device bytes at ``storage``: the held matrix (S's
+    occupied columns), the factors, the allocation after construction."""
+    import torch
+
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+    opts = SolverOptions(rtm_dtype=None if storage == "float32" else storage)
+    with DistributedSARTSolver(operator=op, opts=opts, device=device) as solver:
+        pr = solver.problem
+        rec = dict(held_shape=list(pr.rtm.shape),
+                   matrix_bytes=pr.rtm.numel() * pr.rtm.element_size(),
+                   factor_bytes=sum(t.numel() * t.element_size() for t in (
+                       pr.factor_u, pr.factor_v, pr.factor_scale) if t is not None))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            rec["resident_device_bytes"] = torch.cuda.memory_allocated() - mem0
+    P, V = op.shape
+    rec["dense_matrix_bytes"] = P * V * {"float32": 4, "bfloat16": 2, "int8": 1}[storage]
+    rec["matrix_fraction_of_dense"] = rec["matrix_bytes"] / rec["dense_matrix_bytes"]
+    return rec
+
+
+def _implicit_kernels(gw, rates, launches) -> dict:
+    """The projector's entry points at the geometry world's shape, B = 1 and
+    8: entries bit for bit against the plain version's on the CPU (a forward
+    of one-hot operands returns the entries of their columns), the sums
+    within ``KERNEL_TOL`` of the output's max against the plain version on
+    the card, two calls byte-identical; ms, the bound (operations), the
+    plain version's ms and the library's (``torch.matmul`` on the
+    materialized fp32 matrix)."""
+    import torch
+
+    from sartsolver_tpu_torch.operators import implicit as im
+    from sartsolver_tpu_torch.operators.geometry import load_geometry
+
+    rec = load_geometry(gw["geometry"])
+    op = im.ImplicitOperator(rec)
+    spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=im.divisor_panel(rec.nvoxel))
+    rays_h = torch.as_tensor(op.payload())
+    rays = rays_h.cuda()
+    P, V = rec.npixel, rec.nvoxel
+    H = torch.as_tensor(gw["H"], device="cuda")
+    nnz = int((H != 0).sum())
+    # the entries: IMPLICIT_CHECK_COLUMNS columns spread over the grid
+    cols = np.linspace(0, V - 1, IMPLICIT_CHECK_COLUMNS).astype(np.int64)
+    want = im.panel_lengths(rays_h, 0, spec, V)[:, cols] if V <= 4096 else torch.cat(
+        [im.panel_lengths(rays_h, int(c), spec, 1) for c in cols], dim=1)
+    for c0 in range(0, len(cols), 8):
+        pick = torch.as_tensor(cols[c0:c0 + 8])
+        f = torch.zeros((len(pick), V), device="cuda")
+        f[torch.arange(len(pick)), pick.cuda()] = 1.0
+        got = im.implicit_forward(rays, f, spec).cpu()
+        if not torch.equal(got, want[:, c0:c0 + 8].T.contiguous()):
+            raise AssertionError(f"implicit entries of columns {cols[c0:c0 + 8]} differ "
+                                 "from the plain version's")
+    mem_rate, fp32_rate, _ = rates
+    out = {"entries_checked": int(len(cols) * P), "nnz_fraction": nnz / (P * V)}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for which in ("forward", "back"):
+        for B in (1, 8):
+            n_in, n_out = (V, P) if which == "forward" else (P, V)
+            x = torch.rand((B, n_in), generator=g, device="cuda")
+            fn = im.implicit_forward if which == "forward" else im.implicit_back
+            ref = im._forward_reference if which == "forward" else im._back_reference
+            got = fn(rays, x, spec)
+            again = fn(rays, x, spec)
+            plain = ref(rays, x, spec, torch.float32)
+            torch.cuda.synchronize()
+            scale = float(plain.abs().max())
+            err = float((got - plain).abs().max()) / max(scale, 1e-30)
+            if not torch.equal(got, again) or err > KERNEL_TOL:
+                raise AssertionError(f"implicit_{which} B={B}: error {err} or two calls differ")
+            lib = (lambda: x @ H.T) if which == "forward" else (lambda: x @ H)
+            ops = IMPLICIT_OPS_PER_PAIR * P * V + 2 * B * nnz
+            nbytes = 4 * (6 * P + B * n_in + B * n_out)
+            bound = max(nbytes / mem_rate, ops / fp32_rate) * 1e3
+            out[f"{which}@B{B}"] = dict(
+                shape=[P, V, B], max_abs_err=err * scale, rel_err=err,
+                ms=_median_ms(lambda: fn(rays, x, spec)),
+                plain_ms=_median_ms(lambda: ref(rays, x, spec, torch.float32), reps=3),
+                library_ms=_median_ms(lib), bound_ms=bound,
+                bound_by="operations" if ops / fp32_rate >= nbytes / mem_rate else "bytes",
+                ops=ops, bytes=nbytes, launches=launches[which])
+    del H
+    return out
+
+
+def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
+                    reflective_kw=None, geometry_kw=None) -> dict:
+    """The operator backends through the CLI (phase ``operators``).
+
+    The reflective world (:func:`write_reflective_world`; the e2e world's
+    size at the defaults), per storage: ``--lowrank_rtm auto`` against
+    ``off`` on the same files, linear over 8 frames (the chain) and log over
+    4; fp32 also ``--lowrank_rtm 4``, ``--no_guess --batch_frames 8`` and
+    ``--os_subsets 4`` against ``off``; ``auto`` takes rank 4 in every run,
+    the statuses equal the dense twin's and the fitted distance is within
+    ``OPERATOR_FIT_TOL``; ``--lowrank_rtm 2`` exits 1 with the gate's words.
+    The factorization once through the gate with its seconds (read, split,
+    rSVD, the parity gate's two solves), and per storage the factored
+    solver's held matrix and factor bytes against the dense matrix's (fp32
+    at most 0.55 of it). With ``world`` (the e2e world), ``auto`` declines
+    loudly on it once.
+
+    The geometry world (:func:`write_geometry_world`): ``--geometry`` fp32
+    linear (8 frames) and log (4), ``--no_guess --batch_frames 8`` and
+    ``--os_subsets 4``, each against the dense CLI on the materialized
+    matrix's files: statuses equal, fitted distance within
+    ``OPERATOR_FIT_TOL``, on the card the projector's launches above 0 in
+    every run; ``--rtm_dtype int8 --geometry`` exits 1. On the card with
+    ``rates``, the projector's kernel table (:func:`_implicit_kernels`).
+    Each world's files are deleted at its end."""
+    import shutil
+
+    import torch
+
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.parallel.multihost import lowrank_operator_or_decline
+
+    out = {"reflective": {}, "geometry": {}}
+    rdir = os.path.join(outdir, "reflective")
+    t0 = time.perf_counter()
+    rw = write_reflective_world(rdir, **(reflective_kw or {}))
+    p = rw["paths"]
+    P, V = rw["H"].shape
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    files = {"camA": [p["rtm_a_seg1"], p["rtm_a_seg2"]], "camB": [p["rtm_b"]]}
+    rec = out["reflective"]
+    rec["world_seconds"] = time.perf_counter() - t0
+    rec["shape"] = [P, V]
+    # the gate once, timed by its parts
+    clock = {}
+    t0 = time.perf_counter()
+    op = lowrank_operator_or_decline(SolverOptions(lowrank_rtm="auto"), files,
+                                     "with_reflections", P, V, device=device, timings=clock)
+    clock["total_s"] = time.perf_counter() - t0
+    if op is None or op.rank != LOWRANK_RANK:
+        raise AssertionError(f"lowrank 'auto' on the reflective world: {op}")
+    occ = op.tile_occupancy()
+    rec["factorization"] = dict(clock, rank=op.rank, core_occupancy=occ.occupancy_fraction(),
+                                held_columns=int(len(op.occupied_columns())))
+    rec["resident"] = {st: _resident(op, st, device) for st in STORAGES}
+    if rec["resident"]["float32"]["matrix_fraction_of_dense"] > 0.55:
+        raise AssertionError(f"factored fp32 holds {rec['resident']['float32']}")
+    del op
+    base = ["-m", str(MAX_ITERATIONS)]
+    runs = [(st, name, flags, n) for st in STORAGES for name, flags, n in (
+        ("linear", ["-t", "0:0.75"], 8), ("log", ["-L", "-t", "0:0.35"], 4))]
+    runs += [("float32", "batch", ["--no_guess", "--batch_frames", str(FRAME_LANES)],
+              rw["G"].shape[1]),
+             ("float32", "os", ["--os_subsets", str(OS_SUBSETS), "-t", "0:0.75"], 8)]
+    for st, name, flags, n in runs:
+        sols, pair = {}, {}
+        for mode in ("auto", "off"):
+            o = os.path.join(rdir, f"{st}_{name}_{mode}.h5")
+            pair[mode], sols[mode] = _operator_run(
+                ["-o", o, *inputs, *base, *flags, "--rtm_dtype", st, "--lowrank_rtm", mode],
+                rw, n, device)
+            if pair[mode]["exit"] != 0:
+                raise AssertionError(f"reflective {st} {name} {mode}: {pair[mode]}")
+        if f"rank={LOWRANK_RANK} " not in (pair["auto"]["operator_line"] or ""):
+            raise AssertionError(f"reflective {st} {name}: {pair['auto']['operator_line']}")
+        rec[f"{st}_{name}"] = dict(factored=pair["auto"], dense=pair["off"],
+                                   **_pair(rw, sols["auto"], sols["off"], device))
+    o = os.path.join(rdir, "rank4.h5")
+    r4, s4 = _operator_run(["-o", o, *inputs, *base, "-t", "0:0.75", "--lowrank_rtm",
+                            str(LOWRANK_RANK)], rw, 8, device)
+    rec["float32_rank4"] = dict(factored=r4, **_pair(rw, s4, _read_rows_sol(
+        os.path.join(rdir, "float32_linear_off.h5")), device))
+    rc, _ms, text = run_cli(["-o", os.path.join(rdir, "rank2.h5"), *inputs, "--lowrank_rtm",
+                             "2"], device)
+    rec["rank2_exit"] = rc
+    if rc != 1:
+        raise AssertionError(f"--lowrank_rtm 2 exited {rc}")
+    shutil.rmtree(rdir)
+    if world is not None:
+        wp = world["paths"]
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, _ms, _text = run_cli(["-o", os.path.join(outdir, "decline.h5"), wp["rtm_a_seg1"],
+                                      wp["rtm_a_seg2"], wp["rtm_b"], wp["img_a"], wp["img_b"],
+                                      "-t", "0:0.05", "--lowrank_rtm", "auto"], device)
+        warn = [ln for ln in err.getvalue().splitlines() if "lowrank_rtm declines" in ln]
+        if rc != 0 or not warn:
+            raise AssertionError(f"'auto' on the e2e world: exit {rc}, {err.getvalue()[-400:]}")
+        rec["e2e_auto_declines"] = dict(seconds=time.perf_counter() - t0, warning=warn[0])
+
+    # the geometry world
+    gdir = os.path.join(outdir, "geometry")
+    t0 = time.perf_counter()
+    gw = write_geometry_world(gdir, device=device, **(geometry_kw or {}))
+    g = out["geometry"]
+    g["world_seconds"] = time.perf_counter() - t0
+    g["shape"] = list(gw["H"].shape)
+    gp = gw["paths"]
+    launches = {"forward": 0, "back": 0}
+    for name, flags, n in (("linear", ["-t", "0:0.75"], 8), ("log", ["-L", "-t", "0:0.35"], 4),
+                           ("batch", ["--no_guess", "--batch_frames", str(FRAME_LANES)],
+                            gw["G"].shape[1]),
+                           ("os", ["--os_subsets", str(OS_SUBSETS), "-t", "0:0.75"], 8)):
+        imp, s_imp = _operator_run(["-o", os.path.join(gdir, f"{name}_implicit.h5"),
+                                    "--geometry", gw["geometry"], gp["img_a"], gp["img_b"],
+                                    *base, *flags], gw, n, device)
+        dense, s_dense = _operator_run(["-o", os.path.join(gdir, f"{name}_dense.h5"),
+                                        *gw["inputs"], *base, *flags], gw, n, device)
+        if imp["exit"] != 0 or dense["exit"] != 0:
+            raise AssertionError(f"geometry {name}: {imp} / {dense}")
+        if device == "cuda" and min(imp["implicit_launches"].values()) <= 0:
+            raise AssertionError(f"geometry {name}: no projector launch {imp}")
+        for k in launches:
+            launches[k] += imp["implicit_launches"][k]
+        g[name] = dict(implicit=imp, dense=dense, **_pair(gw, s_imp, s_dense, device))
+    rc, _ms, _text = run_cli(["-o", os.path.join(gdir, "int8.h5"), "--geometry",
+                              gw["geometry"], gp["img_a"], gp["img_b"], "--rtm_dtype", "int8"],
+                             device)
+    g["int8_exit"] = rc
+    if rc != 1:
+        raise AssertionError(f"--rtm_dtype int8 --geometry exited {rc}")
+    g["launches"] = launches
+    if device == "cuda" and rates is not None:
+        out["kernels"] = _implicit_kernels(gw, rates, launches)
+    shutil.rmtree(gdir)
+    return out
+
+
+def _read_rows_sol(path):
+    from sartsolver_tpu_torch.io import h5
+
+    with h5.File(path, "r") as f:
+        return {k: f["solution"][k][:] for k in f["solution"]}
+
+
 def batch_phase(world, lap, device="cuda") -> dict:
     """The world's 32 frames at once through the solver API with int8
     storage (B = 32, so the tensor_core plan), then through the plain
@@ -3228,6 +3647,11 @@ def main() -> int:
         t0 = time.perf_counter()
         sparse = sparse_phase(world, tmp, rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
         emit("sparse", seconds=time.perf_counter() - t0, **sparse)
+        t0 = time.perf_counter()
+        operators = operators_phase(tmp, world=world,
+                                    rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        emit("operators", seconds=time.perf_counter() - t0, fit_tol=OPERATOR_FIT_TOL,
+             max_iterations=MAX_ITERATIONS, **operators)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -3363,6 +3787,18 @@ def main() -> int:
                 + f"_sparse@{P_s}x{V_s}" + (f"xB{B_s}" if B_s > 1 else ""))
         rows.append(row(name, t, sparse["launches"][key], t["max_abs_err"],
                         f"{VARIANT[storage]} on the occupied voxel columns (--sparse_rtm)"))
+    # the implicit projector (no Pallas counterpart), its two entry points at
+    # the geometry world's shape; launches: the geometry runs' of the phase
+    for key, t in operators["kernels"].items():
+        if not isinstance(t, dict):
+            continue
+        which, B = key.split("@")
+        rows.append({"name": f"implicit_{which}@{B}", "route": "cuda",
+                     "source": IMPLICIT_SOURCE, "replaces": IMPLICIT_REPLACES,
+                     "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "shape": t["shape"], "variant": "the implicit operator (--geometry)"})
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

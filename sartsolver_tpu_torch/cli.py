@@ -104,6 +104,21 @@ dropped tiles zeroed, so every sweep reads the occupied columns alone
 (``models/sart.py``). ``auto`` declines where it cannot engage; an explicit
 EPS exits 1 there.
 
+``--lowrank_rtm auto|off|RANK`` (or ``SART_LOWRANK_RTM``) runs the factored
+RTM, ``H ~= S + U V^T``: the whole matrix is read on the host, split at 5%
+of max|H| into a tile-thresholded sparse core S and the residual's
+randomized-SVD factors, behind the quality gate (the Frobenius residual,
+then a 20-iteration solve against the dense solve on the card); ``auto``
+declines loudly to the dense path where no rank passes, an explicit RANK
+exits 1 there. The solver keeps S's occupied columns and the factors on
+the device (``operators/lowrank.py``). ``--geometry FILE`` runs the
+matrix-free operator on a versioned geometry record (``operators/
+geometry.py``): image files only as inputs, the device holds the ``[P, 6]``
+ray table, every projection the hand-written projector
+(``ops/csrc/implicit.cu``). Both print the JAX CLI's lines and refuse what
+it refuses (the Laplacian, ``--integrity``, an explicit ``--fused_sweep
+on``; int8 for the geometry), with its words.
+
 ``--solve_ckpt_stride N`` (the scheduler only, ``--no_guess --batch_frames
 K``): every N strides the scheduler's whole state is appended to
 ``<output>.solveckpt`` (``SART_SOLVE_CKPT_FILE`` names another file;
@@ -221,6 +236,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "declines where the sparse sweep cannot engage; an "
                         "explicit EPS fails loudly there. Also via "
                         "SART_SPARSE_RTM.")
+    p.add_argument("--lowrank_rtm", default=None, metavar="auto|off|RANK",
+                   help="Factored RTM mode: approximate H ~= S + U V^T at "
+                        "ingest — a tile-thresholded sparse core S plus a "
+                        "rank-RANK randomized-SVD factorization of the "
+                        "sub-threshold residual — behind a Frobenius and "
+                        "solve-parity quality gate. 'auto' picks the rank "
+                        "and declines loudly to dense where none passes; an "
+                        "explicit RANK fails loudly there. Also via "
+                        "SART_LOWRANK_RTM.")
+    p.add_argument("--geometry", default=None, metavar="FILE",
+                   help="Matrix-free implicit operator: derive the "
+                        "projections H f / H^T w on the fly from the "
+                        "versioned geometry record FILE instead of reading "
+                        "ray-transfer matrix files — inputs are image files "
+                        "only, and device memory holds the ray table instead "
+                        "of the RTM. Incompatible with --laplacian_file and "
+                        "rtm_dtype=int8.")
     p.add_argument("-n", "--raytransfer_name", default="with_reflections",
                    help="Ray transfer matrix dataset name.")
     p.add_argument("-L", "--logarithmic", action="store_true",
@@ -345,6 +377,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _operator_solver(solver_cls, operator, opts, device, debug_nans):
+    """The solver of the factored or the matrix-free operator; a refusal of
+    the solver core (a ValueError) is an input error, as the JAX CLI's."""
+    from sartsolver_tpu_torch.config import SartInputError
+
+    try:
+        return solver_cls(operator=operator, opts=opts, device=device,
+                          debug_nans=debug_nans)
+    except SartInputError:
+        raise
+    except ValueError as err:
+        raise SartInputError(str(err)) from None
+
+
 def _validate(args) -> None:
     """Range validation mirroring arguments.cpp:184-236."""
     def fail(msg: str) -> None:
@@ -423,11 +469,49 @@ def _validate(args) -> None:
         fail("Argument sparse_rtm engages the block-sparse panel sweep; "
              f"--fused_sweep {args.fused_sweep} cannot be honored there — "
              "use auto or off.")
+    if args.lowrank_rtm is None:
+        # flag > SART_LOWRANK_RTM > off (the sparse_rtm pattern)
+        args.lowrank_rtm = os.environ.get("SART_LOWRANK_RTM", "off")
+    if args.lowrank_rtm not in ("auto", "off"):
+        try:
+            ok = int(args.lowrank_rtm) >= 1
+        except ValueError:
+            ok = False
+        if not ok:
+            fail("Argument lowrank_rtm must be 'auto', 'off' or a "
+                 f"positive integer factorization rank, "
+                 f"{args.lowrank_rtm!r} given.")
+        if args.use_cpu:
+            fail("Argument lowrank_rtm needs the fp32 device profile; an "
+                 "explicit rank cannot be combined with --use_cpu "
+                 "(use 'auto', which declines there).")
+    if args.lowrank_rtm != "off":
+        if args.fused_sweep in ("on", "interpret"):
+            fail("Argument lowrank_rtm runs the factored (S + U V^T) "
+                 f"sweep; --fused_sweep {args.fused_sweep} cannot be "
+                 "honored there — use auto or off.")
+        if args.geometry:
+            fail("Argument lowrank_rtm factorizes a stored matrix; "
+                 "--geometry has none to factorize.")
+        if args.sparse_rtm not in ("auto", "off"):
+            fail("Arguments lowrank_rtm and an explicit sparse_rtm "
+                 "threshold both claim the stored matrix; the factored "
+                 "core already thresholds it — drop one.")
     if args.max_cached_frames <= 0:
         fail("Argument max_cached_frames must be positive.")
     if args.max_cached_solutions <= 0:
         fail("Argument max_cached_solutions must be positive.")
-    if len(args.input_files) < 2:
+    if args.geometry:
+        # the geometry record replaces the RTM files: one image file is a
+        # complete input set
+        if len(args.input_files) < 1:
+            fail("At least one image input file is required with "
+                 "--geometry, 0 given.")
+        if args.laplacian_file:
+            fail("Argument geometry cannot be combined with "
+                 "--laplacian_file: beta_laplace smoothing needs the "
+                 "materialized operator.")
+    elif len(args.input_files) < 2:
         fail("At least two input file, one with RTM and one with image, are "
              f"required, {len(args.input_files)} given.")
 
@@ -533,7 +617,8 @@ def _run(args, telem, summary) -> int:
     from sartsolver_tpu_torch.obs import trace as obs_trace
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
     from sartsolver_tpu_torch.parallel.multihost import (
-        read_and_quantize_rtm, read_and_shard_rtm, sparse_tile_stats_or_decline,
+        lowrank_operator_or_decline, read_and_quantize_rtm, read_and_shard_rtm,
+        sparse_tile_stats_or_decline,
     )
     from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.io.solution import read_resume_state
@@ -613,21 +698,47 @@ def _run(args, telem, summary) -> int:
         time_intervals = parse_time_intervals(args.time_range)
 
         # ---- pre-flight validation gate (main.cpp:30-59) -----------------
+        geometry_record = None
+        if args.geometry:
+            from sartsolver_tpu_torch.operators.geometry import load_geometry
+
+            geometry_record = load_geometry(args.geometry)
         matrix_files, image_files = hf.categorize_input_files(args.input_files)
         rtm_name = args.raytransfer_name
-        hf.check_group_attribute_consistency(matrix_files, f"rtm/{rtm_name}", ["wavelength"])
-        hf.check_group_attribute_consistency(matrix_files, "rtm/voxel_map", ["nx", "ny", "nz"])
-        sorted_matrix_files = hf.sort_rtm_files(matrix_files)
-        hf.check_rtm_frame_consistency(sorted_matrix_files)
-        hf.check_rtm_voxel_consistency(sorted_matrix_files)
-        hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
-        sorted_image_files = hf.sort_image_files(image_files)
-        camera_names = list(sorted_image_files)
-        hf.check_rtm_image_consistency(
-            sorted_matrix_files, sorted_image_files, rtm_name, args.wavelength_threshold
-        )
-        npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
-        rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
+        if geometry_record is not None:
+            # matrix-free: image files only, their cameras the record's
+            if matrix_files:
+                raise SartInputError(
+                    "--geometry replaces the ray-transfer matrix files; "
+                    f"drop {', '.join(matrix_files)} from the inputs "
+                    "(image files only).")
+            hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
+            sorted_image_files = hf.sort_image_files(image_files)
+            camera_names = list(sorted_image_files)
+            cams = set(geometry_record.camera_names)
+            if cams != set(camera_names):
+                raise SartInputError(
+                    "Geometry/image mismatch: geometry cameras "
+                    f"{sorted(cams)} vs image files {camera_names}.")
+            sorted_matrix_files = {}
+            npixel, nvoxel = geometry_record.npixel, geometry_record.nvoxel
+            rtm_frame_masks = geometry_record.frame_masks()
+        else:
+            hf.check_group_attribute_consistency(matrix_files, f"rtm/{rtm_name}",
+                                                 ["wavelength"])
+            hf.check_group_attribute_consistency(matrix_files, "rtm/voxel_map",
+                                                 ["nx", "ny", "nz"])
+            sorted_matrix_files = hf.sort_rtm_files(matrix_files)
+            hf.check_rtm_frame_consistency(sorted_matrix_files)
+            hf.check_rtm_voxel_consistency(sorted_matrix_files)
+            hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
+            sorted_image_files = hf.sort_image_files(image_files)
+            camera_names = list(sorted_image_files)
+            hf.check_rtm_image_consistency(
+                sorted_matrix_files, sorted_image_files, rtm_name, args.wavelength_threshold
+            )
+            npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
+            rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
         # a resume is checked from the file's metadata before the ingest
         resume_state = (read_resume_state(args.output_file, camera_names, nvoxel)
                         if args.resume else None)
@@ -675,6 +786,7 @@ def _run(args, telem, summary) -> int:
             os_subsets=args.os_subsets,
             fused_sweep=args.fused_sweep,
             sparse_rtm=args.sparse_rtm,
+            lowrank_rtm=args.lowrank_rtm,
         )
         opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
                 else SolverOptions(**common))
@@ -688,16 +800,6 @@ def _run(args, telem, summary) -> int:
             held_rows = os_padded_rows(npixel, opts.os_subsets)
         except ValueError as err:  # --os_subsets divides no extent the solver pads to
             raise SartInputError(str(err)) from None
-        # the OS cycle's products upcast int8 codes themselves: int8 needs
-        # the fused sweep only on the classic sweep
-        if storage == "int8" and not fused and opts.os_subsets == 1:
-            why = (" (divergence_recovery keeps the logarithmic solver off it)"
-                   if opts.divergence_recovery and opts.logarithmic else "")
-            raise SartInputError(
-                "Argument rtm_dtype='int8' requires the fused sweep, but it "
-                f"resolved off{why}. Use --fused_sweep auto/on, float32 or "
-                "bfloat16 storage, or the linear solver."
-            )
         if storage == "int8" and max(npixel, nvoxel) > INT8_MAX_CONTRACTION:
             raise SartInputError(
                 f"Argument rtm_dtype='int8': RTM extent {max(npixel, nvoxel)} "
@@ -726,38 +828,85 @@ def _run(args, telem, summary) -> int:
             sorted_image_files, rtm_frame_masks, time_intervals, npixel,
             max_cache_size=args.max_cached_frames,
         )
-        # the matrix streamed in row chunks into a device buffer of the
-        # stored dtype (int8: two passes), with the ordered-subsets padding
-        # rows; the ray stats are those of the stored matrix, taken on the
-        # device, as the JAX CLI's are
-        # with integrity on, the ingest also sums the stored values for
-        # the ray stats' check after the upload
-        ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
-        # the block-sparse index's tile maxima, taken by the ingest where the
-        # stored rows lie ('auto' declines here on a flag, with a warning)
-        tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
-        with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
-            rtm_scale = None
-            if storage == "int8":
-                rtm, rtm_scale = read_and_quantize_rtm(
-                    sorted_matrix_files, rtm_name, npixel, nvoxel, device, rows=held_rows,
-                    ingest_stats=ingest_stats, tile_stats=tile_stats)
-            else:
-                rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                                         device, dtype=storage, rows=held_rows,
-                                         ingest_stats=ingest_stats, tile_stats=tile_stats)
-            try:
-                tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
-                            if tile_stats is not None else None)
-                # the solver keeps the occupied columns, in place in the
-                # ingest's buffer
-                solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
-                                               debug_nans=args.debug_nans,
-                                               rtm_scale=rtm_scale, npixel=npixel,
-                                               tile_occupancy=tile_occ)
-            except ValueError as err:  # a non-finite RTM entry, or EPS that cannot engage
-                raise SartInputError(str(err)) from None
-            del rtm, rtm_scale
+        # the operator: the factored one, the matrix-free one, or the stored
+        # matrix (dense or block-sparse)
+        ingest_stats = None
+        tile_occ = lowrank_op = None
+        if geometry_record is None and opts.lowrank_rank() is not None:
+            # the whole matrix read on the host, split and factored behind
+            # the quality gate: 'auto' declines loudly to the dense path,
+            # an explicit rank exits 1 before anything is staged
+            with obs_trace.span("ingest.lowrank_factorize", npixel=npixel, nvoxel=nvoxel):
+                lowrank_op = lowrank_operator_or_decline(
+                    opts, sorted_matrix_files, rtm_name, npixel, nvoxel, laplacian=lap,
+                    device=device)
+        if geometry_record is not None:
+            # no RTM ingest: the operator's device state is the ray table
+            from sartsolver_tpu_torch.operators.implicit import ImplicitOperator
+
+            operator = ImplicitOperator(geometry_record)
+            with obs_trace.span("ingest.geometry", npixel=npixel, nvoxel=nvoxel):
+                solver = _operator_solver(DistributedSARTSolver, operator, opts, device,
+                                          args.debug_nans)
+            print(f"implicit: ray table resident ({operator.resident_nbytes()} bytes; "
+                  f"a materialized RTM would stage {npixel * nvoxel * 4})")
+        elif lowrank_op is not None:
+            with obs_trace.span("ingest.lowrank", npixel=npixel, nvoxel=nvoxel,
+                                rank=lowrank_op.rank):
+                solver = _operator_solver(DistributedSARTSolver, lowrank_op, opts, device,
+                                          args.debug_nans)
+            occ = lowrank_op.tile_occupancy()
+            print(f"lowrank: factored operator H ~= S + U V^T rank={lowrank_op.rank} "
+                  f"(core occupancy {occ.occupancy_fraction():.3f}, eps {occ.epsilon:g}, "
+                  f"digest {occ.digest:#010x}; the residual fill costs "
+                  f"{lowrank_op.rank}*(npixel+nvoxel) MACs per projection instead of "
+                  "npixel*nvoxel)")
+            lowrank_op = None  # the host's S and factors: the device holds its own
+        else:
+            # the OS cycle's products upcast int8 codes themselves: int8
+            # needs the fused sweep only on the classic sweep
+            if storage == "int8" and not fused and opts.os_subsets == 1:
+                why = (" (divergence_recovery keeps the logarithmic solver off it)"
+                       if opts.divergence_recovery and opts.logarithmic else "")
+                raise SartInputError(
+                    "Argument rtm_dtype='int8' requires the fused sweep, but it "
+                    f"resolved off{why}. Use --fused_sweep auto/on, float32 or "
+                    "bfloat16 storage, or the linear solver."
+                )
+            # the matrix streamed in row chunks into a device buffer of the
+            # stored dtype (int8: two passes), with the ordered-subsets
+            # padding rows; the ray stats are those of the stored matrix,
+            # taken on the device, as the JAX CLI's are. With integrity on,
+            # the ingest also sums the stored values for the ray stats'
+            # check after the upload
+            ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
+            # the block-sparse index's tile maxima, taken by the ingest where
+            # the stored rows lie ('auto' declines here on a flag, with a
+            # warning)
+            tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
+            with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
+                rtm_scale = None
+                if storage == "int8":
+                    rtm, rtm_scale = read_and_quantize_rtm(
+                        sorted_matrix_files, rtm_name, npixel, nvoxel, device,
+                        rows=held_rows, ingest_stats=ingest_stats, tile_stats=tile_stats)
+                else:
+                    rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
+                                             device, dtype=storage, rows=held_rows,
+                                             ingest_stats=ingest_stats,
+                                             tile_stats=tile_stats)
+                try:
+                    tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
+                                if tile_stats is not None else None)
+                    # the solver keeps the occupied columns, in place in the
+                    # ingest's buffer
+                    solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
+                                                   debug_nans=args.debug_nans,
+                                                   rtm_scale=rtm_scale, npixel=npixel,
+                                                   tile_occupancy=tile_occ)
+                except ValueError as err:  # a non-finite entry, or EPS that cannot engage
+                    raise SartInputError(str(err)) from None
+                del rtm, rtm_scale
         if tile_occ is not None:
             # the index, known at ingest; whether the sweep engaged it is
             # --timing's engaged= line
@@ -780,11 +929,20 @@ def _run(args, telem, summary) -> int:
                 if issues:
                     sdc_policy.resident_failure(
                         "post-upload ray-stats verification: " + "; ".join(issues))
-        telem.set_run_info(operator="tileskip" if tile_occ is not None else "dense")
-        grid = make_voxel_grid(next(iter(sorted_matrix_files.values())), "rtm/voxel_map")
+        telem.set_run_info(operator=solver.operator_kind if solver.operator_kind != "dense"
+                           else "tileskip" if tile_occ is not None else "dense")
+        if geometry_record is not None:
+            from sartsolver_tpu_torch.operators.geometry import GeometryVoxelGrid
+
+            grid = GeometryVoxelGrid(geometry_record)
+        else:
+            grid = make_voxel_grid(next(iter(sorted_matrix_files.values())),
+                                   "rtm/voxel_map")
         sparse_on = solver.tile_occupancy is not None
         sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused or sparse_on
                  else "two-matmul") + ("-sparse" if sparse_on else "")
+        if solver.operator_kind != "dense":
+            sweep = solver.operator_kind + ("-os-subset" if opts.os_subsets > 1 else "")
         print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
               f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
               + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else "")

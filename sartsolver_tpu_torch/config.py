@@ -1,13 +1,9 @@
 """Solver status codes, input errors, time-range parsing and solver options.
 
 A copy of the JAX package's ``sartsolver_tpu/config.py`` restricted to what
-the one-device dense solve uses. The flag semantics, defaults and messages
+the one-device solve uses. The flag semantics, defaults and messages
 follow the reference CLI (``source/arguments.cpp``); invalid values raise
 ``ValueError`` here and the CLI turns them into exit(1).
-
-Options of the JAX package that this package does not implement yet keep
-their field (so a caller can name them) and raise ``ValueError`` naming the
-option when set to anything but their default.
 """
 
 from __future__ import annotations
@@ -199,8 +195,13 @@ class SolverOptions:
     # quietly where the sparse sweep cannot engage (fp64 compute, no
     # index); a number raises there instead.
     sparse_rtm: str = "off"
-    # Options of the JAX package that this package does not implement yet.
-    # Each must stay at its default; see _NOT_PORTED.
+    # The factored RTM (``--lowrank_rtm``): "off" (default), "auto" (the
+    # quality gate picks the rank, declining loudly to dense where none
+    # passes) or a positive integer rank (a rank that fails the gate
+    # raises before anything is staged): H ~= S + U V^T, a tile-thresholded
+    # sparse core plus a randomized-SVD factorization of the residual
+    # (operators/lowrank.py). Its products replace the fused sweep, so an
+    # explicit fused_sweep='on' conflicts.
     lowrank_rtm: str = "off"
 
     @classmethod
@@ -233,6 +234,22 @@ class SolverOptions:
         inability to engage the sparse sweep raises instead of quietly
         running dense (the fused_sweep='on' contract, applied here)."""
         return self.sparse_rtm not in ("off", "auto")
+
+    def lowrank_rank(self) -> int | str | None:
+        """The requested factorization rank: ``None`` when the low-rank
+        backend is off, the string ``"auto"`` for gate-driven rank
+        selection, else the pinned positive integer."""
+        if self.lowrank_rtm == "off":
+            return None
+        if self.lowrank_rtm == "auto":
+            return "auto"
+        return int(self.lowrank_rtm)
+
+    def lowrank_explicit(self) -> bool:
+        """A pinned integer ``lowrank_rtm`` rank was requested: inability
+        to engage the factored operator raises instead of quietly running
+        dense (the fused_sweep='on' contract)."""
+        return self.lowrank_rtm not in ("off", "auto")
 
     def __post_init__(self) -> None:
         if self.ray_density_threshold < 0:
@@ -313,6 +330,27 @@ class SolverOptions:
                 f"explicit fused_sweep='{self.fused_sweep}' cannot be "
                 "honored there — use 'auto' or 'off'."
             )
+        if self.lowrank_rtm not in ("auto", "off"):
+            try:
+                rank = int(self.lowrank_rtm)
+            except ValueError:
+                raise ValueError(
+                    "Attribute lowrank_rtm must be 'auto', 'off' or a "
+                    "positive integer factorization rank, "
+                    f"{self.lowrank_rtm!r} given."
+                ) from None
+            if rank < 1:
+                raise ValueError(
+                    "Attribute lowrank_rtm rank must be >= 1, "
+                    f"{self.lowrank_rtm!r} given."
+                )
+        if self.lowrank_rtm != "off" and self.fused_sweep == "on":
+            raise ValueError(
+                "Attribute lowrank_rtm engages the factored "
+                "(S + U V^T) sweep, which replaces the Pallas kernel; "
+                f"an explicit fused_sweep='{self.fused_sweep}' cannot "
+                "be honored there — use 'auto' or 'off'."
+            )
         if self.lowrank_rtm != "off" and self.sparse_explicit():
             raise ValueError(
                 "Attributes lowrank_rtm and an explicit sparse_rtm "
@@ -320,17 +358,3 @@ class SolverOptions:
                 "backend already tile-thresholds its sparse core — "
                 "drop one of the two."
             )
-        for name, default in _NOT_PORTED:
-            value = getattr(self, name)
-            if value != default:
-                raise ValueError(
-                    f"Attribute {name}={value!r} is not implemented by "
-                    "sartsolver_tpu_torch yet (only the JAX package has "
-                    f"it); leave it at {default!r}."
-                )
-
-
-# (field, the only value this package accepts)
-_NOT_PORTED = (
-    ("lowrank_rtm", "off"),
-)

@@ -2,8 +2,10 @@
 
 ``problem_from_numpy`` builds this package's :class:`SARTProblem` from the
 leaves of a JAX ``SARTProblem`` (``np.asarray(jax_problem.rtm)`` and so on),
-so the same problem runs through both packages. Only numpy crosses over:
-nothing here imports JAX, nor ``ml_dtypes``.
+so the same problem runs through both packages; ``operator_from_jax`` builds
+this package's projection operator from a JAX package operator's numpy
+state. Only numpy crosses over: nothing here imports JAX, nor
+``ml_dtypes``.
 
 A bf16 matrix crosses as its bit pattern: ``np.asarray`` of a JAX bf16
 array has the dtype ``ml_dtypes.bfloat16``, which torch does not take, so
@@ -90,3 +92,33 @@ def problem_from_numpy(rtm, ray_density, ray_length, lap_rows=None,
         laplacian,
         scale,
     )
+
+
+def operator_from_jax(op):
+    """This package's projection operator (``operators/``) for a JAX package
+    operator ``op``, from its numpy state, read by duck typing: the
+    geometry record's dict (implicit), ``S``, ``U``, ``V`` and the tile
+    index's payload (lowrank), the matrix and the index (tile-skip), the
+    matrix or the shape (dense). Raises ValueError on another kind."""
+    from sartsolver_tpu_torch.operators import (
+        DenseOperator, ImplicitOperator, LowRankOperator, TileSkipOperator,
+    )
+    from sartsolver_tpu_torch.operators.geometry import parse_geometry
+    from sartsolver_tpu_torch.ops.sparse import TileOccupancy
+
+    def occupancy():
+        return TileOccupancy.from_payload(op.tile_occupancy().to_payload())
+
+    if op.kind == "implicit":
+        return ImplicitOperator(parse_geometry(op.record.to_dict()))
+    if op.kind == "lowrank":
+        u, v = op.factors()
+        return LowRankOperator(np.asarray(op.payload()), np.asarray(u), np.asarray(v),
+                               occupancy=occupancy())
+    if op.kind == "tileskip":
+        return TileSkipOperator(np.asarray(op.payload()), occupancy())
+    if op.kind == "dense":
+        if getattr(op, "_rtm", None) is None:
+            return DenseOperator(npixel=op.npixel, nvoxel=op.nvoxel, dtype=op._dtype)
+        return DenseOperator(np.asarray(op.payload()))
+    raise ValueError(f"unknown operator kind {op.kind!r}")

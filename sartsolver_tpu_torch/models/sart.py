@@ -69,6 +69,17 @@ sweep is skipped and ``fitted`` is 0. The engagement rules and their
 messages are the JAX package's (``sartsolver_tpu/models/sart.py:1057-1185``):
 ``"auto"`` declines quietly, a threshold raises.
 
+An operator problem (``problem.operator_spec``; ``operators/``) runs its
+own products and never the fused sweep, as the JAX solver's
+(``sartsolver_tpu/models/sart.py:852-1075, 1198-1230``): the factored
+``H ~= S + U V^T`` (:func:`make_lowrank_problem`: S's occupied columns,
+its factors dequantized once per context) through ``torch.matmul``, the
+matrix-free operator (:func:`make_implicit_problem`: the ``[P, 6]`` ray
+table) through the projector of ``operators/implicit.py``. Both take the
+loops, the variants and the OS cycle (subset ``t``: rows ``t::os`` of S and
+U, or of the rays); the Laplacian, the ABFT check and ``fused_sweep='on'``
+are refused with the JAX messages.
+
 ``opts.integrity`` adds the in-solve ABFT check
 (``sartsolver_tpu/models/sart.py:1672-1708``): every iteration holds
 ``sum(H f)`` — on the fused sweep, the kernel's own ``fitted`` output;
@@ -103,6 +114,20 @@ from sartsolver_tpu_torch.config import (
 )
 from sartsolver_tpu_torch.device import check_on, resolve_device
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
+from sartsolver_tpu_torch.operators.implicit import (
+    ImplicitSpec,
+    implicit_back,
+    implicit_forward,
+    implicit_ray_stats,
+    implicit_subset_density,
+)
+from sartsolver_tpu_torch.operators.lowrank import (
+    LowRankSpec,
+    lowrank_back,
+    lowrank_forward,
+    lowrank_ray_stats,
+    lowrank_subset_density,
+)
 from sartsolver_tpu_torch.ops.fused_sweep import _update_reference, fused_sweep
 from sartsolver_tpu_torch.ops.laplacian import LaplacianCOO, coo_matvec
 from sartsolver_tpu_torch.ops.os_subsets import (
@@ -112,6 +137,7 @@ from sartsolver_tpu_torch.ops.os_subsets import (
     os_subset_rows,
 )
 from sartsolver_tpu_torch.ops.projection import (
+    _quantize_sym,
     _sym_codes,
     _sym_scale,
     back_project,
@@ -184,6 +210,17 @@ class SARTProblem(NamedTuple):
     # None where every column is occupied; ray_density stays [V]
     occupancy: Optional[object] = None  # ops/sparse.py:TileOccupancy
     cols: Optional[Tensor] = None  # [V_occ] int64, ascending
+    # the factored operator H ~= S + U V^T (operators/lowrank.py): ``rtm``
+    # holds the occupied columns of the sparse core S (``cols`` names them,
+    # None where every column is), these the skinny factors (int8 codes
+    # with their per-rank-component scales, row 0 U's, row 1 V's)
+    factor_u: Optional[Tensor] = None  # [P, r]
+    factor_v: Optional[Tensor] = None  # [V, r]
+    factor_scale: Optional[Tensor] = None  # [2, r], fp32
+    # the operator's spec: None for a stored matrix, a LowRankSpec for the
+    # factored operator, an ImplicitSpec for the matrix-free one (``rtm``
+    # then the packed [P, 6] fp32 ray table)
+    operator_spec: Optional[object] = None
 
 
 class SolveResult(NamedTuple):
@@ -527,6 +564,83 @@ def make_sparse_problem(rtm, laplacian: Optional[LaplacianCOO] = None, *,
                         tile_occupancy=occ), occ
 
 
+def make_implicit_problem(rays, spec: ImplicitSpec, *, opts: SolverOptions,
+                          device="cuda") -> SARTProblem:
+    """The matrix-free problem (``sartsolver_tpu/models/sart.py:
+    make_implicit_problem``): the packed ``[P, 6]`` ray table staged fp32 as
+    ``rtm``, rho and lambda from the projector the sweeps use (on the card
+    the kernel). int8 storage is refused: there is no matrix to quantize."""
+    dev = resolve_device(device)
+    if (opts.rtm_dtype or "") == "int8":
+        raise ValueError(
+            "rtm_dtype='int8' quantizes a stored matrix; the implicit "
+            "operator stores no matrix (its rays stay fp32). Drop "
+            "rtm_dtype or use a materialized RTM."
+        )
+    rays = torch.as_tensor(np.asarray(rays, np.float32), device=dev).contiguous()
+    dens, length = implicit_ray_stats(rays, spec, dtype=torch_dtype(opts.dtype))
+    return SARTProblem(rays, dens, length, None, operator_spec=spec)
+
+
+def make_lowrank_problem(s_matrix, u, v, spec: LowRankSpec, *, opts: SolverOptions,
+                         device="cuda", occupancy=None) -> SARTProblem:
+    """The factored problem (``sartsolver_tpu/models/sart.py:
+    make_lowrank_problem``): ``s_matrix`` [P, V] the sparse core S on the
+    host, ``u`` [P, r] and ``v`` [V, r] its factors. Only the columns of S
+    that can hold a nonzero are staged, ``[P, V_occ]`` (those of
+    ``occupancy``'s tile columns with a kept tile, the split's index; else
+    the occupied panels of ``spec``), with their index as the problem's
+    ``cols``: the others are exactly zero, so every product is unchanged.
+    S is stored as ``opts.rtm_dtype`` (bf16 applies to S only, the factors
+    stay fp32); int8 quantizes S per voxel and each factor per rank
+    component, on the host. rho and lambda are those of the composed
+    (for int8, the quantized) operator."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(opts.dtype)
+    S = np.asarray(s_matrix, np.float32)
+    P, V = S.shape
+    u = torch.as_tensor(np.asarray(u, np.float32))
+    v = torch.as_tensor(np.asarray(v, np.float32))
+    if u.shape != (P, spec.rank) or v.shape != (V, spec.rank) or V != spec.nvoxel:
+        raise ValueError(
+            f"factor shapes {tuple(u.shape)} / {tuple(v.shape)} do not "
+            f"match the [{P}, {V}] core at rank {spec.rank} (spec nvoxel "
+            f"{spec.nvoxel})."
+        )
+    cols = (occupancy.occupied_columns(V) if occupancy is not None
+            else spec.occupied_columns())
+    if cols is not None and len(cols) == V:
+        cols = None
+    core = torch.as_tensor(S)
+    if cols is not None:  # a threaded gather (numpy's column indexing is serial)
+        core = core.index_select(1, torch.as_tensor(cols))
+    cols_dev = None if cols is None else torch.as_tensor(cols, device=dev)
+    if (opts.rtm_dtype or "") == "int8":
+        if max(P, V) > INT8_MAX_CONTRACTION:
+            raise ValueError(
+                f"rtm_dtype='int8': RTM extent {max(P, V)} exceeds the "
+                f"int32-accumulation bound {INT8_MAX_CONTRACTION} of the "
+                "integer projections; use fp32/bfloat16 storage."
+            )
+        codes, scale = quantize_rtm(core)
+        u_codes, su = _quantize_sym(u, dim=0)
+        v_codes, sv = _quantize_sym(v, dim=0)
+        fscale = torch.cat([su, sv], dim=0).to(dev)  # [2, r]
+        codes, scale = codes.to(dev), scale.to(dev)
+        u_dev, v_dev = u_codes.to(dev), v_codes.to(dev)
+        dens, length = lowrank_ray_stats(
+            codes, u_dev.float() * fscale[0], v_dev.float() * fscale[1], scale=scale,
+            cols=cols_dev, dtype=dtype)
+        return SARTProblem(codes, dens, length, None, scale, cols=cols_dev,
+                           factor_u=u_dev, factor_v=v_dev, factor_scale=fscale,
+                           operator_spec=spec)
+    staged = core.to(storage_dtype(opts)).to(dev).contiguous()
+    u_dev, v_dev = u.to(dev), v.to(dev)
+    dens, length = lowrank_ray_stats(staged, u_dev, v_dev, cols=cols_dev, dtype=dtype)
+    return SARTProblem(staged, dens, length, None, cols=cols_dev, factor_u=u_dev,
+                       factor_v=v_dev, operator_spec=spec)
+
+
 def resolve_fused(opts: SolverOptions) -> bool:
     """Whether the loop runs through the fused sweep: fp32 compute over
     fp32, bf16 or int8 storage, with ``"auto"`` or ``"on"``. The fp64
@@ -561,6 +675,53 @@ def resolve_fused(opts: SolverOptions) -> bool:
     return True
 
 
+def _refuse_for_operator(opts: SolverOptions, problem: SARTProblem, lowrank: bool) -> None:
+    """The JAX solver core's refusals for an operator problem
+    (``sartsolver_tpu/models/sart.py:903-945, 1070-1085, 1198-1230``): the
+    Laplacian, the in-solve ABFT check, an explicit ``fused_sweep='on'``
+    and (matrix-free) an explicit block-sparse threshold, each with its
+    message."""
+    backend = "factored (lowrank)" if lowrank else "implicit (matrix-free)"
+    if problem.laplacian is not None:
+        raise ValueError(
+            f"beta_laplace smoothing is not supported by the {backend} "
+            "operator; drop the Laplacian or use a materialized RTM."
+        )
+    if opts.integrity:
+        if lowrank:
+            raise ValueError(
+                "integrity=True (in-solve ABFT) is not supported by the "
+                "factored (lowrank) operator: the checksum tolerance model "
+                "certifies a single stored-matrix contraction, not the "
+                "composed S + U V^T products. Disable integrity or use a "
+                "materialized RTM."
+            )
+        raise ValueError(
+            "integrity=True (in-solve ABFT) is not supported by the implicit "
+            "operator: the checksummed identities certify a STORED matrix "
+            "against corruption, and the matrix-free projector stores none. "
+            "Disable integrity or use a materialized RTM."
+        )
+    if not lowrank and opts.sparse_explicit():
+        raise ValueError(
+            f"sparse_rtm='{opts.sparse_rtm}' requested but the operator is "
+            "implicit (matrix-free): there is no stored matrix to "
+            "tile-index. Use sparse_rtm='auto'/off or a materialized RTM."
+        )
+    if opts.fused_sweep == "on":
+        if lowrank:
+            raise ValueError(
+                "fused_sweep='on' requested but the operator is factored "
+                "(lowrank); the composed S + U V^T sweep replaces the fused "
+                "kernel. Use fused_sweep='auto'/'off'."
+            )
+        raise ValueError(
+            "fused_sweep='on' requested but the operator is implicit "
+            "(matrix-free); the slab projector replaces the fused sweep. "
+            "Use fused_sweep='auto'/'off'."
+        )
+
+
 @functools.lru_cache(maxsize=8)
 def _sparse_plan(occupancy) -> Tuple[float, int, int]:
     """``(occupancy fraction, tile columns, tiles a sweep skips)`` of an
@@ -582,7 +743,12 @@ class _SweepContext:
         self.lap = problem.laplacian
         self.beta = opts.beta_laplace
         self.eps = _tiny(opts.log_epsilon)
-        self.fused = resolve_fused(opts)
+        # an operator backend (the factored or the matrix-free one) runs its
+        # own products and never the fused sweep
+        spec = problem.operator_spec
+        self.lowrank = spec if isinstance(spec, LowRankSpec) else None
+        self.implicit = spec if isinstance(spec, ImplicitSpec) else None
+        self.fused = False if spec is not None else resolve_fused(opts)
         self.sweep_fn = sweep_fn
         self.os = int(opts.os_subsets)
         # block-sparse: the problem holds the occupied columns (cols None:
@@ -591,13 +757,18 @@ class _SweepContext:
         self.sparse = problem.occupancy
         self.cols = problem.cols
         self.nvoxel = problem.ray_density.shape[0]
-        if self.sparse is None and opts.sparse_explicit():
+        if spec is not None:
+            _refuse_for_operator(opts, problem, self.lowrank is not None)
+        elif self.sparse is None and opts.sparse_explicit():
             resolve_sparse(opts, None, problem.rtm.shape, _storage_name(problem.rtm.dtype))
         if self.sparse is not None and self.os == 1:
             self.fused = True  # the hand kernel over the occupied columns
         kind = ("os-subset" if self.os > 1 else "off" if not self.fused
                 else "compiled" if self.rtm.is_cuda and sweep_fn is fused_sweep
                 else "plain")
+        if spec is not None:
+            kind = ("lowrank" if self.lowrank is not None else "implicit") + (
+                "-os" if self.os > 1 else "")
         FUSED_ENGAGEMENT["last"] = (kind if self.sparse is None else
                                     "os-subset-sparse" if self.os > 1 else f"sparse-{kind}")
         self._skip_ctr = None
@@ -613,13 +784,21 @@ class _SweepContext:
                     "int8 RTM needs SARTProblem.rtm_scale; build the problem "
                     "with make_problem(..., opts with rtm_dtype='int8')."
                 )
-            if not self.fused and self.os == 1:
+            # (the factored operator's products upcast S's codes exactly)
+            if not self.fused and self.os == 1 and self.lowrank is None:
                 raise ValueError(
                     "rtm_dtype='int8' requires the fused sweep, but it "
                     f"resolved off (fused_sweep='{opts.fused_sweep}'). Use "
                     "fused_sweep='auto'/'on', or fp32/bfloat16 storage."
                 )
             self.scale = problem.rtm_scale.to(self.dtype)
+        if self.lowrank is not None:
+            # the factors dequantized once, here (O(r (P + V)) elements)
+            u, v = problem.factor_u, problem.factor_v
+            if problem.factor_scale is not None:
+                u = u.to(self.dtype) * problem.factor_scale[0].to(self.dtype)[None, :]
+                v = v.to(self.dtype) * problem.factor_scale[1].to(self.dtype)[None, :]
+            self.u, self.v = u.to(self.dtype), v.to(self.dtype)
 
         dens, length = problem.ray_density, problem.ray_length
         self.vmask = dens > opts.ray_density_threshold  # [V]
@@ -644,9 +823,18 @@ class _SweepContext:
                     f"os_subsets={self.os} must divide the (per-shard, "
                     f"padded) pixel extent {P}."
                 )
-            dens_sub = _scatter_cols(
-                _subset_colsums(problem.rtm, self.os, self.dtype, self.scale),
-                self.cols, self.nvoxel)
+            if self.lowrank is not None:
+                # subset t of S + U V^T: S's rows t::os and U's rows t::os
+                dens_sub = lowrank_subset_density(
+                    problem.rtm, self.u, self.v, None, self.os, scale=self.scale,
+                    cols=self.cols, dtype=self.dtype)
+            elif self.implicit is not None:
+                dens_sub = implicit_subset_density(problem.rtm, self.implicit, self.os,
+                                                   dtype=self.dtype)
+            else:
+                dens_sub = _scatter_cols(
+                    _subset_colsums(problem.rtm, self.os, self.dtype, self.scale),
+                    self.cols, self.nvoxel)
             self.vmask_sub = (dens_sub > opts.ray_density_threshold) & self.vmask[None, :]
             self.inv_density_sub = torch.where(
                 self.vmask_sub,
@@ -717,7 +905,13 @@ class _SweepContext:
     def bp_any(self, w: Tensor) -> Tensor:
         """``H^T w`` on whatever the problem stores: the one back-projection
         seam of every path outside the fused loop (block-sparse: over the
-        occupied columns, zero elsewhere)."""
+        occupied columns, zero elsewhere; the factored and the matrix-free
+        operators: their own products, in the compute dtype)."""
+        if self.lowrank is not None:
+            return lowrank_back(self.rtm, self.u, self.v, w, scale=self.scale,
+                                cols=self.cols, accum_dtype=self.dtype)
+        if self.implicit is not None:
+            return implicit_back(self.rtm, w, self.implicit, accum_dtype=self.dtype)
         if self.rtm.shape[1] == 0:
             return torch.zeros(w.shape[:-1] + (self.nvoxel,), dtype=w.dtype, device=w.device)
         if self.scale is not None:
@@ -726,12 +920,42 @@ class _SweepContext:
 
     def fp_any(self, f: Tensor) -> Tensor:
         """``H f`` on whatever the problem stores: the forward seam."""
+        if self.lowrank is not None:
+            return lowrank_forward(self.rtm, self.u, self.v, f, scale=self.scale,
+                                   cols=self.cols, accum_dtype=self.dtype)
+        if self.implicit is not None:
+            return implicit_forward(self.rtm, f, self.implicit, accum_dtype=self.dtype)
         if self.rtm.shape[1] == 0:
             return torch.zeros(f.shape[:-1] + (self.rtm.shape[0],), dtype=f.dtype,
                                device=f.device)
         if self.scale is not None:
             return int8_forward_project(self.rtm, self.scale, self.gather(f))
         return forward_project(self.rtm, self.gather(f))
+
+    def subset_forward(self, t: int, x: Tensor) -> Tensor:
+        """``H_t x`` of the OS cycle's subset ``t`` (rows ``t::os``): fp32
+        for a stored matrix (``ops/os_subsets.py``); the factored operator's
+        S rows and U rows ``t::os``, or the ray rows ``t::os`` through the
+        projector, in the compute dtype (the JAX cycle's ``subset_fwd``)."""
+        n = self.os
+        rows = os_subset_rows(self.rtm, t, n)
+        if self.lowrank is not None:
+            return lowrank_forward(rows, os_subset_rows(self.u, t, n), self.v, x,
+                                   scale=self.scale, cols=self.cols, accum_dtype=self.dtype)
+        if self.implicit is not None:
+            return implicit_forward(rows, x, self.implicit, accum_dtype=self.dtype)
+        return os_subset_forward(rows, self.gather(x), self.scale)
+
+    def subset_back(self, t: int, w: Tensor) -> Tensor:
+        """``H_t^T w`` of subset ``t``, ``[B, V]`` (see :meth:`subset_forward`)."""
+        n = self.os
+        rows = os_subset_rows(self.rtm, t, n)
+        if self.lowrank is not None:
+            return lowrank_back(rows, os_subset_rows(self.u, t, n), self.v, w,
+                                scale=self.scale, cols=self.cols, accum_dtype=self.dtype)
+        if self.implicit is not None:
+            return implicit_back(rows, w, self.implicit, accum_dtype=self.dtype)
+        return self.spread(os_subset_back(rows, w, self.scale))
 
     def compute_penalty(self, x: Tensor) -> Tensor:
         """``beta * L @ x`` per frame (zeros without a Laplacian)."""
@@ -762,8 +986,7 @@ class _SweepContext:
             w_t = (torch.where(os_subset_pixels(meas_mask, t, self.os), g_t,
                                torch.zeros_like(g_t))
                    * os_subset_pixels(self.inv_length, t, self.os)[None, :])
-            obs_t = self.spread(os_subset_back(os_subset_rows(self.rtm, t, self.os), w_t,
-                                               self.scale))
+            obs_t = self.subset_back(t, w_t)
             outs.append(torch.where(self.vmask_sub[t][None, :], obs_t, torch.zeros_like(obs_t)))
         return torch.stack(outs, dim=1)
 
@@ -801,15 +1024,14 @@ class _SweepContext:
         nan_rows = []
         self._count_skipped()
         for t in range(n):
-            panel = os_subset_rows(self.rtm, t, n)
             m_t = os_subset_pixels(meas_mask, t, n)
             il_t = os_subset_pixels(self.inv_length, t, n)[None, :]
             with _span("os_subset_forward"):
-                fitted_t = os_subset_forward(panel, self.gather(f), self.scale)
+                fitted_t = self.subset_forward(t, f)
             if self.opts.logarithmic:
                 w = torch.where(m_t, fitted_t, torch.zeros_like(fitted_t)) * il_t
                 with _span("os_subset_back"):
-                    fit = self.spread(os_subset_back(panel, w, self.scale))
+                    fit = self.subset_back(t, w)
                 # the fp32 products widen to the compute dtype before the
                 # ratio, as the JAX cycle's fp64 epsilon widens them
                 fit = torch.where(self.vmask_sub[t][None, :], fit,
@@ -826,7 +1048,7 @@ class _SweepContext:
                 if ascale is not None:
                     w = w * ascale[:, None]
                 with _span("os_subset_back"):
-                    bp = self.spread(os_subset_back(panel, w, self.scale))
+                    bp = self.subset_back(t, w)
                 upd = f + self.inv_density_sub[t][None, :] * bp
                 if self.lap is not None:
                     upd = upd - self.compute_penalty(f) * pen_scale
@@ -838,9 +1060,7 @@ class _SweepContext:
             self.os_nan_rows = torch.stack(nan_rows)
         with _span("os_full_forward"):
             if self.scale is not None:
-                f_occ = self.gather(f)
-                parts = [os_subset_forward(os_subset_rows(self.rtm, t, n), f_occ, self.scale)
-                         for t in range(n)]
+                parts = [self.subset_forward(t, f) for t in range(n)]
                 fitted = torch.stack(parts, dim=2).reshape(f.shape[0], self.rtm.shape[0])
             else:
                 fitted = self.fp_any(f)

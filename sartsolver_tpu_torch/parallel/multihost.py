@@ -10,6 +10,8 @@ and its ``serialize=`` turns come with the multi-GPU slice.
   ``torch.empty`` and never assembled on the host;
 - :func:`read_and_quantize_rtm` is the two-pass int8 ingest: pass 1 takes
   the column maxima, pass 2 quantizes each chunk into the 1-byte codes;
+- :func:`lowrank_operator_or_decline` reads the whole matrix on the host
+  and factors it (``--lowrank_rtm``), or declines;
 - :func:`_read_stripe_retried` reads one row chunk under the
   ``hdf5.rtm_ingest`` retry policy and counts its bytes in
   ``bytes_ingested_total{source="rtm"}``.
@@ -178,6 +180,48 @@ def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int):
               file=sys.stderr)
         return None
     return make_tile_stats(npixel, nvoxel)
+
+
+def lowrank_operator_or_decline(opts, sorted_matrix_files, rtm_name, npixel: int,
+                                nvoxel: int, laplacian=None, device="cuda",
+                                timings: Optional[dict] = None):
+    """The factored-RTM ingest gate
+    (``sartsolver_tpu/parallel/multihost.py:lowrank_operator_or_decline``):
+    a :class:`~sartsolver_tpu_torch.operators.lowrank.LowRankOperator` for
+    the solver, or None when lowrank mode is off or declines ('auto', with
+    the JAX package's stderr warning). An explicit rank raises
+    ``SartInputError`` with the reason, for a static obstacle and for a
+    failed quality gate, before anything is staged. The whole matrix is
+    read on the host by the retried row reader; the gate's parity solves
+    run on ``device``. ``timings``, where given, receives the read's
+    seconds beside the factorization's (``build_lowrank_operator``)."""
+    import sys
+
+    from sartsolver_tpu_torch.config import SartInputError
+    from sartsolver_tpu_torch.operators.lowrank import (
+        build_lowrank_operator, lowrank_static_decline_reason,
+    )
+
+    rank = opts.lowrank_rank()
+    if rank is None:
+        return None
+    reason = lowrank_static_decline_reason(opts, 1, has_laplacian=laplacian is not None)
+    op = None
+    if reason is None:
+        t0 = time.perf_counter()
+        H = _read_stripe_retried(sorted_matrix_files, rtm_name, npixel, nvoxel, 0)
+        if timings is not None:
+            timings["read_s"] = time.perf_counter() - t0
+        # an explicit rank's gate failures raise SartInputError inside
+        op, reason = build_lowrank_operator(H, rank=rank, device=device, timings=timings)
+        del H
+    if reason is not None:
+        if opts.lowrank_explicit():
+            raise SartInputError(f"Argument lowrank_rtm={opts.lowrank_rtm}: {reason}.")
+        print(f"Warning: lowrank_rtm declines here ({reason}); running dense.",
+              file=sys.stderr)
+        return None
+    return op
 
 
 def _tile_maxima(x: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:

@@ -31,6 +31,17 @@ the device (``models/sart.py:make_problem``, in place in the ingest's
 buffer); the solver's vectors stay ``[V]``. The ``device.buffer``
 corruption and the re-audit act on that matrix, the one the sweeps read.
 
+``operator=`` (in place of ``rtm``) takes a projection operator
+(``operators/``): a dense or tile-skip operator unwraps onto the matrix
+path; the factored operator (``LowRankOperator``, ``H ~= S + U V^T``) stages
+the occupied columns of its sparse core and its factors
+(``models/sart.py:make_lowrank_problem``); the matrix-free one
+(``ImplicitOperator``) stages the ``[P, 6]`` ray table
+(``make_implicit_problem``), its products the hand-written projector on the
+card. Their restrictions are the JAX solver's, each a ``SartInputError``
+with its words (``sartsolver_tpu/parallel/sharded.py:710-935``); the port
+has one device, so the mesh and multi-process refusals do not arise.
+
 For the in-solve checkpoints (``--solve_ckpt_stride``),
 :meth:`DistributedSARTSolver.export_sched_lanes` takes every field of the
 lanes' :class:`~sartsolver_tpu_torch.models.sart.SchedState` to the host bit
@@ -54,7 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sartsolver_tpu_torch.config import MAX_ITERATIONS_EXCEEDED, SolverOptions
+from sartsolver_tpu_torch.config import MAX_ITERATIONS_EXCEEDED, SartInputError, SolverOptions
 from sartsolver_tpu_torch.device import resolve_device
 from sartsolver_tpu_torch.models.sart import (
     SchedState,
@@ -62,6 +73,8 @@ from sartsolver_tpu_torch.models.sart import (
     _scatter_cols,
     compute_ray_stats,
     compute_ray_stats_int8,
+    make_implicit_problem,
+    make_lowrank_problem,
     make_problem,
     prepare_measurement,
     resolve_fused,
@@ -228,13 +241,26 @@ class DistributedSARTSolver:
     ``device.put`` where a frame group or a stride's refills are staged.
     """
 
-    def __init__(self, rtm, laplacian=None, *, opts: SolverOptions, device="cuda",
+    def __init__(self, rtm=None, laplacian=None, *, opts: SolverOptions, device="cuda",
                  debug_nans: bool = False, rtm_scale=None,
-                 npixel: Optional[int] = None, tile_occupancy=None):
+                 npixel: Optional[int] = None, tile_occupancy=None, operator=None):
         self.device = resolve_device(device)
         self.opts = opts
         self.debug_nans = debug_nans
         self.dtype = torch_dtype(opts.dtype)
+        self.operator_kind = "dense"
+        if operator is not None:
+            if rtm is not None:
+                raise ValueError("Pass either a matrix (rtm) or operator=, not both.")
+            if operator.kind in ("implicit", "lowrank"):
+                self._init_operator(operator, laplacian)
+                return
+            # a dense or tile-skip operator: its matrix, and its index
+            if tile_occupancy is None:
+                tile_occupancy = operator.tile_occupancy()
+            rtm = operator.payload()
+        elif rtm is None:
+            raise ValueError("DistributedSARTSolver needs a matrix (rtm) or operator=.")
         held = np.shape(rtm)[0]
         npixel = held if npixel is None else int(npixel)
         # the rows the device holds: npixel, or the OS cycle's padded extent
@@ -272,6 +298,90 @@ class DistributedSARTSolver:
         self.npixel, self.nvoxel = npixel, self.problem.ray_density.shape[0]
         # the integrity layer's upload-time ray stats (host copies)
         self._ray_stats_snapshot = self._ray_stats_now() if opts.integrity else None
+
+    def _init_operator(self, operator, laplacian) -> None:
+        """The factored or the matrix-free operator's construction, behind
+        the JAX solver's restrictions (``_init_lowrank``, ``_init_implicit``):
+        the rows padded with zero rows (inert) where the ordered subsets
+        need it, the problem staged, its ray stats those of the products
+        the sweeps run."""
+        opts = self.opts
+        implicit = operator.kind == "implicit"
+        if implicit:
+            if opts.rtm_dtype == "int8":
+                raise SartInputError(
+                    "rtm_dtype='int8' quantizes a materialized matrix; the "
+                    "implicit (matrix-free) operator has none — drop "
+                    "--rtm_dtype int8 or materialize the matrix.")
+            if opts.integrity:
+                raise SartInputError(
+                    "integrity=True re-audits a resident matrix; the "
+                    "implicit (matrix-free) operator holds none — drop "
+                    "--integrity or materialize the matrix.")
+            if opts.sparse_epsilon() is not None and opts.sparse_explicit():
+                raise SartInputError(
+                    f"Argument sparse_rtm={opts.sparse_rtm}: the block-"
+                    "sparse tile skip indexes a materialized matrix; the "
+                    "implicit (matrix-free) operator has none.")
+            if opts.fused_sweep in ("on", "interpret"):
+                raise SartInputError(
+                    f"fused_sweep='{opts.fused_sweep}' forces the Pallas "
+                    "matrix sweep, which needs a materialized matrix; the "
+                    "implicit operator traces its own panel loop — use "
+                    "fused_sweep='auto' or 'off'.")
+            if laplacian is not None:
+                raise SartInputError(
+                    "beta_laplace smoothing is not supported by the "
+                    "implicit (matrix-free) operator.")
+        else:
+            if opts.integrity:
+                raise SartInputError(
+                    "integrity=True certifies a single stored-matrix "
+                    "contraction; the factored (lowrank) operator composes "
+                    "S + U V^T products — drop --integrity or materialize "
+                    "the matrix.")
+            if opts.sparse_epsilon() is not None and opts.sparse_explicit():
+                raise SartInputError(
+                    f"Argument sparse_rtm={opts.sparse_rtm}: the factored "
+                    "(lowrank) operator already tile-thresholds its sparse "
+                    "core — drop the explicit threshold.")
+            if opts.fused_sweep in ("on", "interpret"):
+                raise SartInputError(
+                    f"fused_sweep='{opts.fused_sweep}' forces the Pallas "
+                    "matrix sweep; the factored (lowrank) operator traces "
+                    "its own composed sweep — use fused_sweep='auto' or "
+                    "'off'.")
+            if laplacian is not None:
+                raise SartInputError(
+                    "beta_laplace smoothing is not supported by the "
+                    "factored (lowrank) operator.")
+        self.operator_kind = operator.kind
+        self.npixel, self.nvoxel = int(operator.npixel), int(operator.nvoxel)
+        self.rows = os_padded_rows(self.npixel, opts.os_subsets)
+        with obs_trace.span("device.put"):
+            if implicit:
+                from sartsolver_tpu_torch.operators.implicit import divisor_panel
+
+                rays = operator.payload()
+                if self.rows != self.npixel:
+                    rays = _pad_rows(rays, self.rows)
+                spec = operator.spec(padded_nvoxel=self.nvoxel,
+                                     panel_voxels=divisor_panel(self.nvoxel))
+                if self.device.type == "cuda":
+                    from sartsolver_tpu_torch.ops import _build
+
+                    _build.load("implicit")
+                self.problem = make_implicit_problem(rays, spec, opts=opts,
+                                                     device=self.device)
+            else:
+                S = operator.payload()
+                u, v = operator.factors()
+                if self.rows != self.npixel:
+                    S, u = _pad_rows(S, self.rows), _pad_rows(u, self.rows)
+                self.problem = make_lowrank_problem(
+                    S, u, v, operator.solver_spec(), opts=opts, device=self.device,
+                    occupancy=operator.tile_occupancy())
+        self._ray_stats_snapshot = None
 
     # ---- numerical integrity ---------------------------------------------
 
@@ -454,6 +564,15 @@ class DistributedSARTSolver:
             device=self.device, debug_nans=self.debug_nans,
         )
         return DeviceSolveResult(res, norms, fitted_norm=fitted)
+
+    def solve(self, measurement, f0=None) -> SolveResult:
+        """One frame [P], the B = 1 case of :meth:`solve_batch`: the
+        solution [V] fp64 in physical units on the host, and the status,
+        iterations and convergence as Python numbers."""
+        res = self.solve_batch(np.asarray(measurement)[None, :],
+                               None if f0 is None else np.asarray(f0)[None, :])
+        return SolveResult(res.fetch_solutions()[0], int(res.status[0]),
+                           int(res.iterations[0]), float(res.convergence[0]))
 
     # ---- continuous batching (sched/) -----------------------------------
 

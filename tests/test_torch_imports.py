@@ -62,6 +62,30 @@ def test_io_pipeline_modules_import_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+# the operator backends (the factored RTM, the matrix-free geometry
+# operator and its projector's wrapper), each imported alone: no JAX, no
+# JAX package, and no build of the kernel at import
+_OPERATOR_MODULES = (
+    "sartsolver_tpu_torch.operators", "sartsolver_tpu_torch.operators.geometry",
+    "sartsolver_tpu_torch.operators.implicit", "sartsolver_tpu_torch.operators.lowrank",
+    "sartsolver_tpu_torch.models.convert",
+)
+
+
+@pytest.mark.parametrize("name", _OPERATOR_MODULES)
+def test_operator_modules_import_no_jax(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "importlib.import_module(sys.argv[1])\n"
+             "from sartsolver_tpu_torch.ops import _build\n"
+             "assert not _build._loaded\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'sartsolver_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 # the resilience of a run (the graceful stop, the hang watchdog, the
 # integrity layer, the flight recorder), each imported alone in a fresh
 # process: none loads JAX or the JAX package, and the stop, the watchdog and
@@ -351,3 +375,37 @@ def test_sparse_and_checkpoint_modules_import_no_jax(name):
     out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_chip_smoke_operators_phase_at_small_size(tmp_path):
+    """chip_smoke.py's operators phase on the CPU at a small size: on the
+    reflective world 'auto' takes rank 4 in every storage and run, the
+    factored runs' statuses equal the dense runs' and their fitted distance
+    is within the phase's bound, rank 2 exits 1, the fp32 factored solver
+    holds half the dense matrix; on the geometry world the implicit runs
+    against the dense twin, int8 refused (the launch counts and the kernel
+    table are the card's)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    rec = cs.operators_phase(
+        str(tmp_path), device="cpu",
+        reflective_kw=dict(nx=16, ny=32, cam=(8, 8), n_frames=8),
+        geometry_kw=dict(nx=8, ny=8, nz=4, cam=(8, 8), n_frames=8))
+    r = rec["reflective"]
+    assert r["factorization"]["rank"] == cs.LOWRANK_RANK
+    assert r["resident"]["float32"]["matrix_fraction_of_dense"] == 0.5
+    assert r["rank2_exit"] == 1
+    for st in cs.STORAGES:
+        for name in ("linear", "log"):
+            run = r[f"{st}_{name}"]
+            assert max(run["fitted_distance"]) <= cs.OPERATOR_FIT_TOL
+            assert f"rank={cs.LOWRANK_RANK} " in run["factored"]["operator_line"]
+    g = rec["geometry"]
+    assert g["int8_exit"] == 1
+    for name in ("linear", "log", "batch", "os"):
+        assert g[name]["implicit"]["status"] == g[name]["dense"]["status"]
+        assert g[name]["implicit"]["operator_line"].startswith("implicit: ray table resident")
+    assert "kernels" not in rec

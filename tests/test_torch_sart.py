@@ -261,20 +261,38 @@ def test_sweep_fn_parameter_reaches_the_loop():
     ("lowrank_rtm", "4"), ("rtm_dtype", "float16"),
 ])
 def test_options_not_ported_raise(field, value):
-    """Options still to port raise naming the option; so does an RTM
-    storage dtype that neither package has. ``integrity`` and ``sparse_rtm``
-    are ported now: each is accepted, as the JAX package accepts it, and
-    beside an option still to port that option's refusal holds."""
+    """Every option of the JAX package is ported now: ``integrity``,
+    ``sparse_rtm`` and ``lowrank_rtm`` are accepted as the JAX package
+    accepts them, beside each other by the JAX rules (lowrank with an
+    explicit ``sparse_rtm`` refuses in the options; lowrank with
+    ``integrity`` is accepted there and refused by the solver); an RTM
+    storage dtype that neither package has still raises naming it."""
     if field == "integrity":
         assert SolverOptions(integrity=value).integrity is JaxOptions(integrity=value).integrity
-        with pytest.raises(ValueError, match="lowrank_rtm"):
-            SolverOptions(integrity=value, lowrank_rtm="4")
+        opts = SolverOptions(integrity=value, lowrank_rtm="4")
+        assert opts.lowrank_rank() == JaxOptions(integrity=value, lowrank_rtm="4").lowrank_rank()
+        from sartsolver_tpu_torch.config import SartInputError
+        from sartsolver_tpu_torch.operators.lowrank import build_lowrank_operator
+        from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+
+        H = np.zeros((16, 256), np.float32)
+        H[:, :128] = 1.0
+        H[:, 128:] = 0.01
+        op, _ = build_lowrank_operator(H, rank=1, check_parity=False)
+        with pytest.raises(SartInputError, match="integrity"):
+            DistributedSARTSolver(operator=op, opts=opts, device="cpu")
         return
     if field == "sparse_rtm":
         assert (SolverOptions(sparse_rtm=value).sparse_epsilon()
                 == JaxOptions(sparse_rtm=value).sparse_epsilon() == 0.0)
+        SolverOptions(sparse_rtm=value, lowrank_rtm="4")  # 'auto' beside lowrank: accepted
         with pytest.raises(ValueError, match="lowrank_rtm"):
-            SolverOptions(sparse_rtm=value, lowrank_rtm="4")
+            SolverOptions(sparse_rtm="0.05", lowrank_rtm="4")
+        return
+    if field == "lowrank_rtm":
+        opts = SolverOptions(lowrank_rtm=value)
+        assert opts.lowrank_rank() == JaxOptions(lowrank_rtm=value).lowrank_rank() == 4
+        assert opts.lowrank_explicit()
         return
     with pytest.raises(ValueError, match=field):
         SolverOptions(**{field: value})
