@@ -201,11 +201,16 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    ``--geometry`` linear, log, ``--no_guess --batch_frames 8`` and
    ``--os_subsets 4`` against the dense twin (statuses, fitted distance,
    the projector's launches above 0), ``--rtm_dtype int8 --geometry`` exits
-   1; the projector's kernel table: its entries bit for bit against the
-   plain version on the CPU for ``IMPLICIT_CHECK_COLUMNS`` columns, forward
-   and back at B = 1 and 8 against the plain version within ``KERNEL_TOL``,
-   timed beside the bound (operations), the plain version and
-   ``torch.matmul`` on the materialized matrix.
+   1; the projector's kernel table: every entry (5.4e8) bit for bit
+   against the dense twin's matrix, forward and back at B = 1 and 8
+   against the plain version within ``KERNEL_TOL``, timed beside the bound
+   (the nonzero entries' operations against the bytes), the pairs the
+   kernel evaluates (counted by its plain mirror), the plain version and
+   ``torch.matmul`` on the materialized matrix. The wide geometry world
+   (``IMPLICIT_WIDE``: 128 x 128 x 64 voxels, two 256 x 256 cameras),
+   kernel only (:func:`_implicit_wide`): rows and columns bit for bit,
+   restricted sums within ``KERNEL_TOL``, forward and back at B = 1 and 8
+   timed beside the bound and the pairs evaluated, the seconds it adds.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -3079,12 +3084,19 @@ LOWRANK_RANK = 4  # the rank the reflective world's residual has
 IMPLICIT_SOURCE = "sartsolver_tpu_torch/ops/csrc/implicit.cu"
 IMPLICIT_REPLACES = ("none: sartsolver_tpu/operators/implicit.py:117-227 rebuilds H in "
                      "plain XLA (no pallas_call)")
-# fp32 arithmetic a ray-voxel pair costs in seg_length (ops/csrc/implicit.cu),
+# fp32 arithmetic an entry costs in seg_length (ops/csrc/implicit.cu),
 # counted from the source: per axis two __fsub_rn, two __fmul_rn, fminf and
 # fmaxf (18); the folds of near and far over the axes (4); the clamp of the
-# entry at 0, the segment's __fsub_rn and its clamp (3)
-IMPLICIT_OPS_PER_PAIR = 25
-IMPLICIT_CHECK_COLUMNS = 64  # columns whose entries are held bit for bit
+# entry at 0, the segment's __fsub_rn and its clamp (3). The bound counts it
+# for the nonzero entries only, the work the inputs need, with a multiply
+# and an add a batch row: (IMPLICIT_OPS_PER_ENTRY + 2 B) nnz
+IMPLICIT_OPS_PER_ENTRY = 25
+IMPLICIT_ENTRY_BLOCK = 512  # columns a one-hot forward holds (every entry checked)
+# the wide geometry world, kernel only: 128 x 128 x 64 voxels, two 256 x 256
+# cameras (P = 131,072, V = 1,048,576; its fp32 matrix would be 512 GiB)
+IMPLICIT_WIDE = dict(nx=128, ny=128, nz=64, cam=(256, 256))
+IMPLICIT_WIDE_CHECK = 64  # columns, and rays of the restricted forward
+IMPLICIT_WIDE_ROWS = 8  # rows held bit for bit
 
 
 def _timing_rows(text: str) -> dict:
@@ -3166,14 +3178,52 @@ def _resident(op, storage, device) -> dict:
     return rec
 
 
+def _implicit_work(rays, spec) -> dict:
+    """What the projector's kernel does on these rays, counted by its plain
+    mirror (``operators/implicit.py:candidate_cells``, ``tile_survivors``)
+    on the card: the pairs each entry point evaluates, the back's cull
+    tests, and the nonzero entries (the candidates' entries through
+    ``pair_lengths``, the plain version's arithmetic)."""
+    import torch
+
+    from sartsolver_tpu_torch.operators import implicit as im
+
+    rows = im.candidate_cells(rays, spec)
+    forward = int((rows[:, 4] - rows[:, 3] + 1).sum())
+    nnz = 0
+    for r0 in range(0, len(rows), 1 << 18):
+        ray, vox = im.candidate_pairs(rows[r0:r0 + (1 << 18)], spec)
+        nnz += int((im.pair_lengths(rays, ray, vox, spec) != 0).sum())
+    tiles = im.tile_survivors(rays, spec)
+    back = int((tiles["survivors"] * tiles["cells"]).sum())
+    torch.cuda.synchronize()
+    return dict(nnz=nnz, forward_pairs=forward, back_pairs=back, brick=list(tiles["brick"]),
+                chunk_tests=tiles["chunk_tests"], ray_tests=tiles["ray_tests"],
+                rays_with_candidates=int(len(torch.unique(rows[:, 0]))))
+
+
+def _implicit_bound(which, P, V, B, nnz, rates) -> dict:
+    """The least time of one projection: its bytes (the [P, 6] rays, the
+    operand and the output once) at the memory rate against the operations
+    its nonzero entries need at the fp32 rate."""
+    mem_rate, fp32_rate, _ = rates
+    n_in, n_out = (V, P) if which == "forward" else (P, V)
+    ops = (IMPLICIT_OPS_PER_ENTRY + 2 * B) * nnz
+    nbytes = 4 * (6 * P + B * n_in + B * n_out)
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / fp32_rate * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", ops=ops, bytes=nbytes)
+
+
 def _implicit_kernels(gw, rates, launches) -> dict:
     """The projector's entry points at the geometry world's shape, B = 1 and
-    8: entries bit for bit against the plain version's on the CPU (a forward
-    of one-hot operands returns the entries of their columns), the sums
-    within ``KERNEL_TOL`` of the output's max against the plain version on
-    the card, two calls byte-identical; ms, the bound (operations), the
-    plain version's ms and the library's (``torch.matmul`` on the
-    materialized fp32 matrix)."""
+    8: every entry (5.4e8) bit for bit through one-hot forwards of
+    ``IMPLICIT_ENTRY_BLOCK`` columns against the dense twin's matrix (the
+    plain version's entries), the sums within ``KERNEL_TOL`` of the
+    output's max against the plain version on the card, two calls
+    byte-identical; ms, the bound (:func:`_implicit_bound`), the pairs
+    evaluated (:func:`_implicit_work`), the plain version's ms and the
+    library's (``torch.matmul`` on the materialized fp32 matrix)."""
     import torch
 
     from sartsolver_tpu_torch.operators import implicit as im
@@ -3182,29 +3232,27 @@ def _implicit_kernels(gw, rates, launches) -> dict:
     rec = load_geometry(gw["geometry"])
     op = im.ImplicitOperator(rec)
     spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=im.divisor_panel(rec.nvoxel))
-    rays_h = torch.as_tensor(op.payload())
-    rays = rays_h.cuda()
+    rays = torch.as_tensor(op.payload()).cuda()
     P, V = rec.npixel, rec.nvoxel
     H = torch.as_tensor(gw["H"], device="cuda")
+    t0 = time.perf_counter()
+    for c0 in range(0, V, IMPLICIT_ENTRY_BLOCK):
+        n = min(IMPLICIT_ENTRY_BLOCK, V - c0)
+        f = torch.zeros((n, V), device="cuda")
+        f[torch.arange(n), c0 + torch.arange(n)] = 1.0
+        if not torch.equal(im.implicit_forward(rays, f, spec), H[:, c0:c0 + n].T):
+            raise AssertionError(f"implicit entries of columns [{c0}, {c0 + n}) differ from "
+                                 "the plain version's")
+    work = _implicit_work(rays, spec)
     nnz = int((H != 0).sum())
-    # the entries: IMPLICIT_CHECK_COLUMNS columns spread over the grid
-    cols = np.linspace(0, V - 1, IMPLICIT_CHECK_COLUMNS).astype(np.int64)
-    want = im.panel_lengths(rays_h, 0, spec, V)[:, cols] if V <= 4096 else torch.cat(
-        [im.panel_lengths(rays_h, int(c), spec, 1) for c in cols], dim=1)
-    for c0 in range(0, len(cols), 8):
-        pick = torch.as_tensor(cols[c0:c0 + 8])
-        f = torch.zeros((len(pick), V), device="cuda")
-        f[torch.arange(len(pick)), pick.cuda()] = 1.0
-        got = im.implicit_forward(rays, f, spec).cpu()
-        if not torch.equal(got, want[:, c0:c0 + 8].T.contiguous()):
-            raise AssertionError(f"implicit entries of columns {cols[c0:c0 + 8]} differ "
-                                 "from the plain version's")
-    mem_rate, fp32_rate, _ = rates
-    out = {"entries_checked": int(len(cols) * P), "nnz_fraction": nnz / (P * V)}
+    if work["nnz"] != nnz:
+        raise AssertionError(f"the mirror's nonzero entries {work['nnz']} != the matrix's {nnz}")
+    out = {"entries_checked": P * V, "entries_seconds": time.perf_counter() - t0,
+           "nnz_fraction": nnz / (P * V), "work": work}
     g = torch.Generator(device="cuda").manual_seed(14)
     for which in ("forward", "back"):
         for B in (1, 8):
-            n_in, n_out = (V, P) if which == "forward" else (P, V)
+            n_in = V if which == "forward" else P
             x = torch.rand((B, n_in), generator=g, device="cuda")
             fn = im.implicit_forward if which == "forward" else im.implicit_back
             ref = im._forward_reference if which == "forward" else im._back_reference
@@ -3217,17 +3265,88 @@ def _implicit_kernels(gw, rates, launches) -> dict:
             if not torch.equal(got, again) or err > KERNEL_TOL:
                 raise AssertionError(f"implicit_{which} B={B}: error {err} or two calls differ")
             lib = (lambda: x @ H.T) if which == "forward" else (lambda: x @ H)
-            ops = IMPLICIT_OPS_PER_PAIR * P * V + 2 * B * nnz
-            nbytes = 4 * (6 * P + B * n_in + B * n_out)
-            bound = max(nbytes / mem_rate, ops / fp32_rate) * 1e3
             out[f"{which}@B{B}"] = dict(
                 shape=[P, V, B], max_abs_err=err * scale, rel_err=err,
                 ms=_median_ms(lambda: fn(rays, x, spec)),
                 plain_ms=_median_ms(lambda: ref(rays, x, spec, torch.float32), reps=3),
-                library_ms=_median_ms(lib), bound_ms=bound,
-                bound_by="operations" if ops / fp32_rate >= nbytes / mem_rate else "bytes",
-                ops=ops, bytes=nbytes, launches=launches[which])
+                library_ms=_median_ms(lib), launches=launches[which],
+                pairs_evaluated=work[f"{which}_pairs"], nnz=nnz,
+                **_implicit_bound(which, P, V, B, nnz, rates))
     del H
+    return out
+
+
+def _implicit_wide(rates) -> dict:
+    """The projector on the wide geometry world (``IMPLICIT_WIDE``), kernel
+    only: no CLI run, no plain-version timing (a plain projection would take
+    minutes) and no library call (the fp32 matrix would be 512 GiB).
+    ``IMPLICIT_WIDE_ROWS`` rows bit-equal to the plain version's on the CPU
+    (one-hot back projections against ``panel_lengths`` of those rays),
+    ``IMPLICIT_WIDE_CHECK`` columns bit-equal (one-hot forwards), the
+    forward of a random operand on ``IMPLICIT_WIDE_CHECK`` rays and its
+    back projection on as many voxels within ``KERNEL_TOL`` of the plain
+    version on the card; forward and back at B = 1 and 8: ms, the bound, the
+    pairs evaluated, two calls byte-identical."""
+    import torch
+
+    from sartsolver_tpu_torch.operators import implicit as im
+
+    t_start = time.perf_counter()
+    rec = geometry_record(IMPLICIT_WIDE["nx"], IMPLICIT_WIDE["ny"], IMPLICIT_WIDE["nz"],
+                          cam=IMPLICIT_WIDE["cam"])
+    op = im.ImplicitOperator(rec)
+    spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=im.divisor_panel(rec.nvoxel))
+    rays_h = torch.as_tensor(op.payload())
+    rays = rays_h.cuda()
+    P, V = rec.npixel, rec.nvoxel
+    t0 = time.perf_counter()
+    work = _implicit_work(rays, spec)
+    out = {"shape": [P, V], "work": work, "mirror_seconds": time.perf_counter() - t0,
+           "nnz_fraction": work["nnz"] / (P * V),
+           "library": "none: the fp32 matrix would be 512 GiB",
+           "plain": "not run at this size"}
+    rng = np.random.default_rng(15)
+    seen = torch.unique(im.candidate_cells(rays, spec)[:, 0]).cpu()
+    rows = seen[torch.as_tensor(np.linspace(0, len(seen) - 1, IMPLICIT_WIDE_ROWS).astype(np.int64))]
+    w = torch.zeros((len(rows), P), device="cuda")
+    w[torch.arange(len(rows)), rows.cuda()] = 1.0
+    want = im.panel_lengths(rays_h[rows], 0, spec, V)  # [rows, V] on the CPU
+    if not torch.equal(im.implicit_back(rays, w, spec).cpu(), want):
+        raise AssertionError(f"wide world: the entries of rows {rows.tolist()} differ")
+    cols = torch.as_tensor(np.sort(rng.choice(rec.nvoxel, IMPLICIT_WIDE_CHECK, replace=False)))
+    f = torch.zeros((len(cols), V), device="cuda")
+    f[torch.arange(len(cols)), cols.cuda()] = 1.0
+    want = torch.cat([im.panel_lengths(rays_h, int(c), spec, 1) for c in cols], dim=1)
+    if not torch.equal(im.implicit_forward(rays, f, spec).cpu(), want.T.contiguous()):
+        raise AssertionError(f"wide world: the entries of columns {cols.tolist()} differ")
+    out.update(rows_checked=rows.tolist(), columns_checked=cols.tolist())
+    # the sums on a few rays (forward) and a few voxels (back) against the plain version
+    pick = rows.new_tensor(np.sort(rng.choice(seen.numpy(), IMPLICIT_WIDE_CHECK, replace=False)))
+    x = torch.as_tensor(rng.random((1, V), dtype=np.float32), device="cuda")
+    got = im.implicit_forward(rays, x, spec)[:, pick.cuda()]
+    plain = im._forward_reference(rays[pick.cuda()], x, spec, torch.float32)
+    y = torch.as_tensor(rng.random((1, P), dtype=np.float32), device="cuda")
+    got_b = im.implicit_back(rays, y, spec)[:, cols.cuda()]
+    plain_b = y @ torch.cat([im.panel_lengths(rays, int(c), spec, 1) for c in cols], dim=1)
+    errs = []
+    for a, b in ((got, plain), (got_b, plain_b)):
+        scale = float(b.abs().max())
+        errs.append(float((a - b).abs().max()) / max(scale, 1e-30))
+    if max(errs) > KERNEL_TOL:
+        raise AssertionError(f"wide world: restricted forward / back errors {errs}")
+    out["restricted_rel_err"] = {"forward": errs[0], "back": errs[1]}
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for which in ("forward", "back"):
+        fn = im.implicit_forward if which == "forward" else im.implicit_back
+        for B in (1, 8):
+            x = torch.rand((B, V if which == "forward" else P), generator=g, device="cuda")
+            if not torch.equal(fn(rays, x, spec), fn(rays, x, spec)):
+                raise AssertionError(f"wide world: implicit_{which} B={B}: two calls differ")
+            out[f"{which}@B{B}"] = dict(
+                shape=[P, V, B], ms=_median_ms(lambda: fn(rays, x, spec)),
+                pairs_evaluated=work[f"{which}_pairs"], nnz=work["nnz"],
+                **_implicit_bound(which, P, V, B, work["nnz"], rates))
+    out["seconds"] = time.perf_counter() - t_start
     return out
 
 
@@ -3254,8 +3373,9 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
     matrix's files: statuses equal, fitted distance within
     ``OPERATOR_FIT_TOL``, on the card the projector's launches above 0 in
     every run; ``--rtm_dtype int8 --geometry`` exits 1. On the card with
-    ``rates``, the projector's kernel table (:func:`_implicit_kernels`).
-    Each world's files are deleted at its end."""
+    ``rates``, the projector's kernel table (:func:`_implicit_kernels`) and
+    the wide geometry world, kernel only (:func:`_implicit_wide`). Each
+    world's files are deleted at its end."""
     import shutil
 
     import torch
@@ -3367,6 +3487,11 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
     if device == "cuda" and rates is not None:
         out["kernels"] = _implicit_kernels(gw, rates, launches)
     shutil.rmtree(gdir)
+    if device == "cuda" and rates is not None:
+        del gw
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["wide"] = _implicit_wide(rates)
     return out
 
 
@@ -3790,15 +3915,16 @@ def main() -> int:
     # the implicit projector (no Pallas counterpart), its two entry points at
     # the geometry world's shape; launches: the geometry runs' of the phase
     for key, t in operators["kernels"].items():
-        if not isinstance(t, dict):
-            continue
+        if "@" not in key:
+            continue  # the table's checks and the work counts, not a row
         which, B = key.split("@")
         rows.append({"name": f"implicit_{which}@{B}", "route": "cuda",
                      "source": IMPLICIT_SOURCE, "replaces": IMPLICIT_REPLACES,
                      "launches": t["launches"], "max_abs_err": t["max_abs_err"],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "shape": t["shape"], "variant": "the implicit operator (--geometry)"})
+                     "shape": t["shape"], "pairs_evaluated": t["pairs_evaluated"],
+                     "nnz": t["nnz"], "variant": "the implicit operator (--geometry)"})
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

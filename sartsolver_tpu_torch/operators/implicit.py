@@ -10,8 +10,13 @@ by the slab method. A resident session holds the rays, O(P) bytes.
 Two versions of the same products:
 
 - on a CUDA tensor, the hand-written kernel ``ops/csrc/implicit.cu``
-  (:func:`_kernel_project`): each entry computed in registers and applied to
-  up to eight batch rows, no panel in memory; deterministic (no atomics);
+  (:func:`_kernel_project`), which visits only the cells a ray can cross:
+  the forward walks each ray's x-slabs, y rows and z cells in voxel-id
+  order (one launch); the back gives a block a brick of 128 cells, culls
+  the rays by index boxes over 32 and 1024 consecutive rays and then by
+  the exact slab test against the brick widened by one cell, and sums the
+  survivors in ray order (two launches). Each entry is computed in
+  registers and applied to up to eight batch rows; no atomics;
 - on a CPU tensor, the plain version: :func:`panel_lengths` rebuilds a
   ``[P, panel]`` block of entries with the JAX function's arithmetic, step
   for step, and a matrix product contracts it, a chunk of columns at a time.
@@ -19,10 +24,18 @@ Two versions of the same products:
 A CUDA tensor never takes the plain version, and a CPU tensor never the
 kernel. The entries of the two are the same floats (the kernel writes the
 corner and slab arithmetic with round-to-nearest intrinsics, so no step is
-contracted); the sums agree within their summation order.
+contracted); the sums agree within their summation order. The kernel's
+candidate cells may exceed the nonzero ones, never miss one: each range is
+estimated, widened by one cell and then extended while the next cell out
+can still hold a segment, a test that is monotone in the cell index under
+the kernel's rounded arithmetic, so the margin holds at any coordinate
+magnitude. :func:`candidate_cells` and :func:`tile_survivors` repeat that
+choice in plain torch for the tests and chip_smoke.py's count of the pairs
+evaluated; nothing on the main path calls them.
 ``implicit_forward.launches`` and ``implicit_back.launches`` count the
-kernel's launches; ray stats and the ordered-subsets densities run through
-the same two (all-ones and subset-indicator operands).
+entry points' calls on the card; ray stats and the ordered-subsets
+densities run through the same two (all-ones and subset-indicator
+operands).
 
 Masking conventions are the JAX package's: zero-padded ray rows (direction
 norm 0) and padding columns (``vox >= grid_voxels``) project to zero.
@@ -36,6 +49,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import hashlib
@@ -338,6 +352,343 @@ def materialize_rtm(rays, spec: ImplicitSpec, *, device="cpu") -> np.ndarray:
         block = panel_lengths(rays, s, spec, n)[:, :spec.grid_voxels - s]
         out[:, s:s + block.shape[1]] = block.cpu().numpy()
     return out
+
+
+# ---- the kernel's traversal in plain torch (tests and chip_smoke only) ------
+#
+# ops/csrc/implicit.cu evaluates only candidate cells; these functions repeat
+# its choice operation for operation (fp32, no step contracted) so that the
+# CPU tests can hold the candidates against every nonzero entry and
+# chip_smoke.py can count the pairs the kernel evaluates. Nothing on the
+# main path calls them.
+
+_CHUNK = 32  # rays under one index box (the back's cull)
+_SUPER = 32  # chunks under one super box
+_THREADS = 128  # cells of a back block's brick
+_EMPTY = 2**31 - 1  # an empty index range: [_EMPTY, -1]
+_BRICKS_A_STEP = 256  # bricks tile_survivors tests at once (its memory)
+
+
+def _fp32(x, dev) -> Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+class _Walk:
+    """The ray table and the grid as the kernel holds them (``load_ray``,
+    ``Grid``), with its per-axis steps on tensors of rays."""
+
+    def __init__(self, rays: Tensor, spec: ImplicitSpec):
+        dev = rays.device
+        rays = rays.to(torch.float32)
+        self.n = tuple(int(c) for c in spec.grid_shape)
+        self.org = [_fp32(c, dev) for c in spec.origin]
+        self.sp = [_fp32(c, dev) for c in spec.spacing]
+        self.isp = [_fp32(1.0, dev) / sp for sp in self.sp]
+        self.big = _fp32(_BIG, dev)
+        self.o = [rays[:, a] for a in range(3)]
+        self.d = [rays[:, 3 + a] for a in range(3)]
+        self.par = [d.abs() < _EPS for d in self.d]
+        one = _fp32(1.0, dev)
+        self.inv = [one / torch.where(p, one, d) for p, d in zip(self.par, self.d)]
+        d2 = _fp32(0.0, dev)
+        for d in self.d:
+            d2 = d2 + d * d
+        self.live = d2 > 0.5
+
+    def take(self, idx: Tensor) -> "_Walk":
+        """The same walk restricted to rays ``idx`` (with repeats)."""
+        w = copy.copy(self)
+        for k in ("o", "d", "par", "inv"):
+            setattr(w, k, [t[idx] for t in getattr(self, k)])
+        w.live = self.live[idx]
+        return w
+
+    def cell_lo(self, a: int, i: Tensor) -> Tensor:
+        return self.org[a] + i.to(torch.float32) * self.sp[a]
+
+    def slab_t(self, a: int, i: Tensor):
+        lo = self.cell_lo(a, i)
+        hi = lo + self.sp[a]
+        return (lo - self.o[a]) * self.inv[a], (hi - self.o[a]) * self.inv[a]
+
+    def narrow(self, a: int, i: Tensor, w0: Tensor, w1: Tensor):
+        """``(ok, u0, u1)``: the window of cell ``i`` inside ``(w0, w1)``."""
+        lo = self.cell_lo(a, i)
+        hi = lo + self.sp[a]
+        between = (self.o[a] >= lo) & (self.o[a] < hi)
+        t1, t2 = self.slab_t(a, i)
+        par = self.par[a]
+        n = torch.where(par, torch.where(between, -self.big, self.big), torch.minimum(t1, t2))
+        f = torch.where(par, torch.where(between, self.big, -self.big), torch.maximum(t1, t2))
+        u0, u1 = torch.maximum(w0, n), torch.minimum(w1, f)
+        return u0 < u1, u0, u1
+
+    def window(self, c0, c1):
+        """``(ok, t0, t1)``: the rays' t-window inside cells ``[c0[a],
+        c1[a]]`` of every axis (``window`` of the kernel)."""
+        dev = self.o[0].device
+        t0 = torch.zeros_like(self.o[0])
+        t1 = torch.full_like(self.o[0], _BIG)
+        ok = self.live.clone()
+        for a in range(3):
+            i0 = torch.as_tensor(c0[a], device=dev).expand_as(t0)
+            i1 = torch.as_tensor(c1[a], device=dev).expand_as(t0)
+            par = self.par[a]
+            lo = self.cell_lo(a, i0)
+            hi = self.cell_lo(a, i1) + self.sp[a]
+            ok &= ~par | ((self.o[a] >= lo) & (self.o[a] < hi))
+            a1, a2 = self.slab_t(a, i0)
+            b1, b2 = self.slab_t(a, i1)
+            lo_t = torch.minimum(torch.minimum(a1, a2), torch.minimum(b1, b2))
+            hi_t = torch.maximum(torch.maximum(a1, a2), torch.maximum(b1, b2))
+            t0 = torch.where(par, t0, torch.maximum(t0, lo_t))
+            t1 = torch.where(par, t1, torch.minimum(t1, hi_t))
+        return ok & (t0 < t1), t0, t1
+
+    def ray_window(self):
+        if min(self.n) < 1:
+            z = torch.zeros_like(self.o[0])
+            return torch.zeros_like(self.live), z, z
+        return self.window((0, 0, 0), tuple(n - 1 for n in self.n))
+
+    def reach(self, a: int, i: Tensor, w0: Tensor, w1: Tensor, down: bool) -> Tensor:
+        lo = self.cell_lo(a, i)
+        hi = lo + self.sp[a]
+        on_par = (self.o[a] < hi) if down else (self.o[a] >= lo)
+        t1, t2 = self.slab_t(a, i)
+        rising = self.inv[a] > 0
+        far_ok = torch.maximum(t1, t2) > w0
+        near_ok = torch.minimum(t1, t2) < w1
+        res = torch.where(rising == down, far_ok, near_ok)
+        return torch.where(self.par[a], on_par, res)
+
+    def clamp_index(self, e: Tensor, n: int, widen: int) -> Tensor:
+        top = float(np.float32(n) + np.float32(1.0))
+        i = torch.floor(torch.clamp(e, min=-2.0, max=top)).to(torch.int64) + widen
+        return torch.clamp(i, 0, n - 1)
+
+    def axis_range(self, a: int, w0: Tensor, w1: Tensor):
+        """``(i0, i1)``: the kernel's ``axis_range`` — estimated, widened by
+        one cell, extended while ``reach`` holds."""
+        n, o, d, org, isp = self.n[a], self.o[a], self.d[a], self.org[a], self.isp[a]
+        e_par = (o - org) * isp
+        p0 = o + d * w0
+        p1 = o + d * w1
+        e0 = torch.where(self.par[a], e_par, (torch.minimum(p0, p1) - org) * isp)
+        e1 = torch.where(self.par[a], e_par, (torch.maximum(p0, p1) - org) * isp)
+        i0 = self.clamp_index(e0, n, -1)
+        i1 = self.clamp_index(e1, n, 1)
+        while True:
+            m = (i0 > 0) & self.reach(a, i0 - 1, w0, w1, True)
+            if not bool(m.any()):
+                break
+            i0 = torch.where(m, i0 - 1, i0)
+        while True:
+            m = (i1 < n - 1) & self.reach(a, i1 + 1, w0, w1, False)
+            if not bool(m.any()):
+                break
+            i1 = torch.where(m, i1 + 1, i1)
+        return i0, i1
+
+
+def _steps(lo: Tensor, hi: Tensor):
+    """For ranges ``[lo, hi]`` (empty where ``hi < lo``): ``(which, index)``
+    of every element, range by range in order."""
+    count = torch.clamp_min(hi - lo + 1, 0)
+    which = torch.repeat_interleave(torch.arange(len(lo), device=lo.device), count)
+    start = torch.cumsum(count, 0) - count
+    pos = torch.arange(len(which), device=lo.device) - start[which]
+    return which, lo[which] + pos
+
+
+def candidate_cells(rays: Tensor, spec: ImplicitSpec) -> Tensor:
+    """The forward kernel's walk: ``[N, 5]`` int64 rows ``(ray, ix, iy, iz0,
+    iz1)``, the z cells ``[iz0, iz1]`` of row ``(ix, iy)`` that the kernel
+    evaluates for ``ray``, in its order (rays ascending, then voxel ids). A
+    dead row or a ray that misses the grid has no rows. Every nonzero entry
+    lies in a row (tests/test_torch_implicit_traversal.py)."""
+    walk = _Walk(rays, spec)
+    ok, t0, t1 = walk.ray_window()
+    ray = torch.nonzero(ok).flatten()
+    wx = walk.take(ray)
+    x0, x1 = wx.axis_range(0, t0[ray], t1[ray])
+    # every x-slab of every ray
+    k, ix = _steps(x0, x1)
+    ray, w = ray[k], wx.take(k)
+    keep, w0, w1 = w.narrow(0, ix, t0[ray], t1[ray])
+    ray, ix, w0, w1, w = ray[keep], ix[keep], w0[keep], w1[keep], w.take(torch.nonzero(keep).flatten())
+    y0, y1 = w.axis_range(1, w0, w1)
+    # every y row of every slab
+    k, iy = _steps(y0, y1)
+    ray, ix, w = ray[k], ix[k], w.take(k)
+    keep, u0, u1 = w.narrow(1, iy, w0[k], w1[k])
+    idx = torch.nonzero(keep).flatten()
+    ray, ix, iy, u0, u1, w = ray[idx], ix[idx], iy[idx], u0[idx], u1[idx], w.take(idx)
+    z0, z1 = w.axis_range(2, u0, u1)
+    # each expansion keeps its ranges in order: rays ascending, then ix, iy
+    return torch.stack([ray, ix, iy, z0, z1], dim=1)
+
+
+def candidate_pairs(rows: Tensor, spec: ImplicitSpec) -> Tuple[Tensor, Tensor]:
+    """``(ray, voxel)`` of every pair :func:`candidate_cells`' rows name."""
+    _, ny, nz = spec.grid_shape
+    k, iz = _steps(rows[:, 3], rows[:, 4])
+    r = rows[k]
+    return r[:, 0], (r[:, 1] * ny + r[:, 2]) * nz + iz
+
+
+def pick_brick(grid_shape) -> Tuple[int, int, int]:
+    """The back kernel's brick (``pick_brick``): ``_THREADS`` cells, grown
+    by doubling the axis with the fewest cells that the grid still exceeds
+    (ties: z, y, x)."""
+    e = [1, 1, 1]
+    while e[0] * e[1] * e[2] < _THREADS:
+        best = -1
+        for a in (2, 1, 0):
+            if e[a] < grid_shape[a] and (best < 0 or e[a] < e[best]):
+                best = a
+        if best < 0:
+            break
+        e[best] *= 2
+    return tuple(e)
+
+
+def ray_boxes(rays: Tensor, spec: ImplicitSpec) -> Tensor:
+    """``ray_boxes_kernel``'s per-ray index boxes, ``[P, 6]`` int64 ``(x0,
+    x1, y0, y1, z0, z1)``; empty ``(_EMPTY, -1)`` for a dead or missing ray."""
+    walk = _Walk(rays, spec)
+    ok, t0, t1 = walk.ray_window()
+    box = torch.tensor([_EMPTY, -1] * 3, dtype=torch.int64,
+                       device=rays.device).repeat(rays.shape[0], 1)
+    ray = torch.nonzero(ok).flatten()
+    w = walk.take(ray)
+    for a in range(3):
+        i0, i1 = w.axis_range(a, t0[ray], t1[ray])
+        box[ray, 2 * a], box[ray, 2 * a + 1] = i0, i1
+    return box
+
+
+def _union(boxes: Tensor, group: int) -> Tensor:
+    """The index boxes' unions over consecutive groups of ``group``."""
+    g = boxes.reshape(-1, group, 6)
+    return torch.stack([g[:, :, k].amin(1) if k % 2 == 0 else g[:, :, k].amax(1)
+                        for k in range(6)], dim=1)
+
+
+def _overlap(boxes: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """``[bricks, boxes]``: whether each box meets each brick's cells
+    ``[lo, hi]`` (the kernel's ``overlaps``)."""
+    hit = torch.ones((len(lo), len(boxes)), dtype=torch.bool, device=boxes.device)
+    for a in range(3):
+        hit &= (boxes[None, :, 2 * a] <= hi[:, None, a]) & (boxes[None, :, 2 * a + 1] >= lo[:, None, a])
+    return hit
+
+
+def tile_survivors(rays: Tensor, spec: ImplicitSpec, *, pairs: bool = False) -> dict:
+    """The back kernel's cull: per brick (in block order, z fastest) the
+    rays that survive its chunk test and its exact slab test against the
+    brick widened by one cell, and the cells each evaluates them for.
+
+    Returns ``brick`` (its extent), ``survivors`` ``[n_bricks]`` counts,
+    ``cells`` ``[n_bricks]`` (the brick's cells inside the grid),
+    ``chunk_tests`` and ``ray_tests`` (the cull's work), and with ``pairs``
+    ``[M, 2]`` ``(brick, ray)`` rows of every survivor, rays ascending in
+    each brick. ``pairs evaluated = (survivors * cells).sum()``."""
+    dev = rays.device
+    n = [int(c) for c in spec.grid_shape]
+    e = pick_brick(n)
+    nb = [-(-n[a] // e[a]) for a in range(3)]
+    P = rays.shape[0]
+    boxes = ray_boxes(rays, spec)
+    n_chunks = -(-P // _CHUNK)
+    pad = n_chunks * _CHUNK - P
+    padded = torch.cat([boxes, boxes.new_tensor([_EMPTY, -1] * 3).repeat(pad, 1)])
+    cbox = _union(padded, _CHUNK)
+    n_super = -(-n_chunks // _SUPER)
+    sbox = _union(torch.cat([cbox, cbox.new_tensor([_EMPTY, -1] * 3).repeat(
+        n_super * _SUPER - n_chunks, 1)]), _SUPER)
+    walk = _Walk(rays, spec)
+    n_bricks = nb[0] * nb[1] * nb[2]
+    bid = torch.arange(n_bricks, device=dev)
+    corner = torch.stack([(bid // (nb[1] * nb[2])) * e[0], ((bid // nb[2]) % nb[1]) * e[1],
+                          (bid % nb[2]) * e[2]], dim=1)
+    top = torch.tensor(n, device=dev)
+    c0 = torch.clamp_min(corner - 1, 0)
+    c1 = torch.minimum(corner + torch.tensor(e, device=dev), top - 1)
+    cells = torch.clamp(torch.minimum(corner + torch.tensor(e, device=dev), top) - corner,
+                        min=0).prod(dim=1)
+    survivors = torch.zeros(n_bricks, dtype=torch.int64, device=dev)
+    chunk_tests = ray_tests = 0
+    found = []
+    for s in range(0, n_bricks, _BRICKS_A_STEP):
+        b = bid[s:s + _BRICKS_A_STEP]
+        lo, hi = c0[b], c1[b]
+        # the kernel tests every super box, then the chunks of those that
+        # pass; a chunk's box lies inside its super box's, so a chunk that
+        # passes has a super box that passes
+        chunk_tests += len(b) * n_super + _SUPER * int(_overlap(sbox, lo, hi).sum())
+        kb, kc = torch.nonzero(_overlap(cbox, lo, hi), as_tuple=True)
+        ray = (kc[:, None] * _CHUNK + torch.arange(_CHUNK, device=dev)).flatten()
+        kb = kb.repeat_interleave(_CHUNK)
+        inside = ray < P
+        kb, ray = kb[inside], ray[inside]
+        ray_tests += len(ray)
+        ok, _, _ = walk.take(ray).window(tuple(lo[kb, a] for a in range(3)),
+                                         tuple(hi[kb, a] for a in range(3)))
+        kb, ray = b[kb[ok]], ray[ok]
+        survivors += torch.bincount(kb, minlength=n_bricks)
+        if pairs:
+            order = torch.argsort(kb * P + ray)
+            found.append(torch.stack([kb[order], ray[order]], dim=1))
+    out = dict(brick=e, survivors=survivors, cells=cells, chunk_tests=chunk_tests,
+               ray_tests=ray_tests)
+    if pairs:
+        out["pairs"] = torch.cat(found) if found else torch.zeros((0, 2), dtype=torch.int64)
+    return out
+
+
+def brick_of(vox: Tensor, spec: ImplicitSpec) -> Tensor:
+    """The back kernel's brick (block) index of each voxel id."""
+    _, ny, nz = spec.grid_shape
+    e = pick_brick(spec.grid_shape)
+    nb = [-(-int(c) // e[a]) for a, c in enumerate(spec.grid_shape)]
+    ix, iy, iz = vox // (ny * nz), (vox // nz) % ny, vox % nz
+    return ((ix // e[0]) * nb[1] + iy // e[1]) * nb[2] + iz // e[2]
+
+
+def pair_lengths(rays: Tensor, ray: Tensor, vox: Tensor, spec: ImplicitSpec) -> Tensor:
+    """The entries ``H[ray[m], vox[m]]`` of given pairs, ``[M]``: the
+    arithmetic of :func:`panel_lengths`, step for step, on pairs instead of
+    a panel (chip_smoke.py's count of the nonzero entries of a world too
+    large to materialize)."""
+    dtype, dev = rays.dtype, rays.device
+    _, ny, nz = spec.grid_shape
+    ix = vox // (ny * nz)
+    iy = (vox // nz) % ny
+    iz = vox % nz
+    idx = torch.stack([ix, iy, iz], dim=-1).to(dtype)  # [M, 3]
+    origin = torch.tensor(spec.origin, dtype=dtype, device=dev)
+    spacing = torch.tensor(spec.spacing, dtype=dtype, device=dev)
+    lo = origin + idx * spacing
+    hi = lo + spacing
+    o = rays[ray, :3]
+    d = rays[ray, 3:]
+    parallel = d.abs() < _EPS
+    one = torch.ones_like(d)
+    inv = one / torch.where(parallel, one, d)
+    t1 = (lo - o) * inv
+    t2 = (hi - o) * inv
+    near = torch.minimum(t1, t2)
+    far = torch.maximum(t1, t2)
+    between = (o >= lo) & (o < hi)
+    big = torch.tensor(_BIG, dtype=dtype, device=dev)
+    near = torch.where(parallel, torch.where(between, -big, big), near)
+    far = torch.where(parallel, torch.where(between, big, -big), far)
+    tmin = torch.clamp_min(near.amax(dim=-1), 0.0)
+    tmax = far.amin(dim=-1)
+    seg = torch.clamp_min(tmax - tmin, 0.0)
+    live = (d * d).sum(dim=-1) > 0.5
+    return seg * live.to(dtype) * (vox < spec.grid_voxels).to(dtype)
 
 
 def reset_launch_counts() -> None:

@@ -62,6 +62,25 @@ does not repeat on every run. Run from the root of a checkout:
     each one's own f_new, so the error of the forward product alone; beside
     them the same product as one ``torch.matmul`` over all of V.
 
+``python3 sweep_measure.py implicit_ab OTHER``
+    The implicit projector (``implicit_forward``, ``implicit_back``) of
+    this checkout against that of another checkout, on ``chip_smoke.py``'s
+    geometry world (8192 rays x 65,536 voxels) and its wide world
+    (``IMPLICIT_WIDE``, 131,072 x 1,048,576), B = 1 and 8, fp32: timed in
+    turns, other, this, this, other, each turn a process of its own that
+    imports its checkout's package (ms per call, CUDA events around the
+    entry point), each turn's outputs held against the first turn's within
+    ``chip_smoke.KERNEL_TOL``; then this checkout's ``-Xptxas -v`` report
+    of ``ops/csrc/implicit.cu`` (registers, spills, shared memory).
+
+``python3 sweep_measure.py implicit_cull``
+    Where the implicit back projection's time goes, on both worlds of
+    ``implicit_ab`` at B = 1 and 8: the shipped build against one built with
+    ``SART_IMPLICIT_CULL_ONLY`` into ``build/sweep_measure/`` (the cull and
+    the survivors' staging, no evaluation), timed in turns (cull only,
+    shipped, shipped, cull only), and the shipped call's device ms by CUDA
+    kernel (``ray_boxes_kernel`` and ``back_kernel``).
+
 Each prints one JSON line per measurement, and the card's name and power
 limit first.
 """
@@ -117,9 +136,11 @@ def _turn(root: str) -> dict:
     return out
 
 
-def _build_in(root: str) -> subprocess.Popen:
+def _build_in(root: str, name: str = "") -> subprocess.Popen:
+    """Build ``root``'s CUDA sources (only ``csrc/<name>.cu`` if given)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from sartsolver_tpu_torch.ops import _build; _build.build_all()")
+            "from sartsolver_tpu_torch.ops import _build; "
+            + (f"_build.load({name!r})" if name else "_build.build_all()"))
     return subprocess.Popen([sys.executable, "-c", code, root])
 
 
@@ -439,6 +460,119 @@ def sass() -> None:
                           "classes": keep, "resources": usage.get(mangled)}), flush=True)
 
 
+IMPLICIT_REPS = {"geometry": 20, "wide": 3}  # a wide call of the other checkout may take 0.3 s
+
+
+def _implicit_turn(root: str, out_dir: str) -> dict:
+    """One turn of ``implicit_ab`` in this process: ``root``'s projector on
+    both worlds, ms per call; the outputs saved under ``out_dir``."""
+    import torch
+
+    import chip_smoke
+
+    sys.path.insert(0, root)
+    from sartsolver_tpu_torch.operators import implicit as im
+
+    if not os.path.abspath(im.__file__).startswith(os.path.join(root, "")):
+        raise SystemExit(f"sweep_measure: imported {im.__file__}, not from {root}")
+    out = {}
+    worlds = {"geometry": {}, "wide": dict(chip_smoke.IMPLICIT_WIDE)}
+    for world, kw in worlds.items():
+        rec = chip_smoke.geometry_record(**kw)
+        op = im.ImplicitOperator(rec)
+        spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=im.divisor_panel(rec.nvoxel))
+        rays = torch.as_tensor(op.payload()).cuda()
+        g = torch.Generator(device="cuda").manual_seed(7)
+        for which, fn in (("forward", im.implicit_forward), ("back", im.implicit_back)):
+            for B in (1, 8):
+                x = torch.rand((B, rec.nvoxel if which == "forward" else rec.npixel),
+                               generator=g, device="cuda")
+                key = f"{world}_{which}@B{B}"
+                torch.save(fn(rays, x, spec).cpu(), os.path.join(out_dir, f"{key}.pt"))
+                out[key] = chip_smoke._median_ms(lambda: fn(rays, x, spec),
+                                                 reps=IMPLICIT_REPS[world])
+    return out
+
+
+def implicit_ab(other: str) -> None:
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.ops import _build
+
+    other = os.path.abspath(other)
+    builds = [_build_in(other, "implicit"), _build_in(REPO, "implicit")]
+    if any(p.wait() != 0 for p in builds):
+        raise SystemExit("sweep_measure: a build failed")
+    turns = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for k, (name, root) in enumerate((("other", other), ("this", REPO), ("this", REPO),
+                                          ("other", other))):
+            out_dir = os.path.join(tmp, str(k))
+            os.makedirs(out_dir)
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "_implicit_turn",
+                                  root, out_dir], capture_output=True, text=True, check=True)
+            turns.append((name, json.loads(res.stdout.strip().splitlines()[-1])))
+            print(json.dumps({"turn": name, "root": root, "ms": turns[-1][1]}), flush=True)
+            for key in turns[0][1]:
+                a = torch.load(os.path.join(tmp, "0", f"{key}.pt"))
+                b = torch.load(os.path.join(out_dir, f"{key}.pt"))
+                err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                if err > chip_smoke.KERNEL_TOL:
+                    raise SystemExit(f"sweep_measure: {key}: turn {k} differs by {err}")
+    summary = {}
+    for key in turns[0][1]:
+        row = {n: statistics.mean(t[key] for m, t in turns if m == n) for n in ("other", "this")}
+        row["this_over_other"] = row["this"] / row["other"]
+        summary[key] = row
+    print(json.dumps({"implicit_ab_ms": summary}), flush=True)
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                          os.path.join(REPO, "build", "implicit_ptxas.so"),
+                          os.path.join(REPO, "sartsolver_tpu_torch", "ops", "csrc", "implicit.cu")],
+                         capture_output=True, text=True, check=True)
+    print(json.dumps({"implicit_ptxas": [ln.strip() for ln in res.stderr.splitlines()
+                                          if "Compiling" in ln or "registers" in ln
+                                          or "spill" in ln]}), flush=True)
+
+
+def implicit_cull() -> None:
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.operators import implicit as im
+    from sartsolver_tpu_torch.ops import _build
+
+    out_dir = os.path.join(REPO, "build", "sweep_measure")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libimplicit-cull-only.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-DSART_IMPLICIT_CULL_ONLY", "-o",
+                    path, str(_build.CSRC / "implicit.cu")], check=True)
+    libs = {"shipped": _build.load("implicit"), "cull_only": ctypes.CDLL(path)}
+    try:
+        for world, kw in (("geometry", {}), ("wide", dict(chip_smoke.IMPLICIT_WIDE))):
+            rec = chip_smoke.geometry_record(**kw)
+            op = im.ImplicitOperator(rec)
+            spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=im.divisor_panel(rec.nvoxel))
+            rays = torch.as_tensor(op.payload()).cuda()
+            for B in (1, 8):
+                w = torch.rand((B, rec.npixel), device="cuda")
+
+                def timed(name):
+                    def call():
+                        _build._loaded["implicit"] = libs[name]
+                        return im.implicit_back(rays, w, spec)
+                    return call
+                cull_ms, ms, turns = chip_smoke._in_turns(timed("cull_only"), timed("shipped"))
+                print(json.dumps({"world": world, "B": B, "back_ms": ms, "cull_only_ms": cull_ms,
+                                  "turns_ms": turns,
+                                  "device": chip_smoke._device_profile(timed("shipped"))}),
+                      flush=True)
+    finally:
+        _build._loaded["implicit"] = libs["shipped"]
+
+
 def main(argv) -> int:
     import torch
 
@@ -448,12 +582,19 @@ def main(argv) -> int:
     if argv[:1] == ["_turn"] and len(argv) == 2:
         print(json.dumps(_turn(argv[1])), flush=True)
         return 0
+    if argv[:1] == ["_implicit_turn"] and len(argv) == 3:
+        print(json.dumps(_implicit_turn(argv[1], argv[2])), flush=True)
+        return 0
     sys.path.insert(0, REPO)
     import chip_smoke
 
     print(chip_smoke.nvidia_smi(), flush=True)
     if argv[:1] == ["ab"] and len(argv) == 2:
         ab(argv[1])
+    elif argv[:1] == ["implicit_ab"] and len(argv) == 2:
+        implicit_ab(argv[1])
+    elif argv == ["implicit_cull"]:
+        implicit_cull()
     elif argv == ["promotion"]:
         promotion()
     elif argv == ["sass"]:

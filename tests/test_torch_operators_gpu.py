@@ -7,12 +7,18 @@ Run on the card with
 This file imports no JAX and no h5py.
 
 - the kernel (``ops/csrc/implicit.cu``) against the plain version computed
-  on the CPU: every entry bit-equal (a forward of one-hot operands returns
-  the entries themselves), forward and back at B = 1, 3 and 8 and the ray
-  stats and ordered-subsets densities (os 3 and 4) within 1e-5 of the
-  output's max, fp32 and fp64 sums, two calls byte-identical, each launch
-  counted; on a world whose rays ride the grid's faces and run parallel to
-  its axes, and on a small copy of the chip run's geometry world;
+  on the CPU: every entry bit-equal, column by column and row by row (a
+  forward of one-hot operands returns a column's entries, a back
+  projection a row's), forward and back at B = 1, 3 and 8 on all rays and
+  on the ordered subsets' rows ``t::os``, and the ray stats and
+  ordered-subsets densities (os 3 and 4), within 1e-5 of the output's max,
+  fp32 and fp64 sums, two calls byte-identical, each launch counted; on a
+  world whose rays ride the grid's faces and run parallel to its axes, on a
+  small copy of the chip run's geometry world, and on the lattice world
+  (:func:`lattice_world`: a ray table built directly, rays through cell
+  corners and along lattice lines, origins inside the grid and on its
+  faces, rays pointing away, components just above and below the
+  parallel threshold, dead rows);
 - ``sartsolve --geometry`` and ``sartsolve --lowrank_rtm`` on the card
   against the dense CLI on the same matrix (the materialized geometry, the
   factored matrix's files): equal statuses, fitted distance within 5e-3.
@@ -41,6 +47,85 @@ FACE_WORLD = {
          "target": [1.1, 1.0, 0.0], "up": [0, 0, 1], "pitch": 0.3},
     ],
 }
+
+
+# the lattice world's grid: its corners are exact in fp32 (origin and
+# spacing are multiples of powers of two)
+LATTICE_GRID = dict(shape=(6, 5, 4), origin=(-1.0, 0.5, 0.25), spacing=(0.5, 0.25, 1.0))
+
+
+def lattice_world():
+    """``(rays, spec)``: a ``[P, 6]`` fp32 ray table built directly, no
+    camera, on :data:`LATTICE_GRID`, and its spec. Its rays are the cases a
+    traversal can get wrong: through cell corners, along lattice lines and
+    lattice diagonals (``d ~ (1, 1, 0)`` from a lattice point), origins
+    inside the grid and on its faces, rays pointing away from it, rays
+    parallel to an axis on the grid's faces, direction components just
+    above and just below the parallel threshold (1e-7), and dead rows."""
+    from sartsolver_tpu_torch.operators.implicit import ImplicitSpec
+
+    org = np.array(LATTICE_GRID["origin"])
+    sp = np.array(LATTICE_GRID["spacing"])
+    n = np.array(LATTICE_GRID["shape"])
+
+    def pt(i, j, k):  # lattice point (i, j, k), exact in fp32
+        return org + np.array([i, j, k]) * sp
+
+    eps = np.float32(1e-7)
+    above = float(np.nextafter(eps, np.float32(1)))
+    below = float(np.nextafter(eps, np.float32(0)))
+    rows = []
+
+    def ray(o, d, unit=True):
+        d = np.asarray(d, np.float64)
+        rows.append(np.concatenate([o, d / np.linalg.norm(d) if unit else d]))
+
+    # through cell corners: lattice point to lattice point, from outside
+    # the grid, on it and inside
+    for a, b in (((-2, -2, -1), (8, 8, 5)), ((-2, -2, -1), (4, 2, 2)), ((0, 0, 0), (6, 5, 4)),
+                 ((6, 5, 4), (0, 0, 0)), ((-1, 3, 2), (7, 1, 2)), ((3, -3, 2), (3, 8, 2)),
+                 ((1, 1, -2), (5, 4, 6)), ((2, 2, 2), (4, 4, 0)), ((0, 5, 0), (6, 0, 4))):
+        ray(pt(*a), pt(*b) - pt(*a))
+    # along lattice lines (faces and edges of cells) and lattice diagonals
+    for o, d in ((pt(-2, 2, 1), (1, 0, 0)), (pt(3, -1, 3), (0, 1, 0)), (pt(2, 3, -1), (0, 0, 1)),
+                 (pt(-1, 0, 2), (1, 1, 0)), (pt(0, 0, 1), (1, 1, 0)), (pt(6, 5, 2), (-1, -1, 0)),
+                 (pt(0, 2, 0), (1, 0, 1)), (pt(3, 0, 0), (0, 1, 1)), (pt(-1, -1, -1), (1, 1, 1)),
+                 (pt(3, 2, 2), (-1, 1, 0))):
+        ray(o, d)
+    # axis-parallel on the grid's faces: the low faces belong to the grid,
+    # the high ones do not (half-open cells)
+    for o, d in ((pt(-2, 0, 0), (1, 0, 0)), (pt(-2, 5, 4), (1, 0, 0)), (pt(0, -2, 4), (0, 1, 0)),
+                 (pt(6, 0, -1), (0, 0, 1)), (pt(0, 5, -1), (0, 0, 1)), (pt(3, 2, 4), (-1, 0, 0))):
+        ray(o, d)
+    # origins inside the grid and on its faces, every direction octant
+    rng = np.random.default_rng(15)
+    for o in (org + 0.37 * n * sp, org + 0.81 * n * sp, pt(0, 2.5, 1.5), pt(6, 2.5, 1.5),
+              pt(3, 0, 2.2), pt(2.4, 5, 3.1), pt(1.5, 1.5, 0), pt(4, 2, 4)):
+        for _ in range(4):
+            ray(o, rng.normal(size=3))
+    # pointing away from the grid
+    for o, d in ((pt(-3, 2, 2), (-1, 0.1, 0)), (pt(9, 2, 2), (1, 0, 0.2)),
+                 (pt(3, 2, 7), (0.1, 0.1, 1)), (pt(0, 0, 0), (-1, -1, -1))):
+        ray(o, d)
+    # components just above and just below the parallel threshold, from a
+    # lattice face: the tiny slope is followed above it, ignored below
+    for o in (pt(-2, 2, 1), pt(-2, 0, 3)):
+        for t in (above, below, -above, -below):
+            ray(o, (1.0, t, 0.0))
+            ray(o, (1.0, 0.0, t))
+            ray(o, (1.0, t, -t))
+    # far away (a camera's distance) through a corner
+    ray(pt(-200, 3, 2), pt(3, 2, 1) - pt(-200, 3, 2))
+    # dead rows: zero padding and a direction of norm^2 0.5 (not above it)
+    ray(np.zeros(3), np.zeros(3), unit=False)
+    ray(pt(1, 1, 1), (0.5, 0.5, 0.0), unit=False)
+    ray(pt(2, 2, 2), np.zeros(3), unit=False)
+    rays = torch.as_tensor(np.asarray(rows), dtype=torch.float32)
+    V = int(np.prod(n))
+    spec = ImplicitSpec(grid_shape=LATTICE_GRID["shape"], origin=LATTICE_GRID["origin"],
+                        spacing=LATTICE_GRID["spacing"], nvoxel=V, grid_voxels=V,
+                        panel_voxels=V)
+    return rays, spec
 
 
 def _needs_card():
@@ -76,7 +161,12 @@ def worlds():
         spec = op.spec(padded_nvoxel=rec.nvoxel, panel_voxels=divisor_panel(rec.nvoxel))
         rays = torch.as_tensor(op.payload())
         out[name] = (rays, rays.cuda(), spec)
+    rays, spec = lattice_world()
+    out["lattice"] = (rays, rays.cuda(), spec)
     return out
+
+
+WORLDS = ["face", "small", "lattice"]
 
 
 def _close(got, want):
@@ -86,31 +176,31 @@ def _close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["face", "small"])
+@pytest.mark.parametrize("name", WORLDS)
 def test_entries_bit_equal(worlds, name):
+    """Every entry: every column through one-hot forwards, every row
+    through one-hot back projections."""
     from sartsolver_tpu_torch.operators import implicit as im
 
     rays, rays_d, spec = worlds[name]
     want = im.panel_lengths(rays, 0, spec, spec.nvoxel)  # [P, V] on the CPU
-    V = spec.nvoxel
-    cols = range(V) if V <= 512 else range(0, V, 7)
-    cols = list(cols)
-    for c0 in range(0, len(cols), 8):
-        pick = cols[c0:c0 + 8]
+    P, V = want.shape
+    for c0 in range(0, V, 256):
+        pick = torch.arange(c0, min(c0 + 256, V))
         f = torch.zeros((len(pick), V), device="cuda")
-        f[torch.arange(len(pick)), torch.tensor(pick)] = 1.0
+        f[torch.arange(len(pick)), pick.cuda()] = 1.0
         got = im.implicit_forward(rays_d, f, spec)  # [b, P] = the entries of the columns
-        assert torch.equal(got.cpu(), want[:, pick].T.contiguous()), pick
-    # and rows through the back projection of one-hot pixel rows
-    rows = list(range(0, rays.shape[0], max(1, rays.shape[0] // 16)))[:8]
-    w = torch.zeros((len(rows), rays.shape[0]), device="cuda")
-    w[torch.arange(len(rows)), torch.tensor(rows)] = 1.0
-    got = im.implicit_back(rays_d, w, spec)
-    assert torch.equal(got.cpu(), want[rows])
+        assert torch.equal(got.cpu(), want[:, pick].T.contiguous()), (c0, pick[-1])
+    for r0 in range(0, P, 256):
+        pick = torch.arange(r0, min(r0 + 256, P))
+        w = torch.zeros((len(pick), P), device="cuda")
+        w[torch.arange(len(pick)), pick.cuda()] = 1.0
+        got = im.implicit_back(rays_d, w, spec)  # [b, V] = the entries of the rows
+        assert torch.equal(got.cpu(), want[pick]), (r0, pick[-1])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["face", "small"])
+@pytest.mark.parametrize("name", WORLDS)
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_forward_and_back_against_the_plain_version(worlds, name, B, dtype):
@@ -133,7 +223,31 @@ def test_forward_and_back_against_the_plain_version(worlds, name, B, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["face", "small"])
+@pytest.mark.parametrize("name", WORLDS)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_subset_rows_against_the_plain_version(worlds, name, B, dtype):
+    """The ordered subsets' products (models/sart.py ``fp_rows`` /
+    ``bp_rows``): forward and back on the rays ``t::os``."""
+    from sartsolver_tpu_torch.operators import implicit as im
+
+    rays, rays_d, spec = worlds[name]
+    rng = np.random.default_rng(10 + B)
+    for os_ in (3, 4):
+        for t in range(os_):
+            sub, sub_d = rays[t::os_], rays_d[t::os_]
+            f = torch.as_tensor(rng.uniform(0.0, 2.0, (B, spec.nvoxel)), dtype=dtype)
+            w = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, sub.shape[0])), dtype=dtype)
+            fwd = im.implicit_forward(sub_d, f.cuda(), spec, accum_dtype=dtype)
+            back = im.implicit_back(sub_d, w.cuda(), spec, accum_dtype=dtype)
+            _close(fwd, im.implicit_forward(sub, f, spec, accum_dtype=dtype))
+            _close(back, im.implicit_back(sub, w, spec, accum_dtype=dtype))
+            assert torch.equal(fwd, im.implicit_forward(sub_d, f.cuda(), spec, accum_dtype=dtype))
+            assert torch.equal(back, im.implicit_back(sub_d, w.cuda(), spec, accum_dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WORLDS)
 def test_ray_stats_and_subset_densities(worlds, name):
     from sartsolver_tpu_torch.operators import implicit as im
 
