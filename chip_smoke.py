@@ -7,7 +7,9 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 
 1. ``env``: torch and CUDA versions, the card's name and power limit.
 2. ``build``: every ``csrc/*.cu`` of the package built with ``nvcc``, in
-   parallel, into ``build/sartsolver_tpu_torch/``.
+   parallel, into ``build/sartsolver_tpu_torch/``, while the host writes
+   the ``solve`` phase's world and the ``operators`` phase's reflective
+   world.
 3. ``kernels``: the fused-sweep kernel against its plain PyTorch version on
    the card, for each storage type (B1/B2 fp32, B3 bf16, B4 int8 codes with
    their scales), linear and log, with and without the penalty, at the main
@@ -122,7 +124,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    the ray stats); the stored matrix bit for bit against the host recipe
    (``read_rtm_block``, bf16 rounded and int8 quantized on the host), on the
    files as written and on a copy with matrices chunked 256 rows a chunk;
-   the CLI's host memory growth in a child process (at most two fp32
+   the CLI's host memory growth in a child process per storage, the
+   three at once (at most two fp32
    chunks and a stated margin); the CLI with ``--timing`` on the chain over
    8 frames and the scheduler over the 32, at the defaults and with one
    chunk, prefetch off and a writer queue of one: the same bytes and
@@ -142,10 +145,11 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    at B = 8) and fp32 at ``--batch_frames 16`` (``two_read``; the tall
    world's runs in ``tall_world``): the same bytes, no trip, the largest
    residual over its band, every launch on the run's plan, ms per frame on
-   and off. On the fp32 chain, one flush a frame, in subprocesses: SIGKILL
-   inside the ``torn`` and ``pre-counter`` windows, then ``--resume``;
-   SIGUSR1 (the status snapshot, rendered by ``top --once``) then SIGTERM
-   (exit 4), then ``--resume``. The hang watchdog
+   and off. On the fp32 chain, one flush a frame, in subprocesses (run at
+   once with the in-solve checkpoints' killed run below, then followed up
+   in turn): SIGKILL inside the ``torn`` and ``pre-counter`` windows, then
+   ``--resume``; SIGUSR1 (the status snapshot, rendered by ``top --once``)
+   then SIGTERM (exit 4), then ``--resume``. The hang watchdog
    (``SART_WATCHDOG_TIMEOUT=2``, ``solve.dispatch:hang:1:1``): a FAILED row
    and exit 2; under ``--fail_fast`` exit 3 and a crash bundle. The
    resident matrix corrupted (``device.buffer:corrupt``): the solver API's
@@ -225,6 +229,26 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    ``FIT_BOUND``, every launch on ``two_read``, one per iteration; ms per
    frame; each run again with ``--integrity`` (:func:`integrity_pair`). It
    runs last, after the e2e world's RTM files are deleted.
+4c'. ``grid``: the solve over a grid of ranks (:func:`grid_phase`). The
+   split sweep at the 2x1 grid's block (4096 x 65536, B = 1) per storage
+   (:func:`split_kernels`): ``sharded_sweep_bp`` and
+   ``sharded_sweep_finish`` against their plain versions (linear with the
+   penalty and log), the pair at one rank bit for bit against ``two_read``,
+   each timed beside its bound, its plain version and one ``torch.matmul``
+   on the fp32 block; the kernel-vs-plain parity on a 2x1 grid by the first
+   run's ranks (``utils/fused_parity.py``, ``GRID_PARITY``), each path also
+   against the fp64 solve of that grid (``FP64_RATIO``); the CLI under
+   ``python -m torch.distributed.run`` (this script as each rank,
+   ``--grid-rank``: the CLI's main, then the rank's launch counts and
+   collectives; one launch for the runs of each world size, run one after
+   another in its process group) over the world's first ``GRID_FRAMES``
+   frames for each of ``GRID_RUNS`` (2x1, 1x2, 2x2, 1x2 int8 over gloo,
+   the ranks sharing the card; 1x1 over NCCL), each against the solve phase's
+   one-rank run: statuses equal, fitted distance within ``GRID_FIT_TOL``,
+   only rank 0's frame lines, the solver line's mesh and backend, every
+   rank's launches one an iteration (the split pair on pixel-sharded
+   grids, the fused sweep's plan on the column block otherwise), the
+   collectives' ms an iteration.
 5. ``plain_crosscheck``: frame 0 solved through the kernel and through the
    plain version (the solver core's ``sweep_fn``): equal statuses,
    iteration counts at most 1 apart, fitted-space agreement within
@@ -244,6 +268,7 @@ Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import gc
@@ -299,8 +324,14 @@ TALL_FRAMES = 4
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "SXM": (3.35e12, 67e12, 989e12)}
 
 
+_T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``t``): where the run's time goes."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - _T_START, **fields}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1382,9 +1413,10 @@ def resilience_phase(world, outdir: str, device: str = "cuda",
     with ``--integrity`` (:func:`integrity_pair`: ``one_read`` at B = 1,
     ``tensor_core`` at bf16 and int8 B = 8, ``one_read`` fp32 B = 8), and
     fp32 at ``--batch_frames 16`` (``two_read``). Then on the fp32 chain,
-    one flush a frame: SIGKILL inside ``torn`` and ``pre-counter`` and a
-    ``--resume``; SIGUSR1 then SIGTERM (exit 4; ``top --once`` renders the
-    snapshot), and a ``--resume``; the hang watchdog
+    one flush a frame, the subprocesses at once with
+    :func:`solve_ckpt_kill`'s: SIGKILL inside ``torn`` and ``pre-counter``
+    and a ``--resume``; SIGUSR1 then SIGTERM (exit 4; ``top --once``
+    renders the snapshot), and a ``--resume``; the hang watchdog
     (``SART_WATCHDOG_TIMEOUT=2``, ``solve.dispatch:hang:1:1``): a FAILED row
     and exit 2, exit 3 and a crash bundle under ``--fail_fast``. Then the
     resident matrix corrupted (``device.buffer:corrupt``): the check trips
@@ -1458,16 +1490,27 @@ def resilience_phase(world, outdir: str, device: str = "cuda",
         sixteen, ["-o", sixteen, *base, *flags16], plan_sweep(P, V, SIXTEEN_LANES, "float32"),
         device, ms)
 
-    # the drills on the fp32 chain, one flush a frame
+    # the drills on the fp32 chain, one flush a frame; their subprocesses
+    # (and the in-solve checkpoints' killed run) all at once, each
+    # followed up in turn
     drill = [*base, "-t", chain_t, "--chain_frames", "1", "--max_cached_solutions", "1",
              "--rtm_dtype", "float32", "--device", device]
     ref = os.path.join(outdir, "res_float32_chain_ref.h5")
     env = dict(os.environ, PYTHONPATH=REPO, SART_TEST_FLUSH_DELAY="0.5", SART_WRITER_QUEUE="1")
+    signals = {marker: [(marker, 2, _signal.SIGKILL)] for marker in ("torn", "pre-counter")}
+    signals["sigterm"] = [("torn", 1, _signal.SIGUSR1), ("torn", 2, _signal.SIGTERM)]
+    outs = {name: os.path.join(outdir, "sigterm.h5" if name == "sigterm" else
+                               f"kill_{name}.h5") for name in signals}
+    with concurrent.futures.ThreadPoolExecutor(len(signals) + 1) as pool:
+        ckpt_killed = pool.submit(solve_ckpt_kill, world, outdir, device)
+        signalled = {name: pool.submit(_signal_run, ["-o", outs[name], *drill], env, steps)
+                     for name, steps in signals.items()}
+        signalled = {name: job.result() for name, job in signalled.items()}
+        ckpt_killed = ckpt_killed.result()
     kills = {}
-    for marker, occurrence in (("torn", 2), ("pre-counter", 2)):
-        out = os.path.join(outdir, f"kill_{marker}.h5")
-        rc, _, secs = _signal_run(["-o", out, *drill], env,
-                                  [(marker, occurrence, _signal.SIGKILL)])
+    for marker in ("torn", "pre-counter"):
+        out = outs[marker]
+        rc, _, secs = signalled[marker]
         if rc != -_signal.SIGKILL:
             raise AssertionError(f"kill at {marker}: exit {rc}")
         before = _read_rows(out)["completed"]
@@ -1481,9 +1524,8 @@ def resilience_phase(world, outdir: str, device: str = "cuda",
                                              f"kill at {marker}"))
     record["kill"] = kills
 
-    out = os.path.join(outdir, "sigterm.h5")
-    rc, rest, secs = _signal_run(["-o", out, *drill], env,
-                                 [("torn", 1, _signal.SIGUSR1), ("torn", 2, _signal.SIGTERM)])
+    out = outs["sigterm"]
+    rc, rest, secs = signalled["sigterm"]
     status_path = out + ".status.json"
     if rc != 4 or "Interrupted by SIGTERM" not in rest or not os.path.exists(status_path):
         raise AssertionError(f"SIGTERM: exit {rc}, status file {os.path.exists(status_path)}"
@@ -1626,41 +1668,33 @@ def resilience_phase(world, outdir: str, device: str = "cuda",
     record["integrity_ms_per_frame_in_turns"] = in_turns
     record["flush"] = flush_timing(outdir, world, **(flush_kw or {}))
     record["solve_ckpt"] = solve_ckpt_drill(
-        world, outdir, device, os.path.join(outdir, "res_float32_scheduler_ref.h5"))
+        world, outdir, device, os.path.join(outdir, "res_float32_scheduler_ref.h5"),
+        ckpt_killed)
     return record
 
 
 CKPT_STRIDES = (1, 4, 16)  # the --solve_ckpt_stride values timed against off
 
 
-def solve_ckpt_drill(world, outdir: str, device: str, ref: str) -> dict:
-    """In-solve checkpoints on the fp32 scheduler (``--no_guess
-    --batch_frames 8`` over every frame, linear with the Laplacian), whose
-    uninterrupted run wrote ``ref``. In a subprocess with
-    ``--solve_ckpt_stride 1``, SIGKILL inside the held-open append of
-    serial 2 (``SART_TEST_SOLVE_CKPT_DELAY``); ``--resume`` restores serial
-    1 and ends with ``ref``'s bytes. Then ms per frame at each of
-    ``CKPT_STRIDES`` against off, in turns (off, 1, 4, 16, 16, 4, 1, off),
-    each run's file ``ref``'s bytes, and the bytes a record takes."""
+def _ckpt_argv(world) -> list:
+    """The in-solve checkpoints' runs: the fp32 scheduler (``--no_guess
+    --batch_frames 8`` over every frame, linear with the Laplacian)."""
+    p = world["paths"]
+    return [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "--rtm_dtype", "float32",
+            "--no_guess", "--batch_frames", str(FRAME_LANES)]
+
+
+def solve_ckpt_kill(world, outdir: str, device: str) -> tuple:
+    """In a subprocess with ``--solve_ckpt_stride 1``, SIGKILL inside the
+    held-open append of serial 2 (``SART_TEST_SOLVE_CKPT_DELAY``): ``(exit
+    code, seconds)``; the run's file is ``ckpt_killed.h5`` in ``outdir``."""
     import signal as _signal
     import threading
 
-    from sartsolver_tpu_torch.resilience.podckpt import SolveCheckpointStore
-
-    p = world["paths"]
-    T = world["G"].shape[1]
-    argv = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
-            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "--rtm_dtype", "float32",
-            "--no_guess", "--batch_frames", str(FRAME_LANES)]
-    want = _read_rows(ref)
-
-    def same_bytes(path, what):
-        got = _read_rows(path)
-        if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
-            raise AssertionError(f"solve checkpoints, {what}: not the uninterrupted bytes")
-
     out = os.path.join(outdir, "ckpt_killed.h5")
     env = dict(os.environ, PYTHONPATH=REPO, SART_TEST_SOLVE_CKPT_DELAY="0.5")
+    argv = _ckpt_argv(world)
     cmd = [sys.executable, "-m", "sartsolver_tpu_torch.cli", "-o", out, *argv,
            "--solve_ckpt_stride", "1", "--device", device]
     t0 = time.perf_counter()
@@ -1679,10 +1713,34 @@ def solve_ckpt_drill(world, outdir: str, device: str, ref: str) -> dict:
     finally:
         timer.cancel()
         proc.wait(timeout=60)
-    killed_s = time.perf_counter() - t0
+    return proc.returncode, time.perf_counter() - t0
+
+
+def solve_ckpt_drill(world, outdir: str, device: str, ref: str, killed: tuple) -> dict:
+    """In-solve checkpoints on the runs of :func:`_ckpt_argv`, whose
+    uninterrupted run wrote ``ref``, after :func:`solve_ckpt_kill` returned
+    ``killed``: the killed run kept serial 1 alone; ``--resume`` restores
+    serial 1 and ends with ``ref``'s bytes. Then ms per frame at each of
+    ``CKPT_STRIDES`` against off, in turns (off, 1, 4, 16, 16, 4, 1, off),
+    each run's file ``ref``'s bytes, and the bytes a record takes."""
+    import signal as _signal
+
+    from sartsolver_tpu_torch.resilience.podckpt import SolveCheckpointStore
+
+    T = world["G"].shape[1]
+    argv = _ckpt_argv(world)
+    want = _read_rows(ref)
+
+    def same_bytes(path, what):
+        got = _read_rows(path)
+        if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"solve checkpoints, {what}: not the uninterrupted bytes")
+
+    out = os.path.join(outdir, "ckpt_killed.h5")
+    rc, killed_s = killed
     serials = SolveCheckpointStore(out + ".solveckpt").serials()
-    if proc.returncode != -_signal.SIGKILL or serials != [1]:
-        raise AssertionError(f"solve checkpoints: exit {proc.returncode}, serials {serials}")
+    if rc != -_signal.SIGKILL or serials != [1]:
+        raise AssertionError(f"solve checkpoints: exit {rc}, serials {serials}")
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc, ms, _ = run_cli(["-o", out, *argv, "--solve_ckpt_stride", "1", "--resume"],
@@ -2047,7 +2105,8 @@ def ingest_phase(world, outdir: str, device: str = "cuda") -> dict:
     row-chunked matrices (``write_chunked_copy``); the seconds, GB/s and
     peaks, the device peak at most the stored matrix plus two fp32 chunks
     and the ray stats' vectors. Then, on the card, the CLI's resident
-    memory in a child process (the chain over 8 frames): its growth at most
+    memory in a child process per storage, the three at once (the chain
+    over 8 frames): its growth at most
     two fp32 chunks plus ``INGEST_RSS_MARGIN``. Then the CLI with
     ``--timing`` per storage on the chain over 8 frames and the scheduler
     over the world's frames, at the defaults with ``SART_INGEST_PREFETCH=1``
@@ -2116,13 +2175,19 @@ def ingest_phase(world, outdir: str, device: str = "cuda") -> dict:
 
     base = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"],
             "-m", str(MAX_ITERATIONS), "-l", p["laplacian"]]
-    if on_card:  # the CLI's resident memory, in a child process
-        for storage in STORAGES:
-            out = os.path.join(outdir, f"ingest_rss_{storage}.h5")
-            env = {**os.environ, "CHIP_SMOKE_REPO": REPO}
-            run = subprocess.run([sys.executable, "-c", _RSS_CHILD, "-o", out, *base,
-                                  *OBS_LOOPS[0][1], "--rtm_dtype", storage],
-                                 env=env, capture_output=True, text=True, timeout=300)
+    if on_card:  # the CLI's resident memory, a child process per storage, all at once
+        env = {**os.environ, "CHIP_SMOKE_REPO": REPO}
+
+        def child(storage):
+            return subprocess.run(
+                [sys.executable, "-c", _RSS_CHILD, "-o",
+                 os.path.join(outdir, f"ingest_rss_{storage}.h5"), *base, *OBS_LOOPS[0][1],
+                 "--rtm_dtype", storage], env=env, capture_output=True, text=True,
+                timeout=300)
+
+        with concurrent.futures.ThreadPoolExecutor(len(STORAGES)) as pool:
+            runs = dict(zip(STORAGES, pool.map(child, STORAGES)))
+        for storage, run in runs.items():
             if run.returncode != 0:
                 raise AssertionError(f"ingest rss {storage}: exit {run.returncode}: "
                                      f"{run.stderr[-2000:]}")
@@ -3351,7 +3416,7 @@ def _implicit_wide(rates) -> dict:
 
 
 def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
-                    reflective_kw=None, geometry_kw=None) -> dict:
+                    reflective_kw=None, geometry_kw=None, reflective=None) -> dict:
     """The operator backends through the CLI (phase ``operators``).
 
     The reflective world (:func:`write_reflective_world`; the e2e world's
@@ -3375,7 +3440,10 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
     every run; ``--rtm_dtype int8 --geometry`` exits 1. On the card with
     ``rates``, the projector's kernel table (:func:`_implicit_kernels`) and
     the wide geometry world, kernel only (:func:`_implicit_wide`). Each
-    world's files are deleted at its end."""
+    world's files are deleted at its end. ``reflective``: the reflective
+    world already written under ``outdir/reflective`` with its
+    ``world_seconds`` (the script writes it during the build), else it is
+    written here."""
     import shutil
 
     import torch
@@ -3385,14 +3453,17 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
 
     out = {"reflective": {}, "geometry": {}}
     rdir = os.path.join(outdir, "reflective")
-    t0 = time.perf_counter()
-    rw = write_reflective_world(rdir, **(reflective_kw or {}))
+    rw = reflective
+    if rw is None:
+        t0 = time.perf_counter()
+        rw = write_reflective_world(rdir, **(reflective_kw or {}))
+        rw["world_seconds"] = time.perf_counter() - t0
     p = rw["paths"]
     P, V = rw["H"].shape
     inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
     files = {"camA": [p["rtm_a_seg1"], p["rtm_a_seg2"]], "camB": [p["rtm_b"]]}
     rec = out["reflective"]
-    rec["world_seconds"] = time.perf_counter() - t0
+    rec["world_seconds"] = rw["world_seconds"]
     rec["shape"] = [P, V]
     # the gate once, timed by its parts
     clock = {}
@@ -3644,6 +3715,410 @@ def profile_run(fn, ranges=()) -> tuple:
     return record, out
 
 
+# ---- grid: the solve over a grid of ranks ------------------------------------
+
+GRID_FIT_TOL = 5e-3  # a grid run against the one-rank run, fitted space
+GRID_FRAMES = 4  # the frames of each grid run (-t 0:0.35), linear with the Laplacian
+GRID_TIMEOUT = 300  # seconds, each torchrun
+# a later torchrun's ranks start with the first and wait for their turn: the
+# file named by this variable (with the script's PID), at most GRID_GO_TIMEOUT s
+GRID_GO_ENV = "CHIP_SMOKE_GRID_GO"
+GRID_GO_TIMEOUT = 900
+# (name, the grid's flags, ranks, storage): ranks share the one card over
+# gloo; 1x1 is one rank over NCCL
+GRID_RUNS = (("2x1", ["--pixel_shards", "2"], 2, "float32"),
+             ("1x2", ["--voxel_shards", "2"], 2, "float32"),
+             ("2x2", ["--pixel_shards", "2", "--voxel_shards", "2"], 4, "float32"),
+             ("1x2_int8", ["--voxel_shards", "2"], 2, "int8"),
+             ("1x1_nccl", [], 1, "float32"))
+GRID_REPLACES = ("none: sartsolver_tpu/ops/fused_sweep.py:270 sharded_panel_sweep is plain "
+                 "XLA (no pallas_call)")
+GRID_PARITY = (2048, 16384, 20)  # the parity check's P, V and iterations
+
+
+def grid_rank_main(argv) -> int:
+    """``python chip_smoke.py --grid-rank OUT [--parity] -- ARGS [--grid-rank
+    OUT2 [--parity] -- ARGS2 ...]`` (one rank under torchrun): the rank's
+    process group from the launcher's environment, then for each run in
+    turn the port's CLI on its ARGS in that group, what it printed echoed,
+    and the rank's record written to ``OUT.r<RANK>.json``: the exit code,
+    the printed text, the CLI's seconds, the kernel launches and the
+    collectives of that run alone; with ``--parity``, then
+    :func:`~sartsolver_tpu_torch.utils.fused_parity.measure_kernel_vs_plain`
+    on a ``GRID_PARITY`` problem over a grid of the world's ranks along the
+    pixel axis. A run that fails ends the rank."""
+    sys.path.insert(0, REPO)
+    from sartsolver_tpu_torch import cli
+    from sartsolver_tpu_torch.ops import fused_sweep as fs
+    from sartsolver_tpu_torch.parallel import comm
+
+    runs = grid_runs_of(argv)
+    first = runs[0][2]
+    device = first[first.index("--device") + 1] if "--device" in first else "cuda"
+    if not _wait_for_go():
+        return 3
+    comm.initialize(device)
+    rc = 0
+    for out, extra, rest in runs:
+        fs.reset_launch_counts()
+        fs.reset_sharded_launch_counts()
+        comm.reset_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(rest)
+        rec = {"rank": int(os.environ.get("RANK", "0")), "rc": rc, "stdout": buf.getvalue(),
+               "seconds": time.perf_counter() - t0}
+        print(rec["stdout"], end="", flush=True)
+        rec.update(fused_sweep=fs.fused_sweep.launches,
+                   fused_sweep_by_plan=dict(fs.fused_sweep.launches_by_plan),
+                   sharded_sweep_bp=fs.sharded_sweep_bp.launches,
+                   sharded_sweep_finish=fs.sharded_sweep_finish.launches,
+                   collectives=dict(comm.stats))
+        if "--parity" in extra and rc == 0:
+            import torch.distributed as dist
+
+            rec.update(_grid_parity(dist.get_world_size(), 1, device))
+        with open(f"{out}.r{rec['rank']}.json", "w") as f:
+            json.dump(rec, f)
+        if rc:
+            break
+    comm.shutdown()
+    return rc
+
+
+def grid_runs_of(argv) -> list:
+    """The runs of a ``--grid-rank`` command line: ``(OUT, [options], ARGS)``
+    for each ``--grid-rank OUT [options] -- ARGS``, in order."""
+    runs, i = [], 0
+    while i < len(argv):  # argv[i] is --grid-rank
+        sep = argv.index("--", i)
+        end = next((j for j in range(sep, len(argv)) if argv[j] == "--grid-rank"), len(argv))
+        runs.append((argv[i + 1], argv[i + 2:sep], argv[sep + 1:end]))
+        i = end
+    return runs
+
+
+def _grid_parity(n_pix: int, n_vox: int, device: str) -> dict:
+    """One rank of the parity check: a seeded banded problem, fp32, its
+    block on the card, two frames at a fixed iteration count, kernel path
+    against plain path (``utils/fused_parity.py``), each against the fp64
+    solve of the same grid (the plain path)."""
+    from sartsolver_tpu_torch.config import SolverOptions
+    from sartsolver_tpu_torch.parallel.mesh import make_grid
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.utils.fused_parity import (
+        FP64_RATIO, PARITY_RTOL, measure_kernel_vs_plain,
+    )
+
+    P, V, iters = GRID_PARITY
+    grid = make_grid(n_pix, n_vox)
+    H, G = parity_problem(P, V)
+    opts = SolverOptions(max_iterations=iters, conv_tolerance=0.0)
+    solver = DistributedSARTSolver(H, opts=opts, device=device, grid=grid)
+    reference = DistributedSARTSolver(
+        H.astype(np.float64), opts=SolverOptions(max_iterations=iters, conv_tolerance=0.0,
+                                                 dtype="float64"), device=device, grid=grid)
+    return dict(parity=measure_kernel_vs_plain(solver, G, reference=reference),
+                rtol=PARITY_RTOL, fp64_ratio=FP64_RATIO, grid=[n_pix, n_vox])
+
+
+def parity_problem(P: int, V: int):
+    """``(H [P, V] fp32, G [2, P])``: the e2e world's banded response with
+    its reflection floor (:func:`write_world`) at ``P x V``, and two frames
+    of it, the second a tenth brighter."""
+    rng = np.random.default_rng(1)
+    ii = np.arange(P, dtype=np.float32)[:, None] / P
+    jj = np.arange(V, dtype=np.float32)[None, :] / V
+    H = rng.random((P, V), dtype=np.float32) * 0.9 + 0.1
+    H *= np.exp(-((ii - jj) ** 2) * 200.0) + 0.02
+    f_true = rng.random(V, dtype=np.float32) * 1.5 + 0.5
+    return H, np.stack([H @ f_true, H @ (1.1 * f_true)]).astype(np.float64)
+
+
+def _torchrun_start(n: int, args, go: Optional[str] = None):
+    """Start ``python -m torch.distributed.run --standalone`` over ``n``
+    ranks of this script with ``args``, its output into temporary files;
+    with ``go``, each rank imports its modules, then waits for the file
+    ``go`` to exist before it starts its process group (GRID_GO_ENV)."""
+    env = dict(os.environ, **({GRID_GO_ENV: f"{go}:{os.getpid()}"} if go else {}))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(n), os.path.join(REPO, "chip_smoke.py"),
+                             *args], cwd=REPO, env=env, stdout=out, stderr=err, text=True)
+    return proc, out, err
+
+
+def _torchrun_wait(launch, timeout: int = GRID_TIMEOUT) -> tuple:
+    """(exit code, stdout, stderr) of a launch of :func:`_torchrun_start`;
+    a launch past ``timeout`` seconds is stopped and raises."""
+    proc, out, err = launch
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        _torchrun_stop(launch)
+    out.seek(0)
+    err.seek(0)
+    text = out.read(), err.read()
+    out.close()
+    err.close()
+    return (proc.returncode, *text)
+
+
+def _torchrun_stop(launch) -> None:
+    """Stop a launch that still runs (SIGTERM, which the launcher passes to
+    its ranks; SIGKILL after 30 s)."""
+    proc = launch[0]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _torchrun(n: int, args, timeout: int = GRID_TIMEOUT):
+    """``python -m torch.distributed.run --standalone`` over ``n`` ranks of
+    this script with ``args``: (exit code, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    rc, out, err = _torchrun_wait(_torchrun_start(n, args), timeout)
+    return rc, out, err, time.perf_counter() - t0
+
+
+def _wait_for_go() -> bool:
+    """A rank's wait for its launch's turn (GRID_GO_ENV, ``PATH:PID``):
+    True once the file exists; False if the script whose PID it names is
+    gone, or after ``GRID_GO_TIMEOUT`` seconds."""
+    spec = os.environ.get(GRID_GO_ENV)
+    if not spec:
+        return True
+    path, pid = spec.rsplit(":", 1)
+    deadline = time.monotonic() + GRID_GO_TIMEOUT
+    while not os.path.exists(path):
+        try:
+            os.kill(int(pid), 0)
+        except OSError:
+            return False
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _rank_records(prefix: str, n: int) -> list:
+    out = []
+    for r in range(n):
+        with open(f"{prefix}.r{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _split_inputs(P, V, B, logarithmic, seed, storage):
+    """The split sweep's inputs: the fused sweep's (with the penalty), and
+    the reduced bp the finish takes (the plain bp of these inputs)."""
+    from sartsolver_tpu_torch.ops.fused_sweep import sharded_sweep_bp_reference
+
+    H, w, f, aux, scale = _sweep_inputs(P, V, B, logarithmic, True, seed, storage)
+    return H, w, f, aux, scale, sharded_sweep_bp_reference(H, w)
+
+
+def _split_bound(nbytes: int, flops: int, rates) -> dict:
+    mem_rate, fp32_rate, _ = rates
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / fp32_rate * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_rate="fp32 outside the tensor cores", bytes=nbytes, flops=flops)
+
+
+def split_kernels(rates, P: int = 4096, V: int = 65536) -> dict:
+    """The split sweep on the card at the 2x1 grid's block (``P x V``, B =
+    1), per storage: ``sharded_sweep_bp`` and ``sharded_sweep_finish``
+    against their plain versions (linear with the penalty and log; within
+    ``KERNEL_TOL`` of the output's max, two launches byte-identical), the
+    pair at one rank bit for bit against ``two_read`` (the sum of one
+    rank's partials is the whole bp), each kernel timed beside its bound,
+    its plain version and its library call (one ``torch.matmul`` on an fp32
+    copy of the block)."""
+    import torch
+
+    from sartsolver_tpu_torch.ops.fused_sweep import (
+        _sweep, sharded_sweep_bp, sharded_sweep_bp_reference, sharded_sweep_finish,
+        sharded_sweep_finish_reference,
+    )
+
+    out = {}
+    for storage in STORAGES:
+        errs = {"bp": 0.0, "finish": 0.0}
+        for logarithmic in (False, True):
+            H, w, f, aux, scale, bp_ref = _split_inputs(P, V, 1, logarithmic,
+                                                        seed=P + V + logarithmic,
+                                                        storage=storage)
+            kw = dict(logarithmic=logarithmic, alpha=0.7, eps=1e-7, scale=scale)
+            b0 = sharded_sweep_bp.launches
+            bp1, bp2 = sharded_sweep_bp(H, w), sharded_sweep_bp(H, w)
+            outs1 = sharded_sweep_finish(H, f, bp_ref, aux, **kw)
+            outs2 = sharded_sweep_finish(H, f, bp_ref, aux, **kw)
+            ref = sharded_sweep_finish_reference(H, f, bp_ref, aux, **kw)
+            whole = sharded_sweep_finish(H, f, bp1, aux, **kw)
+            two = _sweep(H, w, f, aux, plan="two_read", **kw)
+            torch.cuda.synchronize()
+            if (sharded_sweep_bp.launches - b0 != 2 or not torch.equal(bp1, bp2)
+                    or not all(torch.equal(a, b) for a, b in zip(outs1, outs2))
+                    or not all(torch.equal(a, b) for a, b in zip(whole, two))):
+                raise AssertionError(f"split sweep {storage} log={logarithmic}: counts, "
+                                     "repeat bytes or the one-rank pair against two_read")
+            rel_bp = float((bp1 - bp_ref).abs().max() / bp_ref.abs().max())
+            rel_fin = max(float((a - r).abs().max() / r.abs().max())
+                          for a, r in zip(outs1, ref))
+            if max(rel_bp, rel_fin) > KERNEL_TOL:
+                raise AssertionError(f"split sweep {storage} log={logarithmic}: bp "
+                                     f"{rel_bp}, finish {rel_fin} above {KERNEL_TOL}")
+            errs["bp"] = max(errs["bp"], float((bp1 - bp_ref).abs().max()))
+            errs["finish"] = max(errs["finish"], max(float((a - r).abs().max())
+                                                     for a, r in zip(outs1, ref)))
+            if logarithmic:
+                continue
+            Hbytes = H.element_size() * P * V
+            vec = 4 * (w.numel() + 2 * f.numel() + sum(a.numel() for a in aux)
+                       + (0 if scale is None else scale.numel()))
+            bp_t = dict(ms=_median_ms(lambda: sharded_sweep_bp(H, w)),
+                        plain_ms=_median_ms(lambda: sharded_sweep_bp_reference(H, w)),
+                        **_split_bound(Hbytes + 4 * (w.numel() + f.numel()), 2 * P * V, rates))
+            fin_t = dict(ms=_median_ms(lambda: sharded_sweep_finish(H, f, bp_ref, aux, **kw)),
+                         plain_ms=_median_ms(lambda: sharded_sweep_finish_reference(
+                             H, f, bp_ref, aux, **kw)),
+                         **_split_bound(Hbytes + vec + 4 * P, 2 * P * V, rates))
+            torch.cuda.empty_cache()
+            Hd = H.float() if scale is None else H.float().mul_(scale)
+            bp_t["library_ms"] = _median_ms(lambda: torch.matmul(w, Hd))
+            fin_t["library_ms"] = _median_ms(lambda: torch.matmul(f, Hd.T))
+            del Hd
+            fin_t["pair_ms"] = bp_t["ms"] + fin_t["ms"]
+            fin_t["two_read_ms"] = _median_ms(
+                lambda: _sweep(H, w, f, aux, plan="two_read", **kw))
+            out[storage] = dict(bp=bp_t, finish=fin_t, shape=[P, V, 1])
+            del H, w, f, aux, scale, bp_ref
+            torch.cuda.empty_cache()
+        out[storage].update(max_abs_err_bp=errs["bp"], max_abs_err_finish=errs["finish"])
+    return out
+
+
+def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
+    """The solve over a grid of ranks (module docstring, phase ``grid``):
+    the split kernels (:func:`split_kernels`), then the CLI under torchrun
+    for each of ``GRID_RUNS`` on the world's first ``GRID_FRAMES`` frames
+    against the one-rank runs of the solve phase, the first run's ranks
+    then holding the kernel path against the plain one and both against
+    fp64 (``--parity``). The runs of one world size share one torchrun,
+    one after another in the same process group; the launches start at
+    once and take turns (a run's ``seconds`` are its CLI's on the primary
+    rank; ``torchruns`` has each launch's from its turn). On the CPU (a
+    rehearsal) the kernels and the launch counts are left out."""
+    from sartsolver_tpu_torch.ops.fused_sweep import plan_sweep
+
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    kernels = split_kernels(rates) if card else {}
+    kernels_s = time.perf_counter() - t0
+    if card:
+        import torch
+
+        torch.cuda.empty_cache()
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    P, V = world["H"].shape
+    # one torchrun for the runs of each world size, in GRID_RUNS' order;
+    # the first run also holds the kernel path against the plain one
+    launches = {}
+    for i, (name, flags, n, storage) in enumerate(GRID_RUNS):
+        launches.setdefault(n, []).extend([
+            "--grid-rank", os.path.join(outdir, f"grid_{name}"), *(["--parity"] if i == 0 else []),
+            "--", "-o", os.path.join(outdir, f"grid_{name}.h5"), *inputs,
+            "-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "-t", "0:0.35",
+            "--chain_frames", "1", "--rtm_dtype", storage, "--device", device, "--multihost",
+            "--parallel_read", *flags])
+    # every launch started at once, each after the first waiting for the one
+    # before it to end: their processes start together, their runs take
+    # turns on the card
+    torchruns, started = {}, []
+    try:
+        for i, (n, argv) in enumerate(launches.items()):
+            go = os.path.join(outdir, f"grid_go_{n}") if i else None
+            started.append((n, go, _torchrun_start(n, argv, go)))
+        for n, go, launch in started:
+            t0 = time.perf_counter()
+            if go:
+                open(go, "w").close()
+            rc, so, se = _torchrun_wait(launch)
+            if rc != 0:
+                raise AssertionError(f"grid runs over {n} ranks: exit {rc}\n{so[-2000:]}\n"
+                                     f"{se[-3000:]}")
+            torchruns[str(n)] = dict(seconds_from_its_turn=time.perf_counter() - t0,
+                                     runs=[r[0] for r in GRID_RUNS if r[2] == n])
+    finally:
+        for _n, _go, launch in started:
+            _torchrun_stop(launch)
+    runs, parity = {}, None
+    for name, flags, n, storage in GRID_RUNS:
+        out = os.path.join(outdir, f"grid_{name}.h5")
+        recs = _rank_records(os.path.join(outdir, f"grid_{name}"), n)
+        if parity is None:
+            parity = [r["parity"] for r in recs]
+            if not parity[0]["kernel_engaged"].startswith("split") or (
+                    card and (parity[0]["kernel_engaged"] != "split"
+                              or parity[0]["kernel_launches"] <= 0)):
+                raise AssertionError(f"grid parity: {parity[0]}")
+        so, secs = recs[0]["stdout"], recs[0]["seconds"]
+        ms = [float(m) for m in re.findall(r"Processed in: ([0-9.eE+-]+) ms", so)]
+        line = next((ln for ln in so.splitlines() if ln.startswith("solver: ")), "")
+        sol, err = check_solution(out, world, GRID_FRAMES, MAX_ITERATIONS, device)
+        ref = os.path.join(outdir, f"solution_{storage}_linear.h5")
+        ref_rows = _read_rows(ref)
+        dist = _fitted_distance(world, sol["value"], ref_rows["value"][:GRID_FRAMES], device)
+        iters = int(sol["iterations"].sum())
+        n_pix = 2 if "--pixel_shards" in flags else 1
+        n_vox = 2 if "--voxel_shards" in flags else 1
+        backend = "nccl" if n == 1 and card else "gloo"
+        want_mesh = f"mesh={n_pix}x{n_vox} "
+        problems = []
+        if len(ms) != GRID_FRAMES or want_mesh not in line or \
+                f"collectives={backend}" not in line:
+            problems.append(f"{len(ms)} frame lines, solver line {line!r}")
+        if any("Processed in:" in r["stdout"] for r in recs[1:]):
+            problems.append("a rank other than the primary printed frame lines")
+        if not np.array_equal(sol["status"], ref_rows["status"][:GRID_FRAMES]) or \
+                not (dist <= GRID_FIT_TOL).all():
+            problems.append(f"statuses {sol['status']} / {ref_rows['status'][:GRID_FRAMES]}, "
+                            f"fitted distance {dist}")
+        for r in recs if card else ():
+            if n_pix > 1:
+                ok = (r["sharded_sweep_bp"] == iters and r["sharded_sweep_finish"] == iters
+                      and r["fused_sweep"] == 0)
+            else:
+                plan = plan_sweep(P, V // n_vox, 1, storage)
+                ok = (r["fused_sweep"] == iters and r["fused_sweep_by_plan"][plan] == iters
+                      and r["sharded_sweep_bp"] == 0)
+            if not ok or r["rc"] != 0:
+                problems.append(f"rank {r['rank']}: {r}")
+        if problems:
+            raise AssertionError(f"grid run {name}: " + "; ".join(problems))
+        coll = recs[0]["collectives"]
+        runs[name] = dict(
+            ranks=n, storage=storage, backend=backend, seconds=secs, frame_ms=ms,
+            status=sol["status"].tolist(), iterations=sol["iterations"].tolist(),
+            fitted_distance_to_one_rank=dist.tolist(), fit_err=err.tolist(),
+            solver_line=line, launches=[{k: r[k] for k in (
+                "fused_sweep", "sharded_sweep_bp", "sharded_sweep_finish")} for r in recs],
+            collectives=coll,
+            collective_ms_per_iteration=coll["seconds"] * 1e3 / max(iters, 1),
+            device_wait_ms_per_iteration=coll["device_wait_seconds"] * 1e3 / max(iters, 1),
+            wall_ms_per_iteration=sum(ms) / max(iters, 1))
+    return dict(kernels=kernels, kernels_seconds=kernels_s, parity=parity,
+                parity_shape=list(GRID_PARITY), fit_tol=GRID_FIT_TOL, frames=GRID_FRAMES,
+                torchruns=torchruns, runs=runs)
+
+
 def main() -> int:
     import torch
 
@@ -3674,22 +4149,29 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
          device=card, count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
-    _build.build_all()
-    emit("build", seconds=time.perf_counter() - t0,
-         sources=sorted(p.name for p in _build.CSRC.glob("*.cu")),
-         into=os.path.relpath(_build.BUILD_DIR, REPO))
-
-    errors, timing = kernel_phase(card)
-
     scratch = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        # nvcc runs in its own processes while the host writes the e2e world
+        # and the operators phase's reflective world
         t0 = time.perf_counter()
-        world = write_world(tmp)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            built = pool.submit(_build.build_all)
+            world = write_world(tmp)
+            world_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            reflective = write_reflective_world(os.path.join(tmp, "reflective"))
+            reflective["world_seconds"] = time.perf_counter() - t1
+            built.result()
+        emit("build", seconds=time.perf_counter() - t0, world_written_meanwhile_s=world_s,
+             reflective_world_written_meanwhile_s=reflective["world_seconds"],
+             sources=sorted(p.name for p in _build.CSRC.glob("*.cu")),
+             into=os.path.relpath(_build.BUILD_DIR, REPO))
+
+        errors, timing = kernel_phase(card)
+
         p = world["paths"]
         inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
-        world_s = time.perf_counter() - t0
 
         # the main path, once per storage type: counts zeroed just before,
         # read just after
@@ -3774,7 +4256,9 @@ def main() -> int:
         emit("sparse", seconds=time.perf_counter() - t0, **sparse)
         t0 = time.perf_counter()
         operators = operators_phase(tmp, world=world,
-                                    rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+                                    rates=PEAKS["PCIe" if "PCIe" in card else "SXM"],
+                                    reflective=reflective)
+        del reflective
         emit("operators", seconds=time.perf_counter() - t0, fit_tol=OPERATOR_FIT_TOL,
              max_iterations=MAX_ITERATIONS, **operators)
 
@@ -3783,6 +4267,11 @@ def main() -> int:
         lap = make_laplacian(rows, cols, vals, nvoxel=V, device="cuda")
         batch = batch_phase(world, lap)
         emit("batch", **batch)
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        grid = grid_phase(world, tmp, rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        emit("grid", seconds=time.perf_counter() - t0, **grid)
 
         # frame 0 of the linear run, through the kernel and the plain version
         opts = SolverOptions(max_iterations=MAX_ITERATIONS)
@@ -3925,6 +4414,22 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "shape": t["shape"], "pairs_evaluated": t["pairs_evaluated"],
                      "nnz": t["nnz"], "variant": "the implicit operator (--geometry)"})
+    # the pixel-sharded sweep split at the all-reduce (no Pallas
+    # counterpart), fp32 at the 2x1 grid's block; launches: every rank's of
+    # the fp32 grid runs on a pixel-sharded grid (bf16 and int8 are checked
+    # and timed in the phase, not run there)
+    k = grid["kernels"]["float32"]
+    for which in ("bp", "finish"):
+        t = k[which]
+        rows.append({
+            "name": f"sharded_sweep_{which}", "route": "cuda", "source": SOURCE,
+            "replaces": GRID_REPLACES,
+            "launches": sum(lr[f"sharded_sweep_{which}"] for r in grid["runs"].values()
+                            for lr in r["launches"]),
+            "max_abs_err": k[f"max_abs_err_{which}"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": k["shape"], "storage": "float32",
+            "variant": "the pixel-sharded sweep, split at the all-reduce"})
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))
@@ -3953,4 +4458,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--grid-rank":
+        sys.exit(grid_rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -126,6 +126,26 @@ K``): every N strides the scheduler's whole state is appended to
 whose lane count is K and that the output file's rows cover, and goes on
 mid-frame instead of re-solving every frame in flight from its guess.
 
+A grid of ranks (``--multihost``, launched by ``torchrun``, or ``python
+-m torch.distributed.run --nproc_per_node N -m sartsolver_tpu_torch.cli
+--multihost ...``): ``--pixel_shards`` and ``--voxel_shards`` shape it, else
+the JAX CLI's choice (voxel-major where the fused sweep runs the per-rank
+block, the reference's row blocks otherwise); ``--voxel_shards`` alone means
+voxel-major for int8. The process group comes from the launcher's
+environment, over NCCL where every rank of a host has a card of its own and
+gloo otherwise (the CPU, ranks sharing a card); the ``solver:`` line names
+the mesh, its layout and the backend. Each rank reads its own block of the
+RTM (in turns, rank by rank, unless ``--parallel_read``), only rank 0
+prints to stdout and writes files, a failing frame aborts the run (no
+FAILED rows: a rank that skipped a frame alone would leave its peers in a
+collective), OOM halving is off, ``--no_guess --batch_frames K`` runs the
+classic grouped loop, and a stop signal is agreed at a group boundary by
+every rank. ``--sparse_rtm``, ``--lowrank_rtm``, ``--geometry``,
+``--os_subsets > 1``, ``--resume``, ``--solve_ckpt_stride``,
+``--integrity``, ``--debug_nans`` and int8 on a pixel-sharded grid are
+refused there (exit 1); a grid larger or smaller than the world exits 1,
+and so does a world above 1 without ``--multihost``.
+
 Observability as in the JAX CLI (``obs/``): ``--timing`` prints the phase
 summary (``validate + index inputs``, ``ingest RTM + upload``, ``frame loop
 (solve + prefetch + flush)``, ``write voxel map``, with the per-frame and
@@ -275,6 +295,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device of the fp32 profile (default cuda). Without a "
                         "CUDA device the run stops; --device cpu runs the "
                         "same profile on the CPU.")
+    p.add_argument("--pixel_shards", type=int, default=None,
+                   help="Ranks along the grid's pixel axis (row blocks of the "
+                        "RTM; default: auto — every rank, unless the fused "
+                        "sweep prefers a voxel-major grid).")
+    p.add_argument("--voxel_shards", type=int, default=None,
+                   help="Ranks along the grid's voxel axis (column blocks of "
+                        "the RTM). Default: auto — every rank on the voxel "
+                        "axis where the fused sweep runs the per-rank block; "
+                        "--voxel_shards alone means a voxel-major grid for "
+                        "int8.")
+    p.add_argument("--multihost", action="store_true",
+                   help="Multi-process run over torch.distributed, one rank a "
+                        "process, launched by torchrun (python -m "
+                        "torch.distributed.run --nproc_per_node N ...): each "
+                        "rank reads and holds only its block of the RTM, rank 0 "
+                        "prints the frame lines and writes the output. NCCL "
+                        "where every rank of a host has a card of its own, gloo "
+                        "on the CPU and where ranks share a card.")
+    p.add_argument("--parallel_read", action="store_true",
+                   help="All ranks read their RTM blocks at once (multi-process "
+                        "runs read rank by rank by default, matching the "
+                        "reference's HDD-friendly round robin).")
     p.add_argument("--rtm_dtype", default=None,
                    choices=["float32", "bfloat16", "float64", "int8"],
                    help="On-device RTM storage dtype. bfloat16 halves the "
@@ -444,6 +486,15 @@ def _validate(args) -> None:
     if args.solve_ckpt_stride < 0:
         fail(f"Argument solve_ckpt_stride must be >= 0, "
              f"{args.solve_ckpt_stride} given.")
+    if args.solve_ckpt_stride and args.multihost:
+        fail("Argument solve_ckpt_stride snapshots the continuous-batching "
+             "scheduler's lane state; it needs --batch_frames > 1 without "
+             "--no_continuous_batching (multihost runs use the classic "
+             "grouped loop and cannot checkpoint mid-frame).")
+    if args.pixel_shards is not None and args.pixel_shards < 1:
+        fail(f"Argument pixel_shards must be >= 1, {args.pixel_shards} given.")
+    if args.voxel_shards is not None and args.voxel_shards < 1:
+        fail(f"Argument voxel_shards must be >= 1, {args.voxel_shards} given.")
     if args.solve_ckpt_stride and (args.batch_frames <= 1
                                    or args.no_continuous_batching):
         fail("Argument solve_ckpt_stride snapshots the continuous-batching "
@@ -507,6 +558,10 @@ def _validate(args) -> None:
         if len(args.input_files) < 1:
             fail("At least one image input file is required with "
                  "--geometry, 0 given.")
+        if args.multihost:
+            fail("Argument geometry is single-process: the implicit "
+                 "operator's rays are staged whole per host; drop "
+                 "--multihost or materialize the matrix.")
         if args.laplacian_file:
             fail("Argument geometry cannot be combined with "
                  "--laplacian_file: beta_laplace smoothing needs the "
@@ -514,6 +569,20 @@ def _validate(args) -> None:
     elif len(args.input_files) < 2:
         fail("At least two input file, one with RTM and one with image, are "
              f"required, {len(args.input_files)} given.")
+
+
+class _NullWriter:
+    """The solution writer of a grid's other ranks: it takes every row and
+    writes none (the primary rank writes the file)."""
+
+    def add(self, *args, **kwargs) -> None:
+        pass
+
+    def __enter__(self) -> "_NullWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
 
 
 class _FrameLoopProfile:
@@ -588,18 +657,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     # printed
     telem = RunTelemetry.from_cli(args.metrics_out)
     summary = RunSummary()
+    rank = {"primary": True, "owns_group": False}
     try:
-        return _run(args, telem, summary)
+        with contextlib.ExitStack() as quiet:
+            return _run(args, telem, summary, rank, quiet)
     finally:
         # an error exit's artifact, marked partial: a no-op after the
-        # completed run's finalize, or with no sink
-        telem.finalize_local(summary)
+        # completed run's finalize, or with no sink (a grid's other ranks
+        # write none: the sinks are the primary's paths)
+        if rank["primary"]:
+            telem.finalize_local(summary)
+        if rank["owns_group"]:  # the group this run started, not a caller's
+            from sartsolver_tpu_torch.parallel import comm
+
+            comm.shutdown()
 
 
-def _run(args, telem, summary) -> int:
+def _run(args, telem, summary, rank, quiet) -> int:
     """The solve of :func:`main` after its flags are validated: per-frame
     and per-event accounting goes to ``telem`` (``obs/run.py``) and
-    ``summary`` (``resilience/failures.py``)."""
+    ``summary`` (``resilience/failures.py``). ``rank["primary"]`` is set
+    False on a grid's other ranks, whose standard output goes into
+    ``quiet`` (an exit stack closed when the run ends)."""
     import torch
 
     from sartsolver_tpu_torch.config import (
@@ -620,7 +699,11 @@ def _run(args, telem, summary) -> int:
         lowrank_operator_or_decline, read_and_quantize_rtm, read_and_shard_rtm,
         sparse_tile_stats_or_decline,
     )
-    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
+    from sartsolver_tpu_torch.parallel import multihost as mh
+    from sartsolver_tpu_torch.parallel.mesh import choose_mesh_shape, make_grid
+    from sartsolver_tpu_torch.parallel.sharded import (
+        DistributedSARTSolver, grid_refusal, os_padded_rows,
+    )
     from sartsolver_tpu_torch.io.solution import read_resume_state
     from sartsolver_tpu_torch.obs import flight as obs_flight
     from sartsolver_tpu_torch.resilience import integrity as integ_mod
@@ -649,6 +732,29 @@ def _run(args, telem, summary) -> int:
     except RuntimeError as err:
         print(err, file=sys.stderr)
         return 1
+    # a run over a grid of ranks: the process group first, from the
+    # launcher's environment; only rank 0 prints to stdout and writes files
+    launched = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.multihost:
+        import torch.distributed as dist
+
+        rank["owns_group"] = not dist.is_initialized()
+        try:
+            mh.initialize(device.type)
+        except SartInputError as err:
+            print(err, file=sys.stderr)
+            return 1
+
+        if not mh.is_primary():
+            rank["primary"] = False
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+    elif launched > 1:
+        print(f"WORLD_SIZE={launched}: a run launched over {launched} ranks needs "
+              "--multihost (each rank would otherwise solve the whole problem "
+              "alone and write the same file).", file=sys.stderr)
+        return 1
+    primary = rank["primary"]
 
     def mark(phase: str) -> None:
         """End a --timing phase. The device finishes the phase's work first
@@ -690,8 +796,14 @@ def _run(args, telem, summary) -> int:
         wd.start()
     stop_state = {"interrupted": False}
 
+    grid_state = {"ranks": None}
+
     def stop_now() -> bool:
-        """The group-boundary stop poll: a flag the signal handler set."""
+        """The group-boundary stop poll: a flag the signal handler set; on a
+        grid, agreed by every rank at the same boundary."""
+        ranks = grid_state["ranks"]
+        if ranks is not None and ranks.world > 1:
+            return mh.agree_stop(shutdown.stop_requested(), ranks)
         return shutdown.stop_requested()
 
     try:
@@ -806,10 +918,36 @@ def _run(args, telem, summary) -> int:
                 f"exceeds the int32-accumulation bound {INT8_MAX_CONTRACTION}; "
                 "use fp32/bfloat16 storage."
             )
+        # the grid of ranks (sartsolver_tpu/cli.py:866-978): the flags', or
+        # the auto choice over the world; --voxel_shards alone means a
+        # voxel-major grid for int8. One rank is the one-device path.
+        world = 1
+        if args.multihost:
+            import torch.distributed as dist
+
+            world = dist.get_world_size()
+        if args.pixel_shards is None and args.voxel_shards is None:
+            n_pix, n_vox = choose_mesh_shape(world, npixel, nvoxel, opts, args.batch_frames,
+                                             device_type=device.type)
+        else:
+            n_vox = args.voxel_shards or 1
+            if args.pixel_shards is not None:
+                n_pix = args.pixel_shards
+            elif storage == "int8":
+                n_pix = 1
+            else:
+                n_pix = max(world // n_vox, 1)
+        ranks = grid_state["ranks"] = make_grid(n_pix, n_vox)
+        multi = ranks.world > 1
+        refusal = grid_refusal(opts, ranks, resume=args.resume, geometry=bool(args.geometry),
+                               debug_nans=args.debug_nans)
+        if refusal:
+            raise SartInputError(refusal)
         # artifact provenance, the JAX CLI's meta fields; the variant fields
         # also ride every frame record (obs/run.py)
         telem.set_run_info(
-            backend=device.type, mesh="1x1", processes=1, rtm_dtype=str(storage),
+            backend=device.type, mesh=f"{n_pix}x{n_vox}", processes=ranks.world,
+            rtm_dtype=str(storage),
             compute_dtype=str(opts.dtype), fused_sweep=str(opts.fused_sweep),
             logarithmic=bool(args.logarithmic), os_subsets=int(opts.os_subsets),
             momentum=str(opts.momentum), operator="dense",
@@ -886,15 +1024,19 @@ def _run(args, telem, summary) -> int:
             tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
             with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
                 rtm_scale = None
+                # on a grid each rank reads its own block, in turns unless
+                # --parallel_read
+                stripes = dict(grid=ranks, serialize=multi and not args.parallel_read)
                 if storage == "int8":
                     rtm, rtm_scale = read_and_quantize_rtm(
                         sorted_matrix_files, rtm_name, npixel, nvoxel, device,
-                        rows=held_rows, ingest_stats=ingest_stats, tile_stats=tile_stats)
+                        rows=held_rows, ingest_stats=ingest_stats, tile_stats=tile_stats,
+                        **stripes)
                 else:
                     rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
                                              device, dtype=storage, rows=held_rows,
                                              ingest_stats=ingest_stats,
-                                             tile_stats=tile_stats)
+                                             tile_stats=tile_stats, **stripes)
                 try:
                     tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
                                 if tile_stats is not None else None)
@@ -903,7 +1045,8 @@ def _run(args, telem, summary) -> int:
                     solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
                                                    debug_nans=args.debug_nans,
                                                    rtm_scale=rtm_scale, npixel=npixel,
-                                                   tile_occupancy=tile_occ)
+                                                   tile_occupancy=tile_occ, grid=ranks,
+                                                   nvoxel=nvoxel)
                 except ValueError as err:  # a non-finite entry, or EPS that cannot engage
                     raise SartInputError(str(err)) from None
                 del rtm, rtm_scale
@@ -941,20 +1084,27 @@ def _run(args, telem, summary) -> int:
         sparse_on = solver.tile_occupancy is not None
         sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused or sparse_on
                  else "two-matmul") + ("-sparse" if sparse_on else "")
+        if fused and ranks.n_pix > 1:
+            sweep = "fused-split"  # split at the pixel axis's all-reduce
         if solver.operator_kind != "dense":
             sweep = solver.operator_kind + ("-os-subset" if opts.os_subsets > 1 else "")
-        print(f"solver: device={device} rtm_dtype={storage} compute={opts.dtype} "
+        print(f"solver: mesh={n_pix}x{n_vox} (pixels x voxels, {ranks.layout()}) "
+              f"device={device} collectives={ranks.backend or 'none'} "
+              f"rtm_dtype={storage} compute={opts.dtype} "
               f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
               + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else "")
               + (f" sparse_rtm={opts.sparse_rtm} voxels_held="
-                 f"{solver.problem.rtm.shape[1]}" if sparse_on else ""))
+                 f"{solver.problem.rtm.shape[1]}" if sparse_on else "")
+              + f" processes={ranks.world}")
         mark("ingest RTM + upload")
 
         # per-frame failure isolation: a frame whose read fails past its
         # retries arrives as a FrameFailure item, and a group whose staging
         # or dispatch fails with a recoverable error is caught in the loops;
         # either way its frames are FAILED rows and the run goes on
-        isolate = not args.fail_fast
+        # a grid fails fast: a rank that skipped a frame alone would leave its
+        # peers in a collective (the JAX CLI's multihost rule)
+        isolate = not (args.fail_fast or multi)
         writer_queue = max(1, int(os.environ.get("SART_WRITER_QUEUE", "16")))
         diverged_times = []
         written_times = (resume_state.times if resume_state is not None
@@ -1010,11 +1160,25 @@ def _run(args, telem, summary) -> int:
         # the writer thread holds at most SART_WRITER_QUEUE rows (or their
         # device fetches); 1 runs the loop in lockstep with the writer. One
         # stream of (frame, time, camera times) items, shared by the loops.
-        with solver, AsyncSolutionWriter(
+        # a grid's ranks measure their own rows where each holds some
+        # (sartsolver_tpu/cli.py:1030); the frames arrive whole on every rank
+        stage_kw, local_rows = {}, (lambda stack: stack)
+        if multi and mh.all_processes_local_capable(ranks, npixel):
+            off, cnt = mh.process_pixel_range(ranks, npixel)
+            stage_kw = {"local": True}
+
+            def local_rows(stack):
+                return stack[:, off:off + cnt]
+
+        def solve_batch(stack):
+            return solver.solve_batch(local_rows(stack), **stage_kw)
+
+        # only the primary rank writes the file
+        with solver, (AsyncSolutionWriter(
                 SolutionWriter(args.output_file, camera_names, nvoxel,
                                max_cache_size=args.max_cached_solutions,
                                resume=resume_state if resume_state is not None else False),
-                max_pending=writer_queue) as writer, \
+                max_pending=writer_queue) if primary else _NullWriter()) as writer, \
                 FramePrefetcher(composite_image, isolate_failures=isolate) as prefetched, \
                 profile if profile is not None else contextlib.nullcontext():
             # a resumed run skips the frames the file holds (FAILED rows too)
@@ -1081,7 +1245,10 @@ def _run(args, telem, summary) -> int:
                 label = "batch" if batch else "chain"
                 group_label = label if K > 1 else "frame"
                 timer_row = f"solve {label} (pipelined wall)" if K > 1 else "solve frame"
-                ladder = GroupSizeLadder(K, on_event=note_event) if batch else None
+                # the halving is a per-rank decision: off on a grid, where an
+                # OOM aborts the run as any other device error
+                ladder = (GroupSizeLadder(K, on_event=note_event) if batch and not multi
+                          else None)
                 pending = []
                 t_last = _time.perf_counter()
 
@@ -1223,15 +1390,17 @@ def _run(args, telem, summary) -> int:
                 print(f"continuous batching: lanes={K} strides={stats.strides} "
                       f"loop_steps={stats.loop_steps} occupancy={stats.occupancy}")
                 if stats.leftover is not None:
-                    run_grouped(max(K // 2, 1), True, sdc_guarded(solver.solve_batch),
+                    run_grouped(max(K // 2, 1), True, sdc_guarded(solve_batch),
                                 itertools.chain(stats.leftover, stream))
 
             if args.no_guess:
-                if args.batch_frames > 1 and not args.no_continuous_batching:
+                # a grid keeps the classic grouped loop: the scheduler's
+                # per-stride retire and backfill decisions would have to be
+                # replicated on every rank in lockstep
+                if args.batch_frames > 1 and not args.no_continuous_batching and not multi:
                     run_scheduled(args.batch_frames)
                 else:
-                    run_grouped(args.batch_frames, True, sdc_guarded(solver.solve_batch),
-                                frames)
+                    run_grouped(args.batch_frames, True, sdc_guarded(solve_batch), frames)
             else:
                 # the warm carry (the last result, on the device) crosses
                 # group boundaries; a resumed run seeds its first group
@@ -1244,8 +1413,8 @@ def _run(args, telem, summary) -> int:
                     # the carry the group starts from, for sdc_guarded's
                     # recompute (the first attempt moves it on)
                     snap.update(chain)
-                    chain["warm"] = solver.solve_chain(stack, f0=chain["f0"],
-                                                       warm=chain["warm"])
+                    chain["warm"] = solver.solve_chain(local_rows(stack), f0=chain["f0"],
+                                                       warm=chain["warm"], **stage_kw)
                     chain["f0"] = None
                     return chain["warm"]
 
@@ -1260,8 +1429,8 @@ def _run(args, telem, summary) -> int:
         with obs_trace.span("flush.voxel_map"):
             from sartsolver_tpu_torch.io import h5
 
-            has_grid = False
-            if os.path.exists(args.output_file):
+            has_grid = not primary  # only the primary rank writes the file
+            if primary and os.path.exists(args.output_file):
                 with h5.File(args.output_file, "r") as f:
                     has_grid = "voxel_map" in f
             if not has_grid:  # a resumed run's file has it already
@@ -1285,7 +1454,8 @@ def _run(args, telem, summary) -> int:
             print(f"{len(diverged_times)} frame(s) DIVERGED (status {DIVERGED}) at "
                   f"time(s) {shown}{' ...' if len(diverged_times) > 8 else ''}",
                   file=sys.stderr)
-        telem.finalize(summary)
+        telem.finalize(summary, multihost=multi, primary=primary,
+                       allgather=mh.snapshot_allgather(ranks) if multi else None)
         if interrupted:
             # the group in flight drained, the writer flushed, the voxel
             # map in place: the file is a consistent prefix of the run
@@ -1346,7 +1516,7 @@ def _run(args, telem, summary) -> int:
     finally:
         # the crash bundle of an abnormal exit (the watchdog's os._exit
         # wrote its own through the crash hook), then every handler back
-        if abort["reason"] is not None:
+        if abort["reason"] is not None and primary:
             obs_flight.write_crash_bundle(bundle_path, abort["reason"], summary)
         watchdog.set_crash_hook(None)
         obs_flight.uninstall_status_handler(prev_usr1)

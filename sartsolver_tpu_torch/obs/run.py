@@ -1,19 +1,23 @@
 """Per-run telemetry: frame and event records, sink fan-out.
 
-Counterpart of ``sartsolver_tpu/obs/run.py`` for one process.
+Counterpart of ``sartsolver_tpu/obs/run.py``.
 :class:`RunTelemetry` is what the CLI wires in: it owns the run's metrics
 registry (the process default, reset per run), accumulates the typed frame
 and event records beside it, and at the end of the run writes the artifact
 to the configured sinks. With no sink configured it still keeps the
 registry current (``--timing`` reads it) but writes and prints nothing.
 
-The multi-process aggregation (one end-of-run allgather of every process's
-snapshot) comes with the multi-GPU slice, ROADMAP queue A item 5; its pure
-parts, :func:`_encode_snapshot` and :func:`aggregate_snapshots` over an
-injected ``allgather``, are here. At the end of a run the per-site retry
-counters (``retry_attempts_total``, ``retry_recoveries_total``,
-``retry_exhausted_total``) and ``fault_trips_total`` are folded in, as the
-JAX module does.
+A run over a grid of ranks aggregates at its end: one all-gather of every
+rank's registry snapshot, a fixed-size length-prefixed buffer
+(:func:`_encode_snapshot`), merged by :func:`aggregate_snapshots`
+(counters sum, gauges keep the max, histograms merge); the primary rank
+writes the sinks. The ``allgather`` is injected (the CLI's runs over
+``parallel/comm.py``, ``parallel/multihost.py:snapshot_allgather``), so
+this module imports neither torch nor numpy at import time.
+
+At the end of a run the per-site retry counters (``retry_attempts_total``,
+``retry_recoveries_total``, ``retry_exhausted_total``) and
+``fault_trips_total`` are folded in, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -248,15 +252,15 @@ class RunTelemetry:
         ))
         return records
 
-    def finalize(self, summary=None, *, multihost: bool = False) -> None:
-        """Write every configured sink. Idempotent; sink I/O errors are
-        reported on stderr, never raised. With no sink configured this is
-        a no-op."""
-        if multihost:
-            raise NotImplementedError(
-                "multi-process aggregation of the telemetry comes with the "
-                "multi-GPU slice (ROADMAP queue A item 5)"
-            )
+    def finalize(self, summary=None, *, multihost: bool = False, primary: bool = True,
+                 allgather: Optional[Callable] = None) -> None:
+        """Aggregate (``multihost``: one all-gather over ``allgather``; every
+        rank calls this, never from an error path where a peer may not
+        arrive) and write every configured sink on the primary rank.
+        Idempotent; sink I/O errors are reported on stderr, never raised.
+        With no sink configured this is a no-op, and no all-gather runs: the
+        sinks must be configured alike on every rank, as the rest of the
+        command line."""
         if self._finalized:
             return
         self._finalized = True
@@ -264,7 +268,13 @@ class RunTelemetry:
             self._teardown_trace()
             return
         self._import_run_counters()
-        self._write_sinks(self.registry.snapshot(), summary)
+        snapshot = self.registry.snapshot()
+        if multihost:
+            snapshot = aggregate_snapshots(snapshot, allgather=allgather)
+        if not primary:
+            self._teardown_trace()
+            return
+        self._write_sinks(snapshot, summary)
 
     def finalize_local(self, summary=None) -> None:
         """Best-effort variant for error exits; never raises. The artifact

@@ -13,7 +13,13 @@ The host part is numpy, the JAX module's code: :func:`split_sparse_core`,
 the JAX package's), the quality gate :func:`build_lowrank_operator`
 (Frobenius residual, then :func:`solve_parity_gap` against the dense solve
 of the original ``H`` by this package's own solver), and
-:func:`lowrank_static_decline_reason`.
+:func:`lowrank_static_decline_reason`. On a CUDA device the gate's
+arithmetic runs on the card: the residual (fp32, held once, widened to
+fp64 a band of rows at a time), the same fp64 steps with the same seeded
+test matrix (:func:`randomized_svd_tensor`), the Frobenius residuals and
+the parity gate's measurement, so its factors equal the host's to fp64
+rounding, not byte for byte. The split itself stays on the host, whose
+``S`` is the JAX package's bytes either way.
 
 The device part works on tensors: :func:`lowrank_forward`,
 :func:`lowrank_back`, :func:`lowrank_ray_stats` and
@@ -242,6 +248,18 @@ def split_sparse_core(H: np.ndarray, *, epsilon: float = DEFAULT_EPSILON):
     return S.numpy(), occ
 
 
+def _sketch_width(rank: int, P: int, Vx: int, oversample: int) -> int:
+    """The sketch's column count for a rank-``rank`` factorization of a
+    ``[P, Vx]`` residual; a rank outside ``[1, min(P, Vx)]`` raises."""
+    r = int(rank)
+    if not (1 <= r <= min(P, Vx)):
+        raise ValueError(
+            f"factorization rank {r} must lie in [1, min(P, V) = "
+            f"{min(P, Vx)}]"
+        )
+    return min(r + oversample, min(P, Vx))
+
+
 def randomized_svd(residual: np.ndarray, rank: int, *,
                    seed: int = LOWRANK_SEED,
                    power_iters: int = _POWER_ITERS,
@@ -253,12 +271,7 @@ def randomized_svd(residual: np.ndarray, rank: int, *,
     R = np.asarray(residual, np.float64)
     P, Vx = R.shape
     r = int(rank)
-    if not (1 <= r <= min(P, Vx)):
-        raise ValueError(
-            f"factorization rank {r} must lie in [1, min(P, V) = "
-            f"{min(P, Vx)}]"
-        )
-    k = min(r + oversample, min(P, Vx))
+    k = _sketch_width(r, P, Vx, oversample)
     rng = np.random.default_rng(seed)
     Q, _ = np.linalg.qr(R @ rng.standard_normal((Vx, k)))
     for _ in range(power_iters):
@@ -268,6 +281,67 @@ def randomized_svd(residual: np.ndarray, rank: int, *,
     U = (Q @ Ub[:, :r]) * s[:r]
     return (np.ascontiguousarray(U.astype(np.float32)),
             np.ascontiguousarray(Vt[:r].T.astype(np.float32)))
+
+
+def randomized_svd_tensor(R: Tensor, rank: int, *,
+                          seed: int = LOWRANK_SEED,
+                          power_iters: int = _POWER_ITERS,
+                          oversample: int = _OVERSAMPLE,
+                          band: int = 1024):
+    """:func:`randomized_svd`'s steps on a tensor ``R`` ``[P, Vx]`` where it
+    lies (the card, for the gate): the same seeded test matrix, QR power
+    iterations and small SVD by torch, every product with ``R`` in fp64,
+    ``band`` rows of ``R`` at a time (an fp32 ``R`` is widened a band at a
+    time, never whole). Returns fp32 numpy ``(U, V)`` equal to the host
+    function's to fp64 rounding (a singular vector's sign may differ;
+    ``U V^T`` does not)."""
+    P, Vx = R.shape
+    r = int(rank)
+    k = _sketch_width(r, P, Vx, oversample)
+    bands = [slice(i, i + band) for i in range(0, P, band)]
+
+    def times(X):  # R @ X
+        return torch.cat([R[b].double() @ X for b in bands])
+
+    def t_times(Y):  # R^T @ Y
+        out = torch.zeros((Vx, Y.shape[1]), dtype=torch.float64, device=R.device)
+        for b in bands:
+            out += R[b].double().T @ Y[b]
+        return out
+
+    omega = torch.as_tensor(np.random.default_rng(seed).standard_normal((Vx, k)),
+                            device=R.device)
+    Q = torch.linalg.qr(times(omega)).Q
+    for _ in range(power_iters):
+        Z = torch.linalg.qr(t_times(Q)).Q
+        Q = torch.linalg.qr(times(Z)).Q
+    Ub, s, Vt = torch.linalg.svd(t_times(Q).T, full_matrices=False)
+    U = (Q @ Ub[:, :r]) * s[:r]
+    return (np.ascontiguousarray(U.float().cpu().numpy()),
+            np.ascontiguousarray(Vt[:r].T.float().cpu().numpy()))
+
+
+def _frobenius_residual(R: Tensor, U: np.ndarray, V: np.ndarray,
+                        band: int = 1024) -> float:
+    """``||R - U V^T||_F`` of the tensor ``R`` and the fp32 factors, in fp64
+    where ``R`` lies, ``band`` rows at a time."""
+    u = torch.as_tensor(U, device=R.device, dtype=torch.float64)
+    vt = torch.as_tensor(V, device=R.device, dtype=torch.float64).T
+    total = torch.zeros((), dtype=torch.float64, device=R.device)
+    for i in range(0, R.shape[0], band):
+        total += (R[i:i + band].double() - u[i:i + band] @ vt).square().sum()
+    return float(total.sqrt())
+
+
+def _card_residual(H: np.ndarray, S: np.ndarray, device, band: int = 1024):
+    """``(H - S [P, Vx] fp32 on ``device``, ||H||_F)``: ``H`` uploaded, its
+    norm taken (summed in fp64), then ``S`` subtracted in place a band of
+    rows at a time, so the card holds the matrix's bytes once."""
+    R = torch.tensor(H, device=device)  # a copy on every device: H stays as it is
+    h_norm = float(torch.linalg.vector_norm(R, dtype=torch.float64))
+    for i in range(0, R.shape[0], band):
+        R[i:i + band] -= torch.as_tensor(S[i:i + band], device=device)
+    return R, h_norm
 
 
 class LowRankOperator(ProjectionOperator):
@@ -414,10 +488,17 @@ def solve_parity_gap(H: np.ndarray, operator: LowRankOperator, *,
 
     H = np.asarray(H, np.float32)
     x = np.random.default_rng(LOWRANK_SEED).uniform(0.5, 1.5, H.shape[1])
-    # g = H @ x in fp64, a band of rows at a time (no fp64 copy of H)
+    # g = H @ x in fp64, a band of rows at a time (no fp64 copy of H), on
+    # the card where the solves run
     step = max(1, (1 << 24) // max(H.shape[1], 1))
-    g = np.concatenate([H[r:r + step].astype(np.float64) @ x
-                        for r in range(0, H.shape[0], step)])
+    if torch.device(device).type == "cuda":
+        Hd, xd = torch.as_tensor(H, device=device), torch.as_tensor(x, device=device)
+        g = torch.cat([Hd[r:r + step].double() @ xd
+                       for r in range(0, H.shape[0], step)]).cpu().numpy()
+        del Hd
+    else:
+        g = np.concatenate([H[r:r + step].astype(np.float64) @ x
+                            for r in range(0, H.shape[0], step)])
     opts = SolverOptions(max_iterations=int(iterations),
                          conv_tolerance=0.0, fused_sweep="off")
     with DistributedSARTSolver(operator=operator, opts=opts, device=device) as factored:
@@ -439,8 +520,9 @@ def build_lowrank_operator(
     device="cuda",
     timings: Optional[dict] = None,
 ):
-    """Factorize ``H`` behind the quality gate (the JAX function; the
-    parity gate's solves run on ``device``).
+    """Factorize ``H`` behind the quality gate (the JAX function; on a
+    CUDA ``device`` the residual, the rSVD and the Frobenius test run on
+    the card, and the parity gate's solves run on ``device``).
 
     Returns ``(operator, None)`` on success or ``(None, reason)`` when
     ``rank='auto'`` declines. An explicit integer rank that fails the
@@ -490,18 +572,29 @@ def build_lowrank_operator(
             "sub-threshold residual to factor (the matrix has no "
             "separable low-amplitude fill)"
         )
-    # the residual and its fp64 copy (once, not once a rank) by torch's
-    # threads: elementwise, the same values as numpy's
-    residual_t = torch.from_numpy(H) - torch.from_numpy(S)
-    residual, residual64 = residual_t.numpy(), residual_t.double().numpy()
-    h_norm = max(float(np.linalg.norm(H)), 1e-30)
+    # the residual (once, not once a rank): elementwise, the same values on
+    # the card as by torch's threads on the host; on the card fp32, made
+    # again after a parity gate (which stages the dense matrix) let it go
+    on_card = torch.device(device).type == "cuda"
+    card_residual = None
+    if not on_card:
+        residual_t = torch.from_numpy(H) - torch.from_numpy(S)
+        residual, residual64 = residual_t.numpy(), residual_t.double().numpy()
+        h_norm = float(np.linalg.norm(H))
     reason = None
     clock.setdefault("rsvd_s", 0.0)
     clock.setdefault("parity_s", 0.0)
     for r in ranks:
         t0 = time.perf_counter()
-        U, V = randomized_svd(residual64, r, seed=seed)
-        rel = float(np.linalg.norm(residual - U @ V.T)) / h_norm
+        if on_card:
+            if card_residual is None:
+                card_residual, h_norm = _card_residual(H, S, device)
+            U, V = randomized_svd_tensor(card_residual, r, seed=seed)
+            frob = _frobenius_residual(card_residual, U, V)
+        else:
+            U, V = randomized_svd(residual64, r, seed=seed)
+            frob = float(np.linalg.norm(residual - U @ V.T))
+        rel = frob / max(h_norm, 1e-30)
         clock["rsvd_s"] += time.perf_counter() - t0
         if rel > tol:
             reason = (
@@ -517,6 +610,7 @@ def build_lowrank_operator(
             continue
         op = LowRankOperator(S, U, V, occupancy=occ, dtype=dtype)
         if check_parity:
+            card_residual = None
             t0 = time.perf_counter()
             gap = solve_parity_gap(H, op, device=device)
             clock["parity_s"] += time.perf_counter() - t0

@@ -8,14 +8,17 @@ here runs at import time: a machine without ``nvcc`` imports the package
 and fails only when a kernel is asked for.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
-all of them.
+all of them. A source that declares ``// sart-build-parts: N`` is compiled
+as N objects at once, each with ``-DSART_PART=k`` (k = 1..N: a share of
+its kernel instances, as the source defines them), and linked into its one
+library.
 
 A build inside a run announces itself to the hang watchdog (a ``build``
 beacon before ``nvcc`` starts and one when it is done); ``nvcc`` itself
 beacons nothing, so a cold build that outlasts ``SART_WATCHDOG_TIMEOUT``
 (and the grace after it) aborts the run with exit 3. Build first (any run
 on the card, ``load``, ``build_all``) or give the watchdog a timeout above
-the build's one to two minutes.
+the build's half minute or so.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -59,26 +63,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _parts(src: Path) -> int:
+    """The parts ``src`` declares (``// sart-build-parts: N``), else 0."""
+    found = re.search(rb"^// sart-build-parts: (\d+)$", src.read_bytes(), re.M)
+    return int(found.group(1)) if found else 0
+
+
 def _start_build(name: str):
     """Start compiling ``name`` unless its library exists; returns
-    ``(process, temp path, final path)`` or None."""
+    ``(processes, object paths, temp path, final path)`` or None."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = CSRC / f"{name}.cu"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    n = _parts(src)
+    if n:
+        objs = [out.with_suffix(f".{os.getpid()}.part{k}.o") for k in range(1, n + 1)]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[nvcc_path(), *compile_flags, f"-DSART_PART={k}", "-c", "-o", str(obj),
+                 str(src)] for k, obj in enumerate(objs, 1)]
+    else:
+        objs, cmds = [], [[nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    return procs, objs, tmp, out
 
 
 def _finish_build(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    procs, objs, tmp, out = job
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+        if not failed and objs:
+            link = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(link.stdout + link.stderr)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed to build {name}.cu:\n" + "\n".join(failed))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 

@@ -54,6 +54,12 @@
 //
 // No plan uses atomics: a given plan and shape give byte-identical results
 // run to run.
+//
+// A rank of a pixel-sharded grid runs the sweep split at the all-reduce of
+// its partial bp (sart_sharded_bp, then the caller's reduction, then
+// sart_sharded_finish), through two_read's kernels (see "The pixel-sharded
+// sweep" below); it has no Pallas counterpart (the JAX package's panel scan,
+// sartsolver_tpu/ops/fused_sweep.py:270, is plain XLA).
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the driver's encoder is looked up at run time)
@@ -66,6 +72,20 @@
 #include <type_traits>
 
 namespace cg = cooperative_groups;
+
+// SART_PART 0 (the default) builds the whole library in one unit. 1 to 5
+// each build one share of its kernel instances, which ops/_build.py
+// compiles at once and links into one library: two_read with the
+// pixel-sharded sweep for fp32 (1, which also holds the C interface), bf16
+// (2) and int8 (3), one_read (4) and tensor_core (5). The C interface
+// reaches the other parts' kernels through the sart_part_* entry points at
+// the end of the file; every part compiles the same host code, so an Args
+// means the same bytes in each.
+// sart-build-parts: 5
+#ifndef SART_PART
+#define SART_PART 0
+#endif
+#define SART_HAS(k) (SART_PART == 0 || SART_PART == (k))
 
 namespace {
 
@@ -2008,12 +2028,162 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pixel-sharded sweep, split at the all-reduce. A rank of a grid whose
+// pixel axis is sharded holds a block of H's rows: its back projection is a
+// partial sum that every rank of its voxel column must add before the
+// update, so the sweep runs as two calls with the caller's all-reduce of
+// [B, V_local] between them:
+//
+//   sharded bp: two_read's bp pass (transpose_w_kernel, bp_kernel) and the
+//     sum of its S splits in split order (sum_partials_kernel): the rank's
+//     partial bp [B, V], unscaled (int8: the codes' sums; the scale is
+//     applied after the reduction, in the finish, as the JAX closure
+//     rounds it).
+//   sharded finish: finish_kernel over the reduced bp (one split: the
+//     scale, the update, f_new and the forward operand), then two_read's
+//     forward pass over the rank's own rows (forward_kernel,
+//     sum_partials_kernel): fitted [B, P_local].
+//
+// The block is read twice an iteration, once a call. The JAX panel scan
+// reads it once and all-reduces every voxel panel's bp inside the read
+// (sartsolver_tpu/ops/fused_sweep.py:270); one reduction an iteration keeps
+// the collective count at one here. The splits and so every sum's order
+// follow from (P, V) alone, as in two_read.
+// ---------------------------------------------------------------------------
+
+template <typename T, int MB, bool kVec>
+cudaError_t launch_sharded_bp(const T* H, const float* w, float* bp, int P, int V, int B,
+                              const TrShape& s, unsigned char* scratch, cudaStream_t stream) {
+  using namespace two_read;
+  using K = Bp<T, MB>;
+  float* wT = reinterpret_cast<float*>(scratch);
+  float* part = reinterpret_cast<float*>(scratch + s.wt_bytes);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bp_kernel<T, MB, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid_t((unsigned)(s.Pp / 32), (unsigned)ceil_div(s.Ws, 32));
+  transpose_w_kernel<<<grid_t, dim3(32, 8), 0, stream>>>(w, B, P, s.Pp, s.Ws, wT);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_bp((unsigned)ceil_div(V, K::Cols), (unsigned)s.S, (unsigned)s.tiles);
+  bp_kernel<T, MB, kVec><<<grid_bp, K::kThreads, K::kSmem, stream>>>(
+      H, wT, part, P, V, B, s.Ws, s.rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<264, 256, 0, stream>>>(part, s.S, B, B, V, bp);
+  return cudaGetLastError();
+}
+
+template <typename T, int MB, bool kVec>
+cudaError_t launch_sharded_finish(const T* H, const Args& a, const float* bp, const TrShape& s) {
+  using namespace two_read;
+  constexpr int kFwdSmem = forward_smem<T, MB, kVec>();
+  float* xs = reinterpret_cast<float*>(a.scratch);
+  float* fwd = reinterpret_cast<float*>(a.scratch + s.xs_bytes);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      forward_kernel<T, MB, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (attr != cudaSuccess) return attr;
+  const long long n = (long long)s.Bpad * s.Vp;
+  const unsigned grid_f = (unsigned)std::min(ceil_div(n, 256), 8LL * kSMs);
+  finish_kernel<T><<<grid_f, 256, 0, a.stream>>>(bp, 1, a.scale, a.f, a.aux, a.f_new, xs,
+                                                      a.B, s.Bpad, a.V, s.Vp, a.mode,
+                                                      a.has_pen, a.alpha, a.eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_fwd((unsigned)ceil_div(a.P, kRows), (unsigned)s.S2, (unsigned)s.tiles);
+  forward_kernel<T, MB, kVec><<<grid_fwd, Fwd<T, MB>::kThreads, kFwdSmem, a.stream>>>(
+      H, xs, fwd, a.P, a.V, s.Vp, a.B, s.cols_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<264, 256, 0, a.stream>>>(fwd, s.S2, a.B, a.B, a.P, a.fitted);
+  return cudaGetLastError();
+}
+
+// `finish` false: the bp call (w, bp_out), true: the finish call (a, bp_in)
+template <typename T, bool kVec>
+cudaError_t dispatch_sharded_mb(const T* H, bool finish, const float* w, float* bp_out,
+                                const float* bp_in, const Args& a, const TrShape& s) {
+#define SART_SHARDED_CASE(MBV)                                                          \
+  case MBV:                                                                            \
+    return finish ? launch_sharded_finish<T, MBV, kVec>(H, a, bp_in, s)                \
+                  : launch_sharded_bp<T, MBV, kVec>(H, w, bp_out, a.P, a.V, a.B, s,    \
+                                                    a.scratch, a.stream);
+  switch (s.MB) {
+    SART_SHARDED_CASE(1)
+    SART_SHARDED_CASE(2)
+    SART_SHARDED_CASE(4)
+    SART_SHARDED_CASE(8)
+    SART_SHARDED_CASE(16)
+    default:
+      return finish ? launch_sharded_finish<T, two_read::kMaxMB, kVec>(H, a, bp_in, s)
+                    : launch_sharded_bp<T, two_read::kMaxMB, kVec>(H, w, bp_out, a.P, a.V,
+                                                                   a.B, s, a.scratch, a.stream);
+  }
+#undef SART_SHARDED_CASE
+}
+
+template <typename T>
+cudaError_t dispatch_sharded(const void* H, bool finish, const float* w, float* bp_out,
+                             const float* bp_in, const Args& a) {
+  const T* h = static_cast<const T*>(H);
+  const TrShape s = tr_shape(a.P, a.V, a.B);
+  const bool vec = (uintptr_t)H % 16 == 0 && ((long long)a.V * sizeof(T)) % 16 == 0;
+  return vec ? dispatch_sharded_mb<T, true>(h, finish, w, bp_out, bp_in, a, s)
+             : dispatch_sharded_mb<T, false>(h, finish, w, bp_out, bp_in, a, s);
+}
+
+long long sharded_scratch_bytes(bool finish, long long P, long long V, long long B) {
+  const TrShape s = tr_shape(P, V, B);
+  return finish ? s.xs_bytes + s.fwd_bytes : s.wt_bytes + s.bp_bytes;
+}
+
 }  // namespace
 
-// Bytes of scratch the plan needs at this shape; -1 for an unknown plan. The caller allocates it, 256-byte aligned.
-extern "C" long long sart_fused_sweep_scratch_bytes(int plan, long long P,
-                                                    long long V, long long B) {
-  return scratch_bytes(plan, P, V, B);
+// The parts' entry points (see SART_PART): a storage's two_read sweep and
+// pixel-sharded sweep, one_read and tensor_core, each defined in the part
+// that holds their kernels; `args` is the caller's Args.
+extern "C" {
+int sart_part_two_read_f32(const void* H, const void* args);
+int sart_part_two_read_bf16(const void* H, const void* args);
+int sart_part_two_read_i8(const void* H, const void* args);
+int sart_part_sharded_f32(const void* H, int finish, const float* w, float* bp_out,
+                          const float* bp_in, const void* args);
+int sart_part_sharded_bf16(const void* H, int finish, const float* w, float* bp_out,
+                           const float* bp_in, const void* args);
+int sart_part_sharded_i8(const void* H, int finish, const float* w, float* bp_out,
+                         const float* bp_in, const void* args);
+int sart_part_one_read(int storage, const void* H, const void* args);
+int sart_part_tc(int storage, const void* H, const void* args);
+}
+
+#define SART_TWO_READ_PART(T, NAME)                                                   \
+  extern "C" int sart_part_two_read_##NAME(const void* H, const void* args) {        \
+    return (int)dispatch_two_read<T>(H, *static_cast<const Args*>(args));            \
+  }                                                                                   \
+  extern "C" int sart_part_sharded_##NAME(const void* H, int finish, const float* w,  \
+                                          float* bp_out, const float* bp_in,          \
+                                          const void* args) {                         \
+    return (int)dispatch_sharded<T>(H, finish != 0, w, bp_out, bp_in,                 \
+                                    *static_cast<const Args*>(args));                 \
+  }
+#if SART_HAS(1)
+SART_TWO_READ_PART(float, f32)
+#endif
+#if SART_HAS(2)
+SART_TWO_READ_PART(bf16_bits, bf16)
+#endif
+#if SART_HAS(3)
+SART_TWO_READ_PART(int8_t, i8)
+#endif
+#undef SART_TWO_READ_PART
+
+#if SART_HAS(4)
+extern "C" int sart_part_one_read(int storage, const void* H, const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  if (storage == 0) return (int)dispatch_one_read<float>(H, a);
+  if (storage == 1) return (int)dispatch_one_read<bf16_bits>(H, a);
+  return (int)dispatch_one_read<int8_t>(H, a);
 }
 
 // Clusters the one_read plan runs for the storage type (0 fp32, 1 bf16,
@@ -2038,6 +2208,22 @@ extern "C" int sart_one_read_phases(unsigned long long* out) {
   return one_read::kPhases + 2;
 }
 #endif
+#endif  // SART_HAS(4)
+
+#if SART_HAS(5)
+extern "C" int sart_part_tc(int storage, const void* H, const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  if (storage == 1) return (int)dispatch_tc<bf16_bits>(H, a);
+  return (int)dispatch_tc<int8_t>(H, a);
+}
+#endif
+
+#if SART_HAS(1)
+// Bytes of scratch the plan needs at this shape; -1 for an unknown plan. The caller allocates it, 256-byte aligned.
+extern "C" long long sart_fused_sweep_scratch_bytes(int plan, long long P,
+                                                    long long V, long long B) {
+  return scratch_bytes(plan, P, V, B);
+}
 
 // Returns a cudaError_t (0 on success). H is a device pointer to a
 // contiguous [P, V] matrix of the storage type `storage` (0 fp32, 1 bf16,
@@ -2097,16 +2283,94 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
   a.scratch = static_cast<unsigned char*>(scratch);
   a.stream = static_cast<cudaStream_t>(stream);
   switch (plan) {
-    case kOneRead:
-      if (storage == 0) return (int)dispatch_one_read<float>(H, a);
-      if (storage == 1) return (int)dispatch_one_read<bf16_bits>(H, a);
-      return (int)dispatch_one_read<int8_t>(H, a);
-    case kTensorCore:
-      if (storage == 1) return (int)dispatch_tc<bf16_bits>(H, a);
-      return (int)dispatch_tc<int8_t>(H, a);
+    case kOneRead: return sart_part_one_read(storage, H, &a);
+    case kTensorCore: return sart_part_tc(storage, H, &a);
     default: break;
   }
-  if (storage == 0) return (int)dispatch_two_read<float>(H, a);
-  if (storage == 1) return (int)dispatch_two_read<bf16_bits>(H, a);
-  return (int)dispatch_two_read<int8_t>(H, a);
+  if (storage == 0) return sart_part_two_read_f32(H, &a);
+  if (storage == 1) return sart_part_two_read_bf16(H, &a);
+  return sart_part_two_read_i8(H, &a);
 }
+
+// Bytes of scratch the pixel-sharded sweep's call needs (finish 0: the bp
+// call, 1: the finish call) at this shape.
+extern "C" long long sart_sharded_scratch_bytes(int finish, long long P, long long V,
+                                                long long B) {
+  return sharded_scratch_bytes(finish != 0, P, V, B);
+}
+
+// The pixel-sharded sweep's first call: bp [B, V] = w [B, P] @ H [P, V] of
+// the rank's block, unscaled (int8: the codes' sums), summed in two_read's
+// split order. Returns a cudaError_t (0 on success); pointers as for
+// sart_fused_sweep.
+extern "C" int sart_sharded_bp(const void* H, int storage, const float* w, float* bp,
+                               long long P, long long V, long long B, void* scratch,
+                               long long scratch_size, void* stream) {
+  if (P <= 0 || V <= 0 || B <= 0 || P > 0x7fffffffLL || V > 0x7fffffffLL ||
+      B > 0x7fffffffLL || storage < 0 || storage > 2)
+    return (int)cudaErrorInvalidValue;
+  if (!plan_ok(kTwoRead, storage, P, V, B, H)) return (int)cudaErrorInvalidValue;
+  const long long need = sharded_scratch_bytes(false, P, V, B);
+  if (scratch_size < need || (uintptr_t)scratch % 256 != 0) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.P = (int)P;
+  a.V = (int)V;
+  a.B = (int)B;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (storage == 0) return sart_part_sharded_f32(H, 0, w, bp, nullptr, &a);
+  if (storage == 1) return sart_part_sharded_bf16(H, 0, w, bp, nullptr, &a);
+  return sart_part_sharded_i8(H, 0, w, bp, nullptr, &a);
+}
+
+// The pixel-sharded sweep's second call, after the caller's all-reduce of
+// bp over the pixel axis: bp rounded times the scale (int8), the update
+// (aux, mode, alpha, eps, alpha_lane as for sart_fused_sweep), f_new [B, V]
+// and fitted [B, P] of the rank's own rows.
+extern "C" int sart_sharded_finish(const void* H, int storage, const float* scale,
+                                   const float* f, const float* bp, const float* aux0,
+                                   const float* aux1, const float* aux2,
+                                   const long long* aux_rows, int n_aux, float* f_new,
+                                   float* fitted, long long P, long long V, long long B,
+                                   int mode, float alpha, float eps,
+                                   const float* alpha_lane, long long alpha_rows,
+                                   void* scratch, long long scratch_size, void* stream) {
+  if (P <= 0 || V <= 0 || B <= 0 || P > 0x7fffffffLL || V > 0x7fffffffLL ||
+      B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int want = mode == 0 ? 1 : 2;
+  if ((mode != 0 && mode != 1) || (n_aux != want && n_aux != want + 1))
+    return (int)cudaErrorInvalidValue;
+  if (storage < 0 || storage > 2 || (storage == 2) != (scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (alpha_lane != nullptr && (mode != 1 || (alpha_rows != 1 && alpha_rows != B)))
+    return (int)cudaErrorInvalidValue;
+  if (!plan_ok(kTwoRead, storage, P, V, B, H)) return (int)cudaErrorInvalidValue;
+  const long long need = sharded_scratch_bytes(true, P, V, B);
+  if (scratch_size < need || (uintptr_t)scratch % 256 != 0) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.scale = scale;
+  a.f = f;
+  const float* ptrs[3] = {aux0, aux1, aux2};
+  for (int i = 0; i < 3; ++i) {
+    a.aux.ptr[i] = i < n_aux ? ptrs[i] : nullptr;
+    a.aux.stride[i] = (i < n_aux && aux_rows[i] != 1) ? V : 0;
+  }
+  a.aux.alpha_lane = alpha_lane;
+  a.aux.alpha_stride = (alpha_lane != nullptr && alpha_rows != 1) ? 1 : 0;
+  a.f_new = f_new;
+  a.fitted = fitted;
+  a.P = (int)P;
+  a.V = (int)V;
+  a.B = (int)B;
+  a.mode = mode;
+  a.has_pen = n_aux == want + 1;
+  a.alpha = alpha;
+  a.eps = eps;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (storage == 0) return sart_part_sharded_f32(H, 1, nullptr, nullptr, bp, &a);
+  if (storage == 1) return sart_part_sharded_bf16(H, 1, nullptr, nullptr, bp, &a);
+  return sart_part_sharded_i8(H, 1, nullptr, nullptr, bp, &a);
+}
+#endif  // SART_HAS(1)

@@ -199,17 +199,17 @@ def fused_sweep_reference(rtm: Tensor, w: Tensor, f: Tensor,
     return f_new, fitted
 
 
-def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
+def _check(rtm: Tensor, w: Optional[Tensor], f: Tensor, aux: Sequence[Tensor],
            logarithmic: bool, scale: Optional[Tensor],
            alpha_lane: Optional[Tensor] = None) -> None:
-    if rtm.ndim != 2 or w.ndim != 2 or f.ndim != 2:
+    if rtm.ndim != 2 or (w is not None and w.ndim != 2) or f.ndim != 2:
         raise ValueError("fused_sweep: rtm [P, V], w [B, P] and f [B, V] expected.")
     P, V = rtm.shape
-    B = w.shape[0]
-    if B < 1 or w.shape != (B, P) or f.shape != (B, V):
+    B = f.shape[0]
+    if B < 1 or (w is not None and w.shape != (B, P)) or f.shape != (B, V):
         raise ValueError(
-            f"fused_sweep: shapes rtm {tuple(rtm.shape)}, w {tuple(w.shape)}, "
-            f"f {tuple(f.shape)} do not agree."
+            f"fused_sweep: shapes rtm {tuple(rtm.shape)}, w "
+            f"{None if w is None else tuple(w.shape)}, f {tuple(f.shape)} do not agree."
         )
     want = 2 if logarithmic else 1
     if len(aux) not in (want, want + 1):
@@ -240,7 +240,8 @@ def _check(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor],
         if alpha_lane.shape not in ((1, 1), (B, 1)):
             raise ValueError(f"fused_sweep: alpha_lane of shape {tuple(alpha_lane.shape)}; "
                              f"[1, 1] or [{B}, 1] expected.")
-    tensors = ((rtm, w, f, *aux) + (() if scale is None else (scale,))
+    tensors = ((rtm, f, *aux) + (() if w is None else (w,))
+               + (() if scale is None else (scale,))
                + (() if alpha_lane is None else (alpha_lane,)))
     if any(t.device != rtm.device for t in tensors):
         raise ValueError("fused_sweep: all tensors must be on one device.")
@@ -353,3 +354,182 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+
+
+# ---- the pixel-sharded sweep, split at the all-reduce ------------------------
+
+
+def sharded_sweep_bp_reference(rtm: Tensor, w: Tensor) -> Tensor:
+    """Plain version of :func:`sharded_sweep_bp`: ``w @ H`` ``[B, V]`` over
+    the panels and row blocks :func:`fused_sweep_reference` takes, unscaled
+    (for int8 codes the codes' sums)."""
+    P, V = rtm.shape
+    bp = torch.empty((w.shape[0], V), dtype=w.dtype, device=w.device)
+    for c in _blocks(V):
+        Hc = rtm[:, c].to(w.dtype)
+        acc = None
+        for r in _blocks(P):
+            part = w[:, r] @ Hc[r]
+            acc = part if acc is None else acc + part
+        bp[:, c] = acc
+    return bp
+
+
+def sharded_sweep_finish_reference(rtm: Tensor, f: Tensor, bp: Tensor,
+                                   aux: Sequence[Tensor], *, logarithmic: bool,
+                                   alpha: float = 1.0, eps: float = 0.0,
+                                   scale: Optional[Tensor] = None,
+                                   alpha_lane: Optional[Tensor] = None
+                                   ) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`sharded_sweep_finish`: per panel, the reduced
+    ``bp`` (times ``scale`` for int8 codes), the update and the forward
+    product of the rank's rows, the panels' products summed in order. With
+    :func:`sharded_sweep_bp_reference` before it and nothing between, it
+    is :func:`fused_sweep_reference` op for op."""
+    V = rtm.shape[1]
+    f_new = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    fitted = None
+    for c in _blocks(V):
+        Hc = rtm[:, c].to(f.dtype)
+        bpc = bp[:, c] if scale is None else bp[:, c] * scale[:, c]
+        fc = _update_reference(f[:, c], bpc, [a[:, c] for a in aux], logarithmic=logarithmic,
+                               alpha=alpha, eps=eps, alpha_lane=alpha_lane)
+        f_new[:, c] = fc
+        part = (fc if scale is None else fc * scale[:, c]) @ Hc.T
+        fitted = part if fitted is None else fitted + part
+    return f_new, fitted
+
+
+def _sharded_lib():
+    from sartsolver_tpu_torch.ops import _build
+
+    lib = _build.load("fused_sweep")
+    if lib.sart_sharded_bp.argtypes is None:  # once per loaded library
+        lib.sart_sharded_scratch_bytes.argtypes = [ctypes.c_int] + [ctypes.c_longlong] * 3
+        lib.sart_sharded_scratch_bytes.restype = ctypes.c_longlong
+        lib.sart_sharded_bp.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+        lib.sart_sharded_bp.restype = ctypes.c_int
+        lib.sart_sharded_finish.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+               ctypes.c_void_p])
+        lib.sart_sharded_finish.restype = ctypes.c_int
+    return lib
+
+
+def _scratch(lib, finish: bool, P: int, V: int, B: int, device) -> Tuple[Optional[Tensor], int]:
+    nbytes = max(int(lib.sart_sharded_scratch_bytes(1 if finish else 0, P, V, B)), 0)
+    # the caching allocator hands out 512-byte aligned blocks
+    return (torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None), nbytes
+
+
+def sharded_sweep_bp(rtm: Tensor, w: Tensor) -> Tensor:
+    """The first call of the pixel-sharded sweep: this rank's partial back
+    projection ``w @ H`` ``[B, V]`` of its block ``H`` ``[P, V]`` (fp32,
+    bf16 or int8 codes, unscaled: the codes' sums). The caller sums it over
+    the grid's pixel axis (``parallel/comm.py:all_reduce_sum``) and hands
+    the sum to :func:`sharded_sweep_finish`.
+
+    On CUDA tensors it launches ``csrc/fused_sweep.cu:sart_sharded_bp``
+    (two_read's bp pass: the block read once for up to 32 batch rows) or
+    raises; on CPU tensors it runs :func:`sharded_sweep_bp_reference`.
+    ``sharded_sweep_bp.launches`` counts the launches.
+
+    Where the JAX panel scan (``sartsolver_tpu/ops/fused_sweep.py:270``)
+    all-reduces each voxel panel's bp inside one read of the block, this
+    sweep reduces once an iteration and reads the block twice (here and in
+    the finish): one collective an iteration, none overlapped with the
+    products."""
+    if rtm.ndim != 2 or w.ndim != 2 or w.shape[1] != rtm.shape[0] or w.shape[0] < 1:
+        raise ValueError(f"sharded_sweep_bp: shapes rtm {tuple(rtm.shape)} and w "
+                         f"{tuple(w.shape)} do not agree.")
+    if rtm.dtype not in STORAGE or w.dtype != torch.float32 or w.device != rtm.device:
+        raise ValueError("sharded_sweep_bp: fp32, bf16 or int8 storage and an fp32 w on "
+                         f"its device, got {rtm.dtype} / {w.dtype} on {w.device}.")
+    if rtm.device.type == "cpu":
+        return sharded_sweep_bp_reference(rtm, w)
+    if rtm.device.type != "cuda":
+        raise ValueError(f"sharded_sweep_bp: unsupported device {rtm.device}.")
+    if not (rtm.is_contiguous() and w.is_contiguous()):
+        raise ValueError("sharded_sweep_bp: the CUDA kernel needs contiguous tensors.")
+    P, V = rtm.shape
+    B = w.shape[0]
+    lib = _sharded_lib()
+    bp = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
+    scratch, nbytes = _scratch(lib, False, P, V, B, rtm.device)
+    with torch.cuda.device(rtm.device):
+        err = lib.sart_sharded_bp(rtm.data_ptr(), STORAGE[rtm.dtype], w.data_ptr(),
+                                  bp.data_ptr(), P, V, B,
+                                  None if scratch is None else scratch.data_ptr(), nbytes,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sharded_sweep_bp: CUDA kernel failed with cudaError_t {err}.")
+    sharded_sweep_bp.launches += 1
+    return bp
+
+
+def sharded_sweep_finish(rtm: Tensor, f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
+                         logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
+                         scale: Optional[Tensor] = None,
+                         alpha_lane: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """The second call of the pixel-sharded sweep: from the back projection
+    ``bp`` ``[B, V]`` reduced over the pixel axis, ``(f_new [B, V], fitted
+    [B, P])`` — the update of :func:`fused_sweep` (``bp`` rounded times
+    ``scale`` first for int8 codes) and the forward product of this rank's
+    rows, complete for them (a voxel-sharded grid still sums it over the
+    voxel axis).
+
+    On CUDA tensors it launches ``csrc/fused_sweep.cu:sart_sharded_finish``
+    (two_read's finish and forward pass) or raises; on CPU tensors it runs
+    :func:`sharded_sweep_finish_reference`. ``sharded_sweep_finish.launches``
+    counts the launches."""
+    B = f.shape[0]
+    if bp.shape != f.shape:
+        raise ValueError(f"sharded_sweep_finish: bp {tuple(bp.shape)} and f "
+                         f"{tuple(f.shape)} must agree.")
+    _check(rtm, None, f, aux, logarithmic, scale, alpha_lane)
+    if bp.dtype != torch.float32 or bp.device != rtm.device:
+        raise ValueError("sharded_sweep_finish: bp must be fp32 on the matrix's device.")
+    if rtm.device.type == "cpu":
+        return sharded_sweep_finish_reference(rtm, f, bp, aux, logarithmic=logarithmic,
+                                              alpha=alpha, eps=eps, scale=scale,
+                                              alpha_lane=alpha_lane)
+    if rtm.device.type != "cuda":
+        raise ValueError(f"sharded_sweep_finish: unsupported device {rtm.device}.")
+    tensors = ((rtm, f, bp, *aux) + (() if scale is None else (scale,))
+               + (() if alpha_lane is None else (alpha_lane,)))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sharded_sweep_finish: the CUDA kernel needs contiguous tensors.")
+    P, V = rtm.shape
+    lib = _sharded_lib()
+    f_new = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
+    fitted = torch.empty((B, P), dtype=torch.float32, device=rtm.device)
+    scratch, nbytes = _scratch(lib, True, P, V, B, rtm.device)
+    ptrs = [a.data_ptr() for a in aux] + [None] * (3 - len(aux))
+    rows = (ctypes.c_longlong * 3)(*([a.shape[0] for a in aux] + [1] * (3 - len(aux))))
+    with torch.cuda.device(rtm.device):
+        err = lib.sart_sharded_finish(
+            rtm.data_ptr(), STORAGE[rtm.dtype], None if scale is None else scale.data_ptr(),
+            f.data_ptr(), bp.data_ptr(), *ptrs, rows, len(aux), f_new.data_ptr(),
+            fitted.data_ptr(), P, V, B, 1 if logarithmic else 0, float(alpha), float(eps),
+            None if alpha_lane is None else alpha_lane.data_ptr(),
+            1 if alpha_lane is None else alpha_lane.shape[0],
+            None if scratch is None else scratch.data_ptr(), nbytes,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sharded_sweep_finish: CUDA kernel failed with cudaError_t {err}.")
+    sharded_sweep_finish.launches += 1
+    return f_new, fitted
+
+
+def reset_sharded_launch_counts() -> None:
+    """Set the split sweep's launch counts to 0."""
+    sharded_sweep_bp.launches = 0
+    sharded_sweep_finish.launches = 0
+
+
+reset_sharded_launch_counts()

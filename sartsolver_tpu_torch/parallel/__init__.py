@@ -1,2 +1,3 @@
-"""The upload-once, solve-many-frames solver and the chunked RTM ingest
-that fills its matrix (one device for now)."""
+"""The upload-once, solve-many-frames solver, the chunked RTM ingest that
+fills its matrix, and the grid of ranks both run on (``mesh.py``,
+``comm.py``)."""

@@ -2,8 +2,9 @@
 
 Counterpart of the one-process side of ``sartsolver_tpu/parallel/multihost.py``
 (named after it, so a reader finds one from the other): the JAX module's
-``mesh`` becomes an explicit ``device``, and the striped multi-process read
-and its ``serialize=`` turns come with the multi-GPU slice.
+``mesh`` becomes an explicit ``device``, and on a grid of ranks
+(``parallel/mesh.py``) its ``grid=``: each rank then reads only its own
+block's rows and columns, in turns where ``serialize=`` asks for them.
 
 - :func:`read_and_shard_rtm` streams the matrix into a buffer of the stored
   dtype (fp32, bf16, or fp64 on the CPU), allocated on the device with
@@ -12,6 +13,9 @@ and its ``serialize=`` turns come with the multi-GPU slice.
   the column maxima, pass 2 quantizes each chunk into the 1-byte codes;
 - :func:`lowrank_operator_or_decline` reads the whole matrix on the host
   and factors it (``--lowrank_rtm``), or declines;
+- :func:`initialize`, :func:`is_primary`, :func:`agree_stop` and the
+  rank's pixel rows (:func:`process_pixel_range`, :func:`process_pixel_runs`,
+  :func:`all_processes_local_capable`) serve a run over a grid of ranks;
 - :func:`_read_stripe_retried` reads one row chunk under the
   ``hdf5.rtm_ingest`` retry policy and counts its bytes in
   ``bytes_ingested_total{source="rtm"}``.
@@ -306,23 +310,26 @@ def _feed_tile_stats(tile_stats, x: torch.Tensor, r0: int, scratch: bool = False
 def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
             dev: torch.device, chunk: int, *, what: str, sparse_cache: dict,
             direct: Optional[Callable] = None, consume: Optional[Callable] = None,
-            timings: Optional[dict] = None) -> None:
+            timings: Optional[dict] = None, window=None) -> None:
     """One pass over the matrix's row chunks. Each chunk is read into a
     host staging buffer, copied to ``direct(r0, n)`` (a device view of the
     stored matrix's rows) or to the device staging chunk, and
     ``consume(r0, n, chunk)`` (on the copy's stream) then turns it into the
-    stored rows or reads them."""
+    stored rows or reads them. ``window`` ``(row0, rows, col0, cols)``
+    (default the whole matrix) reads only those logical rows and columns,
+    a rank's block on a grid; ``r0`` counts from ``row0``."""
     from sartsolver_tpu_torch.resilience import integrity
 
+    row0, nrows, col0, ncols = (0, npixel, 0, nvoxel) if window is None else window
     cuda = dev.type == "cuda"
-    n0 = min(chunk, npixel)
-    starts = list(range(0, npixel, chunk))
+    n0 = min(chunk, nrows)
+    starts = list(range(0, nrows, chunk))
     # the integrity layer's second read of each chunk (one reader at a time)
-    check = np.empty((n0, nvoxel), np.float32) if integrity.enabled() else None
+    check = np.empty((n0, ncols), np.float32) if integrity.enabled() else None
     # one host buffer per slot the pass uses (one where it has one chunk),
     # allocated at its first read
     host: List = [None, None]
-    stage = (torch.empty((n0, nvoxel), dtype=torch.float32, device=dev)
+    stage = (torch.empty((n0, ncols), dtype=torch.float32, device=dev)
              if consume is not None and cuda else None)
     side = torch.cuda.Stream(dev) if cuda else None
     copied: List = [None, None]  # per host buffer: its last upload's end event
@@ -331,15 +338,17 @@ def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
 
     def read(k: int) -> None:
         r0, slot = starts[k], k % 2
-        n = min(chunk, npixel - r0)
+        n = min(chunk, nrows - r0)
         if copied[slot] is not None:
             copied[slot].synchronize()  # the buffer's previous upload is done
         t0 = time.perf_counter()
         if host[slot] is None:
-            host[slot] = torch.empty((n0, nvoxel), dtype=torch.float32, pin_memory=cuda)
-        _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, r0, check_out=check,
-                             out=host[slot].numpy()[:n], sparse_cache=sparse_cache,
-                             cache_rows=(0, npixel), cache_cols=(0, nvoxel))
+            host[slot] = torch.empty((n0, ncols), dtype=torch.float32, pin_memory=cuda)
+        _read_stripe_retried(sorted_matrix_files, rtm_name, n, nvoxel, row0 + r0,
+                             check_out=check, out=host[slot].numpy()[:n],
+                             sparse_cache=sparse_cache, cache_rows=(row0, row0 + nrows),
+                             cache_cols=(col0, col0 + ncols), offset_voxel=col0,
+                             nvoxel_local=ncols)
         read_s[0] += time.perf_counter() - t0
 
     if cuda:  # the side stream's writes follow the buffers' allocation
@@ -350,7 +359,7 @@ def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
             ThreadPoolExecutor(max_workers=1) as pool:
         pending = pool.submit(read, 0) if prefetch else None
         for k, r0 in enumerate(starts):
-            n, slot = min(chunk, npixel - r0), k % 2
+            n, slot = min(chunk, nrows - r0), k % 2
             if prefetch:
                 pending.result()
                 pending = pool.submit(read, k + 1) if k + 1 < len(starts) else None
@@ -380,7 +389,7 @@ def _stream(sorted_matrix_files, rtm_name: str, npixel: int, nvoxel: int,
                     else sum(uploads))
         timings[what] = dict(seconds=time.perf_counter() - t_pass, read_seconds=read_s[0],
                              upload_seconds=upload_s, chunks=len(starts), chunk_rows=chunk,
-                             prefetch=prefetch, bytes=npixel * nvoxel * 4)
+                             prefetch=prefetch, bytes=nrows * ncols * 4)
 
 
 def _chunk(chunk_rows: Optional[int], npixel: int, nvoxel: int) -> int:
@@ -403,13 +412,23 @@ def read_and_shard_rtm(
     ingest_stats=None,
     tile_stats=None,
     timings: Optional[dict] = None,
+    grid=None,
+    serialize: bool = False,
 ) -> torch.Tensor:
     """The RTM ``[rows, nvoxel]`` on ``device`` in ``dtype`` (``"float32"``,
     ``"bfloat16"`` or ``"float64"``, or the torch dtype), read in row chunks.
     ``rows`` (default ``npixel``) pads the matrix with zero rows, the
     ordered-subsets padding of ``parallel/sharded.py``. ``ingest_stats``
     takes the stored values' sums and ``tile_stats`` their tile maxima
-    (module docstring)."""
+    (module docstring).
+
+    ``grid`` (a ``parallel/mesh.py:RankGrid`` of more than one rank): this
+    rank's padded block ``[rows, cols]`` of the grid's partition, read from
+    its own logical rows and columns only (the reference's per-rank block
+    read, raytransfer.cpp:49); the padding is zero. ``serialize`` reads in
+    turns, rank after rank with a barrier between turns (the reference's
+    HDD-friendly round robin, main.cpp:78-86); ``--parallel_read`` turns it
+    off."""
     dev = resolve_device(device)
     dt = dtype if isinstance(dtype, torch.dtype) else {
         "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -417,6 +436,10 @@ def read_and_shard_rtm(
     if dt == torch.int8:
         raise ValueError("int8 staging needs the quantization pass; call "
                          "read_and_quantize_rtm (a bare cast would truncate).")
+    if grid is not None and grid.world > 1:
+        return _in_turns(grid, serialize, lambda: _read_block(
+            sorted_matrix_files, rtm_name, npixel, nvoxel, dev, dt, grid,
+            _chunk(chunk_rows, npixel, nvoxel), ingest_stats, tile_stats, timings))
     rows = npixel if rows is None else int(rows)
     buf = torch.empty((rows, nvoxel), dtype=dt, device=dev)
     buf[npixel:].zero_()
@@ -449,6 +472,60 @@ def read_and_shard_rtm(
     return buf
 
 
+def _in_turns(grid, serialize: bool, read: Callable):
+    """``read()`` on every rank, at once, or with ``serialize`` one rank a
+    turn in rank order, every rank meeting at a one-int all-gather after
+    each turn."""
+    from sartsolver_tpu_torch.parallel import comm
+
+    if not serialize:
+        return read()
+    out = None
+    for turn in range(grid.world):
+        if turn == grid.rank:
+            out = read()
+        comm.world_flags(turn, grid)
+    return out
+
+
+def _grid_window(grid, npixel: int, nvoxel: int):
+    """``(block rows, block cols, window)`` of this rank's block: the window
+    ``(row0, rows, col0, cols)`` of its logical rows and columns."""
+    rb, cb = grid.blocks(npixel, nvoxel)
+    r0, nr = grid.row_range(npixel)
+    c0, nc = grid.col_range(nvoxel)
+    return rb, cb, (r0, nr, c0, nc)
+
+
+def _no_grid_stats(ingest_stats, tile_stats) -> None:
+    if ingest_stats is not None or tile_stats is not None:
+        raise ValueError("A grid's striped ingest takes no ingest sums or tile "
+                         "index (the integrity layer and the block-sparse RTM run "
+                         "on one rank).")
+
+
+def _read_block(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, dt, grid, chunk,
+                ingest_stats, tile_stats, timings) -> torch.Tensor:
+    """This rank's padded block of the stored matrix, in ``dt``."""
+    _no_grid_stats(ingest_stats, tile_stats)
+    rb, cb, window = _grid_window(grid, npixel, nvoxel)
+    buf = torch.zeros((rb, cb), dtype=dt, device=dev)
+    _, nr, _, nc = window
+    if nr and nc:
+        chunk = max(1, min(chunk, nr))
+        if dt == torch.float32:
+            _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
+                    sparse_cache={}, direct=lambda r0, n: buf[r0:r0 + n, :nc],
+                    timings=timings, window=window)
+        else:
+            def consume(r0, n, x):
+                buf[r0:r0 + n, :nc].copy_(x)
+
+            _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="store",
+                    sparse_cache={}, consume=consume, timings=timings, window=window)
+    return buf
+
+
 def read_and_quantize_rtm(
     sorted_matrix_files: Dict[str, List[str]],
     rtm_name: str,
@@ -461,6 +538,8 @@ def read_and_quantize_rtm(
     ingest_stats=None,
     tile_stats=None,
     timings: Optional[dict] = None,
+    grid=None,
+    serialize: bool = False,
 ):
     """Two-pass chunked int8 ingest: ``(codes int8 [rows, nvoxel], scale fp32
     [nvoxel])`` on ``device``, the recipe of ``models/sart.py:quantize_rtm``
@@ -470,29 +549,61 @@ def read_and_quantize_rtm(
     both passes; the dense rows twice. ``ingest_stats`` takes the
     dequantized codes' sums in pass 2 (the JAX package's ``stats_dequant``),
     ``tile_stats`` their tile maxima (the codes times the scales, in place
-    on the staging chunk once the codes are stored)."""
+    on the staging chunk once the codes are stored).
+
+    ``grid`` (a voxel-major grid of more than one rank; the solver refuses
+    int8 on a pixel-sharded one): this rank's block ``(codes [rows, cols],
+    scale [cols])``, both passes reading every row of its own columns, so
+    the column maxima are the whole columns' and need no reduction
+    (``sartsolver_tpu/parallel/multihost.py:130-228``); padded columns have
+    scale 1. ``serialize`` as for :func:`read_and_shard_rtm`."""
+    dev = resolve_device(device)
+    window = None
+    if grid is not None and grid.world > 1:
+        if grid.n_pix > 1:
+            raise ValueError("int8 on a grid needs its pixel axis unsharded (whole "
+                             "columns a rank).")
+        _no_grid_stats(ingest_stats, tile_stats)
+        rows, width, window = _grid_window(grid, npixel, nvoxel)
+        return _in_turns(grid, serialize, lambda: _quantize_pass(
+            sorted_matrix_files, rtm_name, npixel, nvoxel, dev, rows, width, window,
+            _chunk(chunk_rows, npixel, nvoxel), None, None, timings))
+    rows = npixel if rows is None else int(rows)
+    return _quantize_pass(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, rows, nvoxel,
+                          None, _chunk(chunk_rows, npixel, nvoxel), ingest_stats,
+                          tile_stats, timings)
+
+
+def _quantize_pass(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, rows, width, window,
+                   chunk, ingest_stats, tile_stats, timings):
+    """The two passes of :func:`read_and_quantize_rtm` into ``(codes [rows,
+    width], scale [width])``, over ``window`` (the whole matrix where
+    None)."""
     from sartsolver_tpu_torch.ops.projection import _sym_scale
 
-    dev = resolve_device(device)
-    rows = npixel if rows is None else int(rows)
-    chunk = _chunk(chunk_rows, npixel, nvoxel)
+    nr, nc = (npixel, nvoxel) if window is None else (window[1], window[3])
     cache: dict = {}
-    colmax = torch.zeros(nvoxel, dtype=torch.float32, device=dev)
+    colmax = torch.zeros(width, dtype=torch.float32, device=dev)
+    if not (nr and nc):
+        return torch.zeros((rows, width), dtype=torch.int8, device=dev), _sym_scale(colmax)
+    chunk = max(1, min(chunk, nr))
 
     def take_max(_r0, _n, x):
-        torch.maximum(colmax, x.abs_().amax(dim=0), out=colmax)
+        torch.maximum(colmax[:nc], x.abs_().amax(dim=0), out=colmax[:nc])
 
     _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="colmax",
-            sparse_cache=cache, consume=take_max, timings=timings)
+            sparse_cache=cache, consume=take_max, timings=timings, window=window)
     scale = _sym_scale(colmax)
-    codes = torch.empty((rows, nvoxel), dtype=torch.int8, device=dev)
-    codes[npixel:].zero_()
+    sc = scale[:nc]
+    codes = torch.empty((rows, width), dtype=torch.int8, device=dev)
+    codes[nr:].zero_()
+    codes[:nr, nc:].zero_()
 
     def quantize(r0, n, x):
         # ops/projection.py:_sym_codes in place on the staging chunk: the
         # same correctly rounded division, half-to-even rounding and clip
-        torch.div(x, scale, out=x)
-        codes[r0:r0 + n].copy_(x.round_().clamp_(-127, 127))
+        torch.div(x, sc, out=x)
+        codes[r0:r0 + n, :nc].copy_(x.round_().clamp_(-127, 127))
         if ingest_stats is not None:
             ingest_stats.add(codes[r0:r0 + n].to(torch.float64)
                              * scale.to(torch.float64), r0, 0)
@@ -500,5 +611,79 @@ def read_and_quantize_rtm(
             _feed_tile_stats(tile_stats, x.mul_(scale), r0, scratch=True)
 
     _stream(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, chunk, what="quantize",
-            sparse_cache=cache, consume=quantize, timings=timings)
+            sparse_cache=cache, consume=quantize, timings=timings, window=window)
     return codes, scale
+
+
+# ---- a run over a grid of ranks ------------------------------------------------
+
+
+def initialize(device_type: str) -> str:
+    """The process group of a ``--multihost`` run (``parallel/comm.py:
+    initialize``, from the launcher's environment); returns its backend."""
+    from sartsolver_tpu_torch.parallel import comm
+
+    return comm.initialize(device_type)
+
+
+def is_primary() -> bool:
+    """Whether this process owns user-facing output: rank 0 of the process
+    group, or a process without one (the reference's rank 0)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def process_pixel_range(grid, npixel: int):
+    """``(offset, count)`` of the logical pixel rows this rank holds (its
+    one row block; ``count`` 0 for a block of padding only), ``(0,
+    npixel)`` without a grid."""
+    if grid is None or grid.world <= 1:
+        return (0, npixel)
+    return grid.row_range(npixel)
+
+
+def process_pixel_runs(grid, npixel: int) -> list:
+    """This rank's pixel rows as contiguous ``(offset, count)`` runs: its
+    one row block, or nothing where it holds padding only."""
+    off, count = process_pixel_range(grid, npixel)
+    return [(off, count)] if count else []
+
+
+def all_processes_local_capable(grid, npixel: int) -> bool:
+    """Whether every rank holds a logical pixel row, the gate of per-rank
+    measurement staging: a rule of the grid's shape alone, so every rank
+    gives the same answer without a collective."""
+    if grid is None or grid.world <= 1:
+        return False
+    rb = grid.blocks(npixel, 1)[0]
+    return (grid.n_pix - 1) * rb < npixel
+
+
+def agree_stop(local_stop: bool, grid) -> bool:
+    """The stop agreement of a graceful stop on a grid: every rank polls at
+    the same group boundary, a one-int all-gather over the world, and any
+    rank's flag stops them all there (the signals land at different
+    instants; a rank that stopped alone would leave its peers waiting in a
+    collective). Without a grid, the local flag."""
+    if grid is None or grid.world <= 1:
+        return bool(local_stop)
+    from sartsolver_tpu_torch.parallel import comm
+
+    return any(comm.world_flags(1 if local_stop else 0, grid))
+
+
+def snapshot_allgather(grid):
+    """The end-of-run telemetry's ``allgather`` (``obs/run.py:
+    aggregate_snapshots``): a uint8 buffer [N] from every rank of the world,
+    ``[world, N]`` in rank order; None without a grid (no aggregation)."""
+    if grid is None or grid.world <= 1:
+        return None
+    from sartsolver_tpu_torch.parallel import comm
+    from sartsolver_tpu_torch.parallel.mesh import WORLD_AXIS
+
+    def gather(buf):
+        parts = comm.all_gather_parts(torch.from_numpy(np.ascontiguousarray(buf)),
+                                      WORLD_AXIS, grid)
+        return np.stack([p.numpy() for p in parts])
+    return gather

@@ -1,12 +1,27 @@
 """Upload once, solve many frames: the solver object of the CLI's loops.
 
-Counterpart of ``sartsolver_tpu/parallel/sharded.py`` on one device: the
-matrix is uploaded once (:func:`~sartsolver_tpu_torch.models.sart.make_problem`),
+Counterpart of ``sartsolver_tpu/parallel/sharded.py``: the matrix is
+uploaded once (:func:`~sartsolver_tpu_torch.models.sart.make_problem`),
 then frames are solved in batches (:meth:`DistributedSARTSolver.solve_batch`),
 in warm-started chains (:meth:`~DistributedSARTSolver.solve_chain`) or as
 continuous-batching lanes (:meth:`~DistributedSARTSolver.sched_lanes` and
-:meth:`~DistributedSARTSolver.sched_step`). It takes ``device=`` where the
-JAX class takes a mesh; the multi-GPU slice extends it.
+:meth:`~DistributedSARTSolver.sched_step`). It takes ``device=`` and, where
+the JAX class takes a mesh, ``grid=``.
+
+On a grid of ranks (``parallel/mesh.py:RankGrid``, more than one rank)
+each rank's solver holds its padded block of the matrix, the block the JAX
+mesh of the same shape puts on the device at the rank's coordinates
+(:func:`grid_block`), the block's ``ShardedLaplacian`` (the halo
+partition) and the ray stats reduced over the grid. Every rank calls each
+solve with the same frames; the collectives sit in the solver core's seams
+(``models/sart.py``), so statuses and iterations are equal on every rank.
+A rank's frames are its pixel block (``local=True``: the caller hands only
+the rank's rows, and the frames' max and ``||g||^2`` are combined over the
+pixel axis); its vectors are its voxel block (:attr:`width`); a result's
+solution is gathered over the voxel axis when the result is made, so the
+writer's fetch is local. A grid runs the dense matrix through the classic
+sweep and the batch and chain loops: what it refuses is
+:func:`grid_refusal`'s, each with its words.
 
 Frames arrive as host arrays in physical units and are normalized on the
 host (:func:`~sartsolver_tpu_torch.models.sart.prepare_measurement`).
@@ -84,6 +99,7 @@ from sartsolver_tpu_torch.models.sart import (
     torch_dtype,
 )
 from sartsolver_tpu_torch.obs import trace as obs_trace
+from sartsolver_tpu_torch.ops.fused_sweep import fused_sweep
 from sartsolver_tpu_torch.resilience import faults, watchdog
 
 
@@ -109,6 +125,63 @@ def os_padded_rows(npixel: int, os_subsets: int) -> int:
     return npixel if npixel % os_subsets == 0 else padded
 
 
+def grid_refusal(opts: SolverOptions, grid, *, operator=None, debug_nans: bool = False,
+                 tile_occupancy=None, resume: bool = False,
+                 geometry: bool = False) -> Optional[str]:
+    """Why a grid of ``grid.world > 1`` ranks cannot run these options
+    (each refusal its own words), None where it can. The grid runs the
+    dense stored matrix through the classic sweep; what decides per rank,
+    or keeps state a rank cannot share, is refused rather than left to
+    desynchronize the ranks' collectives."""
+    if grid is None or grid.world <= 1:
+        return None
+    kind = getattr(operator, "kind", "dense")
+    if kind == "implicit" or geometry:
+        return ("Argument geometry is single-process: the implicit operator's rays "
+                "are staged whole per host; drop --multihost or materialize the matrix.")
+    if kind == "lowrank" or opts.lowrank_rank() is not None:
+        return ("Argument lowrank_rtm factors the whole matrix in one process; a grid "
+                "of more than one rank runs the dense matrix — drop --lowrank_rtm or "
+                "run one rank.")
+    if opts.sparse_epsilon() is not None or tile_occupancy is not None:
+        return (f"Argument sparse_rtm={opts.sparse_rtm}: the block-sparse tile skip "
+                "runs on one rank; a grid of more than one rank runs the dense "
+                "matrix — use --sparse_rtm off or one rank.")
+    if opts.os_subsets > 1:
+        return (f"Argument os_subsets={opts.os_subsets} runs the subset cycle on one "
+                "rank; a grid of more than one rank runs the classic sweep "
+                "(--os_subsets 1).")
+    if resume:
+        return ("Argument resume reads the output file on every rank; a grid of more "
+                "than one rank cannot resume yet — resume with one rank.")
+    if opts.integrity:
+        return ("Argument integrity escalates per rank (re-solve, re-audit, "
+                "quarantine), which would desynchronize a grid's collectives; drop "
+                "--integrity or run one rank.")
+    if debug_nans:
+        return ("Argument debug_nans aborts the rank that sees a NaN, leaving its "
+                "peers waiting in a collective; drop --debug_nans or run one rank.")
+    if opts.rtm_dtype == "int8" and grid.n_pix > 1:
+        # the JAX package's words (sartsolver_tpu/parallel/multihost.py:160-169)
+        return ("rtm_dtype='int8' across processes needs a voxel-major mesh "
+                "(pixel axis unsharded) so per-column maxima stay process-local; "
+                "use --voxel_shards N (pixels=1) or fp32/bfloat16 storage.")
+    return None
+
+
+def grid_block(host: np.ndarray, grid, npixel: int, nvoxel: int) -> np.ndarray:
+    """``grid``'s rank's padded block of the full matrix ``host`` ``[npixel,
+    nvoxel]`` (zero in the padding): the block the JAX mesh of the same
+    shape puts on the device at the rank's coordinates
+    (``sartsolver_tpu/parallel/sharded.py:431-432``)."""
+    rb, cb = grid.blocks(npixel, nvoxel)
+    p, v = grid.coords
+    part = host[p * rb:(p + 1) * rb, v * cb:(v + 1) * cb]
+    block = np.zeros((rb, cb), host.dtype)
+    block[:part.shape[0], :part.shape[1]] = part
+    return block
+
+
 def _pad_rows(rtm, rows: int):
     """``rtm`` [P, V] (a host array or a tensor) with zero rows appended up
     to ``rows``."""
@@ -126,12 +199,18 @@ class DeviceSolveResult:
     warm start, never visiting the host) and ``fitted_norm`` its loop-exit
     ``H @ solution``; status, iterations and convergence come back in one
     packed device-to-host copy on first access, the solutions in one more
-    (:meth:`fetch_solutions`), denormalized on the host in fp64.
+    (:meth:`fetch_solutions`), denormalized on the host in fp64. On a grid
+    ``solution_norm`` and ``fitted_norm`` are the rank's blocks, and
+    ``full`` [B, nvoxel] the solution gathered over the voxel axis when the
+    result was made (on the main thread: the writer's fetch is then a local
+    copy and runs no collective).
     """
 
-    def __init__(self, res: SolveResult, norms, fitted_norm: torch.Tensor):
+    def __init__(self, res: SolveResult, norms, fitted_norm: torch.Tensor,
+                 full: Optional[torch.Tensor] = None):
         self.solution_norm = res.solution
         self.fitted_norm = fitted_norm
+        self.full = res.solution if full is None else full
         self.norms = np.asarray(norms, np.float64)  # [B]
         # fp64 holds the int32 counts and either compute dtype exactly
         self._packed = torch.stack([res.status.double(), res.iterations.double(),
@@ -165,7 +244,7 @@ class DeviceSolveResult:
         if self._host is None:
             watchdog.beacon(watchdog.PHASE_FETCH)
             with obs_trace.span("result.fetch", what="solution"):
-                sol = self.solution_norm.double().cpu().numpy()
+                sol = self.full.double().cpu().numpy()
             self._host = sol * self.norms[:, None]
         return self._host
 
@@ -236,6 +315,12 @@ class DistributedSARTSolver:
     ``debug_nans=True``: every solve raises ``FloatingPointError`` at the
     first NaN it keeps (``debug_nans.py``).
 
+    ``grid=`` (a ``parallel/mesh.py:RankGrid`` of more than one rank) makes
+    this rank's solver one of the grid's (module docstring): every rank of
+    the grid constructs it and calls each solve, with the same arguments.
+    ``rtm`` is then the full host matrix, or (with ``npixel`` and
+    ``nvoxel`` given) this rank's padded block from the striped ingest.
+
     Named fault sites (``resilience/faults.py``): ``solve.dispatch`` and
     ``device.buffer`` at the entry of every solve and scheduler stride,
     ``device.put`` where a frame group or a stride's refills are staged.
@@ -243,12 +328,22 @@ class DistributedSARTSolver:
 
     def __init__(self, rtm=None, laplacian=None, *, opts: SolverOptions, device="cuda",
                  debug_nans: bool = False, rtm_scale=None,
-                 npixel: Optional[int] = None, tile_occupancy=None, operator=None):
+                 npixel: Optional[int] = None, tile_occupancy=None, operator=None,
+                 grid=None, nvoxel: Optional[int] = None):
         self.device = resolve_device(device)
         self.opts = opts
         self.debug_nans = debug_nans
         self.dtype = torch_dtype(opts.dtype)
         self.operator_kind = "dense"
+        # the fused sweep's implementation: the kernel's wrapper; the plain
+        # version only where a check holds the two against each other
+        # (utils/fused_parity.py, chip_smoke.py)
+        self.sweep_fn = fused_sweep
+        self.grid = grid if grid is not None and grid.world > 1 else None
+        if self.grid is not None:
+            self._init_grid(rtm, laplacian, operator, rtm_scale, npixel, nvoxel,
+                            tile_occupancy)
+            return
         if operator is not None:
             if rtm is not None:
                 raise ValueError("Pass either a matrix (rtm) or operator=, not both.")
@@ -298,6 +393,61 @@ class DistributedSARTSolver:
         self.npixel, self.nvoxel = npixel, self.problem.ray_density.shape[0]
         # the integrity layer's upload-time ray stats (host copies)
         self._ray_stats_snapshot = self._ray_stats_now() if opts.integrity else None
+
+    def _init_grid(self, rtm, laplacian, operator, rtm_scale, npixel, nvoxel,
+                   tile_occupancy) -> None:
+        """This rank's share of a grid's solver: the refusals, the padded
+        block staged (sliced from a full host matrix, or handed over as the
+        striped ingest's block), the block's halo Laplacian and the ray
+        stats reduced over the grid (``sartsolver_tpu/parallel/sharded.py:
+        431-432, 642``)."""
+        from sartsolver_tpu_torch.ops.laplacian import shard_laplacian_halo
+        from sartsolver_tpu_torch.parallel.mesh import padded_extents
+
+        opts, grid = self.opts, self.grid
+        refusal = grid_refusal(opts, grid, operator=operator, debug_nans=self.debug_nans,
+                               tile_occupancy=tile_occupancy)
+        if refusal:
+            raise SartInputError(refusal)
+        if rtm is None:
+            raise ValueError("DistributedSARTSolver needs a matrix (rtm) or operator=.")
+        self.npixel = int(np.shape(rtm)[0] if npixel is None else npixel)
+        self.nvoxel = int(np.shape(rtm)[1] if nvoxel is None else nvoxel)
+        self.padded_npixel, self.padded_nvoxel = padded_extents(
+            self.npixel, self.nvoxel, grid.n_pix, grid.n_vox)
+        self.rows, self.cols_held = grid.blocks(self.npixel, self.nvoxel)
+        v = grid.coords[1]
+        if nvoxel is not None and tuple(np.shape(rtm)) == (self.rows, self.cols_held):
+            block = rtm  # the striped ingest's padded block
+            if opts.rtm_dtype == "int8" and rtm_scale is None:
+                raise ValueError("An int8 block needs its scales (rtm_scale).")
+        else:
+            if tuple(np.shape(rtm)) != (self.npixel, self.nvoxel):
+                raise ValueError(
+                    f"rtm of shape {tuple(np.shape(rtm))}: the full [{self.npixel}, "
+                    f"{self.nvoxel}] matrix or this rank's [{self.rows}, "
+                    f"{self.cols_held}] block expected.")
+            host = np.asarray(rtm.cpu() if isinstance(rtm, torch.Tensor) else rtm)
+            block = grid_block(host, grid, self.npixel, self.nvoxel)
+            if rtm_scale is not None:  # codes given whole: the block's scales
+                c0 = v * self.cols_held
+                part = np.asarray(rtm_scale, np.float32)[c0:c0 + self.cols_held]
+                rtm_scale = np.ones(self.cols_held, np.float32)
+                rtm_scale[:len(part)] = part
+        lap = None
+        if laplacian is not None:
+            watchdog.beacon(watchdog.PHASE_STAGE)
+            faults.fire(faults.SITE_DEVICE_PUT)
+            lap = shard_laplacian_halo(laplacian, grid.n_vox, self.cols_held, v,
+                                       dtype=self.dtype, device=self.device)
+        with obs_trace.span("device.put"):
+            self.problem = make_problem(block, lap, opts=opts, device=self.device,
+                                        rtm_scale=rtm_scale, grid=grid)
+            if self.device.type == "cuda" and resolve_fused(opts):
+                from sartsolver_tpu_torch.ops import _build
+
+                _build.load("fused_sweep")
+        self._ray_stats_snapshot = None
 
     def _init_operator(self, operator, laplacian) -> None:
         """The factored or the matrix-free operator's construction, behind
@@ -479,27 +629,96 @@ class DistributedSARTSolver:
             )
         return self.problem
 
-    def _stage_frames(self, measurements):
-        """Normalize B host frames [B, P] as prepare_measurement does:
-        ``(g [B, P], msq [B])`` on the device and the norms [B] on the host."""
+    @property
+    def grid_shape(self) -> tuple:
+        """``(pixel shards, voxel shards)`` of the solver's grid."""
+        return (1, 1) if self.grid is None else self.grid.shape
+
+    @property
+    def width(self) -> int:
+        """The voxel columns this solver's vectors hold: ``nvoxel``, or on a
+        grid the rank's padded block of them."""
+        return self.nvoxel if self.grid is None else self.cols_held
+
+    def local_pixel_range(self):
+        """``(offset, count)`` of the logical pixel rows this rank holds
+        (``parallel/multihost.py:process_pixel_range``)."""
+        from sartsolver_tpu_torch.parallel.multihost import process_pixel_range
+
+        return process_pixel_range(self.grid, self.npixel)
+
+    def _stage_frames(self, measurements, local: bool = False):
+        """Normalize B host frames as prepare_measurement does: ``(g [B,
+        rows], msq [B])`` on the device and the norms [B] on the host. On a
+        grid ``g`` is the rank's pixel block. ``local=True`` (a grid only):
+        ``measurements`` hold just the rank's logical rows
+        (:meth:`local_pixel_range`); the max and the masked ``||g||^2`` of
+        each frame are combined over the grid's pixel axis, in rank order
+        (``sartsolver_tpu/parallel/sharded.py:1243-1303``)."""
         G = np.asarray(measurements, np.float64)
-        if G.ndim != 2 or G.shape[1] != self.npixel:
-            raise ValueError(f"Measurements must be [B, {self.npixel}], got {G.shape}.")
-        gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
+        want = self.local_pixel_range()[1] if local else self.npixel
+        if local and self.grid is None:
+            raise ValueError("local measurement staging needs a grid of ranks.")
+        if G.ndim != 2 or G.shape[1] != want:
+            raise ValueError(f"Measurements must be [B, {want}], got {G.shape}.")
+        if local:
+            gs, msqs, norms = self._local_norms(G)
+        else:
+            gs, msqs, norms = zip(*(prepare_measurement(row, self.opts) for row in G))
+            gs = self._pad_frames(np.stack(gs))
         watchdog.beacon(watchdog.PHASE_STAGE)
         faults.fire(faults.SITE_DEVICE_PUT)
         with obs_trace.span("device.put"):
-            g = torch.as_tensor(self._pad_frames(np.stack(gs)),
-                                device=self.device).to(self.dtype)
+            g = torch.as_tensor(gs, device=self.device).to(self.dtype)
             msq = torch.as_tensor(np.asarray(msqs), device=self.device).to(self.dtype)
         return g, msq, np.asarray(norms, np.float64)
 
+    def _local_norms(self, G: np.ndarray):
+        """``(g [B, rows], msq [B], norm [B])`` of frames of which this rank
+        holds its logical rows ``G``: prepare_measurement's norm (the finite
+        maximum) and masked ``||g||^2``, each combined over the pixel axis."""
+        from sartsolver_tpu_torch.parallel import comm
+        from sartsolver_tpu_torch.parallel.mesh import PIXEL_AXIS
+
+        lmax = np.where(np.isfinite(G), G, 0.0).max(axis=1, initial=0.0)
+        lsum = np.sum(np.where(G > 0, G, 0.0) ** 2, axis=1)
+        gmax = comm.all_reduce_max(torch.as_tensor(lmax), PIXEL_AXIS, self.grid).numpy()
+        gsum = comm.all_reduce_sum(torch.as_tensor(lsum), PIXEL_AXIS, self.grid).numpy()
+        norms = np.where(gmax > 0, gmax, 1.0) if self.opts.normalize else np.ones(len(G))
+        msqs = gsum / norms ** 2
+        msqs = np.where(msqs > 0, msqs, 1.0)
+        g = np.full((G.shape[0], self.rows), -1.0)
+        g[:, :G.shape[1]] = G / norms[:, None]
+        return g, msqs, norms
+
     def _pad_frames(self, g: np.ndarray) -> np.ndarray:
-        """Normalized frames [B, npixel] with the padded rows' -1 (masked)."""
+        """Normalized frames [B, npixel] with the padded rows' -1 (masked);
+        on a grid, the rank's block of rows of them."""
+        if self.grid is not None:
+            full = np.full((g.shape[0], self.padded_npixel), -1.0)
+            full[:, :self.npixel] = g
+            r0 = self.grid.coords[0] * self.rows
+            return full[:, r0:r0 + self.rows]
         if self.rows == self.npixel:
             return g
         return np.concatenate([g, np.full((g.shape[0], self.rows - self.npixel), -1.0)],
                               axis=1)
+
+    def _result(self, res: SolveResult, norms, fitted: torch.Tensor) -> DeviceSolveResult:
+        """The device result; on a grid with the solution gathered over the
+        voxel axis (every rank, here on the main thread)."""
+        full = None
+        if self.grid is not None:
+            from sartsolver_tpu_torch.parallel import comm
+            from sartsolver_tpu_torch.parallel.mesh import VOXEL_AXIS
+
+            full = comm.all_gather(res.solution, VOXEL_AXIS, self.grid, dim=1)[:, :self.nvoxel]
+        return DeviceSolveResult(res, norms, fitted_norm=fitted, full=full)
+
+    def _no_grid(self, what: str) -> None:
+        if self.grid is not None:
+            raise ValueError(f"{what} runs on one rank; a grid of ranks runs the classic "
+                             "grouped loop (solve_batch, solve_chain).")
 
     def _enter(self):
         """A solve's entry: the dispatch beacon, the ``solve.dispatch`` and
@@ -511,32 +730,41 @@ class DistributedSARTSolver:
 
     def _host_seed(self, f0, norms: np.ndarray) -> torch.Tensor:
         """Host seeds ``f0`` [B, V] in physical units, normalized by each
-        frame's norm, on the device."""
+        frame's norm, on the device (on a grid the rank's columns, zero in
+        the padding)."""
         f0 = np.asarray(f0, np.float64).reshape(len(norms), -1)
         if f0.shape[1] != self.nvoxel:
             raise ValueError(f"f0 must be [B, {self.nvoxel}], got {f0.shape}.")
-        return torch.as_tensor(f0 / norms[:, None], device=self.device).to(self.dtype)
+        seed = f0 / norms[:, None]
+        if self.grid is not None:
+            full = np.zeros((len(norms), self.padded_nvoxel))
+            full[:, :self.nvoxel] = seed
+            c0 = self.grid.coords[1] * self.cols_held
+            seed = full[:, c0:c0 + self.cols_held]
+        return torch.as_tensor(seed, device=self.device).to(self.dtype)
 
-    def solve_batch(self, measurements, f0=None) -> DeviceSolveResult:
+    def solve_batch(self, measurements, f0=None, *, local: bool = False) -> DeviceSolveResult:
         """Solve B independent frames [B, P] in one batched loop, each from
         the Eq. 4 guess, or from the host seeds ``f0`` [B, V] in physical
         units (a resumed run's warm start). The caller pads a short tail if
-        it wants a fixed batch size."""
+        it wants a fixed batch size. ``local``: see :meth:`_stage_frames`."""
         problem = self._enter()
-        g, msq, norms = self._stage_frames(measurements)
+        g, msq, norms = self._stage_frames(measurements, local)
         if f0 is None:
-            seed = torch.zeros((g.shape[0], self.nvoxel), dtype=self.dtype,
+            seed = torch.zeros((g.shape[0], self.width), dtype=self.dtype,
                                device=self.device)
         else:
             seed = self._host_seed(f0, norms)
         res, fitted = solve_normalized_batch(
             problem, g, msq, seed, opts=self.opts, use_guess=f0 is None,
             return_fitted=True, device=self.device, debug_nans=self.debug_nans,
+            sweep_fn=self.sweep_fn,
         )
-        return DeviceSolveResult(res, norms, fitted_norm=fitted)
+        return self._result(res, norms, fitted)
 
     def solve_chain(self, measurements, f0=None, *,
-                    warm: Optional[DeviceSolveResult] = None) -> DeviceSolveResult:
+                    warm: Optional[DeviceSolveResult] = None,
+                    local: bool = False) -> DeviceSolveResult:
         """Solve K warm-chained frames [K, P]: each frame from the previous
         one's solution. Frame 0 seeds from ``warm`` (a previous result of
         this solver: its last frame's solution and loop-exit ``fitted``,
@@ -547,13 +775,13 @@ class DistributedSARTSolver:
         if warm is not None and f0 is not None:
             raise ValueError("Pass either warm= (device) or f0= (host), not both.")
         problem = self._enter()
-        g, msq, norms = self._stage_frames(measurements)
+        g, msq, norms = self._stage_frames(measurements, local)
         rescale = np.ones(len(norms))
         rescale[1:] = norms[:-1] / norms[1:]
         if f0 is not None:
             seed, fitted0 = self._host_seed(f0, norms[:1]), None
         elif warm is None:
-            seed = torch.zeros((1, self.nvoxel), dtype=self.dtype, device=self.device)
+            seed = torch.zeros((1, self.width), dtype=self.dtype, device=self.device)
             fitted0 = None
         else:
             rescale[0] = warm.norms[-1] / norms[0]
@@ -561,9 +789,9 @@ class DistributedSARTSolver:
         res, fitted = solve_chain_normalized(
             problem, g, msq, seed, torch.as_tensor(rescale, device=self.device),
             opts=self.opts, use_guess_first=warm is None and f0 is None, fitted0=fitted0,
-            device=self.device, debug_nans=self.debug_nans,
+            device=self.device, debug_nans=self.debug_nans, sweep_fn=self.sweep_fn,
         )
-        return DeviceSolveResult(res, norms, fitted_norm=fitted)
+        return self._result(res, norms, fitted)
 
     def solve(self, measurement, f0=None) -> SolveResult:
         """One frame [P], the B = 1 case of :meth:`solve_batch`: the
@@ -584,6 +812,7 @@ class DistributedSARTSolver:
         sweep only) and ``t = 1``. The log variant's ``obs`` is ``[B, os,
         V]`` with ordered subsets, else ``[B, V]``."""
         self._live_problem()
+        self._no_grid("the continuous-batching scheduler")
         B = int(lanes)
         if B < 1:
             raise ValueError("Lane count must be positive.")
@@ -686,6 +915,7 @@ class DistributedSARTSolver:
         occupant the killed run already retired and wrote. Raises
         ValueError where the snapshot's signature is not this solver's."""
         self._live_problem()
+        self._no_grid("a solve checkpoint's restore")
         if exported.get("sig") != self._sched_ckpt_sig():
             raise ValueError(
                 "Solve checkpoint does not match this solver configuration "

@@ -30,9 +30,10 @@ append's window open after announcing ``SART_SOLVE_CKPT_POINT pre-append
 serial=N`` on stderr, so a drill can kill the run mid-checkpoint.
 
 The per-host files of a multi-process pod (``<base>.h<k>of<n>.jsonl``) and
-their consistency across hosts come with the multi-GPU slice (ROADMAP
-queue A item 4); here a run is one process, its file ``<base>`` itself,
-and :func:`newest_consistent_serial` reads that one file.
+their consistency across hosts are not ported (ROADMAP queue A item 1: a
+grid of ranks refuses ``--solve_ckpt_stride``); here a run is one process,
+its file ``<base>`` itself, and :func:`newest_consistent_serial` reads that
+one file.
 """
 
 from __future__ import annotations

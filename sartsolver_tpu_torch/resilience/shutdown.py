@@ -18,9 +18,10 @@ this module turns the same signal into a clean, resumable stop:
   dies with the conventional ``128 + N`` status and no further draining
   (the solution file stays crash-consistent — the killdrill model).
 
-Counterpart of ``sartsolver_tpu/resilience/shutdown.py`` for one
-process: the multi-process agreement on the stop boundary comes with the
-multi-GPU slice.
+Counterpart of ``sartsolver_tpu/resilience/shutdown.py``. On a grid of
+ranks every rank polls :func:`stop_requested` at the same group boundary
+and the CLI agrees on it over the world (``parallel/multihost.py:
+agree_stop``), so every rank stops at the same boundary.
 
 Handlers are installed by the CLI (``install``/``uninstall``; no-ops off
 the main thread, where Python forbids ``signal.signal``). Library users

@@ -56,7 +56,7 @@ Knobs (environment):
 
 - ``SART_WATCHDOG_TIMEOUT`` (seconds; unset/0 disables): beacon-silence
   threshold. Must exceed the slowest legitimate beacon gap. The CUDA
-  extension's first build (``nvcc``, one to two minutes) beacons only
+  extension's first build (``nvcc``, about half a minute) beacons only
   before and after it: a cold build that outlasts the timeout aborts the
   run, as the JAX package's first compile does. Build once first (any
   run, or ``ops._build.load``) or give a generous timeout.

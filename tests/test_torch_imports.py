@@ -409,3 +409,39 @@ def test_chip_smoke_operators_phase_at_small_size(tmp_path):
         assert g[name]["implicit"]["status"] == g[name]["dense"]["status"]
         assert g[name]["implicit"]["operator_line"].startswith("implicit: ray table resident")
     assert "kernels" not in rec
+
+
+def test_grid_modules_import_no_jax():
+    """The grid's modules (the partition, the collectives, the parity
+    protocol), each imported alone, load no JAX and no JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "for name in sys.argv[1:]:\n"
+             "    importlib.import_module(name)\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'sartsolver_tpu')))")
+    names = ("sartsolver_tpu_torch.parallel.mesh", "sartsolver_tpu_torch.parallel.comm",
+             "sartsolver_tpu_torch.utils.fused_parity")
+    out = subprocess.run([sys.executable, "-c", probe, *names], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_chip_smoke_grid_command_line_holds_several_runs():
+    """chip_smoke.py's ``--grid-rank`` command line: the runs of one world
+    size, each ``--grid-rank OUT [options] -- ARGS``, split in order (one
+    torchrun runs them one after another)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    argv = ["--grid-rank", "a", "--parity", "--", "-o", "a.h5", "--pixel_shards", "2",
+            "--grid-rank", "b", "--", "-o", "b.h5", "--voxel_shards", "2",
+            "--grid-rank", "c", "--", "-o", "c.h5"]
+    assert cs.grid_runs_of(argv) == [
+        ("a", ["--parity"], ["-o", "a.h5", "--pixel_shards", "2"]),
+        ("b", [], ["-o", "b.h5", "--voxel_shards", "2"]),
+        ("c", [], ["-o", "c.h5"])]
+    assert cs.grid_runs_of(argv[:8]) == [("a", ["--parity"], ["-o", "a.h5", "--pixel_shards",
+                                                              "2"])]

@@ -112,8 +112,39 @@ def test_rank_determinism():
     U1, V1 = tl.randomized_svd(H - S, 2)
     U2, V2 = tl.randomized_svd(H - S, 2)
     assert U1.tobytes() == U2.tobytes() and V1.tobytes() == V2.tobytes()
-    op2, reason = tl.build_lowrank_operator(H, rank=2, check_parity=False)
+    op2, reason = tl.build_lowrank_operator(H, rank=2, check_parity=False, device="cpu")
     assert reason is None and op2.cache_key() == op.cache_key()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tensor_rsvd_and_frobenius_against_the_host_functions(dtype):
+    """The card's steps of the gate (``_card_residual``,
+    ``randomized_svd_tensor``, ``_frobenius_residual``; fp32 is what the
+    card holds) run here on CPU tensors, in bands of 100 rows: the residual
+    equal to ``H - S``, ``U V^T`` within 1e-6 of the host factors' product
+    (fp32 factors of the same fp64 steps), and the Frobenius residual
+    within 1e-5 of numpy's plus 1e-9 of ``||H||`` (numpy's is fp32
+    arithmetic: where the residual is exactly of the rank, both are
+    rounding noise, five orders below the gate's 1e-4 of ``||H||``)."""
+    H, _op, _jop, _g = _case()
+    S, _occ = tl.split_sparse_core(H)
+    R32, h_norm = tl._card_residual(H, S, "cpu", band=100)
+    np.testing.assert_array_equal(R32.numpy(), H - S)
+    assert abs(h_norm - float(np.linalg.norm(H.astype(np.float64)))) <= 1e-12 * h_norm
+    R = (H - S).astype(np.float64)
+    Rt = R32.to(dtype)
+    for r in (1, 2, 3, 8):
+        U, V = tl.randomized_svd(R, r)
+        tU, tV = tl.randomized_svd_tensor(Rt, r, band=100)
+        assert tU.dtype == tV.dtype == np.float32 and tU.shape == U.shape
+        want = U.astype(np.float64) @ V.T.astype(np.float64)
+        got = tU.astype(np.float64) @ tV.T.astype(np.float64)
+        assert np.abs(got - want).max() <= 1e-6 * max(np.abs(want).max(), 1e-30)
+        frob = tl._frobenius_residual(Rt, tU, tV, band=100)
+        host = float(np.linalg.norm((H - S) - U @ V.T))
+        assert abs(frob - host) <= 1e-5 * host + 1e-9 * float(np.linalg.norm(H))
+    with pytest.raises(ValueError, match="must lie in"):
+        tl.randomized_svd_tensor(Rt, 0)
 
 
 def test_operator_identity_and_accounting():

@@ -441,10 +441,12 @@ def test_record_buffers_skipped_when_disabled():
 
 
 def test_finalize_multihost_waits_for_the_multi_gpu_slice(tmp_path):
+    """The multi-GPU slice has come: ``finalize(multihost=True)`` aggregates
+    over the injected allgather (none: one process, the snapshot as it is)
+    and the primary writes a valid artifact; a second call is a no-op."""
     telem = run.RunTelemetry(metrics.MetricsRegistry(), jsonl_path=str(tmp_path / "a.jsonl"))
     telem.record_frame(0.1, 0, 5, 1e-6, 2.0, "frame")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        telem.finalize(multihost=True)
+    telem.finalize(multihost=True)
     telem.finalize()
     assert schema.validate_jsonl(str(tmp_path / "a.jsonl"), require_run=True)[1] == []
 

@@ -342,3 +342,34 @@ def test_lowrank_cli_against_dense(tmp_path, storage):
     assert _fit_distance(rw["H"], out["auto"]["value"], out["off"]["value"]) <= FIT_TOL
     rc, _ms, _text = cs.run_cli(["-o", str(tmp_path / "r2.h5"), *inputs, "--lowrank_rtm", "2"])
     assert rc == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank", ["auto", 4, 2])
+def test_lowrank_gate_on_the_card_against_the_host(tmp_path, rank):
+    """The factorization gate with its arithmetic on the card against the
+    same gate on the host, on a small reflective world: the same decision
+    (auto takes rank 4, rank 2 fails the Frobenius gate with the same
+    words), the same core ``S`` bytes, ``U V^T`` within 1e-5 of the host
+    factors' product."""
+    from sartsolver_tpu_torch.config import SartInputError
+    from sartsolver_tpu_torch.operators.lowrank import build_lowrank_operator
+
+    _needs_card()
+    H = _chip_smoke().write_reflective_world(str(tmp_path), nx=64, ny=64, cam=(32, 32),
+                                             n_frames=2)["H"]
+    if rank == 2:
+        with pytest.raises(SartInputError, match="factorization gate") as card:
+            build_lowrank_operator(H, rank=rank, device="cuda")
+        with pytest.raises(SartInputError) as host:
+            build_lowrank_operator(H, rank=rank, device="cpu")
+        assert str(card.value).split(" = ")[0] == str(host.value).split(" = ")[0]
+        return
+    card, why_card = build_lowrank_operator(H, rank=rank, device="cuda")
+    host, why_host = build_lowrank_operator(H, rank=rank, device="cpu")
+    assert why_card is None and why_host is None and card.rank == host.rank == 4
+    assert card.payload().tobytes() == host.payload().tobytes()
+    (u, v), (hu, hv) = card.factors(), host.factors()
+    got = u.astype(np.float64) @ v.T.astype(np.float64)
+    want = hu.astype(np.float64) @ hv.T.astype(np.float64)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

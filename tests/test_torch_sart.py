@@ -278,7 +278,7 @@ def test_options_not_ported_raise(field, value):
         H = np.zeros((16, 256), np.float32)
         H[:, :128] = 1.0
         H[:, 128:] = 0.01
-        op, _ = build_lowrank_operator(H, rank=1, check_parity=False)
+        op, _ = build_lowrank_operator(H, rank=1, check_parity=False, device="cpu")
         with pytest.raises(SartInputError, match="integrity"):
             DistributedSARTSolver(operator=op, opts=opts, device="cpu")
         return
