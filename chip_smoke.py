@@ -215,6 +215,24 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    kernel only (:func:`_implicit_wide`): rows and columns bit for bit,
    restricted sums within ``KERNEL_TOL``, forward and back at B = 1 and 8
    timed beside the bound and the pairs evaluated, the seconds it adds.
+4b7. ``serve``: the resident serving engine (:func:`serve_phase`): ``python
+   -m sartsolver_tpu_torch.cli serve --lanes 2 --socket ... --http_port 0``
+   on the world, linear with the Laplacian; two tenants' requests through
+   ``submit`` and the ingest dir, through the socket, and a pair published
+   at once whose tight deadline sheds frames as -5 while the co-batched
+   request completes; meanwhile a second server at ``--lanes 4`` sent
+   SIGTERM inside its request's dispatched journal window (exit 4), whose
+   restart replays the journal; a third serves the geometry world's images
+   through the implicit operator and takes ``submit --geometry``; with the
+   restart, two more at ``--lanes 2`` serve a request each from the matrix
+   stored as ``--rtm_dtype bfloat16`` and ``int8``. Every served row equals,
+   byte for byte, the one-shot CLI's over the same frames at the server's
+   lanes and storage, and is within ``FIT_BOUND`` of the truth; each
+   server's metrics artifact carries its kernels' launches by plan;
+   recorded: request latency and queue wait (p50, p95), the first request
+   apart from the later ones (the server runs a warm-up stride before it is
+   ready), ms per frame served against the CLI's, the fused sweep at B = 2
+   and 4 against its plain version, its bound and the library.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -3416,7 +3434,8 @@ def _implicit_wide(rates) -> dict:
 
 
 def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
-                    reflective_kw=None, geometry_kw=None, reflective=None) -> dict:
+                    reflective_kw=None, geometry_kw=None, reflective=None,
+                    keep_geometry: Optional[dict] = None) -> dict:
     """The operator backends through the CLI (phase ``operators``).
 
     The reflective world (:func:`write_reflective_world`; the e2e world's
@@ -3440,7 +3459,9 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
     every run; ``--rtm_dtype int8 --geometry`` exits 1. On the card with
     ``rates``, the projector's kernel table (:func:`_implicit_kernels`) and
     the wide geometry world, kernel only (:func:`_implicit_wide`). Each
-    world's files are deleted at its end. ``reflective``: the reflective
+    world's files are deleted at its end (the geometry world's kept, and put
+    into ``keep_geometry["world"]``, where that dict is given: the ``serve``
+    phase serves it). ``reflective``: the reflective
     world already written under ``outdir/reflective`` with its
     ``world_seconds`` (the script writes it during the build), else it is
     written here."""
@@ -3557,7 +3578,10 @@ def operators_phase(outdir: str, world=None, device: str = "cuda", rates=None,
     g["launches"] = launches
     if device == "cuda" and rates is not None:
         out["kernels"] = _implicit_kernels(gw, rates, launches)
-    shutil.rmtree(gdir)
+    if keep_geometry is None:
+        shutil.rmtree(gdir)
+    else:
+        keep_geometry["world"] = gw
     if device == "cuda" and rates is not None:
         del gw
         gc.collect()
@@ -4119,6 +4143,526 @@ def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
                 torchruns=torchruns, runs=runs)
 
 
+SERVE_LANES = 2  # the serving engine's default --lanes
+SERVE_DRILL_LANES = 4  # the SIGTERM drill's server and its replay
+SERVE_DEADLINE_S = 0.3  # the tight request's deadline_s
+SERVE_TIMEOUT = 300  # seconds, each serve or submit process
+# the requests of the main server (lanes 2): (id, tenant, time range,
+# deadline, how it is submitted); the e2e world's frames are 0.1 apart
+SERVE_REQUESTS = (
+    ("diag-a-1", "diag-a", "0:0.35", None, "submit"),    # frames 0-3, the ingest dir
+    ("diag-b-1", "diag-b", "0.4:0.75", None, "socket"),  # frames 4-7, the socket
+    ("diag-a-late", "diag-a", "0.8:1.95", SERVE_DEADLINE_S, "staged"),  # 8-19, shed
+    ("diag-b-2", "diag-b", "2:2.35", None, "staged"),    # 20-23, co-batched with it
+)
+# the CLI run the served rows are held against: the completing requests'
+# ranges, each interval's composite times derived as the request's are
+SERVE_CLI_RANGE = ",".join(r[2] for r in SERVE_REQUESTS if r[3] is None)
+SERVE_DRILL = ("diag-a-drill", "diag-a", "2.4:3.15")  # frames 24-31, lanes 4
+SERVE_GEOMETRY = ("geo-1", "diag-g", "0:0.35")  # the geometry server's request
+# the stored-matrix servers (lanes 2), one request each, started with the
+# drill's restart: (--rtm_dtype, id, tenant, time range)
+SERVE_STORAGES = (("bfloat16", "diag-a-bf16", "diag-a", "0:0.35"),
+                  ("int8", "diag-b-int8", "diag-b", "0.4:0.75"))
+SERVE_SOCKET = "engine.sock"  # relative to the phase's directory: short at any depth
+
+
+class _Serve:
+    """One ``serve`` process of the port: its stdout collected by a thread,
+    the HTTP port it announces, stopped by SIGTERM (killed on a timeout)."""
+
+    def __init__(self, argv, env=None, cwd=REPO):
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "sartsolver_tpu_torch.cli", "serve", *argv],
+            cwd=cwd, env=env or _serve_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self._cv = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append(line)
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def wait_for(self, pattern: str, timeout: float = SERVE_TIMEOUT) -> str:
+        """The first stdout line matching ``pattern`` (a regex)."""
+        deadline = time.monotonic() + timeout
+        rx = re.compile(pattern)
+        with self._cv:
+            while True:
+                for line in self.lines:
+                    if rx.search(line):
+                        return line
+                left = deadline - time.monotonic()
+                if left <= 0 or (self.proc.poll() is not None and not self._reader.is_alive()):
+                    raise AssertionError(f"serve: no {pattern!r} line:\n"
+                                         + "".join(self.lines)[-3000:])
+                self._cv.wait(min(left, 0.5))
+
+    def stop(self, timeout: float = SERVE_TIMEOUT) -> int:
+        import signal as _signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(_signal.SIGTERM)
+        return self.wait(timeout)
+
+    def wait(self, timeout: float = SERVE_TIMEOUT) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self._reader.join(timeout=10)
+        return rc
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def _serve_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SART_FAULT", "SART_TEST_JOURNAL_DELAY")}
+    env["PYTHONUNBUFFERED"] = "1"
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _submit(*argv, cwd=REPO) -> tuple:
+    """``submit`` in a subprocess: (exit code, the record it printed)."""
+    out = subprocess.run([sys.executable, "-m", "sartsolver_tpu_torch.cli", "submit", *argv],
+                         cwd=cwd, env=_serve_env(), capture_output=True, text=True,
+                         timeout=SERVE_TIMEOUT)
+    try:
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        raise AssertionError(f"submit {argv}: exit {out.returncode}, {out.stdout}{out.stderr}")
+    return out.returncode, rec
+
+
+def _stage(eng_dir: str, payloads) -> None:
+    """Publish request files into the engine's ingest dir at once (each by
+    rename, as ``submit`` does), so one scan admits them together."""
+    from sartsolver_tpu_torch.utils import atomicio
+
+    ingest = os.path.join(eng_dir, "ingest")
+    os.makedirs(ingest, exist_ok=True)
+    for i, payload in enumerate(payloads):
+        atomicio.write_json_atomic(os.path.join(ingest, f"{i:03d}-{payload['id']}.json"),
+                                   payload)
+
+
+def _response(eng_dir: str, rid: str, timeout: float = SERVE_TIMEOUT) -> dict:
+    """The request's terminal response (done, interrupted or rejected)."""
+    path = os.path.join(eng_dir, "responses", f"{rid}.json")
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+            if rec.get("verdict") == "rejected" or rec.get("state") in ("done", "interrupted"):
+                return rec
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"no terminal response for {rid} in {timeout} s")
+
+
+def _frame_index(world, t: float) -> int:
+    return int(np.argmin(np.abs(np.asarray(world["times"]) - t)))
+
+
+def _served_rows(path, world, device, fit_bound=FIT_BOUND) -> dict:
+    """A served solution file: its rows and each frame's fitted-space error
+    against the noiseless measurement."""
+    import torch
+
+    from sartsolver_tpu_torch.io import h5
+
+    with h5.File(path, "r") as f:
+        sol = {k: f["solution"][k][:] for k in f["solution"]}
+        has_map = "voxel_map" in f
+    idx = [_frame_index(world, t) for t in sol["time"]]
+    H = torch.as_tensor(world["H"], device=device)
+    truth = torch.as_tensor(world["f_true"][:, None] * world["scales"][None, idx],
+                            dtype=torch.float32, device=device)
+    fit = H @ torch.as_tensor(sol["value"].T, dtype=torch.float32, device=device)
+    ref = H @ truth
+    err = ((fit - ref).norm(dim=0) / ref.norm(dim=0)).cpu().numpy()
+    if not has_map or not np.isfinite(sol["value"]).all():
+        raise AssertionError(f"{path}: voxel_map {has_map}, finite values")
+    if fit_bound is not None and not (err <= fit_bound).all():
+        raise AssertionError(f"{path}: fitted-space errors {err} above {fit_bound}")
+    return dict(sol=sol, idx=idx, fit_err=err)
+
+
+def _same_rows(served: dict, cli_path: str, what: str) -> None:
+    """The served rows equal, byte for byte, the CLI's rows of the same
+    frames (matched by time)."""
+    from sartsolver_tpu_torch.io import h5
+
+    with h5.File(cli_path, "r") as f:
+        ref = {k: f["solution"][k][:] for k in f["solution"]}
+    rows = [int(np.argmin(np.abs(ref["time"] - t))) for t in served["sol"]["time"]]
+    for key, got in served["sol"].items():
+        if not np.array_equal(got, ref[key][rows]):
+            raise AssertionError(f"{what}: solution/{key} differs from the CLI's rows")
+
+
+def _artifact_metrics(path: str) -> dict:
+    """A ``--metrics_out`` artifact: its metric records by name and labels,
+    and its frame records."""
+    metrics, frames = {}, []
+    with open(path) as f:
+        for rec in map(json.loads, f):
+            if rec.get("type") == "metric":
+                labels = ",".join(f"{k}={v}" for k, v in sorted(rec["labels"].items()))
+                metrics[rec["name"] + (f"{{{labels}}}" if labels else "")] = rec
+            elif rec.get("type") == "frame":
+                frames.append(rec)
+    return dict(metrics=metrics, frames=frames)
+
+
+def _launches_of(art: dict) -> dict:
+    return {key[len("kernel_launches_total{"):-1]: rec["value"]
+            for key, rec in art["metrics"].items()
+            if key.startswith("kernel_launches_total{")}
+
+
+def _quantiles(art: dict, name: str) -> dict:
+    rec = art["metrics"].get(name) or {}
+    return {q: rec.get(q) for q in ("count", "p50", "p95", "p99", "max")}
+
+
+def serve_phase(world, outdir: str, geometry_world=None, device: str = "cuda",
+                rates=None, deadline_s: float = SERVE_DEADLINE_S, extra=()) -> dict:
+    """The resident serving engine on the world (phase ``serve``).
+
+    A ``serve`` process (``--lanes SERVE_LANES --socket ... --http_port 0
+    --metrics_out``) on the e2e world, linear with the Laplacian, takes
+    ``SERVE_REQUESTS``: two tenants, one request through ``submit`` and the
+    ingest dir, one through the socket, and a pair published into the
+    ingest dir at once, whose tight deadline (``SERVE_DEADLINE_S``) sheds
+    its frames as -5 while the co-batched request completes. Started with
+    it, a second server (lanes ``SERVE_DRILL_LANES``, the journal's windows
+    held open) is sent SIGTERM inside the dispatched window of its request
+    (``SERVE_DRILL``): exit 4; its restart, started once the first has
+    served, replays the journal; a third, started with the first two,
+    serves the geometry world's images through its implicit operator and
+    takes ``submit --geometry`` while the restart comes up; with the
+    restart, one server for each of ``SERVE_STORAGES`` (lanes
+    ``SERVE_LANES``, the matrix stored as bf16 or int8) serves its staged
+    request. Every served row is held, byte for byte,
+    against the port's one-shot CLI over the same frames (``--no_guess
+    --batch_frames`` at the server's lanes and ``--rtm_dtype``), and within
+    ``FIT_BOUND`` of the truth; the HTTP endpoints answer while the server
+    runs; each server's metrics artifact carries the hand kernels' launches
+    by plan (``kernel_launches_total``). The socket is named relative to the
+    phase's directory, where its server and client run. Recorded: request
+    latency and queue wait (p50, p95), the first request's latency and ms
+    per frame apart from the later requests', ms per frame served against
+    the CLI's, the servers' start to ready. On the card with ``rates``, the fused sweep at the serving
+    shape (B = 2 and 4) against its plain version, timed beside its bound
+    and the library. ``deadline_s`` and ``extra`` (flags of every server and
+    CLI run) size the deadline drill to a small world in the tests."""
+    import shutil
+    import urllib.request
+
+    import torch
+
+    p = world["paths"]
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
+    cap = str(MAX_ITERATIONS)
+    solve = ["-m", cap, "-l", p["laplacian"], "--device", device, *extra]
+    out = {"lanes": SERVE_LANES, "drill_lanes": SERVE_DRILL_LANES, "deadline_s": deadline_s}
+    root = os.path.join(outdir, "serve")
+    main_dir, drill_dir = os.path.join(root, "main"), os.path.join(root, "drill")
+    # the socket by a relative name, server and client in the phase's
+    # directory: an AF_UNIX path holds 107 bytes, a checkout's may be longer
+    sock = SERVE_SOCKET
+    os.makedirs(root, exist_ok=True)
+    drill_id, drill_tenant, drill_range = SERVE_DRILL
+    _stage(drill_dir, [{"id": drill_id, "tenant": drill_tenant, "time_range": drill_range}])
+    servers = []
+    try:
+        main = _Serve(["--engine_dir", main_dir, "--lanes", str(SERVE_LANES), "--socket", sock,
+                       "--http_port", "0", "--metrics_out",
+                       os.path.join(root, "main.jsonl"), *solve, *inputs], cwd=root)
+        servers.append(main)
+        drill = _Serve(["--engine_dir", drill_dir, "--lanes", str(SERVE_DRILL_LANES), *solve,
+                        *inputs], env=_serve_env(SART_TEST_JOURNAL_DELAY="0.5"))
+        servers.append(drill)
+        geo = None
+        if geometry_world is not None:
+            gp = geometry_world["paths"]
+            geo_dir = os.path.join(root, "geometry")
+            geo = _Serve(["--engine_dir", geo_dir, "--lanes", str(SERVE_LANES),
+                          "--geometry", geometry_world["geometry"], "--http_port", "0",
+                          "--metrics_out",
+                          os.path.join(root, "geometry.jsonl"), "-m", cap, "--device", device,
+                          *extra, gp["img_a"], gp["img_b"]])
+            servers.append(geo)
+        # the drill: SIGTERM inside its request's dispatched window
+        drill.wait_for(r"SART_JOURNAL_POINT dispatched")
+        drill_rc = drill.stop()
+        drill_resp = _response(drill_dir, drill_id, timeout=10)
+        if drill_rc != 4 or drill_resp.get("state") != "interrupted":
+            raise AssertionError(f"drill server: exit {drill_rc}, {drill_resp}\n"
+                                 f"{drill.text()[-2000:]}")
+        out["sigterm"] = dict(exit=drill_rc, response=drill_resp.get("state"),
+                              seconds=time.perf_counter() - drill.t0)
+
+        line = main.wait_for(r"live endpoints on http://127\.0\.0\.1:(\d+)")
+        ready_s = time.perf_counter() - main.t0
+        base = "http://127.0.0.1:" + re.search(r":(\d+) ", line).group(1)
+        with urllib.request.urlopen(base + "/readyz", timeout=10) as r:
+            ready = json.loads(r.read())
+        resident = main.wait_for(r"session resident").strip()
+        warm = main.wait_for(r"engine: warm-up").strip() if device == "cuda" else None
+        recs = {}
+        rid, tenant, rng, _, _ = SERVE_REQUESTS[0]
+        rc, recs[rid] = _submit("--engine_dir", main_dir, "--id", rid, "--tenant", tenant,
+                                "--time_range", rng, "--wait", str(SERVE_TIMEOUT))
+        if rc != 0:
+            raise AssertionError(f"submit {rid}: exit {rc}, {recs[rid]}")
+        rid, tenant, rng, _, _ = SERVE_REQUESTS[1]
+        rc, verdict = _submit("--socket", sock, "--id", rid, "--tenant", tenant,
+                              "--time_range", rng, cwd=root)
+        if rc != 0 or verdict.get("verdict") != "accepted":
+            raise AssertionError(f"socket submit {rid}: exit {rc}, {verdict}")
+        recs[rid] = _response(main_dir, rid)
+        _stage(main_dir, [dict({"id": r, "tenant": t, "time_range": g},
+                               **({"deadline_s": deadline_s} if d else {}))
+                          for r, t, g, d, how in SERVE_REQUESTS if how == "staged"])
+        for r, *_ in SERVE_REQUESTS[2:]:
+            recs[r] = _response(main_dir, r)
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            scrape = r.read().decode()
+        main_rc = main.stop()
+        if main_rc != 4:
+            raise AssertionError(f"main server exit {main_rc}\n{main.text()[-2000:]}")
+        out["main"] = dict(ready_s=ready_s, readyz=ready, resident_line=resident,
+                           warm_up_line=warm, exit=main_rc, scrape_has_engine=("sart_engine_admitted_total"
+                                                            in scrape))
+        # the drill's restart, once the main server's timed requests are done:
+        # the journal replays the interrupted request; with it the bf16 and
+        # int8 servers, each serving its staged request; meanwhile the
+        # geometry request and the CLI twins of the drill and of the stored
+        # matrices (untimed)
+        replay = _Serve(["--engine_dir", drill_dir, "--lanes", str(SERVE_DRILL_LANES),
+                         "--idle_exit", "1", "--metrics_out", os.path.join(root, "drill.jsonl"),
+                         *solve, *inputs])
+        servers.append(replay)
+        stored = {}
+        for storage, rid, tenant, rng in SERVE_STORAGES:
+            sdir = os.path.join(root, storage)
+            _stage(sdir, [{"id": rid, "tenant": tenant, "time_range": rng}])
+            stored[storage] = _Serve(["--engine_dir", sdir, "--lanes", str(SERVE_LANES),
+                                      "--idle_exit", "1", "--rtm_dtype", storage,
+                                      "--metrics_out", os.path.join(root, f"{storage}.jsonl"),
+                                      *solve, *inputs])
+            servers.append(stored[storage])
+        if geo is not None:
+            gid, gtenant, grange = SERVE_GEOMETRY
+            geo.wait_for(r"live endpoints on")
+            rc, recs[gid] = _submit("--engine_dir", geo_dir, "--geometry",
+                                    geometry_world["geometry"], "--id", gid, "--tenant",
+                                    gtenant, "--time_range", grange, "--wait",
+                                    str(SERVE_TIMEOUT))
+            if rc != 0:
+                raise AssertionError(f"submit --geometry: exit {rc}, {recs[gid]}")
+            geo_rc = geo.stop()
+            if geo_rc != 4:
+                raise AssertionError(f"geometry server exit {geo_rc}\n{geo.text()[-2000:]}")
+            out["geometry_server"] = dict(exit=geo_rc, attach=[
+                ln.strip() for ln in geo.lines if "session-attach" in ln])
+        cli_dir = os.path.join(root, "cli")
+        os.makedirs(cli_dir, exist_ok=True)
+        cli_runs = {"lanes4": _cli_twin(
+            os.path.join(cli_dir, "lanes4.h5"), inputs, cap, p["laplacian"], extra, drill_range,
+            SERVE_DRILL_LANES, device)}
+        for storage, rid, tenant, rng in SERVE_STORAGES:
+            cli_runs[storage] = _cli_twin(
+                os.path.join(cli_dir, f"{storage}.h5"), inputs, cap, p["laplacian"],
+                [*extra, "--rtm_dtype", storage], rng, SERVE_LANES, device)
+        replay_rc = replay.wait()
+        if replay_rc != 0 or "1 accepted-but-unfinished re-queued" not in replay.text():
+            raise AssertionError(f"replay server: exit {replay_rc}\n{replay.text()[-2000:]}")
+        drill_done = _response(drill_dir, drill_id, timeout=10)
+        for storage, rid, *_ in SERVE_STORAGES:
+            rc = stored[storage].wait()
+            if rc != 0:
+                raise AssertionError(f"{storage} server: exit {rc}\n"
+                                     f"{stored[storage].text()[-2000:]}")
+            recs[rid] = _response(os.path.join(root, storage), rid, timeout=10)
+    finally:
+        for s in servers:
+            if s.proc.poll() is None:
+                s.proc.kill()
+                s.proc.wait(timeout=60)
+    out["replay"] = dict(exit=replay_rc, outcome=drill_done["outcome"])
+
+    # the outcomes
+    def outcome(rid):
+        return recs[rid]["outcome"]
+
+    for rid in [r[0] for r in SERVE_REQUESTS] + [r[1] for r in SERVE_STORAGES]:
+        if outcome(rid)["status"] != ("shed-deadline" if rid == "diag-a-late" else "completed"):
+            raise AssertionError(f"{rid}: {recs[rid]}")
+    late = outcome("diag-a-late")
+    if not late["by_status"].get("deadline"):
+        raise AssertionError(f"the tight deadline shed no frame: {late}")
+
+    # the served rows against the one-shot CLI over the same frames (the
+    # servers all stopped: its ms per frame is timed alone)
+    cli_runs["lanes2"] = _cli_twin(os.path.join(cli_dir, "lanes2.h5"), inputs, cap,
+                                   p["laplacian"], extra, SERVE_CLI_RANGE, SERVE_LANES, device)
+    requests = {}
+    for rid, tenant, rng, deadline, how in SERVE_REQUESTS:
+        o = outcome(rid)
+        path = os.path.join(main_dir, o["output"])
+        served = _served_rows(path, world, device,
+                              fit_bound=None if deadline else FIT_BOUND)
+        if deadline:
+            st = served["sol"]["status"]
+            shed = st == -5
+            if not shed.any() or (served["sol"]["iterations"][shed] >= MAX_ITERATIONS).any():
+                raise AssertionError(f"{rid}: statuses {st}")
+        else:
+            _same_rows(served, os.path.join(cli_dir, "lanes2.h5"), rid)
+        requests[rid] = dict(tenant=tenant, via=how, time_range=rng, deadline_s=deadline,
+                             status=o["status"], by_status=o["by_status"],
+                             latency_s=o["latency_s"], solve_s=o["solve_s"],
+                             frames=o["frames"], fit_err=served["fit_err"].tolist(),
+                             iterations=served["sol"]["iterations"].tolist())
+    drilled = _served_rows(os.path.join(drill_dir, "outputs", f"{drill_id}.h5"), world, device)
+    _same_rows(drilled, os.path.join(cli_dir, "lanes4.h5"), "the replayed request")
+    out["replay"]["fit_err"] = drilled["fit_err"].tolist()
+    out["requests"] = requests
+    out["cli"] = cli_runs
+
+    # the servers' artifacts: latency, queue wait, the kernels' launches
+    art = _artifact_metrics(os.path.join(root, "main.jsonl"))
+    served_ms = [fr["solve_ms"] for fr in art["frames"]
+                 if fr.get("solve_ms") is not None and fr["status"] != -5]
+    launches = _launches_of(art)
+    drill_art = _artifact_metrics(os.path.join(root, "drill.jsonl"))
+    out["latency_s"] = _quantiles(art, "engine_request_latency_s")
+    out["queue_wait_s"] = _quantiles(art, "engine_queue_wait_s")
+    out["served_ms_per_frame"] = sum(served_ms) / max(len(served_ms), 1)
+    # the first request apart from the rest: the warm-up stride should
+    # leave it no dearer a frame than the later ones
+    first = outcome(SERVE_REQUESTS[0][0])
+    later_ms = [fr["solve_ms"] for fr in art["frames"]
+                if fr.get("solve_ms") is not None and fr["status"] != -5
+                and fr.get("trace") != first["trace"]]
+    out["first_request"] = dict(latency_s=first["latency_s"], solve_s=first["solve_s"],
+                                ms_per_frame=first["solve_s"] * 1e3 / max(first["frames"], 1))
+    out["later_requests"] = dict(
+        latency_s={r: outcome(r)["latency_s"] for r, *_ in SERVE_REQUESTS[1:]},
+        served_ms_per_frame=sum(later_ms) / max(len(later_ms), 1))
+    out["cli_ms_per_frame"] = cli_runs["lanes2"]["ms_per_frame"]
+    out["launches"] = {"main": launches, "drill": _launches_of(drill_art)}
+    out["deadline_shed_total"] = (art["metrics"].get("sched_deadline_shed_total") or {}).get("value")
+    if device == "cuda":
+        one = {k: v for k, v in launches.items() if k.startswith("kernel=fused_sweep")}
+        if set(one) != {f"kernel=fused_sweep,plan={_plan_of(*world['H'].shape, SERVE_LANES)}"} \
+                or min(one.values()) <= 0:
+            raise AssertionError(f"main server's launches {launches}")
+    # the stored matrices: each request's rows the CLI's at the same
+    # storage, its frames through that storage's plan at B = lanes
+    out["stored"] = {}
+    P, V = world["H"].shape
+    for storage, rid, tenant, rng in SERVE_STORAGES:
+        o = outcome(rid)
+        s_served = _served_rows(os.path.join(root, storage, o["output"]), world, device)
+        _same_rows(s_served, os.path.join(cli_dir, f"{storage}.h5"), f"the {storage} request")
+        s_launch = _launches_of(_artifact_metrics(os.path.join(root, f"{storage}.jsonl")))
+        out["launches"][storage] = s_launch
+        s_one = {k: v for k, v in s_launch.items() if k.startswith("kernel=fused_sweep")}
+        if device == "cuda" and (
+                set(s_one) != {f"kernel=fused_sweep,plan={_plan_of(P, V, SERVE_LANES, storage)}"}
+                or min(s_one.values()) <= 0):
+            raise AssertionError(f"{storage} server's launches {s_launch}")
+        out["stored"][storage] = dict(
+            tenant=tenant, time_range=rng, status=o["status"], frames=o["frames"],
+            latency_s=o["latency_s"], solve_s=o["solve_s"],
+            fit_err=s_served["fit_err"].tolist(),
+            iterations=s_served["sol"]["iterations"].tolist(),
+            cli_ms_per_frame=cli_runs[storage]["ms_per_frame"])
+    if geometry_world is not None:
+        gid = SERVE_GEOMETRY[0]
+        o = outcome(gid)
+        g_served = _served_rows(os.path.join(geo_dir, o["output"]), geometry_world, device)
+        g_cli = os.path.join(cli_dir, "geometry.h5")
+        gp = geometry_world["paths"]
+        rc, ms, _text = run_cli(["-o", g_cli, "--geometry", geometry_world["geometry"],
+                                 gp["img_a"], gp["img_b"], "-m", cap, *extra, "-t",
+                                 SERVE_GEOMETRY[2],
+                                 "--no_guess", "--batch_frames", str(SERVE_LANES)], device)
+        if rc != 0:
+            raise AssertionError(f"CLI --geometry: exit {rc}")
+        _same_rows(g_served, g_cli, "the geometry request")
+        geo_art = _artifact_metrics(os.path.join(root, "geometry.jsonl"))
+        g_launch = _launches_of(geo_art)
+        if device == "cuda" and not (g_launch.get("kernel=implicit_forward,plan=-", 0) > 0
+                                     and g_launch.get("kernel=implicit_back,plan=-", 0) > 0):
+            raise AssertionError(f"geometry server's launches {g_launch}")
+        out["launches"]["geometry"] = g_launch
+        out["geometry"] = dict(status=o["status"], frames=o["frames"],
+                               latency_s=o["latency_s"], fit_err=g_served["fit_err"].tolist(),
+                               cli_ms_per_frame=sum(ms) / max(len(ms), 1))
+        shutil.rmtree(os.path.dirname(geometry_world["geometry"]), ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the fused sweep at the serving shape, against its plain version
+    if device == "cuda" and rates is not None:
+        P, V = world["H"].shape
+        out["kernels"] = {}
+        for B in (SERVE_LANES, SERVE_DRILL_LANES):
+            gc.collect()
+            torch.cuda.empty_cache()
+            H, w, f, aux, scale = _sweep_inputs(P, V, B, False, True, seed=70 + B)
+            kw = dict(logarithmic=False)
+            plan = _plan_of(P, V, B)
+            record, err = _check_kernel(H, w, f, aux, scale, kw, "float32")
+            t = _timing(H, w, f, aux, scale, kw, rates, plan)
+            t["max_abs_err"] = err
+            t["check"] = record
+            out["kernels"][f"float32@B{B}"] = t
+            del H, w, f, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cli_twin(out, inputs, cap, laplacian, extra, time_range, lanes, device) -> dict:
+    """The one-shot CLI over a request's frames at the server's lanes
+    (``--no_guess --batch_frames``): its wall and ms per frame."""
+    t0 = time.perf_counter()
+    rc, ms, _text = run_cli(["-o", out, *inputs, "-m", cap, "-l", laplacian, *extra, "-t",
+                             time_range, "--no_guess", "--batch_frames", str(lanes)], device)
+    if rc != 0:
+        raise AssertionError(f"CLI over {time_range} at {lanes} lanes: exit {rc}")
+    return dict(wall_s=time.perf_counter() - t0, frames=len(ms),
+                ms_per_frame=sum(ms) / max(len(ms), 1))
+
+
+def _plan_of(P: int, V: int, B: int, storage: str = "float32") -> str:
+    from sartsolver_tpu_torch.ops.fused_sweep import plan_sweep
+
+    return plan_sweep(P, V, B, storage)
+
+
 def main() -> int:
     import torch
 
@@ -4255,12 +4799,20 @@ def main() -> int:
         sparse = sparse_phase(world, tmp, rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
         emit("sparse", seconds=time.perf_counter() - t0, **sparse)
         t0 = time.perf_counter()
+        kept = {}
         operators = operators_phase(tmp, world=world,
                                     rates=PEAKS["PCIe" if "PCIe" in card else "SXM"],
-                                    reflective=reflective)
+                                    reflective=reflective, keep_geometry=kept)
         del reflective
         emit("operators", seconds=time.perf_counter() - t0, fit_tol=OPERATOR_FIT_TOL,
              max_iterations=MAX_ITERATIONS, **operators)
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = serve_phase(world, tmp, kept.pop("world"),
+                            rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        emit("serve", seconds=time.perf_counter() - t0, card=smi, fit_bound=FIT_BOUND,
+             max_iterations=MAX_ITERATIONS, **serve)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -4430,6 +4982,14 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": k["shape"], "storage": "float32",
             "variant": "the pixel-sharded sweep, split at the all-reduce"})
+    # the fused sweep at the serving engine's lanes: B = 2 (the main server)
+    # and B = 4 (the SIGTERM drill's restart); launches: those servers'
+    # kernel_launches_total on the plan
+    for B, server in ((SERVE_LANES, "main"), (SERVE_DRILL_LANES, "drill")):
+        t = serve["kernels"][f"float32@B{B}"]
+        rows.append(row(f"fused_sweep_serve@B{B}", t,
+                        serve["launches"][server].get(f"kernel=fused_sweep,plan={t['plan']}", 0),
+                        t["max_abs_err"], f"B1/B2 in the serving engine at --lanes {B}"))
     for name, replaces, _ in PROBES:
         rows.append(row(name, timing[name], batch["launches_by_plan"]["tensor_core"],
                         timing[name]["max_abs_err"], "B4 at the probe's B = 32", replaces))

@@ -166,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import math
 import os
@@ -627,6 +628,368 @@ class _FrameLoopProfile:
 PROFILE_TRACE = "sartsolve.pt.trace.json"
 
 
+
+@dataclasses.dataclass
+class SolveInputs:
+    """What the pre-flight gate learned of the input files
+    (:func:`index_inputs`)."""
+
+    geometry_record: Optional[object]
+    rtm_name: str
+    sorted_matrix_files: dict
+    sorted_image_files: dict
+    camera_names: List[str]
+    npixel: int
+    nvoxel: int
+    rtm_frame_masks: dict
+
+
+def index_inputs(args, geometry_record=None) -> SolveInputs:
+    """The pre-flight validation gate (main.cpp:30-59) over
+    ``args.input_files``: the files sorted and checked against each other,
+    the problem's size and the RTM frame masks. ``geometry_record`` (a
+    validated record) replaces the matrix files with the matrix-free
+    operator, as ``--geometry`` does. Shared by the CLI's run and the serving
+    engine's resident session, so the two cannot drift."""
+    from sartsolver_tpu_torch.config import SartInputError
+    from sartsolver_tpu_torch.io import hdf5files as hf
+
+    # ---- pre-flight validation gate (main.cpp:30-59) -----------------
+    if geometry_record is None and args.geometry:
+        from sartsolver_tpu_torch.operators.geometry import load_geometry
+
+        geometry_record = load_geometry(args.geometry)
+    matrix_files, image_files = hf.categorize_input_files(args.input_files)
+    rtm_name = args.raytransfer_name
+    if geometry_record is not None:
+        # matrix-free: image files only, their cameras the record's
+        if matrix_files:
+            raise SartInputError(
+                "--geometry replaces the ray-transfer matrix files; "
+                f"drop {', '.join(matrix_files)} from the inputs "
+                "(image files only).")
+        hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
+        sorted_image_files = hf.sort_image_files(image_files)
+        camera_names = list(sorted_image_files)
+        cams = set(geometry_record.camera_names)
+        if cams != set(camera_names):
+            raise SartInputError(
+                "Geometry/image mismatch: geometry cameras "
+                f"{sorted(cams)} vs image files {camera_names}.")
+        sorted_matrix_files = {}
+        npixel, nvoxel = geometry_record.npixel, geometry_record.nvoxel
+        rtm_frame_masks = geometry_record.frame_masks()
+    else:
+        hf.check_group_attribute_consistency(matrix_files, f"rtm/{rtm_name}",
+                                             ["wavelength"])
+        hf.check_group_attribute_consistency(matrix_files, "rtm/voxel_map",
+                                             ["nx", "ny", "nz"])
+        sorted_matrix_files = hf.sort_rtm_files(matrix_files)
+        hf.check_rtm_frame_consistency(sorted_matrix_files)
+        hf.check_rtm_voxel_consistency(sorted_matrix_files)
+        hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
+        sorted_image_files = hf.sort_image_files(image_files)
+        camera_names = list(sorted_image_files)
+        hf.check_rtm_image_consistency(
+            sorted_matrix_files, sorted_image_files, rtm_name, args.wavelength_threshold
+        )
+        npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
+        rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
+    return SolveInputs(geometry_record, rtm_name, sorted_matrix_files,
+                       sorted_image_files, camera_names, npixel, nvoxel,
+                       rtm_frame_masks)
+
+
+@dataclasses.dataclass
+class SolveSetup:
+    """The solver a run or a resident session solves with
+    (:func:`build_solver`)."""
+
+    opts: object
+    storage: str
+    sdc_policy: Optional[object]
+    ranks: object
+    solver: object
+    grid: object
+    tile_occupancy: Optional[object]
+
+
+def build_solver(args, inputs: SolveInputs, device, *, telem=None,
+                 on_event=None, summary=None) -> SolveSetup:
+    """The solver options from the flags, the grid of ranks (the process
+    group's under ``--multihost``, else one), the Laplacian, the operator's ingest onto ``device`` and the
+    solver over it, with the voxel grid the output carries; prints the
+    provenance lines. ``telem`` takes the run's provenance (None: a build
+    outside a run); ``on_event`` and ``summary`` are the integrity layer's
+    event sink and run summary. Shared by the CLI's run and the serving
+    engine's resident session: both build the same solver, plan and
+    reduction order from the same flags, which keeps a served request's
+    output byte-identical to the CLI's over the same frames."""
+    from sartsolver_tpu_torch.config import SartInputError, SolverOptions
+    from sartsolver_tpu_torch.io.laplacian_io import read_laplacian
+    from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
+    from sartsolver_tpu_torch.models.sart import (
+        INT8_MAX_CONTRACTION, resolve_fused, torch_dtype,
+    )
+    from sartsolver_tpu_torch.obs import trace as obs_trace
+    from sartsolver_tpu_torch.ops.laplacian import make_laplacian
+    from sartsolver_tpu_torch.parallel.mesh import choose_mesh_shape, make_grid
+    from sartsolver_tpu_torch.parallel.multihost import (
+        lowrank_operator_or_decline, read_and_quantize_rtm, read_and_shard_rtm,
+        sparse_tile_stats_or_decline,
+    )
+    from sartsolver_tpu_torch.parallel.sharded import (
+        DistributedSARTSolver, grid_refusal, os_padded_rows,
+    )
+    from sartsolver_tpu_torch.resilience import integrity as integ_mod
+
+    geometry_record = inputs.geometry_record
+    rtm_name = inputs.rtm_name
+    sorted_matrix_files = inputs.sorted_matrix_files
+    npixel, nvoxel = inputs.npixel, inputs.nvoxel
+    # continuous-batching stride: the flag, else SART_SCHEDULE_STRIDE,
+    # else the SolverOptions default (16); a malformed value fails
+    # loudly, as the flag would
+    if args.schedule_stride is not None:
+        schedule_stride = args.schedule_stride
+    else:
+        stride_env = os.environ.get("SART_SCHEDULE_STRIDE", "16")
+        try:
+            schedule_stride = int(stride_env)
+        except ValueError:
+            raise SartInputError(
+                f"SART_SCHEDULE_STRIDE must be an integer >= 1, "
+                f"{stride_env!r} given."
+            ) from None
+    if schedule_stride < 1:
+        raise SartInputError(
+            f"SART_SCHEDULE_STRIDE must be >= 1, {schedule_stride} given."
+        )
+
+    # the integrity layer: the flag or SART_INTEGRITY; configure() turns
+    # the ingest's double reads on, the in-solve check rides the options
+    integrity_on = bool(args.integrity) or integ_mod.env_enabled()
+    integ_mod.configure(integrity_on)
+    sdc_policy = (integ_mod.SdcEscalation(on_event=on_event, summary=summary)
+                  if integrity_on else None)
+    common = dict(
+        integrity=integrity_on,
+        schedule_stride=schedule_stride,
+        logarithmic=args.logarithmic,
+        ray_density_threshold=args.ray_density_threshold,
+        ray_length_threshold=args.ray_length_threshold,
+        conv_tolerance=args.conv_tolerance,
+        beta_laplace=args.beta_laplace,
+        relaxation=args.relaxation,
+        max_iterations=args.max_iterations,
+        rtm_dtype=args.rtm_dtype,
+        relaxation_decay=args.relaxation_decay,
+        momentum=args.momentum,
+        divergence_recovery=args.divergence_recovery,
+        os_subsets=args.os_subsets,
+        fused_sweep=args.fused_sweep,
+        sparse_rtm=args.sparse_rtm,
+        lowrank_rtm=args.lowrank_rtm,
+    )
+    opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
+            else SolverOptions(**common))
+    dtype = torch_dtype(opts.dtype)
+    storage = opts.rtm_dtype or opts.dtype
+    try:
+        fused = resolve_fused(opts)
+    except ValueError as err:  # fused_sweep='on' where it cannot engage
+        raise SartInputError(str(err)) from None
+    try:
+        held_rows = os_padded_rows(npixel, opts.os_subsets)
+    except ValueError as err:  # --os_subsets divides no extent the solver pads to
+        raise SartInputError(str(err)) from None
+    if storage == "int8" and max(npixel, nvoxel) > INT8_MAX_CONTRACTION:
+        raise SartInputError(
+            f"Argument rtm_dtype='int8': RTM extent {max(npixel, nvoxel)} "
+            f"exceeds the int32-accumulation bound {INT8_MAX_CONTRACTION}; "
+            "use fp32/bfloat16 storage."
+        )
+    # the grid of ranks (sartsolver_tpu/cli.py:866-978): the flags', or
+    # the auto choice over the world; --voxel_shards alone means a
+    # voxel-major grid for int8. One rank is the one-device path.
+    world = 1
+    if args.multihost:
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+    if args.pixel_shards is None and args.voxel_shards is None:
+        n_pix, n_vox = choose_mesh_shape(world, npixel, nvoxel, opts, args.batch_frames,
+                                         device_type=device.type)
+    else:
+        n_vox = args.voxel_shards or 1
+        if args.pixel_shards is not None:
+            n_pix = args.pixel_shards
+        elif storage == "int8":
+            n_pix = 1
+        else:
+            n_pix = max(world // n_vox, 1)
+    ranks = make_grid(n_pix, n_vox)
+    multi = ranks.world > 1
+    refusal = grid_refusal(opts, ranks, resume=args.resume, geometry=bool(args.geometry),
+                           debug_nans=args.debug_nans)
+    if refusal:
+        raise SartInputError(refusal)
+    # artifact provenance, the JAX CLI's meta fields; the variant fields
+    # also ride every frame record (obs/run.py)
+    if telem is None:  # a build outside a run: provenance kept, no sink
+        from sartsolver_tpu_torch.obs.run import RunTelemetry
+
+        telem = RunTelemetry()
+    telem.set_run_info(
+        backend=device.type, mesh=f"{n_pix}x{n_vox}", processes=ranks.world,
+        rtm_dtype=str(storage),
+        compute_dtype=str(opts.dtype), fused_sweep=str(opts.fused_sweep),
+        logarithmic=bool(args.logarithmic), os_subsets=int(opts.os_subsets),
+        momentum=str(opts.momentum), operator="dense",
+    )
+    telem.registry.gauge("solver_os_subsets").set(float(opts.os_subsets))
+    telem.registry.gauge("solver_momentum_on").set(
+        1.0 if opts.momentum != "off" else 0.0)
+
+    lap = None
+    if args.laplacian_file:
+        rows, cols, vals = read_laplacian(args.laplacian_file, nvoxel)
+        lap = make_laplacian(rows, cols, vals, nvoxel=nvoxel, dtype=dtype,
+                             device=device)
+
+    # the operator: the factored one, the matrix-free one, or the stored
+    # matrix (dense or block-sparse)
+    ingest_stats = None
+    tile_occ = lowrank_op = None
+    if geometry_record is None and opts.lowrank_rank() is not None:
+        # the whole matrix read on the host, split and factored behind
+        # the quality gate: 'auto' declines loudly to the dense path,
+        # an explicit rank exits 1 before anything is staged
+        with obs_trace.span("ingest.lowrank_factorize", npixel=npixel, nvoxel=nvoxel):
+            lowrank_op = lowrank_operator_or_decline(
+                opts, sorted_matrix_files, rtm_name, npixel, nvoxel, laplacian=lap,
+                device=device)
+    if geometry_record is not None:
+        # no RTM ingest: the operator's device state is the ray table
+        from sartsolver_tpu_torch.operators.implicit import ImplicitOperator
+
+        operator = ImplicitOperator(geometry_record)
+        with obs_trace.span("ingest.geometry", npixel=npixel, nvoxel=nvoxel):
+            solver = _operator_solver(DistributedSARTSolver, operator, opts, device,
+                                      args.debug_nans)
+        print(f"implicit: ray table resident ({operator.resident_nbytes()} bytes; "
+              f"a materialized RTM would stage {npixel * nvoxel * 4})")
+    elif lowrank_op is not None:
+        with obs_trace.span("ingest.lowrank", npixel=npixel, nvoxel=nvoxel,
+                            rank=lowrank_op.rank):
+            solver = _operator_solver(DistributedSARTSolver, lowrank_op, opts, device,
+                                      args.debug_nans)
+        occ = lowrank_op.tile_occupancy()
+        print(f"lowrank: factored operator H ~= S + U V^T rank={lowrank_op.rank} "
+              f"(core occupancy {occ.occupancy_fraction():.3f}, eps {occ.epsilon:g}, "
+              f"digest {occ.digest:#010x}; the residual fill costs "
+              f"{lowrank_op.rank}*(npixel+nvoxel) MACs per projection instead of "
+              "npixel*nvoxel)")
+        lowrank_op = None  # the host's S and factors: the device holds its own
+    else:
+        # the OS cycle's products upcast int8 codes themselves: int8
+        # needs the fused sweep only on the classic sweep
+        if storage == "int8" and not fused and opts.os_subsets == 1:
+            why = (" (divergence_recovery keeps the logarithmic solver off it)"
+                   if opts.divergence_recovery and opts.logarithmic else "")
+            raise SartInputError(
+                "Argument rtm_dtype='int8' requires the fused sweep, but it "
+                f"resolved off{why}. Use --fused_sweep auto/on, float32 or "
+                "bfloat16 storage, or the linear solver."
+            )
+        # the matrix streamed in row chunks into a device buffer of the
+        # stored dtype (int8: two passes), with the ordered-subsets
+        # padding rows; the ray stats are those of the stored matrix,
+        # taken on the device, as the JAX CLI's are. With integrity on,
+        # the ingest also sums the stored values for the ray stats'
+        # check after the upload
+        ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
+        # the block-sparse index's tile maxima, taken by the ingest where
+        # the stored rows lie ('auto' declines here on a flag, with a
+        # warning)
+        tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
+        with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
+            rtm_scale = None
+            # on a grid each rank reads its own block, in turns unless
+            # --parallel_read
+            stripes = dict(grid=ranks, serialize=multi and not args.parallel_read)
+            if storage == "int8":
+                rtm, rtm_scale = read_and_quantize_rtm(
+                    sorted_matrix_files, rtm_name, npixel, nvoxel, device,
+                    rows=held_rows, ingest_stats=ingest_stats, tile_stats=tile_stats,
+                    **stripes)
+            else:
+                rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
+                                         device, dtype=storage, rows=held_rows,
+                                         ingest_stats=ingest_stats,
+                                         tile_stats=tile_stats, **stripes)
+            try:
+                tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
+                            if tile_stats is not None else None)
+                # the solver keeps the occupied columns, in place in the
+                # ingest's buffer
+                solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
+                                               debug_nans=args.debug_nans,
+                                               rtm_scale=rtm_scale, npixel=npixel,
+                                               tile_occupancy=tile_occ, grid=ranks,
+                                               nvoxel=nvoxel)
+            except ValueError as err:  # a non-finite entry, or EPS that cannot engage
+                raise SartInputError(str(err)) from None
+            del rtm, rtm_scale
+    if tile_occ is not None:
+        # the index, known at ingest; whether the sweep engaged it is
+        # --timing's engaged= line
+        print(f"sparse: tile occupancy {tile_occ.occupancy_fraction():.3f} "
+              f"(threshold {tile_occ.threshold:g}, eps {tile_occ.epsilon:g}, "
+              f"digest {tile_occ.digest:#010x}; engagement in --timing)")
+    if ingest_stats is not None:
+        if (opts.sparse_epsilon() or 0) > 0 and tile_occ is not None \
+                and not tile_occ.mask.all():
+            # the threshold zeroed tiles on the device after the ingest
+            # summed them: the sums cannot match the device's rho/lambda
+            print("Warning: post-upload ray-stats verification skipped: "
+                  "sparse_rtm threshold zeroed tiles after the host sums "
+                  "were accumulated (stripe digests, in-solve ABFT and the "
+                  "resident re-audit still cover the matrix).", file=sys.stderr)
+        else:
+            # the staging or the layout on the device corrupted the
+            # matrix: every solve it would serve is poisoned, quarantine
+            issues = solver.verify_ray_stats(ingest_stats)
+            if issues:
+                sdc_policy.resident_failure(
+                    "post-upload ray-stats verification: " + "; ".join(issues))
+    telem.set_run_info(operator=solver.operator_kind if solver.operator_kind != "dense"
+                       else "tileskip" if tile_occ is not None else "dense")
+    if geometry_record is not None:
+        from sartsolver_tpu_torch.operators.geometry import GeometryVoxelGrid
+
+        grid = GeometryVoxelGrid(geometry_record)
+    else:
+        grid = make_voxel_grid(next(iter(sorted_matrix_files.values())),
+                               "rtm/voxel_map")
+    sparse_on = solver.tile_occupancy is not None
+    sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused or sparse_on
+             else "two-matmul") + ("-sparse" if sparse_on else "")
+    if fused and ranks.n_pix > 1:
+        sweep = "fused-split"  # split at the pixel axis's all-reduce
+    if solver.operator_kind != "dense":
+        sweep = solver.operator_kind + ("-os-subset" if opts.os_subsets > 1 else "")
+    print(f"solver: mesh={n_pix}x{n_vox} (pixels x voxels, {ranks.layout()}) "
+          f"device={device} collectives={ranks.backend or 'none'} "
+          f"rtm_dtype={storage} compute={opts.dtype} "
+          f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
+          + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else "")
+          + (f" sparse_rtm={opts.sparse_rtm} voxels_held="
+             f"{solver.problem.rtm.shape[1]}" if sparse_on else "")
+          + f" processes={ranks.world}")
+    return SolveSetup(opts, storage, sdc_policy, ranks, solver, grid, tile_occ)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv and argv[0] == "metrics":
@@ -641,12 +1004,43 @@ def main(argv: Optional[List[str]] = None) -> int:
         from sartsolver_tpu_torch.obs.cli import top_main
 
         return top_main(argv[1:])
+    if argv and argv[0] == "serve":
+        # the resident serving engine: the session held on the device,
+        # requests from an ingest dir or a local socket, a crash-recoverable
+        # request journal; dispatched before the solver parser
+        from sartsolver_tpu_torch.engine.cli import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "submit":
+        # the serving engine's client
+        from sartsolver_tpu_torch.engine.cli import submit_main
+
+        return submit_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        # the fleet controller (the JAX resilience/supervisor.py) runs
+        # supervised serve workers, which are not ported yet
+        print("sartsolve fleet: the fleet controller is not ported to this "
+              "package yet (it needs resilience/supervisor.py).", file=sys.stderr)
+        return 1
+    if argv and argv[0] == "chaos":
+        # the chaos campaign harness (the JAX resilience/chaos.py) drives a
+        # supervised serve, which is not ported yet
+        print("sartsolve chaos: the chaos harness is not ported to this package "
+              "yet (it needs resilience/chaos.py and the supervisor).",
+              file=sys.stderr)
+        return 1
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as err:
         # argparse exits 2 on a malformed flag; the reference's contract is 1
         raise SystemExit(1 if err.code else 0) from None
     _validate(args)
+
+    # per-run scope of the once-per-run non-finite-pixel warning: repeated
+    # runs in one interpreter each warn
+    from sartsolver_tpu_torch.models.sart import reset_nonfinite_warning
+
+    reset_nonfinite_warning()
 
     from sartsolver_tpu_torch.obs.run import RunTelemetry
     from sartsolver_tpu_torch.resilience.failures import RunSummary
@@ -681,29 +1075,13 @@ def _run(args, telem, summary, rank, quiet) -> int:
     ``quiet`` (an exit stack closed when the run ends)."""
     import torch
 
-    from sartsolver_tpu_torch.config import (
-        DIVERGED, SartInputError, SolverOptions, parse_time_intervals,
-    )
+    from sartsolver_tpu_torch.config import DIVERGED, SartInputError, parse_time_intervals
     from sartsolver_tpu_torch.device import resolve_device
-    from sartsolver_tpu_torch.io import hdf5files as hf
     from sartsolver_tpu_torch.io.image import CompositeImage
-    from sartsolver_tpu_torch.io.laplacian_io import read_laplacian
     from sartsolver_tpu_torch.io.solution import SolutionWriter
-    from sartsolver_tpu_torch.io.voxelgrid import make_voxel_grid
-    from sartsolver_tpu_torch.models.sart import (
-        FUSED_ENGAGEMENT, INT8_MAX_CONTRACTION, resolve_fused, torch_dtype,
-    )
+    from sartsolver_tpu_torch.models.sart import FUSED_ENGAGEMENT
     from sartsolver_tpu_torch.obs import trace as obs_trace
-    from sartsolver_tpu_torch.ops.laplacian import make_laplacian
-    from sartsolver_tpu_torch.parallel.multihost import (
-        lowrank_operator_or_decline, read_and_quantize_rtm, read_and_shard_rtm,
-        sparse_tile_stats_or_decline,
-    )
     from sartsolver_tpu_torch.parallel import multihost as mh
-    from sartsolver_tpu_torch.parallel.mesh import choose_mesh_shape, make_grid
-    from sartsolver_tpu_torch.parallel.sharded import (
-        DistributedSARTSolver, grid_refusal, os_padded_rows,
-    )
     from sartsolver_tpu_torch.io.solution import read_resume_state
     from sartsolver_tpu_torch.obs import flight as obs_flight
     from sartsolver_tpu_torch.resilience import integrity as integ_mod
@@ -809,293 +1187,24 @@ def _run(args, telem, summary, rank, quiet) -> int:
     try:
         time_intervals = parse_time_intervals(args.time_range)
 
-        # ---- pre-flight validation gate (main.cpp:30-59) -----------------
-        geometry_record = None
-        if args.geometry:
-            from sartsolver_tpu_torch.operators.geometry import load_geometry
-
-            geometry_record = load_geometry(args.geometry)
-        matrix_files, image_files = hf.categorize_input_files(args.input_files)
-        rtm_name = args.raytransfer_name
-        if geometry_record is not None:
-            # matrix-free: image files only, their cameras the record's
-            if matrix_files:
-                raise SartInputError(
-                    "--geometry replaces the ray-transfer matrix files; "
-                    f"drop {', '.join(matrix_files)} from the inputs "
-                    "(image files only).")
-            hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
-            sorted_image_files = hf.sort_image_files(image_files)
-            camera_names = list(sorted_image_files)
-            cams = set(geometry_record.camera_names)
-            if cams != set(camera_names):
-                raise SartInputError(
-                    "Geometry/image mismatch: geometry cameras "
-                    f"{sorted(cams)} vs image files {camera_names}.")
-            sorted_matrix_files = {}
-            npixel, nvoxel = geometry_record.npixel, geometry_record.nvoxel
-            rtm_frame_masks = geometry_record.frame_masks()
-        else:
-            hf.check_group_attribute_consistency(matrix_files, f"rtm/{rtm_name}",
-                                                 ["wavelength"])
-            hf.check_group_attribute_consistency(matrix_files, "rtm/voxel_map",
-                                                 ["nx", "ny", "nz"])
-            sorted_matrix_files = hf.sort_rtm_files(matrix_files)
-            hf.check_rtm_frame_consistency(sorted_matrix_files)
-            hf.check_rtm_voxel_consistency(sorted_matrix_files)
-            hf.check_group_attribute_consistency(image_files, "image", ["wavelength"])
-            sorted_image_files = hf.sort_image_files(image_files)
-            camera_names = list(sorted_image_files)
-            hf.check_rtm_image_consistency(
-                sorted_matrix_files, sorted_image_files, rtm_name, args.wavelength_threshold
-            )
-            npixel, nvoxel = hf.get_total_rtm_size(sorted_matrix_files)
-            rtm_frame_masks = hf.read_rtm_frame_masks(sorted_matrix_files)
+        inputs = index_inputs(args)
+        camera_names = inputs.camera_names
+        npixel, nvoxel = inputs.npixel, inputs.nvoxel
         # a resume is checked from the file's metadata before the ingest
         resume_state = (read_resume_state(args.output_file, camera_names, nvoxel)
                         if args.resume else None)
         mark("validate + index inputs")
 
-        # continuous-batching stride: the flag, else SART_SCHEDULE_STRIDE,
-        # else the SolverOptions default (16); a malformed value fails
-        # loudly, as the flag would
-        if args.schedule_stride is not None:
-            schedule_stride = args.schedule_stride
-        else:
-            stride_env = os.environ.get("SART_SCHEDULE_STRIDE", "16")
-            try:
-                schedule_stride = int(stride_env)
-            except ValueError:
-                raise SartInputError(
-                    f"SART_SCHEDULE_STRIDE must be an integer >= 1, "
-                    f"{stride_env!r} given."
-                ) from None
-        if schedule_stride < 1:
-            raise SartInputError(
-                f"SART_SCHEDULE_STRIDE must be >= 1, {schedule_stride} given."
-            )
-
-        # the integrity layer: the flag or SART_INTEGRITY; configure() turns
-        # the ingest's double reads on, the in-solve check rides the options
-        integrity_on = bool(args.integrity) or integ_mod.env_enabled()
-        integ_mod.configure(integrity_on)
-        sdc_policy = (integ_mod.SdcEscalation(on_event=note_event, summary=summary)
-                      if integrity_on else None)
-        common = dict(
-            integrity=integrity_on,
-            schedule_stride=schedule_stride,
-            logarithmic=args.logarithmic,
-            ray_density_threshold=args.ray_density_threshold,
-            ray_length_threshold=args.ray_length_threshold,
-            conv_tolerance=args.conv_tolerance,
-            beta_laplace=args.beta_laplace,
-            relaxation=args.relaxation,
-            max_iterations=args.max_iterations,
-            rtm_dtype=args.rtm_dtype,
-            relaxation_decay=args.relaxation_decay,
-            momentum=args.momentum,
-            divergence_recovery=args.divergence_recovery,
-            os_subsets=args.os_subsets,
-            fused_sweep=args.fused_sweep,
-            sparse_rtm=args.sparse_rtm,
-            lowrank_rtm=args.lowrank_rtm,
-        )
-        opts = (SolverOptions.cpu_parity(**common) if args.use_cpu
-                else SolverOptions(**common))
-        dtype = torch_dtype(opts.dtype)
-        storage = opts.rtm_dtype or opts.dtype
-        try:
-            fused = resolve_fused(opts)
-        except ValueError as err:  # fused_sweep='on' where it cannot engage
-            raise SartInputError(str(err)) from None
-        try:
-            held_rows = os_padded_rows(npixel, opts.os_subsets)
-        except ValueError as err:  # --os_subsets divides no extent the solver pads to
-            raise SartInputError(str(err)) from None
-        if storage == "int8" and max(npixel, nvoxel) > INT8_MAX_CONTRACTION:
-            raise SartInputError(
-                f"Argument rtm_dtype='int8': RTM extent {max(npixel, nvoxel)} "
-                f"exceeds the int32-accumulation bound {INT8_MAX_CONTRACTION}; "
-                "use fp32/bfloat16 storage."
-            )
-        # the grid of ranks (sartsolver_tpu/cli.py:866-978): the flags', or
-        # the auto choice over the world; --voxel_shards alone means a
-        # voxel-major grid for int8. One rank is the one-device path.
-        world = 1
-        if args.multihost:
-            import torch.distributed as dist
-
-            world = dist.get_world_size()
-        if args.pixel_shards is None and args.voxel_shards is None:
-            n_pix, n_vox = choose_mesh_shape(world, npixel, nvoxel, opts, args.batch_frames,
-                                             device_type=device.type)
-        else:
-            n_vox = args.voxel_shards or 1
-            if args.pixel_shards is not None:
-                n_pix = args.pixel_shards
-            elif storage == "int8":
-                n_pix = 1
-            else:
-                n_pix = max(world // n_vox, 1)
-        ranks = grid_state["ranks"] = make_grid(n_pix, n_vox)
+        setup = build_solver(args, inputs, device, telem=telem,
+                             on_event=note_event, summary=summary)
+        opts, solver, grid = setup.opts, setup.solver, setup.grid
+        sdc_policy = setup.sdc_policy
+        ranks = grid_state["ranks"] = setup.ranks
         multi = ranks.world > 1
-        refusal = grid_refusal(opts, ranks, resume=args.resume, geometry=bool(args.geometry),
-                               debug_nans=args.debug_nans)
-        if refusal:
-            raise SartInputError(refusal)
-        # artifact provenance, the JAX CLI's meta fields; the variant fields
-        # also ride every frame record (obs/run.py)
-        telem.set_run_info(
-            backend=device.type, mesh=f"{n_pix}x{n_vox}", processes=ranks.world,
-            rtm_dtype=str(storage),
-            compute_dtype=str(opts.dtype), fused_sweep=str(opts.fused_sweep),
-            logarithmic=bool(args.logarithmic), os_subsets=int(opts.os_subsets),
-            momentum=str(opts.momentum), operator="dense",
-        )
-        telem.registry.gauge("solver_os_subsets").set(float(opts.os_subsets))
-        telem.registry.gauge("solver_momentum_on").set(
-            1.0 if opts.momentum != "off" else 0.0)
-
-        lap = None
-        if args.laplacian_file:
-            rows, cols, vals = read_laplacian(args.laplacian_file, nvoxel)
-            lap = make_laplacian(rows, cols, vals, nvoxel=nvoxel, dtype=dtype,
-                                 device=device)
-
         composite_image = CompositeImage(
-            sorted_image_files, rtm_frame_masks, time_intervals, npixel,
+            inputs.sorted_image_files, inputs.rtm_frame_masks, time_intervals, npixel,
             max_cache_size=args.max_cached_frames,
         )
-        # the operator: the factored one, the matrix-free one, or the stored
-        # matrix (dense or block-sparse)
-        ingest_stats = None
-        tile_occ = lowrank_op = None
-        if geometry_record is None and opts.lowrank_rank() is not None:
-            # the whole matrix read on the host, split and factored behind
-            # the quality gate: 'auto' declines loudly to the dense path,
-            # an explicit rank exits 1 before anything is staged
-            with obs_trace.span("ingest.lowrank_factorize", npixel=npixel, nvoxel=nvoxel):
-                lowrank_op = lowrank_operator_or_decline(
-                    opts, sorted_matrix_files, rtm_name, npixel, nvoxel, laplacian=lap,
-                    device=device)
-        if geometry_record is not None:
-            # no RTM ingest: the operator's device state is the ray table
-            from sartsolver_tpu_torch.operators.implicit import ImplicitOperator
-
-            operator = ImplicitOperator(geometry_record)
-            with obs_trace.span("ingest.geometry", npixel=npixel, nvoxel=nvoxel):
-                solver = _operator_solver(DistributedSARTSolver, operator, opts, device,
-                                          args.debug_nans)
-            print(f"implicit: ray table resident ({operator.resident_nbytes()} bytes; "
-                  f"a materialized RTM would stage {npixel * nvoxel * 4})")
-        elif lowrank_op is not None:
-            with obs_trace.span("ingest.lowrank", npixel=npixel, nvoxel=nvoxel,
-                                rank=lowrank_op.rank):
-                solver = _operator_solver(DistributedSARTSolver, lowrank_op, opts, device,
-                                          args.debug_nans)
-            occ = lowrank_op.tile_occupancy()
-            print(f"lowrank: factored operator H ~= S + U V^T rank={lowrank_op.rank} "
-                  f"(core occupancy {occ.occupancy_fraction():.3f}, eps {occ.epsilon:g}, "
-                  f"digest {occ.digest:#010x}; the residual fill costs "
-                  f"{lowrank_op.rank}*(npixel+nvoxel) MACs per projection instead of "
-                  "npixel*nvoxel)")
-            lowrank_op = None  # the host's S and factors: the device holds its own
-        else:
-            # the OS cycle's products upcast int8 codes themselves: int8
-            # needs the fused sweep only on the classic sweep
-            if storage == "int8" and not fused and opts.os_subsets == 1:
-                why = (" (divergence_recovery keeps the logarithmic solver off it)"
-                       if opts.divergence_recovery and opts.logarithmic else "")
-                raise SartInputError(
-                    "Argument rtm_dtype='int8' requires the fused sweep, but it "
-                    f"resolved off{why}. Use --fused_sweep auto/on, float32 or "
-                    "bfloat16 storage, or the linear solver."
-                )
-            # the matrix streamed in row chunks into a device buffer of the
-            # stored dtype (int8: two passes), with the ordered-subsets
-            # padding rows; the ray stats are those of the stored matrix,
-            # taken on the device, as the JAX CLI's are. With integrity on,
-            # the ingest also sums the stored values for the ray stats'
-            # check after the upload
-            ingest_stats = integ_mod.IngestStats(npixel, nvoxel) if integrity_on else None
-            # the block-sparse index's tile maxima, taken by the ingest where
-            # the stored rows lie ('auto' declines here on a flag, with a
-            # warning)
-            tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
-            with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
-                rtm_scale = None
-                # on a grid each rank reads its own block, in turns unless
-                # --parallel_read
-                stripes = dict(grid=ranks, serialize=multi and not args.parallel_read)
-                if storage == "int8":
-                    rtm, rtm_scale = read_and_quantize_rtm(
-                        sorted_matrix_files, rtm_name, npixel, nvoxel, device,
-                        rows=held_rows, ingest_stats=ingest_stats, tile_stats=tile_stats,
-                        **stripes)
-                else:
-                    rtm = read_and_shard_rtm(sorted_matrix_files, rtm_name, npixel, nvoxel,
-                                             device, dtype=storage, rows=held_rows,
-                                             ingest_stats=ingest_stats,
-                                             tile_stats=tile_stats, **stripes)
-                try:
-                    tile_occ = (tile_stats.occupancy(opts.sparse_epsilon())
-                                if tile_stats is not None else None)
-                    # the solver keeps the occupied columns, in place in the
-                    # ingest's buffer
-                    solver = DistributedSARTSolver(rtm, lap, opts=opts, device=device,
-                                                   debug_nans=args.debug_nans,
-                                                   rtm_scale=rtm_scale, npixel=npixel,
-                                                   tile_occupancy=tile_occ, grid=ranks,
-                                                   nvoxel=nvoxel)
-                except ValueError as err:  # a non-finite entry, or EPS that cannot engage
-                    raise SartInputError(str(err)) from None
-                del rtm, rtm_scale
-        if tile_occ is not None:
-            # the index, known at ingest; whether the sweep engaged it is
-            # --timing's engaged= line
-            print(f"sparse: tile occupancy {tile_occ.occupancy_fraction():.3f} "
-                  f"(threshold {tile_occ.threshold:g}, eps {tile_occ.epsilon:g}, "
-                  f"digest {tile_occ.digest:#010x}; engagement in --timing)")
-        if ingest_stats is not None:
-            if (opts.sparse_epsilon() or 0) > 0 and tile_occ is not None \
-                    and not tile_occ.mask.all():
-                # the threshold zeroed tiles on the device after the ingest
-                # summed them: the sums cannot match the device's rho/lambda
-                print("Warning: post-upload ray-stats verification skipped: "
-                      "sparse_rtm threshold zeroed tiles after the host sums "
-                      "were accumulated (stripe digests, in-solve ABFT and the "
-                      "resident re-audit still cover the matrix).", file=sys.stderr)
-            else:
-                # the staging or the layout on the device corrupted the
-                # matrix: every solve it would serve is poisoned, quarantine
-                issues = solver.verify_ray_stats(ingest_stats)
-                if issues:
-                    sdc_policy.resident_failure(
-                        "post-upload ray-stats verification: " + "; ".join(issues))
-        telem.set_run_info(operator=solver.operator_kind if solver.operator_kind != "dense"
-                           else "tileskip" if tile_occ is not None else "dense")
-        if geometry_record is not None:
-            from sartsolver_tpu_torch.operators.geometry import GeometryVoxelGrid
-
-            grid = GeometryVoxelGrid(geometry_record)
-        else:
-            grid = make_voxel_grid(next(iter(sorted_matrix_files.values())),
-                                   "rtm/voxel_map")
-        sparse_on = solver.tile_occupancy is not None
-        sweep = ("os-subset" if opts.os_subsets > 1 else "fused" if fused or sparse_on
-                 else "two-matmul") + ("-sparse" if sparse_on else "")
-        if fused and ranks.n_pix > 1:
-            sweep = "fused-split"  # split at the pixel axis's all-reduce
-        if solver.operator_kind != "dense":
-            sweep = solver.operator_kind + ("-os-subset" if opts.os_subsets > 1 else "")
-        print(f"solver: mesh={n_pix}x{n_vox} (pixels x voxels, {ranks.layout()}) "
-              f"device={device} collectives={ranks.backend or 'none'} "
-              f"rtm_dtype={storage} compute={opts.dtype} "
-              f"sweep={sweep} rtm=[{npixel}, {nvoxel}]"
-              + (f" os_subsets={opts.os_subsets}" if opts.os_subsets > 1 else "")
-              + (f" sparse_rtm={opts.sparse_rtm} voxels_held="
-                 f"{solver.problem.rtm.shape[1]}" if sparse_on else "")
-              + f" processes={ranks.world}")
         mark("ingest RTM + upload")
 
         # per-frame failure isolation: a frame whose read fails past its

@@ -1800,6 +1800,32 @@ def sched_step_normalized(
                           status=status, iters=iters, ascale=ascale, recov=recov)
 
 
+# the once-per-run latch of the non-finite-pixel warning
+# (sartsolver_tpu/models/sart.py:2682-2707)
+_NONFINITE_WARN_STATE = {"latched": False}
+
+
+def reset_nonfinite_warning() -> None:
+    """Re-arm the once-per-run non-finite-pixel warning. Called at the start
+    of every CLI run and of every serving-engine request, so a resident
+    process warns once per unit of user-visible work, not once per process
+    (Python's own filter would show a ``warnings.warn`` once per location)."""
+    _NONFINITE_WARN_STATE["latched"] = False
+
+
+def _warn_nonfinite(n_bad: int) -> None:
+    if _NONFINITE_WARN_STATE["latched"]:
+        return
+    _NONFINITE_WARN_STATE["latched"] = True
+    # warn_explicit with a throwaway registry: Python's per-location dedup
+    # never latches, so the latch above is the only gate
+    warnings.warn_explicit(
+        f"measurement frames contain {n_bad} non-finite pixel(s); they "
+        "are excluded from normalization, ||g||^2 and the solve",
+        RuntimeWarning, __file__, 0, registry={},
+    )
+
+
 def prepare_measurement(measurement, opts: SolverOptions):
     """Host fp64 pre-step (sartsolver_cuda.cpp:138-194): returns
     ``(g64_normalized, msq, norm)``.
@@ -1813,17 +1839,14 @@ def prepare_measurement(measurement, opts: SolverOptions):
     them into the ``nonfinite_pixels_total`` counter. They stay
     non-finite in ``g`` (and a +inf pixel makes ``msq`` infinite), so the
     divergence guard's pre-flight check sees them
-    (``sartsolver_tpu/models/sart.py:2742-2752``).
+    (``sartsolver_tpu/models/sart.py:2742-2752``). The warning is shown once
+    a run or a served request (:func:`reset_nonfinite_warning`).
     """
     g64 = np.asarray(measurement, dtype=np.float64)
     n_bad = int(np.count_nonzero(~np.isfinite(g64)))
     if n_bad:
         obs_metrics.get_registry().counter("nonfinite_pixels_total").inc(n_bad)
-        warnings.warn(
-            f"measurement frames contain {n_bad} non-finite pixel(s); they "
-            "are excluded from normalization, ||g||^2 and the solve",
-            RuntimeWarning, stacklevel=2,
-        )
+        _warn_nonfinite(n_bad)
     if opts.normalize:
         norm = float(np.max(g64[np.isfinite(g64)], initial=0.0))
         if norm <= 0:

@@ -24,8 +24,8 @@ file it publishes — its SIGUSR1 status snapshot (``<output>.status.json``,
 ``obs/flight.py``), its heartbeat (``SART_HEARTBEAT_FILE``) or its
 Prometheus textfile (``SART_METRICS_PROM``); ``--once`` renders one screen
 and exits (1 where it could not), ``--lines`` caps it. It renders either
-package's files. A serving engine's HTTP endpoints come with the serving
-slice.
+package's files, and a serving engine's live endpoints (``top
+http://127.0.0.1:PORT``: its /status and /metrics).
 """
 
 from __future__ import annotations
@@ -981,6 +981,44 @@ def _age_str(path: str) -> str:
         return "?"
 
 
+def _fetch_url(url: str, timeout: float = 3.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode("utf-8", "replace")
+
+
+def _render_endpoint(base: str) -> List[str]:
+    """One screen of a live engine's /status + /metrics endpoints.
+
+    /status supplies the header/engine/sched view (its embedded metric
+    list is skipped — /metrics is the canonical exposition and renders
+    below it). A run with only one endpoint healthy still renders; both
+    unreachable raises OSError, which preserves the ``--once`` exit-1
+    contract for dead engines."""
+    base = base.rstrip("/")
+    lines: List[str] = []
+    status_err: Optional[Exception] = None
+    try:
+        rec = json.loads(_fetch_url(base + "/status"))
+        age = round(time.time() - rec["unix"], 1) if "unix" in rec \
+            else "?"
+        lines += _render_status(base + "/status", rec,
+                                include_metrics=False,
+                                age=f"{age}s ago")
+    except (OSError, ValueError) as err:
+        status_err = err
+    try:
+        text = _fetch_url(base + "/metrics")
+        lines += _render_prom(base + "/metrics", text, age="live")
+    except (OSError, ValueError) as err:
+        if status_err is not None:
+            raise OSError(
+                f"engine endpoints unreachable ({status_err}; {err})"
+            ) from err
+    return lines
+
+
 def _render_heartbeat(path: str, text: str) -> List[str]:
     fields = dict(
         tok.split("=", 1) for tok in text.split() if "=" in tok
@@ -1071,7 +1109,14 @@ def _render_status(path: str, rec: dict, include_metrics: bool = True,
 
 
 def render_top(path: str, max_lines: int = 40) -> str:
-    """One screen of ``path``, whatever kind of live file it is."""
+    """One screen of ``path``, whatever kind of live file — or live
+    engine endpoint (``http://host:port``) — it is."""
+    if path.startswith(("http://", "https://")):
+        lines = _render_endpoint(path)
+        if len(lines) > max_lines:
+            dropped = len(lines) - max_lines
+            lines = lines[:max_lines] + [f"  ... (+{dropped} more)"]
+        return "\n".join(lines)
     with open(path) as f:
         text = f.read()
     stripped = text.lstrip()

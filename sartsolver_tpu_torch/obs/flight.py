@@ -166,7 +166,7 @@ def status_snapshot(blocking: bool = True, **extra) -> dict:
         },
         "beacon_ages": watchdog.beacon_ages(),
         "sched": watchdog.sched_status(),
-        "engine": None,  # a serving engine's view: none in a CLI run
+        "engine": watchdog.engine_status(),  # a serve process's view
         "metrics": metrics.get_registry().snapshot(blocking=blocking),
     }
     rec.update(extra)

@@ -81,10 +81,19 @@ SITE_SOLVE = "solve.dispatch"        # parallel/sharded.py: solve entry
 SITE_FLUSH = "io.flush"              # io/solution.py: output flush
 SITE_DEVICE_BUFFER = "device.buffer"  # parallel/sharded.py: resident RTM rot
 SITE_SOLVE_CHECKPOINT = "solve.checkpoint"  # resilience/podckpt.py: ckpt append
+# the serving engine's seams: a request payload's parse, the request
+# journal's append, a request's attach to the resident session and the
+# engine's soft-state checkpoint
+SITE_REQUEST_PARSE = "request.parse"    # engine/request.py: payload parse
+SITE_JOURNAL_APPEND = "journal.append"  # engine/journal.py: record append
+SITE_SESSION_ATTACH = "session.attach"  # engine/session.py: frame-stream attach
+SITE_STATE_CHECKPOINT = "state.checkpoint"  # engine/state.py: soft-state save
 
 FAULT_SITES = frozenset({
     SITE_FRAME_READ, SITE_RTM_INGEST, SITE_PREFETCH, SITE_DEVICE_PUT,
     SITE_SOLVE, SITE_FLUSH, SITE_DEVICE_BUFFER, SITE_SOLVE_CHECKPOINT,
+    SITE_REQUEST_PARSE, SITE_JOURNAL_APPEND, SITE_SESSION_ATTACH,
+    SITE_STATE_CHECKPOINT,
 })
 
 FAULT_KINDS = ("io", "error", "nan", "hang", "oom", "corrupt")

@@ -1,8 +1,8 @@
 """Hang watchdog: per-phase progress beacons, stack dumps, escalation.
 
 Counterpart of ``sartsolver_tpu/resilience/watchdog.py``, with the same
-knobs, phases, stages and heartbeat line; the serving engine's status
-provider comes with the serving slice.
+knobs, phases, stages and heartbeat line, and the serving engine's status
+provider.
 
 A fleet-operated solver dies three ways that the PR-2 fault paths do not
 cover: preemption (shutdown.py), device OOM (degrade.py) — and the worst
@@ -212,6 +212,12 @@ def beacon_ages() -> dict:
 # heartbeat write.
 _sched_status: Optional[Callable[[], Optional[dict]]] = None
 
+# Live engine view (engine/server.py registers a provider while a serve
+# process runs): queue depth, admitted/shed totals, active request ids,
+# per-tenant occupancy, so a SIGUSR1 poke at a wedged daemon attributes
+# the stall to a request, not just a pipeline phase.
+_engine_status: Optional[Callable[[], Optional[dict]]] = None
+
 # Crash hook (obs/flight.py): called with a reason string immediately
 # before the stage-3 ``os._exit`` so the flight recorder can flush its
 # crash bundle — the one abort path no ``finally`` block survives.
@@ -229,6 +235,26 @@ def sched_status() -> Optional[dict]:
     """The live scheduler view ({occupancy, lanes, strides}), or None
     when the continuous batcher is not driving."""
     provider = _sched_status
+    if provider is None:
+        return None
+    try:
+        return provider()
+    except Exception:  # observability must never hurt the run
+        return None
+
+
+def set_engine_status_provider(
+    provider: Optional[Callable[[], Optional[dict]]]
+) -> None:
+    global _engine_status
+    _engine_status = provider
+
+
+def engine_status() -> Optional[dict]:
+    """The live serving-engine view ({queue_depth, admitted, shed,
+    active_requests, ...}), or None outside a serve process. Providers
+    must be cheap and exception-tolerant (heartbeat + signal context)."""
+    provider = _engine_status
     if provider is None:
         return None
     try:
@@ -299,6 +325,21 @@ def _write_heartbeat(path: str) -> None:
             if lanes is not None:
                 extra += " lanes=" + (
                     ",".join(str(s) for s in lanes) if lanes else "-"
+                )
+        engine = engine_status()
+        if engine:
+            # the serving engine's view: a supervisor reading the
+            # heartbeat sees queue pressure and the shed totals, on the
+            # same key=value line
+            extra += (
+                f" queue={engine.get('queue_depth', 0)}"
+                f" admitted={engine.get('admitted', 0)}"
+                f" shed={engine.get('shed', 0)}"
+            )
+            active = engine.get("active_requests")
+            if active is not None:
+                extra += " requests=" + (
+                    ",".join(str(r) for r in active) if active else "-"
                 )
         from sartsolver_tpu_torch.utils import atomicio
 

@@ -41,6 +41,14 @@ Contracts kept from the grouped loop:
   drain, and ``SchedRunStats.interrupted`` is set — unless the stream was
   already exhausted, when the drain completes the run.
 
+- **Deadline shed** (the serving engine): a stream item may carry a 4th
+  element, an absolute ``time.monotonic()`` deadline, and a 5th, the
+  request's trace id. At each stride boundary, after the retirements, the
+  occupied lanes past their deadline retire with status
+  ``DEADLINE_EXCEEDED`` (-5) and the last iterate reached, freeing the lane
+  for backfill while the co-batched lanes run on. CLI frames carry no
+  deadline, and for them the sweep does nothing.
+
 - **Checkpoints** (``ckpt_stride``, ``ckpt_sink``; ``--solve_ckpt_stride``):
   every ``ckpt_stride`` strides the run's whole state — the solver's lanes
   (``export_sched_lanes``), the occupied and awaiting-recompute slots with
@@ -61,7 +69,10 @@ from the values the stride already read back: ``sched_lane_occupancy``
 (the run's occupancy so far), ``sched_stride_occupancy`` (one sample per
 stride), ``sched_lanes_retired_total``, ``sched_lanes_backfilled_total``,
 ``sched_strides_total`` and ``sched_deadline_shed_total`` (CLI frames carry
-no deadline: it stays 0). Each dispatch is a ``solve.dispatch`` trace span.
+no deadline: it stays 0 there). Each dispatch is a ``solve.dispatch`` trace
+span; with a trace buffer installed, a lane whose item carries a trace id
+also records each stride (``sched.stride``), its retirement
+(``lane.retire``) and a shed (``deadline.shed``) on its request's track.
 """
 
 from __future__ import annotations
@@ -75,9 +86,11 @@ import numpy as np
 import torch
 
 from sartsolver_tpu_torch.obs import metrics as obs_metrics
+from sartsolver_tpu_torch.obs import trace as obs_trace
 from sartsolver_tpu_torch.resilience import failures, watchdog
 from sartsolver_tpu_torch.resilience.degrade import dispatch_guarded, is_resource_exhausted
 from sartsolver_tpu_torch.resilience.failures import (
+    DEADLINE_EXCEEDED,
     SDC_DETECTED,
     FrameFailure,
     IntegrityError,
@@ -100,6 +113,7 @@ class SchedRunStats:
     # re-solves them on the grouped loop at a halved group size; None on
     # every other path
     leftover: Optional[List] = None
+    oom_error: Optional[BaseException] = None  # the OOM that set leftover
     _capacity: int = 0  # lane-iterations dispatched
 
     @property
@@ -111,15 +125,20 @@ class SchedRunStats:
 class _Slot:
     """One occupied lane's host-side bookkeeping."""
 
-    __slots__ = ("seq", "frame", "ftime", "cam_times", "it_prev", "sdc_retries")
+    __slots__ = ("seq", "frame", "ftime", "cam_times", "it_prev", "sdc_retries",
+                 "deadline", "trace")
 
-    def __init__(self, seq, frame, ftime, cam_times):
+    def __init__(self, seq, frame, ftime, cam_times, deadline=None, trace=None):
         self.seq = seq
         self.frame = frame  # kept for an OOM requeue or an SDC recompute
         self.ftime = ftime
         self.cam_times = cam_times
         self.it_prev = 0
         self.sdc_retries = 0  # re-queues after an integrity trip
+        # the serving engine's absolute time.monotonic() deadline and
+        # request trace id; None on CLI frames
+        self.deadline = deadline
+        self.trace = trace
 
 
 class ContinuousBatcher:
@@ -179,9 +198,8 @@ class ContinuousBatcher:
         self._retired_ctr = registry.counter("sched_lanes_retired_total")
         self._backfill_ctr = registry.counter("sched_lanes_backfilled_total")
         self._stride_ctr = registry.counter("sched_strides_total")
-        # CLI frames carry no deadline: registered as in the JAX scheduler,
-        # it stays 0
-        registry.counter("sched_deadline_shed_total")
+        # CLI frames carry no deadline: there it stays 0
+        self._deadline_ctr = registry.counter("sched_deadline_shed_total")
 
     def _emit_ready(self) -> None:
         """Flush the reorder buffer's contiguous prefix (frame order)."""
@@ -213,7 +231,8 @@ class ContinuousBatcher:
                 "strides": stats.strides, "frames_emitted": stats.frames}
 
     def run(self, items) -> SchedRunStats:
-        """Consume the ``(frame, time, camera_times) | FrameFailure`` stream
+        """Consume the ``(frame, time, camera_times[, deadline[, trace]]) |
+        FrameFailure`` stream
         until it is drained, or a stop request truncates it.
         ``stats.leftover`` is not None exactly when a device OOM handed the
         run back to the grouped loop."""
@@ -241,6 +260,7 @@ class ContinuousBatcher:
             occupied = self._occupied = {}  # lane index -> _Slot
             seq = 0
         t_last = time.perf_counter()
+        tracebuf = obs_trace.active_buffer()
 
         def intake():
             """Fill free lanes: SDC recomputes first (their serial holds
@@ -268,9 +288,13 @@ class ContinuousBatcher:
                                                       item.error), None)
                     seq += 1
                     continue
-                frame, ftime, cam_times = item
+                # the CLI's (frame, time, camera times), or the serving
+                # engine's with a deadline and a trace id
+                frame, ftime, cam_times = item[0], item[1], item[2]
                 lane = free.popleft()
-                occupied[lane] = _Slot(seq, np.asarray(frame), ftime, cam_times)
+                occupied[lane] = _Slot(seq, np.asarray(frame), ftime, cam_times,
+                                       deadline=item[3] if len(item) > 3 else None,
+                                       trace=item[4] if len(item) > 4 else None)
                 refills.append((lane, occupied[lane].frame))
                 seq += 1
             return refills
@@ -289,6 +313,7 @@ class ContinuousBatcher:
                 break
             if self._on_stride is not None:
                 self._on_stride()
+            t_stride0 = time.perf_counter()
             try:
                 dispatch_guarded(lambda: solver.sched_step(lane_state, refills))
             except Exception as err:
@@ -312,6 +337,7 @@ class ContinuousBatcher:
                 torch.cuda.empty_cache()
                 self._emit_ready()
                 stats.leftover = self._requeue(occupied)
+                stats.oom_error = err
                 if self._on_event is not None:
                     self._on_event(
                         f"device OOM in the continuous-batching scheduler "
@@ -327,8 +353,9 @@ class ContinuousBatcher:
             # the device loop ends early once every lane is done, so count
             # what ran: the longest advance of an occupied lane
             steps = useful = 0
+            deltas = {}
             for lane, slot in occupied.items():
-                delta = int(itv[lane]) - slot.it_prev
+                delta = deltas[lane] = int(itv[lane]) - slot.it_prev
                 slot.it_prev = int(itv[lane])
                 steps = max(steps, delta)
                 useful += delta
@@ -338,6 +365,17 @@ class ContinuousBatcher:
             if steps:
                 self._occ_hist.observe(useful / (steps * B))
             self._occ_gauge.set(round(stats.occupancy, 6))
+            if tracebuf is not None:
+                # one span a traced lane on its request's track: this
+                # dispatch and its read-back, the iterations the lane ran
+                t_stride1 = time.perf_counter()
+                for lane, slot in occupied.items():
+                    if slot.trace:
+                        tracebuf.add_request_complete(
+                            slot.trace, "sched.stride", t_stride0, t_stride1,
+                            {"lane": lane, "iters": deltas[lane],
+                             "stride": stats.strides,
+                             "occupancy": round(useful / (steps * B), 3) if steps else 0.0})
             # retire: convergence order on the device, frame order out
             now = time.perf_counter()
             retired = sorted((lane for lane in occupied if done[lane]),
@@ -361,6 +399,11 @@ class ContinuousBatcher:
                         "failed", (slot.ftime, slot.cam_times,
                                    IntegrityError(SDC_REPRODUCED)), None)
                     continue
+                if tracebuf is not None and slot.trace:
+                    tracebuf.add_request_instant(
+                        slot.trace, "lane.retire",
+                        {"lane": lane, "status": int(status[lane]),
+                         "iterations": int(iters[lane])})
                 self._emit_buf[slot.seq] = (
                     "result",
                     (slot.ftime, slot.cam_times, int(status[lane]), int(iters[lane]),
@@ -374,6 +417,26 @@ class ContinuousBatcher:
                 free.append(lane)
             if retired:
                 t_last = now
+            # the deadline sweep: an occupied lane past its deadline retires
+            # here, at the stride boundary, with DEADLINE_EXCEEDED and the
+            # iterate it reached; the co-batched lanes run on
+            now_mono = time.monotonic()
+            overdue = [lane for lane, slot in occupied.items()
+                       if slot.deadline is not None and now_mono > slot.deadline]
+            for lane in sorted(overdue, key=lambda b: occupied[b].seq):
+                slot = occupied.pop(lane)
+                self._deadline_ctr.inc()
+                if tracebuf is not None and slot.trace:
+                    tracebuf.add_request_instant(
+                        slot.trace, "deadline.shed",
+                        {"lane": lane, "iterations": int(itv[lane])})
+                self._emit_buf[slot.seq] = (
+                    "result",
+                    (slot.ftime, slot.cam_times, DEADLINE_EXCEEDED, int(itv[lane]),
+                     float(conv[lane]), lane_state.lane_solution_fetcher(lane), 0.0),
+                    slot.frame,
+                )
+                free.append(lane)
             self._emit_ready()
             if (self._ckpt_sink is not None and self._ckpt_stride
                     and stats.strides % self._ckpt_stride == 0):
@@ -503,10 +566,21 @@ class ContinuousBatcher:
         entries = [(seq, FrameFailure(None, *payload) if kind == "failed"
                      else (frame, payload[0], payload[1]))
                    for seq, (kind, payload, frame) in self._emit_buf.items()]
-        entries += [(slot.seq, (slot.frame, slot.ftime, slot.cam_times))
-                    for slot in occupied.values()]
+        entries += [(slot.seq, self._requeue_item(slot)) for slot in occupied.values()]
         self._emit_buf.clear()
         return [item for _, item in sorted(entries, key=lambda e: e[0])]
+
+
+    @staticmethod
+    def _requeue_item(slot):
+        """An in-flight slot back in stream-item form; the engine's deadline
+        and trace id survive the requeue, so the fallback can still shed
+        and attribute the frame."""
+        if slot.trace is not None:
+            return (slot.frame, slot.ftime, slot.cam_times, slot.deadline, slot.trace)
+        if slot.deadline is not None:
+            return (slot.frame, slot.ftime, slot.cam_times, slot.deadline)
+        return (slot.frame, slot.ftime, slot.cam_times)
 
 
 def sched_held_ftimes(snapshot: dict, emitted: int) -> List:

@@ -445,3 +445,78 @@ def test_chip_smoke_grid_command_line_holds_several_runs():
         ("c", [], ["-o", "c.h5"])]
     assert cs.grid_runs_of(argv[:8]) == [("a", ["--parity"], ["-o", "a.h5", "--pixel_shards",
                                                               "2"])]
+
+
+# the serving engine's modules, each imported alone: none loads JAX or the
+# JAX package; the host-only ones (the request record, routing, admission,
+# the journal, the soft state, the protocol, the endpoints) load no torch;
+# and the one-shot CLI loads no engine module
+_ENGINE_HOST_MODULES = ("request", "routing", "admission", "journal", "state", "protocol",
+                        "httpd")
+_ENGINE_MODULES = _ENGINE_HOST_MODULES + ("session", "server", "cli")
+
+
+@pytest.mark.parametrize("name", _ENGINE_MODULES)
+def test_engine_modules_import_no_jax(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "importlib.import_module('sartsolver_tpu_torch.engine.' + sys.argv[1])\n"
+             "print(sorted({m.split('.')[0] for m in sys.modules} & "
+             "{'jax', 'jaxlib', 'sartsolver_tpu', 'torch'}))")
+    out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = eval(out.stdout.strip())
+    assert not set(loaded) & {"jax", "jaxlib", "sartsolver_tpu"}, loaded
+    if name in _ENGINE_HOST_MODULES:
+        assert loaded == [], loaded
+
+
+def test_one_shot_cli_loads_no_engine_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import sys\n"
+             "from sartsolver_tpu_torch import cli\n"
+             "try:\n"
+             "    cli.main(['-o', 'x.h5', 'missing_a.h5', 'missing_b.h5', '--device', 'cpu'])\n"
+             "except SystemExit:\n"
+             "    pass\n"
+             "print(sorted(m for m in sys.modules if m.startswith('sartsolver_tpu_torch.engine')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_chip_smoke_serve_phase_at_small_size(tmp_path):
+    """chip_smoke.py's serve phase on the CPU at a small size: two tenants'
+    requests through submit, the socket and the ingest dir, the tight
+    deadline shed as -5 while its co-batched request completes, the SIGTERM
+    drill's exit 4 and its replay, the geometry request on its own server,
+    the bf16 and int8 servers' requests, every served row equal to the
+    CLI's over the same frames and storage (the launch
+    counts and the kernel table are the card's)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=32)
+    gw = cs.write_geometry_world(str(tmp_path / "geometry"), nx=4, ny=4, nz=4, cam=(4, 4),
+                                 n_frames=8, device="cpu")
+    # to the cap, so the tight deadline lands mid-solve on this small world
+    rec = cs.serve_phase(world, str(tmp_path), gw, device="cpu", deadline_s=0.3,
+                         extra=["-c", "1e-300"])
+    req = rec["requests"]
+    assert {r["status"] for k, r in req.items() if k != "diag-a-late"} == {"completed"}
+    late = req["diag-a-late"]
+    assert late["status"] == "shed-deadline" and late["by_status"]["deadline"] > 0
+    assert rec["sigterm"]["exit"] == 4 and rec["sigterm"]["response"] == "interrupted"
+    assert rec["replay"]["exit"] == 0 and rec["replay"]["outcome"]["frames"] == 8
+    assert rec["main"]["exit"] == 4 and rec["main"]["readyz"] == {"status": "ready"}
+    assert rec["main"]["scrape_has_engine"]
+    assert rec["geometry"]["status"] == "completed" and rec["geometry"]["frames"] == 4
+    assert rec["deadline_shed_total"] == late["by_status"]["deadline"]
+    assert rec["latency_s"]["count"] == 4 and rec["queue_wait_s"]["p95"] is not None
+    assert {k: (r["status"], r["frames"]) for k, r in rec["stored"].items()} == {
+        "bfloat16": ("completed", 4), "int8": ("completed", 4)}
+    assert rec["first_request"]["ms_per_frame"] > 0
+    assert set(rec["later_requests"]["latency_s"]) == {"diag-b-1", "diag-a-late", "diag-b-2"}
+    assert "kernels" not in rec

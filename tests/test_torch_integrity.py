@@ -51,6 +51,9 @@ def _clean_state():
     tsart.record_abft_worst(False)
     faults.reset()
     integ._state["enabled"] = None
+    # the JAX CLI's --integrity runs set its process-wide switch too; later
+    # tests in this process would read matrices twice
+    jinteg._state["enabled"] = None
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,20 @@ from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
 
 PARITY_RTOL = 2e-4
 
+
+@pytest.fixture(autouse=True)
+def _integrity_switch_restored():
+    """A CLI run here with --integrity (either package's) leaves its
+    process-wide ingest-integrity switch on, and later tests in this process
+    would read matrices twice: each switch goes back to unset."""
+    from sartsolver_tpu.resilience import integrity as jinteg
+
+    from sartsolver_tpu_torch.resilience import integrity as integ
+
+    yield
+    jinteg._state["enabled"] = None
+    integ._state["enabled"] = None
+
 # rays along the grid's planes (tests/test_torch_operators_gpu.py:FACE_WORLD)
 FACE_WORLD = {
     "format": "sart-geometry", "version": 1,

@@ -73,7 +73,9 @@ def test_fault_spec_parsing_and_validation():
             faults.parse_fault_spec(bad)
     assert faults.FAULT_SITES == {
         "hdf5.frame_read", "hdf5.rtm_ingest", "prefetch.next", "device.put",
-        "solve.dispatch", "io.flush", "device.buffer", "solve.checkpoint"}
+        "solve.dispatch", "io.flush", "device.buffer", "solve.checkpoint",
+        # the serving engine's four seams
+        "request.parse", "journal.append", "session.attach", "state.checkpoint"}
     assert faults.FAULT_SITES <= jfaults.FAULT_SITES
     assert faults.FAULT_KINDS == jfaults.FAULT_KINDS
 
