@@ -1017,18 +1017,18 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         return submit_main(argv[1:])
     if argv and argv[0] == "fleet":
-        # the fleet controller (the JAX resilience/supervisor.py) runs
-        # supervised serve workers, which are not ported yet
-        print("sartsolve fleet: the fleet controller is not ported to this "
-              "package yet (it needs resilience/supervisor.py).", file=sys.stderr)
-        return 1
+        # the fleet controller: M supervised serve workers, the
+        # tenant-affinity routing table, journal-backed failover
+        from sartsolver_tpu_torch.engine.cli import fleet_cli_main
+
+        return fleet_cli_main(argv[1:])
     if argv and argv[0] == "chaos":
-        # the chaos campaign harness (the JAX resilience/chaos.py) drives a
-        # supervised serve, which is not ported yet
-        print("sartsolve chaos: the chaos harness is not ported to this package "
-              "yet (it needs resilience/chaos.py and the supervisor).",
-              file=sys.stderr)
-        return 1
+        # the chaos campaign harness: seeded fault schedules and SIGKILLs
+        # against a real supervised serve, judged on the exactly-once,
+        # byte-identity, restart-budget and state-continuity invariants
+        from sartsolver_tpu_torch.resilience.chaos import chaos_main
+
+        return chaos_main(argv[1:])
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as err:

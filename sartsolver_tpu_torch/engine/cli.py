@@ -1,12 +1,13 @@
-"""``serve`` / ``submit`` of the port (docs/SERVING.md).
+"""``serve`` / ``submit`` / ``fleet`` of the port (docs/SERVING.md).
 
 Counterpart of ``sartsolver_tpu/engine/cli.py``: ``python -m
-sartsolver_tpu_torch.cli serve`` / ``submit`` take every flag of the JAX
-commands. The port builds its kernels at first use (the resident session
-loads them while it is built), so the JAX ``configure_compilation_cache``
-has no counterpart. ``--supervised`` (the JAX
-``resilience/supervisor.py``) is not ported yet: it refuses with its
-own message and exit 1, as ``fleet`` and ``chaos`` do in ``cli.py``.
+sartsolver_tpu_torch.cli serve`` / ``submit`` / ``fleet`` take every flag of
+the JAX commands. The port builds its kernels at first use (the resident
+session loads them while it is built), so the JAX
+``configure_compilation_cache`` has no counterpart. ``serve --supervised``
+and ``fleet`` run the port's supervisor and fleet controller
+(``resilience/supervisor.py``), which import no torch: the parent process
+never holds a CUDA context.
 
 ``serve`` takes the one-shot CLI's full flag set (the session is built
 through the same validation gate and ingest) plus the engine options,
@@ -159,9 +160,13 @@ def build_serve_parser() -> argparse.ArgumentParser:
         "supervision (docs/SERVING.md §9, docs/RESILIENCE.md §10)"
     )
     sup.add_argument("--supervised", action="store_true",
-                     help="Run self-healing under a supervisor process "
-                          "(the JAX package's; not ported to this "
-                          "package yet: refused with exit 1).")
+                     help="Run self-healing: a torch-free supervisor "
+                          "process forks the serve worker and restarts "
+                          "it across every abnormal exit (bounded "
+                          "exponential backoff + crash-loop circuit "
+                          "breaker -> lame-duck 503s). Deliberate exits "
+                          "(0 idle, 4 drained, 1 config error) are "
+                          "final.")
     sup.add_argument("--restart_backoff", type=float, default=1.0,
                      metavar="S",
                      help="Base respawn delay after a crash; doubles "
@@ -187,6 +192,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 def serve_main(argv: Optional[List[str]] = None) -> int:
+    main_unix = time.time()  # the start split's anchor; the caller knows when the process began
     raw_argv = list(argv) if argv is not None else list(sys.argv[1:])
     if raw_argv[:1] == ["serve"]:  # direct serve_main(None) invocation
         raw_argv = raw_argv[1:]
@@ -221,12 +227,20 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         return EXIT_INPUT_ERROR
 
     if args.supervised:
-        # the supervisor process (the JAX resilience/supervisor.py) is not
-        # ported yet; a serve without it would not restart anything
-        print("sartsolve serve: --supervised is not ported to this package "
-              "yet (it needs resilience/supervisor.py); run serve without it "
-              "under an external supervisor.", file=sys.stderr)
-        return EXIT_INPUT_ERROR
+        # the supervisor imports no torch: it must stay alive through
+        # exactly the failures that can wedge a worker's CUDA context, and
+        # hold none of its own on the card
+        from sartsolver_tpu_torch.resilience.supervisor import supervisor_main
+
+        # argparse accepts unambiguous prefixes ("--super" parses as
+        # --supervised): strip every token that resolved to the flag, or
+        # the worker would parse as supervised too and spawn supervisors
+        # recursively. "--su" is the shortest unambiguous prefix here.
+        worker_argv = [
+            a for a in raw_argv
+            if not (len(a) >= 4 and "--supervised".startswith(a))
+        ]
+        return supervisor_main(args, worker_argv)
 
     # Deterministic crash hook for the restart-storm drill (tests/
     # test_selfheal.py): while the marker file exists the WORKER dies
@@ -263,6 +277,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         print("Argument slo_ms must be > 0.", file=sys.stderr)
         return EXIT_INPUT_ERROR
 
+    t_imports = time.perf_counter()
     from sartsolver_tpu_torch.config import SartInputError
     from sartsolver_tpu_torch.engine.admission import AdmissionController
     from sartsolver_tpu_torch.engine.server import EngineServer
@@ -276,6 +291,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         RetriesExhausted, reset_retry_stats,
     )
 
+    imports_s = time.perf_counter() - t_imports
     reset_retry_stats()
     # telemetry FIRST (it resets the metric registry; the engine's
     # instruments register against the fresh one)
@@ -309,6 +325,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         except (SartInputError, OSError) as err:
             print(err, file=sys.stderr)
             return EXIT_INPUT_ERROR
+        warm_s = 0.0
         if session.device is not None and session.device.type == "cuda":
             # the first launches before ready (the server's launch counts
             # start after it); a device OOM here is left to the lane
@@ -322,6 +339,13 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
                     raise
                 print(f"engine: warm-up at lanes={args.lanes} skipped: device OOM",
                       flush=True)
+        # where the start to ready went (a supervisor's restart reads it
+        # beside its spawn time): the heavy imports (torch), the CUDA
+        # context, the kernel libraries' load, the ingest and the solver's
+        # construction, the warm-up stride
+        split = dict(imports_s=imports_s, **session.build_split, warm_up_s=warm_s)
+        print(f"engine: start split main_unix={main_unix:.3f} "
+              + " ".join(f"{k}={v:.3f}" for k, v in split.items()), flush=True)
         telem.set_run_info(
             engine=True,
             lanes=int(args.lanes),
@@ -420,6 +444,103 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             wd.stop()
         shutdown.uninstall()
         telem.finalize_local(None)
+
+
+# ---------------------------------------------------------------------------
+# fleet
+# ---------------------------------------------------------------------------
+
+def build_fleet_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sartsolve fleet",
+        description="Run M supervised serve workers behind one "
+                    "controller: tenant-affinity routing "
+                    "(routing.json), shared responses/outputs dirs, "
+                    "and journal-backed failover — a dead worker's "
+                    "accepted-but-uncompleted requests are re-driven "
+                    "on a survivor exactly once (docs/SERVING.md §10). "
+                    "Worker flags (the full `sartsolve serve` set) go "
+                    "after `--`.",
+    )
+    p.add_argument("--fleet_dir", required=True,
+                   help="Fleet state directory: routing.json, "
+                        "fleet.jsonl, shared ingest/responses/outputs, "
+                        "workers/w<k>/ engine dirs.")
+    p.add_argument("--size", type=int, default=3, metavar="M",
+                   help="Worker count (tenant-affinity modulus). "
+                        "Default 3.")
+    p.add_argument("--base_port", type=int, default=None, metavar="PORT",
+                   help="Give worker k the live endpoint PORT+k "
+                        "(/readyz drives the controller's "
+                        "load-balancing and drain detection). Default: "
+                        "no endpoints.")
+    p.add_argument("--restart_backoff", type=float, default=0.5,
+                   metavar="S",
+                   help="Base respawn delay after a worker crash; "
+                        "doubles per consecutive crash. Default 0.5.")
+    p.add_argument("--restart_backoff_max", type=float, default=10.0,
+                   metavar="S",
+                   help="Respawn delay ceiling. Default 10.")
+    p.add_argument("--max_restarts", type=int, default=0, metavar="N",
+                   help="Fleet-wide restart budget; exhausted -> exit "
+                        "3. 0 = unlimited (default).")
+    p.add_argument("--poll_interval", type=float, default=0.1,
+                   metavar="S",
+                   help="Controller loop interval (worker liveness, "
+                        "intake routing). Default 0.1.")
+    p.add_argument("worker_args", nargs=argparse.REMAINDER,
+                   help="Flags forwarded to every worker's `sartsolve "
+                        "serve` (put them after `--`).")
+    return p
+
+
+def fleet_cli_main(argv: Optional[List[str]] = None) -> int:
+    parser = build_fleet_parser()
+    try:
+        args = parser.parse_args(argv)
+    except SystemExit as err:
+        raise SystemExit(1 if err.code else 0) from None
+    if args.size < 1:
+        print("Argument size must be >= 1.", file=sys.stderr)
+        return EXIT_INPUT_ERROR
+    if (args.restart_backoff < 0 or args.restart_backoff_max < 0
+            or args.max_restarts < 0 or args.poll_interval <= 0):
+        print("Arguments restart_backoff/restart_backoff_max/"
+              "max_restarts must be >= 0 and poll_interval > 0.",
+              file=sys.stderr)
+        return EXIT_INPUT_ERROR
+    if (args.base_port is not None
+            and not 1 <= args.base_port <= 65535 - args.size):
+        print("Argument base_port must leave room for size ports "
+              "below 65536.", file=sys.stderr)
+        return EXIT_INPUT_ERROR
+    worker_argv = list(args.worker_args)
+    if worker_argv[:1] == ["--"]:
+        worker_argv = worker_argv[1:]
+    for banned in ("--engine_dir", "--worker_index", "--fleet_size",
+                   "--responses_dir", "--outputs_dir", "--http_port",
+                   "--supervised"):
+        if any(a == banned or a.startswith(banned + "=")
+               for a in worker_argv):
+            print(f"sartsolve fleet: {banned} is controller-owned; "
+                  "drop it from the worker flags.", file=sys.stderr)
+            return EXIT_INPUT_ERROR
+
+    # like `serve --supervised`, the controller imports no torch: it must
+    # outlive exactly the failures that wedge a worker
+    from sartsolver_tpu_torch.resilience.supervisor import FleetController
+
+    controller = FleetController(
+        worker_argv,
+        fleet_dir=args.fleet_dir,
+        size=args.size,
+        base_port=args.base_port,
+        backoff_base=args.restart_backoff,
+        backoff_max=args.restart_backoff_max,
+        max_restarts=args.max_restarts,
+        poll_interval=args.poll_interval,
+    )
+    return controller.run()
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ order or lane assignment the scheduler picks.
 from __future__ import annotations
 
 import os
+import time
 from collections import OrderedDict
 from typing import Callable, Iterator, List, Optional, Tuple
 
@@ -83,6 +84,9 @@ class ResidentSession:
         # the operator's kind: "dense", "tileskip", "lowrank" or "implicit"
         self.operator = operator
         self.device = device
+        # seconds of the build by part (:meth:`build`): the CUDA context,
+        # the kernel libraries' load, the rest (the ingest and the solver)
+        self.build_split = {}
 
     # ---- construction ----------------------------------------------------
 
@@ -112,12 +116,25 @@ class ResidentSession:
                     "beta_laplace smoothing is not supported by the "
                     "implicit (matrix-free) operator; drop --laplacian_file "
                     "or materialize the matrix.")
+        from sartsolver_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
         try:
             device = resolve_device("cpu" if args.use_cpu else args.device)
         except RuntimeError as err:
             raise SartInputError(str(err)) from None
+        if device.type == "cuda":
+            # the CUDA context before the ingest's first upload, so that its
+            # cost is told apart from the ingest's
+            import torch
+
+            torch.zeros(1, device=device)
+            torch.cuda.synchronize(device)
+        t_context = time.perf_counter()
+        loaded = dict(_build.load_seconds)
         inputs = index_inputs(args, geometry_record=record)
         setup = build_solver(args, inputs, device, summary=RunSummary(), on_event=print)
+        kernel_load = sum(v for k, v in _build.load_seconds.items() if k not in loaded)
         solver = setup.solver
         operator = solver.operator_kind
         if operator == "dense" and setup.tile_occupancy is not None:
@@ -131,6 +148,9 @@ class ResidentSession:
             max_cached_frames=args.max_cached_frames, operator=operator,
             device=device,
         )
+        session.build_split = dict(
+            cuda_init_s=t_context - t0, kernel_load_s=kernel_load,
+            ingest_s=time.perf_counter() - t_context - kernel_load)
         print(
             f"engine: session resident — mesh={'x'.join(map(str, setup.ranks.shape))} "
             f"device={device} operator={operator} rtm_dtype={setup.storage} "

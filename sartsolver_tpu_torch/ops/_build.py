@@ -29,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -40,6 +41,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# seconds each library took to load in this process (its build included,
+# where one ran): the serving engine reports them in its start split
+load_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -133,10 +137,12 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         from sartsolver_tpu_torch.resilience import watchdog
 
+        t0 = time.perf_counter()
         job = _start_build(name)
         if job is not None:
             watchdog.beacon(watchdog.PHASE_BUILD)
             _finish_build(name, job)
             watchdog.beacon(watchdog.PHASE_BUILD)
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        load_seconds[name] = time.perf_counter() - t0
     return lib

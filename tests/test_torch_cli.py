@@ -79,10 +79,17 @@ def test_cli_matches_jax_cli(world, tmp_path, case, capsys):
         return
     # fp32: the frameworks sum each product in another order, and the Eq. 5
     # stall test |dC| < tol fires where dC first rounds to exactly 0, so a
-    # frame may stop a few iterations apart (measured: up to 4 on this
-    # world) and a capped frame may converge on the other side. Compared
-    # in fitted space, as the JAX package compares its own fp32 runs.
-    assert np.abs(tsol["iterations"] - jsol["iterations"]).max() <= 5
+    # frame may stop apart and a capped frame may converge on the other
+    # side. A frame that starts cold (the guess frame; every frame under
+    # --no_guess) stops within 5 iterations of JAX's; a warm-started frame
+    # may stop far apart (measured on an AVX-512 CPU: iterations [40, 40, 11,
+    # 26] against JAX's [40, 40, 40, 31], fitted space within 0.0025), so
+    # its status must only agree with its own iteration count, as in
+    # test_cli_reduced_storage_matches_jax_cli. Every frame is compared in
+    # fitted space, as the JAX package compares its own fp32 runs.
+    cold = n if variant == "no_guess" else 1
+    assert np.abs(tsol["iterations"][:cold] - jsol["iterations"][:cold]).max() <= 5
+    np.testing.assert_array_equal(tsol["status"] != 0, tsol["iterations"] == 40)
     for i in range(n):
         ref = H @ jsol["value"][i]
         err = np.linalg.norm(H @ tsol["value"][i] - ref) / np.linalg.norm(ref)

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX engine, and inside itself.
 
-Ported from ``tests/test_engine.py`` (the supervisor, fleet and model
-checker legs wait for their slices). The request record, the journal, the
+Ported from ``tests/test_engine.py`` (the supervisor and fleet legs are in
+``tests/test_torch_supervisor.py`` and ``test_torch_fleet.py``; the model
+checker's waits for its slice). The request record, the journal, the
 admission policy and the soft state are held to the JAX modules on the
 same inputs; a served world goes through the JAX ``EngineServer`` and the
 port's under ``--use_cpu -m 40 -c 1e-12`` (outcomes, journal markers,
@@ -831,11 +832,14 @@ def test_serve_refuses_a_socket_path_too_long_for_af_unix(world, tmp_path, capsy
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["serve", "--engine_dir", "e", "--supervised", "a.h5", "b.h5"], "--supervised is not ported"),
-    (["fleet", "--fleet_dir", "f", "--", "--use_cpu"], "fleet controller is not ported"),
-    (["chaos", "--engine_dir", "e"], "chaos harness is not ported"),
+    (["chaos", "--engine_dir", "e", "--pod", "2", "--", "--use_cpu", "a.h5"],
+     "--pod is not ported"),
 ])
 def test_unported_subcommands_refuse(argv, words, capsys):
+    """Of the serving subcommands only the pod campaign refuses (it needs
+    the pod barriers of a multi-host solve); ``serve --supervised``,
+    ``fleet`` and ``chaos`` run (tests/test_torch_supervisor.py,
+    test_torch_fleet.py, test_torch_chaos.py)."""
     from sartsolver_tpu_torch.cli import main as cli_main
 
     assert cli_main(argv) == 1

@@ -520,3 +520,52 @@ def test_chip_smoke_serve_phase_at_small_size(tmp_path):
     assert rec["first_request"]["ms_per_frame"] > 0
     assert set(rec["later_requests"]["latency_s"]) == {"diag-b-1", "diag-a-late", "diag-b-2"}
     assert "kernels" not in rec
+
+
+# the self-healing serve's modules, each imported alone in a fresh process:
+# neither loads JAX, the JAX package or torch (the supervisor holds no CUDA
+# context on the card its worker runs on)
+@pytest.mark.parametrize("name", ["sartsolver_tpu_torch.resilience.supervisor",
+                                  "sartsolver_tpu_torch.resilience.chaos"])
+def test_selfheal_modules_import_neither_jax_nor_torch(name):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, sys\n"
+             "importlib.import_module(sys.argv[1])\n"
+             "print(sorted({m.split('.')[0] for m in sys.modules} & "
+             "{'jax', 'jaxlib', 'sartsolver_tpu', 'torch', 'h5py'}))")
+    out = subprocess.run([sys.executable, "-c", probe, name], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_chip_smoke_selfheal_phase_at_small_size(tmp_path):
+    """chip_smoke.py's selfheal phase on the CPU at a small size: the
+    supervised worker (its command line read from the running process:
+    ``-m sartsolver_tpu_torch.cli serve``, the port's start split line)
+    SIGKILLed in its request's dispatched window, restarted, the journal
+    replayed, the rows equal to the CLI's, the restart counted, exit 4 on
+    SIGTERM; the serve and fleet campaigns judged ok beside it."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(REPO)
+    world = cs.write_world(str(tmp_path), nx=16, ny=16, cam=(8, 4), n_frames=8)
+    rec = cs.selfheal_phase(world, str(tmp_path), device="cpu")
+    sup = rec["supervised"]
+    assert sup["worker_command"] == ["-m", "sartsolver_tpu_torch.cli", "serve"]
+    assert not sup["worker_supervised"]
+    assert sup["start_split_line"].startswith("engine: start split main_unix=")
+    assert sup["exit"] == 4 and sup["completed_markers"] == 1 and sup["restarts_sigkill"] == 1
+    assert sup["outcome"]["status"] == "completed" and sup["outcome"]["frames"] == 4
+    parts = sup["kill_to_ready_parts"]
+    assert set(parts) == {"detect_and_backoff_s", "process_start_and_imports_s", "cuda_init_s",
+                          "kernel_load_s", "ingest_s", "warm_up_s", "rest_s"}
+    assert 0 < parts["detect_and_backoff_s"] < sup["kill_to_ready_s"]
+    assert sup["launches_by_incarnation"] == [{}, {}]  # the plain version on the CPU
+    for name, seed in (("chaos", cs.SELFHEAL_CHAOS_SEED), ("fleet", cs.SELFHEAL_FLEET_SEED)):
+        (verdict,) = rec[name]["passes"]
+        assert verdict["seed"] == seed and verdict["verdict"] == "ok"
+        assert verdict["kills_fired"] >= 1
+    assert rec["fleet"]["fleet"] == cs.SELFHEAL_FLEET
+    assert not os.path.exists(tmp_path / "selfheal")
