@@ -102,6 +102,16 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    (:func:`debug_nans_phase`): a NaN pixel exits 0 from the chain and
    raises from the scheduler, as on the CPU, and the flag changes no byte
    of a healthy scheduler run or OS chain (ms per frame with and without).
+4b'. ``audit``: the launch audit (``analysis/audit.py``) of every
+   single-rank entry of the registry on the world's matrix at full width
+   (:func:`audit_phase`): each through ``solve_batch`` for K and 2K
+   iterations, fp32 at B = 1, the fused entries also bf16 and int8 at B = 1
+   and 8 (``tensor_core``) and fp32 at B = 16 (``two_read``); one line per
+   entry with its per-iteration hand launches by plan, the CUDA kernels the
+   profiler saw by name (which must agree with the launches), host syncs,
+   matrix-sized copies and converts, the largest fp64 tensor, collectives,
+   aten ops and elements converted. Any violation fails the run. The grid
+   entries are audited in phase ``grid``'s 2x1 group (``--audit``).
 4b''. ``obs``: the observability layer through the CLI on the world
    (:func:`obs_phase`), per storage the chain loop over 8 frames and
    ``--no_guess --batch_frames 8`` over the 32, each without sinks and then
@@ -1117,6 +1127,81 @@ def debug_nans_phase(world, outdir: str, device: str = "cuda") -> dict:
                 raise AssertionError(f"debug_nans {name}: solution/{key} differs with the flag")
         record[name] = dict(byte_equal=True, cli_ms_per_frame=timing)
     return record
+
+
+# the fused entries' extra cases on the card: (entry, storage, B), each
+# where it changes the plan (bf16 and int8 at B = 8: tensor_core; fp32 at
+# B = 16: two_read); every other single-rank entry runs fp32 at B = 1
+AUDIT_CASES = (("fused_sweep", "bfloat16", 1), ("fused_sweep", "bfloat16", 8),
+               ("fused_sweep", "float32", 16), ("int8_fused_sweep", "int8", 8))
+AUDIT_BUDGET_S = 60.0
+
+
+def _audit_line(rep, **extra) -> dict:
+    """One entry's record: its status and per-iteration counts."""
+    it = rep.per_iteration
+    keys = ("launches", "launches_by_plan", "cuda_kernels", "host_syncs", "matrix_copies",
+            "matrix_converts", "f64_max_elems", "collectives", "aten_ops",
+            "elements_converted", "ops_inside_launches", "syncs_inside_collectives")
+    return dict(entry=rep.name, status=rep.status, detail=rep.detail,
+                violations=rep.violations, shape=rep.shape,
+                **{k: it[k] for k in keys if k in it}, **extra)
+
+
+def audit_phase(world, device: str = "cuda", geometry=None) -> dict:
+    """Phase ``audit`` (module docstring): every single-rank entry of the
+    launch audit on the world's matrix, the fused entries at each case of
+    ``AUDIT_CASES`` too, each emitted as one line; the refused entries by
+    their words. An entry that is not ``ok`` or ``refused``, a fused entry
+    whose launches are not the plan ``plan_sweep`` gives its shape, or a
+    phase over ``AUDIT_BUDGET_S`` on the card fails the run."""
+    from sartsolver_tpu_torch.analysis import audit, registry
+    from sartsolver_tpu_torch.ops.fused_sweep import plan_sweep
+
+    t0 = time.perf_counter()
+    reg = registry.load_registered_entries()
+    card = device == "cuda"
+    cases = [(n, "int8" if n == "int8_fused_sweep" else "float32", 1) for n in sorted(reg)
+             if reg[n].min_ranks == 1] + list(AUDIT_CASES)
+    ctx = audit.AuditContext(device, world["H"],
+                             geometry=geometry if geometry is not None else geometry_record())
+    lines, bad = [], []
+    try:
+        for name, storage, B in cases:
+            ctx.B, ctx.storage = B, storage
+            t1 = time.perf_counter()
+            rep = audit.run_entry(reg[name], ctx, profile=card)
+            line = _audit_line(rep, storage=storage, seconds=time.perf_counter() - t1)
+            if card and rep.status == "ok" and set(rep.per_iteration["launches"]) == {
+                    "fused_sweep"}:
+                P, V = world["H"].shape
+                plan = plan_sweep(P, V // 2 if name == "sparse_panel_sweep" else V, B, storage)
+                by_plan = {k: n for k, n in rep.per_iteration["launches_by_plan"].items() if n}
+                if by_plan != {f"fused_sweep:{plan}": 1}:
+                    rep.violations.append(f"launches by plan {by_plan}, {plan} expected")
+                    line.update(status="violation", violations=rep.violations)
+            emit("audit", **line)
+            lines.append(line)
+            if line["status"] != "ok":
+                bad.append(line)
+    finally:
+        ctx.close()
+        del ctx
+        gc.collect()
+        if card:
+            import torch
+
+            torch.cuda.empty_cache()
+    refused = [_audit_line(audit.run_entry(reg[n], None)) for n in sorted(reg)
+               if reg[n].refusal is not None]
+    seconds = time.perf_counter() - t0
+    if bad or any(r["status"] != "refused" for r in refused):
+        raise AssertionError(f"launch audit: {bad or refused}")
+    if card and seconds > AUDIT_BUDGET_S:
+        raise AssertionError(f"launch audit took {seconds:.1f} s (budget {AUDIT_BUDGET_S} s)")
+    return dict(seconds=seconds, budget_s=AUDIT_BUDGET_S, entries=len(lines),
+                refused={r["entry"]: r["detail"] for r in refused},
+                grid_entries="phase grid (2x1 group)")
 
 
 OBS_LOOPS = (("chain", ["-t", "0:0.75"], 8),  # (name, flags, frames) of the obs phase
@@ -3774,8 +3859,8 @@ GRID_PARITY = (2048, 16384, 20)  # the parity check's P, V and iterations
 
 
 def grid_rank_main(argv) -> int:
-    """``python chip_smoke.py --grid-rank OUT [--parity] -- ARGS [--grid-rank
-    OUT2 [--parity] -- ARGS2 ...]`` (one rank under torchrun): the rank's
+    """``python chip_smoke.py --grid-rank OUT [--parity] [--audit] -- ARGS
+    [--grid-rank OUT2 [--parity] -- ARGS2 ...]`` (one rank under torchrun): the rank's
     process group from the launcher's environment, then for each run in
     turn the port's CLI on its ARGS in that group, what it printed echoed,
     and the rank's record written to ``OUT.r<RANK>.json``: the exit code,
@@ -3783,7 +3868,8 @@ def grid_rank_main(argv) -> int:
     collectives of that run alone; with ``--parity``, then
     :func:`~sartsolver_tpu_torch.utils.fused_parity.measure_kernel_vs_plain`
     on a ``GRID_PARITY`` problem over a grid of the world's ranks along the
-    pixel axis. A run that fails ends the rank."""
+    pixel axis; with ``--audit``, then the grid entries' launch audit
+    (:func:`_grid_audit`). A run that fails ends the rank."""
     sys.path.insert(0, REPO)
     from sartsolver_tpu_torch import cli
     from sartsolver_tpu_torch.ops import fused_sweep as fs
@@ -3816,12 +3902,33 @@ def grid_rank_main(argv) -> int:
             import torch.distributed as dist
 
             rec.update(_grid_parity(dist.get_world_size(), 1, device))
+        if "--audit" in extra and rc == 0:
+            rec["audit"] = _grid_audit(device)
         with open(f"{out}.r{rec['rank']}.json", "w") as f:
             json.dump(rec, f)
         if rc:
             break
     comm.shutdown()
     return rc
+
+
+def _grid_audit(device: str) -> list:
+    """One rank of the grid entries' launch audit (``analysis/audit.py:
+    run_grid_entries``) over a grid of the world's ranks along the pixel
+    axis, on the ``GRID_PARITY`` problem: their per-iteration counts."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sartsolver_tpu_torch.analysis import audit
+    from sartsolver_tpu_torch.parallel.mesh import make_grid
+
+    P, V, _ = GRID_PARITY
+    H, _G = parity_problem(P, V)
+    grid = make_grid(dist.get_world_size(), 1)
+    reports = audit.run_grid_entries(grid, audit.AuditContext(device, H),
+                                     profile=device == "cuda")
+    return [dataclasses.asdict(r) for r in reports]
 
 
 def grid_runs_of(argv) -> list:
@@ -4070,7 +4177,8 @@ def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
     launches = {}
     for i, (name, flags, n, storage) in enumerate(GRID_RUNS):
         launches.setdefault(n, []).extend([
-            "--grid-rank", os.path.join(outdir, f"grid_{name}"), *(["--parity"] if i == 0 else []),
+            "--grid-rank", os.path.join(outdir, f"grid_{name}"),
+            *(["--parity", "--audit"] if i == 0 else []),
             "--", "-o", os.path.join(outdir, f"grid_{name}.h5"), *inputs,
             "-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "-t", "0:0.35",
             "--chain_frames", "1", "--rtm_dtype", storage, "--device", device, "--multihost",
@@ -4096,10 +4204,22 @@ def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
     finally:
         for _n, _go, launch in started:
             _torchrun_stop(launch)
-    runs, parity = {}, None
+    runs, parity, audited = {}, None, None
     for name, flags, n, storage in GRID_RUNS:
         out = os.path.join(outdir, f"grid_{name}.h5")
         recs = _rank_records(os.path.join(outdir, f"grid_{name}"), n)
+        if audited is None:
+            # the grid entries' launch audit, from the first run's group
+            from sartsolver_tpu_torch.analysis.audit import EntryReport
+
+            audited = []
+            for r in recs[0]["audit"]:
+                rep = EntryReport(**r)
+                line = _audit_line(rep, storage="float32", from_phase="grid")
+                emit("audit", **line)
+                audited.append(line)
+            if not audited or any(a["status"] != "ok" for a in audited):
+                raise AssertionError(f"grid launch audit: {audited}")
         if parity is None:
             parity = [r["parity"] for r in recs]
             if not parity[0]["kernel_engaged"].startswith("split") or (
@@ -4151,7 +4271,7 @@ def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
             collective_ms_per_iteration=coll["seconds"] * 1e3 / max(iters, 1),
             device_wait_ms_per_iteration=coll["device_wait_seconds"] * 1e3 / max(iters, 1),
             wall_ms_per_iteration=sum(ms) / max(iters, 1))
-    return dict(kernels=kernels, kernels_seconds=kernels_s, parity=parity,
+    return dict(kernels=kernels, kernels_seconds=kernels_s, parity=parity, audit=audited,
                 parity_shape=list(GRID_PARITY), fit_tol=GRID_FIT_TOL, frames=GRID_FRAMES,
                 torchruns=torchruns, runs=runs)
 
@@ -5048,6 +5168,9 @@ def main() -> int:
         emit("os", seconds=time.perf_counter() - t0, max_iterations=MAX_ITERATIONS,
              fit_bound=FIT_BOUND, **os_rec)
         emit("debug_nans", **debug_nans_phase(world, tmp))
+        # before obs: the profiler has recorded no CUDA kernel after phase
+        # obs (PERF.md section 7), and the audit's agreement needs it
+        emit("audit", **audit_phase(world))
         t0 = time.perf_counter()
         obs = obs_phase(world, tmp, card=card)
         emit("obs", seconds=time.perf_counter() - t0, **obs)

@@ -992,6 +992,13 @@ def build_solver(args, inputs: SolveInputs, device, *, telem=None,
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "lint":
+        # static analysis: the AST lint, the launch audit of the hot entry
+        # points and the crash-point model checker; dispatched before the
+        # solver parser, which would read "lint" as an input file
+        from sartsolver_tpu_torch.analysis.cli import lint_main
+
+        return lint_main(argv[1:])
     if argv and argv[0] == "metrics":
         # artifact tooling: validate, summarize and diff --metrics_out
         # artifacts; dispatched before the solver parser, which would read

@@ -1,7 +1,7 @@
 """Solver status codes, input errors, time-range parsing and solver options.
 
 A copy of the JAX package's ``sartsolver_tpu/config.py`` restricted to what
-the one-device solve uses. The flag semantics, defaults and messages
+the one-device solve and ``lint``'s severity overrides use. The flag semantics, defaults and messages
 follow the reference CLI (``source/arguments.cpp``); invalid values raise
 ``ValueError`` here and the CLI turns them into exit(1).
 """
@@ -90,6 +90,53 @@ def parse_time_intervals(time_string: str) -> List[Tuple[float, float, float, fl
     if not intervals:
         raise SartInputError(f"Unable to recognize a time interval in {time_string}.")
     return intervals
+
+
+# Static-analysis severity levels (analysis/rules.py) in decreasing order;
+# "off" is accepted in overrides to disable a rule entirely.
+LINT_SEVERITIES = ("error", "warning", "info")
+
+
+def parse_severity_overrides(spec: str) -> dict:
+    """Parse a ``lint --severity`` override string.
+
+    Grammar: comma-separated ``RULE=LEVEL`` pairs, e.g.
+    ``"SL004=error,SL003=off"``; levels are :data:`LINT_SEVERITIES` plus
+    ``off``. Empty string -> no overrides. Invalid specs raise
+    :class:`SartInputError` (the lint CLI converts it into the same polite
+    message + exit(1) contract as the solver CLI's flag validation).
+    """
+    overrides: dict = {}
+    if not spec:
+        return overrides
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        rule, sep, level = part.partition("=")
+        rule, level = rule.strip(), level.strip()
+        if not sep or not rule or not level:
+            raise SartInputError(
+                f"Unable to parse severity override {part!r}; expected "
+                "RULE=LEVEL, e.g. 'SL004=error'."
+            )
+        if not (rule.startswith("SL") and rule[2:].isdigit()
+                and len(rule) == 5):
+            # catch typos at parse time (the lint CLI additionally checks
+            # the id against the registered rule set) — a silently
+            # ignored override would let the user believe a rule was
+            # disabled when it was not
+            raise SartInputError(
+                f"Unknown rule id {rule!r} in severity override; rule ids "
+                "look like 'SL004' (see `sartsolve lint --list-rules`)."
+            )
+        if level not in LINT_SEVERITIES + ("off",):
+            raise SartInputError(
+                f"Unknown severity {level!r} for rule {rule}; valid: "
+                f"{', '.join(LINT_SEVERITIES + ('off',))}."
+            )
+        overrides[rule] = level
+    return overrides
 
 
 @dataclasses.dataclass(frozen=True)

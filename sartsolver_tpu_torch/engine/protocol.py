@@ -9,8 +9,7 @@ order. Until now that order lived implicitly in ``EngineServer``'s
 method bodies and was proven only by seeded chaos sampling; this module
 declares it as data so that
 
-- the crash-point model checker (the JAX package's
-  ``analysis/protocol.py``; the port's waits for its slice) can enumerate a
+- the crash-point model checker (``analysis/protocol.py``) can enumerate a
   crash at EVERY effect prefix (and every byte boundary of every
   append) and assert the chaos invariants over all of them, and
 - docs/SERVING.md's runbook can point a checker failure at the

@@ -128,7 +128,7 @@ class ResidentSession:
             # cost is told apart from the ingest's
             import torch
 
-            torch.zeros(1, device=device)
+            torch.zeros(1, dtype=torch.float32, device=device)
             torch.cuda.synchronize(device)
         t_context = time.perf_counter()
         loaded = dict(_build.load_seconds)

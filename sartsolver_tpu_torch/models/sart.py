@@ -1529,7 +1529,9 @@ def solve_normalized_batch(
         mom = (f, fitted if kit.carry_fit else None, torch.ones(B, dtype=dtype, device=dev))
     sdc = torch.zeros_like(done) if kit.integrity else None
     it = 0
-    while it < opts.max_iterations and not bool(done.all()):
+    # the one device flag an iteration reads: the stop test's. Removing it
+    # (CUDA graphs over the stride) is ROADMAP queue B item 1.
+    while it < opts.max_iterations and not bool(done.all()):  # sart-lint: disable=SL002
         dk = (kit.decay_factor(torch.full((B,), it, dtype=torch.int32, device=dev))
               if kit.scheduled else None)
         step = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
@@ -1750,7 +1752,8 @@ def sched_step_normalized(
     diverged = torch.zeros_like(done) if kit.recovery else None
     sdc = torch.zeros_like(done) if kit.integrity else None
     step = 0
-    while step < opts.schedule_stride and not bool(done.all()):
+    # the stride's one device flag an iteration (ROADMAP queue B item 1)
+    while step < opts.schedule_stride and not bool(done.all()):  # sart-lint: disable=SL002
         dk = kit.decay_factor(itl) if kit.scheduled else None
         out = kit.iterate(f, fitted, done, g, meas_mask, obs, msq, dk, ascale, mom)
         f_new, fitted_new, conv, tripped = out.f, out.fitted, out.conv, out.tripped
@@ -1881,3 +1884,36 @@ def solve(problem: SARTProblem, measurement, f0=None, *, opts: SolverOptions,
     scale = torch.tensor(norm, dtype=dtype, device=dev)
     return SolveResult(res.solution[0] * scale, res.status[0],
                        res.iterations[0], res.convergence[0])
+
+
+# ---- launch-audit registration (analysis/registry.py) -----------------------
+# The JAX package's solver entries (sartsolver_tpu/models/sart.py:2490-2680),
+# each the two-matmul loop (fused sweep off) in fp32 with one variant on.
+
+from sartsolver_tpu_torch.analysis.registry import (  # noqa: E402
+    register_audit_entry as _register_audit_entry,
+)
+
+
+def _audit_batch(**variant):
+    """A builder: the batched solve with ``variant``'s options."""
+    return lambda ctx: ctx.batch_runner(SolverOptions(fused_sweep="off", **variant))
+
+
+for _name, _what, _variant in (
+    ("sweep", "Eq. 2 batched iteration loop (two-matmul path, fp32)", {}),
+    ("log_sweep", "logarithmic (Eq. 3) iteration loop (two-matmul path, fp32)",
+     {"logarithmic": True}),
+    ("recovery_sweep", "iteration loop with the in-solve divergence guard armed "
+     "(rollback and step halving, fp32)", {"divergence_recovery": 2}),
+    ("integrity_sweep", "iteration loop with the in-solve ABFT check (sum(H f) against "
+     "rho . f and sum(H^T w) against lambda . w each iteration, fp32)", {"integrity": True}),
+    ("os_sweep", "ordered-subsets (OS-SART) subset cycle, 4 subsets (fp32)",
+     {"os_subsets": 4}),
+    ("momentum_sweep", "Nesterov/FISTA-accelerated linear loop with gradient restart "
+     "(fp32)", {"momentum": "nesterov"}),
+    ("log_accel_sweep", "fully accelerated logarithmic loop (os_subsets=4 and Nesterov, "
+     "fp32)", {"logarithmic": True, "os_subsets": 4, "momentum": "nesterov"}),
+):
+    _register_audit_entry(_name, description=_what)(_audit_batch(**_variant))
+del _name, _what, _variant

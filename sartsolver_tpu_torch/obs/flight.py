@@ -50,7 +50,7 @@ from typing import List, Optional
 
 from sartsolver_tpu_torch.obs import metrics, schema
 from sartsolver_tpu_torch.resilience import watchdog
-from sartsolver_tpu_torch.utils.locking import named_lock, stale_read
+from sartsolver_tpu_torch.utils.locking import named_lock, stale_read, suppress_instrumentation
 
 
 class FlightRecorder:
@@ -204,8 +204,12 @@ def install_status_handler(path: str):
         # record_frame holding a metric lock, and a blocking snapshot
         # would wait on a lock whose owner cannot run until this
         # handler returns (self-deadlock). Host state only: no CUDA call.
+        # suppress_instrumentation is the armed lock-order detector's half
+        # of the same contract: without it each handler-side release would
+        # record its hold time through a blocking registry acquire.
         try:
-            rec = write_status(path, blocking=False)
+            with suppress_instrumentation():
+                rec = write_status(path, blocking=False)
             lb = rec["last_beacon"]
             line = (
                 f"sartsolve status: frames={rec['frames_done']} "
@@ -247,7 +251,8 @@ def write_crash_bundle(path: str, reason: str, summary=None) -> bool:
         # blocking=False throughout: the crash hook fires while the
         # process may be wedged mid-phase with metric/ring locks held —
         # the bundle settles for a stale view over hanging alongside it
-        return _write_crash_bundle_quiet(path, reason, summary)
+        with suppress_instrumentation():
+            return _write_crash_bundle_quiet(path, reason, summary)
     except Exception as err:  # pragma: no cover - double-fault guard
         try:
             print(f"sartsolve: crash-bundle write failed: {err}",

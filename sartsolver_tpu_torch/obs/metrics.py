@@ -301,7 +301,7 @@ class MetricsRegistry:
         key = (cls.kind, name, _label_key(labels))
         # double-checked fast path: a dict get is GIL-atomic, and a miss
         # re-checks under the lock before inserting
-        inst = self._instruments.get(key)
+        inst = self._instruments.get(key)  # sart-lint: disable=SL101
         if inst is None:
             with self._lock:
                 inst = self._instruments.get(key)

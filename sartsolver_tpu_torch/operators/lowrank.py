@@ -662,3 +662,19 @@ __all__ = [
     "lowrank_subset_density", "randomized_svd", "solve_parity_gap",
     "split_sparse_core",
 ]
+
+
+# ---- launch-audit registration (analysis/registry.py) -----------------------
+from sartsolver_tpu_torch.analysis.registry import register_audit_entry  # noqa: E402
+
+
+@register_audit_entry(
+    "lowrank_sweep",
+    description="low-rank + sparse factored loop (S at 50% tile-column "
+                "occupancy, rank-8 fill, fp32): a matrix-sized copy or convert "
+                "in the loop would densify what the factorization removed",
+)
+def _audit_lowrank_sweep(ctx):
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    return ctx.batch_runner(SolverOptions(fused_sweep="off"), operator="lowrank")

@@ -69,6 +69,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
+from sartsolver_tpu_torch.analysis.registry import opaque as _audit_opaque
+
 # storage dtype -> the kernel's storage code
 STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # plan -> the kernel's plan code
@@ -252,6 +254,7 @@ def _check(rtm: Tensor, w: Optional[Tensor], f: Tensor, aux: Sequence[Tensor],
         )
 
 
+@_audit_opaque("fused_sweep")
 def fused_sweep(rtm: Tensor, w: Tensor, f: Tensor, aux: Sequence[Tensor], *,
                 logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
                 scale: Optional[Tensor] = None, alpha_lane: Optional[Tensor] = None
@@ -427,6 +430,7 @@ def _scratch(lib, finish: bool, P: int, V: int, B: int, device) -> Tuple[Optiona
     return (torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None), nbytes
 
 
+@_audit_opaque("sharded_sweep_bp")
 def sharded_sweep_bp(rtm: Tensor, w: Tensor) -> Tensor:
     """The first call of the pixel-sharded sweep: this rank's partial back
     projection ``w @ H`` ``[B, V]`` of its block ``H`` ``[P, V]`` (fp32,
@@ -472,6 +476,7 @@ def sharded_sweep_bp(rtm: Tensor, w: Tensor) -> Tensor:
     return bp
 
 
+@_audit_opaque("sharded_sweep_finish")
 def sharded_sweep_finish(rtm: Tensor, f: Tensor, bp: Tensor, aux: Sequence[Tensor], *,
                          logarithmic: bool, alpha: float = 1.0, eps: float = 0.0,
                          scale: Optional[Tensor] = None,
@@ -533,3 +538,52 @@ def reset_sharded_launch_counts() -> None:
 
 
 reset_sharded_launch_counts()
+
+
+# ---- launch-audit registration (analysis/registry.py) -----------------------
+# The JAX package's fused entries (sartsolver_tpu/ops/fused_sweep.py:925-1010):
+# the loop with every iteration one call of the fused sweep.
+
+from sartsolver_tpu_torch.analysis.registry import (  # noqa: E402
+    register_audit_entry as _register_audit_entry,
+)
+
+
+@_register_audit_entry(
+    "fused_sweep",
+    description="the loop through the fused sweep, one call an iteration (the "
+                "context's storage: fp32 by default)",
+    hand_launches={"fused_sweep": 1},
+)
+def _audit_fused_sweep(ctx):
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    return ctx.batch_runner(SolverOptions(fused_sweep="on"), storage=ctx.storage)
+
+
+@_register_audit_entry(
+    "sparse_panel_sweep",
+    description="block-sparse loop at 50% tile-column occupancy: the fused sweep "
+                "on the compacted matrix, fp32",
+    hand_launches={"fused_sweep": 1},
+)
+def _audit_sparse_panel_sweep(ctx):
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    return ctx.batch_runner(SolverOptions(sparse_rtm="auto"), sparse=True)
+
+
+@_register_audit_entry(
+    "int8_fused_sweep",
+    description="int8-quantized fused sweep (per-voxel-scaled codes), one call an "
+                "iteration",
+    # the codes are dequantized inside the kernel; only a copy of the
+    # matrix would erase the 4x bandwidth win, so converts go unbudgeted
+    # (as the JAX entry's)
+    loop_convert_threshold=None,
+    hand_launches={"fused_sweep": 1},
+)
+def _audit_int8_fused_sweep(ctx):
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    return ctx.batch_runner(SolverOptions(fused_sweep="on"), storage="int8")

@@ -31,7 +31,9 @@ to the CPU.
 ``stats`` counts the collectives a rank ran, their bytes (its own operand)
 and their wall seconds, the wait for peers included; a CUDA operand's
 stream is synchronized first, and that wait for the device's queued work
-is counted apart (``device_wait_seconds``).
+is counted apart (``device_wait_seconds``). ``stats["by_kind"]`` counts
+them by kind (``all-reduce``, ``all-gather``), the keys of the launch
+audit's collective budgets (``analysis/registry.py``).
 """
 
 from __future__ import annotations
@@ -44,13 +46,16 @@ from typing import List
 import torch
 import torch.distributed as dist
 
+from sartsolver_tpu_torch.analysis import registry as audit_registry
 from sartsolver_tpu_torch.parallel.mesh import WORLD_AXIS
 
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "device_wait_seconds": 0.0}
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "device_wait_seconds": 0.0,
+         "by_kind": {"all-reduce": 0, "all-gather": 0}}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0, device_wait_seconds=0.0)
+    stats.update(calls=0, bytes=0, seconds=0.0, device_wait_seconds=0.0,
+                 by_kind={"all-reduce": 0, "all-gather": 0})
 
 
 def pick_backend(device_type: str) -> str:
@@ -113,12 +118,20 @@ def _host_staged(grid, x: torch.Tensor) -> bool:
     return x.is_cuda and (grid is None or grid.backend != "nccl")
 
 
-def all_gather_parts(x: torch.Tensor, axis: str, grid) -> List[torch.Tensor]:
+def all_gather_parts(x: torch.Tensor, axis: str, grid,
+                     kind: str = "all-gather") -> List[torch.Tensor]:
     """Every rank's ``x`` along ``axis``, in the axis's rank order, on
-    ``x``'s device (``[x]`` where the axis has one rank)."""
+    ``x``'s device (``[x]`` where the axis has one rank). ``kind`` is the
+    collective this gather serves, for ``stats["by_kind"]``."""
     group, n = _axis(grid, axis)
     if n == 1:
         return [x]
+    stats["by_kind"][kind] += 1
+    with audit_registry.region("collective", kind):
+        return _gather(x, group, n, grid)
+
+
+def _gather(x: torch.Tensor, group, n: int, grid) -> List[torch.Tensor]:
     src = x.contiguous()
     if src.is_cuda:
         t0 = time.perf_counter()
@@ -144,7 +157,7 @@ def all_gather_parts(x: torch.Tensor, axis: str, grid) -> List[torch.Tensor]:
 def all_reduce_sum(x: torch.Tensor, axis: str, grid) -> torch.Tensor:
     """``x`` summed over ``axis``, the operands added in rank order (the
     same bytes on every rank); ``x`` itself where the axis has one rank."""
-    parts = all_gather_parts(x, axis, grid)
+    parts = all_gather_parts(x, axis, grid, "all-reduce")
     if len(parts) == 1:
         return x
     acc = parts[0]
@@ -155,7 +168,7 @@ def all_reduce_sum(x: torch.Tensor, axis: str, grid) -> torch.Tensor:
 
 def all_reduce_max(x: torch.Tensor, axis: str, grid) -> torch.Tensor:
     """The elementwise maximum of ``x`` over ``axis``."""
-    parts = all_gather_parts(x, axis, grid)
+    parts = all_gather_parts(x, axis, grid, "all-reduce")
     if len(parts) == 1:
         return x
     acc = parts[0]

@@ -169,6 +169,13 @@ def grid_refusal(opts: SolverOptions, grid, *, operator=None, debug_nans: bool =
     return None
 
 
+def grid_loop_refusal(what: str) -> str:
+    """Why ``what`` (a loop or a state the grid does not share) is refused
+    on a grid of more than one rank."""
+    return (f"{what} runs on one rank; a grid of ranks runs the classic grouped loop "
+            "(solve_batch, solve_chain).")
+
+
 def grid_block(host: np.ndarray, grid, npixel: int, nvoxel: int) -> np.ndarray:
     """``grid``'s rank's padded block of the full matrix ``host`` ``[npixel,
     nvoxel]`` (zero in the padding): the block the JAX mesh of the same
@@ -717,8 +724,7 @@ class DistributedSARTSolver:
 
     def _no_grid(self, what: str) -> None:
         if self.grid is not None:
-            raise ValueError(f"{what} runs on one rank; a grid of ranks runs the classic "
-                             "grouped loop (solve_batch, solve_chain).")
+            raise ValueError(grid_loop_refusal(what))
 
     def _enter(self):
         """A solve's entry: the dispatch beacon, the ``solve.dispatch`` and
@@ -939,3 +945,70 @@ class DistributedSARTSolver:
         lanes = SchedLaneState(SchedState(**fields), B)
         lanes.norms = norms
         return lanes
+
+
+# ---- launch-audit registration (analysis/registry.py) -----------------------
+# The JAX package's sharded entries (sartsolver_tpu/parallel/sharded.py:
+# 2002-2260), on a 2x1 grid of ranks. Those whose options the grid refuses
+# report the refusal's words (grid_refusal, grid_loop_refusal).
+
+from sartsolver_tpu_torch.analysis.registry import (  # noqa: E402
+    rank_block as _rank_block,
+    register_audit_entry as _register_audit_entry,
+)
+
+from sartsolver_tpu_torch.parallel.mesh import RankGrid  # noqa: E402
+
+_AUDIT_GRID = RankGrid(2, 1)
+_SHARDED = dict(loop_copy_threshold=_rank_block, loop_convert_threshold=_rank_block,
+                min_ranks=_AUDIT_GRID.world)
+
+
+@_register_audit_entry(
+    "sharded_batch",
+    description="2x1 grid's batched solve (fp32, two-matmul path): the back "
+                "projection's and the Eq. 5 metric's all-reduce an iteration",
+    loop_collective_budget={"all-reduce": 2, "all-gather": 0}, **_SHARDED,
+)
+def _audit_sharded_batch(ctx):
+    return ctx.batch_runner(SolverOptions(fused_sweep="off"))
+
+
+@_register_audit_entry(
+    "sharded_fused_batch",
+    description="2x1 grid's batched solve through the split sweep (fp32): the "
+                "partial back projection, its all-reduce, then the finish",
+    loop_collective_budget={"all-reduce": 2, "all-gather": 0},
+    hand_launches={"sharded_sweep_bp": 1, "sharded_sweep_finish": 1}, **_SHARDED,
+)
+def _audit_sharded_fused_batch(ctx):
+    return ctx.batch_runner(SolverOptions(fused_sweep="on"))
+
+
+def _refused(**opts_kw):
+    """A refusal: grid_refusal's words for the options on the audit grid."""
+    geometry = opts_kw.pop("geometry", False)
+    operator = opts_kw.pop("operator", None)
+    return lambda: grid_refusal(SolverOptions(**opts_kw), _AUDIT_GRID, operator=operator,
+                                geometry=geometry)
+
+
+class _Lowrank:
+    kind = "lowrank"
+
+
+for _name, _what, _refusal in (
+    ("sharded_integrity_batch", "2x1 grid's batched solve with the in-solve ABFT check",
+     _refused(integrity=True)),
+    ("sharded_sched_step", "continuous-batching scheduler stride on a 2x1 grid",
+     lambda: grid_loop_refusal("the continuous-batching scheduler")),
+    ("sharded_sparse_panel_sweep", "2x1 grid's block-sparse loop",
+     _refused(sparse_rtm="auto")),
+    ("sharded_implicit_batch", "2x1 grid's matrix-free loop", _refused(geometry=True)),
+    ("sharded_lowrank_batch", "2x1 grid's factored (S + U V^T) loop",
+     _refused(operator=_Lowrank())),
+):
+    _register_audit_entry(_name, description=_what, refusal=_refusal,
+                          loop_collective_budget={"all-reduce": 2, "all-gather": 0},
+                          **_SHARDED)(_audit_sharded_batch)
+del _name, _what, _refusal

@@ -120,3 +120,28 @@ def dispatch_guarded(dispatch: Callable[[], object], *,
             torch.cuda.empty_cache()  # a no-op where CUDA never started
             return None, err
         raise
+
+
+# ---- launch-audit registration (analysis/registry.py) -----------------------
+# The batched solve of a 2x1 grid dispatched through dispatch_guarded with a
+# live ladder (nothing trips): the counts must be sharded_batch's.
+
+from sartsolver_tpu_torch.analysis.registry import (  # noqa: E402
+    rank_block as _rank_block,
+    register_audit_entry as _register_audit_entry,
+)
+
+
+@_register_audit_entry(
+    "guarded_dispatch",
+    description="2x1 grid's batched solve dispatched through the availability layer "
+                "(watchdog beacon and OOM ladder armed, nothing tripped)",
+    loop_copy_threshold=_rank_block,
+    loop_convert_threshold=_rank_block,
+    loop_collective_budget={"all-reduce": 2, "all-gather": 0},
+    min_ranks=2,
+)
+def _audit_guarded_dispatch(ctx):
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    return ctx.batch_runner(SolverOptions(fused_sweep="off"), guarded=True)

@@ -84,7 +84,9 @@ def configure(enabled: bool) -> None:
 
 def env_enabled() -> bool:
     """The ``SART_INTEGRITY`` switch alone (``1``, ``true`` or ``on``)."""
-    return os.environ.get("SART_INTEGRITY", "") in ("1", "true", "on")
+    from sartsolver_tpu_torch.utils import env_truthy
+
+    return env_truthy("SART_INTEGRITY")
 
 
 def enabled() -> bool:

@@ -315,7 +315,9 @@ def test_fleet_chaos_campaign_ci_seed_set(tmp_path, capsys):
     rc = chaos_main([
         "--engine_dir", str(tmp_path / "camp"), "--fleet", str(FLEET_SIZE),
         "--seeds", FLEET_SEEDS, "--slo_ms", "300000",
-        "--timeout", "120", "--report", report_path, "--",
+        # each pass's wait: generous, as it bounds the run under the test
+        # suite's load and is no correctness bar (alone a pass takes ~15 s)
+        "--timeout", "600", "--report", report_path, "--",
         "--use_cpu", "-m", "40", "-c", "1e-12", "--lanes", "2",
         paths["rtm_a1"], paths["rtm_a2"], paths["rtm_b"],
         paths["img_a"], paths["img_b"],

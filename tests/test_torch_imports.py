@@ -569,3 +569,41 @@ def test_chip_smoke_selfheal_phase_at_small_size(tmp_path):
         assert verdict["kills_fired"] >= 1
     assert rec["fleet"]["fleet"] == cs.SELFHEAL_FLEET
     assert not os.path.exists(tmp_path / "selfheal")
+
+
+# the static analysis (the lint, the launch audit's registry and auditor, the
+# crash-point model checker, the command line), the lock-order detector and
+# the durable writes, imported one after another in one fresh process, the
+# loaded set read after each: none loads JAX, the JAX package or torch (the
+# auditor imports torch only when it counts), and none before the checker
+# (the engine's modules) and the auditor loads numpy
+_ANALYSIS_MODULES = ("sartsolver_tpu_torch.utils.locking", "sartsolver_tpu_torch.utils.atomicio") \
+    + tuple(f"sartsolver_tpu_torch.analysis.{m}" for m in (
+        "registry", "rules", "concurrency", "durability", "cli")) \
+    + ("sartsolver_tpu_torch.analysis", "sartsolver_tpu_torch.analysis.protocol",
+       "sartsolver_tpu_torch.analysis.audit")
+
+
+@pytest.fixture(scope="module")
+def analysis_imports():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import importlib, json, sys\n"
+             "out = {}\n"
+             "for name in sys.argv[1:]:\n"
+             "    importlib.import_module(name)\n"
+             "    out[name] = sorted({m.split('.')[0] for m in sys.modules} & "
+             "{'jax', 'jaxlib', 'sartsolver_tpu', 'torch', 'numpy'})\n"
+             "print(json.dumps(out))")
+    out = subprocess.run([sys.executable, "-c", probe, *_ANALYSIS_MODULES], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120, check=True)
+    import json
+
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", _ANALYSIS_MODULES)
+def test_analysis_modules_import_no_jax(name, analysis_imports):
+    loaded = analysis_imports[name]
+    assert not set(loaded) & {"jax", "jaxlib", "sartsolver_tpu", "torch"}, loaded
+    if not name.endswith((".audit", ".protocol")):
+        assert loaded == [], loaded
