@@ -9,7 +9,7 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 2. ``build``: every ``csrc/*.cu`` of the package built with ``nvcc``, in
    parallel, into ``build/sartsolver_tpu_torch/``, while the host writes
    the ``solve`` phase's world and the ``operators`` phase's reflective
-   world.
+   world. Then ``audit`` (4b' below), the first phase to use the profiler.
 3. ``kernels``: the fused-sweep kernel against its plain PyTorch version on
    the card, for each storage type (B1/B2 fp32, B3 bf16, B4 int8 codes with
    their scales), linear and log, with and without the penalty, at the main
@@ -70,8 +70,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 4a. ``frames``: the CLI's frame-group loops over the world's 32 frames,
    linear with the Laplacian (:func:`frames_phase`): per storage
    ``--no_guess --batch_frames 8`` through the continuous-batching scheduler
-   and through the classic grouped loop, in turns (scheduler, classic,
-   classic, scheduler; every run's solution file equal, byte for byte;
+   and through the classic grouped loop, one run each (the two files equal,
+   byte for byte;
    every launch on ``plan_sweep(8192, 65536, 8, storage)``, the
    scheduler's launches equal to the loop steps it printed, the classic
    loop's to the sum of its groups' loop counts); int8 at
@@ -102,8 +102,9 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    (:func:`debug_nans_phase`): a NaN pixel exits 0 from the chain and
    raises from the scheduler, as on the CPU, and the flag changes no byte
    of a healthy scheduler run or OS chain (ms per frame with and without).
-4b'. ``audit``: the launch audit (``analysis/audit.py``) of every
-   single-rank entry of the registry on the world's matrix at full width
+4b'. ``audit`` (run right after ``build``): the launch audit
+   (``analysis/audit.py``) of every single-rank entry of the registry on
+   the world's matrix at full width
    (:func:`audit_phase`): each through ``solve_batch`` for K and 2K
    iterations, fp32 at B = 1, the fused entries also bf16 and int8 at B = 1
    and 8 (``tensor_core``) and fp32 at B = 16 (``two_read``); one line per
@@ -178,8 +179,8 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    fp32 ``--no_guess --batch_frames 8`` over the 32 frames): SIGKILL inside
    the held-open append of serial 2 (a subprocess), ``--resume`` from
    serial 1 to the uninterrupted run's bytes; ms per frame at
-   ``--solve_ckpt_stride`` 1, 4 and 16 against off in turns (each run the
-   same bytes) and the bytes a record takes.
+   ``--solve_ckpt_stride`` 1, 4 and 16 against off, one run each (each run
+   the same bytes), and the bytes a record takes.
 4b5. ``sparse``: the block-sparse RTM (:func:`sparse_phase`) on a copy
    of the world whose grid's top and bottom 64 rows no camera sees (voxels
    [0, 16384) and [49152, 65536): 256 of the 512 tile columns empty, the
@@ -256,6 +257,22 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    on the world's matrix with images of its first 4 frames, each judged
    ``ok``. The supervised worker's launches join the B = 2 row of the
    kernel table.
+4b9. ``pod``: the pod's fault tolerance (:func:`pod_phase`) on the world's
+   matrix with images of its first 16 frames, every worker the scheduler
+   at ``--no_guess --batch_frames 4 --solve_ckpt_stride 2`` (``one_read``
+   fp32 at B = 4), every pass on a fresh barrier directory at
+   ``SART_POD_BARRIER_TIMEOUT=10``: (a) a solo run alone, then two
+   fake-pod workers (``SART_POD_PROCESS=k/2``: the campaign's reference
+   pass), the three files the same bytes; each worker's ms per frame
+   against the solo run's and its ``kernel_launches_total`` (the loop steps
+   it printed, on the plan); (b) ``chaos --pod 2 --seeds 0,3`` judged
+   ``ok``, each survivor's exit within the deadline plus 15 s of the kill,
+   the agreed resume serials; (c) beside its seeds, once the reference pass
+   has ended, a 2x1 grid under torchrun, the ranks sharing the
+   card over gloo: a ``-t`` run over the first half, then ``--resume``,
+   the file an uninterrupted 2x1 run's, statuses the solo run's; the resume
+   view's broadcast seconds; then rank 1 of two SIGKILLed in its ingest turn,
+   rank 0's exit 3 within the deadline plus 15 s.
 4c. ``batch``: the 32 frames of the world solved at once through the solver
    API (``solve_normalized_batch``, B = 32) with int8 storage and the
    Laplacian, so through ``tensor_core``: counts zeroed before and read
@@ -650,8 +667,8 @@ def group_loops(iterations, K: int) -> int:
 def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
     """The CLI's frame-group loops over every frame of the world, linear
     with the Laplacian. Per storage: ``--no_guess --batch_frames 8`` through
-    the scheduler and through the classic loop in turns (scheduler, classic,
-    classic, scheduler; equal solution files, byte for byte); for int8 also ``--batch_frames 4``; for fp32 and int8
+    the scheduler and through the classic loop (equal solution files, byte
+    for byte); for int8 also ``--batch_frames 4``; for fp32 and int8
     ``--chain_frames 4`` against ``--chain_frames 1`` on the warm-started
     stream (equal files). Every frame's status 0 or the cap and its fitted
     error within ``FIT_BOUND``. On the card, counts are zeroed just before
@@ -711,10 +728,10 @@ def frames_phase(world, outdir: str, device: str = "cuda") -> dict:
     for storage in STORAGES:
         flags = ["--rtm_dtype", storage, "--no_guess", "--batch_frames", str(FRAME_LANES)]
         plan = plan_sweep(P, V, FRAME_LANES, storage)
-        # in turns (scheduler, classic, classic, scheduler): the host's speed
-        # drifts within a call, and the two loops differ only on the host
+        # one run each: the smoke run's length leaves no second turn (the
+        # two loops differ only on the host, whose speed drifts in a call)
         first, in_turns = {}, {"scheduled": [], "classic": []}
-        for kind in ("scheduled", "classic", "classic", "scheduled"):
+        for kind in ("scheduled", "classic"):
             sol, rec = run(f"{storage}_{kind}", flags if kind == "scheduled"
                            else [*flags, "--no_continuous_batching"])
             if kind == "scheduled":
@@ -1226,7 +1243,7 @@ FLUSH_ROWS = 100
 FLUSH_AT = (100, 400, 1600)
 VOXEL_MAP_AT = (8, 32, 1600)
 RESILIENCE_TIMEOUT = 300  # seconds, each subprocess of the drills
-INTEGRITY_TURNS = 3  # runs with --integrity on, and as many off, in turns
+INTEGRITY_TURNS = 1  # runs with --integrity on, and as many off, in turns
 REAUDIT_EVERY = 2  # SART_INTEGRITY_REAUDIT of the JAX recipe's CLI run
 
 
@@ -1837,8 +1854,8 @@ def solve_ckpt_drill(world, outdir: str, device: str, ref: str, killed: tuple) -
     uninterrupted run wrote ``ref``, after :func:`solve_ckpt_kill` returned
     ``killed``: the killed run kept serial 1 alone; ``--resume`` restores
     serial 1 and ends with ``ref``'s bytes. Then ms per frame at each of
-    ``CKPT_STRIDES`` against off, in turns (off, 1, 4, 16, 16, 4, 1, off),
-    each run's file ``ref``'s bytes, and the bytes a record takes."""
+    ``CKPT_STRIDES`` against off, one run each (off, 1, 4, 16), each run's
+    file ``ref``'s bytes, and the bytes a record takes."""
     import signal as _signal
 
     from sartsolver_tpu_torch.resilience.podckpt import SolveCheckpointStore
@@ -1870,8 +1887,7 @@ def solve_ckpt_drill(world, outdir: str, device: str, ref: str, killed: tuple) -
 
     runs = {k: [] for k in ("off", *CKPT_STRIDES)}
     bytes_per_record = {}
-    order = ("off", *CKPT_STRIDES)
-    for stride in order + order[::-1]:
+    for stride in ("off", *CKPT_STRIDES):
         out = os.path.join(outdir, f"ckpt_{stride}.h5")
         side = out + ".solveckpt"
         if os.path.exists(side):
@@ -5027,6 +5043,310 @@ def selfheal_phase(world, outdir: str, device: str = "cuda", extra=()) -> dict:
     return out
 
 
+POD_FRAMES = 16  # the pod phase's images: the world's first frames
+POD_LANES = 4  # --batch_frames of every worker: one_read fp32 at B = 4
+POD_CKPT_STRIDE = 2
+POD_DEADLINE = "10"  # SART_POD_BARRIER_TIMEOUT of every pass
+POD_SEEDS = "0,3"  # the JAX CI pair: 0 a ckpt kill, 3 a stride kill
+POD_TIMEOUT = 300  # seconds, each pass and each torchrun
+# the grid runs' windows, the whole series and its first half (0.0 .. 0.7),
+# on one explicit tick of 0.1 s: a window's derived tick is its own, and
+# moves a composite frame time by a few ulps from the whole series'
+POD_GRID_ALL = "0:1.55:0.1"
+POD_GRID_HALF = "0:0.75:0.1"
+
+
+def _pod_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SART_POD_") and k not in (
+               "SART_FAULT", "SART_SOLVE_CKPT_FILE", "SART_TEST_POD_MARKERS",
+               "SART_TEST_SOLVE_CKPT_DELAY", "SART_TRACE_EVENTS")}
+    env.update(PYTHONPATH=REPO, PYTHONUNBUFFERED="1", SART_POD_BARRIER_TIMEOUT=POD_DEADLINE,
+               **extra)
+    return env
+
+
+def _pod_run(procs_argv, envs) -> tuple:
+    """Start one CLI process per argv at once; their exit codes, stdout,
+    stderr and the pass's seconds (every process killed past
+    ``POD_TIMEOUT``)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "sartsolver_tpu_torch.cli", *argv],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, env in zip(procs_argv, envs)]
+    try:
+        outs = [p.communicate(timeout=POD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def _text_of(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _same_datasets(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a)
+
+
+def _pod_worker_record(out: str, art: str, stdout: str, world, n_frames: int, device) -> dict:
+    ms = [float(m) for m in re.findall(r"Processed in: ([0-9.eE+-]+) ms", stdout)]
+    steps = re.search(r"loop_steps=(\d+)", stdout)
+    sol, err = check_solution(out, world, n_frames, MAX_ITERATIONS, device)
+    launches = _launches_of(_artifact_metrics(art))
+    return dict(frames=len(ms), ms_per_frame=sum(ms) / max(len(ms), 1), frame_ms=ms,
+                loop_steps=int(steps.group(1)) if steps else None,
+                launches=launches, status=sol["status"].tolist(),
+                iterations=sol["iterations"].tolist(), fit_err=err.tolist())
+
+
+def pod_phase(world, outdir: str, device: str = "cuda", extra=()) -> dict:
+    """The pod (phase ``pod``) on the world's matrix and its first
+    ``POD_FRAMES`` frames, every worker ``--no_guess --batch_frames
+    POD_LANES --solve_ckpt_stride POD_CKPT_STRIDE -m MAX_ITERATIONS -l
+    <laplacian>`` (the scheduler on ``one_read`` fp32 at B = 4), each pass
+    on a fresh barrier directory at ``SART_POD_BARRIER_TIMEOUT=10``:
+
+    (a) one solo run, alone, then two fake-pod workers
+        (``SART_POD_PROCESS=k/2``): the campaign's reference pass, whose
+        workers keep their stdout and metrics artifact. All three files
+        the same datasets bit for bit; each worker's ms per frame against
+        the solo run's, its ``kernel_launches_total`` all on the plan
+        ``plan_sweep`` gives B = 4, as many as the loop steps it printed;
+    (b) ``chaos --pod 2 --seeds 0,3`` over the same flags, judged ``ok``:
+        each survivor's exit within the deadline plus 15 s of the kill, the
+        agreed resume serials (a ckpt kill's below the killed serial);
+    (c) beside (b)'s seeds, once its reference pass has ended (the pod's
+        frame times its own), a 2x1 grid under torchrun (``--multihost
+        --pixel_shards 2``, the ranks sharing the card over gloo; the
+        classic grouped loop): a ``-t`` run over the first half of the
+        frames, then ``--resume``, its datasets bit for bit an
+        uninterrupted 2x1 run's, whose statuses are the solo run's and
+        whose rows are within ``GRID_FIT_TOL`` of them in fitted space; the
+        resume view's broadcast timed (its ``resume.broadcast`` span); then
+        rank 1 of two SIGKILLed in its ingest turn, rank 0's exit 3 within
+        the deadline plus 15 s.
+    Any miss raises. ``extra`` (flags of every run) sizes the runs to a
+    small world in a rehearsal."""
+    import shutil
+
+    p = world["paths"]
+    root = os.path.join(outdir, "pod")
+    os.makedirs(root, exist_ok=True)
+    t_phase = time.perf_counter()
+    npix = world["G"].shape[0] // 2
+    short = {}
+    for key, camera, rows in (("img_a", "camA", slice(0, npix)),
+                              ("img_b", "camB", slice(npix, None))):
+        short[key] = os.path.join(root, f"{key}_{POD_FRAMES}.h5")
+        _write_image(short[key], camera,
+                     world["G"][rows, :POD_FRAMES].T.reshape(POD_FRAMES, *world["cam"]),
+                     world["times"][:POD_FRAMES])
+    inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], short["img_a"], short["img_b"]]
+    solve = ["-m", str(MAX_ITERATIONS), "-l", p["laplacian"], "--device", device,
+             "--no_guess", "--batch_frames", str(POD_LANES), *extra]
+    ckpt = ["--solve_ckpt_stride", str(POD_CKPT_STRIDE)]
+    P, V = world["H"].shape
+    plan = f"kernel=fused_sweep,plan={_plan_of(P, V, POD_LANES)}"
+    out = {"frames": POD_FRAMES, "lanes": POD_LANES, "ckpt_stride": POD_CKPT_STRIDE,
+           "barrier_timeout_s": float(POD_DEADLINE), "plan": plan}
+
+    def worker(rec):
+        if device == "cuda" and (set(rec["launches"]) != {plan}
+                                 or rec["launches"][plan] != rec["loop_steps"]):
+            raise AssertionError(f"pod worker launches {rec['launches']}, "
+                                 f"loop steps {rec['loop_steps']}")
+        return rec
+
+    # (a) the solo run alone, then (b) the campaign, whose reference pass
+    # is the two fake-pod workers; (c) the grid starts once that pass has
+    # ended, so the pod's frame times are not shared with the grid's
+    solo_out, solo_art = os.path.join(root, "solo.h5"), os.path.join(root, "solo.jsonl")
+    (rc,), (solo_text,), solo_s = _pod_run(
+        [["-o", solo_out, *inputs, *solve, *ckpt, "--metrics_out", solo_art]], [_pod_env()])
+    if rc != 0:
+        raise AssertionError(f"pod solo run: exit {rc}\n{solo_text[1][-3000:]}")
+    solo_rows = _read_rows(solo_out)
+    solo = worker(_pod_worker_record(solo_out, solo_art, solo_text[0], world, POD_FRAMES,
+                                     device))
+    out["solo"] = dict(seconds=solo_s, **solo)
+
+    report, log = (os.path.join(root, f"chaos.{x}") for x in ("json", "log"))
+    with open(log, "w") as log_f:
+        chaos = subprocess.Popen(
+            [sys.executable, "-m", "sartsolver_tpu_torch.cli", "chaos", "--engine_dir",
+             os.path.join(root, "chaos"), "--pod", "2", "--seeds", POD_SEEDS, "--timeout",
+             str(POD_TIMEOUT), "--report", report, "--", *inputs, *solve, *ckpt],
+            cwd=REPO, env=_pod_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    t_chaos = time.perf_counter()
+    try:
+        # the first seed's line follows the reference pass
+        while chaos.poll() is None and "chaos: pod seed" not in _text_of(log):
+            if time.perf_counter() - t_chaos > POD_TIMEOUT:
+                raise AssertionError(f"chaos --pod 2: no seed began\n{_text_of(log)[-3000:]}")
+            time.sleep(0.2)
+        if chaos.poll() in (None, 0):
+            out["grid"] = _pod_grid(world, root, inputs, solve, solo_rows, device)
+        rc = chaos.wait(timeout=3 * POD_TIMEOUT)
+        chaos_s = time.perf_counter() - t_chaos
+    finally:
+        if chaos.poll() is None:
+            chaos.kill()
+            chaos.wait(timeout=60)
+    with open(log) as f:
+        text = f.read()
+    if rc != 0 or not os.path.exists(report):
+        raise AssertionError(f"chaos --pod 2: exit {rc}\n{text[-3000:]}")
+    with open(report) as f:
+        rec = json.load(f)
+    deadline = float(POD_DEADLINE)
+    for v in rec.get("passes", ()):
+        if (v["verdict"] != "ok" or v["barrier_timeout_s"] != deadline
+                or not all(s < deadline + 15 for s in v["survivor_exit_after_kill_s"])
+                or (v["window"].startswith("ckpt")
+                    and v["resumed_serial"] >= v["killed_serial"])):
+            raise AssertionError(f"chaos --pod 2 seed {v['seed']}: {v}")
+    if rec.get("verdict") != "ok" or [v["seed"] for v in rec["passes"]] != [
+            int(s) for s in POD_SEEDS.split(",")]:
+        raise AssertionError(f"chaos --pod 2: {rec}")
+    out["chaos"] = dict(rec, seconds=chaos_s,
+                        lines=[ln for ln in text.splitlines() if ln.startswith("chaos:")])
+    refs = rec["reference_workers"]
+    if len(refs) != 2 or not all(_same_datasets(_read_rows(w["output"]), solo_rows)
+                                 for w in refs):
+        raise AssertionError("the fake-pod workers' files are not the solo run's")
+    pair = [worker(_pod_worker_record(w["output"], w["metrics"], _text_of(w["stdout"]), world,
+                                      POD_FRAMES, device)) for w in refs]
+    ref_dir = os.path.dirname(refs[0]["output"])
+    bdir = os.path.join(ref_dir, "barriers")
+    out["pair"] = dict(seconds=rec["reference_s"], workers=pair,
+                       stride_barriers=len([n for n in os.listdir(bdir)
+                                            if n.startswith("stride.") and ".h0." in n]),
+                       ckpt_files=sorted(n for n in os.listdir(ref_dir) if ".solveckpt." in n),
+                       ms_per_frame_pod_over_solo=[w["ms_per_frame"] / solo["ms_per_frame"]
+                                                   for w in pair])
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _pod_grid_kill(root: str, inputs, solve) -> dict:
+    """Two ranks of the CLI started with the launcher's environment (not
+    torchrun, which would stop rank 0 itself), rank 1 SIGKILLed as its
+    ingest turn starts (``SART_POD_POINT ingest turn=1``): rank 0 must
+    leave the turn's rendezvous over the process group with exit 3 within
+    the deadline plus 15 s."""
+    import signal as _signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(root, "grid_killed.h5")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sartsolver_tpu_torch.cli", "-o", out, *inputs, *solve,
+         "--multihost", "--pixel_shards", "2"], cwd=REPO,
+        env=_pod_env(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     SART_TEST_POD_MARKERS="1"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for line in procs[1].stderr:
+            if line.strip() == "SART_POD_POINT ingest turn=1":
+                procs[1].send_signal(_signal.SIGKILL)
+                killed = time.perf_counter()
+                break
+        else:
+            raise AssertionError("pod grid kill: rank 1 ended before its ingest turn")
+        err = procs[0].communicate(timeout=POD_TIMEOUT)[1]
+        exit_after = time.perf_counter() - killed
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+    line = next((ln for ln in err.splitlines() if ln.startswith("Aborted at a pod barrier")),
+                None)
+    if procs[0].returncode != 3 or line is None or \
+            not exit_after < float(POD_DEADLINE) + 15:
+        raise AssertionError(f"pod grid kill: rank 0 exit {procs[0].returncode} after "
+                             f"{exit_after} s\n{err[-3000:]}")
+    return dict(exit=procs[0].returncode, exit_after_kill_s=exit_after, abort_line=line)
+
+
+def _pod_grid(world, root: str, inputs, solve, solo_rows, device) -> dict:
+    """Part (c) of phase ``pod``: three torchruns of the CLI over 2 ranks
+    (the uninterrupted run and the first half at once, then ``--resume``),
+    then the ingest-turn kill (:func:`_pod_grid_kill`)."""
+    def start(name, flags):
+        target = os.path.join(root, "grid_full.h5" if name == "full" else "grid_cut.h5")
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", "-m", "sartsolver_tpu_torch.cli", "-o", target, *inputs, *solve,
+             "--multihost", "--pixel_shards", "2", *flags], cwd=REPO,
+            env=_pod_env(SART_TRACE_EVENTS=os.path.join(root, f"grid_{name}.trace.json")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+    def finish(name, launch) -> dict:
+        proc, t0 = launch
+        try:
+            out, err = proc.communicate(timeout=POD_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"pod grid run {name}: exit {proc.returncode}\n"
+                                 f"{out[-2000:]}\n{err[-3000:]}")
+        ms = [float(m) for m in re.findall(r"Processed in: ([0-9.eE+-]+) ms", out)]
+        line = next((ln for ln in out.splitlines() if ln.startswith("solver: ")), "")
+        if "mesh=2x1 " not in line or "collectives=gloo" not in line:
+            raise AssertionError(f"pod grid run {name}: solver line {line!r}")
+        broadcast = None
+        if name == "resumed":
+            with open(os.path.join(root, "grid_resumed.trace.json")) as f:
+                spans = [e for e in json.load(f)["traceEvents"]
+                         if e.get("name") == "resume.broadcast"]
+            if len(spans) != 1:
+                raise AssertionError(f"pod grid resume: {len(spans)} resume.broadcast spans")
+            broadcast = spans[0]["dur"] / 1e6
+        return dict(seconds=seconds, frames=len(ms), ms_per_frame=sum(ms) / max(len(ms), 1),
+                    broadcast_s=broadcast)
+
+    # the uninterrupted run and the cut one at once (two files), then the resume
+    launches = {"full": start("full", ["-t", POD_GRID_ALL]),
+                "half": start("half", ["-t", POD_GRID_HALF])}
+    try:
+        runs = {name: finish(name, launch) for name, launch in launches.items()}
+    finally:
+        for proc, _t0 in launches.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    runs["resumed"] = finish("resumed", start("resumed", ["-t", POD_GRID_ALL, "--resume"]))
+    runs["killed"] = _pod_grid_kill(root, inputs, solve)
+    half = runs["half"]["frames"]
+    if half != POD_FRAMES // 2 or runs["resumed"]["frames"] != POD_FRAMES - half:
+        raise AssertionError(f"pod grid: {half} frames, then {runs['resumed']['frames']}")
+    full, cut = (_read_rows(os.path.join(root, n)) for n in ("grid_full.h5", "grid_cut.h5"))
+    if not _same_datasets(full, cut):
+        raise AssertionError("pod grid: the resumed file is not the uninterrupted run's")
+    dist = _fitted_distance(world, full["value"], solo_rows["value"], device)
+    if not np.array_equal(full["status"], solo_rows["status"]) or \
+            not (dist <= GRID_FIT_TOL).all():
+        raise AssertionError(f"pod grid: statuses {full['status']} / {solo_rows['status']}, "
+                             f"fitted distance {dist}")
+    return dict(runs=runs, status=full["status"].tolist(),
+                iterations=full["iterations"].tolist(),
+                fitted_distance_to_solo=dist.tolist(), fit_tol=GRID_FIT_TOL)
+
 def _cli_twin(out, inputs, cap, laplacian, extra, time_range, lanes, device) -> dict:
     """The one-shot CLI over a request's frames at the server's lanes
     (``--no_guess --batch_frames``): its wall and ms per frame."""
@@ -5066,7 +5386,7 @@ def main() -> int:
         fused_sweep, fused_sweep_reference, plan_sweep, reset_launch_counts,
     )
     from sartsolver_tpu_torch.ops.laplacian import make_laplacian
-    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver
+    from sartsolver_tpu_torch.parallel.sharded import DistributedSARTSolver, os_padded_rows
     from sartsolver_tpu_torch.sched import ContinuousBatcher
 
     t_start = time.perf_counter()
@@ -5094,6 +5414,11 @@ def main() -> int:
              sources=sorted(p.name for p in _build.CSRC.glob("*.cu")),
              into=os.path.relpath(_build.BUILD_DIR, REPO))
 
+        # first, in a process whose profiler has recorded nothing yet: later
+        # on it leaves out CUDA kernels (all of them after phase obs, now and
+        # then a call's after debug_nans), and the audit's agreement needs
+        # every one (PERF.md section 7)
+        emit("audit", **audit_phase(world))
         errors, timing = kernel_phase(card)
 
         p = world["paths"]
@@ -5168,9 +5493,6 @@ def main() -> int:
         emit("os", seconds=time.perf_counter() - t0, max_iterations=MAX_ITERATIONS,
              fit_bound=FIT_BOUND, **os_rec)
         emit("debug_nans", **debug_nans_phase(world, tmp))
-        # before obs: the profiler has recorded no CUDA kernel after phase
-        # obs (PERF.md section 7), and the audit's agreement needs it
-        emit("audit", **audit_phase(world))
         t0 = time.perf_counter()
         obs = obs_phase(world, tmp, card=card)
         emit("obs", seconds=time.perf_counter() - t0, **obs)
@@ -5201,6 +5523,10 @@ def main() -> int:
         selfheal = selfheal_phase(world, tmp)
         emit("selfheal", card=smi, fit_bound=FIT_BOUND, max_iterations=MAX_ITERATIONS,
              **selfheal)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pod = pod_phase(world, tmp)
+        emit("pod", card=smi, fit_bound=FIT_BOUND, max_iterations=MAX_ITERATIONS, **pod)
 
         V = world["H"].shape[1]
         rows, cols, vals = read_laplacian(p["laplacian"], V)
@@ -5250,13 +5576,16 @@ def main() -> int:
                                             on_result=lambda *r: r[5]())
                 lanes, stats = profile_run(lambda: batcher.run(
                     (frame, float(t), [float(t)]) for t, frame in enumerate(group)))
-            # one OS guess frame: its iterations' device ms split into the
-            # subset forwards, the subset back projections and the full
-            # forward; the rest of the wall time is the host's
-            os_opts = SolverOptions(max_iterations=MAX_ITERATIONS, os_subsets=OS_SUBSETS,
-                                    rtm_dtype=st_opts.rtm_dtype)
-            with DistributedSARTSolver(world["H"], lap, opts=os_opts,
-                                       device="cuda") as solver:
+                # one OS guess frame on the same stored matrix (P divides
+                # into OS_SUBSETS, so the OS solver's problem is this one):
+                # its iterations' device ms split into the subset forwards,
+                # the subset back projections and the full forward; the
+                # rest of the wall time is the host's
+                os_opts = SolverOptions(max_iterations=MAX_ITERATIONS, os_subsets=OS_SUBSETS,
+                                        rtm_dtype=st_opts.rtm_dtype)
+                npix = world["H"].shape[0]
+                if os_padded_rows(npix, OS_SUBSETS) != npix:
+                    raise AssertionError(f"P = {npix} does not divide into {OS_SUBSETS} subsets")
                 solve(solver.problem, g0, opts=os_opts, device="cuda")  # warm-up
                 os_frame0, os_res = profile_run(
                     lambda: solve(solver.problem, g0, opts=os_opts, device="cuda"),

@@ -193,6 +193,27 @@ def _launch_counters() -> Dict[str, int]:
     return out
 
 
+def _trace_kernels(prof, names) -> collections.Counter:
+    """The hand kernels among the profiler's CUDA activity records, read
+    from its exported trace: the event tree of ``prof.events()`` leaves out
+    a kernel it cannot tie to its launch, which drops a run's kernels at
+    random."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = collections.Counter()
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and _is_hand_kernel(name, names):
+            kernels[name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                    .split("(")[0]] += 1
+    return kernels
+
+
 def _count(run, k: int, profile: bool, names) -> dict:
     """One run of ``k`` iterations under the counter (and the profiler)."""
     import torch
@@ -217,12 +238,7 @@ def _count(run, k: int, profile: bool, names) -> dict:
             registry._hook = None
         if profile:
             torch.cuda.synchronize()
-    kernels = collections.Counter()
-    if profile:
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and _is_hand_kernel(e.name, names):
-                kernels[e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-                        .split("(")[0]] += 1
+    kernels = _trace_kernels(prof, names) if profile else collections.Counter()
     after = _launch_counters()
     return dict(
         ops=counter.ops, inside_ops=counter.inside_ops, syncs=counter.syncs,

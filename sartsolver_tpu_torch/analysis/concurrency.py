@@ -125,7 +125,7 @@ class GuardedByViolation(Rule):
             "with `# sart-lint: disable=SL101` and a why-comment")
 
     def run(self, model: ModuleModel) -> Iterator[Finding]:
-        for cls in ast.walk(model.tree):
+        for cls in model.nodes:
             if not isinstance(cls, ast.ClassDef):
                 continue
             guarded = self._declarations(model, cls)
@@ -217,7 +217,7 @@ class BlockingCallUnderLock(Rule):
     def run(self, model: ModuleModel) -> Iterator[Finding]:
         seen: Set[Tuple[int, int]] = set()  # one finding per call site,
         # however many locks are nested around it
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             locks = _with_lock_paths(node)
             if locks:
                 held, roots = f"with {locks[0]}:", [node]
@@ -316,7 +316,7 @@ class SignalHandlerLock(Rule):
         # into a "signal handler" with error-severity findings
         mod_aliases: Set[str] = set()
         func_aliases: Set[str] = set()
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if isinstance(node, ast.Import):
                 for a in node.names:
                     if a.name == "signal":
@@ -326,7 +326,7 @@ class SignalHandlerLock(Rule):
                     if a.name == "signal":
                         func_aliases.add(a.asname or "signal")
         out: List[Tuple[str, int]] = []
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if not isinstance(node, ast.Call) or len(node.args) < 2:
                 continue
             fn = node.func
@@ -489,7 +489,7 @@ class ThreadWithoutDaemon(Rule):
             "reach them")
 
     def run(self, model: ModuleModel) -> Iterator[Finding]:
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if not isinstance(node, ast.Call):
                 continue
             path = _attr_path(node.func) or ""

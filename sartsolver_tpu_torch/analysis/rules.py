@@ -83,8 +83,8 @@ class Finding:
 # --------------------------------------------------------------------------
 
 
-def _walk_parents(tree: ast.AST) -> None:
-    for node in ast.walk(tree):
+def _walk_parents(nodes) -> None:
+    for node in nodes:
         for child in ast.iter_child_nodes(node):
             child._sart_parent = node  # type: ignore[attr-defined]
 
@@ -132,7 +132,8 @@ class ModuleModel:
         self.path = path
         self.src = src
         self.tree = ast.parse(src, filename=path)
-        _walk_parents(self.tree)
+        self.nodes = tuple(ast.walk(self.tree))  # every node, in ast.walk's order
+        _walk_parents(self.nodes)
         self.lines = src.splitlines()
 
         # ---- suppressions ------------------------------------------------
@@ -151,7 +152,7 @@ class ModuleModel:
         self.torch_aliases: Set[str] = set()  # import torch [as th]
         self.functional_aliases: Set[str] = set()  # torch.nn.functional
         self.kernel_names: Set[str] = set()  # the hand kernels' wrappers
-        for node in ast.walk(self.tree):
+        for node in self.nodes:
             if isinstance(node, ast.Import):
                 for a in node.names:
                     if a.name == "torch" or (a.name.startswith("torch.") and not a.asname):
@@ -169,7 +170,7 @@ class ModuleModel:
 
         # ---- function table ---------------------------------------------
         self.functions: Dict[str, ast.AST] = {}
-        for node in ast.walk(self.tree):
+        for node in self.nodes:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 self.functions.setdefault(node.name, node)
 
@@ -275,7 +276,7 @@ class HostSyncInLoop(Rule):
 
     def run(self, model: ModuleModel) -> Iterator[Finding]:
         funcs = [
-            n for n in ast.walk(model.tree)
+            n for n in model.nodes
             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Module))
         ]
         for func in funcs:
@@ -308,31 +309,29 @@ class HostSyncInLoop(Rule):
         """Names assigned (anywhere in the function) from an expression
         holding a torch call or a kernel wrapper's call, one step
         transitive."""
+        assigns = []  # (holds a device call, names read, names bound), in walk order
+        for node in _scoped_walk(func):
+            if not isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+                continue
+            value = node.value
+            if value is None:
+                continue
+            subs = list(ast.walk(value))
+            bound = set()
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                if isinstance(t, ast.Name):
+                    bound.add(t.id)
+                elif isinstance(t, (ast.Tuple, ast.List)):
+                    bound.update(e.id for e in t.elts if isinstance(e, ast.Name))
+            assigns.append((any(isinstance(sub, ast.Call) and model.is_device_call(sub)
+                                for sub in subs),
+                            {sub.id for sub in subs if isinstance(sub, ast.Name)}, bound))
         device: Set[str] = set()
         for _ in range(2):  # two passes pick up x = torch...; y = x + 1
-            for node in _scoped_walk(func):
-                if not isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
-                    continue
-                value = node.value
-                if value is None:
-                    continue
-                is_dev = any(
-                    isinstance(sub, ast.Call) and model.is_device_call(sub)
-                    for sub in ast.walk(value)
-                ) or any(
-                    isinstance(sub, ast.Name) and sub.id in device
-                    for sub in ast.walk(value)
-                )
-                if not is_dev:
-                    continue
-                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
-                for t in targets:
-                    if isinstance(t, ast.Name):
-                        device.add(t.id)
-                    elif isinstance(t, (ast.Tuple, ast.List)):
-                        for e in t.elts:
-                            if isinstance(e, ast.Name):
-                                device.add(e.id)
+            for calls, names, bound in assigns:
+                if calls or not names.isdisjoint(device):
+                    device.update(bound)
         return device
 
     @staticmethod
@@ -384,7 +383,7 @@ class ImplicitDtype(Rule):
     hint = "pass dtype= explicitly (the solver's compute dtype, or the index dtype)"
 
     def run(self, model: ModuleModel) -> Iterator[Finding]:
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if not isinstance(node, ast.Call):
                 continue
             name = model.torch_call_name(node)
@@ -424,7 +423,7 @@ class BroadExceptDeviceCode(Rule):
             "re-raises, a best-effort report) with a why")
 
     def run(self, model: ModuleModel) -> Iterator[Finding]:
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if not isinstance(node, ast.Try):
                 continue
             body_has_device = any(
@@ -498,7 +497,7 @@ class DenseRtmContraction(Rule):
             return
         if any(d in path for d in self._ALLOWED_DIRS):
             return
-        for node in ast.walk(model.tree):
+        for node in model.nodes:
             if isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult):
                 if self._mentions_rtm(node.left) or self._mentions_rtm(node.right):
                     yield self.finding(

@@ -140,11 +140,27 @@ prints to stdout and writes files, a failing frame aborts the run (no
 FAILED rows: a rank that skipped a frame alone would leave its peers in a
 collective), OOM halving is off, ``--no_guess --batch_frames K`` runs the
 classic grouped loop, and a stop signal is agreed at a group boundary by
-every rank. ``--sparse_rtm``, ``--lowrank_rtm``, ``--geometry``,
-``--os_subsets > 1``, ``--resume``, ``--solve_ckpt_stride``,
-``--integrity``, ``--debug_nans`` and int8 on a pixel-sharded grid are
-refused there (exit 1); a grid larger or smaller than the world exits 1,
-and so does a world above 1 without ``--multihost``.
+every rank. ``--resume`` reads the file on rank 0, whose view every rank
+takes (``parallel/multihost.py:broadcast_resume_state``; a failed read
+exits 1 on every rank). ``--sparse_rtm``, ``--lowrank_rtm``, ``--geometry``,
+``--os_subsets > 1``, ``--solve_ckpt_stride``, ``--integrity``,
+``--debug_nans`` and int8 on a pixel-sharded grid are refused there (exit
+1); a grid larger or smaller than the world exits 1, and so does a world
+above 1 without ``--multihost``. A failed start of the process group is
+retried (fault site ``multihost.init``); when the retries run out, exit 3.
+
+A pod (docs/RESILIENCE.md §11 of the JAX package): the ranks of a grid,
+or N one-process workers over the same frames (``SART_POD_PROCESS=k/N``,
+``SART_POD_BARRIER_DIR`` a fresh directory each incarnation shares, and
+one ``SART_SOLVE_CKPT_FILE`` base, each host's records in
+``<base>.h<k>ofN.jsonl``). Every rendezvous — the ingest's turns, the stop
+agreement, the scheduler's strides and the end of the run in a file-mode
+pod, the resume's pick, the end-of-run telemetry — is bounded by
+``SART_POD_BARRIER_TIMEOUT`` seconds (default 300): a peer that died or
+wedged ends its survivors' runs with exit 3, "Aborted at a pod barrier:
+... missing host(s): h<k>", ``pod_barrier_timeouts_total`` and a crash
+bundle naming the host. A pod's ``--resume`` restores the newest
+checkpoint serial every host's file holds, the minimum the hosts agree on.
 
 Observability as in the JAX CLI (``obs/``): ``--timing`` prints the phase
 summary (``validate + index inputs``, ``ingest RTM + upload``, ``frame loop
@@ -830,7 +846,7 @@ def build_solver(args, inputs: SolveInputs, device, *, telem=None,
             n_pix = max(world // n_vox, 1)
     ranks = make_grid(n_pix, n_vox)
     multi = ranks.world > 1
-    refusal = grid_refusal(opts, ranks, resume=args.resume, geometry=bool(args.geometry),
+    refusal = grid_refusal(opts, ranks, geometry=bool(args.geometry),
                            debug_nans=args.debug_nans)
     if refusal:
         raise SartInputError(refusal)
@@ -1087,6 +1103,7 @@ def _run(args, telem, summary, rank, quiet) -> int:
     from sartsolver_tpu_torch.io.image import CompositeImage
     from sartsolver_tpu_torch.io.solution import SolutionWriter
     from sartsolver_tpu_torch.models.sart import FUSED_ENGAGEMENT
+    from sartsolver_tpu_torch.obs import metrics as obs_metrics
     from sartsolver_tpu_torch.obs import trace as obs_trace
     from sartsolver_tpu_torch.parallel import multihost as mh
     from sartsolver_tpu_torch.io.solution import read_resume_state
@@ -1110,6 +1127,9 @@ def _run(args, telem, summary, rank, quiet) -> int:
     # per-run accounting: the retry counters feed this run's summary and
     # artifact, not a process-lifetime total
     reset_retry_stats()
+    # the hand kernels' launch counters at the start: the run's artifact
+    # counts its own launches in kernel_launches_total{kernel,plan}
+    launches0 = obs_metrics.kernel_launches()
     timer = PhaseTimer(registry=telem.registry)
     t_phase = _time.perf_counter()
     try:
@@ -1129,6 +1149,11 @@ def _run(args, telem, summary, rank, quiet) -> int:
         except SartInputError as err:
             print(err, file=sys.stderr)
             return 1
+        except RetriesExhausted as err:
+            # the rendezvous never came up within the retry budget: the
+            # infrastructure's, not the flags' (a scheduler requeues it)
+            print(f"Unrecoverable after retries: {err}", file=sys.stderr)
+            return EXIT_INFRASTRUCTURE
 
         if not mh.is_primary():
             rank["primary"] = False
@@ -1140,6 +1165,15 @@ def _run(args, telem, summary, rank, quiet) -> int:
               "alone and write the same file).", file=sys.stderr)
         return 1
     primary = rank["primary"]
+    # the pod's identity (k/n) for the modules that read the environment
+    # (the heartbeat's and the crash bundle's host, the site@i fault
+    # qualifier) and this host's liveness beacon for its peers' barriers;
+    # both no-ops on a lone process
+    mh.export_pod_identity()
+    mh.install_pod_liveness()
+    # a pod whose hosts meet over a shared directory (the fake pod, or a
+    # grid given one): its resume, strides and end are rendezvous too
+    file_pod = bool(os.environ.get("SART_POD_BARRIER_DIR")) and mh.pod_identity()[1] > 1
 
     def mark(phase: str) -> None:
         """End a --timing phase. The device finishes the phase's work first
@@ -1181,14 +1215,14 @@ def _run(args, telem, summary, rank, quiet) -> int:
         wd.start()
     stop_state = {"interrupted": False}
 
-    grid_state = {"ranks": None}
-
     def stop_now() -> bool:
         """The group-boundary stop poll: a flag the signal handler set; on a
-        grid, agreed by every rank at the same boundary."""
-        ranks = grid_state["ranks"]
-        if ranks is not None and ranks.world > 1:
-            return mh.agree_stop(shutdown.stop_requested(), ranks)
+        grid or a fake pod (``SART_POD_PROCESS=k/n``), agreed by every host
+        at the same boundary: a worker that drained alone would leave its
+        peers at a barrier, and a graceful stop must never look like a dead
+        peer."""
+        if mh.pod_identity()[1] > 1:
+            return mh.agree_stop(shutdown.stop_requested())
         return shutdown.stop_requested()
 
     try:
@@ -1197,16 +1231,43 @@ def _run(args, telem, summary, rank, quiet) -> int:
         inputs = index_inputs(args)
         camera_names = inputs.camera_names
         npixel, nvoxel = inputs.npixel, inputs.nvoxel
-        # a resume is checked from the file's metadata before the ingest
-        resume_state = (read_resume_state(args.output_file, camera_names, nvoxel)
-                        if args.resume else None)
+        # a resume is checked from the file's metadata before the ingest; on
+        # a grid only rank 0 reads the file (it may lie where only rank 0
+        # sees it) and every rank takes its view, a failed read first, so
+        # every rank skips the same frames or exits 1 together
+        resume_state = None
+        if args.resume:
+            resume_error = None
+            if not args.multihost or mh.is_primary():
+                try:
+                    resume_state = read_resume_state(args.output_file, camera_names, nvoxel)
+                except (SartInputError, OSError, KeyError) as err:
+                    if not args.multihost:
+                        raise
+                    resume_error = str(err) or type(err).__name__
+            if args.multihost:
+                with obs_trace.span("resume.broadcast"):
+                    resume_state = mh.broadcast_resume_state(resume_state, nvoxel,
+                                                             error=resume_error)
+            if file_pod:
+                # a file-mode pod resumes from the rows every host's file
+                # holds: hosts whose writers flushed different tails would
+                # skip different frames, and their strides and stop polls
+                # would no longer meet. The rows past that prefix are
+                # solved again (the same bytes) and rewritten.
+                held = 0 if resume_state is None else len(resume_state.times)
+                rows = min((0 if r is None else int(r)
+                            for r in mh.pod_barrier("resume_rows", payload=held)), default=0)
+                if rows < held:
+                    resume_state = read_resume_state(args.output_file, camera_names, nvoxel,
+                                                     rows=rows)
         mark("validate + index inputs")
 
         setup = build_solver(args, inputs, device, telem=telem,
                              on_event=note_event, summary=summary)
         opts, solver, grid = setup.opts, setup.solver, setup.grid
         sdc_policy = setup.sdc_policy
-        ranks = grid_state["ranks"] = setup.ranks
+        ranks = setup.ranks
         multi = ranks.world > 1
         composite_image = CompositeImage(
             inputs.sorted_image_files, inputs.rtm_frame_masks, time_intervals, npixel,
@@ -1451,38 +1512,72 @@ def _run(args, telem, summary, rank, quiet) -> int:
                     print(f"Processed in: {per_frame_ms} ms (continuous batch of {K} "
                           f"lanes; {iterations} iterations)")
 
-                # in-solve checkpoints: the store, and on --resume the newest
-                # record whose lane count is K and whose emitted rows the
-                # file holds (the killed run's writer may not have flushed
-                # the snapshot's rows: fall back a stride); none usable is
-                # the plain resume
-                store = restore = None
-                W = 0 if resume_state is None else len(resume_state.times)
+                # in-solve checkpoints, one file a pod host
+                # (resilience/podckpt.py), and a file-mode pod's rendezvous
+                # at every stride: the fake pod's lockstep, and where its
+                # survivors see a dead peer
+                pod_idx, pod_count = mh.pod_identity()
+                markers = bool(os.environ.get("SART_TEST_POD_MARKERS"))
+                ckpt_base = (os.environ.get("SART_SOLVE_CKPT_FILE")
+                             or f"{args.output_file}.solveckpt")
+                store = restore = restore_serial = stride_barrier = None
                 if args.solve_ckpt_stride:
-                    store = podckpt.SolveCheckpointStore(
-                        os.environ.get("SART_SOLVE_CKPT_FILE")
-                        or f"{args.output_file}.solveckpt")
+                    store = podckpt.SolveCheckpointStore(ckpt_base, pod_idx, pod_count)
+                if file_pod:
+                    def stride_barrier(serial: int) -> None:
+                        if markers:  # the drills' kill window: mid-stride
+                            sys.stderr.write(f"SART_POD_POINT stride serial={serial}\n")
+                            sys.stderr.flush()
+                        mh.pod_barrier(f"stride.{serial}")
+
+                # on --resume the newest record valid on every host of the
+                # pod, whose lane count is K and whose emitted rows the file
+                # holds (the killed run's writer may not have flushed the
+                # snapshot's rows: fall back a stride); none usable is the
+                # plain resume
+                W = 0 if resume_state is None else len(resume_state.times)
                 if args.resume and store is not None:
+                    newest = podckpt.newest_consistent_serial(ckpt_base, pod_count)
                     for serial in reversed(store.serials()):
+                        if newest is None or serial > newest:
+                            continue
                         snap = store.load(serial)
                         if (snap is None or int(snap.get("lanes", -1)) != K
                                 or int(snap["next_emit"]) > W):
                             continue
-                        if snap["solver"].get("sig") != solver._sched_ckpt_sig():
+                        restore, restore_serial = snap, serial
+                        break
+                    if file_pod:
+                        # the pod agrees on the pick, not only on the files: a
+                        # host whose writer lost its unflushed tail picks an
+                        # older serial, and different picks would put every
+                        # later stride barrier out of step. The minimum holds
+                        # on every host (next_emit grows with the serial); a
+                        # host with none (-1) takes the pod to the plain resume
+                        picks = mh.pod_barrier(
+                            "resume_pick",
+                            payload=-1 if restore_serial is None else int(restore_serial))
+                        agreed = min((-1 if row is None else int(row) for row in picks),
+                                     default=-1)
+                        if agreed < 0:
+                            restore = restore_serial = None
+                        elif agreed != restore_serial:
+                            restore = store.load(agreed)
+                            restore_serial = None if restore is None else agreed
+                    if restore is not None:
+                        if restore["solver"].get("sig") != solver._sched_ckpt_sig():
                             raise SartInputError(
-                                f"Solve checkpoint serial {serial} in {store.path} does "
-                                "not match this solver configuration (checkpoint "
-                                f"{snap['solver'].get('sig')!r}, solver "
+                                f"Solve checkpoint serial {restore_serial} in {store.path} "
+                                "does not match this solver configuration (checkpoint "
+                                f"{restore['solver'].get('sig')!r}, solver "
                                 f"{solver._sched_ckpt_sig()!r}); resume with the flags "
                                 "of the run that wrote it.")
-                        restore = snap
                         telem.registry.counter("solve_ckpt_resumed_total").inc()
-                        note_event(f"resumed from solve checkpoint serial {serial} "
+                        note_event(f"resumed from solve checkpoint serial {restore_serial} "
                                    f"({W} row(s) already written)")
-                        if os.environ.get("SART_TEST_POD_MARKERS"):
-                            sys.stderr.write(f"SART_POD_POINT resume serial={serial}\n")
+                        if markers:
+                            sys.stderr.write(f"SART_POD_POINT resume serial={restore_serial}\n")
                             sys.stderr.flush()
-                        break
                 batcher = ContinuousBatcher(solver, lanes=K, on_result=on_result,
                                             on_failed=record_failed, isolate=isolate,
                                             on_event=note_event, on_stride=step,
@@ -1490,6 +1585,7 @@ def _run(args, telem, summary, rank, quiet) -> int:
                                             integrity_policy=sdc_policy,
                                             ckpt_stride=args.solve_ckpt_stride or None,
                                             ckpt_sink=None if store is None else store.save,
+                                            stride_barrier=stride_barrier,
                                             restore=restore,
                                             restore_emitted=W if restore is not None else 0)
                 # one iterator for both: a second iterator over the
@@ -1570,8 +1666,13 @@ def _run(args, telem, summary, rank, quiet) -> int:
             print(f"{len(diverged_times)} frame(s) DIVERGED (status {DIVERGED}) at "
                   f"time(s) {shown}{' ...' if len(diverged_times) > 8 else ''}",
                   file=sys.stderr)
+        # the end-of-run rendezvous of a file-mode pod: a worker that died
+        # after its last frame is named here, not left unaccounted
+        if file_pod:
+            mh.pod_barrier("finalize")
+        obs_metrics.count_kernel_launches(telem.registry, launches0)
         telem.finalize(summary, multihost=multi, primary=primary,
-                       allgather=mh.snapshot_allgather(ranks) if multi else None)
+                       allgather=mh.deadline_allgather(ranks) if multi else None)
         if interrupted:
             # the group in flight drained, the writer flushed, the voxel
             # map in place: the file is a consistent prefix of the run
@@ -1592,6 +1693,13 @@ def _run(args, telem, summary, rank, quiet) -> int:
         # (--fail_fast, or outside the frame loop): the file is resumable
         abort["reason"] = f"watchdog abort: {err}"
         print(f"Aborted by the hang watchdog: {err}", file=sys.stderr)
+        return EXIT_INFRASTRUCTURE
+    except mh.PodBarrierTimeout as err:
+        # a pod rendezvous gave up on a dead or wedged peer: every survivor
+        # ends here within the deadline, and the crash bundle's reason
+        # names the missing host
+        abort["reason"] = f"pod barrier failure: {err}"
+        print(f"Aborted at a pod barrier: {err}", file=sys.stderr)
         return EXIT_INFRASTRUCTURE
     except PersistentCorruptionError as err:
         # the integrity layer quarantined the run: corruption no recompute
@@ -1635,6 +1743,7 @@ def _run(args, telem, summary, rank, quiet) -> int:
         if abort["reason"] is not None and primary:
             obs_flight.write_crash_bundle(bundle_path, abort["reason"], summary)
         watchdog.set_crash_hook(None)
+        watchdog.remove_beacon_tap("pod.liveness")
         obs_flight.uninstall_status_handler(prev_usr1)
         obs_flight.uninstall()
         if wd is not None:

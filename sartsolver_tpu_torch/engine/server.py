@@ -84,21 +84,6 @@ from sartsolver_tpu_torch.resilience.failures import (
 _TERMINAL_FRAME_STATUSES = (DIVERGED, FRAME_FAILED, SDC_DETECTED)
 
 
-def _kernel_launches() -> Dict[Tuple[str, str], int]:
-    """The launch counters of the hand kernels whose modules are loaded:
-    the fused sweep's by plan, the implicit projector's two entry points."""
-    out: Dict[Tuple[str, str], int] = {}
-    fused = sys.modules.get("sartsolver_tpu_torch.ops.fused_sweep")
-    if fused is not None:
-        for plan, n in fused.fused_sweep.launches_by_plan.items():
-            out[("fused_sweep", plan)] = int(n)
-    implicit = sys.modules.get("sartsolver_tpu_torch.operators.implicit")
-    if implicit is not None:
-        out[("implicit_forward", "-")] = int(implicit.implicit_forward.launches)
-        out[("implicit_back", "-")] = int(implicit.implicit_back.launches)
-    return out
-
-
 class _ActiveRequest:
     """One dispatched request's in-cycle bookkeeping."""
 
@@ -265,7 +250,7 @@ class EngineServer:
         self._lanes_gauge.set(float(lanes))
         # the hand kernels' launch counts already made in this process:
         # each cycle's launches are added to kernel_launches_total
-        self._launches_seen = _kernel_launches()
+        self._launches_seen = obs_metrics.kernel_launches()
         if self.slo_ms is not None:
             registry.gauge("engine_slo_target_ms").set(self.slo_ms)
 
@@ -1149,15 +1134,8 @@ class EngineServer:
         ``kernel_launches_total{kernel=, plan=}`` (the metrics artifact and
         the scrape show which kernel served the frames). Host counters
         only: no device work."""
-        now = _kernel_launches()
-        registry = obs_metrics.get_registry()
-        for (kernel, plan), n in sorted(now.items()):
-            seen = self._launches_seen.get((kernel, plan), 0)
-            delta = n - seen if n >= seen else n  # a reset counter restarts at 0
-            if delta > 0:
-                registry.counter("kernel_launches_total", kernel=kernel,
-                                 plan=plan).inc(delta)
-        self._launches_seen = now
+        self._launches_seen = obs_metrics.count_kernel_launches(
+            obs_metrics.get_registry(), self._launches_seen)
 
     def _finish_solved(self, ar: _ActiveRequest) -> None:
         if ar.deadline_missed:

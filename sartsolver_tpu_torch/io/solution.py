@@ -71,9 +71,11 @@ class ResumeState(NamedTuple):
 
 
 def read_resume_state(filename: str, camera_names: Sequence[str],
-                      nvoxel: int) -> Optional[ResumeState]:
+                      nvoxel: int, rows: Optional[int] = None) -> Optional[ResumeState]:
     """The frames a previous run of this output already wrote
-    (``sartsolver_tpu/io/solution.py:read_resume_state``).
+    (``sartsolver_tpu/io/solution.py:read_resume_state``); with ``rows``,
+    at most its first ``rows`` (a pod resumes from the prefix every host's
+    file holds, and the writer then truncates the rest).
 
     None where the file does not exist, holds no solutions, or was cut in
     its first flush (``status`` is created last). ``SartInputError`` where
@@ -108,6 +110,8 @@ def read_resume_state(filename: str, camera_names: Sequence[str],
                         *(group[k].shape[0] for k in expected))
         if "completed" in group.attrs:
             completed = min(completed, int(group.attrs["completed"]))
+        if rows is not None:
+            completed = min(completed, rows)
         if "checksum" in group and completed:
             stored = np.asarray(group["checksum"][:completed], np.uint32)
             # slabs of whole chunks: each chunk is read once

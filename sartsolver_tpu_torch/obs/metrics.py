@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import math
 import os
+import sys
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from sartsolver_tpu_torch.utils.locking import named_lock, stale_read
@@ -399,3 +400,35 @@ def reset_registry() -> MetricsRegistry:
     with _default_lock:
         _default = MetricsRegistry(default_labels=_env_default_labels())
     return _default
+
+
+def kernel_launches() -> Dict[Tuple[str, str], int]:
+    """The launch counters of the hand kernels whose modules are loaded,
+    keyed ``(kernel, plan)``: the fused sweep's by plan, the implicit
+    projector's two entry points (``-``). Read from ``sys.modules``, so this
+    module imports none of them; host counters only, no device work."""
+    out: Dict[Tuple[str, str], int] = {}
+    fused = sys.modules.get("sartsolver_tpu_torch.ops.fused_sweep")
+    if fused is not None:
+        for plan, n in fused.fused_sweep.launches_by_plan.items():
+            out[("fused_sweep", plan)] = int(n)
+    implicit = sys.modules.get("sartsolver_tpu_torch.operators.implicit")
+    if implicit is not None:
+        out[("implicit_forward", "-")] = int(implicit.implicit_forward.launches)
+        out[("implicit_back", "-")] = int(implicit.implicit_back.launches)
+    return out
+
+
+def count_kernel_launches(registry: "MetricsRegistry",
+                          since: Dict[Tuple[str, str], int]) -> Dict[Tuple[str, str], int]:
+    """Fold the hand kernels' launches since the snapshot ``since`` (a
+    :func:`kernel_launches` result) into ``kernel_launches_total{kernel=,
+    plan=}`` of ``registry``; returns the new snapshot. A counter below its
+    snapshot was reset and counts from 0."""
+    now = kernel_launches()
+    for (kernel, plan), n in sorted(now.items()):
+        seen = since.get((kernel, plan), 0)
+        delta = n - seen if n >= seen else n
+        if delta > 0:
+            registry.counter("kernel_launches_total", kernel=kernel, plan=plan).inc(delta)
+    return now

@@ -12,7 +12,7 @@ rank's registry snapshot, a fixed-size length-prefixed buffer
 (:func:`_encode_snapshot`), merged by :func:`aggregate_snapshots`
 (counters sum, gauges keep the max, histograms merge); the primary rank
 writes the sinks. The ``allgather`` is injected (the CLI's runs over
-``parallel/comm.py``, ``parallel/multihost.py:snapshot_allgather``), so
+``parallel/comm.py``, ``parallel/multihost.py:deadline_allgather``), so
 this module imports neither torch nor numpy at import time.
 
 At the end of a run the per-site retry counters (``retry_attempts_total``,

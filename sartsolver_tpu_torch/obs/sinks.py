@@ -107,6 +107,8 @@ _HELP = {
         "In-solve checkpoint records appended (--solve_ckpt_stride).",
     "solve_ckpt_resumed_total":
         "Runs resumed from an in-solve checkpoint.",
+    "pod_barrier_timeouts_total":
+        "Pod rendezvous that gave up on a dead or wedged peer.",
 }
 
 # Histogram sub-series: what each exported moment is.

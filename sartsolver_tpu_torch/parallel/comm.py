@@ -28,6 +28,14 @@ card the same way. A failing collective raises, and so does one that waits
 past ``COLLECTIVE_TIMEOUT_S`` for a peer; nothing falls back to one rank or
 to the CPU.
 
+:func:`broadcast_host` and :func:`all_gather_host` move small host
+arrays over the whole world (the default group, no grid needed) as raw
+bytes, so fp64 crosses bit for bit under either backend: the pod's
+rendezvous points (``parallel/multihost.py``: the resume state from rank 0,
+the stop agreement, the barriers, the end-of-run telemetry). The gather
+goes through the grid's own staging; neither is one of the solve's
+collectives, and neither is counted in ``stats``.
+
 ``stats`` counts the collectives a rank ran, their bytes (its own operand)
 and their wall seconds, the wait for peers included; a CUDA operand's
 stream is synchronized first, and that wait for the device's queued work
@@ -43,11 +51,11 @@ import time
 from datetime import timedelta
 from typing import List
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from sartsolver_tpu_torch.analysis import registry as audit_registry
-from sartsolver_tpu_torch.parallel.mesh import WORLD_AXIS
 
 stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "device_wait_seconds": 0.0,
          "by_kind": {"all-reduce": 0, "all-gather": 0}}
@@ -114,8 +122,17 @@ def _axis(grid, axis: str):
     return grid.group(axis), grid.size(axis)
 
 
-def _host_staged(grid, x: torch.Tensor) -> bool:
-    return x.is_cuda and (grid is None or grid.backend != "nccl")
+def _host_staged(backend: str, x: torch.Tensor) -> bool:
+    return x.is_cuda and backend != "nccl"
+
+
+def _backend_device(backend: str, x: torch.Tensor) -> torch.device:
+    """Where ``x`` crosses the group: the rank's card under NCCL (which
+    takes CUDA tensors only), else the host. The card is the calling
+    thread's current device."""
+    if backend == "nccl":
+        return x.device if x.is_cuda else torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def all_gather_parts(x: torch.Tensor, axis: str, grid,
@@ -128,26 +145,29 @@ def all_gather_parts(x: torch.Tensor, axis: str, grid,
         return [x]
     stats["by_kind"][kind] += 1
     with audit_registry.region("collective", kind):
-        return _gather(x, group, n, grid)
+        return _gather(x, group, n, grid.backend)
 
 
-def _gather(x: torch.Tensor, group, n: int, grid) -> List[torch.Tensor]:
+def _gather(x: torch.Tensor, group, n: int, backend: str,
+            counted: bool = True) -> List[torch.Tensor]:
     src = x.contiguous()
     if src.is_cuda:
         t0 = time.perf_counter()
         torch.cuda.current_stream(src.device).synchronize()
         stats["device_wait_seconds"] += time.perf_counter() - t0
     t0 = time.perf_counter()
-    if _host_staged(grid, src):
+    if _host_staged(backend, src):
         host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         host.copy_(src)
         src = host
-    elif grid.backend == "nccl" and not src.is_cuda:  # NCCL takes CUDA tensors only
-        src = src.to(torch.device("cuda", torch.cuda.current_device()))
+    else:
+        src = src.to(_backend_device(backend, src))
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     if src.device != x.device:
         parts = [p.to(x.device, non_blocking=x.is_cuda) for p in parts]
+    if not counted:
+        return parts
     stats["calls"] += 1
     stats["bytes"] += x.numel() * x.element_size()
     stats["seconds"] += time.perf_counter() - t0
@@ -184,8 +204,25 @@ def all_gather(x: torch.Tensor, axis: str, grid, dim: int = -1) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-def world_flags(value: int, grid) -> List[int]:
-    """One int from every rank of the world, in rank order (a one-int
-    all-gather; ``[value]`` on a grid of one rank)."""
-    parts = all_gather_parts(torch.tensor([int(value)], dtype=torch.int64), WORLD_AXIS, grid)
-    return [int(p.item()) for p in parts]
+def _as_bytes(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint8).reshape(-1).copy())
+
+
+def broadcast_host(arr: np.ndarray, src: int = 0) -> np.ndarray:
+    """Rank ``src``'s ``arr`` on every rank of the world. Every rank passes
+    an array of the same shape and dtype (the others' contents are
+    ignored); the bytes cross as they are, so every dtype arrives bit for
+    bit."""
+    host = _as_bytes(arr)
+    t = host.to(_backend_device(dist.get_backend(), host))
+    dist.broadcast(t, src=src)
+    return t.cpu().numpy().view(arr.dtype).reshape(arr.shape)
+
+
+def all_gather_host(arr: np.ndarray) -> np.ndarray:
+    """Every rank's ``arr`` (the same shape and dtype on each), stacked
+    ``[world, *arr.shape]`` in rank order, bit for bit: :func:`_gather`
+    over the default group, left out of ``stats``."""
+    parts = _gather(_as_bytes(arr), dist.group.WORLD, dist.get_world_size(),
+                    dist.get_backend(), counted=False)
+    return np.stack([p.numpy().view(arr.dtype).reshape(arr.shape) for p in parts])

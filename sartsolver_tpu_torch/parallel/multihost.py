@@ -13,9 +13,16 @@ block's rows and columns, in turns where ``serialize=`` asks for them.
   the column maxima, pass 2 quantizes each chunk into the 1-byte codes;
 - :func:`lowrank_operator_or_decline` reads the whole matrix on the host
   and factors it (``--lowrank_rtm``), or declines;
-- :func:`initialize`, :func:`is_primary`, :func:`agree_stop` and the
-  rank's pixel rows (:func:`process_pixel_range`, :func:`process_pixel_runs`,
-  :func:`all_processes_local_capable`) serve a run over a grid of ranks;
+- :func:`initialize`, :func:`is_primary`, :func:`broadcast_resume_state`
+  and the rank's pixel rows (:func:`process_pixel_range`,
+  :func:`process_pixel_runs`, :func:`all_processes_local_capable`) serve a
+  run over a grid of ranks;
+- the pod section (:func:`pod_barrier`, :func:`agree_stop`,
+  :func:`deadline_allgather`, the identity and the liveness beacons) bounds
+  every rendezvous of a pod's hosts by a deadline, over a shared directory
+  for the fake pod of N one-process workers or over the process group of a
+  grid, so a dead or wedged peer ends its survivors' runs with
+  :class:`PodBarrierTimeout` naming the missing host instead of a hang;
 - :func:`_read_stripe_retried` reads one row chunk under the
   ``hdf5.rtm_ingest`` retry policy and counts its bytes in
   ``bytes_ingested_total{source="rtm"}``.
@@ -65,10 +72,13 @@ stream's copies, by CUDA events) and its chunk count.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -474,17 +484,21 @@ def read_and_shard_rtm(
 
 def _in_turns(grid, serialize: bool, read: Callable):
     """``read()`` on every rank, at once, or with ``serialize`` one rank a
-    turn in rank order, every rank meeting at a one-int all-gather after
-    each turn."""
-    from sartsolver_tpu_torch.parallel import comm
-
+    turn in rank order, every rank meeting at the pod barrier
+    ``rtm_read_turn_<turn>`` after each turn: a rank that dies in its turn
+    ends its peers' runs at that barrier's deadline. With
+    ``SART_TEST_POD_MARKERS`` a rank announces ``SART_POD_POINT ingest
+    turn=<k>`` on stderr as its turn starts (the drills' kill window)."""
     if not serialize:
         return read()
     out = None
     for turn in range(grid.world):
         if turn == grid.rank:
+            if os.environ.get("SART_TEST_POD_MARKERS"):
+                sys.stderr.write(f"SART_POD_POINT ingest turn={turn}\n")
+                sys.stderr.flush()
             out = read()
-        comm.world_flags(turn, grid)
+        pod_barrier(f"rtm_read_turn_{turn}")
     return out
 
 
@@ -620,10 +634,24 @@ def _quantize_pass(sorted_matrix_files, rtm_name, npixel, nvoxel, dev, rows, wid
 
 def initialize(device_type: str) -> str:
     """The process group of a ``--multihost`` run (``parallel/comm.py:
-    initialize``, from the launcher's environment); returns its backend."""
-    from sartsolver_tpu_torch.parallel import comm
+    initialize``, from the launcher's environment); returns its backend.
 
-    return comm.initialize(device_type)
+    Fault site ``multihost.init``, under its retry policy: on a pod's
+    bring-up the rendezvous is often not listening yet when a rank starts,
+    so a failed start (an ``OSError``, a ``RuntimeError`` from the store)
+    is retried with backoff; exhaustion raises ``RetriesExhausted``, which
+    the CLI answers with exit 3. A missing launcher environment is the
+    user's (``SartInputError``) and is not retried."""
+    from sartsolver_tpu_torch.parallel import comm
+    from sartsolver_tpu_torch.resilience import faults
+    from sartsolver_tpu_torch.resilience.retry import retry_call
+
+    def attempt() -> str:
+        faults.fire(faults.SITE_MULTIHOST_INIT)
+        return comm.initialize(device_type)
+
+    return retry_call(attempt, site=faults.SITE_MULTIHOST_INIT,
+                      retry_on=(OSError, RuntimeError))
 
 
 def is_primary() -> bool:
@@ -660,30 +688,363 @@ def all_processes_local_capable(grid, npixel: int) -> bool:
     return (grid.n_pix - 1) * rb < npixel
 
 
-def agree_stop(local_stop: bool, grid) -> bool:
-    """The stop agreement of a graceful stop on a grid: every rank polls at
-    the same group boundary, a one-int all-gather over the world, and any
-    rank's flag stops them all there (the signals land at different
-    instants; a rank that stopped alone would leave its peers waiting in a
-    collective). Without a grid, the local flag."""
-    if grid is None or grid.world <= 1:
-        return bool(local_stop)
+def broadcast_resume_state(state, nvoxel: int, error: Optional[str] = None):
+    """Rank 0's resume view (``io/solution.py:ResumeState`` or None), on
+    every rank of the world.
+
+    With ``--multihost --resume`` only rank 0 reads the output file (it may
+    lie where only rank 0 sees it); ranks that read it each on their own
+    could skip different frames and leave their collectives out of step.
+    ``error`` (rank 0 only) is the message of a failed read: it crosses
+    first and is raised as ``SartInputError`` on every rank, so the whole
+    grid exits 1 instead of rank 0 alone while its peers wait. Then the
+    written times and the last solution, fp64 bit for bit
+    (``parallel/comm.py:broadcast_host`` moves raw bytes). Without a process
+    group of more than one rank: ``state`` itself, or the error raised."""
+    import torch.distributed as dist
+
+    from sartsolver_tpu_torch.config import SartInputError
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        if error is not None:
+            raise SartInputError(error)
+        return state
+    from sartsolver_tpu_torch.io.solution import ResumeState
     from sartsolver_tpu_torch.parallel import comm
 
-    return any(comm.world_flags(1 if local_stop else 0, grid))
+    primary = dist.get_rank() == 0
+    err_bytes = (error or "").encode() if primary else b""
+    meta = np.zeros(4, np.int64)
+    if primary:
+        meta[:] = (0 if state is None else 1,
+                   0 if state is None else len(state.times),
+                   1 if state is not None and state.last_solution is not None else 0,
+                   len(err_bytes))
+    meta = comm.broadcast_host(meta)
+    if meta[3] > 0:
+        buf = (np.frombuffer(err_bytes, np.uint8) if primary
+               else np.zeros(int(meta[3]), np.uint8))
+        raise SartInputError(comm.broadcast_host(buf).tobytes().decode())
+    if meta[0] == 0:
+        return None
+    times = comm.broadcast_host(np.asarray(state.times, np.float64) if primary
+                                else np.zeros(int(meta[1]), np.float64))
+    last = None
+    if meta[2]:
+        last = comm.broadcast_host(np.asarray(state.last_solution, np.float64) if primary
+                                   else np.zeros(nvoxel, np.float64))
+    return ResumeState(times, last)
 
 
-def snapshot_allgather(grid):
+# ---------------------------------------------------------------------------
+# the pod: identity, liveness, deadline-bounded rendezvous
+# (sartsolver_tpu/parallel/multihost.py:795-1100)
+
+# the watchdog beacon phase of a wait in a pod barrier: the hang watchdog
+# stays quiet through a slow peer's turn (the barrier's own deadline
+# decides a dead peer), and the heartbeat line says where the run waits
+PHASE_POD_BARRIER = "pod.barrier"
+
+# seconds between refreshes of a host's liveness beacon: deadlines are tens
+# of seconds, and the beacon tap stays at most 1 Hz of file writes
+_ALIVE_THROTTLE = 1.0
+
+# the file-mode stop agreement's sequence: every host polls at the same
+# boundaries, so the same count names the same exchange on each
+_stop_seq = 0
+
+
+class PodBarrierTimeout(RuntimeError):
+    """A pod rendezvous gave up on one or more peers.
+
+    ``missing`` holds the pod indices that never arrived (empty where a
+    collective of the process group failed or wedged: no per-host
+    attribution there). The message, the crash bundle's reason, names the
+    missing hosts; ``cause`` is the collective's own error where it failed
+    rather than timed out (gloo reports a killed peer at once)."""
+
+    def __init__(self, name: str, missing, timeout: float, cause: Optional[str] = None):
+        self.name = name
+        self.missing = list(missing)
+        self.timeout = timeout
+        self.cause = cause
+        who = (", ".join(f"h{j}" for j in self.missing) if self.missing
+               else f"unknown (collective {'wedged' if cause is None else 'failed'})")
+        what = (f"timed out after {timeout:g}s" if cause is None
+                else f"failed ({cause})")
+        super().__init__(f"pod barrier {name!r} {what}; missing host(s): {who}")
+
+
+def pod_identity() -> Tuple[int, int]:
+    """``(index, count)`` of this process in the pod: ``SART_POD_PROCESS``
+    (``k/n``, or ``k`` for a count of 1) where set and well formed, else
+    the process group's ``(rank, world)``, else ``(0, 1)``."""
+    raw = os.environ.get("SART_POD_PROCESS", "")
+    if raw:
+        try:
+            k, _sep, n = raw.partition("/")
+            return int(k), max(int(n) if n else 1, 1)
+        except ValueError:
+            pass  # malformed: the process group's answer
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def export_pod_identity() -> Tuple[int, int]:
+    """Publish this process's pod identity as ``SART_POD_PROCESS=k/n``
+    where the process group gives one of more than one rank: the modules
+    that import no torch (the heartbeat's ``host=``, the crash bundle's
+    ``host``, ``faults.pod_index`` for the ``site@i`` qualifier) read the
+    environment. The fault registry is re-read, so a qualified entry arms
+    on its own host only."""
+    index, count = pod_identity()
+    if count > 1 and not os.environ.get("SART_POD_PROCESS"):
+        os.environ["SART_POD_PROCESS"] = f"{index}/{count}"
+        from sartsolver_tpu_torch.resilience import faults
+
+        faults.reset()
+    return index, count
+
+
+def barrier_timeout() -> float:
+    """The pod barriers' deadline in seconds: ``SART_POD_BARRIER_TIMEOUT``,
+    default 300 (above every rendezvous gap of a healthy run); 0 waits
+    without a deadline. A malformed value is reported and ignored."""
+    raw = os.environ.get("SART_POD_BARRIER_TIMEOUT", "300")
+    try:
+        return max(float(raw), 0.0)
+    except ValueError:
+        print(f"sartsolve: ignoring malformed SART_POD_BARRIER_TIMEOUT={raw!r} "
+              "(using 300)", file=sys.stderr)
+        return 300.0
+
+
+def _timeout_error(name: str, missing, timeout: float,
+                   cause: Optional[str] = None) -> PodBarrierTimeout:
+    """The barrier's error, counted in ``pod_barrier_timeouts_total``."""
+    obs_metrics.get_registry().counter("pod_barrier_timeouts_total").inc()
+    return PodBarrierTimeout(name, missing, timeout, cause)
+
+
+def _touch_alive(bdir: str, index: int) -> None:
+    from sartsolver_tpu_torch.utils import atomicio
+
+    try:
+        # advisory (the arrival file decides), so no fsync: the JAX
+        # package's choice
+        atomicio.write_atomic(os.path.join(bdir, f"alive.h{index}"),
+                              f"{time.time():.3f}\n", fsync=False)
+    except OSError:
+        pass
+
+
+def _alive_age(bdir: str, j: int) -> Optional[float]:
+    """Seconds since host ``j`` last refreshed its liveness beacon, None
+    where it never wrote one."""
+    try:
+        return max(time.time() - os.path.getmtime(os.path.join(bdir, f"alive.h{j}")), 0.0)
+    except OSError:
+        return None
+
+
+def install_pod_liveness() -> None:
+    """Refresh this host's liveness beacon (``<SART_POD_BARRIER_DIR>/
+    alive.h<k>``) from the watchdog's beacon stream, at most once each
+    :data:`_ALIVE_THROTTLE` seconds: a host busy in a long turn (the ingest,
+    a stride) stays alive to its peers' barriers. File-mode pods only."""
+    bdir = os.environ.get("SART_POD_BARRIER_DIR")
+    if not bdir:
+        return
+    index, count = pod_identity()
+    if count <= 1:
+        return
+    from sartsolver_tpu_torch.resilience import watchdog
+
+    last = [0.0]
+
+    def tap(_phase: str, _serial: int, now: float, _ident: int) -> None:
+        if now - last[0] >= _ALIVE_THROTTLE:
+            last[0] = now
+            _touch_alive(bdir, index)
+
+    os.makedirs(bdir, exist_ok=True)
+    _touch_alive(bdir, index)
+    watchdog.add_beacon_tap("pod.liveness", tap)
+
+
+def _file_barrier(bdir: str, name: str, index: int, count: int, payload,
+                  timeout: float) -> list:
+    """The directory barrier: arrive (an atomic per-host file carrying
+    ``payload`` as JSON), then wait for every peer's, polling after 1 ms,
+    then at twice the last interval up to every 50 ms: a peer a stride
+    behind by a millisecond costs about that, not a whole 50 ms poll.
+
+    Past the deadline a missing peer whose liveness beacon is at least a
+    deadline old (or absent) is dead, and the barrier raises naming it. A
+    missing peer whose beacon stays fresh (alive, slow: a long ingest
+    turn) extends the wait, up to 4x the deadline, so two hosts waiting in
+    different barriers still both end. A peer's torn payload gives a
+    ``None`` row."""
+    from sartsolver_tpu_torch.resilience import watchdog
+    from sartsolver_tpu_torch.utils import atomicio
+
+    os.makedirs(bdir, exist_ok=True)
+    safe = name.replace(os.sep, "_")
+    # advisory bytes, as the liveness beacon's: a crash loses the whole
+    # incarnation, whose barrier directory is never reused
+    atomicio.write_atomic(os.path.join(bdir, f"{safe}.h{index}.json"), json.dumps(payload),
+                          fsync=False)
+    _touch_alive(bdir, index)
+    start = time.monotonic()
+    last_note = start
+    poll = 0.001
+    while True:
+        missing = [j for j in range(count) if j != index and not os.path.exists(
+            os.path.join(bdir, f"{safe}.h{j}.json"))]
+        if not missing:
+            break
+        now = time.monotonic()
+        if now - last_note >= _ALIVE_THROTTLE:
+            last_note = now
+            _touch_alive(bdir, index)
+            watchdog.beacon(PHASE_POD_BARRIER)
+        if timeout > 0 and now - start >= timeout:
+            dead = [j for j in missing
+                    if (_alive_age(bdir, j) or float("inf")) >= timeout]
+            if dead or now - start >= 4 * timeout:
+                raise _timeout_error(name, dead or missing, timeout)
+        time.sleep(poll)
+        poll = min(2 * poll, 0.05)
+    rows: list = []
+    for j in range(count):
+        if j == index:
+            rows.append(payload)
+            continue
+        try:
+            with open(os.path.join(bdir, f"{safe}.h{j}.json")) as f:
+                rows.append(json.loads(f.read()))
+        except (OSError, ValueError):
+            rows.append(None)  # arrived, payload torn: benign
+    return rows
+
+
+def _deadline_collective(name: str, fn: Callable, timeout: float):
+    """``fn()`` (a collective of the process group) with a deadline: it
+    blocks in the backend, where nothing can interrupt it, so it runs in a
+    daemon thread the caller waits on. Past the deadline, or where the
+    collective fails (gloo reports a killed peer at once), the caller gets
+    :class:`PodBarrierTimeout`; a thread still blocked is left to the
+    process's exit. The CUDA current device is per thread, so the thread
+    takes the caller's (``cuda:LOCAL_RANK`` under NCCL, not ``cuda:0``)."""
+    result: dict = {}
+    done = threading.Event()
+    device = torch.cuda.current_device() if torch.cuda.is_initialized() else None
+
+    def run() -> None:
+        try:
+            if device is not None:
+                torch.cuda.set_device(device)
+            result["value"] = fn()
+        # not swallowed: every error, the device's too, is re-raised in
+        # the caller below
+        except BaseException as err:  # sart-lint: disable=SL006
+            result["err"] = err
+        finally:
+            done.set()
+
+    if timeout <= 0:
+        run()
+    else:
+        threading.Thread(target=run, name=f"sart-pod-{name}", daemon=True).start()
+        if not done.wait(timeout):
+            raise _timeout_error(name, [], timeout)
+    err = result.get("err")
+    if isinstance(err, RuntimeError):  # the backend's: a peer gone
+        raise _timeout_error(name, [], timeout, f"{type(err).__name__}: {err}") from err
+    if err is not None:
+        raise err
+    return result.get("value")
+
+
+def pod_barrier(name: str, payload=None, timeout: Optional[float] = None) -> list:
+    """A deadline-bounded rendezvous of the pod's hosts; returns every
+    host's ``payload`` in index order (``None`` rows where one is not
+    available).
+
+    A pod of one process returns ``[payload]`` with no I/O. With
+    ``SART_POD_BARRIER_DIR`` the directory barrier runs (and exchanges the
+    payloads); on a process group a one-int all-gather under the deadline
+    (no payloads there); with neither (an identity of more than one host
+    and nothing to meet over) the host answers alone. Names must be unique
+    per rendezvous within one incarnation (stride and sequence numbers).
+    Fault site ``pod.barrier``."""
+    index, count = pod_identity()
+    if count <= 1:
+        return [payload]
+    from sartsolver_tpu_torch.resilience import faults
+
+    faults.fire(faults.SITE_POD_BARRIER)
+    if timeout is None:
+        timeout = barrier_timeout()
+    bdir = os.environ.get("SART_POD_BARRIER_DIR")
+    if bdir:
+        return _file_barrier(bdir, name, index, count, payload, timeout)
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return [payload if j == index else None for j in range(count)]
+    from sartsolver_tpu_torch.parallel import comm
+
+    _deadline_collective(name, lambda: comm.all_gather_host(np.zeros(1, np.int64)), timeout)
+    return [None] * count
+
+
+def deadline_allgather(grid):
     """The end-of-run telemetry's ``allgather`` (``obs/run.py:
-    aggregate_snapshots``): a uint8 buffer [N] from every rank of the world,
-    ``[world, N]`` in rank order; None without a grid (no aggregation)."""
+    aggregate_snapshots``): a uint8 buffer [N] from every rank of the
+    world, ``[world, N]`` in rank order, under the pod barriers' deadline
+    (a rank that died after its last frame must not hold its peers'
+    artifact); None without a grid (no aggregation)."""
     if grid is None or grid.world <= 1:
         return None
     from sartsolver_tpu_torch.parallel import comm
-    from sartsolver_tpu_torch.parallel.mesh import WORLD_AXIS
+
+    timeout = barrier_timeout()
 
     def gather(buf):
-        parts = comm.all_gather_parts(torch.from_numpy(np.ascontiguousarray(buf)),
-                                      WORLD_AXIS, grid)
-        return np.stack([p.numpy() for p in parts])
+        return _deadline_collective(
+            "metrics_allgather", lambda: comm.all_gather_host(np.ascontiguousarray(buf)),
+            timeout)
     return gather
+
+
+def agree_stop(local_stop: bool) -> bool:
+    """The stop agreement of a graceful stop: every host polls at the same
+    group or stride boundary, and any host's flag stops them all there
+    (the signals land at different instants; a host that stopped alone
+    would leave its peers waiting). A file-mode pod exchanges the flags in
+    the barrier ``agree_stop.<seq>``; a process group in a one-int
+    all-gather under the deadline; a lone process answers with its own
+    flag. A peer dead between boundaries is :class:`PodBarrierTimeout`."""
+    global _stop_seq
+    _index, count = pod_identity()
+    if count <= 1:
+        return bool(local_stop)
+    if os.environ.get("SART_POD_BARRIER_DIR"):
+        _stop_seq += 1
+        rows = pod_barrier(f"agree_stop.{_stop_seq}", payload=1 if local_stop else 0)
+        return any(bool(r) for r in rows if r is not None)
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return bool(local_stop)
+    from sartsolver_tpu_torch.parallel import comm
+
+    flags = _deadline_collective(
+        "agree_stop",
+        lambda: comm.all_gather_host(np.asarray([1 if local_stop else 0], np.int64)),
+        barrier_timeout())
+    return bool(flags.any())

@@ -126,8 +126,7 @@ def os_padded_rows(npixel: int, os_subsets: int) -> int:
 
 
 def grid_refusal(opts: SolverOptions, grid, *, operator=None, debug_nans: bool = False,
-                 tile_occupancy=None, resume: bool = False,
-                 geometry: bool = False) -> Optional[str]:
+                 tile_occupancy=None, geometry: bool = False) -> Optional[str]:
     """Why a grid of ``grid.world > 1`` ranks cannot run these options
     (each refusal its own words), None where it can. The grid runs the
     dense stored matrix through the classic sweep; what decides per rank,
@@ -151,9 +150,6 @@ def grid_refusal(opts: SolverOptions, grid, *, operator=None, debug_nans: bool =
         return (f"Argument os_subsets={opts.os_subsets} runs the subset cycle on one "
                 "rank; a grid of more than one rank runs the classic sweep "
                 "(--os_subsets 1).")
-    if resume:
-        return ("Argument resume reads the output file on every rank; a grid of more "
-                "than one rank cannot resume yet — resume with one rank.")
     if opts.integrity:
         return ("Argument integrity escalates per rank (re-solve, re-audit, "
                 "quarantine), which would desynchronize a grid's collectives; drop "

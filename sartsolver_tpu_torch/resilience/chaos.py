@@ -2,11 +2,10 @@
 
 Counterpart of ``sartsolver_tpu/resilience/chaos.py``, host-only: it imports
 numpy and neither torch nor JAX. Its campaigns run the port's own workers
-(``python -m sartsolver_tpu_torch.cli serve`` and ``fleet``), read their
-solution files through the port's HDF5 codec (``io/h5.py``), and draw the
-JAX package's schedules for every seed. The pod campaign (``--pod N``)
-needs the pod barriers, which the port does not have: it refuses with its
-own message and exit 1.
+(``python -m sartsolver_tpu_torch.cli serve`` and ``fleet``, and for
+``--pod N`` the solver CLI itself), read their solution files through the
+port's HDF5 codec (``io/h5.py``), and draw the JAX package's schedules for
+every seed.
 
 ``chaos`` (docs/SERVING.md §9, docs/RESILIENCE.md §10) runs
 seeded randomized fault schedules against a REAL supervised engine
@@ -44,12 +43,18 @@ Everything after ``--`` is the serve worker's own flag set (solver
 flags + input files). Exit codes: 0 all invariants hold on every seed;
 1 flag/usage error; 2 an invariant was violated (the report names it).
 
-``--fleet M`` swaps in the fleet campaign (docs/SERVING.md §10).
+``--fleet M`` swaps in the fleet campaign (docs/SERVING.md §10), ``--pod
+N`` the pod campaign (:class:`PodCampaign`, docs/RESILIENCE.md §11):
+N fake-pod solver workers, one SIGKILLed in a stride barrier or inside a
+checkpoint's append, the survivors' exit 3 and the whole pod's resume
+judged. Everything after ``--`` is then the solver's flag set (the
+scheduler: ``--no_guess --batch_frames K``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -57,6 +62,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -768,6 +774,359 @@ class FleetCampaign(ChaosCampaign):
 
 
 # ---------------------------------------------------------------------------
+# the pod campaign (docs/RESILIENCE.md §11 of the JAX package)
+
+# the fake pod's kill windows, announced on the victim's stderr: "stride"
+# is the stride rendezvous (SART_TEST_POD_MARKERS, printed before the
+# barrier's arrival lands: a kill there leaves the peers waiting) and
+# "ckpt" the held-open window inside a solve checkpoint's append
+# (SART_TEST_SOLVE_CKPT_DELAY: a kill there dies with the record not
+# durable, so the pod falls back one checkpoint)
+_POD_STRIDE_RE = re.compile(r"SART_POD_POINT stride serial=(\d+)")
+_POD_CKPT_RE = re.compile(r"SART_SOLVE_CKPT_POINT pre-append serial=(\d+)")
+_POD_RESUME_RE = re.compile(r"SART_POD_POINT resume serial=(\d+)")
+
+POD_CKPT_STRIDE = 2
+
+# the solver CLI's infrastructure exit, a survivor's at the barrier deadline
+EXIT_INFRASTRUCTURE_POD = 3
+
+
+class PodSchedule:
+    """One seed's pod campaign: which host dies, in which window, at which
+    occurrence of the window's marker (the JAX package's draw, seed for
+    seed)."""
+
+    WINDOWS = ("stride", "ckpt")
+
+    def __init__(self, seed: int, *, size: int = 2):
+        self.seed = int(seed)
+        self.size = max(2, int(size))
+        rng = np.random.default_rng([0x5A4A, self.seed])
+        self.victim = int(rng.integers(0, self.size))
+        self.window = self.WINDOWS[int(rng.integers(0, len(self.WINDOWS)))]
+        # stride markers come every stride, ckpt markers every
+        # POD_CKPT_STRIDE strides: both draws stay inside a short run
+        if self.window == "stride":
+            self.occurrence = int(rng.integers(2, 5))
+        else:
+            self.occurrence = int(rng.integers(1, 3))
+
+    def describe(self) -> dict:
+        return {"seed": self.seed, "victim": f"h{self.victim}",
+                "window": f"{self.window}#{self.occurrence}"}
+
+
+class PodCampaign:
+    """The reference pass (N undisturbed fake-pod workers in lockstep, whose
+    outputs must already agree), then per seed: SIGKILL one host inside its
+    seeded window, require every survivor to exit 3 at the barrier deadline
+    naming the dead host (stderr and crash bundle), ``--resume`` the whole
+    pod on a fresh barrier directory and judge byte identity, one agreed
+    resume serial, no stride repeated, a ``ckpt`` kill resuming below the
+    killed serial, and the checkpoint counters.
+
+    The fake pod is N one-process solver CLIs (``python -m
+    sartsolver_tpu_torch.cli``) over the same frames: ``SART_POD_PROCESS=
+    k/N``, file barriers under a fresh ``SART_POD_BARRIER_DIR`` each pass
+    (a previous incarnation's arrival files would meet a rendezvous at
+    once), and one ``SART_SOLVE_CKPT_FILE`` base so the pod-wide
+    intersection sees every host's records. The reference workers keep
+    their stdout and metrics artifact beside their outputs (the report's
+    ``reference_workers``): an undisturbed pod's frame times and launches."""
+
+    def __init__(self, *, root: str, solve_args: List[str], size: int,
+                 timeout: float, verbose=print):
+        self.root = root
+        self.solve_args = list(solve_args)
+        self.size = max(2, int(size))
+        self.timeout = float(timeout)
+        self.say = verbose
+        self.reference: Optional[Dict[str, "np.ndarray"]] = None
+        self.reference_s: Optional[float] = None
+        self.reference_workers: List[dict] = []
+
+    def _pod_env(self, index: int, barrier_dir: str,
+                 extra: Optional[dict] = None) -> dict:
+        env = dict(os.environ)
+        for key in ("SART_FAULT", "SART_TEST_POD_MARKERS",
+                    "SART_TEST_SOLVE_CKPT_DELAY", "SART_SOLVE_CKPT_FILE"):
+            env.pop(key, None)
+        env["PYTHONUNBUFFERED"] = "1"  # the kill plan watches live lines
+        env["SART_POD_PROCESS"] = f"{index}/{self.size}"
+        env["SART_POD_BARRIER_DIR"] = barrier_dir
+        # a short deadline: the barrier (not the hang watchdog) must see
+        # the dead peer, and a campaign should not idle long
+        env.setdefault("SART_POD_BARRIER_TIMEOUT", "30")
+        env.update(extra or {})
+        return env
+
+    def _solve_cmd(self, outfile: str, *extra: str) -> List[str]:
+        return [sys.executable, "-m", "sartsolver_tpu_torch.cli", "-o", outfile,
+                *self.solve_args, *extra]
+
+    def _outputs(self, pass_dir: str) -> List[str]:
+        return [os.path.join(pass_dir, f"out_h{k}.h5") for k in range(self.size)]
+
+    @staticmethod
+    def _barrier_dir(pass_dir: str, name: str) -> str:
+        path = os.path.join(pass_dir, name)
+        os.makedirs(path, exist_ok=True)
+        if os.listdir(path):
+            raise CampaignError(f"pod barrier dir {path} is not empty — stale arrival "
+                                "files would satisfy rendezvous instantly")
+        return path
+
+    def _start(self, outs: List[str], bdir: str, extra_env: Optional[dict],
+               *flags: str, keep: bool = False) -> List[subprocess.Popen]:
+        """One worker per output. With ``keep`` each worker's stdout goes
+        to ``<output>.stdout`` and its metrics artifact to
+        ``<output>.metrics.jsonl``."""
+        procs = []
+        for k in range(self.size):
+            extra = (*flags, "--metrics_out", f"{outs[k]}.metrics.jsonl") if keep else flags
+            with open(f"{outs[k]}.stdout", "w") if keep else contextlib.nullcontext(
+                    subprocess.DEVNULL) as stdout:
+                procs.append(subprocess.Popen(self._solve_cmd(outs[k], *extra),
+                                              env=self._pod_env(k, bdir, extra_env),
+                                              stdout=stdout, stderr=subprocess.PIPE,
+                                              text=True))
+        return procs
+
+    def run_reference(self) -> None:
+        ref_dir = os.path.join(self.root, "podref")
+        os.makedirs(ref_dir, exist_ok=True)
+        bdir = self._barrier_dir(ref_dir, "barriers")
+        outs = self._outputs(ref_dir)
+        self.say(f"chaos: pod reference pass ({self.size} hosts) in {ref_dir}")
+        t0 = time.monotonic()
+        procs = self._start(outs, bdir, None, keep=True)
+        errs, _ends = self._drain(procs)
+        self.reference_s = time.monotonic() - t0
+        self.reference_workers = [
+            {"output": out, "stdout": f"{out}.stdout", "metrics": f"{out}.metrics.jsonl"}
+            for out in outs]
+        for k, proc in enumerate(procs):
+            if proc.returncode != 0:
+                raise CampaignError(f"pod reference host h{k} exited {proc.returncode}:"
+                                    f"\n{errs[k][-4000:]}")
+        datasets = [_solution_datasets(out) for out in outs]
+        # the lockstep's sanity: every host solved the same stream
+        for k in range(1, self.size):
+            for key in sorted(datasets[0]):
+                if not np.array_equal(datasets[0][key], datasets[k][key]):
+                    raise CampaignError(
+                        f"pod reference hosts h0/h{k} disagree on solution/{key} — "
+                        "lockstep is broken before any fault was injected")
+        self.reference = datasets[0]
+
+    def _drain(self, procs: List[subprocess.Popen]) -> Tuple[List[str], List[float]]:
+        """Every worker's stderr and the monotonic time it ended, under one
+        wall-clock guard (``timeout``: every worker killed past it)."""
+        errs: List[str] = [""] * len(procs)
+        ends: List[float] = [0.0] * len(procs)
+
+        def drain(k: int, proc: subprocess.Popen) -> None:
+            errs[k] = proc.communicate()[1] or ""
+            ends[k] = time.monotonic()
+
+        guards = [threading.Timer(self.timeout, p.kill) for p in procs]
+        readers = [threading.Thread(target=drain, args=(k, p), daemon=True)
+                   for k, p in enumerate(procs)]
+        for t in guards + readers:
+            t.start()
+        try:
+            for t in readers:
+                t.join(self.timeout + 60)
+        finally:
+            for g in guards:
+                g.cancel()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        return errs, ends
+
+    def run_pod_seed(self, schedule: PodSchedule) -> dict:
+        pass_dir = os.path.join(self.root, f"pod{schedule.seed}")
+        os.makedirs(pass_dir, exist_ok=True)
+        outs = self._outputs(pass_dir)
+        chaos_env = {"SART_TEST_POD_MARKERS": "1", "SART_TEST_SOLVE_CKPT_DELAY": "0.4",
+                     "SART_SOLVE_CKPT_FILE": os.path.join(pass_dir, "pod.solveckpt")}
+        ckpt = ("--solve_ckpt_stride", str(POD_CKPT_STRIDE))
+        self.say(f"chaos: pod seed {schedule.seed} {schedule.describe()}")
+
+        # the kill pass: one host dies inside the seeded window
+        t0 = time.monotonic()
+        procs = self._start(outs, self._barrier_dir(pass_dir, "barriers_kill"), chaos_env,
+                            *ckpt)
+        victim = procs[schedule.victim]
+        want_re = _POD_STRIDE_RE if schedule.window == "stride" else _POD_CKPT_RE
+        victim_lines: List[str] = []
+        killed: List[Tuple[int, float]] = []
+
+        def watch_victim() -> None:
+            seen = 0
+            for line in victim.stderr:
+                victim_lines.append(line)
+                m = want_re.search(line)
+                if not m:
+                    continue
+                seen += 1
+                if seen < schedule.occurrence:
+                    continue
+                victim.kill()
+                killed.append((int(m.group(1)), time.monotonic()))
+                break
+            try:  # drained, so the dying child never blocks on the pipe
+                victim.stderr.read()
+            except (OSError, ValueError):
+                pass
+
+        watcher = threading.Thread(target=watch_victim, daemon=True)
+        watcher.start()
+        survivors = [p for k, p in enumerate(procs) if k != schedule.victim]
+        errs, ends = self._drain(survivors)
+        watcher.join(timeout=60)
+        victim.wait(timeout=60)
+        kill_pass_s = time.monotonic() - t0
+        if victim.returncode != -signal.SIGKILL or not killed:
+            raise CampaignError(
+                f"pod seed {schedule.seed}: victim h{schedule.victim} exited "
+                f"{victim.returncode} before the kill landed in window "
+                f"{schedule.window}#{schedule.occurrence} — a clean exit 0 here usually "
+                "means the workload is too short to reach this seed's window; give the "
+                f"campaign more frames:\n{''.join(victim_lines)[-4000:]}")
+        killed_serial, killed_at = killed[0]
+        self.say(f"chaos: pod seed {schedule.seed} SIGKILL h{schedule.victim} in window "
+                 f"{schedule.window}#{schedule.occurrence} (serial {killed_serial})")
+        # every survivor exits 3 at the barrier deadline, its stderr naming
+        # the barrier and the dead host, its crash bundle's reason the host
+        exit_after_kill = []
+        for k, (proc, err) in enumerate(zip(survivors, errs)):
+            host = k if k < schedule.victim else k + 1
+            exit_after_kill.append(ends[k] - killed_at)
+            if proc.returncode != EXIT_INFRASTRUCTURE_POD:
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: survivor h{host} exited {proc.returncode}, "
+                    f"expected {EXIT_INFRASTRUCTURE_POD} (the barrier-deadline abort):"
+                    f"\n{err[-4000:]}")
+            if "pod barrier" not in err or f"h{schedule.victim}" not in err:
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: survivor h{host} abort does not name the "
+                    f"pod barrier and the dead host h{schedule.victim}:\n{err[-4000:]}")
+            bundle_path = f"{outs[host]}.crash.json"
+            try:
+                with open(bundle_path) as f:
+                    bundle = json.load(f)
+            except (OSError, ValueError) as exc:
+                raise CampaignError(f"pod seed {schedule.seed}: survivor h{host} left no "
+                                    f"readable crash bundle at {bundle_path}: {exc}")
+            if f"h{schedule.victim}" not in str(bundle.get("reason")):
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: crash bundle reason "
+                    f"{bundle.get('reason')!r} does not name the dead host "
+                    f"h{schedule.victim}")
+            if bundle.get("status", {}).get("host") != f"{host}/{self.size}":
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: crash bundle host tag "
+                    f"{bundle.get('status', {}).get('host')!r} is not {host}/{self.size}")
+
+        # the resume pass: the whole pod relaunches with --resume
+        arts = [os.path.join(pass_dir, f"resume_h{k}.jsonl") for k in range(self.size)]
+        bdir = self._barrier_dir(pass_dir, "barriers_resume")
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            self._solve_cmd(outs[k], *ckpt, "--resume", "--metrics_out", arts[k]),
+            env=self._pod_env(k, bdir, chaos_env), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True) for k in range(self.size)]
+        errs, _ends = self._drain(procs)
+        resume_pass_s = time.monotonic() - t0
+        for k, proc in enumerate(procs):
+            if proc.returncode != 0:
+                raise CampaignError(f"pod seed {schedule.seed}: resume host h{k} exited "
+                                    f"{proc.returncode}:\n{errs[k][-4000:]}")
+        verdict = self._judge_pod(schedule, outs, arts, errs, killed_serial)
+        verdict.update(killed_serial=killed_serial, kill_pass_s=kill_pass_s,
+                       resume_pass_s=resume_pass_s,
+                       survivor_exit_after_kill_s=exit_after_kill,
+                       barrier_timeout_s=float(self._pod_env(0, pass_dir)[
+                           "SART_POD_BARRIER_TIMEOUT"]))
+        return verdict
+
+    def _judge_pod(self, schedule: PodSchedule, outs: List[str], arts: List[str],
+                   errs: List[str], killed_serial: int) -> dict:
+        # 1. every host's resumed file equals the undisturbed reference
+        for k, out in enumerate(outs):
+            got = _solution_datasets(out)
+            if sorted(got) != sorted(self.reference):
+                raise CampaignError(f"pod seed {schedule.seed}: h{k} dataset set differs")
+            for key in sorted(self.reference):
+                if not np.array_equal(got[key], self.reference[key]):
+                    raise CampaignError(f"pod seed {schedule.seed}: h{k} solution/{key} "
+                                        "not byte-identical to the undisturbed run")
+        # 2. the pod resumed from one checkpoint serial; after a kill inside
+        # an append, one older than the torn record (the one-stride fallback)
+        resumed: List[int] = []
+        for k, err in enumerate(errs):
+            m = _POD_RESUME_RE.search(err)
+            if not m:
+                raise CampaignError(f"pod seed {schedule.seed}: h{k} did not resume from "
+                                    f"a solve checkpoint:\n{err[-4000:]}")
+            resumed.append(int(m.group(1)))
+        if len(set(resumed)) != 1:
+            raise CampaignError(f"pod seed {schedule.seed}: hosts resumed from divergent "
+                                f"serials {resumed}")
+        if schedule.window == "ckpt" and resumed[0] >= killed_serial:
+            raise CampaignError(
+                f"pod seed {schedule.seed}: killed inside the append of serial "
+                f"{killed_serial}, yet the pod resumed from serial {resumed[0]}")
+        # 3. no stride re-run: every stride after the resume is newer than
+        # the restored serial, strictly increasing
+        post_serials: List[List[int]] = []
+        for k, err in enumerate(errs):
+            serials = [int(m.group(1)) for m in _POD_STRIDE_RE.finditer(err)]
+            post_serials.append(serials)
+            if not serials:
+                raise CampaignError(f"pod seed {schedule.seed}: h{k} resumed without "
+                                    "completing a single stride")
+            if serials[0] <= resumed[0] or serials != sorted(set(serials)):
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: h{k} stride serials {serials} repeat or "
+                    f"precede the restored checkpoint {resumed[0]} — a completed stride "
+                    "was re-run")
+        # 4. the counters: each host's artifact validates and counts exactly
+        # one checkpoint resume, and a checkpoint where the resumed leg
+        # completed a checkpoint-aligned stride
+        from sartsolver_tpu_torch.obs.cli import metrics_main
+
+        for k, art in enumerate(arts):
+            if metrics_main(["--check", art]) != 0:
+                raise CampaignError(f"pod seed {schedule.seed}: h{k} metrics artifact "
+                                    f"{art} fails sartsolve metrics --check")
+            counters: Dict[str, float] = {}
+            with open(art) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if rec.get("type") == "metric" and rec.get("kind") == "counter":
+                        counters[rec["name"]] = float(rec.get("value", 0))
+            if counters.get("solve_ckpt_resumed_total") != 1:
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: h{k} solve_ckpt_resumed_total="
+                    f"{counters.get('solve_ckpt_resumed_total')}, expected exactly 1")
+            aligned = [s for s in post_serials[k] if s % POD_CKPT_STRIDE == 0]
+            if aligned and counters.get("solve_ckpt_written_total", 0) < 1:
+                raise CampaignError(
+                    f"pod seed {schedule.seed}: h{k} completed checkpoint-aligned "
+                    f"stride(s) {aligned} but wrote no solve checkpoints")
+        return {**schedule.describe(), "resumed_serial": resumed[0], "hosts": self.size,
+                "verdict": "ok"}
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -801,11 +1160,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "judged fleet-wide (docs/SERVING.md §10). "
                         "0 = single supervised engine (default).")
     p.add_argument("--pod", type=int, default=0, metavar="N",
-                   help="The pod fault-tolerance campaign of the JAX "
-                        "package (N lockstep fake-pod solver workers, "
-                        "docs/RESILIENCE.md §11). Not ported: it needs "
-                        "the pod barriers of a multi-host solve, and is "
-                        "refused with exit 1. 0 = serve campaign "
+                   help="Run pod campaigns instead: each seed runs N "
+                        "lockstep fake-pod solver workers with in-solve "
+                        "checkpointing, SIGKILLs one host inside a "
+                        "seeded stride-barrier or mid-checkpoint "
+                        "window, asserts the survivors abort via the "
+                        "coordinated barrier deadline naming the dead "
+                        "host, then --resume's the pod and judges "
+                        "byte-identity + stride-progress monotonicity "
+                        "(docs/RESILIENCE.md §11). Everything after -- "
+                        "is the solver's own flag set (needs "
+                        "--batch_frames > 1). 0 = serve campaign "
                         "(default).")
     p.add_argument("--slo_ms", type=float, default=None,
                    help="Arm the engine SLO pair and assert its burn "
@@ -857,13 +1222,35 @@ def chaos_main(argv: Optional[List[str]] = None) -> int:
               "campaigns; pick one.", file=sys.stderr)
         return 1
     if args.pod:
-        # the pod campaign drives the fake-pod barriers of a multi-host
-        # solve (SART_POD_PROCESS / SART_POD_BARRIER_DIR), which the port's
-        # grid of ranks does not have
-        print("sartsolve chaos: --pod is not ported to this package (the "
-              "pod campaign needs the pod barriers of a multi-host solve); "
-              "run the serve or --fleet campaigns.", file=sys.stderr)
-        return 1
+        campaign = PodCampaign(root=args.engine_dir, solve_args=serve_args,
+                               size=args.pod, timeout=args.timeout)
+        report = {"seeds": seeds, "pod": args.pod, "passes": []}
+        try:
+            campaign.run_reference()
+            report["reference_s"] = campaign.reference_s
+            report["reference_workers"] = campaign.reference_workers
+            for seed in seeds:
+                verdict = campaign.run_pod_seed(PodSchedule(seed, size=args.pod))
+                report["passes"].append(verdict)
+                print(f"chaos: pod seed {seed} OK — killed {verdict['victim']} in "
+                      f"{verdict['window']}, survivors exited {EXIT_INFRASTRUCTURE_POD} at "
+                      "the barrier deadline, pod resumed from serial "
+                      f"{verdict['resumed_serial']} without repeating a stride, outputs "
+                      "byte-identical")
+        except CampaignError as err:
+            report["verdict"] = "FAILED"
+            report["error"] = str(err)
+            print(f"chaos: INVARIANT VIOLATED — {err}", file=sys.stderr)
+            if args.report:
+                with open(args.report, "w") as f:
+                    json.dump(report, f, indent=2)
+            return 2
+        report["verdict"] = "ok"
+        print(json.dumps({"chaos": report}))
+        if args.report:
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=2)
+        return 0
     if args.fleet:
         # >= 2*size requests with DISTINCT tenants: affinity spreads
         # them across shards, and pigeonhole guarantees some worker
@@ -932,6 +1319,6 @@ def chaos_main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-__all__ = ["ChaosCampaign", "FleetCampaign", "CampaignError",
-           "FaultSchedule", "FleetSchedule", "chaos_main", "line_window",
+__all__ = ["ChaosCampaign", "FleetCampaign", "PodCampaign", "CampaignError",
+           "FaultSchedule", "FleetSchedule", "PodSchedule", "chaos_main", "line_window",
            "FAULT_POOL", "KILL_WINDOWS"]

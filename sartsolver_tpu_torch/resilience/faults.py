@@ -8,14 +8,17 @@ site costs one dict lookup on a cold path; the solver's loops hold no site.
 
 Arming faults:
 
-- Environment: ``SART_FAULT=site:kind:prob[:count][,site:kind:prob...]``,
-  parsed once on first use (:func:`reset` re-reads it). ``prob`` is the
+- Environment: ``SART_FAULT=site[@i]:kind:prob[:count][,...]``, parsed
+  once on first use (:func:`reset` re-reads it). ``prob`` is the
   per-encounter trip probability, drawn from a per-site generator seeded by
   ``SART_FAULT_SEED`` (default 0) and the site's CRC32 — the JAX package's
   seeds, so one spec trips the same encounters in either package and in
   every run. ``count`` caps the trips (default unlimited): ``prob=1`` with
   a count fails exactly the first N encounters. A spec naming a site twice,
   an unknown site or kind, or a malformed number raises ``ValueError``.
+  A ``@i`` pod qualifier restricts an entry to pod process ``i``
+  (:func:`pod_index`): an entry for another host is validated on every host
+  but armed only on its own, keyed by the bare site.
 - Programmatic: :func:`inject` / :func:`clear_faults`, or the
   :func:`injected` context manager.
 
@@ -79,8 +82,10 @@ SITE_PREFETCH = "prefetch.next"      # utils/prefetch.py: worker loop
 SITE_DEVICE_PUT = "device.put"       # parallel/sharded.py: frame staging
 SITE_SOLVE = "solve.dispatch"        # parallel/sharded.py: solve entry
 SITE_FLUSH = "io.flush"              # io/solution.py: output flush
+SITE_MULTIHOST_INIT = "multihost.init"  # parallel/multihost.py: process group start
 SITE_DEVICE_BUFFER = "device.buffer"  # parallel/sharded.py: resident RTM rot
 SITE_SOLVE_CHECKPOINT = "solve.checkpoint"  # resilience/podckpt.py: ckpt append
+SITE_POD_BARRIER = "pod.barrier"      # parallel/multihost.py: pod rendezvous
 # the serving engine's seams: a request payload's parse, the request
 # journal's append, a request's attach to the resident session and the
 # engine's soft-state checkpoint
@@ -91,9 +96,9 @@ SITE_STATE_CHECKPOINT = "state.checkpoint"  # engine/state.py: soft-state save
 
 FAULT_SITES = frozenset({
     SITE_FRAME_READ, SITE_RTM_INGEST, SITE_PREFETCH, SITE_DEVICE_PUT,
-    SITE_SOLVE, SITE_FLUSH, SITE_DEVICE_BUFFER, SITE_SOLVE_CHECKPOINT,
+    SITE_SOLVE, SITE_FLUSH, SITE_MULTIHOST_INIT, SITE_DEVICE_BUFFER,
     SITE_REQUEST_PARSE, SITE_JOURNAL_APPEND, SITE_SESSION_ATTACH,
-    SITE_STATE_CHECKPOINT,
+    SITE_STATE_CHECKPOINT, SITE_SOLVE_CHECKPOINT, SITE_POD_BARRIER,
 })
 
 FAULT_KINDS = ("io", "error", "nan", "hang", "oom", "corrupt")
@@ -142,12 +147,30 @@ _faults: Optional[Dict[str, _Fault]] = None
 _lock = named_lock("resilience.faults")
 
 
+def pod_index() -> int:
+    """This process's pod index (0 on a one-process run): the ``k`` of
+    ``SART_POD_PROCESS`` (``k/n`` or ``k``), which
+    ``parallel/multihost.py:export_pod_identity`` sets after the process
+    group's start and the fake-pod harness sets itself; read here so this
+    module imports no torch. A malformed value reads as 0."""
+    raw = os.environ.get("SART_POD_PROCESS", "")
+    if not raw:
+        return 0
+    try:
+        return int(raw.split("/", 1)[0])
+    except ValueError:
+        return 0
+
+
 def parse_fault_spec(spec: str) -> Dict[str, _Fault]:
     """Parse a ``SART_FAULT`` spec into armed faults (comma-separated
-    ``site:kind:prob[:count]`` entries). Raises ``ValueError`` on an unknown
-    site or kind, a malformed number or a site armed twice: a fault that
-    never fires because of a typo would make a drill vacuous."""
+    ``site[@i]:kind:prob[:count]`` entries). Raises ``ValueError`` on an
+    unknown site or kind, a malformed number or pod qualifier, or a site
+    armed twice: a fault that never fires because of a typo would make a
+    drill vacuous. An entry qualified ``@i`` for another host than
+    :func:`pod_index` is validated but not armed."""
     seed = int(os.environ.get("SART_FAULT_SEED", "0"))
+    here = pod_index()
     out: Dict[str, _Fault] = {}
     for entry in spec.split(","):
         entry = entry.strip()
@@ -156,8 +179,18 @@ def parse_fault_spec(spec: str) -> Dict[str, _Fault]:
         parts = entry.split(":")
         if len(parts) not in (3, 4):
             raise ValueError(f"Malformed SART_FAULT entry {entry!r}; expected "
-                             "site:kind:prob[:count].")
+                             "site[@i]:kind:prob[:count].")
         site, kind, prob_s = parts[0], parts[1], parts[2]
+        target: Optional[int] = None
+        if "@" in site:
+            site, _at, idx_s = site.partition("@")
+            try:
+                target = int(idx_s)
+            except ValueError:
+                raise ValueError(f"Malformed pod qualifier in SART_FAULT entry {entry!r}; "
+                                 "expected site@<process_index>.") from None
+            if target < 0:
+                raise ValueError(f"Pod qualifier must be >= 0, got {target}.")
         if site not in FAULT_SITES:
             raise ValueError(f"Unknown fault site {site!r}; valid: "
                              f"{', '.join(sorted(FAULT_SITES))}.")
@@ -170,6 +203,8 @@ def parse_fault_spec(spec: str) -> Dict[str, _Fault]:
         count = int(parts[3]) if len(parts) == 4 else None
         if count is not None and count < 1:
             raise ValueError(f"Fault count must be >= 1, got {count}.")
+        if target is not None and target != here:
+            continue  # validated, but armed only on the qualified host
         if site in out:
             raise ValueError(f"Fault site {site!r} armed twice in one spec; a site "
                              "holds one fault (arm different sites to combine drills).")

@@ -29,11 +29,13 @@ plain ``--resume``). ``SART_TEST_SOLVE_CKPT_DELAY`` (seconds) holds each
 append's window open after announcing ``SART_SOLVE_CKPT_POINT pre-append
 serial=N`` on stderr, so a drill can kill the run mid-checkpoint.
 
-The per-host files of a multi-process pod (``<base>.h<k>of<n>.jsonl``) and
-their consistency across hosts are not ported (ROADMAP queue A item 1: a
-grid of ranks refuses ``--solve_ckpt_stride``); here a run is one process,
-its file ``<base>`` itself, and :func:`newest_consistent_serial` reads that
-one file.
+Each pod process writes a file of its own, :func:`host_path`:
+``<base>.h<k>of<n>.jsonl``, and plain ``<base>`` where the pod has one
+process (the JAX package's names, so either package resumes the other's
+files). A serial is *consistent* only where every host's
+file holds a valid record of it: :func:`newest_consistent_serial` is the
+pod-wide resume point, so a host killed mid-append (a torn tail) or before
+its append drops the pod back one stride.
 """
 
 from __future__ import annotations
@@ -97,12 +99,23 @@ def decode_state(obj):
     return obj
 
 
+def host_path(base: str, index: int, count: int) -> str:
+    """Host ``index`` of ``count``'s checkpoint file: ``base`` itself for
+    a pod of one process."""
+    if count <= 1:
+        return base
+    return f"{base}.h{index}of{count}.jsonl"
+
+
 class SolveCheckpointStore:
-    """The append-only checkpoint file of one run, with torn-tail and CRC
+    """One host's append-only checkpoint file, with torn-tail and CRC
     fallback."""
 
-    def __init__(self, path: str):
-        self.path = path
+    def __init__(self, base: str, index: int = 0, count: int = 1):
+        self.base = base
+        self.index = index
+        self.count = count
+        self.path = host_path(base, index, count)
 
     def save(self, serial: int, state: dict) -> bool:
         """Append the stride-``serial`` checkpoint, flushed and fsynced,
@@ -195,12 +208,17 @@ class SolveCheckpointStore:
             pass  # compaction is advisory; the next save retries
 
 
-def newest_consistent_serial(path: str) -> Optional[int]:
-    """The newest valid serial of the run's checkpoint file, or None: the
-    one-host case of the JAX package's pod-wide intersection."""
-    serials = SolveCheckpointStore(path).serials()
-    return serials[-1] if serials else None
+def newest_consistent_serial(base: str, count: int = 1) -> Optional[int]:
+    """The newest serial valid in every one of ``count`` hosts' files, or
+    None: the pod's resume point (no repair step, no coordinator)."""
+    common: Optional[set] = None
+    for index in range(max(count, 1)):
+        serials = set(SolveCheckpointStore(base, index, count).serials())
+        common = serials if common is None else (common & serials)
+        if not common:
+            return None
+    return max(common)
 
 
 __all__ = ["SolveCheckpointStore", "SOLVE_CKPT_VERSION", "KEEP_RECORDS",
-           "encode_state", "decode_state", "newest_consistent_serial"]
+           "encode_state", "decode_state", "host_path", "newest_consistent_serial"]

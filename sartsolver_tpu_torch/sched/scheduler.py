@@ -60,6 +60,11 @@ Contracts kept from the grouped loop:
   its lane reset to inert, and emission resumes there. The stats counters
   carry across, so serials stay monotonic over a resume.
 
+- **Pod rendezvous** (``stride_barrier``, the CLI's file-mode pod): called
+  with the stride count at every stride boundary, after the checkpoint (a
+  host killed after the barrier has its record durable; one killed inside
+  the append leaves the pod a stride back).
+
 While :meth:`ContinuousBatcher.run` drives, the lanes' occupancy and
 in-flight frame serials feed the heartbeat line and the SIGUSR1 status
 snapshot (``watchdog.set_sched_status_provider``).
@@ -169,11 +174,13 @@ class ContinuousBatcher:
                  stop_check: Optional[Callable[[], bool]] = None,
                  integrity_policy=None, ckpt_stride: Optional[int] = None,
                  ckpt_sink: Optional[Callable[[int, dict], None]] = None,
+                 stride_barrier: Optional[Callable[[int], None]] = None,
                  restore: Optional[dict] = None, restore_emitted: int = 0):
         if lanes < 1:
             raise ValueError("Lane count must be positive.")
         self._ckpt_stride = int(ckpt_stride) if ckpt_stride else None
         self._ckpt_sink = ckpt_sink
+        self._stride_barrier = stride_barrier
         self._restore = restore
         self._restore_emitted = int(restore_emitted)
         self._solver = solver
@@ -441,6 +448,8 @@ class ContinuousBatcher:
             if (self._ckpt_sink is not None and self._ckpt_stride
                     and stats.strides % self._ckpt_stride == 0):
                 self._ckpt_sink(stats.strides, self._snapshot(lane_state))
+            if self._stride_barrier is not None:
+                self._stride_barrier(stats.strides)
         return stats
 
     # ---- in-solve checkpoints ---------------------------------------------

@@ -6,8 +6,8 @@ schedule for every seed (faults, kill plan, slowed windows), from the safe
 fault pool only; ``line_window`` reads the same windows from the same lines;
 the CLI's usage errors carry the JAX words and exit codes; the judge has
 teeth (a doubled completed marker and a lost request each violate an
-invariant). ``--pod N`` is refused with its own words and exit 1 (the port
-has no pod barriers). End to end: ``chaos`` on the JAX CI seeds through the
+invariant). The pod campaign (``--pod N``) is tested in
+``tests/test_torch_pod_chaos.py``. End to end: ``chaos`` on the JAX CI seeds through the
 port's ``serve --supervised``: every seed's kill fired, restarts within the
 kills, each request exactly once, outputs byte-identical to an undisturbed
 run, the counters and the SLO pair continuous across incarnations.
@@ -128,17 +128,6 @@ def test_chaos_cli_unknown_flag_exits_1(capsys):
     with pytest.raises(SystemExit) as err:
         chaos_main(["--seeds", "1", "--", "f.h5"])  # --engine_dir missing
     assert err.value.code == 1
-
-
-def test_chaos_pod_is_refused_with_its_words(tmp_path, capsys):
-    """The pod campaign needs the pod barriers of a multi-host solve, which
-    the port lacks: exit 1 with its own message, nothing run."""
-    assert chaos_main(["--engine_dir", str(tmp_path / "c"), "--pod", "2", "--",
-                       "--use_cpu", "x.h5"]) == 1
-    err = capsys.readouterr().err
-    assert "--pod is not ported to this package" in err
-    assert "pod barriers" in err
-    assert not os.path.exists(tmp_path / "c")
 
 
 # ---------------------------------------------------------------------------

@@ -836,21 +836,6 @@ def test_serve_refuses_a_socket_path_too_long_for_af_unix(world, tmp_path, capsy
     assert "session resident" not in err.out
 
 
-@pytest.mark.parametrize("argv,words", [
-    (["chaos", "--engine_dir", "e", "--pod", "2", "--", "--use_cpu", "a.h5"],
-     "--pod is not ported"),
-])
-def test_unported_subcommands_refuse(argv, words, capsys):
-    """Of the serving subcommands only the pod campaign refuses (it needs
-    the pod barriers of a multi-host solve); ``serve --supervised``,
-    ``fleet`` and ``chaos`` run (tests/test_torch_supervisor.py,
-    test_torch_fleet.py, test_torch_chaos.py)."""
-    from sartsolver_tpu_torch.cli import main as cli_main
-
-    assert cli_main(argv) == 1
-    assert words in capsys.readouterr().err
-
-
 CRASH_REQUESTS = [
     {"id": "cr1", "tenant": "a", "time_range": "0.05:0.25"},
     {"id": "cr2", "tenant": "b"},

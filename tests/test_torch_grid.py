@@ -278,7 +278,6 @@ REFUSALS = [
     (dict(lowrank_rtm="4"), (2, 1), {}, "Argument lowrank_rtm factors"),
     (dict(), (1, 2), dict(geometry=True), "Argument geometry is single-process"),
     (dict(os_subsets=2), (2, 1), {}, "Argument os_subsets=2"),
-    (dict(), (2, 1), dict(resume=True), "cannot resume"),
     (dict(integrity=True), (1, 2), {}, "Argument integrity"),
     (dict(), (2, 1), dict(debug_nans=True), "Argument debug_nans"),
     (dict(rtm_dtype="int8"), (2, 1), {}, "so per-column maxima stay process-local"),

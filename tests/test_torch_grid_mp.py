@@ -122,7 +122,6 @@ CLI_REFUSALS = [
      "Argument sparse_rtm=auto"),
     ("lowrank", ["--device", "cpu", "--lowrank_rtm", "4", "--voxel_shards", "2"],
      "Argument lowrank_rtm factors"),
-    ("resume", ["--use_cpu", "--resume", "--pixel_shards", "2"], "cannot resume"),
     ("integrity", ["--use_cpu", "--integrity", "--pixel_shards", "2"], "Argument integrity"),
     ("debug_nans", ["--use_cpu", "--debug_nans", "--voxel_shards", "2"],
      "Argument debug_nans"),

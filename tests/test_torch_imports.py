@@ -172,7 +172,7 @@ def test_chip_smoke_world_and_checks_at_small_size(tmp_path):
         assert 0 < entry["scheduled"]["occupancy"] <= 1
         assert entry["classic"]["loop_iterations"] > 0
         for kind in ("scheduled", "classic"):
-            assert len(entry[kind]["cli_ms_per_frame_in_turns"]) == 2
+            assert len(entry[kind]["cli_ms_per_frame_in_turns"]) == 1
     assert set(frames["int8"]) >= {"four_lanes", "chain"}
     assert set(frames["float32"]) >= {"chain", "sixteen_lanes", "thirty_two_lanes"}
     for name in ("sixteen_lanes", "thirty_two_lanes"):

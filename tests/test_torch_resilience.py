@@ -68,15 +68,19 @@ def test_fault_spec_parsing_and_validation():
                 "hdf5.frame_read:io:0", "hdf5.frame_read:io:2",
                 "hdf5.frame_read:io", "hdf5.frame_read:io:1:0",
                 "io.flush:io:1,io.flush:error:1",
-                "multihost.init:error:1"):  # a JAX site the port does not arm
+                "multihost.inits:error:1"):  # a real unknown site
         with pytest.raises(ValueError):
             faults.parse_fault_spec(bad)
+    assert set(faults.parse_fault_spec("multihost.init:error:1,pod.barrier:hang:1:1")) \
+        == {"multihost.init", "pod.barrier"}
     assert faults.FAULT_SITES == {
         "hdf5.frame_read", "hdf5.rtm_ingest", "prefetch.next", "device.put",
         "solve.dispatch", "io.flush", "device.buffer", "solve.checkpoint",
         # the serving engine's four seams
-        "request.parse", "journal.append", "session.attach", "state.checkpoint"}
-    assert faults.FAULT_SITES <= jfaults.FAULT_SITES
+        "request.parse", "journal.append", "session.attach", "state.checkpoint",
+        # the pod's: the process group's start and a pod rendezvous
+        "multihost.init", "pod.barrier"}
+    assert faults.FAULT_SITES == jfaults.FAULT_SITES
     assert faults.FAULT_KINDS == jfaults.FAULT_KINDS
 
 
