@@ -9,7 +9,9 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
 2. ``build``: every ``csrc/*.cu`` of the package built with ``nvcc``, in
    parallel, into ``build/sartsolver_tpu_torch/``, while the host writes
    the ``solve`` phase's world and the ``operators`` phase's reflective
-   world. Then ``audit`` (4b' below), the first phase to use the profiler.
+   world. Then ``audit`` (4b' below), the first phase to use the profiler,
+   and right after it the split kernels of phase ``grid`` (4c'), whose
+   kernels a call also come from the profiler.
 3. ``kernels``: the fused-sweep kernel against its plain PyTorch version on
    the card, for each storage type (B1/B2 fp32, B3 bf16, B4 int8 codes with
    their scales), linear and log, with and without the penalty, at the main
@@ -293,7 +295,10 @@ it), and exits non-zero without them. Phases, each printing one JSON line:
    ``sharded_sweep_finish`` against their plain versions (linear with the
    penalty and log), the pair at one rank bit for bit against ``two_read``,
    each timed beside its bound, its plain version and one ``torch.matmul``
-   on the fp32 block; the kernel-vs-plain parity on a 2x1 grid by the first
+   on the fp32 block, each call's CUDA kernels and device ms from the
+   profiler's trace (the route's kernels a call: one on the cluster route,
+   ``split_route``; the library's device ms beside fp32's); the
+   kernel-vs-plain parity on a 2x1 grid by the first
    run's ranks (``utils/fused_parity.py``, ``GRID_PARITY``), each path also
    against the fp64 solve of that grid (``FP64_RATIO``); the CLI under
    ``python -m torch.distributed.run`` (this script as each rank,
@@ -2869,6 +2874,48 @@ def _device_profile(fn, calls: int = 5) -> dict:
     return dict(ms_by_kernel=out, kernels_per_call=len(out))
 
 
+def _trace_profile(fn, calls: int = 5, attempts: int = 3) -> dict:
+    """From ``torch.profiler``'s exported trace over ``calls`` calls of
+    ``fn`` after one warm-up (the trace keeps every kernel record, where the
+    event tree can drop one it cannot tie to its launch): the CUDA kernels a
+    call (records over calls), and the device ms a call, by kernel and in
+    all. A session whose kernel records are not whole calls (none at all,
+    or a part of one call's: the profiler now and then drops records,
+    PERF.md §7) is taken again, ``attempts`` in all; a call's kernels are
+    the same every call, so a kernel that launches more than its count
+    still shows it."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        n = sum(e.get("cat") == "kernel" for e in events)
+        if n and n % calls == 0:
+            break
+    by_kernel, records = {}, 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "").removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + float(e.get("dur", 0.0)) / 1e3 / calls
+        records += 1
+    return dict(ms_by_kernel=by_kernel, kernels_per_call=records / calls,
+                device_ms=sum(by_kernel.values()))
+
+
 def _bound(H, w, aux, scale, plan, rates) -> dict:
     """The least time of one sweep at this shape: its bytes (each input
     read once, each output written once) at the memory rate against its
@@ -4099,12 +4146,15 @@ def split_kernels(rates, P: int = 4096, V: int = 65536) -> dict:
     pair at one rank bit for bit against ``two_read`` (the sum of one
     rank's partials is the whole bp), each kernel timed beside its bound,
     its plain version and its library call (one ``torch.matmul`` on an fp32
-    copy of the block)."""
+    copy of the block), and each call's CUDA kernels from ``torch.profiler``
+    (``kernels_per_call``, with their device ms): the route's
+    (``split_route``: one kernel a call on the cluster route), else the
+    phase fails."""
     import torch
 
     from sartsolver_tpu_torch.ops.fused_sweep import (
-        _sweep, sharded_sweep_bp, sharded_sweep_bp_reference, sharded_sweep_finish,
-        sharded_sweep_finish_reference,
+        SPLIT_KERNELS_PER_CALL, _sweep, sharded_sweep_bp, sharded_sweep_bp_reference,
+        sharded_sweep_finish, sharded_sweep_finish_reference, split_route,
     )
 
     out = {}
@@ -4153,10 +4203,24 @@ def split_kernels(rates, P: int = 4096, V: int = 65536) -> dict:
             Hd = H.float() if scale is None else H.float().mul_(scale)
             bp_t["library_ms"] = _median_ms(lambda: torch.matmul(w, Hd))
             fin_t["library_ms"] = _median_ms(lambda: torch.matmul(f, Hd.T))
+            if storage == "float32":  # the library's device time beside the kernels'
+                bp_t["library_device_ms"] = _trace_profile(
+                    lambda: torch.matmul(w, Hd))["device_ms"]
+                fin_t["library_device_ms"] = _trace_profile(
+                    lambda: torch.matmul(f, Hd.T))["device_ms"]
             del Hd
             fin_t["pair_ms"] = bp_t["ms"] + fin_t["ms"]
             fin_t["two_read_ms"] = _median_ms(
                 lambda: _sweep(H, w, f, aux, plan="two_read", **kw))
+            route = split_route(P, V, 1, storage)
+            for t, call in ((bp_t, lambda: sharded_sweep_bp(H, w)),
+                            (fin_t, lambda: sharded_sweep_finish(H, f, bp_ref, aux, **kw))):
+                prof = _trace_profile(call)
+                t.update(route=route, kernels_per_call=prof["kernels_per_call"],
+                         device_ms=prof["device_ms"], device_ms_by_kernel=prof["ms_by_kernel"])
+                if prof["kernels_per_call"] != SPLIT_KERNELS_PER_CALL[route]:
+                    raise AssertionError(f"split sweep {storage}: {prof} on the {route} "
+                                         "route")
             out[storage] = dict(bp=bp_t, finish=fin_t, shape=[P, V, 1])
             del H, w, f, aux, scale, bp_ref
             torch.cuda.empty_cache()
@@ -4164,9 +4228,12 @@ def split_kernels(rates, P: int = 4096, V: int = 65536) -> dict:
     return out
 
 
-def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
+def grid_phase(world, outdir: str, kernels=None, kernels_s: float = 0.0,
+               device: str = "cuda") -> dict:
     """The solve over a grid of ranks (module docstring, phase ``grid``):
-    the split kernels (:func:`split_kernels`), then the CLI under torchrun
+    the split kernels' record (:func:`split_kernels`, taken by ``main``
+    right after the audit, while the profiler still records every kernel,
+    and reported here with its seconds), then the CLI under torchrun
     for each of ``GRID_RUNS`` on the world's first ``GRID_FRAMES`` frames
     against the one-rank runs of the solve phase, the first run's ranks
     then holding the kernel path against the plain one and both against
@@ -4178,13 +4245,7 @@ def grid_phase(world, outdir: str, rates, device: str = "cuda") -> dict:
     from sartsolver_tpu_torch.ops.fused_sweep import plan_sweep
 
     card = device == "cuda"
-    t0 = time.perf_counter()
-    kernels = split_kernels(rates) if card else {}
-    kernels_s = time.perf_counter() - t0
-    if card:
-        import torch
-
-        torch.cuda.empty_cache()
+    kernels = kernels if card else {}
     p = world["paths"]
     inputs = [p["rtm_a_seg1"], p["rtm_a_seg2"], p["rtm_b"], p["img_a"], p["img_b"]]
     P, V = world["H"].shape
@@ -5419,6 +5480,11 @@ def main() -> int:
         # then a call's after debug_nans), and the audit's agreement needs
         # every one (PERF.md section 7)
         emit("audit", **audit_phase(world))
+        # the split kernels' profiled kernels a call, in the same clean window
+        t0 = time.perf_counter()
+        split = split_kernels(PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        split_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         errors, timing = kernel_phase(card)
 
         p = world["paths"]
@@ -5536,7 +5602,7 @@ def main() -> int:
         t0 = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
-        grid = grid_phase(world, tmp, rates=PEAKS["PCIe" if "PCIe" in card else "SXM"])
+        grid = grid_phase(world, tmp, kernels=split, kernels_s=split_s)
         emit("grid", seconds=time.perf_counter() - t0, **grid)
 
         # frame 0 of the linear run, through the kernel and the plain version
@@ -5698,6 +5764,8 @@ def main() -> int:
             "max_abs_err": k[f"max_abs_err_{which}"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": k["shape"], "storage": "float32",
+            "route": t["route"], "kernels_per_call": t["kernels_per_call"],
+            "device_ms": t["device_ms"],
             "variant": "the pixel-sharded sweep, split at the all-reduce"})
     # the fused sweep at the serving engine's lanes: B = 2 (the main server)
     # and B = 4 (the SIGTERM drill's restart); launches: those servers'

@@ -21,8 +21,10 @@ per-iteration counts as the difference over K:
   opaque event: what runs inside (the plain version's steps on the CPU,
   the output allocations and host staging on the card) is not the loop's;
 - on the card, the launches by plan (``ops/fused_sweep.py:
-  launches_by_plan``) and a ``torch.profiler`` pass over the CUDA kernels
-  of the port's own sources (``ops/csrc/*.cu``), which must agree.
+  launches_by_plan``; the split sweep's by route, ``launches_by_route``) and
+  a ``torch.profiler`` pass over the CUDA kernels of the port's own sources
+  (``ops/csrc/*.cu``), which must agree: each call of the fused or the
+  split sweep exactly its plan's or route's kernels.
 
 Beside the invariants, and not gated: the aten ops and the elements
 converted per iteration (the OS cycle's upcast of reduced-precision
@@ -63,6 +65,7 @@ _COPY_OPS = ("clone", "copy_", "_to_copy", "_copy_from", "_copy_from_and_resize"
 # CUDA kernels that belong to fused_sweep.cu, by calls of each plan (PERF.md
 # section 6: one_read 2 kernels a call, tensor_core 4, two_read 5)
 KERNELS_PER_CALL = {"one_read": 2, "tensor_core": 4, "two_read": 5}
+_SPLIT_WRAPPERS = ("sharded_sweep_bp", "sharded_sweep_finish")
 
 
 @dataclasses.dataclass
@@ -186,9 +189,10 @@ def _launch_counters() -> Dict[str, int]:
     from sartsolver_tpu_torch.ops import fused_sweep as fs
 
     out = {f"fused_sweep:{plan}": n for plan, n in fs.fused_sweep.launches_by_plan.items()}
-    out.update(sharded_sweep_bp=fs.sharded_sweep_bp.launches,
-               sharded_sweep_finish=fs.sharded_sweep_finish.launches,
-               implicit_forward=implicit.implicit_forward.launches,
+    for wrapper in (fs.sharded_sweep_bp, fs.sharded_sweep_finish):
+        out.update({f"{wrapper.__name__}:{route}": n
+                    for route, n in wrapper.launches_by_route.items()})
+    out.update(implicit_forward=implicit.implicit_forward.launches,
                implicit_back=implicit.implicit_back.launches)
     return out
 
@@ -315,22 +319,28 @@ def measure_entry(entry: AuditEntry, run, shape: AuditShape, *, k: int = AUDIT_I
 def _agreement(it: dict, launches: dict) -> List[str]:
     """The port's launch counts against the profiler's CUDA kernels: both
     zero or both not; the fused sweep's calls exactly its plans' kernels
-    (``KERNELS_PER_CALL``); any other wrapper at least one kernel a call."""
+    (``KERNELS_PER_CALL``) and the split sweep's exactly its routes'
+    (``ops/fused_sweep.py:SPLIT_KERNELS_PER_CALL``); any other wrapper at
+    least one kernel a call."""
+    from sartsolver_tpu_torch.ops.fused_sweep import SPLIT_KERNELS_PER_CALL
+
     kernels = sum(it["cuda_kernels"].values())
     plans = it["launches_by_plan"]
-    fused = {name.split(":", 1)[1]: n for name, n in plans.items()
-             if name.startswith("fused_sweep:") and n}
     counted = sum(plans.values())
     if counted and not kernels:
         return [f"launch counters moved ({plans}) but the profiler saw no CUDA kernel of "
                 "the port's sources (a vacuous pass is a failure)"]
     if kernels and not counted:
         return [f"the profiler saw {it['cuda_kernels']} but no launch was counted"]
-    if set(launches) == {"fused_sweep"}:
-        want = sum(n * KERNELS_PER_CALL[plan] for plan, n in fused.items())
+    calls = {name: n for name, n in plans.items() if n}
+    if set(launches) <= {"fused_sweep", *_SPLIT_WRAPPERS}:
+        per_call = {f"fused_sweep:{plan}": k for plan, k in KERNELS_PER_CALL.items()}
+        per_call.update({f"{w}:{route}": k for w in _SPLIT_WRAPPERS
+                         for route, k in SPLIT_KERNELS_PER_CALL.items()})
+        want = sum(n * per_call[name] for name, n in calls.items())
         if kernels != want:
-            return [f"{kernels} CUDA kernel(s) an iteration against {fused} calls "
-                    f"({want} by the plans' kernels a call)"]
+            return [f"{kernels} CUDA kernel(s) an iteration against {calls} calls "
+                    f"({want} by the plans' and routes' kernels a call)"]
     elif kernels < counted:
         return [f"{kernels} CUDA kernel(s) an iteration for {counted} counted launch(es)"]
     return []

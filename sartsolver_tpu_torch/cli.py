@@ -884,7 +884,7 @@ def build_solver(args, inputs: SolveInputs, device, *, telem=None,
         with obs_trace.span("ingest.lowrank_factorize", npixel=npixel, nvoxel=nvoxel):
             lowrank_op = lowrank_operator_or_decline(
                 opts, sorted_matrix_files, rtm_name, npixel, nvoxel, laplacian=lap,
-                device=device)
+                device=device, process_count=ranks.world, n_voxel_shards=ranks.n_vox)
     if geometry_record is not None:
         # no RTM ingest: the operator's device state is the ray table
         from sartsolver_tpu_torch.operators.implicit import ImplicitOperator
@@ -928,7 +928,8 @@ def build_solver(args, inputs: SolveInputs, device, *, telem=None,
         # the block-sparse index's tile maxima, taken by the ingest where
         # the stored rows lie ('auto' declines here on a flag, with a
         # warning)
-        tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel)
+        tile_stats = sparse_tile_stats_or_decline(opts, npixel, nvoxel,
+                                                  process_count=ranks.world)
         with obs_trace.span("ingest.rtm", npixel=npixel, nvoxel=nvoxel):
             rtm_scale = None
             # on a grid each rank reads its own block, in turns unless
@@ -1518,6 +1519,11 @@ def _run(args, telem, summary, rank, quiet) -> int:
                 # survivors see a dead peer
                 pod_idx, pod_count = mh.pod_identity()
                 markers = bool(os.environ.get("SART_TEST_POD_MARKERS"))
+                # the drills' hold: at this stride serial the host stops after
+                # its marker, short of the barrier, until the drill's kill
+                # lands (a minute at most), so its peers meet that barrier
+                # without it whatever the machine's load
+                hold = int(os.environ.get("SART_TEST_POD_HOLD") or 0)
                 ckpt_base = (os.environ.get("SART_SOLVE_CKPT_FILE")
                              or f"{args.output_file}.solveckpt")
                 store = restore = restore_serial = stride_barrier = None
@@ -1528,6 +1534,8 @@ def _run(args, telem, summary, rank, quiet) -> int:
                         if markers:  # the drills' kill window: mid-stride
                             sys.stderr.write(f"SART_POD_POINT stride serial={serial}\n")
                             sys.stderr.flush()
+                            if serial == hold:
+                                _time.sleep(60)
                         mh.pod_barrier(f"stride.{serial}")
 
                 # on --resume the newest record valid on every host of the

@@ -57,8 +57,10 @@
 //
 // A rank of a pixel-sharded grid runs the sweep split at the all-reduce of
 // its partial bp (sart_sharded_bp, then the caller's reduction, then
-// sart_sharded_finish), through two_read's kernels (see "The pixel-sharded
-// sweep" below); it has no Pallas counterpart (the JAX package's panel scan,
+// sart_sharded_finish): one kernel a call on the cluster route (namespace
+// split) where its rule holds, else two_read's kernels (see "The
+// pixel-sharded sweep" below), both in two_read's order of summation; it
+// has no Pallas counterpart (the JAX package's panel scan,
 // sartsolver_tpu/ops/fused_sweep.py:270, is plain XLA).
 
 #include <cooperative_groups.h>
@@ -68,20 +70,22 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
 #include <cmath>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
 
-// SART_PART 0 (the default) builds the whole library in one unit. 1 to 5
+// SART_PART 0 (the default) builds the whole library in one unit. 1 to 6
 // each build one share of its kernel instances, which ops/_build.py
 // compiles at once and links into one library: two_read with the
 // pixel-sharded sweep for fp32 (1, which also holds the C interface), bf16
-// (2) and int8 (3), one_read (4) and tensor_core (5). The C interface
+// (2) and int8 (3), one_read (4), tensor_core (5) and the pixel-sharded
+// sweep's cluster route (6). The C interface
 // reaches the other parts' kernels through the sart_part_* entry points at
 // the end of the file; every part compiles the same host code, so an Args
 // means the same bytes in each.
-// sart-build-parts: 5
+// sart-build-parts: 6
 #ifndef SART_PART
 #define SART_PART 0
 #endif
@@ -1649,6 +1653,500 @@ sweep_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__
 }  // namespace one_read
 
 // ---------------------------------------------------------------------------
+// The pixel-sharded sweep's cluster route: sart_sharded_bp and
+// sart_sharded_finish in one kernel a call each, for B <= 4 with H's rows
+// 16-byte aligned where two_read's splits of P number at most 8
+// (ops/fused_sweep.py:split_route; the other shapes take two_read's kernels,
+// "The pixel-sharded sweep" below). No Pallas kernel is its counterpart:
+// the JAX package's pixel-sharded sweep is plain XLA
+// (sartsolver_tpu/ops/fused_sweep.py:270). Every sum is taken in two_read's
+// order, so the route gives two_read's bytes:
+//
+//   bp_kernel: a CTA owns a strip of LANES 16-byte pieces of each row (64,
+//     32 or 16 lanes: 256 columns of fp32 up to 1024 of int8) and one of
+//     two_read's S splits of P. Row group g of 4 sums the split's rows g,
+//     g + 4, ... in ascending order, as in two_read::bp_kernel, one lane a
+//     16-byte piece; the groups meet as (q0 + q1) + (q2 + q3) in shared
+//     memory. The S splits of a strip form one thread-block cluster and meet
+//     in split order through distributed shared memory: each CTA sums a
+//     share of the strip's columns from every CTA's shared memory and writes
+//     bp; no partials leave the cluster. LANES is the largest that still
+//     puts about two CTAs on every SM (fp32 64, bf16 32, int8 16 at V =
+//     65536: 256 CTAs each), so every storage covers the SMs; a thread's
+//     bytes of a row stay 16 whatever the storage (fewer bytes a row a
+//     thread, or one row group a CTA, measured slower: PERF.md §6).
+//   finish_kernel: a CTA owns a row block of 64 pixel rows of one of
+//     two_read's S2 splits of V at a time; CL CTAs of neighbouring row blocks
+//     and the same split form a cluster. Each CTA computes the update (bp
+//     rounded times the scale for codes, f_new, the forward operand) for its
+//     share of the split's columns once and stores the operand into the
+//     shared memory of every CTA of the cluster, permuted as the forward
+//     reads it; the split's first cluster writes f_new. The operand never
+//     goes through device memory. The clusters are persistent (as many as
+//     the card holds, divided among the splits), each walking its split's
+//     row blocks, so the update runs once a cluster. The forward pass is
+//     two_read::forward_kernel's: lane kl of 8 sums piece kl of each
+//     128-byte step of a row in ascending order and the 8 lanes meet in the
+//     same butterfly. The S2 splits of a row meet in split order through
+//     partials [S2, B, P] in device memory, summed by whichever CTA of the
+//     row block arrives last (a counter per row block, which that CTA
+//     resets): a cluster cannot hold both a split's row blocks, which share
+//     its operand, and a row block's S2 splits.
+//
+// Both stream H through a ring of shared-memory stages that a producer
+// warp's lane 0 fills with one 2D TMA box a stage (cp.async.bulk.tensor, H seen as
+// 32-bit words; rows past P and words past a row read as zeros), completing
+// on the stage's mbarrier; the consumer warps hand a stage back on a second
+// mbarrier. w is read in place (at most 4 loads a row, from L1). Row
+// segments copied one cp.async.bulk each (512 bytes to 1 KB) held a CTA to
+// half the rate a box reaches (PERF.md §6).
+//
+// What bounds them: one read of the rank's block (bytes): 4096 x 65536 fp32
+// is 1.07 GB, 0.321 ms at the H100 SXM's 3.35 TB/s.
+// ---------------------------------------------------------------------------
+namespace split {
+
+constexpr int kSMs = 132;
+constexpr int kMaxB = 4;
+constexpr int kMaxCluster = 8;
+// bp
+constexpr int kBpStageBytes = 16384;  // of H a stage
+// stages of the ring: 96 KB where two CTAs share an SM, 192 KB where the
+// grid puts one on each
+#ifndef SART_SPLIT_BP_STAGES
+#define SART_SPLIT_BP_STAGES 6
+#endif
+constexpr int kBpStagesShared = SART_SPLIT_BP_STAGES;
+constexpr int kBpStagesAlone = 2 * SART_SPLIT_BP_STAGES < 13 ? 2 * SART_SPLIT_BP_STAGES : 13;
+constexpr int kBpBarriers = 1024;  // the barriers' bytes before the ring
+constexpr int kTargetCtas = 2 * kSMs * 9 / 10;  // about two CTAs on every SM
+// finish
+constexpr int kFwdRows = 64;          // a row block: 8 warps x 4 row lanes x 2 rows
+constexpr int kFwdR = 2;              // rows a lane
+constexpr int kFwdWarps = 8;
+constexpr int kFwdConsumers = 32 * kFwdWarps;
+constexpr int kFwdThreads = kFwdConsumers + 32;  // and the producer warp
+#ifndef SART_SPLIT_FWD_STAGES
+#define SART_SPLIT_FWD_STAGES 4
+#endif
+constexpr int kFwdStages = SART_SPLIT_FWD_STAGES;
+
+using one_read::smem_addr;
+
+__device__ __forceinline__ void mbar_init_n(unsigned long long* bar, unsigned n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+// a barrier of the `n` consumer threads alone (the producer may have left)
+template <int n>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(n) : "memory");
+}
+
+// Elements 4j .. 4j + 3 of a 16-byte piece of H as fp32 (two_read::quad_of
+// with j a value: the loops that call it are unrolled)
+template <typename T>
+__device__ __forceinline__ void quad_at(const uint4& q, int j, float (&h)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    h[0] = __uint_as_float(q.x);
+    h[1] = __uint_as_float(q.y);
+    h[2] = __uint_as_float(q.z);
+    h[3] = __uint_as_float(q.w);
+  } else if constexpr (sizeof(T) == 2) {
+    unpack<T>(two_read::word_of(q, 2 * j), h);
+    unpack<T>(two_read::word_of(q, 2 * j + 1), h + 2);
+  } else {
+    unpack<T>(two_read::word_of(q, j), h);
+  }
+}
+
+// The bp kernel's shape for storage type T and LANES lanes a row group
+template <typename T, int LANES>
+struct BpShape {
+  static constexpr int kConsumers = 4 * LANES;        // 4 row groups
+  static constexpr int kThreads = kConsumers + 32;    // and the producer warp
+  static constexpr int kWarps = kConsumers / 32;
+  static constexpr int CPT = 16 / (int)sizeof(T);     // columns a lane
+  static constexpr int Cols = LANES * CPT;            // columns a strip
+  static constexpr int kStrip = LANES * 16;           // bytes of a row
+  static constexpr int Kt = kBpStageBytes / kStrip;   // rows a stage (the box)
+  static constexpr int KW = (Kt + 31) / 32;           // a lane's weights a stage
+  static constexpr int smem(int stages) { return kBpBarriers + stages * kBpStageBytes; }
+  static_assert(Kt % 4 == 0 && Kt <= 256 && kStrip / 4 <= 256, "split: bp shape");
+  static_assert(2 * kBpStagesAlone * 8 <= kBpBarriers, "split: bp barriers");
+};
+
+// bp[b, v] = sum of w[b, p] H[p, v] in two_read's order. Grid: strips x S,
+// one cluster of the S splits of a strip (cluster rank = split).
+template <typename T, int MB, int LANES>
+__global__ void __launch_bounds__(BpShape<T, LANES>::kThreads)
+bp_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__ w,
+          float* __restrict__ bp, int P, int V, int B, int rows_per_split, int stages) {
+  using K = BpShape<T, LANES>;
+  constexpr int Cols = K::Cols, CPT = K::CPT, Kt = K::Kt, KW = K::KW, kSlot = MB * Cols;
+  extern __shared__ __align__(1024) unsigned char smem_base[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_base);
+  unsigned long long* empty = full + stages;
+  unsigned char* smem = smem_base + kBpBarriers;  // the ring
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int s = (int)cluster.block_rank();
+  const int strip = blockIdx.x / S;
+  const long long n0 = (long long)strip * Cols;
+  const int p0 = s * rows_per_split, p1 = min(P, p0 + rows_per_split);
+  const int n_it = (p1 - p0 + Kt - 1) / Kt;
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init_n(&full[k], 1);
+      mbar_init_n(&empty[k], K::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool consumer = t < K::kConsumers;
+  const int lg = t / LANES, l = t % LANES;  // a consumer's row group and lane
+  float acc[MB][CPT];
+#pragma unroll
+  for (int b = 0; b < MB; ++b)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[b][c] = 0.0f;
+
+  if (!consumer) {  // the producer warp: its lane 0 issues a box a stage
+    for (int it = 0; it < n_it; ++it) {
+      const int k = it % stages;
+      if (it >= stages) one_read::mbar_wait(&empty[k], ((it / stages) - 1) & 1);
+      if (t == K::kConsumers) {
+        one_read::mbar_expect(&full[k], (unsigned)kBpStageBytes);
+        one_read::tma_load(smem + k * kBpStageBytes, &hmap, &full[k],
+                           strip * (K::kStrip / 4), p0 + it * Kt);
+      }
+      __syncwarp();
+    }
+  } else {
+    // a stage's weights, one coalesced load a warp ahead of the stage: lane
+    // i holds row r0 + 32 m + i of each batch row in wn[m][b], which the
+    // row's lanes take by a shuffle
+    const int lane = t & 31;
+    float wn[KW][MB];
+    auto fetch_w = [&](int it) {
+#pragma unroll
+      for (int m = 0; m < KW; ++m) {
+        const int i = 32 * m + lane, p = p0 + it * Kt + i;
+#pragma unroll
+        for (int b = 0; b < MB; ++b)
+          wn[m][b] = (b < B && i < Kt && p < p1) ? __ldg(w + (long long)b * P + p) : 0.0f;
+      }
+    };
+    fetch_w(0);
+    for (int it = 0; it < n_it; ++it) {
+      const int k = it % stages;
+      float wc[KW][MB];
+#pragma unroll
+      for (int m = 0; m < KW; ++m)
+#pragma unroll
+        for (int b = 0; b < MB; ++b) wc[m][b] = wn[m][b];
+      if (it + 1 < n_it) fetch_w(it + 1);
+      one_read::mbar_wait(&full[k], (it / stages) & 1);
+      const unsigned char* st = smem + k * kBpStageBytes + l * 16;
+      const int r0 = p0 + it * Kt;
+#pragma unroll
+      for (int jj = 0; jj < Kt / 4; ++jj) {
+        const int j = 4 * jj + lg;  // row group lg: the split's rows lg, lg + 4, ...
+        float wv[MB];
+#pragma unroll
+        for (int b = 0; b < MB; ++b)  // j / 32 == jj / 8: lg < 4
+          wv[b] = __shfl_sync(0xffffffffu, wc[jj / 8][b], j % 32);
+        if (r0 + j < p1) {
+          float hv[CPT];
+          two_read::load_cols<T, CPT>(reinterpret_cast<const T*>(st + j * K::kStrip), hv);
+#pragma unroll
+          for (int b = 0; b < MB; ++b)
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) acc[b][c] = fmaf(wv[b], hv[c], acc[b][c]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[k]);
+    }
+  }
+  __syncthreads();  // every stage has landed and been read: the ring is free
+
+  // (q0 + q1) + (q2 + q3) in the ring's memory; slot 1 then holds the
+  // split's sum, [MB][Cols], which the cluster reads
+  float* red = reinterpret_cast<float*>(smem);
+  auto at = [&](int k, int b, int c) -> float& {
+    return red[k * kSlot + b * Cols + l * CPT + c];
+  };
+  if (consumer && (lg & 1))
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) at(lg >> 1, b, c) = acc[b][c];
+  __syncthreads();
+  if (consumer && !(lg & 1))
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[b][c] += at(lg >> 1, b, c);
+  __syncthreads();
+  if (consumer && lg == 2)
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) at(0, b, c) = acc[b][c];
+  __syncthreads();
+  if (consumer && lg == 0)
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) at(1, b, c) = acc[b][c] + at(0, b, c);
+  if (S > 1) cluster.sync();
+  else __syncthreads();
+
+  // CTA s writes bp for its share of the strip's columns, the splits
+  // summed in split order
+  float* mine = red + kSlot;
+  const int per = (Cols + S - 1) / S;
+  const int c0 = s * per, n = max(0, min(Cols, c0 + per) - c0);
+  for (int e = t; e < MB * n; e += K::kThreads) {
+    const int b = e / n, c = c0 + (e - b * n);
+    if (b >= B || n0 + c >= V) continue;
+    float* o = mine + b * Cols + c;
+    float total = *cluster.map_shared_rank(o, 0);
+    for (int sp = 1; sp < S; ++sp) total += *cluster.map_shared_rank(o, sp);
+    bp[(long long)b * V + n0 + c] = total;
+  }
+  if (S > 1) cluster.sync();  // no CTA leaves while its slot may be read
+}
+
+// The finish kernel's shape for storage type T and MB batch rows
+template <typename T, int MB>
+struct FwdShape {
+  static constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte piece
+  static constexpr int J = E / 4;                // its float4s of the operand
+  static constexpr int kStep = 8 * E;            // columns of a 128-byte step
+  // bytes of a row a stage (the box's width, at most 256 words): 16 KB
+  // stages, so the ring and a split's operand at B = 1 (96 KB) leave room
+  // for two CTAs an SM
+#ifdef SART_SPLIT_FWD_ROW_BYTES
+  static constexpr int kRowBytes = SART_SPLIT_FWD_ROW_BYTES;
+#else
+  static constexpr int kRowBytes = 256;
+#endif
+  static constexpr int kSteps = kRowBytes / 128;
+  static constexpr int kCols = kRowBytes / (int)sizeof(T);  // columns a stage
+  static constexpr int kStage = kFwdRows * kRowBytes;
+  static constexpr int kRing = kFwdStages * kStage;
+  // the ring, the operand of a split of `cols` columns, the barriers
+  static constexpr int smem(int cols) { return kRing + MB * cols * 4 + 2 * kFwdStages * 8; }
+  static_assert(two_read::kSplitColsAlign % kCols == 0 && kRowBytes / 4 <= 256,
+                "split: forward shape");
+};
+
+// f_new and fitted of the rank's rows from the reduced bp, in two_read's
+// order. Grid: (clusters a split x CL, S2); cluster q of split y walks the
+// split's groups of CL row blocks g = q, q + clusters, ...; its CTA cr takes
+// row block g CL + cr of each.
+template <typename T, int MB>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+finish_kernel(const __grid_constant__ CUtensorMap hmap, const float* __restrict__ scale,
+              const float* __restrict__ f, const float* __restrict__ bp, AuxPanels aux,
+              float* __restrict__ f_new, float* __restrict__ fitted, float* __restrict__ part,
+              unsigned* __restrict__ counters, int P, int V, int B, int cols_per_split,
+              int S2, int mode, int has_pen, float alpha, float eps) {
+  using K = FwdShape<T, MB>;
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  constexpr int E = K::E, J = K::J;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ unsigned last;
+  float* xs = reinterpret_cast<float*>(smem + K::kRing);  // [MB][cols_per_split], permuted
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + K::kRing + MB * cols_per_split * 4);
+  unsigned long long* empty = full + kFwdStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
+  const int cr = (int)cluster.block_rank();
+  const int q = blockIdx.x / CL, nq = gridDim.x / CL;  // this cluster, the split's clusters
+  const int split = blockIdx.y;
+  const long long k0 = (long long)split * cols_per_split;
+  const int ncols = (int)min((long long)cols_per_split, V - k0);
+  const int row_blocks = (P + kFwdRows - 1) / kFwdRows;
+  const int groups = (row_blocks + CL - 1) / CL;
+  const int n_it = (ncols + K::kCols - 1) / K::kCols;  // stages a row block
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int k = 0; k < kFwdStages; ++k) {
+      mbar_init_n(&full[k], 1);
+      mbar_init_n(&empty[k], kFwdWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // the barriers are set; every CTA of the cluster runs
+
+  // the producer warp's boxes (its lane 0 issues them): for each of the
+  // CTA's row blocks in turn, its stages; stage number gs counts across row
+  // blocks (the ring's phase)
+  const int word0 = (int)(k0 * (long long)sizeof(T) / 4);
+  int next_g = q, next_it = 0, gs = 0;
+  auto issue_next = [&]() -> bool {  // the next box, false when none is left
+    while (next_g < groups && next_g * CL + cr >= row_blocks) next_g += nq;
+    if (next_g >= groups) return false;
+    const int k = gs % kFwdStages;
+    if (gs >= kFwdStages) one_read::mbar_wait(&empty[k], ((gs / kFwdStages) - 1) & 1);
+    if (t == kFwdConsumers) {
+      one_read::mbar_expect(&full[k], (unsigned)K::kStage);
+      one_read::tma_load(smem + k * K::kStage, &hmap, &full[k],
+                         word0 + next_it * (K::kRowBytes / 4), (next_g * CL + cr) * kFwdRows);
+    }
+    __syncwarp();
+    ++gs;
+    if (++next_it == n_it) {
+      next_it = 0;
+      next_g += nq;
+    }
+    return true;
+  };
+  const bool producer = t >= kFwdConsumers;
+  if (producer) {
+    for (int i = 0; i < kFwdStages; ++i)
+      if (!issue_next()) break;
+  } else {
+    // the update of this CTA's share of the split's columns, stored into the
+    // operand of every CTA of the cluster: float4 j of lane kl's piece of
+    // step g sits at g 2E + j 8 + kl (two_read::forward_kernel's order)
+    const int per = (ncols + CL - 1) / CL;
+    const int c0 = cr * per, n = max(0, min(ncols, c0 + per) - c0);
+    const bool writer = q == 0;  // the split's first cluster writes f_new
+    for (int e = t; e < MB * n; e += kFwdConsumers) {
+      const int b = e / n, c = c0 + (e - b * n);
+      const long long v = k0 + c;
+      float x = 0.0f;
+      if (b < B) {
+        const long long o = (long long)b * V + v;
+        const float sc = kScaled ? scale[v] : 1.0f;
+        float g = bp[o];
+        if (kScaled) g = __fmul_rn(g, sc);
+        const float fn = update(mode, has_pen, alpha, eps, f[o], g, aux, b, v);
+        if (writer) f_new[o] = fn;
+        x = kScaled ? __fmul_rn(fn, sc) : fn;
+      }
+      const int qq = (c % K::kStep) / 4;
+      float* dst = xs + b * cols_per_split +
+                   4 * ((c / K::kStep) * 2 * E + (qq % J) * 8 + qq / J) + c % 4;
+      for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(dst, r) = x;
+    }
+  }
+  cluster.sync();  // every CTA's operand is whole
+
+  if (producer) {
+    while (issue_next()) {
+    }
+    return;
+  }
+  const int lane = t & 31, kl = lane & 7;
+  const int row0 = (t >> 5) * 4 + (lane >> 3);  // the lane's rows of a block: row0 + 32 i
+  int cs = 0;                                   // the consumers' stage number
+  for (int g = q; g < groups; g += nq) {
+    const int rb = g * CL + cr;
+    if (rb >= row_blocks) continue;
+    const int pb = rb * kFwdRows;
+    const int nrows = min(kFwdRows, P - pb);
+    float acc[kFwdR][MB];
+#pragma unroll
+    for (int i = 0; i < kFwdR; ++i)
+#pragma unroll
+      for (int b = 0; b < MB; ++b) acc[i][b] = 0.0f;
+    for (int it = 0; it < n_it; ++it, ++cs) {
+      const int k = cs % kFwdStages;
+      one_read::mbar_wait(&full[k], (cs / kFwdStages) & 1);
+      const unsigned char* st = smem + k * K::kStage + kl * 16;
+#pragma unroll
+      for (int s = 0; s < K::kSteps; ++s) {
+        const int gstep = it * K::kSteps + s;  // the step of the split
+        if (gstep * K::kStep + kl * E < ncols) {
+          uint4 raw[kFwdR];
+#pragma unroll
+          for (int i = 0; i < kFwdR; ++i)
+            raw[i] = *reinterpret_cast<const uint4*>(st + (row0 + 32 * i) * K::kRowBytes + s * 128);
+          const float* xp = xs + 4 * (gstep * 2 * E + kl);
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            float hq[kFwdR][4];
+#pragma unroll
+            for (int i = 0; i < kFwdR; ++i) quad_at<T>(raw[i], j, hq[i]);
+#pragma unroll
+            for (int b = 0; b < MB; ++b) {
+              const float4 q4 =
+                  *reinterpret_cast<const float4*>(xp + b * cols_per_split + 32 * j);
+              const float x[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+              for (int i = 0; i < kFwdR; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][b] = fmaf(hq[i][e], x[e], acc[i][b]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[k]);
+    }
+
+    // the 8 lanes of a row: two_read's butterfly
+#pragma unroll
+    for (int i = 0; i < kFwdR; ++i)
+#pragma unroll
+      for (int b = 0; b < MB; ++b) {
+        float v = acc[i][b];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        acc[i][b] = v;
+      }
+    float* out = S2 == 1 ? fitted : part + (long long)split * B * P;
+    if (kl == 0) {
+#pragma unroll
+      for (int i = 0; i < kFwdR; ++i) {
+        const int r = row0 + 32 * i;
+        if (r >= nrows) continue;
+#pragma unroll
+        for (int b = 0; b < MB; ++b)
+          if (b < B) out[(long long)b * P + pb + r] = acc[i][b];
+      }
+    }
+    if (S2 == 1) continue;
+    // the splits of a row in split order, by the block's last CTA to arrive
+    __threadfence();
+    consumer_sync<kFwdConsumers>();
+    if (t == 0) last = atomicAdd(&counters[rb], 1u) == (unsigned)(S2 - 1);
+    consumer_sync<kFwdConsumers>();
+    if (last) {
+      __threadfence();
+      for (int e = t; e < B * nrows; e += kFwdConsumers) {
+        const int b = e / nrows;
+        const long long o = (long long)b * P + pb + (e - b * nrows);
+        float sum = __ldcg(part + o);
+        for (int k = 1; k < S2; ++k) sum += __ldcg(part + (long long)k * B * P + o);
+        fitted[o] = sum;
+      }
+      if (t == 0) counters[rb] = 0;
+    }
+    consumer_sync<kFwdConsumers>();  // `last` is read before the next block sets it
+  }
+}
+
+}  // namespace split
+
+// ---------------------------------------------------------------------------
 // Launchers and the C interface.
 // ---------------------------------------------------------------------------
 
@@ -2033,7 +2531,9 @@ bool plan_ok(int plan, int storage, long long P, long long V, long long B,
 // pixel axis is sharded holds a block of H's rows: its back projection is a
 // partial sum that every rank of its voxel column must add before the
 // update, so the sweep runs as two calls with the caller's all-reduce of
-// [B, V_local] between them:
+// [B, V_local] between them. On the cluster route (namespace split) each
+// call is one kernel; on two_read's route, the shapes the cluster route's
+// rule leaves out (B > 4, rows off 16 bytes, more than 8 splits of P):
 //
 //   sharded bp: two_read's bp pass (transpose_w_kernel, bp_kernel) and the
 //     sum of its S splits in split order (sum_partials_kernel): the rank's
@@ -2138,6 +2638,215 @@ long long sharded_scratch_bytes(bool finish, long long P, long long V, long long
   return finish ? s.xs_bytes + s.fwd_bytes : s.wt_bytes + s.bp_bytes;
 }
 
+// The cluster route's preconditions, by (P, V, B, storage)
+// (ops/fused_sweep.py:split_route holds the same rule): B <= 4, H's rows
+// 16-byte aligned (the tensor maps' row stride), two_read's splits of P no
+// more than a cluster holds.
+bool split_ok(int storage, long long P, long long V, long long B) {
+  return B >= 1 && B <= split::kMaxB && (V * element_bytes(storage)) % 16 == 0 &&
+         tr_shape(P, V, B).S <= split::kMaxCluster;
+}
+
+// The cluster route's geometry: two_read's splits (tr_shape) laid over
+// clusters. bp: S splits of P (the cluster), strips of `lanes` 16-byte
+// pieces of a row (the largest of 64, 32, 16 that puts about two CTAs on
+// every SM, or 16); finish: S2 splits of V, row blocks of 64 rows, and the
+// forward's partials [S2, B, P] where S2 > 1 (the scratch).
+struct SplitShape {
+  int S, lanes, strips, rows_per_split;
+  int S2, cols_per_split, row_blocks;
+  long long part_bytes;
+};
+
+SplitShape split_shape(int storage, long long P, long long V, long long B) {
+  const TrShape tr = tr_shape(P, V, B);
+  const int elem = element_bytes(storage);
+  SplitShape s;
+  s.S = tr.S;
+  s.rows_per_split = tr.rows_per_split;
+  s.lanes = 64;
+  while (s.lanes > 16 &&
+         ceil_div(V, (long long)s.lanes * 16 / elem) * s.S < split::kTargetCtas)
+    s.lanes /= 2;
+#ifdef SART_SPLIT_BP_LANES
+  s.lanes = SART_SPLIT_BP_LANES;
+#endif
+  s.strips = (int)ceil_div(V, (long long)s.lanes * 16 / elem);
+  s.S2 = tr.S2;
+  s.cols_per_split = tr.cols_per_split;
+  s.row_blocks = (int)ceil_div(P, split::kFwdRows);
+  s.part_bytes = s.S2 > 1 ? align256((long long)s.S2 * B * P * 4) : 0;
+  return s;
+}
+
+// H [P, V] of `elem`-byte elements as a 2D tensor of 32-bit words, read in
+// boxes of box_words x box_rows (rows past P and words past a row as zeros)
+bool split_map(CUtensorMap* map, const void* H, long long P, long long V, int elem,
+               int box_words, int box_rows) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)(V * elem / 4), (cuuint64_t)P};
+  const cuuint64_t strides[1] = {(cuuint64_t)(V * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_words, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<void*>(H), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// split_map's map, kept for the last few (H, shape, box) a thread asked for:
+// a rank's sweeps read one block call after call
+bool split_map_cached(CUtensorMap* map, const void* H, long long P, long long V, int elem,
+                      int box_words, int box_rows) {
+  struct Entry {
+    const void* H;
+    long long P, V;
+    int elem, box_words, box_rows;
+    CUtensorMap map;
+  };
+  thread_local Entry cache[4] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.H == H && e.H != nullptr && e.P == P && e.V == V && e.elem == elem &&
+        e.box_words == box_words && e.box_rows == box_rows) {
+      *map = e.map;
+      return true;
+    }
+  if (!split_map(map, H, P, V, elem, box_words, box_rows)) return false;
+  cache[next] = Entry{H, P, V, elem, box_words, box_rows, *map};
+  next = (next + 1) % 4;
+  return true;
+}
+
+// A kernel of the cluster route on grid `grid` in clusters of `cluster`
+// CTAs along x
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(KArgs...), dim3 grid, int threads, int cluster,
+                             int smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3((unsigned)threads);
+  config.dynamicSmemBytes = (size_t)smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Clusters of `cluster` CTAs of a kernel that the card holds at once
+// (cudaOccupancyMaxActiveClusters); 0 on failure.
+template <typename... KArgs>
+int active_clusters(void (*kernel)(KArgs...), int threads, int cluster, int smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+      cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(cluster * 64));
+  config.blockDim = dim3((unsigned)threads);
+  config.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &config) == cudaSuccess ? n : 0;
+}
+
+// The finish kernel's clusters the card holds at once, for clusters of 1, 2
+// and 4 CTAs (its shared memory at the widest split), asked once an instance
+template <typename T, int MB>
+const int* finish_clusters() {
+  static const std::array<int, 3> n = [] {
+    const int smem = split::FwdShape<T, MB>::smem(two_read::kMaxSplitCols);
+    std::array<int, 3> out;
+    for (int i = 0; i < 3; ++i)
+      out[i] = active_clusters(split::finish_kernel<T, MB>, split::kFwdThreads, 1 << i, smem);
+    return out;
+  }();
+  return n.data();
+}
+
+template <typename T, int MB, int LANES>
+cudaError_t launch_split_bp(const T* H, const float* w, float* bp, const Args& a,
+                            const SplitShape& s) {
+  using K = split::BpShape<T, LANES>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      split::bp_kernel<T, MB, LANES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K::smem(split::kBpStagesAlone));
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap map;
+  if (!split_map_cached(&map, H, a.P, a.V, (int)sizeof(T), K::kStrip / 4, K::Kt))
+    return cudaErrorNotSupported;
+  // a CTA on each SM at most: the deeper ring
+  const int stages = s.strips * s.S <= split::kSMs ? split::kBpStagesAlone
+                                                   : split::kBpStagesShared;
+  return launch_clustered(split::bp_kernel<T, MB, LANES>, dim3((unsigned)(s.strips * s.S)),
+                          K::kThreads, s.S, K::smem(stages), a.stream, map, w, bp, a.P, a.V,
+                          a.B, s.rows_per_split, stages);
+}
+
+// The finish: clusters of CL CTAs, CL in 1, 2, 4 (at most the row blocks)
+// the one that keeps the most CTAs on the card at once; each split gets an
+// equal share of the clusters the card holds (at least one, at most its
+// groups of CL row blocks).
+template <typename T, int MB>
+cudaError_t launch_split_finish(const T* H, const Args& a, const float* bp, unsigned* counters,
+                                const SplitShape& s) {
+  using K = split::FwdShape<T, MB>;
+  const int* held = finish_clusters<T, MB>();
+  int ci = 0;
+  for (int i = 1; i < 3 && (1 << i) <= s.row_blocks; ++i)
+    if (held[i] * (1 << i) >= held[ci] * (1 << ci)) ci = i;
+  if (held[ci] <= 0) return cudaErrorInvalidConfiguration;
+  const int CL = 1 << ci;
+  const int groups = (int)ceil_div(s.row_blocks, CL);
+  const int nq = std::max(1, std::min(held[ci] / s.S2, groups));
+  CUtensorMap map;
+  if (!split_map_cached(&map, H, a.P, a.V, (int)sizeof(T), K::kRowBytes / 4,
+                        split::kFwdRows))
+    return cudaErrorNotSupported;
+  float* part = reinterpret_cast<float*>(a.scratch);
+  return launch_clustered(split::finish_kernel<T, MB>, dim3((unsigned)(nq * CL), (unsigned)s.S2),
+                          split::kFwdThreads, CL, K::smem(s.cols_per_split), a.stream, map,
+                          a.scale, a.f, bp, a.aux, a.f_new, a.fitted, part, counters, a.P, a.V,
+                          a.B, s.cols_per_split, s.S2, a.mode, a.has_pen, a.alpha, a.eps);
+}
+
+template <typename T, int MB>
+cudaError_t dispatch_split_mb(const T* H, bool finish, const float* w, float* bp_out,
+                              const float* bp_in, unsigned* counters, const Args& a,
+                              const SplitShape& s) {
+  if (finish) return launch_split_finish<T, MB>(H, a, bp_in, counters, s);
+  switch (s.lanes) {
+    case 64: return launch_split_bp<T, MB, 64>(H, w, bp_out, a, s);
+    case 32: return launch_split_bp<T, MB, 32>(H, w, bp_out, a, s);
+    default: return launch_split_bp<T, MB, 16>(H, w, bp_out, a, s);
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_split(const void* H, bool finish, const float* w, float* bp_out,
+                           const float* bp_in, unsigned* counters, const Args& a) {
+  const T* h = static_cast<const T*>(H);
+  const int storage = sizeof(T) == 4 ? 0 : sizeof(T) == 2 ? 1 : 2;
+  const SplitShape s = split_shape(storage, a.P, a.V, a.B);
+  switch (a.B) {
+    case 1: return dispatch_split_mb<T, 1>(h, finish, w, bp_out, bp_in, counters, a, s);
+    case 2: return dispatch_split_mb<T, 2>(h, finish, w, bp_out, bp_in, counters, a, s);
+    default: return dispatch_split_mb<T, 4>(h, finish, w, bp_out, bp_in, counters, a, s);
+  }
+}
+
 }  // namespace
 
 // The parts' entry points (see SART_PART): a storage's two_read sweep and
@@ -2155,6 +2864,8 @@ int sart_part_sharded_i8(const void* H, int finish, const float* w, float* bp_ou
                          const float* bp_in, const void* args);
 int sart_part_one_read(int storage, const void* H, const void* args);
 int sart_part_tc(int storage, const void* H, const void* args);
+int sart_part_split(int storage, int finish, const void* H, const float* w, float* bp_out,
+                    const float* bp_in, unsigned* counters, const void* args);
 }
 
 #define SART_TWO_READ_PART(T, NAME)                                                   \
@@ -2215,6 +2926,19 @@ extern "C" int sart_part_tc(int storage, const void* H, const void* args) {
   const Args& a = *static_cast<const Args*>(args);
   if (storage == 1) return (int)dispatch_tc<bf16_bits>(H, a);
   return (int)dispatch_tc<int8_t>(H, a);
+}
+#endif
+
+#if SART_HAS(6)
+extern "C" int sart_part_split(int storage, int finish, const void* H, const float* w,
+                               float* bp_out, const float* bp_in, unsigned* counters,
+                               const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  if (storage == 0)
+    return (int)dispatch_split<float>(H, finish != 0, w, bp_out, bp_in, counters, a);
+  if (storage == 1)
+    return (int)dispatch_split<bf16_bits>(H, finish != 0, w, bp_out, bp_in, counters, a);
+  return (int)dispatch_split<int8_t>(H, finish != 0, w, bp_out, bp_in, counters, a);
 }
 #endif
 
@@ -2292,11 +3016,33 @@ extern "C" int sart_fused_sweep(const void* H, int storage, const float* scale,
   return sart_part_two_read_i8(H, &a);
 }
 
+// The pixel-sharded sweep's routes: two_read's kernels (three a call) or
+// the cluster route (one a call), chosen by the caller
+// (ops/fused_sweep.py:split_route) and refused, never replaced, where its
+// preconditions fail.
+enum SplitRoute { kSplitTwoRead = 0, kSplitCluster = 1 };
+
 // Bytes of scratch the pixel-sharded sweep's call needs (finish 0: the bp
-// call, 1: the finish call) at this shape.
-extern "C" long long sart_sharded_scratch_bytes(int finish, long long P, long long V,
-                                                long long B) {
-  return sharded_scratch_bytes(finish != 0, P, V, B);
+// call, 1: the finish call) on the route at this shape; -1 for an unknown
+// route.
+extern "C" long long sart_sharded_scratch_bytes(int finish, int route, long long P,
+                                                long long V, long long B) {
+  if (route == kSplitTwoRead) return sharded_scratch_bytes(finish != 0, P, V, B);
+  if (route != kSplitCluster) return -1;
+  return finish ? split_shape(0, P, V, B).part_bytes : 0;
+}
+
+// 1 where the cluster route takes this shape and storage (H's alignment
+// aside), else 0: the rule ops/fused_sweep.py:split_route states.
+extern "C" int sart_split_route_ok(int storage, long long P, long long V, long long B) {
+  return storage >= 0 && storage <= 2 && P > 0 && V > 0 && P <= 0x7fffffffLL &&
+         V <= 0x7fffffffLL && split_ok(storage, P, V, B);
+}
+
+// The counters the cluster route's finish needs at P rows (one a row block
+// of 64), zero before the first call; each call leaves them zero.
+extern "C" long long sart_split_counters(long long P) {
+  return ceil_div(P, split::kFwdRows);
 }
 
 // The pixel-sharded sweep's first call: bp [B, V] = w [B, P] @ H [P, V] of
@@ -2304,20 +3050,24 @@ extern "C" long long sart_sharded_scratch_bytes(int finish, long long P, long lo
 // split order. Returns a cudaError_t (0 on success); pointers as for
 // sart_fused_sweep.
 extern "C" int sart_sharded_bp(const void* H, int storage, const float* w, float* bp,
-                               long long P, long long V, long long B, void* scratch,
+                               long long P, long long V, long long B, int route, void* scratch,
                                long long scratch_size, void* stream) {
   if (P <= 0 || V <= 0 || B <= 0 || P > 0x7fffffffLL || V > 0x7fffffffLL ||
       B > 0x7fffffffLL || storage < 0 || storage > 2)
     return (int)cudaErrorInvalidValue;
   if (!plan_ok(kTwoRead, storage, P, V, B, H)) return (int)cudaErrorInvalidValue;
-  const long long need = sharded_scratch_bytes(false, P, V, B);
-  if (scratch_size < need || (uintptr_t)scratch % 256 != 0) return (int)cudaErrorInvalidValue;
+  if (route == kSplitCluster && !(split_ok(storage, P, V, B) && (uintptr_t)H % 16 == 0))
+    return (int)cudaErrorInvalidValue;
+  const long long need = sart_sharded_scratch_bytes(0, route, P, V, B);
+  if (need < 0 || scratch_size < need || (need > 0 && (uintptr_t)scratch % 256 != 0))
+    return (int)cudaErrorInvalidValue;
   Args a = {};
   a.P = (int)P;
   a.V = (int)V;
   a.B = (int)B;
   a.scratch = static_cast<unsigned char*>(scratch);
   a.stream = static_cast<cudaStream_t>(stream);
+  if (route == kSplitCluster) return sart_part_split(storage, 0, H, w, bp, nullptr, nullptr, &a);
   if (storage == 0) return sart_part_sharded_f32(H, 0, w, bp, nullptr, &a);
   if (storage == 1) return sart_part_sharded_bf16(H, 0, w, bp, nullptr, &a);
   return sart_part_sharded_i8(H, 0, w, bp, nullptr, &a);
@@ -2333,8 +3083,9 @@ extern "C" int sart_sharded_finish(const void* H, int storage, const float* scal
                                    const long long* aux_rows, int n_aux, float* f_new,
                                    float* fitted, long long P, long long V, long long B,
                                    int mode, float alpha, float eps,
-                                   const float* alpha_lane, long long alpha_rows,
-                                   void* scratch, long long scratch_size, void* stream) {
+                                   const float* alpha_lane, long long alpha_rows, int route,
+                                   unsigned* counters, long long n_counters, void* scratch,
+                                   long long scratch_size, void* stream) {
   if (P <= 0 || V <= 0 || B <= 0 || P > 0x7fffffffLL || V > 0x7fffffffLL ||
       B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -2346,8 +3097,14 @@ extern "C" int sart_sharded_finish(const void* H, int storage, const float* scal
   if (alpha_lane != nullptr && (mode != 1 || (alpha_rows != 1 && alpha_rows != B)))
     return (int)cudaErrorInvalidValue;
   if (!plan_ok(kTwoRead, storage, P, V, B, H)) return (int)cudaErrorInvalidValue;
-  const long long need = sharded_scratch_bytes(true, P, V, B);
-  if (scratch_size < need || (uintptr_t)scratch % 256 != 0) return (int)cudaErrorInvalidValue;
+  if (route == kSplitCluster &&
+      !(split_ok(storage, P, V, B) && (uintptr_t)H % 16 == 0 &&
+        (split_shape(storage, P, V, B).S2 == 1 ||
+         (counters != nullptr && n_counters >= sart_split_counters(P)))))
+    return (int)cudaErrorInvalidValue;
+  const long long need = sart_sharded_scratch_bytes(1, route, P, V, B);
+  if (need < 0 || scratch_size < need || (need > 0 && (uintptr_t)scratch % 256 != 0))
+    return (int)cudaErrorInvalidValue;
   Args a = {};
   a.scale = scale;
   a.f = f;
@@ -2369,6 +3126,8 @@ extern "C" int sart_sharded_finish(const void* H, int storage, const float* scal
   a.eps = eps;
   a.scratch = static_cast<unsigned char*>(scratch);
   a.stream = static_cast<cudaStream_t>(stream);
+  if (route == kSplitCluster)
+    return sart_part_split(storage, 1, H, nullptr, nullptr, bp, counters, &a);
   if (storage == 0) return sart_part_sharded_f32(H, 1, nullptr, nullptr, bp, &a);
   if (storage == 1) return sart_part_sharded_bf16(H, 1, nullptr, nullptr, bp, &a);
   return sart_part_sharded_i8(H, 1, nullptr, nullptr, bp, &a);

@@ -59,11 +59,23 @@ rule takes a new plan only where it was measured faster than ``two_read``.
 A plan whose preconditions fail is refused, never replaced by another.
 :func:`_sweep` forces a plan (tests and ``chip_smoke.py`` time the old path
 beside the new one with it).
+
+A rank of a pixel-sharded grid runs the sweep split at its all-reduce
+(:func:`sharded_sweep_bp`, then :func:`sharded_sweep_finish`), on the
+route :func:`split_route` gives: ``"cluster"`` (one kernel a call, the
+splits' sums met in a thread-block cluster) where ``B <= SPLIT_MAX_B``,
+H's rows are whole 16 bytes and two_read's splits of P number at most
+``SPLIT_MAX_ROW_SPLITS``; ``"two_read"``'s kernels (three a call)
+elsewhere. Both sum in two_read's order: at one rank the pair gives
+``two_read``'s bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -361,6 +373,66 @@ reset_launch_counts()
 
 # ---- the pixel-sharded sweep, split at the all-reduce ------------------------
 
+# The split sweep's routes: two_read's kernels (three CUDA kernels a call:
+# bp: the transpose of w, bp, the sum of its splits; finish: the update,
+# the forward pass, the sum of its splits) or the cluster route (one kernel
+# a call each). Both sum in two_read's order and give the same bytes.
+SPLIT_ROUTES = {"two_read": 0, "cluster": 1}
+SPLIT_KERNELS_PER_CALL = {"two_read": 3, "cluster": 1}
+# the cluster route: at most 4 batch rows, H's rows 16-byte aligned (its
+# tensor maps' row stride) and two_read's splits of P no more than a thread-block
+# cluster holds (they meet through its distributed shared memory)
+SPLIT_MAX_B = 4
+SPLIT_MAX_ROW_SPLITS = 8
+# two_read's splits of P (csrc/fused_sweep.cu:tr_shape): blocks of 256
+# columns on the H100's 132 SMs, 256 to 4096 rows a split in steps of 64
+_SMS = 132
+_SPLIT_COLS, _MIN_SPLIT_ROWS, _MAX_SPLIT_ROWS = 256, 256, 4096
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pick_splits(units: int, most: int) -> int:
+    """csrc/fused_sweep.cu:pick_splits: the split count for ``units`` blocks
+    a split, at most ``most``: the smallest that fills the SMs at least 1.5
+    blocks deep with at most a tenth of them idle in the last round, else
+    the one that idles the fewest."""
+    best, best_use = 1, 0.0
+    for s in range(1, min(most, 64) + 1):
+        rounds = units * s / _SMS
+        use = rounds / math.ceil(rounds)
+        if rounds >= 1.5 and use >= 0.9:
+            return s
+        if use > best_use:
+            best, best_use = s, use
+    return best
+
+
+def split_row_splits(P: int, V: int) -> int:
+    """two_read's splits of P at this shape (``tr_shape``'s S): the sums of
+    bp meet in their order whatever the route."""
+    want = max(_pick_splits(_ceil_div(V, _SPLIT_COLS), _ceil_div(P, _MIN_SPLIT_ROWS)),
+               _ceil_div(P, _MAX_SPLIT_ROWS))
+    rows = min(_ceil_div(_ceil_div(P, want), 64) * 64, P)
+    return _ceil_div(P, rows)
+
+
+def split_route(P: int, V: int, B: int, storage: str) -> str:
+    """The route a call of the split sweep takes on the card at this shape
+    and storage (``"float32"``, ``"bfloat16"`` or ``"int8"``), a fixed rule:
+    ``"cluster"`` where ``B <= SPLIT_MAX_B``, a row of H is a multiple of 16
+    bytes and two_read's splits of P number at most
+    ``SPLIT_MAX_ROW_SPLITS``; ``"two_read"`` elsewhere. The kernel refuses
+    the cluster route where these fail (and where H itself is not 16-byte
+    aligned); it never takes the other in its place."""
+    itemsize = {"float32": 4, "bfloat16": 2, "int8": 1}[storage]
+    if (B <= SPLIT_MAX_B and V * itemsize % 16 == 0
+            and split_row_splits(P, V) <= SPLIT_MAX_ROW_SPLITS):
+        return "cluster"
+    return "two_read"
+
 
 def sharded_sweep_bp_reference(rtm: Tensor, w: Tensor) -> Tensor:
     """Plain version of :func:`sharded_sweep_bp`: ``w @ H`` ``[B, V]`` over
@@ -408,26 +480,67 @@ def _sharded_lib():
 
     lib = _build.load("fused_sweep")
     if lib.sart_sharded_bp.argtypes is None:  # once per loaded library
-        lib.sart_sharded_scratch_bytes.argtypes = [ctypes.c_int] + [ctypes.c_longlong] * 3
+        lib.sart_sharded_scratch_bytes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3
         lib.sart_sharded_scratch_bytes.restype = ctypes.c_longlong
+        lib.sart_split_route_ok.argtypes = [ctypes.c_int] + [ctypes.c_longlong] * 3
+        lib.sart_split_route_ok.restype = ctypes.c_int
+        lib.sart_split_counters.argtypes = [ctypes.c_longlong]
+        lib.sart_split_counters.restype = ctypes.c_longlong
         lib.sart_sharded_bp.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+            + [ctypes.c_longlong] * 3
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
         lib.sart_sharded_bp.restype = ctypes.c_int
         lib.sart_sharded_finish.argtypes = (
             [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int] + [ctypes.c_void_p] * 2
             + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-               ctypes.c_void_p])
+            + [ctypes.c_void_p, ctypes.c_longlong]        # alpha_lane, its rows
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]  # route, counters, count
+            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
         lib.sart_sharded_finish.restype = ctypes.c_int
     return lib
 
 
-def _scratch(lib, finish: bool, P: int, V: int, B: int, device) -> Tuple[Optional[Tensor], int]:
-    nbytes = max(int(lib.sart_sharded_scratch_bytes(1 if finish else 0, P, V, B)), 0)
-    # the caching allocator hands out 512-byte aligned blocks
-    return (torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None), nbytes
+@functools.lru_cache(maxsize=256)
+def _split_plan(P: int, V: int, B: int, storage: str) -> Tuple[str, int, int, int]:
+    """A shape's route, the bp and finish calls' bytes of scratch on it
+    (each a multiple of 256) and the finish's row-block counters: fixed by
+    the shape, so asked of the library once."""
+    route = split_route(P, V, B, storage)
+    lib, code = _sharded_lib(), SPLIT_ROUTES[route]
+    return (route, max(int(lib.sart_sharded_scratch_bytes(0, code, P, V, B)), 0),
+            max(int(lib.sart_sharded_scratch_bytes(1, code, P, V, B)), 0),
+            int(lib.sart_split_counters(P)) if route == "cluster" else 0)
+
+
+def _raw_stream(device) -> int:
+    """The device's current CUDA stream as the handle the C entry points
+    take (PyTorch's raw accessor where its build has one)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(torch.cuda.current_device() if device.index is None else device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on_device(device):
+    """The device's context, entered only where it is not current already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+# the cluster route's row-block counters, zero between calls (each call
+# leaves them zero), per device and stream: calls on one stream run in turn
+_split_counters: dict = {}
+
+
+def _counters(need: int, device, stream: int) -> Tensor:
+    buf = _split_counters.get((device, stream))
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(max(need, 1024), dtype=torch.int32, device=device)
+        _split_counters[(device, stream)] = buf
+    return buf
 
 
 @_audit_opaque("sharded_sweep_bp")
@@ -438,10 +551,13 @@ def sharded_sweep_bp(rtm: Tensor, w: Tensor) -> Tensor:
     the grid's pixel axis (``parallel/comm.py:all_reduce_sum``) and hands
     the sum to :func:`sharded_sweep_finish`.
 
-    On CUDA tensors it launches ``csrc/fused_sweep.cu:sart_sharded_bp``
-    (two_read's bp pass: the block read once for up to 32 batch rows) or
-    raises; on CPU tensors it runs :func:`sharded_sweep_bp_reference`.
-    ``sharded_sweep_bp.launches`` counts the launches.
+    On CUDA tensors it launches ``csrc/fused_sweep.cu:sart_sharded_bp`` on
+    the route :func:`split_route` gives (``"cluster"``: one kernel, the
+    block streamed once in TMA boxes and the splits' sums met in a
+    thread-block cluster; ``"two_read"``: two_read's bp pass, the block read
+    once for up to 32 batch rows) or raises; on CPU tensors it runs
+    :func:`sharded_sweep_bp_reference`. ``sharded_sweep_bp.launches`` counts
+    the launches, ``launches_by_route`` by route.
 
     Where the JAX panel scan (``sartsolver_tpu/ops/fused_sweep.py:270``)
     all-reduces each voxel panel's bp inside one read of the block, this
@@ -462,17 +578,21 @@ def sharded_sweep_bp(rtm: Tensor, w: Tensor) -> Tensor:
         raise ValueError("sharded_sweep_bp: the CUDA kernel needs contiguous tensors.")
     P, V = rtm.shape
     B = w.shape[0]
+    route, nbytes, _, _ = _split_plan(P, V, B, _storage_name(rtm.dtype))
     lib = _sharded_lib()
     bp = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
-    scratch, nbytes = _scratch(lib, False, P, V, B, rtm.device)
-    with torch.cuda.device(rtm.device):
+    # the caching allocator hands out 512-byte aligned blocks
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=rtm.device) if nbytes else None
+    with _on_device(rtm.device):
         err = lib.sart_sharded_bp(rtm.data_ptr(), STORAGE[rtm.dtype], w.data_ptr(),
-                                  bp.data_ptr(), P, V, B,
+                                  bp.data_ptr(), P, V, B, SPLIT_ROUTES[route],
                                   None if scratch is None else scratch.data_ptr(), nbytes,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  _raw_stream(rtm.device))
     if err != 0:
-        raise RuntimeError(f"sharded_sweep_bp: CUDA kernel failed with cudaError_t {err}.")
+        raise RuntimeError(f"sharded_sweep_bp: CUDA kernel ({route}) failed with "
+                           f"cudaError_t {err}.")
     sharded_sweep_bp.launches += 1
+    sharded_sweep_bp.launches_by_route[route] += 1
     return bp
 
 
@@ -489,9 +609,12 @@ def sharded_sweep_finish(rtm: Tensor, f: Tensor, bp: Tensor, aux: Sequence[Tenso
     voxel axis).
 
     On CUDA tensors it launches ``csrc/fused_sweep.cu:sart_sharded_finish``
-    (two_read's finish and forward pass) or raises; on CPU tensors it runs
-    :func:`sharded_sweep_finish_reference`. ``sharded_sweep_finish.launches``
-    counts the launches."""
+    on the route :func:`split_route` gives (``"cluster"``: one kernel, the
+    update shared through a thread-block cluster's shared memory and the
+    forward pass; ``"two_read"``: two_read's finish and forward pass) or
+    raises; on CPU tensors it runs :func:`sharded_sweep_finish_reference`.
+    ``sharded_sweep_finish.launches`` counts the launches,
+    ``launches_by_route`` by route."""
     B = f.shape[0]
     if bp.shape != f.shape:
         raise ValueError(f"sharded_sweep_finish: bp {tuple(bp.shape)} and f "
@@ -510,31 +633,41 @@ def sharded_sweep_finish(rtm: Tensor, f: Tensor, bp: Tensor, aux: Sequence[Tenso
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sharded_sweep_finish: the CUDA kernel needs contiguous tensors.")
     P, V = rtm.shape
+    route, _, nbytes, n_counters = _split_plan(P, V, B, _storage_name(rtm.dtype))
     lib = _sharded_lib()
-    f_new = torch.empty((B, V), dtype=torch.float32, device=rtm.device)
-    fitted = torch.empty((B, P), dtype=torch.float32, device=rtm.device)
-    scratch, nbytes = _scratch(lib, True, P, V, B, rtm.device)
+    # one block: the scratch (256-byte aligned at the start of a 512-byte
+    # aligned block), then f_new and fitted
+    block = torch.empty(nbytes // 4 + B * (V + P), dtype=torch.float32, device=rtm.device)
+    scratch = block[:nbytes // 4] if nbytes else None
+    f_new = block[nbytes // 4:nbytes // 4 + B * V].view(B, V)
+    fitted = block[nbytes // 4 + B * V:].view(B, P)
     ptrs = [a.data_ptr() for a in aux] + [None] * (3 - len(aux))
     rows = (ctypes.c_longlong * 3)(*([a.shape[0] for a in aux] + [1] * (3 - len(aux))))
-    with torch.cuda.device(rtm.device):
+    with _on_device(rtm.device):
+        stream = _raw_stream(rtm.device)
+        counters = _counters(n_counters, rtm.device, stream) if n_counters else None
         err = lib.sart_sharded_finish(
             rtm.data_ptr(), STORAGE[rtm.dtype], None if scale is None else scale.data_ptr(),
             f.data_ptr(), bp.data_ptr(), *ptrs, rows, len(aux), f_new.data_ptr(),
             fitted.data_ptr(), P, V, B, 1 if logarithmic else 0, float(alpha), float(eps),
             None if alpha_lane is None else alpha_lane.data_ptr(),
-            1 if alpha_lane is None else alpha_lane.shape[0],
-            None if scratch is None else scratch.data_ptr(), nbytes,
-            torch.cuda.current_stream().cuda_stream)
+            1 if alpha_lane is None else alpha_lane.shape[0], SPLIT_ROUTES[route],
+            None if counters is None else counters.data_ptr(),
+            0 if counters is None else counters.numel(),
+            None if scratch is None else scratch.data_ptr(), nbytes, stream)
     if err != 0:
-        raise RuntimeError(f"sharded_sweep_finish: CUDA kernel failed with cudaError_t {err}.")
+        raise RuntimeError(f"sharded_sweep_finish: CUDA kernel ({route}) failed with "
+                           f"cudaError_t {err}.")
     sharded_sweep_finish.launches += 1
+    sharded_sweep_finish.launches_by_route[route] += 1
     return f_new, fitted
 
 
 def reset_sharded_launch_counts() -> None:
     """Set the split sweep's launch counts to 0."""
-    sharded_sweep_bp.launches = 0
-    sharded_sweep_finish.launches = 0
+    for wrapper in (sharded_sweep_bp, sharded_sweep_finish):
+        wrapper.launches = 0
+        wrapper.launches_by_route = dict.fromkeys(SPLIT_ROUTES, 0)
 
 
 reset_sharded_launch_counts()

@@ -172,13 +172,15 @@ def make_tile_stats(npixel: int, nvoxel: int):
     return TileMaxStats(_padded(npixel, ROW_ALIGN), _padded(nvoxel, COL_ALIGN))
 
 
-def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int):
+def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int, process_count: int = 1):
     """The block-sparse ingest gate
     (``sartsolver_tpu/parallel/multihost.py:sparse_tile_stats_or_decline``):
     a :class:`~sartsolver_tpu_torch.ops.sparse.TileMaxStats` to feed through
     the chunked read, or None when sparse mode is off or declines on a flag
     ('auto', with the JAX package's stderr warning). An explicit threshold
-    raises ``SartInputError`` with the reason instead."""
+    raises ``SartInputError`` with the reason instead. ``process_count`` is
+    the grid's ranks (the JAX gate's ``jax.process_count()``): past one,
+    'auto' declines and the grid runs the dense matrix."""
     import sys
 
     from sartsolver_tpu_torch.config import SartInputError
@@ -186,7 +188,7 @@ def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int):
 
     if opts.sparse_epsilon() is None:
         return None
-    reason = static_decline_reason(opts, 1)
+    reason = static_decline_reason(opts, process_count)
     if reason is not None:
         if opts.sparse_explicit():
             raise SartInputError(f"Argument sparse_rtm={opts.sparse_rtm}: {reason}.")
@@ -198,7 +200,8 @@ def sparse_tile_stats_or_decline(opts, npixel: int, nvoxel: int):
 
 def lowrank_operator_or_decline(opts, sorted_matrix_files, rtm_name, npixel: int,
                                 nvoxel: int, laplacian=None, device="cuda",
-                                timings: Optional[dict] = None):
+                                timings: Optional[dict] = None, process_count: int = 1,
+                                n_voxel_shards: int = 1):
     """The factored-RTM ingest gate
     (``sartsolver_tpu/parallel/multihost.py:lowrank_operator_or_decline``):
     a :class:`~sartsolver_tpu_torch.operators.lowrank.LowRankOperator` for
@@ -208,7 +211,9 @@ def lowrank_operator_or_decline(opts, sorted_matrix_files, rtm_name, npixel: int
     failed quality gate, before anything is staged. The whole matrix is
     read on the host by the retried row reader; the gate's parity solves
     run on ``device``. ``timings``, where given, receives the read's
-    seconds beside the factorization's (``build_lowrank_operator``)."""
+    seconds beside the factorization's (``build_lowrank_operator``).
+    ``process_count`` and ``n_voxel_shards`` are the grid's (ranks, voxel
+    shards), as the JAX gate takes ``jax.process_count()`` and the mesh's."""
     import sys
 
     from sartsolver_tpu_torch.config import SartInputError
@@ -219,7 +224,8 @@ def lowrank_operator_or_decline(opts, sorted_matrix_files, rtm_name, npixel: int
     rank = opts.lowrank_rank()
     if rank is None:
         return None
-    reason = lowrank_static_decline_reason(opts, 1, has_laplacian=laplacian is not None)
+    reason = lowrank_static_decline_reason(opts, process_count, n_voxel_shards=n_voxel_shards,
+                                           has_laplacian=laplacian is not None)
     op = None
     if reason is None:
         t0 = time.perf_counter()

@@ -138,14 +138,26 @@ def grid_refusal(opts: SolverOptions, grid, *, operator=None, debug_nans: bool =
     if kind == "implicit" or geometry:
         return ("Argument geometry is single-process: the implicit operator's rays "
                 "are staged whole per host; drop --multihost or materialize the matrix.")
-    if kind == "lowrank" or opts.lowrank_rank() is not None:
+    if kind == "lowrank":
         return ("Argument lowrank_rtm factors the whole matrix in one process; a grid "
                 "of more than one rank runs the dense matrix — drop --lowrank_rtm or "
                 "run one rank.")
-    if opts.sparse_epsilon() is not None or tile_occupancy is not None:
+    # an explicit rank or threshold refuses with the JAX ingest gates' words
+    # at the grid's process count; 'auto' declines there (a warning) and the
+    # grid runs the dense matrix
+    if opts.lowrank_explicit():
+        from sartsolver_tpu_torch.operators.lowrank import lowrank_static_decline_reason
+
+        reason = lowrank_static_decline_reason(opts, grid.world, n_voxel_shards=grid.n_vox)
+        return f"Argument lowrank_rtm={opts.lowrank_rtm}: {reason}."
+    if tile_occupancy is not None:
         return (f"Argument sparse_rtm={opts.sparse_rtm}: the block-sparse tile skip "
                 "runs on one rank; a grid of more than one rank runs the dense "
                 "matrix — use --sparse_rtm off or one rank.")
+    if opts.sparse_explicit():
+        from sartsolver_tpu_torch.ops.sparse import static_decline_reason
+
+        return f"Argument sparse_rtm={opts.sparse_rtm}: {static_decline_reason(opts, grid.world)}."
     if opts.os_subsets > 1:
         return (f"Argument os_subsets={opts.os_subsets} runs the subset cycle on one "
                 "rank; a grid of more than one rank runs the classic sweep "
@@ -984,13 +996,7 @@ def _audit_sharded_fused_batch(ctx):
 def _refused(**opts_kw):
     """A refusal: grid_refusal's words for the options on the audit grid."""
     geometry = opts_kw.pop("geometry", False)
-    operator = opts_kw.pop("operator", None)
-    return lambda: grid_refusal(SolverOptions(**opts_kw), _AUDIT_GRID, operator=operator,
-                                geometry=geometry)
-
-
-class _Lowrank:
-    kind = "lowrank"
+    return lambda: grid_refusal(SolverOptions(**opts_kw), _AUDIT_GRID, geometry=geometry)
 
 
 for _name, _what, _refusal in (
@@ -999,10 +1005,10 @@ for _name, _what, _refusal in (
     ("sharded_sched_step", "continuous-batching scheduler stride on a 2x1 grid",
      lambda: grid_loop_refusal("the continuous-batching scheduler")),
     ("sharded_sparse_panel_sweep", "2x1 grid's block-sparse loop",
-     _refused(sparse_rtm="auto")),
+     _refused(sparse_rtm="0")),
     ("sharded_implicit_batch", "2x1 grid's matrix-free loop", _refused(geometry=True)),
     ("sharded_lowrank_batch", "2x1 grid's factored (S + U V^T) loop",
-     _refused(operator=_Lowrank())),
+     _refused(lowrank_rtm="4")),
 ):
     _register_audit_entry(_name, description=_what, refusal=_refusal,
                           loop_collective_budget={"all-reduce": 2, "all-gather": 0},

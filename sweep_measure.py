@@ -18,6 +18,28 @@ does not repeat on every run. Run from the root of a checkout:
     call, so the host's work in the wrapper is counted) and device ms per
     call by CUDA kernel (``torch.profiler``).
 
+``python3 sweep_measure.py split_ab OTHER``
+    The pixel-sharded sweep's pair (``sharded_sweep_bp``,
+    ``sharded_sweep_finish``) of this checkout against that of another
+    checkout, at the 2x1 grid's block of ``chip_smoke.py``'s e2e world
+    (4096 x 65536), B = 1 and 4, linear with the penalty, for each storage
+    type, with ``chip_smoke.py``'s split inputs (the finish takes the plain
+    reduced bp). Timed in turns, other, this, this, other, each turn a
+    process of its own that imports its checkout's package: ms per call
+    (CUDA events around the wrapper's call) and device ms per call by CUDA
+    kernel (``torch.profiler``), and the host's microseconds a call (100
+    calls queued without a wait); every turn's outputs held against the
+    first turn's bit for bit (both checkouts sum in two_read's order).
+
+``python3 sweep_measure.py split_variants``
+    The split pair's cluster route built as shipped and with the
+    measurement macros of ``csrc/fused_sweep.cu`` (``SART_SPLIT_BP_LANES``,
+    the bp kernel's lanes a row group; ``SART_SPLIT_BP_STAGES``;
+    ``SART_SPLIT_FWD_ROW_BYTES``, ``SART_SPLIT_FWD_STAGES``) into
+    ``build/sweep_measure/`` (the other parts built once), each checked bit
+    for bit against the shipped build and timed in turns with it at the 2x1
+    block, B = 1, per storage: ms per call and device ms per call.
+
 ``python3 sweep_measure.py promotion``
     The ``tensor_core`` plan's error against the plain version at the three
     int8 probes' configuration (``chip_smoke.py``'s probe inputs), built as
@@ -98,6 +120,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 50
 STORAGES = ("float32", "bfloat16", "int8")
 AB_BATCHES = (1, 4, 8, 16, 32)
+SPLIT_SHAPE = (4096, 65536)  # the 2x1 grid's block of the e2e world
+SPLIT_BATCHES = (1, 4)
 TALL_REPS = 20
 
 
@@ -134,6 +158,176 @@ def _turn(root: str) -> dict:
         del H, w, f, aux, scale, calls
         torch.cuda.empty_cache()
     return out
+
+
+def _split_turn(root: str, out_dir: str) -> dict:
+    """One turn of ``split_ab`` in this process: ``root``'s split pair at
+    the 2x1 block per storage and B, ms and device ms by kernel; the
+    outputs saved under ``out_dir``."""
+    import torch
+
+    import chip_smoke
+
+    sys.path.insert(0, root)
+    from sartsolver_tpu_torch.ops import fused_sweep as mod
+
+    if not os.path.abspath(mod.__file__).startswith(os.path.join(root, "")):
+        raise SystemExit(f"sweep_measure: imported {mod.__file__}, not from {root}")
+    P, V = SPLIT_SHAPE
+    out = {}
+    for storage in STORAGES:
+        for B in SPLIT_BATCHES:
+            H, w, f, aux, scale, bp_ref = chip_smoke._split_inputs(P, V, B, False, seed=7,
+                                                                   storage=storage)
+            kw = dict(logarithmic=False, alpha=0.7, eps=1e-7, scale=scale)
+            calls = {"bp": lambda: mod.sharded_sweep_bp(H, w),
+                     "finish": lambda: mod.sharded_sweep_finish(H, f, bp_ref, aux, **kw)}
+            key = f"{storage}@B{B}"
+            torch.save([calls["bp"]().cpu(), *[t.cpu() for t in calls["finish"]()]],
+                       os.path.join(out_dir, f"{key}.pt"))
+            out[key] = {name: dict(ms=chip_smoke._median_ms(call, reps=REPS),
+                                   device=chip_smoke._device_profile(call, calls=5),
+                                   host_us=_host_us(call))
+                        for name, call in calls.items()}
+            if hasattr(mod, "split_route"):
+                out[key]["route"] = mod.split_route(P, V, B, storage)
+            del H, w, f, aux, scale, bp_ref, calls
+            torch.cuda.empty_cache()
+    return out
+
+
+SPLIT_VARIANTS = {
+    "bp_lanes64": ["-DSART_SPLIT_BP_LANES=64"], "bp_lanes32": ["-DSART_SPLIT_BP_LANES=32"],
+    "bp_stages4": ["-DSART_SPLIT_BP_STAGES=4"],
+    "fwd_rows512_st2": ["-DSART_SPLIT_FWD_ROW_BYTES=512", "-DSART_SPLIT_FWD_STAGES=2"],
+    "fwd_rows256_st4": ["-DSART_SPLIT_FWD_ROW_BYTES=256", "-DSART_SPLIT_FWD_STAGES=4"],
+    "fwd_stages3": ["-DSART_SPLIT_FWD_STAGES=3"],
+}
+
+
+def _variant_libs(out_dir: str, variants: dict) -> dict:
+    """``fused_sweep.cu`` linked once per variant: parts 1-5 as shipped,
+    part 6 (the cluster route) with the variant's flags; all at once."""
+    from sartsolver_tpu_torch.ops import _build
+
+    src = str(_build.CSRC / "fused_sweep.cu")
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    jobs = {f"part{k}": [f"-DSART_PART={k}"] for k in range(1, 6)}
+    jobs.update({f"p6_{name}": ["-DSART_PART=6", *extra] for name, extra in variants.items()})
+    procs = {name: subprocess.Popen([_build.nvcc_path(), *flags, *extra, "-c", "-o",
+                                     os.path.join(out_dir, f"{name}.o"), src])
+             for name, extra in jobs.items()}
+    if any(p.wait() != 0 for p in procs.values()):
+        raise SystemExit("sweep_measure: a variant build failed")
+    libs = {}
+    for name in variants:
+        path = os.path.join(out_dir, f"libfused_sweep-{name}.so")
+        objs = [os.path.join(out_dir, f"part{k}.o") for k in range(1, 6)]
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", path, *objs,
+                        os.path.join(out_dir, f"p6_{name}.o")], check=True)
+        libs[name] = ctypes.CDLL(path)
+    return libs
+
+
+def split_variants() -> None:
+    import torch
+
+    import chip_smoke
+    from sartsolver_tpu_torch.ops import _build
+    from sartsolver_tpu_torch.ops import fused_sweep as fs
+
+    out_dir = os.path.join(REPO, "build", "sweep_measure")
+    os.makedirs(out_dir, exist_ok=True)
+    shipped = _build.load("fused_sweep")
+    libs = _variant_libs(out_dir, SPLIT_VARIANTS)
+    P, V = SPLIT_SHAPE
+    try:
+        for storage in STORAGES:
+            H, w, f, aux, scale, bp_ref = chip_smoke._split_inputs(P, V, 1, False, seed=7,
+                                                                   storage=storage)
+            kw = dict(logarithmic=False, alpha=0.7, eps=1e-7, scale=scale)
+            calls = {"bp": lambda: fs.sharded_sweep_bp(H, w),
+                     "finish": lambda: fs.sharded_sweep_finish(H, f, bp_ref, aux, **kw)}
+            want = {name: call() for name, call in calls.items()}
+            for name, lib in libs.items():
+                which = "bp" if name.startswith("bp") else "finish"
+
+                def timed(lib_):
+                    def call():
+                        _build._loaded["fused_sweep"] = lib_
+                        return calls[which]()
+                    return call
+                got = timed(lib)()
+                same = (torch.equal(got, want[which]) if which == "bp" else
+                        all(torch.equal(a, b) for a, b in zip(got, want[which])))
+                base_ms, ms, turns = chip_smoke._in_turns(timed(shipped), timed(lib))
+                print(json.dumps({"storage": storage, "variant": name, "call": which,
+                                  "same_bytes": same, "shipped_ms": base_ms, "ms": ms,
+                                  "turns_ms": turns,
+                                  "device": chip_smoke._device_profile(timed(lib))}),
+                      flush=True)
+            _build._loaded["fused_sweep"] = shipped
+            del H, w, f, aux, scale, bp_ref, calls, want
+            torch.cuda.empty_cache()
+    finally:
+        _build._loaded["fused_sweep"] = shipped
+
+
+def _host_us(call, n: int = 100) -> float:
+    """Microseconds of host work a call: ``n`` calls queued back to back
+    (the card runs behind them), timed on the host clock to the last
+    return."""
+    import time
+
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def split_ab(other: str) -> None:
+    import tempfile
+
+    import torch
+
+    other = os.path.abspath(other)
+    builds = [_build_in(other, "fused_sweep"), _build_in(REPO, "fused_sweep")]
+    if any(p.wait() != 0 for p in builds):
+        raise SystemExit("sweep_measure: a build failed")
+    turns = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for k, (name, root) in enumerate((("other", other), ("this", REPO), ("this", REPO),
+                                          ("other", other))):
+            out_dir = os.path.join(tmp, str(k))
+            os.makedirs(out_dir)
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "_split_turn",
+                                  root, out_dir], capture_output=True, text=True, check=True)
+            turns.append((name, json.loads(res.stdout.strip().splitlines()[-1])))
+            print(json.dumps({"turn": name, "root": root, **turns[-1][1]}), flush=True)
+            for key in turns[0][1]:
+                a = torch.load(os.path.join(tmp, "0", f"{key}.pt"))
+                b = torch.load(os.path.join(out_dir, f"{key}.pt"))
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise SystemExit(f"sweep_measure: {key}: turn {k}'s bytes differ")
+    summary = {}
+    for key in turns[0][1]:
+        for call in ("bp", "finish"):
+            row = {n: statistics.mean(t[key][call]["ms"] for m, t in turns if m == n)
+                   for n in ("other", "this")}
+            row["this_over_other"] = row["this"] / row["other"]
+            row["kernels_per_call"] = {n: t[key][call]["device"]["kernels_per_call"]
+                                       for n, t in turns[:2]}
+            row["host_us"] = {n: statistics.mean(t[key][call]["host_us"] for m, t in turns
+                                                 if m == n) for n in ("other", "this")}
+            row["route"] = turns[1][1][key].get("route")
+            summary[f"{key}_{call}"] = row
+    print(json.dumps({"split_ab_ms": summary}), flush=True)
 
 
 def _build_in(root: str, name: str = "") -> subprocess.Popen:
@@ -585,6 +779,9 @@ def main(argv) -> int:
     if argv[:1] == ["_implicit_turn"] and len(argv) == 3:
         print(json.dumps(_implicit_turn(argv[1], argv[2])), flush=True)
         return 0
+    if argv[:1] == ["_split_turn"] and len(argv) == 3:
+        print(json.dumps(_split_turn(argv[1], argv[2])), flush=True)
+        return 0
     sys.path.insert(0, REPO)
     import chip_smoke
 
@@ -593,6 +790,10 @@ def main(argv) -> int:
         ab(argv[1])
     elif argv[:1] == ["implicit_ab"] and len(argv) == 2:
         implicit_ab(argv[1])
+    elif argv[:1] == ["split_ab"] and len(argv) == 2:
+        split_ab(argv[1])
+    elif argv == ["split_variants"]:
+        split_variants()
     elif argv == ["implicit_cull"]:
         implicit_cull()
     elif argv == ["promotion"]:

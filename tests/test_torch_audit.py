@@ -22,7 +22,7 @@ from sartsolver_tpu_torch.parallel.sharded import grid_loop_refusal, grid_refusa
 REFUSED = {
     "sharded_integrity_batch": grid_refusal(SolverOptions(integrity=True), RankGrid(2, 1)),
     "sharded_sched_step": grid_loop_refusal("the continuous-batching scheduler"),
-    "sharded_sparse_panel_sweep": grid_refusal(SolverOptions(sparse_rtm="auto"),
+    "sharded_sparse_panel_sweep": grid_refusal(SolverOptions(sparse_rtm="0"),
                                                RankGrid(2, 1)),
     "sharded_implicit_batch": grid_refusal(SolverOptions(), RankGrid(2, 1), geometry=True),
     "sharded_lowrank_batch": grid_refusal(SolverOptions(lowrank_rtm="4"), RankGrid(2, 1)),

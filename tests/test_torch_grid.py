@@ -18,12 +18,15 @@ grids over gloo):
   test's tolerance), and at one rank against the fused sweep's plain
   version bit for bit;
 - the refusals of a grid of more than one rank, each with its words, and
-  the mesh choice;
+  the mesh choice; 'auto' sparse and low-rank modes declined on a grid by
+  the ingest gates at the grid's process count, an explicit value refused
+  with the JAX gates' words;
 - the end-of-run telemetry merge against the JAX ``aggregate_snapshots``;
 - the parity protocol's fp64 witness (``utils/fused_parity.py``).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -274,8 +277,10 @@ def _grid(n_pix, n_vox):
 
 # (options, grid, keyword, the words the refusal carries)
 REFUSALS = [
-    (dict(sparse_rtm="auto"), (2, 1), {}, "Argument sparse_rtm=auto"),
-    (dict(lowrank_rtm="4"), (2, 1), {}, "Argument lowrank_rtm factors"),
+    (dict(sparse_rtm="0.05"), (2, 1), {}, "Argument sparse_rtm=0.05: multi-process runs"),
+    (dict(lowrank_rtm="4"), (2, 1), {}, "Argument lowrank_rtm=4: multi-process runs"),
+    (dict(), (2, 1), dict(operator=SimpleNamespace(kind="lowrank")),
+     "Argument lowrank_rtm factors"),
     (dict(), (1, 2), dict(geometry=True), "Argument geometry is single-process"),
     (dict(os_subsets=2), (2, 1), {}, "Argument os_subsets=2"),
     (dict(integrity=True), (1, 2), {}, "Argument integrity"),
@@ -292,6 +297,59 @@ def test_grid_refusals(opts, grid, kw, words):
     assert words in grid_refusal(SolverOptions(**opts), _grid(*grid), **kw)
     # one rank runs what a grid refuses
     assert grid_refusal(SolverOptions(**opts), _grid(1, 1), **kw) is None
+
+
+@pytest.mark.parametrize("grid", [(2, 1), (1, 2), (2, 2)], ids=lambda g: f"{g[0]}x{g[1]}")
+def test_grid_declines_auto_and_refuses_explicit_with_the_jax_gates_words(grid):
+    """'auto' is no refusal on a grid (the ingest gates decline it and the
+    grid runs the dense matrix); an explicit threshold or rank refuses with
+    the JAX gates' words at the grid's process count."""
+    from sartsolver_tpu.operators.lowrank import lowrank_static_decline_reason as jax_lowrank
+    from sartsolver_tpu.ops.sparse import static_decline_reason as jax_sparse
+
+    g = _grid(*grid)
+    for kw in (dict(sparse_rtm="auto"), dict(lowrank_rtm="auto")):
+        assert grid_refusal(SolverOptions(**kw), g) is None
+    opts = SolverOptions(sparse_rtm="0.05")
+    assert grid_refusal(opts, g) == (f"Argument sparse_rtm=0.05: "
+                                     f"{jax_sparse(opts, g.world)}.")
+    opts = SolverOptions(lowrank_rtm="4")
+    assert grid_refusal(opts, g) == (
+        f"Argument lowrank_rtm=4: {jax_lowrank(opts, g.world, n_voxel_shards=g.n_vox)}.")
+
+
+@pytest.mark.parametrize("which", ["sparse", "lowrank"])
+def test_ingest_gates_take_the_grids_process_count(which, capsys):
+    """The port's ingest gates at a process count of 2 against the JAX
+    gates': 'auto' declines with the JAX warning, an explicit value raises
+    the JAX gate's words; at one process neither gate declines."""
+    from sartsolver_tpu.operators.lowrank import lowrank_static_decline_reason as jax_lowrank
+    from sartsolver_tpu.ops.sparse import static_decline_reason as jax_sparse
+
+    from sartsolver_tpu_torch.config import SartInputError
+    from sartsolver_tpu_torch.parallel.multihost import (
+        lowrank_operator_or_decline, sparse_tile_stats_or_decline,
+    )
+
+    if which == "sparse":
+        def gate(opts, n):
+            return sparse_tile_stats_or_decline(opts, 40, 300, process_count=n)
+        auto, explicit = SolverOptions(sparse_rtm="auto"), SolverOptions(sparse_rtm="0.05")
+        words = jax_sparse(auto, 2)
+        assert gate(auto, 1) is not None and capsys.readouterr().err == ""
+    else:
+        def gate(opts, n):  # the static gate declines before any read
+            return lowrank_operator_or_decline(opts, [], "rtm", 40, 300, device="cpu",
+                                               process_count=n)
+        auto, explicit = SolverOptions(lowrank_rtm="auto"), SolverOptions(lowrank_rtm="4")
+        words = jax_lowrank(auto, 2, n_voxel_shards=1)
+    assert gate(auto, 2) is None
+    warning = f"Warning: {which}_rtm declines here ({words}); running dense.\n"
+    assert capsys.readouterr().err == warning
+    with pytest.raises(SartInputError) as err:
+        gate(explicit, 2)
+    opt = explicit.sparse_rtm if which == "sparse" else explicit.lowrank_rtm
+    assert str(err.value) == f"Argument {which}_rtm={opt}: {words}."
 
 
 def test_grid_runs_int8_voxel_major_and_fp32_anywhere():

@@ -11,6 +11,13 @@ small size.
   storage, linear with the penalty and log with a per-row exponent: within
   1e-5 of the output's max, two launches byte-identical, each launch
   counted; at one rank the pair is ``two_read`` bit for bit;
+- both routes of the pair (``split_route``: the cluster route, one kernel
+  a call, and two_read's, three) for every storage, linear and log, at
+  ragged P and V, unaligned rows, B = 1, 3, 8, 17 and 32 and two_read's
+  splits of P from 1 to 3: the one-rank pair bit for bit against
+  ``two_read``, repeat launches byte-identical, within 1e-5 of the plain
+  version, and the route's CUDA kernels a call from the profiler; the
+  kernel's own rule (``sart_split_route_ok``) against ``split_route``;
 - a CUDA tensor launches the kernel or raises: a refused shape is an error,
   never the plain version;
 - the kernel path against the plain path of a one-rank solver on the card
@@ -35,6 +42,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORAGES = ["float32", "bfloat16", "int8"]
 SHAPES = [(1000, 3001, 3), (257, 129, 40), (4096, 8192, 1)]
+# (P, V, B): the 2x1 grid's block of the e2e world, the tall world's (two
+# splits of P), three splits at ragged P, ragged V with 16-byte rows, ragged
+# P and V, one split of V (no partials), unaligned rows (two_read's route),
+# and B past the cluster route
+ROUTE_SHAPES = [(4096, 65536, 1), (8192, 65536, 1), (9000, 65536, 3), (1000, 4000, 1),
+                (777, 5008, 2), (1000, 1008, 2), (1000, 4001, 1), (4096, 8192, 8),
+                (1000, 3008, 17), (257, 4000, 32)]
 TOL = 1e-5
 DISTANCES = ("kernel_to_fp64", "plain_to_fp64", "kernel_to_plain")
 
@@ -85,6 +99,67 @@ def test_split_kernels_match_plain(storage, shape, logarithmic):
     for a, r in zip(out1, ref):
         assert torch.isfinite(r).all()
         assert _rel(a, r) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logarithmic", [False, True], ids=["linear", "log"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("storage", STORAGES)
+def test_split_routes_against_two_read(storage, shape, logarithmic):
+    """Either route: the one-rank pair is two_read's bytes (every sum in its
+    order), two launches give the same bytes, each output within 1e-5 of
+    the plain version's max, and a call is the route's CUDA kernels."""
+    _needs_card()
+    from sartsolver_tpu_torch.ops import fused_sweep as fs
+
+    cs = _chip_smoke()
+    P, V, B = shape
+    route = fs.split_route(P, V, B, storage)
+    H, w, f, aux, scale = cs._sweep_inputs(P, V, B, logarithmic, True, seed=P + 3 * V + B,
+                                           storage=storage)
+    kw = dict(logarithmic=logarithmic, alpha=0.7, eps=1e-7, scale=scale)
+    if logarithmic:
+        kw["alpha_lane"] = cs._lanes(B)
+    before = (fs.sharded_sweep_bp.launches_by_route[route],
+              fs.sharded_sweep_finish.launches_by_route[route])
+    bp1, bp2 = fs.sharded_sweep_bp(H, w), fs.sharded_sweep_bp(H, w)
+    pair1 = fs.sharded_sweep_finish(H, f, bp1, aux, **kw)
+    pair2 = fs.sharded_sweep_finish(H, f, bp2, aux, **kw)
+    two = fs._sweep(H, w, f, aux, plan="two_read", **kw)
+    bp_ref = fs.sharded_sweep_bp_reference(H, w)
+    ref = fs.sharded_sweep_finish_reference(H, f, bp_ref, aux, **kw)
+    torch.cuda.synchronize()
+    assert (fs.sharded_sweep_bp.launches_by_route[route] - before[0],
+            fs.sharded_sweep_finish.launches_by_route[route] - before[1]) == (2, 2)
+    assert torch.equal(bp1, bp2)
+    assert all(torch.equal(a, b) for a, b in zip(pair1, pair2))
+    assert all(torch.equal(a, b) for a, b in zip(pair1, two)), route
+    assert _rel(bp1, bp_ref) <= TOL
+    for a, r in zip(pair1, ref):
+        assert torch.isfinite(r).all()
+        assert _rel(a, r) <= TOL
+    want = fs.SPLIT_KERNELS_PER_CALL[route]
+    assert cs._trace_profile(lambda: fs.sharded_sweep_bp(H, w))["kernels_per_call"] == want
+    assert cs._trace_profile(
+        lambda: fs.sharded_sweep_finish(H, f, bp1, aux, **kw))["kernels_per_call"] == want
+
+
+@pytest.mark.gpu
+def test_split_route_rule_is_the_kernels():
+    """``split_route`` and the kernel's own preconditions
+    (``sart_split_route_ok``) agree on a grid of shapes, batch sizes and
+    storage types."""
+    _needs_card()
+    from sartsolver_tpu_torch.ops import fused_sweep as fs
+
+    lib = fs._sharded_lib()
+    for storage, code in (("float32", 0), ("bfloat16", 1), ("int8", 2)):
+        for P in (1, 63, 64, 257, 1000, 4096, 8192, 9000, 16384, 32768, 40000, 65536):
+            for V in (1, 8, 129, 3001, 3008, 4000, 4001, 5008, 8192, 16384, 65536):
+                for B in (1, 2, 3, 4, 5, 8, 32):
+                    ok = bool(lib.sart_split_route_ok(code, P, V, B))
+                    assert ok == (fs.split_route(P, V, B, storage) == "cluster"), \
+                        (storage, P, V, B)
 
 
 @pytest.mark.gpu

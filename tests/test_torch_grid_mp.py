@@ -15,7 +15,12 @@ mesh of the same shape on the CPU's 8 host devices (``tests/conftest.py``):
   holds the JAX package's two-process run; only rank 0 prints;
 - two runs of the same grid byte for byte, and the ranks of a voxel column
   holding the same bytes;
-- each refusal of a grid of more than one rank: exit 1, its words.
+- each refusal of a grid of more than one rank: exit 1, its words (an
+  explicit sparse threshold or low-rank rank: the JAX ingest gates' words
+  at a process count of 2);
+- ``--sparse_rtm auto`` and ``--lowrank_rtm auto`` over two ranks, and the
+  grid's solver built with them: declined with the JAX gates' warning, the
+  dense grid run's bytes.
 """
 
 import json
@@ -118,10 +123,10 @@ CLI_REFUSALS = [
      "so per-column maxima stay process-local"),
     ("os_subsets", ["--use_cpu", "--os_subsets", "2", "--pixel_shards", "2"],
      "Argument os_subsets=2 runs the subset cycle"),
-    ("sparse", ["--use_cpu", "--sparse_rtm", "auto", "--pixel_shards", "2"],
-     "Argument sparse_rtm=auto"),
+    ("sparse", ["--device", "cpu", "--sparse_rtm", "0.05", "--pixel_shards", "2"],
+     "Argument sparse_rtm=0.05: multi-process runs cannot accumulate a global tile index"),
     ("lowrank", ["--device", "cpu", "--lowrank_rtm", "4", "--voxel_shards", "2"],
-     "Argument lowrank_rtm factors"),
+     "Argument lowrank_rtm=4: multi-process runs cannot factorize host-side"),
     ("integrity", ["--use_cpu", "--integrity", "--pixel_shards", "2"], "Argument integrity"),
     ("debug_nans", ["--use_cpu", "--debug_nans", "--voxel_shards", "2"],
      "Argument debug_nans"),
@@ -129,6 +134,8 @@ CLI_REFUSALS = [
     ("smaller_grid", ["--use_cpu", "--pixel_shards", "1"], "covers 1 of the world's 2 ranks"),
 ]
 CLI_RUN = ["--use_cpu", "-m", "100", "-c", "1e-8", "-b", "0.001"]
+# 'auto' on a grid: the ingest gates decline it, the grid runs the dense matrix
+AUTO_MODES = {"sparse": ["--sparse_rtm", "auto"], "lowrank": ["--lowrank_rtm", "auto"]}
 
 
 @pytest.fixture(scope="module")
@@ -146,6 +153,10 @@ def world2(world, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("world2"))
     H, G, lap = _problem()
     jobs = _solver_jobs(GRIDS_2)
+    for job in [j for j in jobs if j["name"] == "2x1-fp32-linear"]:
+        for mode, flags in AUTO_MODES.items():
+            jobs.append(dict(job, name=f"2x1-fp32-linear-{mode}-auto",
+                             opts=dict(job["opts"], **{f"{mode}_rtm": "auto"})))
     for mode in ("chain", "local"):
         jobs.append(dict(name=f"2x1-fp64-{mode}", grid=(2, 1), H=H, G=G, lap=lap,
                          cpu_parity=True, opts=FP64, mode=mode))
@@ -153,6 +164,11 @@ def world2(world, tmp_path_factory):
     jobs.append(dict(name="cli", cli=["-o", os.path.join(out, "cli.h5"), *inputs, *CLI_RUN,
                                       "-l", paths["laplacian"], "--multihost",
                                       "--pixel_shards", "2"]))
+    for mode, flags in AUTO_MODES.items():
+        jobs.append(dict(name=f"auto-{mode}",
+                         cli=["-o", os.path.join(out, f"auto-{mode}.h5"), *inputs, *CLI_RUN,
+                              "-l", paths["laplacian"], "--multihost", "--pixel_shards", "2",
+                              *flags]))
     for name, flags, _ in CLI_REFUSALS:
         jobs.append(dict(name=f"refuse-{name}",
                          cli=["-o", os.path.join(out, f"{name}.h5"), *inputs, *flags,
@@ -292,6 +308,40 @@ def test_cli_refusals_on_a_grid(world2, name, flags, words):
         assert rec["rc"] == 1
         assert words in rec["err"]
         assert "Processed in:" not in rec["out"]
+
+
+@pytest.mark.parametrize("mode", sorted(AUTO_MODES))
+def test_cli_auto_declines_on_a_grid_and_runs_dense(world2, mode):
+    """``--sparse_rtm auto`` / ``--lowrank_rtm auto`` over two ranks: the
+    JAX gate's warning at a process count of 2, exit 0, and the dense grid
+    run's rows byte for byte."""
+    from sartsolver_tpu.operators.lowrank import lowrank_static_decline_reason
+    from sartsolver_tpu.ops.sparse import static_decline_reason
+
+    from sartsolver_tpu_torch.config import SolverOptions
+
+    opts = SolverOptions(**{f"{mode}_rtm": "auto"})
+    reason = (static_decline_reason(opts, 2) if mode == "sparse"
+              else lowrank_static_decline_reason(opts, 2, n_voxel_shards=1))
+    for rank in range(2):
+        rec = _rank_cli(world2, f"auto-{mode}", rank)
+        assert rec["rc"] == 0, rec["err"][-2000:]
+        assert f"Warning: {mode}_rtm declines here ({reason}); running dense." in rec["err"]
+    assert _rank_cli(world2, f"auto-{mode}", 0)["out"].count("Processed in:") == 4
+    with h5py.File(os.path.join(world2, "cli.h5"), "r") as fd, \
+            h5py.File(os.path.join(world2, f"auto-{mode}.h5"), "r") as fa:
+        for key in ("value", "status", "iterations", "time"):
+            assert fa[f"solution/{key}"][:].tobytes() == fd[f"solution/{key}"][:].tobytes()
+
+
+@pytest.mark.parametrize("mode", sorted(AUTO_MODES))
+def test_solver_auto_declines_on_a_grid(world2, mode):
+    """The grid's solver built with ``{mode}_rtm='auto'`` runs the dense
+    matrix: every rank's solution bytes are the dense run's."""
+    for rank in range(2):
+        a = np.load(os.path.join(world2, f"2x1-fp32-linear-{mode}-auto.r{rank}.npy"))
+        b = np.load(os.path.join(world2, f"2x1-fp32-linear.r{rank}.npy"))
+        assert a.tobytes() == b.tobytes()
 
 
 @pytest.mark.parametrize("flags,words", [

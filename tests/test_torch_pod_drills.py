@@ -9,8 +9,9 @@ base:
 - two workers write files equal, dataset for dataset and bit for bit, to a
   solo run with the same flags, each host its own checkpoint file, both
   meeting at every stride and at the end;
-- a SIGKILL of host 1 at its third stride marker: host 0 exits 3 within the
-  barrier deadline plus 15 s, its stderr, crash bundle and artifact naming
+- a SIGKILL of host 1 at its third stride marker, host 1 held there short of
+  the barrier (``SART_TEST_POD_HOLD``) until the kill lands: host 0 exits 3
+  within the barrier deadline plus 15 s, its stderr, crash bundle and artifact naming
   ``h1`` and the barrier; the whole pod's ``--resume`` on a fresh barrier
   directory agrees on one checkpoint serial and writes the solo run's rows.
 
@@ -40,7 +41,8 @@ RUN_TIMEOUT = 180  # seconds, one worker's run
 def _env(extra=None):
     env = dict(os.environ)
     for key in ("SART_FAULT", "SART_POD_PROCESS", "SART_POD_BARRIER_DIR",
-                "SART_TEST_POD_MARKERS", "SART_TEST_SOLVE_CKPT_DELAY", "SART_SOLVE_CKPT_FILE"):
+                "SART_TEST_POD_MARKERS", "SART_TEST_POD_HOLD", "SART_TEST_SOLVE_CKPT_DELAY",
+                "SART_SOLVE_CKPT_FILE"):
         env.pop(key, None)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["PYTHONUNBUFFERED"] = "1"
@@ -132,9 +134,12 @@ def test_mid_stride_kill_survivor_exits_then_pod_resumes(pod_world, tmp_path):
     ckpt = os.path.join(td, "pod.ck")
     art0 = os.path.join(td, "kill_h0.jsonl")
     outs = [os.path.join(td, f"pod_h{k}.h5") for k in range(2)]
+    # host 1 holds after its third marker until the kill lands: it never
+    # reaches barrier stride.3, however late the kill comes under load
     procs = [subprocess.Popen(
         _cmd(paths, outs[k], *(["--metrics_out", art0] if k == 0 else [])),
-        env=_pod_env(k, bdir, ckpt, SART_TEST_POD_MARKERS="1"),
+        env=_pod_env(k, bdir, ckpt, SART_TEST_POD_MARKERS="1",
+                     **({"SART_TEST_POD_HOLD": "3"} if k == 1 else {})),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True) for k in range(2)]
     try:
         seen = 0
